@@ -1,0 +1,33 @@
+"""Weight bridge: the reference's parameter tree as numpy arrays -> the
+port's tensors, and back.
+
+The JAX package's ``repro.models.model.init_params`` returns a nested dict
+whose layer leaves are stacked on a leading period axis (``blocks/sub0``);
+for the dense decoders the port serves, a period is one layer, so the
+port's model code reads the tree as it is (``models.model``). Weights keep
+the reference's (in, out) layout, so every product stays ``x @ w`` and a
+bridged model computes the same function as the reference. The bridge
+takes and returns numpy only; converting a JAX tree to numpy is the
+caller's step (``jax.tree.map(np.asarray, params)``).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def params_from_numpy(tree, *, device, dtype=None):
+    """Nested dict of numpy arrays -> the same dict of tensors on `device`
+    (cast to `dtype` when given)."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device=device, dtype=dtype)
+                for k, v in tree.items()}
+    t = torch.tensor(np.asarray(tree))        # a copy: inputs may be read-only
+    return t.to(device=device, dtype=dtype if dtype is not None else t.dtype)
+
+
+def params_to_numpy(tree):
+    """Nested dict of tensors -> the same dict of numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy()

@@ -1,0 +1,102 @@
+"""Attention entry points used by the model code (twins of
+repro.kernels.ops.flash_attention / paged_decode_attention /
+paged_context_attention).
+
+Dispatch is by the tensor's device: a CUDA tensor goes to the hand-written
+kernel, a CPU tensor to its plain PyTorch version in ``ref``. The scoped
+``backend("plain")`` switch runs the plain versions on the card on purpose,
+for tests and chip_smoke.py only; the library never sets it. Each kernel
+wrapper counts its launches (``launch_counts``).
+"""
+from __future__ import annotations
+
+import contextlib
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.paged_attention import (paged_context_attention_cuda,
+                                                 paged_decode_attention_cuda)
+
+_BACKEND = "kernel"        # "kernel" | "plain"
+
+KERNELS = {
+    "flash_attention": flash_attention_cuda,
+    "paged_decode_attention": paged_decode_attention_cuda,
+    "paged_context_attention": paged_context_attention_cuda,
+}
+
+
+@contextlib.contextmanager
+def backend(name: str):
+    """``with ops.backend("plain"): ...`` runs the plain versions on CUDA
+    tensors too, restoring the previous backend even on error."""
+    global _BACKEND
+    if name not in ("kernel", "plain"):
+        raise ValueError(f"unknown backend {name!r}")
+    prev, _BACKEND = _BACKEND, name
+    try:
+        yield
+    finally:
+        _BACKEND = prev
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def _kernel_for(x) -> bool:
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"no attention path for device {x.device}")
+    return _BACKEND == "kernel"
+
+
+def _no_quant(k_scale, v_scale):
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError(
+            "quantized KV pages are not ported yet (ROADMAP.md, slice 3)")
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, kv_len=None,
+                    kv_start=None, scale=None):
+    """q (b,sq,hq,d); k,v (b,skv,hkv,d); GQA via hq % hkv == 0. window > 0:
+    each query sees the previous `window` keys, itself included."""
+    if _kernel_for(q):
+        return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                    kv_len=kv_len, kv_start=kv_start,
+                                    scale=scale)
+    return ref.attention_ref(q, k, v, causal=causal, window=window,
+                             kv_len=kv_len, kv_start=kv_start, scale=scale)
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_tables, *, kv_len=None,
+                           scale=None, k_scale=None, v_scale=None):
+    """q (b,1,hq,d) against pages (n_blocks, block_size, hkv, d) through
+    block_tables (b, max_blocks); kv_len (b,) valid lengths."""
+    _no_quant(k_scale, v_scale)
+    if _kernel_for(q):
+        return paged_decode_attention_cuda(q, k_pages, v_pages, block_tables,
+                                           kv_len=kv_len, scale=scale)
+    return ref.paged_decode_attention_ref(q, k_pages, v_pages, block_tables,
+                                          kv_len=kv_len, scale=scale)
+
+
+def paged_context_attention(q, k_pages, v_pages, block_tables, *, q_start,
+                            kv_len, scale=None, k_scale=None, v_scale=None):
+    """q (b,C,hq,d), row i token j at absolute position q_start[i] + j,
+    attending causally to the pages (which already hold the chunk's K/V at
+    [q_start, kv_len)) through block_tables."""
+    _no_quant(k_scale, v_scale)
+    if _kernel_for(q):
+        return paged_context_attention_cuda(q, k_pages, v_pages,
+                                            block_tables, q_start=q_start,
+                                            kv_len=kv_len, scale=scale)
+    return ref.paged_context_attention_ref(q, k_pages, v_pages, block_tables,
+                                           q_start=q_start, kv_len=kv_len,
+                                           scale=scale)

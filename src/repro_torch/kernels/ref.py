@@ -1,0 +1,117 @@
+"""Plain PyTorch versions of the port's attention kernels: simple,
+materialized, O(s^2) where applicable. They are the kernels' oracles on the
+card and the path every CPU tensor takes.
+
+Twins of repro.kernels.ref (same shapes, masks and dead-row contract):
+  q:     (b, s_q, h_q, d)
+  k, v:  (b, s_kv, h_kv, d)      h_q % h_kv == 0 (GQA)
+Scores, softmax and the weighted sum run in float32 whatever the input
+dtype; the result is cast back to q's dtype.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _softmax_av(s, v):
+    """Masked softmax over the last axis of s (b, hkv, g, sq, skv) and the
+    weighted sum of v (b, skv, hkv, d) -> (b, sq, hkv, g, d). A probability
+    is 0 where its score is <= NEG_INF / 2 and a row with no live key gives
+    exact zeros."""
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(s <= NEG_INF / 2, torch.zeros_like(s), torch.exp(s - m))
+    l = p.sum(-1, keepdim=True)
+    o = torch.einsum("bhgst,bthd->bshgd", p / l.clamp_min(1e-30), v)
+    dead = (m <= NEG_INF / 2).squeeze(-1).permute(0, 3, 1, 2)[..., None]
+    return torch.where(dead, torch.zeros_like(o), o)
+
+
+def _scores(q, k, scale):
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, sq, hkv, hq // hkv, d)
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    return torch.einsum("bshgd,bthd->bhgst", qg, k) * scale
+
+
+def attention_ref(q, k, v, *, causal=True, window=0, q_offset=0,
+                  kv_len=None, kv_start=None, scale=None):
+    """Full materialized attention. q_offset: absolute position of q[0];
+    window: query at position p sees keys in [p - window + 1, p] (0 = all);
+    kv_len / kv_start (b,): keys at positions >= kv_len or < kv_start are
+    masked."""
+    orig = q.dtype
+    q, k, v = q.float(), k.float(), v.float()
+    b, sq, hq, d = q.shape
+    skv = k.shape[1]
+    s = _scores(q, k, scale)                           # (b,hkv,g,sq,skv)
+    qpos = torch.arange(sq, device=q.device) + q_offset
+    kpos = torch.arange(skv, device=q.device)
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    mask = mask[None].expand(b, sq, skv)
+    if kv_len is not None:
+        kv_len = torch.as_tensor(kv_len, device=q.device)
+        mask = mask & (kpos[None, None, :] < kv_len[:, None, None])
+    if kv_start is not None:
+        kv_start = torch.as_tensor(kv_start, device=q.device)
+        mask = mask & (kpos[None, None, :] >= kv_start[:, None, None])
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
+    return _softmax_av(s, v).reshape(b, sq, hq, d).to(orig)
+
+
+def context_attention_ref(q, k, v, *, q_start, kv_len, scale=None):
+    """A chunk of new tokens attending causally to the prior cache plus
+    itself. q (b, C, hq, d), row i token j at absolute position
+    q_start[i] + j; k, v (b, S, hkv, d) the full cache view. Query j of row
+    i sees keys kpos <= q_start[i] + j and kpos < kv_len[i]."""
+    orig = q.dtype
+    q, k, v = q.float(), k.float(), v.float()
+    b, C, hq, d = q.shape
+    skv = k.shape[1]
+    s = _scores(q, k, scale)
+    q_start = torch.as_tensor(q_start, device=q.device)
+    kv_len = torch.as_tensor(kv_len, device=q.device)
+    qpos = q_start[:, None] + torch.arange(C, device=q.device)[None]
+    kpos = torch.arange(skv, device=q.device)
+    mask = kpos[None, None, :] <= qpos[:, :, None]     # (b, C, skv)
+    mask = mask & (kpos[None, :] < kv_len[:, None])[:, None, :]
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
+    return _softmax_av(s, v).reshape(b, C, hq, d).to(orig)
+
+
+def gather_pages(pages, block_tables):
+    """(n_blocks, bs, h, d) pages + (b, nb) tables -> contiguous
+    (b, nb * bs, h, d) caches (null table entries gather the trash page;
+    callers mask them with kv_len)."""
+    b, nb = block_tables.shape
+    _, bs, h, d = pages.shape
+    return pages[block_tables.long()].reshape(b, nb * bs, h, d)
+
+
+def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, *,
+                               kv_len=None, scale=None):
+    """q (b, 1, hq, d) against each row's gathered pages, keys < kv_len."""
+    k = gather_pages(k_pages, block_tables)
+    v = gather_pages(v_pages, block_tables)
+    if kv_len is None:
+        kv_len = torch.full((q.shape[0],), k.shape[1], dtype=torch.int32,
+                            device=q.device)
+    return attention_ref(q, k, v, causal=False, kv_len=kv_len, scale=scale)
+
+
+def paged_context_attention_ref(q, k_pages, v_pages, block_tables, *,
+                                q_start, kv_len, scale=None):
+    """The context oracle over each row's gathered pages (which already
+    hold the chunk's own K/V at [q_start, kv_len))."""
+    k = gather_pages(k_pages, block_tables)
+    v = gather_pages(v_pages, block_tables)
+    return context_attention_ref(q, k, v, q_start=q_start, kv_len=kv_len,
+                                 scale=scale)

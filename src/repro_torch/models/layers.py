@@ -1,0 +1,119 @@
+"""Layer primitives of the port (twins of repro.models.layers): RMSNorm,
+RoPE, the GQA attention blocks of the paged serving path, and the MLP.
+
+Parameters are plain dicts of tensors in the reference's (in, out) layout,
+so every weight product is ``x @ w``. Large products stay torch.matmul, as
+the reference left them to XLA; attention goes through
+``repro_torch.kernels.ops``. Paged K/V pools are updated in place where the
+reference donated its buffers to jit.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+
+def rms_norm(x, w, eps=1e-5):
+    """Normalize in float32, cast back to x's dtype, then scale by w."""
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def rope(x, positions, theta):
+    """Split-half rotary embedding. x (b, s, h, d); positions (b, s) or
+    (s,) absolute positions; theta == 0 disables."""
+    if theta == 0.0:
+        return x
+    d = x.shape[-1]
+    freqs = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32,
+                                          device=x.device) / d))
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    ang = positions[..., None].float() * freqs              # (b, s, d/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def _qkv(p, x, cfg):
+    b, s, _ = x.shape
+    hd = cfg.head_dim_
+    return ((x @ p["wq"]).reshape(b, s, cfg.num_heads, hd),
+            (x @ p["wk"]).reshape(b, s, cfg.num_kv_heads, hd),
+            (x @ p["wv"]).reshape(b, s, cfg.num_kv_heads, hd))
+
+
+def attn_prefill(p, x, cfg, *, positions):
+    """Causal self-attention over whole right-padded prompts x (b, s, d)
+    at absolute positions (b, s). Returns (out, k, v): the roped K/V rows
+    are the caller's to write into its cache (the paged path scatters them
+    straight into pages)."""
+    if cfg.swa_window:
+        raise NotImplementedError("sliding-window attention is not ported "
+                                  "yet (ROADMAP.md, slice 5)")
+    q, k, v = _qkv(p, x, cfg)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    o = ops.flash_attention(q, k, v, causal=True)
+    b, s = x.shape[:2]
+    return o.reshape(b, s, -1) @ p["wo"], k, v
+
+
+def attn_decode_paged(p, x, cfg, *, pos, block_tables, cache):
+    """One-token decode against a block-paged cache. x (b, 1, d); pos (b,)
+    per-row absolute positions; block_tables (b, max_blocks) int32; cache
+    {"k","v"}: (n_blocks, block_size, hkv, hd) pools shared by every row.
+    The new token's K/V go into the page holding position pos (in place),
+    then attention reads through the tables. Rows with all-null tables
+    (free slots) write into the trash page and read garbage that the
+    caller discards."""
+    q, k, v = _qkv(p, x, cfg)
+    b = x.shape[0]
+    posb = pos[:, None]
+    q = rope(q, posb, cfg.rope_theta)
+    k = rope(k, posb, cfg.rope_theta)
+    bs = cache["k"].shape[1]
+    ridx = torch.arange(b, device=x.device)
+    blk = block_tables[ridx, pos // bs].long()
+    off = pos % bs
+    cache["k"][blk, off] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][blk, off] = v[:, 0].to(cache["v"].dtype)
+    o = ops.paged_decode_attention(q, cache["k"], cache["v"], block_tables,
+                                   kv_len=pos + 1)
+    return o.reshape(b, 1, -1) @ p["wo"]
+
+
+def attn_context_paged(p, x, cfg, *, positions, q_len, block_tables, cache):
+    """Context prefill against a block-paged cache: x (b, C, d) is a chunk
+    whose row-i token j sits at absolute position positions[i, 0] + j. The
+    chunk's K/V go into the pages first (in place), then the chunk attends
+    causally to the prior pages and itself. Padding tokens (j >= q_len[i])
+    clamp their position into the table and write into the null page;
+    their outputs are garbage the caller discards."""
+    q, k, v = _qkv(p, x, cfg)
+    b, C = x.shape[:2]
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    bs = cache["k"].shape[1]
+    max_pos = block_tables.shape[1] * bs - 1
+    valid = torch.arange(C, device=x.device)[None, :] < q_len[:, None]
+    posc = positions.clamp(max=max_pos)                 # pad rows stay legal
+    blk = torch.gather(block_tables, 1, posc // bs).long()
+    blk = torch.where(valid, blk, torch.zeros_like(blk))   # pads -> null page
+    off = posc % bs
+    cache["k"][blk, off] = k.to(cache["k"].dtype)
+    cache["v"][blk, off] = v.to(cache["v"].dtype)
+    o = ops.paged_context_attention(q, cache["k"], cache["v"], block_tables,
+                                    q_start=positions[:, 0],
+                                    kv_len=positions[:, 0] + q_len)
+    return o.reshape(b, C, -1) @ p["wo"]
+
+
+def mlp(p, x, cfg):
+    """SwiGLU MLP (the dense decoders' activation)."""
+    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]

@@ -1,0 +1,238 @@
+"""Asymmetric pipeline executor of the port (twin of the paged API of
+repro.serving.pipeline, Contribution 1, §3.2).
+
+Each stage owns its own contiguous span of layers and, in the plan, its own
+tensor-parallel device group. The port runs every stage on the one card it
+is given: the plan's TP degree collapses, as the reference engine collapses
+a TP group onto fewer physical devices (numerically identical — TP only
+changes layout). Stages stay separate objects with their own layer ranges
+and their own page pools, sized independently, so the asymmetric split is
+real.
+
+The public methods keep the reference's numpy-in / numpy-out signatures:
+they are the whole seam the batcher (serving.continuous) drives. Logits come
+back to the host as float32 numpy arrays every call, as in the reference.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ATTN, ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import model as M
+
+
+def slot_mode_supported(cfg) -> bool:
+    """Slot-based continuous batching drives uniform text decoders."""
+    return not (cfg.swa_window or cfg.is_encoder_decoder
+                or cfg.num_image_tokens)
+
+
+def context_mode_supported(cfg) -> bool:
+    """Prefix caching and chunked prefill need every sublayer to be
+    attention (a recurrent state has no per-block piece to share or
+    resume)."""
+    return slot_mode_supported(cfg) and all(
+        cfg.layer_kind(i) == ATTN for i in range(cfg.num_layers))
+
+
+class StageExecutor:
+    """One pipeline stage: layers [lo, hi) on `device`."""
+
+    def __init__(self, cfg: ModelConfig, params, lo: int, hi: int, *,
+                 device: torch.device, dtype: torch.dtype, is_first: bool,
+                 is_last: bool):
+        self.cfg = cfg
+        self.lo, self.hi = lo, hi
+        self.is_first, self.is_last = is_first, is_last
+        self.device = device
+        self.dtype = dtype
+        self.kinds = [cfg.layer_kind(i) for i in range(lo, hi)]
+
+        def place(tree):
+            return {k: place(v) if isinstance(v, dict)
+                    else v.to(device=device, dtype=dtype)
+                    for k, v in tree.items()}
+        self.layer_params = [place(M.slice_layer_params(cfg, params, i))
+                             for i in range(lo, hi)]
+        self.head_params = None
+        if is_first or is_last:
+            self.head_params = place(
+                {n: params[n] for n in ("embed", "final_norm", "lm_head")})
+
+    @property
+    def has_attn(self) -> bool:
+        return ATTN in self.kinds
+
+    def make_paged_caches(self, n_blocks: int, block_size: int):
+        """Per-layer page pools; this stage's layers share ONE block-id
+        space of `n_blocks` blocks (one table addresses every layer)."""
+        return [M.init_layer_paged_cache(self.cfg, i, n_blocks, block_size,
+                                         dtype=self.dtype, device=self.device)
+                for i in range(self.lo, self.hi)]
+
+    def prefill(self, x, caches, positions, dest_blocks):
+        for kind, lp, sc in zip(self.kinds, self.layer_params, caches):
+            x = M.apply_sublayer_seq(self.cfg, kind, lp, x, sc,
+                                     positions=positions,
+                                     dest_blocks=dest_blocks)
+        return x
+
+    def decode_paged(self, x, caches, pos, block_tables):
+        for kind, lp, sc in zip(self.kinds, self.layer_params, caches):
+            x = M.apply_sublayer_decode_paged(self.cfg, kind, lp, x, sc,
+                                              pos=pos,
+                                              block_tables=block_tables)
+        return x
+
+    def context_paged(self, x, caches, positions, q_len, block_tables):
+        for kind, lp, sc in zip(self.kinds, self.layer_params, caches):
+            x = M.apply_sublayer_context_paged(
+                self.cfg, kind, lp, x, sc, positions=positions, q_len=q_len,
+                block_tables=block_tables)
+        return x
+
+
+class AsymmetricPipeline:
+    """A full model replica as a chain of StageExecutors on one device."""
+
+    def __init__(self, cfg: ModelConfig, params, stage_layers: Sequence[int],
+                 *, device="cuda", dtype: Optional[torch.dtype] = None):
+        if sum(stage_layers) != cfg.num_layers:
+            raise ValueError(f"stage layers {list(stage_layers)} do not sum "
+                             f"to {cfg.num_layers}")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = M.param_dtype(cfg, dtype)
+        self.stages: List[StageExecutor] = []
+        lo = 0
+        for si, nl in enumerate(stage_layers):
+            self.stages.append(StageExecutor(
+                cfg, params, lo, lo + nl, device=self.device,
+                dtype=self.dtype, is_first=(si == 0),
+                is_last=(si == len(stage_layers) - 1)))
+            lo += nl
+        self.n_slots = 0
+        self.slot_len = 0
+        self.paged_caches = None
+        self.block_size = 0
+        self.stage_blocks: List[int] = []
+        self.kv_dtype: Optional[str] = None      # model precision pools
+
+    # ---- host <-> device seam -------------------------------------------
+    def _ints(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), device=self.device).long()
+
+    def _tables(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, np.int32), device=self.device)
+
+    def _embed(self, tokens):
+        return M._embed(self.cfg, self.stages[0].head_params,
+                        self._ints(tokens))
+
+    def _head(self, x) -> np.ndarray:
+        logits = M._head(self.cfg, self.stages[-1].head_params, x)
+        return logits.float().cpu().numpy()
+
+    # ---- paged slot mode ---------------------------------------------------
+    def init_paged_caches(self, n_slots: int, max_len: int, *,
+                          block_size: int = 16,
+                          stage_blocks: Optional[Sequence[int]] = None
+                          ) -> None:
+        """Per-stage page pools. `stage_blocks[si]` is stage si's pool size
+        in blocks (including the reserved null block); None sizes every
+        stage for full occupancy (n_slots * max_len tokens)."""
+        if not slot_mode_supported(self.cfg):
+            raise NotImplementedError(f"{self.cfg.name}: paged slot mode "
+                                      "needs a uniform text decoder")
+        if max_len % block_size:
+            raise ValueError(f"max_len {max_len} is not a multiple of "
+                             f"block_size {block_size}")
+        self.n_slots = n_slots
+        self.slot_len = max_len
+        self.block_size = block_size
+        full = n_slots * (max_len // block_size) + 1
+        if stage_blocks is None:
+            stage_blocks = [full] * len(self.stages)
+        self.stage_blocks = list(stage_blocks)
+        if len(self.stage_blocks) != len(self.stages):
+            raise ValueError("one pool size per stage")
+        self.paged_caches = None            # free the old pools first
+        self.paged_caches = [st.make_paged_caches(nb, block_size)
+                             for st, nb in zip(self.stages,
+                                               self.stage_blocks)]
+
+    @torch.inference_mode()
+    def insert_slots_paged(self, tokens: np.ndarray, lens: np.ndarray,
+                           slot_ids: Sequence[int],
+                           stage_dest: Sequence[np.ndarray]) -> np.ndarray:
+        """Joint right-padded prefill of prompts `tokens` (b, P) with real
+        lengths `lens` (b,): the first m = len(slot_ids) rows are real, rows
+        beyond m are the batcher's shape padding and are dropped before any
+        work. Each stage's K/V rows go straight into its pages at
+        ``stage_dest[si]`` ((m * max_blocks,) physical page per logical
+        block, row-major; null entries absorb the padding). Returns each
+        row's last-real-token logits (m, V)."""
+        m = len(slot_ids)
+        tokens = np.asarray(tokens)[:m]
+        lens_t = self._ints(np.asarray(lens)[:m])
+        P = tokens.shape[1]
+        x = self._embed(tokens)
+        positions = torch.arange(P, device=self.device)[None].expand(m, P)
+        for si, st in enumerate(self.stages):
+            dest = self._ints(stage_dest[si])
+            x = st.prefill(x, self.paged_caches[si], positions, dest)
+        ridx = torch.arange(m, device=self.device)
+        return self._head(x[ridx, lens_t - 1][:, None])[:, 0]
+
+    @torch.inference_mode()
+    def context_slots_paged(self, tokens: np.ndarray, lens: np.ndarray,
+                            q_start: np.ndarray,
+                            stage_tables: Sequence[np.ndarray]) -> np.ndarray:
+        """Context prefill of right-padded chunks `tokens` (m, C) whose
+        row-i token j sits at absolute position q_start[i] + j: the cold
+        suffix of a prompt whose prefix is resident (prefix caching), or
+        one chunk of a long prompt (chunked prefill). Each chunk's K/V go
+        into this stage's pages through `stage_tables[si]` (m, max_blocks)
+        and attention reads the prior context back through the same table.
+        Returns each row's last-real-token logits (m, V)."""
+        if not context_mode_supported(self.cfg):
+            raise NotImplementedError(f"{self.cfg.name}: the context path "
+                                      "needs an attention-only stack")
+        m, C = np.asarray(tokens).shape
+        lens_t = self._ints(lens)
+        starts = self._ints(q_start)
+        positions = starts[:, None] + torch.arange(C, device=self.device)
+        x = self._embed(tokens)
+        for si, st in enumerate(self.stages):
+            x = st.context_paged(x, self.paged_caches[si], positions, lens_t,
+                                 self._tables(stage_tables[si]))
+        ridx = torch.arange(m, device=self.device)
+        return self._head(x[ridx, lens_t - 1][:, None])[:, 0]
+
+    @torch.inference_mode()
+    def copy_pages(self, stage_idx: int, src_blocks: Sequence[int],
+                   dst_blocks: Sequence[int]) -> None:
+        """Copy-on-write: duplicate page contents src -> dst in every layer
+        of stage `stage_idx`, in place."""
+        if not src_blocks:
+            return
+        M.copy_cache_pages(self.paged_caches[stage_idx],
+                           self._ints(src_blocks), self._ints(dst_blocks))
+
+    @torch.inference_mode()
+    def decode_slots_paged(self, tokens: np.ndarray, positions: np.ndarray,
+                           stage_tables: Sequence[np.ndarray]) -> np.ndarray:
+        """One decode iteration over ALL slots through the paged caches.
+        stage_tables[si]: (n_slots, max_blocks) block table of stage si
+        (free slots have all-null rows and decode into the trash page).
+        Returns (n_slots, V)."""
+        pos = self._ints(positions)
+        x = self._embed(np.asarray(tokens)[:, None])
+        for si, st in enumerate(self.stages):
+            x = st.decode_paged(x, self.paged_caches[si], pos,
+                                self._tables(stage_tables[si]))
+        return self._head(x)[:, 0]

@@ -1,0 +1,48 @@
+"""Task coordinator of the port (twin of repro.serving.router.Router for
+``policy="continuous"`` with ``cache_layout="paged"``): one paged
+continuous-batching worker per replica, least-loaded dispatch with the
+lowest replica id breaking ties, all driven by the one serving loop."""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+from repro_torch.serving.continuous import PagedPipelineBatcher
+from repro_torch.serving.loop import ServeStats, WallClock, run_serve_loop
+from repro_torch.serving.request import Request
+
+__all__ = ["Router", "ServeStats"]
+
+
+class Router:
+    def __init__(self, replicas, *, policy: str = "continuous",
+                 cache_layout: str = "paged", n_slots: int = 8,
+                 max_len: int = 256, block_size: int = 16,
+                 stage_blocks=None, prefix_caching: bool = False,
+                 prefill_chunk: int = 0, prefill_token_cost: float = 0.0,
+                 step_costs: Optional[Sequence[float]] = None):
+        if policy != "continuous" or cache_layout != "paged":
+            raise NotImplementedError(
+                f"policy={policy!r}, cache_layout={cache_layout!r}: the port "
+                "serves continuous batching over paged caches only so far "
+                "(static batching and the contiguous layout: ROADMAP.md, "
+                "slice 5)")
+        self.replicas = list(replicas)
+        if step_costs is None:
+            step_costs = [1.0] * len(self.replicas)
+        if len(step_costs) != len(self.replicas):
+            raise ValueError("one step cost per replica")
+        self.workers = [PagedPipelineBatcher(
+            r, n_slots=n_slots, max_len=max_len,
+            block_size=block_size, stage_blocks=stage_blocks,
+            prefix_caching=prefix_caching, prefill_chunk=prefill_chunk,
+            prefill_token_cost=prefill_token_cost, virtual_step_cost=sc,
+            replica_id=i)
+            for i, (r, sc) in enumerate(zip(self.replicas, step_costs))]
+
+    def serve(self, requests: Sequence[Request], deadline: float, *,
+              clock=None) -> ServeStats:
+        """Replays a timed workload; wall-clock by default, or any clock
+        (VirtualClock for deterministic replay)."""
+        return run_serve_loop(
+            self.workers, requests, deadline=deadline,
+            clock=clock if clock is not None else WallClock())

@@ -1,0 +1,139 @@
+"""The PyTorch port's ground rules: it imports neither jax nor the JAX
+package, the weight bridge is exact, and its entry points run on the card
+unless the caller asks for the CPU — without a card they raise."""
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config
+from repro.core.plan import Assignment, PipelinePlan, StagePlan
+from repro.models import model as JM
+from repro_torch import bridge
+from repro_torch.configs import get_config as port_config
+from repro_torch.core import plan as port_plan
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops
+from repro_torch.kernels import paged_attention as pa
+from repro_torch.models import model as PM
+from repro_torch.serving.engine import InferenceEngine
+from repro_torch.serving.pipeline import AsymmetricPipeline
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+sys.modules["jax"] = None            # any `import jax` now raises
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                "repro_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(k for k in sys.modules if k == "repro" or k.startswith("repro."))
+assert not bad, bad
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax_or_the_jax_package():
+    # conftest.py already imported jax in this process: use a fresh one
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20      # every module was visited
+
+
+def test_bridge_round_trip_is_exact():
+    cfg = get_config("llama2-70b").reduced()
+    tree = jax.tree.map(np.asarray, JM.init_params(cfg, jax.random.PRNGKey(0)))
+    back = bridge.params_to_numpy(bridge.params_from_numpy(tree,
+                                                           device="cpu"))
+    flat, treedef = jax.tree.flatten(tree)
+    flat_back, treedef_back = jax.tree.flatten(back)
+    assert treedef == treedef_back
+    for a, b in zip(flat, flat_back):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+
+
+def test_port_params_follow_the_reference_layout():
+    cfg = get_config("llama2-70b").reduced()
+    ref_tree = jax.tree.map(np.asarray,
+                            JM.init_params(cfg, jax.random.PRNGKey(0)))
+    port = PM.init_params(port_config("llama2-70b").reduced(), 3,
+                          device="cpu")
+    shapes = jax.tree.map(lambda a: a.shape, ref_tree)
+    port_shapes = jax.tree.map(lambda t: tuple(t.shape), port)
+    assert shapes == port_shapes
+    again = PM.init_params(port_config("llama2-70b").reduced(), 3,
+                           device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(
+        jax.tree.leaves(port), jax.tree.leaves(again)))     # seeded
+
+
+@pytest.mark.parametrize("entry", ["engine", "pipeline", "init_params"])
+def test_entry_points_default_to_cuda_and_raise_without_it(entry):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card; the check is for CPU-only "
+                    "machines")
+    cfg = port_config("llama2-70b").reduced()
+    params = PM.init_params(cfg, 0, device="cpu")
+    asg = port_plan.Assignment([port_plan.PipelinePlan(
+        [port_plan.StagePlan([0], 1), port_plan.StagePlan([1], 1)])])
+    with pytest.raises(RuntimeError, match="cuda"):
+        if entry == "engine":
+            InferenceEngine(cfg, asg, params=params)
+        elif entry == "pipeline":
+            AsymmetricPipeline(cfg, params, [1, 1])
+        else:
+            PM.init_params(cfg, 0)
+
+
+@pytest.mark.parametrize("name", sorted(ops.KERNELS))
+def test_kernel_wrappers_refuse_cpu_tensors(name):
+    # a wrapper launches its kernel or raises: it never computes the plain
+    # version itself (ops picks the plain version for CPU tensors)
+    q = torch.zeros(1, 1, 4, 32)
+    k = torch.zeros(1, 8, 2, 32)
+    args = {"flash_attention": lambda: fa.flash_attention_cuda(q, k, k),
+            "paged_decode_attention": lambda: pa.paged_decode_attention_cuda(
+                q, k, k, torch.zeros(1, 1, dtype=torch.int32)),
+            "paged_context_attention": lambda: pa.paged_context_attention_cuda(
+                q, k, k, torch.zeros(1, 1, dtype=torch.int32), q_start=[0],
+                kv_len=[1])}
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        args[name]()
+    assert ops.launch_counts() == before
+
+
+def test_cpu_tensors_take_the_plain_versions_without_launches():
+    ops.reset_launch_counts()
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.standard_normal((1, 5, 4, 32), np.float32))
+    k = torch.from_numpy(rng.standard_normal((1, 5, 2, 32), np.float32))
+    with ops.backend("plain"):
+        want = ops.flash_attention(q, k, k)
+    assert torch.equal(ops.flash_attention(q, k, k), want)
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
+    with pytest.raises(ValueError):
+        with ops.backend("pallas"):
+            pass
+
+
+def test_unported_features_raise_not_implemented():
+    cfg = port_config("llama2-70b").reduced()
+    asg = port_plan.Assignment([port_plan.PipelinePlan(
+        [port_plan.StagePlan([0], 2)])])
+    with pytest.raises(NotImplementedError, match="spec_decode"):
+        InferenceEngine(cfg, asg, device="cpu", spec_decode=True)
+    with pytest.raises(NotImplementedError, match="static"):
+        InferenceEngine(cfg, asg, device="cpu", policy="static")
+    with pytest.raises(NotImplementedError, match="quantized"):
+        ops.paged_decode_attention(None, None, None, None,
+                                   k_scale=torch.zeros(1))
