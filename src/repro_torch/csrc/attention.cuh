@@ -22,8 +22,11 @@
 // probability is 0 where the score is <= NEG_INF / 2 (no exp of a huge
 // negative number), and a row that saw no live key writes exact zeros.
 //
-// Scope: scalar FMAs, plain loads. wgmma, TMA and split-KV decode are later
-// work; see PERF.md for where this design stands against its bound.
+// Two bodies share that contract: attn_fwd, scalar fp32 FMAs (fp32 inputs,
+// and decode's few rows in any dtype), and attn_fwd_mma below, bf16 tensor
+// cores (mma.sync) for many-row bf16 blocks. Both load tiles with 16-byte
+// vector loads. wgmma, TMA, cp.async pipelining and split-KV decode are
+// later work; see PERF.md for where each stands against its bound.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -36,9 +39,24 @@ constexpr float NEG_INF = -1e30f;
 constexpr int THREADS = 256;
 constexpr int BK = 32;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// 16-byte loads: 4 floats or 8 bf16 per thread, widened to float
+__device__ __forceinline__ void load16(const float* src, float (&dst)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(src);
+  dst[0] = v.x;
+  dst[1] = v.y;
+  dst[2] = v.z;
+  dst[3] = v.w;
+}
+__device__ __forceinline__ void load16(const __nv_bfloat16* src,
+                                       float (&dst)[8]) {
+  const uint4 v = *reinterpret_cast<const uint4*>(src);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    dst[2 * i] = f.x;
+    dst[2 * i + 1] = f.y;
+  }
 }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
@@ -60,6 +78,18 @@ struct AttnParams {
   float scale;
 };
 
+// Row of key position kpos in the K/V arrays: (b, skv) rows for a
+// contiguous cache, or (page, offset) through row bi's block table.
+template <bool PAGED>
+__device__ __forceinline__ int64_t key_row(const AttnParams& p, int bi,
+                                           int kpos) {
+  if (PAGED) {
+    const int page = p.tables[bi * (int64_t)p.max_blocks + kpos / p.bs];
+    return (int64_t)page * p.bs + kpos % p.bs;
+  }
+  return bi * (int64_t)p.skv + kpos;
+}
+
 template <int ROWS, int D>
 constexpr size_t smem_bytes() {
   return sizeof(float) * (16 * ROWS * (D + 1) + BK * (D + 1) + BK * D +
@@ -72,6 +102,8 @@ __global__ void __launch_bounds__(THREADS) attn_fwd(AttnParams p) {
   constexpr int DP = D + 1;
   constexpr int PP = BK + 1;
   constexpr int DC = D / 16;
+  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
+  constexpr int DV = D / VEC;          // 16-byte loads per row
   extern __shared__ float smem[];
   float* sQ = smem;
   float* sK = sQ + BQ * DP;
@@ -105,14 +137,15 @@ __global__ void __launch_bounds__(THREADS) attn_fwd(AttnParams p) {
   if (p.window > 0) lo = max(lo, qs + row0 / g - p.window + 1);
   lo = (lo / BK) * BK;
 
-  for (int idx = threadIdx.x; idx < BQ * D; idx += THREADS) {
-    const int r = idx / D, dd = idx % D, fr = row0 + r;
-    float val = 0.f;
+  for (int idx = threadIdx.x; idx < BQ * DV; idx += THREADS) {
+    const int r = idx / DV, dd = (idx % DV) * VEC, fr = row0 + r;
+    float val[VEC] = {};
     if (fr < nrows) {
       const int64_t c = fr / g, h = kvh * g + fr % g;
-      val = to_f32(Q[((bi * (int64_t)p.sq + c) * p.hq + h) * D + dd]);
+      load16(Q + ((bi * (int64_t)p.sq + c) * p.hq + h) * D + dd, val);
     }
-    sQ[r * DP + dd] = val;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) sQ[r * DP + dd + i] = val[i];
   }
 
   int qpos[ROWS];
@@ -131,23 +164,19 @@ __global__ void __launch_bounds__(THREADS) attn_fwd(AttnParams p) {
 
   for (int k0 = lo; k0 < hi; k0 += BK) {
     __syncthreads();  // the previous tile's readers are done with sK/sV/sP
-    for (int idx = threadIdx.x; idx < BK * D; idx += THREADS) {
-      const int j = idx / D, dd = idx % D, kpos = k0 + j;
-      float kv = 0.f, vv = 0.f;
+    for (int idx = threadIdx.x; idx < BK * DV; idx += THREADS) {
+      const int j = idx / DV, dd = (idx % DV) * VEC, kpos = k0 + j;
+      float kv[VEC] = {}, vv[VEC] = {};
       if (kpos < hi) {
-        int64_t row;
-        if (PAGED) {
-          const int page = p.tables[bi * (int64_t)p.max_blocks + kpos / p.bs];
-          row = (int64_t)page * p.bs + kpos % p.bs;
-        } else {
-          row = bi * (int64_t)p.skv + kpos;
-        }
-        const int64_t off = (row * p.hkv + kvh) * D + dd;
-        kv = to_f32(K[off]);
-        vv = to_f32(V[off]);
+        const int64_t off = (key_row<PAGED>(p, bi, kpos) * p.hkv + kvh) * D + dd;
+        load16(K + off, kv);
+        load16(V + off, vv);
       }
-      sK[j * DP + dd] = kv;
-      sV[j * D + dd] = vv;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        sK[j * DP + dd + i] = kv[i];
+        sV[j * D + dd + i] = vv[i];
+      }
     }
     __syncthreads();
 
@@ -243,11 +272,278 @@ cudaError_t launch(const AttnParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Few rows (a decode step's g query heads) take the 16-row block; anything
-// larger the 64-row block. Head dims the port serves: 32, 64, 128.
+// ---------------------------------------------------------------------------
+// bf16 tensor-core body (mma.sync m16n8k16, fp32 accumulation) for blocks of
+// many rows: prefill and context chunks, where the work is bound by
+// operations. Same row mapping, tile loop bounds, masks and dead-row
+// contract as attn_fwd; 4 warps own 16 rows each of a 64-row block and a
+// tile is 64 keys. Q fragments stay in registers for the whole key loop;
+// S = Q K^T and the online softmax live in the mma accumulators; P goes back
+// into the tensor cores as the A operand of P V without leaving registers.
+// P is split into a bf16 high part and a bf16 remainder (two mma each), so
+// the product keeps ~16 bits of P instead of bf16's 8 and the result matches
+// the fp32 plain version to bf16 output rounding.
+// ---------------------------------------------------------------------------
+
+constexpr int MMA_THREADS = 128;
+constexpr int MMA_BQ = 64;
+constexpr int MMA_BK = 64;
+
+template <int D>
+constexpr size_t mma_smem_bytes() {
+  return sizeof(__nv_bfloat16) * (MMA_BQ + 2 * MMA_BK) * (D + 8);
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* ptr) {
+  return *reinterpret_cast<const uint32_t*>(ptr);
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (x0, x1) -> bf16 pair hi and bf16 pair of what hi leaves out
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = as_u32(h);
+  lo = as_u32(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+}
+
+// c += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// B fragment (16 keys x 8 columns) of a row-major [key][col] smem tile
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1,
+                                                  const __nv_bfloat16* ptr) {
+  const uint32_t addr =
+      static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(b0), "=r"(b1)
+      : "r"(addr));
+}
+
+template <int D, bool PAGED>
+__global__ void __launch_bounds__(MMA_THREADS) attn_fwd_mma(AttnParams p) {
+  constexpr int LD = D + 8;       // padded rows: conflict-free fragment loads
+  constexpr int KD = D / 16;      // k-steps of Q K^T
+  constexpr int ND = D / 8;       // output column blocks of P V
+  constexpr int NB = MMA_BK / 8;  // key column blocks of S
+  constexpr int DV = D / 8;       // 16-byte loads per row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sK = sQ + MMA_BQ * LD;
+  __nv_bfloat16* sV = sK + MMA_BK * LD;
+
+  const __nv_bfloat16* Q = static_cast<const __nv_bfloat16*>(p.q);
+  const __nv_bfloat16* K = static_cast<const __nv_bfloat16*>(p.k);
+  const __nv_bfloat16* V = static_cast<const __nv_bfloat16*>(p.v);
+  __nv_bfloat16* O = static_cast<__nv_bfloat16*>(p.o);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int bi = blockIdx.z;
+  const int kvh = blockIdx.y;
+  const int g = p.hq / p.hkv;
+  const int nrows = p.sq * g;
+  const int row0 = blockIdx.x * MMA_BQ;
+  const int qs = p.q_start ? p.q_start[bi] : 0;
+
+  int kv_end = PAGED ? p.max_blocks * p.bs : p.skv;
+  if (p.kv_len) kv_end = min(kv_end, p.kv_len[bi]);
+  const int kv_begin = p.kv_start ? max(p.kv_start[bi], 0) : 0;
+  const int last = min(row0 + MMA_BQ, nrows) - 1;
+  int hi = kv_end;
+  if (p.causal) hi = min(hi, qs + last / g + 1);
+  int lo = kv_begin;
+  if (p.window > 0) lo = max(lo, qs + row0 / g - p.window + 1);
+  lo = (lo / MMA_BK) * MMA_BK;
+
+  for (int idx = threadIdx.x; idx < MMA_BQ * DV; idx += MMA_THREADS) {
+    const int r = idx / DV, c = (idx % DV) * 8, fr = row0 + r;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (fr < nrows) {
+      const int64_t pos = fr / g, h = kvh * g + fr % g;
+      v = *reinterpret_cast<const uint4*>(
+          Q + ((bi * (int64_t)p.sq + pos) * p.hq + h) * D + c);
+    }
+    *reinterpret_cast<uint4*>(sQ + r * LD + c) = v;
+  }
+  __syncthreads();
+
+  // this thread's two rows (block-local) and their A fragments of Q
+  const int ra = warp * 16 + gq, rb = ra + 8;
+  uint32_t qf[KD][4];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk) {
+    const __nv_bfloat16* q0 = sQ + ra * LD + kk * 16 + 2 * tq;
+    qf[kk][0] = ld32(q0);
+    qf[kk][1] = ld32(q0 + 8 * LD);
+    qf[kk][2] = ld32(q0 + 8);
+    qf[kk][3] = ld32(q0 + 8 * LD + 8);
+  }
+  const bool live[2] = {row0 + ra < nrows, row0 + rb < nrows};
+  const int qpos[2] = {qs + (row0 + ra) / g, qs + (row0 + rb) / g};
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[ND][4];
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+    acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
+
+  for (int k0 = lo; k0 < hi; k0 += MMA_BK) {
+    __syncthreads();  // the previous tile's readers are done with sK/sV
+    for (int idx = threadIdx.x; idx < MMA_BK * DV; idx += MMA_THREADS) {
+      const int j = idx / DV, c = (idx % DV) * 8, kpos = k0 + j;
+      uint4 kv = make_uint4(0, 0, 0, 0), vv = kv;
+      if (kpos < hi) {
+        const int64_t off =
+            (key_row<PAGED>(p, bi, kpos) * p.hkv + kvh) * D + c;
+        kv = *reinterpret_cast<const uint4*>(K + off);
+        vv = *reinterpret_cast<const uint4*>(V + off);
+      }
+      *reinterpret_cast<uint4*>(sK + j * LD + c) = kv;
+      *reinterpret_cast<uint4*>(sV + j * LD + c) = vv;
+    }
+    __syncthreads();
+
+    // S = Q K^T: s[nb] holds rows (ra, rb) x keys k0 + nb*8 + 2tq + {0,1}
+    float s[NB][4];
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        const __nv_bfloat16* k_ = sK + (nb * 8 + gq) * LD + kk * 16 + 2 * tq;
+        mma_bf16(s[nb], qf[kk], ld32(k_), ld32(k_ + 8));
+      }
+    }
+
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const int kpos = k0 + nb * 8 + 2 * tq + (e & 1);
+        bool ok = live[h] && kpos >= kv_begin && kpos < kv_end;
+        if (p.causal) ok = ok && kpos <= qpos[h];
+        if (p.window > 0) ok = ok && kpos > qpos[h] - p.window;
+        s[nb][e] = ok ? s[nb][e] * p.scale : NEG_INF;
+        mx[h] = fmaxf(mx[h], s[nb][e]);
+      }
+    }
+    float m_new[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      m_new[h] = fmaxf(m[h], mx[h]);
+    }
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const float pv =
+            s[nb][e] <= NEG_INF / 2 ? 0.f : expf(s[nb][e] - m_new[h]);
+        s[nb][e] = pv;
+        rs[h] += pv;
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 1);
+      rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 2);
+      const float corr = expf(m[h] - m_new[h]);
+      l[h] = l[h] * corr + rs[h];
+      m[h] = m_new[h];
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd) {
+        acc[nd][2 * h] *= corr;
+        acc[nd][2 * h + 1] *= corr;
+      }
+    }
+
+    // O += P V, 16 keys per step; P's accumulator layout is the A layout
+#pragma unroll
+    for (int kk = 0; kk < MMA_BK / 16; ++kk) {
+      uint32_t ph[4], pl[4];
+      split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+      split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+      const __nv_bfloat16* vrow = sV + (kk * 16 + (lane & 15)) * LD;
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd) {
+        uint32_t b0, b1;
+        ldmatrix_x2_trans(b0, b1, vrow + nd * 8);
+        mma_bf16(acc[nd], ph, b0, b1);
+        mma_bf16(acc[nd], pl, b0, b1);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (!live[h]) continue;
+    const int fr = row0 + (h ? rb : ra);
+    const int64_t pos = fr / g, head = kvh * g + fr % g;
+    __nv_bfloat16* out = O + ((bi * (int64_t)p.sq + pos) * p.hq + head) * D;
+    const bool dead = m[h] <= NEG_INF / 2;
+    const float den = fmaxf(l[h], 1e-30f);
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+      const float o0 = dead ? 0.f : acc[nd][2 * h] / den;
+      const float o1 = dead ? 0.f : acc[nd][2 * h + 1] / den;
+      *reinterpret_cast<__nv_bfloat162*>(out + nd * 8 + 2 * tq) =
+          __floats2bfloat162_rn(o0, o1);
+    }
+  }
+}
+
+template <int D, bool PAGED>
+cudaError_t launch_mma(const AttnParams& p, cudaStream_t stream) {
+  constexpr size_t smem = mma_smem_bytes<D>();
+  auto kern = attn_fwd_mma<D, PAGED>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const int rows = p.sq * (p.hq / p.hkv);
+  dim3 grid((rows + MMA_BQ - 1) / MMA_BQ, p.hkv, p.b);
+  kern<<<grid, MMA_THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// Few rows (a decode step's g query heads) take the scalar 16-row block.
+// Larger blocks take the tensor-core body in bf16 and the scalar 64-row
+// block in fp32 (mma.sync has no fp32 inputs; the fp32 path is the one the
+// parity runs use). Head dims the port serves: 32, 64, 128.
 template <typename T, bool PAGED>
 cudaError_t dispatch_d(const AttnParams& p, int d, cudaStream_t stream) {
   const bool small = p.sq * (p.hq / p.hkv) <= 16;
+  if (sizeof(T) == 2 && !small) {
+    switch (d) {
+      case 32:
+        return launch_mma<32, PAGED>(p, stream);
+      case 64:
+        return launch_mma<64, PAGED>(p, stream);
+      case 128:
+        return launch_mma<128, PAGED>(p, stream);
+      default:
+        return cudaErrorInvalidValue;
+    }
+  }
   switch (d) {
     case 32:
       return small ? launch<T, 32, 1, PAGED>(p, stream)

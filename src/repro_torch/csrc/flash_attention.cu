@@ -11,8 +11,10 @@
 // so it is bound by operations. The design keeps every intermediate (scores,
 // probabilities, running max/sum) on chip with an online softmax, serves the
 // whole GQA group of a kv head from one K/V tile, and stops each query tile
-// at its causal limit instead of masking dead tiles. It runs on scalar fp32
-// FMAs, not the tensor cores: PERF.md records how far that is from the bound.
+// at its causal limit instead of masking dead tiles. bf16 inputs run on the
+// tensor cores (mma.sync, attn_fwd_mma); fp32 inputs on scalar FMAs. Both
+// load tiles without pipelining (no cp.async / TMA yet): PERF.md records how
+// far that is from the bound.
 #include "attention.cuh"
 
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,

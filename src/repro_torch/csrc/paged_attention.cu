@@ -14,8 +14,9 @@
 // (reading the live pages). Each block serves all g query heads of one kv
 // head, so a page is read once per block instead of g times, and it loops
 // only over the ceil(kv_len / 32) live key tiles, never over the table's
-// null tail. Context chunks (C x g rows per kv head) sit between the two
-// regimes. Rows of free slots (all-null tables) read the trash page and come
+// null tail, loading each key row with 16-byte vector loads after one table
+// lookup. Context chunks (C x g rows per kv head) sit between the two
+// regimes and, in bf16, run on the tensor-core body (attn_fwd_mma). Rows of free slots (all-null tables) read the trash page and come
 // out finite; their values are discarded by the caller.
 #include "attention.cuh"
 

@@ -20,9 +20,16 @@ HEAD_DIMS = (32, 64, 128)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
+def _aligned(t):
+    """Contiguous, with a 16-byte aligned base (the kernels load 16 bytes
+    at a time); a view at an odd offset is copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def check_attention_inputs(q, k, v):
     """Raise on what the CUDA kernels do not take: device, dtype, head dim,
-    GQA shape. Returns q, k, v made contiguous."""
+    GQA shape. Returns q, k, v contiguous and 16-byte aligned."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
@@ -38,7 +45,7 @@ def check_attention_inputs(q, k, v):
     if q.shape[2] % k.shape[2]:
         raise ValueError(f"hq={q.shape[2]} is not a multiple of "
                          f"hkv={k.shape[2]}")
-    return q.contiguous(), k.contiguous(), v.contiguous()
+    return _aligned(q), _aligned(k), _aligned(v)
 
 
 def lengths(x, b, device):
