@@ -16,10 +16,12 @@ JAX. Phases, each of which raises on failure:
      (flash) ``F.scaled_dot_product_attention``;
   3. serving at the full width of llama2-70b in bf16 (depth cut to 8 of 80
      layers, seeded random weights) through the asymmetric 2-stage paged
-     pipeline: a synthetic workload (cold joint prefill + decode), then a
-     shared-prefix workload (prefix caching + chunked prefill). Launch
-     counters are zeroed before and read after, and every kernel must have
-     run at least layers x steps times;
+     pipeline: after a short warm-up serve, a synthetic workload (cold
+     joint prefill + decode), then a shared-prefix workload (prefix
+     caching + chunked prefill). Launch counters are zeroed before and
+     read after, and every kernel must have run at least layers x steps
+     times. One more synthetic serve runs under torch.profiler for a
+     breakdown of device time;
   4. engine parity at the same widths in fp32 (2 layers): the same workload
      served through the kernels and through the plain versions must give
      identical tokens and ServeStats counters.
