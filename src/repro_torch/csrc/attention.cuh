@@ -76,6 +76,11 @@ struct AttnParams {
   int bs, max_blocks;   // paged only
   int causal, window;
   float scale;
+  // split-KV (decode): > 1 splits each row's keys over n_split blocks that
+  // write unnormalized partials (m, l, acc[d]) to part, (rows, n_split,
+  // d + 2) fp32, merged by combine_splits
+  int n_split;
+  float* part;
 };
 
 // Row of key position kpos in the K/V arrays: (b, skv) rows for a
@@ -121,7 +126,9 @@ __global__ void __launch_bounds__(THREADS) attn_fwd(AttnParams p) {
   const int kvh = blockIdx.y;
   const int g = p.hq / p.hkv;
   const int nrows = p.sq * g;
-  const int row0 = blockIdx.x * BQ;
+  const int n_tiles = (nrows + BQ - 1) / BQ;
+  const int split = blockIdx.x / n_tiles;
+  const int row0 = (blockIdx.x % n_tiles) * BQ;
   const int qs = p.q_start ? p.q_start[bi] : 0;
 
   // live key range of this row: [kv_begin, kv_end), before causal / window
@@ -136,6 +143,13 @@ __global__ void __launch_bounds__(THREADS) attn_fwd(AttnParams p) {
   int lo = kv_begin;
   if (p.window > 0) lo = max(lo, qs + row0 / g - p.window + 1);
   lo = (lo / BK) * BK;
+  if (p.n_split > 1) {
+    // this block's share of the live tiles, from this row's own length
+    const int tiles = max(hi - lo + BK - 1, 0) / BK;
+    const int chunk = (tiles + p.n_split - 1) / p.n_split * BK;
+    lo += split * chunk;
+    hi = min(hi, lo + chunk);
+  }
 
   for (int idx = threadIdx.x; idx < BQ * DV; idx += THREADS) {
     const int r = idx / DV, dd = (idx % DV) * VEC, fr = row0 + r;
@@ -248,13 +262,44 @@ __global__ void __launch_bounds__(THREADS) attn_fwd(AttnParams p) {
     if (!live[i]) continue;
     const int fr = row0 + ty + 16 * i;
     const int64_t c = fr / g, h = kvh * g + fr % g;
-    T* out = O + ((bi * (int64_t)p.sq + c) * p.hq + h) * D;
+    const int64_t r = (bi * (int64_t)p.sq + c) * p.hq + h;
+    if (p.n_split > 1) {
+      float* part = p.part + (r * p.n_split + split) * (D + 2);
+      if (tx == 0) {
+        part[0] = m[i];
+        part[1] = l[i];
+      }
+#pragma unroll
+      for (int cc = 0; cc < DC; ++cc) part[2 + tx + 16 * cc] = acc[i][cc];
+      continue;
+    }
+    T* out = O + r * D;
     const bool dead = m[i] <= NEG_INF / 2;
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int cc = 0; cc < DC; ++cc)
       store(out + tx + 16 * cc, dead ? 0.f : acc[i][cc] / den);
   }
+}
+
+// Merge of the split-KV partials of one (b, position, head) row per block,
+// one output column per thread: the online-softmax merge of n_split
+// (m, l, acc) triples; a row no split saw a key for writes zeros.
+template <typename T, int D>
+__global__ void __launch_bounds__(D) combine_splits(AttnParams p) {
+  const int64_t r = blockIdx.x;
+  const float* part = p.part + r * p.n_split * (D + 2);
+  float mx = NEG_INF;
+  for (int s = 0; s < p.n_split; ++s) mx = fmaxf(mx, part[s * (D + 2)]);
+  float l = 0.f, o = 0.f;
+  for (int s = 0; s < p.n_split; ++s) {
+    const float* ps = part + s * (D + 2);
+    const float w = ps[0] <= NEG_INF / 2 ? 0.f : expf(ps[0] - mx);
+    l += ps[1] * w;
+    o += ps[2 + threadIdx.x] * w;
+  }
+  T* out = static_cast<T*>(p.o) + r * D;
+  store(out + threadIdx.x, mx <= NEG_INF / 2 ? 0.f : o / fmaxf(l, 1e-30f));
 }
 
 template <typename T, int D, int ROWS, bool PAGED>
@@ -267,8 +312,14 @@ cudaError_t launch(const AttnParams& p, cudaStream_t stream) {
     if (e != cudaSuccess) return e;
   }
   const int rows = p.sq * (p.hq / p.hkv);
-  dim3 grid((rows + 16 * ROWS - 1) / (16 * ROWS), p.hkv, p.b);
+  const int splits = p.n_split > 1 ? p.n_split : 1;
+  dim3 grid((rows + 16 * ROWS - 1) / (16 * ROWS) * splits, p.hkv, p.b);
   kern<<<grid, THREADS, smem, stream>>>(p);
+  if (splits > 1) {
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    combine_splits<T, D><<<p.b * p.sq * p.hq, D, 0, stream>>>(p);
+  }
   return cudaGetLastError();
 }
 

@@ -15,9 +15,14 @@
 // head, so a page is read once per block instead of g times, and it loops
 // only over the ceil(kv_len / 32) live key tiles, never over the table's
 // null tail, loading each key row with 16-byte vector loads after one table
-// lookup. Context chunks (C x g rows per kv head) sit between the two
-// regimes and, in bf16, run on the tensor-core body (attn_fwd_mma). Rows of free slots (all-null tables) read the trash page and come
-// out finite; their values are discarded by the caller.
+// lookup. A decode step has few blocks (rows x kv heads) and each is bound
+// by memory latency, so the keys of a row split over n_split blocks
+// (chosen by the wrapper to fill the SMs) and a second small kernel merges
+// their partial softmax states (split-KV, "flash-decoding"). Context
+// chunks (C x g rows per kv head) sit between the two regimes and, in
+// bf16, run on the tensor-core body (attn_fwd_mma). Rows of free slots
+// (all-null tables) read the trash page and come out finite; their values
+// are discarded by the caller.
 #include "attention.cuh"
 
 extern "C" int paged_decode_attention_fwd(const void* q, const void* k_pages,
@@ -25,7 +30,8 @@ extern "C" int paged_decode_attention_fwd(const void* q, const void* k_pages,
                                           const int* tables, const int* kv_len,
                                           int b, int hq, int hkv, int d,
                                           int block_size, int max_blocks,
-                                          float scale, int dtype,
+                                          float scale, int n_split,
+                                          float* part, int dtype,
                                           void* stream) {
   rt::AttnParams p{};
   p.q = q;
@@ -41,6 +47,8 @@ extern "C" int paged_decode_attention_fwd(const void* q, const void* k_pages,
   p.bs = block_size;
   p.max_blocks = max_blocks;
   p.scale = scale;
+  p.n_split = n_split;
+  p.part = part;
   return (int)rt::dispatch<true>(p, d, dtype, (cudaStream_t)stream);
 }
 

@@ -38,6 +38,13 @@ def _tables(block_tables, b, device):
     return t.contiguous()
 
 
+def decode_splits(b, hkv, capacity, device):
+    """How many blocks share one decode row's keys: enough (b x hkv x
+    splits) for ~4 blocks per SM, and at most one 32-key tile each."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(-(-capacity // 32), -(-4 * sms // (b * hkv))))
+
+
 def paged_decode_attention_cuda(q, k_pages, v_pages, block_tables, *,
                                 kv_len=None, scale=None):
     """q (b,1,hq,d); pages (n_blocks,bs,hkv,d); block_tables (b,nb);
@@ -55,12 +62,16 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, block_tables, *,
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
+    n_split = decode_splits(b, hkv, nb * bs, q.device)
+    part = (torch.empty(b * hq * n_split * (d + 2), dtype=torch.float32,
+                        device=q.device) if n_split > 1 else None)
     err = _fn("paged_decode_attention_fwd",
-              [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P])(
+              [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P,
+               _I, _P])(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), o.data_ptr(),
         tbl.data_ptr(), lens.data_ptr(), b, hq, hkv, d, bs, nb,
-        float(scale), DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        float(scale), n_split, part.data_ptr() if part is not None else None,
+        DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"paged_decode_attention_fwd: CUDA error {err}")
     paged_decode_attention_cuda.launches += 1
