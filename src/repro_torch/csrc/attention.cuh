@@ -25,8 +25,10 @@
 // Two bodies share that contract: attn_fwd, scalar fp32 FMAs (fp32 inputs,
 // and decode's few rows in any dtype), and attn_fwd_mma below, bf16 tensor
 // cores (mma.sync) for many-row bf16 blocks. Both load tiles with 16-byte
-// vector loads. wgmma, TMA, cp.async pipelining and split-KV decode are
-// later work; see PERF.md for where each stands against its bound.
+// vector loads. attn_fwd can also split a row's keys over n_split blocks
+// (decode) whose partial states combine_splits merges. wgmma, TMA and
+// cp.async pipelining are later work; see PERF.md for where each kernel
+// stands against its bound.
 #pragma once
 
 #include <cuda_bf16.h>
