@@ -11,20 +11,27 @@ JAX. Phases, each of which raises on failure:
      source, in parallel) into build/repro_torch/;
   2. kernels against their plain PyTorch versions on the card, at
      Llama-2-70B attention widths (hq 64, hkv 8, d 128, block 16) in bf16
-     and fp32 and at the small head dims the CPU tests use, then timed at
-     the serving path's shapes beside their bound, their plain version and
-     (flash) ``F.scaled_dot_product_attention``;
+     and fp32 and at the small head dims the CPU tests use (rows that see
+     no key must come out as exact zeros), then timed at the serving
+     path's shapes beside their bound, their plain version and, where one
+     PyTorch call computes the same function (flash and contiguous
+     decode), ``F.scaled_dot_product_attention``;
   3. serving at the full width of llama2-70b in bf16 (depth cut to 8 of 80
      layers, seeded random weights) through the asymmetric 2-stage paged
      pipeline: after a short warm-up serve, a synthetic workload (cold
-     joint prefill + decode), then a shared-prefix workload (prefix
-     caching + chunked prefill). Launch counters are zeroed before and
-     read after, and every kernel must have run at least layers x steps
-     times. One more synthetic serve runs under torch.profiler for a
-     breakdown of device time;
-  4. engine parity at the same widths in fp32 (2 layers): the same workload
-     served through the kernels and through the plain versions must give
-     identical tokens and ServeStats counters.
+     joint prefill + decode), a shared-prefix workload (prefix caching +
+     chunked prefill), and the synthetic workload under speculative
+     decoding twice, with the n-gram proposer and with a self-draft (the
+     draft model is the target: a second copy of its weights). Launch
+     counters are zeroed before each serve and read after it, and every
+     kernel of that path must have run at least layers x steps times. One
+     more synthetic and one more self-draft serve run under torch.profiler
+     for a breakdown of device time;
+  4. engine parity at the same widths in fp32 (2 layers): the same
+     workloads, speculative ones included, served through the kernels and
+     through the plain versions must give identical tokens and ServeStats
+     counters, and the speculative serves must give plain greedy decode's
+     tokens.
 
 The last line of standard output is the JSON result
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel
@@ -33,6 +40,7 @@ and its times.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -59,6 +67,10 @@ KERNEL_INFO = {
                                "src/repro/kernels/paged_attention.py:69"),
     "paged_context_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                 "src/repro/kernels/paged_attention.py:267"),
+    "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:63"),
+    "paged_verify_attention": ("src/repro_torch/csrc/paged_attention.cu",
+                               "src/repro/kernels/paged_attention.py:424"),
 }
 
 
@@ -136,11 +148,12 @@ def flash_cases(gen, dev, dtype, hq=64, hkv=8, d=128):
     v = _rand(gen, (b, s, hkv, d), dtype, dev)
     kv_len = torch.tensor([60, 77, 77], device=dev)
     kv_start = torch.tensor([5, 0, 40], device=dev)   # row 2: dead queries
-    yield "causal", lambda: ops.flash_attention(q, k, v)
+    yield "causal", lambda: ops.flash_attention(q, k, v), None
     yield "causal+window+kv_len+kv_start", lambda: ops.flash_attention(
-        q, k, v, window=20, kv_len=kv_len, kv_start=kv_start)
+        q, k, v, window=20, kv_len=kv_len, kv_start=kv_start), \
+        lambda o: o[2, :40]
     yield "noncausal+kv_len", lambda: ops.flash_attention(
-        q, k, v, causal=False, kv_len=kv_len)
+        q, k, v, causal=False, kv_len=kv_len), None
 
 
 def _pool(gen, dev, dtype, n_blocks, bs, hkv, d):
@@ -158,7 +171,7 @@ def decode_cases(gen, dev, dtype, hq=64, hkv=8, d=128, bs=16):
     kv_len = torch.tensor([1, 17, nb * bs, 1, 33], device=dev)
     q = _rand(gen, (5, 1, hq, d), dtype, dev)
     yield "ragged+null-row", lambda: ops.paged_decode_attention(
-        q, kp, vp, tbl, kv_len=kv_len)
+        q, kp, vp, tbl, kv_len=kv_len), None
 
 
 def context_cases(gen, dev, dtype, hq=64, hkv=8, d=128, bs=16):
@@ -173,18 +186,68 @@ def context_cases(gen, dev, dtype, hq=64, hkv=8, d=128, bs=16):
     q_start = torch.tensor([32, 21, 0, 0], device=dev)
     kv_len = q_start + torch.tensor([37, 20, 5, 0], device=dev)
     yield "boundary+midpage+dead", lambda: ops.paged_context_attention(
-        q, kp, vp, tbl, q_start=q_start, kv_len=kv_len)
+        q, kp, vp, tbl, q_start=q_start, kv_len=kv_len), lambda o: o[3]
+
+
+def contiguous_decode_cases(gen, dev, dtype, hq=64, hkv=8, d=128):
+    from repro_torch.kernels import ops
+    b, S = 5, 77                             # S not a multiple of 32
+    q = _rand(gen, (b, 1, hq, d), dtype, dev)
+    k = _rand(gen, (b, S, hkv, d), dtype, dev)
+    v = _rand(gen, (b, S, hkv, d), dtype, dev)
+    # ragged kv_len, kv_start > 0, and row 3 with no live key
+    kv_len = torch.tensor([1, 40, 77, 30, 60], device=dev)
+    kv_start = torch.tensor([0, 0, 13, 30, 45], device=dev)
+    yield "ragged+kv_start+dead", lambda: ops.decode_attention(
+        q, k, v, kv_len=kv_len, kv_start=kv_start), lambda o: o[3]
+    yield "full", lambda: ops.decode_attention(q, k, v), None
+    # a long cache: every row gets more splits than it has live tiles
+    # (counted from its kv_start), so its trailing splits see no key
+    S = 1500
+    q = _rand(gen, (3, 1, hq, d), dtype, dev)
+    k = _rand(gen, (3, S, hkv, d), dtype, dev)
+    v = _rand(gen, (3, S, hkv, d), dtype, dev)
+    kv_len = torch.tensor([1500, 900, 64], device=dev)
+    kv_start = torch.tensor([700, 0, 0], device=dev)
+    yield "long+splits", lambda: ops.decode_attention(
+        q, k, v, kv_len=kv_len, kv_start=kv_start), None
+
+
+def verify_cases(gen, dev, dtype, hq=64, hkv=8, d=128, bs=16):
+    from repro_torch.kernels import ops
+    kp, vp = _pool(gen, dev, dtype, 48, bs, hkv, d)
+    nb = 8
+    perm = torch.randperm(47, generator=gen, device=dev)[:4 * nb] + 1
+    tbl = perm.reshape(4, nb).to(torch.int32)
+    tbl[2] = 0                               # a free slot: all-null table
+    # T = 5 (k = 4): a full chunk, a padded one (3 padding candidates
+    # that still see the committed keys), a dead row (kv_len 0) and a
+    # chunk ending at the table's last position
+    kv_start = torch.tensor([32, 21, 0, 123], device=dev)
+    q_len = torch.tensor([5, 2, 0, 5], device=dev)
+    q = _rand(gen, (4, 5, hq, d), dtype, dev)
+    yield "T=5 padded+dead", lambda: ops.paged_verify_attention(
+        q, kp, vp, tbl, kv_start=kv_start, kv_len=kv_start + q_len), \
+        lambda o: o[2]
+    q1 = _rand(gen, (4, 1, hq, d), dtype, dev)
+    start1 = torch.tensor([36, 25, 0, 127], device=dev)
+    len1 = start1 + torch.tensor([1, 1, 0, 1], device=dev)
+    yield "T=1", lambda: ops.paged_verify_attention(
+        q1, kp, vp, tbl, kv_start=start1, kv_len=len1), lambda o: o[2]
 
 
 CASES = {"flash_attention": flash_cases,
          "paged_decode_attention": decode_cases,
-         "paged_context_attention": context_cases}
+         "paged_context_attention": context_cases,
+         "decode_attention": contiguous_decode_cases,
+         "paged_verify_attention": verify_cases}
 
 
 def check_kernels(dev):
     """Every kernel against its plain version: Llama-2-70B widths and the
-    CPU tests' small head dims, in bf16 and fp32. Returns
-    {kernel: max abs err over its fp32 checks}."""
+    CPU tests' small head dims, in bf16 and fp32; the parts of a case that
+    see no key must be exact zeros. Returns {kernel: max abs err over its
+    fp32 checks}."""
     gen = torch.Generator(device=dev).manual_seed(0)
     errs = {}
     for name, cases in CASES.items():
@@ -192,10 +255,13 @@ def check_kernels(dev):
                 for widths in ({}, dict(hq=4, hkv=2, d=32),
                                dict(hq=4, hkv=1, d=64))]
         for dtype, widths in runs:
-            for case, fn in cases(gen, dev, dtype, **widths):
+            for case, fn, dead in cases(gen, dev, dtype, **widths):
                 got, want = _run_both(fn)
                 torch.cuda.synchronize()
                 err = _compare(name, case, got, want, dtype)
+                if dead is not None and torch.count_nonzero(dead(got)):
+                    raise AssertionError(f"{name} [{case}, {dtype}]: a row "
+                                         "that sees no key is not zero")
                 if dtype == torch.float32:
                     errs[name] = max(errs.get(name, 0.0), err)
                 log(f"  check {name} [{case}] {dtype} "
@@ -233,7 +299,10 @@ def timing_inputs(dev, gen):
     """Inputs at the shapes phase 3 gives each kernel (bf16, Llama-2-70B
     attention widths): a joint cold prefill of 16 prompts padded to 1024,
     a 16-slot decode step over 512..1040-token contexts in a 2049-block
-    pool, and a 4-row 256-token context chunk at 256-token offsets."""
+    pool, a 4-row 256-token context chunk at 256-token offsets, a 16-slot
+    draft decode step over 512..1100-token contexts of a 2048-wide
+    contiguous cache, and a 16-slot verification of k + 1 = 5 candidates
+    at committed lengths 512..1100 in the same pool."""
     dt, hq, hkv, d, bs = torch.bfloat16, 64, 8, 128, 16
     out = {}
     b, s = 16, 1024
@@ -253,7 +322,31 @@ def timing_inputs(dev, gen):
     out["paged_context_attention"] = dict(
         q=_rand(gen, (4, 256, hq, d), dt, dev), kp=kp, vp=vp, tbl=tbl[:4],
         q_start=q_start, kv_len=q_start + 256)
+    out["decode_attention"] = dict(
+        q=_rand(gen, (16, 1, hq, d), dt, dev),
+        k=_rand(gen, (16, 2048, hkv, d), dt, dev),
+        v=_rand(gen, (16, 2048, hkv, d), dt, dev),
+        kv_len=torch.randint(512, 1101, (16,), generator=gen, device=dev))
+    kv_start = torch.randint(512, 1101, (16,), generator=gen, device=dev)
+    out["paged_verify_attention"] = dict(
+        q=_rand(gen, (16, 5, hq, d), dt, dev), kp=kp, vp=vp, tbl=tbl,
+        kv_start=kv_start, kv_len=kv_start + 5)
     return out
+
+
+def _time_sdpa(q, k, v, flush, **kw):
+    """Device ms of F.scaled_dot_product_attention on the same inputs in
+    its (b, h, s, d) layout (the transposes are not timed): the library
+    yardstick, never called by the port."""
+    hq, hkv = q.shape[2], k.shape[2]
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    if tuple(int(x) for x in torch.__version__.split(".")[:2]) >= (2, 5):
+        return _time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=True, **kw), flush)
+    # no GQA flag: share kv heads by copy
+    kt, vt = (t.repeat_interleave(hq // hkv, dim=1) for t in (kt, vt))
+    return _time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw),
+                    flush)
 
 
 def time_kernels(dev):
@@ -271,14 +364,7 @@ def time_kernels(dev):
     hkv = k.shape[2]
     es = q.element_size()
     pairs = b * s * (s + 1) // 2                       # causal
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    if tuple(int(x) for x in torch.__version__.split(".")[:2]) >= (2, 5):
-        lib = _time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), flush)
-    else:                          # no GQA flag: share kv heads by copy
-        kt, vt = (t.repeat_interleave(hq // hkv, dim=1) for t in (kt, vt))
-        lib = _time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), flush)
+    lib = _time_sdpa(q, k, v, flush, is_causal=True)
     res["flash_attention"] = dict(
         fn=lambda: ops.flash_attention(q, k, v),
         nbytes=es * (2 * q.numel() + k.numel() + v.numel()),
@@ -306,6 +392,31 @@ def time_kernels(dev):
             kv_len=y["kv_len"]),
         nbytes=es * (2 * y["q"].numel() + 2 * sum(lens) * hkv * d)
         + 4 * (y["tbl"].numel() + 8),
+        flops=4 * d * hq * pairs, library_ms=None)
+
+    z = inp["decode_attention"]
+    kv = int(z["kv_len"].sum())
+    mask = (torch.arange(z["k"].shape[1], device=dev)[None]
+            < z["kv_len"][:, None])[:, None, None]          # (b, 1, 1, S)
+    res["decode_attention"] = dict(
+        fn=lambda: ops.decode_attention(z["q"], z["k"], z["v"],
+                                        kv_len=z["kv_len"]),
+        nbytes=es * (2 * z["q"].numel() + 2 * kv * hkv * d) + 4 * 16,
+        flops=4 * d * hq * kv,
+        library_ms=_time_sdpa(z["q"], z["k"], z["v"], flush, attn_mask=mask))
+
+    w = inp["paged_verify_attention"]
+    T = w["q"].shape[1]
+    starts = w["kv_start"].tolist()
+    lens = w["kv_len"].tolist()
+    pairs = sum(sum(min(st + j + 1, ln) for j in range(T))
+                for st, ln in zip(starts, lens))
+    res["paged_verify_attention"] = dict(
+        fn=lambda: ops.paged_verify_attention(
+            w["q"], w["kp"], w["vp"], w["tbl"], kv_start=w["kv_start"],
+            kv_len=w["kv_len"]),
+        nbytes=es * (2 * w["q"].numel() + 2 * sum(lens) * hkv * d)
+        + 4 * (w["tbl"].numel() + 32),
         flops=4 * d * hq * pairs, library_ms=None)
 
     out = {}
@@ -343,15 +454,19 @@ def _llama(num_layers):
                                num_layers=num_layers)
 
 
-def _serve(cfg, asg, params, reqs, **kw):
+def _serve(cfg, asg, params, reqs, around=contextlib.nullcontext, **kw):
+    """Serve reqs on a fresh engine, inside the context `around()` (the
+    engine is built outside it); check every request got its tokens.
+    Returns (stats, wall seconds, draft decode steps run)."""
     from repro_torch.serving.engine import InferenceEngine
     from repro_torch.serving.loop import VirtualClock
     eng = InferenceEngine(cfg, asg, params=params, device=DEVICE, **kw)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    stats = eng.serve(reqs, deadline=1e9, clock=VirtualClock())
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with around():
+        t0 = time.perf_counter()
+        stats = eng.serve(reqs, deadline=1e9, clock=VirtualClock())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     for r in reqs:
         if r.output is None or len(r.output) != r.max_new_tokens:
             raise AssertionError(f"request {r.rid}: got "
@@ -361,8 +476,10 @@ def _serve(cfg, asg, params, reqs, **kw):
             raise AssertionError(f"request {r.rid}: token out of vocab")
     if stats.rejected or stats.dropped:
         raise AssertionError(stats.summary())
+    draft_steps = sum(getattr(w._proposer, "draft_steps", 0)
+                      for w in eng.router.workers)
     del eng
-    return stats, wall
+    return stats, wall, draft_steps
 
 
 def _workloads(vocab, n, out_len, prompt_len=512, shared_len=1024):
@@ -380,9 +497,44 @@ def _workloads(vocab, n, out_len, prompt_len=512, shared_len=1024):
     return synth, shared
 
 
+def _check_path(name, stats, launched, draft_steps, reqs, L, n_slots):
+    """Raise unless the path `name` ran its kernels: at least L launches
+    per step of each kernel it drives."""
+    need = {}
+    max_new = max(r.max_new_tokens for r in reqs)
+    out_tok = sum(len(r.output) for r in reqs)
+    if name == "synthetic":
+        need["flash_attention"] = L                 # >= 1 joint prefill
+        need["paged_decode_attention"] = L * max_new
+    if name == "shared-prefix":
+        need["paged_context_attention"] = \
+            L * -(-len(reqs[0].prompt) // 256)      # the first prompt's chunks
+        need["paged_decode_attention"] = L * max_new
+        if stats.prefix_hits == 0:
+            raise AssertionError(f"{name}: no prefix hit; {stats.summary()}")
+    if name.startswith("spec"):
+        # one verify dispatch serves every slot's chunk
+        need["paged_verify_attention"] = max(
+            1, -(-L * stats.spec_steps // n_slots))
+        if stats.spec_tokens != out_tok:
+            raise AssertionError(f"{name}: spec_tokens {stats.spec_tokens} "
+                                 f"!= {out_tok} generated")
+    if name == "spec-draft":
+        need["decode_attention"] = max(1, L * draft_steps)
+        if stats.spec_steps >= out_tok:
+            raise AssertionError(f"{name}: {stats.spec_steps} target steps "
+                                 f"for {out_tok} tokens: the self-draft had "
+                                 "no proposal accepted")
+    for k, n in need.items():
+        if launched[k] < n:
+            raise AssertionError(f"{name}: {k} ran {launched[k]} < {n} "
+                                 "times")
+
+
 def phase_serving(smi):
     """Full-width bf16 serving through the asymmetric 2-stage pipeline on
-    the card. Returns the launch counts of the run."""
+    the card. Returns the launch counts summed over the measured serves,
+    each serve's counts zeroed just before it and read just after."""
     from repro_torch.core.plan import Assignment, PipelinePlan, StagePlan
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
@@ -396,62 +548,58 @@ def phase_serving(smi):
         f"{n_params / 1e9:.2f}e9 params {cfg.dtype} "
         f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB), stages "
         f"{asg.pipelines[0].layer_split}")
-    synth, shared = _workloads(cfg.vocab_size, n=16, out_len=32)
     common = dict(n_slots=16, max_len=2048, block_size=16)
+    spec = dict(spec_decode=True, spec_k=4)
     # warm-up: cuBLAS handles, kernel loading and allocator growth happen
     # once per process and would otherwise land in the first measured serve
-    _serve(cfg, asg, params, _workloads(cfg.vocab_size, n=4, out_len=4)[0],
-           **common)
+    for kw in ({}, spec):
+        _serve(cfg, asg, params,
+               _workloads(cfg.vocab_size, n=4, out_len=4)[0], **common, **kw)
     torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    runs = {}
-    for name, reqs, kw in (
-            ("synthetic", synth, {}),
-            ("shared-prefix", shared, dict(prefix_caching=True,
-                                           prefill_chunk=256))):
-        before = ops.launch_counts()
-        stats, wall = _serve(cfg, asg, params, reqs, **common, **kw)
-        after = ops.launch_counts()
-        delta = {k: after[k] - before[k] for k in after}
+    counts = dict.fromkeys(ops.KERNELS, 0)
+    # the self-draft (draft_seed 0, like the target's weights) is a second
+    # copy of the 8-layer model with a 16 x 2048 contiguous cache
+    for name, kw in (("synthetic", {}),
+                     ("shared-prefix", dict(prefix_caching=True,
+                                            prefill_chunk=256)),
+                     ("spec-ngram", spec),
+                     ("spec-draft", dict(spec, draft_model=cfg))):
+        synth, shared = _workloads(cfg.vocab_size, n=16, out_len=32)
+        reqs = shared if name == "shared-prefix" else synth
+        ops.reset_launch_counts()
+        stats, wall, draft_steps = _serve(cfg, asg, params, reqs, **common,
+                                          **kw)
+        launched = ops.launch_counts()
+        for k in counts:
+            counts[k] += launched[k]
         out_tok = sum(len(r.output) for r in reqs)
         in_tok = sum(len(r.prompt) for r in reqs)
-        runs[name] = delta
+        acc = (f"; accept rate {stats.spec_accepted / stats.spec_proposed:.3f}"
+               f" ({stats.spec_accepted}/{stats.spec_proposed}), "
+               f"{out_tok / stats.spec_steps:.2f} tokens per slot step, "
+               f"{draft_steps} draft steps"
+               if stats.spec_proposed else "")
         log(f"  serve {name}: {len(reqs)} requests, {in_tok} prompt + "
             f"{out_tok} generated tokens in {wall:.3f} s wall = "
             f"{out_tok / wall:.1f} generated tok/s, "
             f"{(in_tok + out_tok) / wall:.1f} total tok/s; "
-            f"{stats.iterations} iterations; {stats.summary()}; "
-            f"launches {delta}")
-        max_new = max(r.max_new_tokens for r in reqs)
-        if delta["paged_decode_attention"] < L * max_new:
-            raise AssertionError(f"{name}: decode kernel ran "
-                                 f"{delta['paged_decode_attention']} < "
-                                 f"{L} layers x {max_new} steps")
-        if name == "synthetic" and delta["flash_attention"] < L:
-            raise AssertionError("synthetic: flash kernel ran "
-                                 f"{delta['flash_attention']} < {L} layers "
-                                 "x 1 prefill")
-        if name == "shared-prefix":
-            chunks = -(-len(reqs[0].prompt) // 256)
-            if delta["paged_context_attention"] < L * chunks:
-                raise AssertionError(
-                    f"shared-prefix: context kernel ran "
-                    f"{delta['paged_context_attention']} < {L} layers x "
-                    f"{chunks} chunks")
-            if stats.prefix_hits == 0:
-                raise AssertionError(stats.summary())
-    counts = ops.launch_counts()
+            f"{stats.iterations} iterations; {stats.summary()}{acc}; "
+            f"launches {launched}")
+        _check_path(name, stats, launched, draft_steps, reqs, L,
+                    common["n_slots"])
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB (torch.cuda.max_memory_allocated) on {smi}")
-    synth, _ = _workloads(cfg.vocab_size, n=16, out_len=32)
-    profile_serve(cfg, asg, params, synth, **common)
+    for name, kw in (("synthetic", {}),
+                     ("spec-draft", dict(spec, draft_model=cfg))):
+        synth, _ = _workloads(cfg.vocab_size, n=16, out_len=32)
+        profile_serve(name, cfg, asg, params, synth, **common, **kw)
     del params
     torch.cuda.empty_cache()
     return counts
 
 
 def _kernel_group(name):
-    if name.startswith("void rt::attn_fwd"):
+    if name.startswith(("void rt::attn_fwd", "void rt::combine_splits")):
         return "attention kernels (port)"
     if any(t in name.lower() for t in ("gemm", "cutlass", "sm90_xmma",
                                        "nvjet", "gemv")):
@@ -463,15 +611,14 @@ def _kernel_group(name):
     return "other"
 
 
-def profile_serve(cfg, asg, params, reqs, **kw):
-    """One more synthetic serve under torch.profiler: device time by
+def profile_serve(name, cfg, asg, params, reqs, **kw):
+    """One more serve of path `name` under torch.profiler: device time by
     kernel group, and the share of the wall time the card was busy. The
     profiler's own overhead inflates the wall time of this run; its
     numbers are a breakdown, not the headline."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, wall = _serve(cfg, asg, params, reqs, **kw)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    _, wall, _ = _serve(cfg, asg, params, reqs, around=lambda: prof, **kw)
     groups = {}
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total",
@@ -480,7 +627,7 @@ def profile_serve(cfg, asg, params, reqs, **kw):
             g = _kernel_group(e.key)
             groups[g] = groups.get(g, 0.0) + t / 1e3        # us -> ms
     busy = sum(groups.values())
-    log(f"  profile synthetic (torch.profiler on): wall {wall * 1e3:.1f} ms,"
+    log(f"  profile {name} (torch.profiler on): wall {wall * 1e3:.1f} ms,"
         f" device busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}% of "
         "wall); device ms by group: "
         + ", ".join(f"{g} {t:.1f}" for g, t in
@@ -499,30 +646,51 @@ def _leaves(tree):
 # Phase 4: engine parity, kernels against plain versions, fp32
 # ---------------------------------------------------------------------------
 
+def _logit_margin(cfg, params, tokens):
+    """Top-1 minus top-2 logit after `tokens` (one contiguous prefill
+    through the kernels): how near a tie the next greedy choice is."""
+    from repro_torch.models import model as M
+    cache = M.init_cache(cfg, 1, len(tokens), dtype=torch.float32,
+                         device=DEVICE)
+    with torch.inference_mode():
+        logits, _ = M.prefill(cfg, params,
+                              {"tokens": np.asarray(tokens)[None]}, cache)
+    top = logits[0].float().topk(2).values
+    return float(top[0] - top[1])
+
+
 def phase_parity():
     """The same workloads served through the kernels and through the plain
     versions (fp32, full width, 2 layers): identical greedy tokens and
-    ServeStats counters."""
+    ServeStats counters. The speculative serves (n-gram, and a self-draft:
+    draft_seed 0 draws the target's weights) must also give the plain
+    greedy serve's tokens (tests/test_spec.py's contract)."""
     from repro_torch.core.plan import Assignment, PipelinePlan, StagePlan
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
     cfg = _llama(2)
     asg = Assignment([PipelinePlan([StagePlan([0], 1), StagePlan([1], 1)])])
-    params = M.init_params(cfg, 1, device=DEVICE, dtype=torch.float32)
+    params = M.init_params(cfg, 0, device=DEVICE, dtype=torch.float32)
     common = dict(n_slots=8, max_len=2048, block_size=16,
                   dtype=torch.float32)
     fields = ("latencies", "iterations", "prefill_tokens", "prefix_lookups",
               "prefix_hits", "prefix_hit_tokens", "cow_copies",
-              "preemptions")
+              "preemptions", "spec_steps", "spec_proposed", "spec_accepted",
+              "spec_tokens")
+    spec = dict(spec_decode=True, spec_k=4)
+    greedy = None
     for name, kw in (("synthetic", {}),
                      ("shared-prefix", dict(prefix_caching=True,
-                                            prefill_chunk=256))):
+                                            prefill_chunk=256)),
+                     ("spec-ngram", spec),
+                     ("spec-draft", dict(spec, draft_model=cfg))):
         outs = []
         for backend in ("kernel", "plain"):
             synth, shared = _workloads(cfg.vocab_size, n=6, out_len=8)
-            reqs = synth if name == "synthetic" else shared
+            reqs = shared if name == "shared-prefix" else synth
             with ops.backend(backend):
-                stats, wall = _serve(cfg, asg, params, reqs, **common, **kw)
+                stats, wall, _ = _serve(cfg, asg, params, reqs, **common,
+                                        **kw)
             outs.append(([list(r.output) for r in reqs], stats, wall))
         (tk, sk, wk), (tp, sp, wp) = outs
         if tk != tp:
@@ -533,9 +701,23 @@ def phase_parity():
             if getattr(sk, f) != getattr(sp, f):
                 raise AssertionError(f"{name}: ServeStats.{f} differs: "
                                      f"{getattr(sk, f)} vs {getattr(sp, f)}")
+        if name == "synthetic":
+            greedy = tk
+        elif name.startswith("spec") and tk != greedy:
+            i, j = next((i, j) for i, (a, b) in enumerate(zip(greedy, tk))
+                        for j, (x, y) in enumerate(zip(a, b)) if x != y)
+            prompt = list(_workloads(cfg.vocab_size, n=6, out_len=8)[0][i]
+                          .prompt)
+            margin = _logit_margin(cfg, params, prompt + greedy[i][:j])
+            raise AssertionError(
+                f"{name}: request {i} parts from plain greedy at token {j} "
+                f"({tk[i][j]} vs {greedy[i][j]}); the greedy top-2 logit "
+                f"margin there is {margin:.3g}")
         log(f"  parity {name}: {len(tk)} requests x {len(tk[0])} tokens "
             f"identical through kernels ({wk:.3f} s) and plain versions "
-            f"({wp:.3f} s); {sk.summary()}")
+            f"({wp:.3f} s)"
+            + (", and equal to plain greedy" if name.startswith("spec")
+               else "") + f"; {sk.summary()}")
     del params
     torch.cuda.empty_cache()
 

@@ -1,13 +1,18 @@
-// Paged attention for Hopper (sm_90a): decode and context prefill against a
-// block-paged KV pool (n_blocks, block_size, hkv, d) read through per-row
-// block tables (b, max_blocks).
+// Paged attention for Hopper (sm_90a): decode, context prefill and
+// speculative verification against a block-paged KV pool
+// (n_blocks, block_size, hkv, d) read through per-row block tables
+// (b, max_blocks).
 //
 // Replaces: src/repro/kernels/paged_attention.py:paged_decode_attention_pallas
 // (one query token per row, kv_len mask) and
 // src/repro/kernels/paged_attention.py:paged_context_attention_pallas (a
 // C-token chunk at absolute offset q_start, causal over the prior pages and
-// itself; fully masked rows give exact zeros). Decode is the C = 1 case of
-// the same body with no causal term.
+// itself; fully masked rows give exact zeros) and
+// src/repro/kernels/paged_attention.py:paged_verify_attention_pallas (T =
+// k + 1 candidates per slot at the slot's committed length kv_start, the
+// output kept at every position). Decode is the C = 1 case of the same body
+// with no causal term; verification is the context body with
+// q_start = kv_start, as the TPU kernel rode the context grid.
 //
 // Bound on the card: a decode step does ~4 d hq kv_len FLOPs per row on
 // 2 d hkv kv_len K/V elements, a few FLOPs per byte, so it is bound by bytes
@@ -74,4 +79,20 @@ extern "C" int paged_context_attention_fwd(
   p.causal = 1;
   p.scale = scale;
   return (int)rt::dispatch<true>(p, d, dtype, (cudaStream_t)stream);
+}
+
+// Verification rows are T x g per kv head (40 at k = 4, g = 8: ragged for
+// the 64-row tensor-core block, whose dead rows are masked like a context
+// chunk's). Padding candidates (j >= the slot's real count) sit past
+// kv_len and still see the committed keys [0, kv_len); a row with
+// kv_len == 0 (a free slot on an all-null table) writes exact zeros. No
+// split-KV: a verify step has T times decode's rows.
+extern "C" int paged_verify_attention_fwd(
+    const void* q, const void* k_pages, const void* v_pages, void* o,
+    const int* tables, const int* kv_start, const int* kv_len, int b, int T,
+    int hq, int hkv, int d, int block_size, int max_blocks, float scale,
+    int dtype, void* stream) {
+  return paged_context_attention_fwd(q, k_pages, v_pages, o, tables, kv_start,
+                                     kv_len, b, T, hq, hkv, d, block_size,
+                                     max_blocks, scale, dtype, stream);
 }

@@ -1,6 +1,7 @@
 """Attention entry points used by the model code (twins of
-repro.kernels.ops.flash_attention / paged_decode_attention /
-paged_context_attention).
+repro.kernels.ops.flash_attention / decode_attention /
+paged_decode_attention / paged_context_attention /
+paged_verify_attention).
 
 Dispatch is by the tensor's device: a CUDA tensor goes to the hand-written
 kernel, a CPU tensor to its plain PyTorch version in ``ref``. The scoped
@@ -13,9 +14,11 @@ from __future__ import annotations
 import contextlib
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.paged_attention import (paged_context_attention_cuda,
-                                                 paged_decode_attention_cuda)
+                                                 paged_decode_attention_cuda,
+                                                 paged_verify_attention_cuda)
 
 _BACKEND = "kernel"        # "kernel" | "plain"
 
@@ -23,6 +26,8 @@ KERNELS = {
     "flash_attention": flash_attention_cuda,
     "paged_decode_attention": paged_decode_attention_cuda,
     "paged_context_attention": paged_context_attention_cuda,
+    "decode_attention": decode_attention_cuda,
+    "paged_verify_attention": paged_verify_attention_cuda,
 }
 
 
@@ -75,6 +80,16 @@ def flash_attention(q, k, v, *, causal=True, window=0, kv_len=None,
                              kv_len=kv_len, kv_start=kv_start, scale=scale)
 
 
+def decode_attention(q, k, v, *, kv_len=None, kv_start=None, scale=None):
+    """q (b,1,hq,d) against a contiguous cache k,v (b,S,hkv,d); keys at
+    positions >= kv_len or < kv_start (b,) are masked."""
+    if _kernel_for(q):
+        return decode_attention_cuda(q, k, v, kv_len=kv_len,
+                                     kv_start=kv_start, scale=scale)
+    return ref.decode_attention_ref(q, k, v, kv_len=kv_len,
+                                    kv_start=kv_start, scale=scale)
+
+
 def paged_decode_attention(q, k_pages, v_pages, block_tables, *, kv_len=None,
                            scale=None, k_scale=None, v_scale=None):
     """q (b,1,hq,d) against pages (n_blocks, block_size, hkv, d) through
@@ -100,3 +115,20 @@ def paged_context_attention(q, k_pages, v_pages, block_tables, *, q_start,
     return ref.paged_context_attention_ref(q, k_pages, v_pages, block_tables,
                                            q_start=q_start, kv_len=kv_len,
                                            scale=scale)
+
+
+def paged_verify_attention(q, k_pages, v_pages, block_tables, *, kv_start,
+                           kv_len, scale=None, k_scale=None, v_scale=None):
+    """Speculative verification: q (b,T,hq,d), row i's candidate j at
+    absolute position kv_start[i] + j (the slot's committed length),
+    attending causally to the committed pages and the candidate prefix
+    (whose K/V the pages already hold at [kv_start, kv_len)); the output
+    is kept at every position. Rows with kv_len == 0 give exact zeros."""
+    _no_quant(k_scale, v_scale)
+    if _kernel_for(q):
+        return paged_verify_attention_cuda(q, k_pages, v_pages, block_tables,
+                                           kv_start=kv_start, kv_len=kv_len,
+                                           scale=scale)
+    return ref.paged_verify_attention_ref(q, k_pages, v_pages, block_tables,
+                                          kv_start=kv_start, kv_len=kv_len,
+                                          scale=scale)

@@ -1,9 +1,9 @@
 """Wrappers of the paged-attention CUDA kernels (``csrc/paged_attention.cu``),
-the ports of repro.kernels.paged_attention.paged_decode_attention_pallas and
-paged_context_attention_pallas.
+the ports of repro.kernels.paged_attention.paged_decode_attention_pallas,
+paged_context_attention_pallas and paged_verify_attention_pallas.
 
 Each wrapper checks its inputs, allocates the output, launches on the
-current stream and counts the launch; neither falls back to its plain
+current stream and counts its own launches; none falls back to its plain
 version (``ref.paged_*_ref``) — ``ops`` chooses. Block-table entries are
 trusted to name pages of the pool (the engine's BlockTables produce them);
 checking them on the card would cost a device sync per call.
@@ -78,11 +78,9 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, block_tables, *,
     return o
 
 
-def paged_context_attention_cuda(q, k_pages, v_pages, block_tables, *,
-                                 q_start, kv_len, scale=None):
-    """q (b,C,hq,d), row i token j at absolute position q_start[i] + j;
-    pages already hold the chunk's K/V at [q_start, kv_len) -> (b,C,hq,d).
-    """
+def _chunk_attention(entry, q, k_pages, v_pages, block_tables, q_start,
+                     kv_len, scale):
+    """Launch `entry` (context or verify: the same contract) -> o."""
     q, k_pages, v_pages = check_attention_inputs(q, k_pages, v_pages)
     b, C, hq, d = q.shape
     _, bs, hkv, _ = k_pages.shape
@@ -93,7 +91,7 @@ def paged_context_attention_cuda(q, k_pages, v_pages, block_tables, *,
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
-    err = _fn("paged_context_attention_fwd",
+    err = _fn(entry,
               [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                _I, _P])(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), o.data_ptr(),
@@ -101,10 +99,34 @@ def paged_context_attention_cuda(q, k_pages, v_pages, block_tables, *,
         bs, tbl.shape[1], float(scale), DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     if err:
-        raise RuntimeError(f"paged_context_attention_fwd: CUDA error {err}")
-    paged_context_attention_cuda.launches += 1
+        raise RuntimeError(f"{entry}: CUDA error {err}")
+    return o
+
+
+def paged_context_attention_cuda(q, k_pages, v_pages, block_tables, *,
+                                 q_start, kv_len, scale=None):
+    """q (b,C,hq,d), row i token j at absolute position q_start[i] + j;
+    pages already hold the chunk's K/V at [q_start, kv_len) -> (b,C,hq,d).
+    """
+    o = _chunk_attention("paged_context_attention_fwd", q, k_pages, v_pages,
+                         block_tables, q_start, kv_len, scale)
+    if o.numel():
+        paged_context_attention_cuda.launches += 1
+    return o
+
+
+def paged_verify_attention_cuda(q, k_pages, v_pages, block_tables, *,
+                                kv_start, kv_len, scale=None):
+    """q (b,T,hq,d), T candidates per slot, row i's candidate j at absolute
+    position kv_start[i] + j; pages already hold the candidates' K/V at
+    [kv_start, kv_len) -> (b,T,hq,d), every position kept."""
+    o = _chunk_attention("paged_verify_attention_fwd", q, k_pages, v_pages,
+                         block_tables, kv_start, kv_len, scale)
+    if o.numel():
+        paged_verify_attention_cuda.launches += 1
     return o
 
 
 paged_decode_attention_cuda.launches = 0
 paged_context_attention_cuda.launches = 0
+paged_verify_attention_cuda.launches = 0

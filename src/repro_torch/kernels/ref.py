@@ -87,6 +87,21 @@ def context_attention_ref(q, k, v, *, q_start, kv_len, scale=None):
     return _softmax_av(s, v).reshape(b, C, hq, d).to(orig)
 
 
+def decode_attention_ref(q, k, v, *, kv_len=None, kv_start=None,
+                         scale=None):
+    """One-token decode against a contiguous cache: q (b, 1, hq, d); k, v
+    (b, S, hkv, d); keys at positions >= kv_len or < kv_start are masked
+    (no causal term: every cached key is in the past)."""
+    if q.shape[1] != 1:
+        raise ValueError(f"decode takes one query token per row, got "
+                         f"{q.shape[1]}")
+    if kv_len is None:
+        kv_len = torch.full((q.shape[0],), k.shape[1], dtype=torch.int32,
+                            device=q.device)
+    return attention_ref(q, k, v, causal=False, kv_len=kv_len,
+                         kv_start=kv_start, scale=scale)
+
+
 def gather_pages(pages, block_tables):
     """(n_blocks, bs, h, d) pages + (b, nb) tables -> contiguous
     (b, nb * bs, h, d) caches (null table entries gather the trash page;
@@ -115,3 +130,16 @@ def paged_context_attention_ref(q, k_pages, v_pages, block_tables, *,
     v = gather_pages(v_pages, block_tables)
     return context_attention_ref(q, k, v, q_start=q_start, kv_len=kv_len,
                                  scale=scale)
+
+
+def paged_verify_attention_ref(q, k_pages, v_pages, block_tables, *,
+                               kv_start, kv_len, scale=None):
+    """Multi-token verification (speculative decoding): q (b, T, hq, d) is
+    each slot's candidate chunk, row i's candidate j at absolute position
+    kv_start[i] + j; the pages already hold the candidates' K/V at
+    [kv_start, kv_len). It is the context oracle with the per-slot
+    committed length as the chunk origin, and every position's output is
+    kept. A row with kv_len == 0 sees no key and gives exact zeros."""
+    return paged_context_attention_ref(q, k_pages, v_pages, block_tables,
+                                       q_start=kv_start, kv_len=kv_len,
+                                       scale=scale)

@@ -1,5 +1,6 @@
 """Layer primitives of the port (twins of repro.models.layers): RMSNorm,
-RoPE, the GQA attention blocks of the paged serving path, and the MLP.
+RoPE, the GQA attention blocks of the paged serving path and of the
+contiguous draft-model cache, and the MLP.
 
 Parameters are plain dicts of tensors in the reference's (in, out) layout,
 so every weight product is ``x @ w``. Large products stay torch.matmul, as
@@ -64,6 +65,28 @@ def attn_prefill(p, x, cfg, *, positions):
     return o.reshape(b, s, -1) @ p["wo"], k, v
 
 
+def attn_decode(p, x, cfg, *, pos, cache, kv_start=None):
+    """One-token decode against a full contiguous cache {"k","v"}
+    (b, S, hkv, hd), in place. x (b, 1, d); pos a scalar or (b,) per-row
+    absolute positions: the new token's K/V go to row i's position pos[i],
+    then it attends to [0, pos + 1) minus the kv_start (b,) padding."""
+    if cfg.swa_window:
+        raise NotImplementedError("the sliding-window ring cache is not "
+                                  "ported yet (ROADMAP.md, slice 5)")
+    q, k, v = _qkv(p, x, cfg)
+    b = x.shape[0]
+    pos = torch.as_tensor(pos, device=x.device).long().expand(b)
+    posb = pos[:, None]
+    q = rope(q, posb, cfg.rope_theta)
+    k = rope(k, posb, cfg.rope_theta)
+    ridx = torch.arange(b, device=x.device)
+    cache["k"][ridx, pos] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][ridx, pos] = v[:, 0].to(cache["v"].dtype)
+    o = ops.decode_attention(q, cache["k"], cache["v"], kv_len=pos + 1,
+                             kv_start=kv_start)
+    return o.reshape(b, 1, -1) @ p["wo"]
+
+
 def attn_decode_paged(p, x, cfg, *, pos, block_tables, cache):
     """One-token decode against a block-paged cache. x (b, 1, d); pos (b,)
     per-row absolute positions; block_tables (b, max_blocks) int32; cache
@@ -88,15 +111,12 @@ def attn_decode_paged(p, x, cfg, *, pos, block_tables, cache):
     return o.reshape(b, 1, -1) @ p["wo"]
 
 
-def attn_context_paged(p, x, cfg, *, positions, q_len, block_tables, cache):
-    """Context prefill against a block-paged cache: x (b, C, d) is a chunk
-    whose row-i token j sits at absolute position positions[i, 0] + j. The
-    chunk's K/V go into the pages first (in place), then the chunk attends
-    causally to the prior pages and itself. Padding tokens (j >= q_len[i])
-    clamp their position into the table and write into the null page;
-    their outputs are garbage the caller discards."""
+def _chunk_qkv_to_pages(p, x, cfg, positions, q_len, block_tables, cache):
+    """Q, K, V of a chunk x (b, C, d) at absolute positions (b, C); the
+    roped K/V go into the pages in place (tokens j >= q_len[i] clamp their
+    position into the table and write the null page). Returns roped q."""
     q, k, v = _qkv(p, x, cfg)
-    b, C = x.shape[:2]
+    C = x.shape[1]
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     bs = cache["k"].shape[1]
@@ -108,10 +128,40 @@ def attn_context_paged(p, x, cfg, *, positions, q_len, block_tables, cache):
     off = posc % bs
     cache["k"][blk, off] = k.to(cache["k"].dtype)
     cache["v"][blk, off] = v.to(cache["v"].dtype)
+    return q
+
+
+def attn_context_paged(p, x, cfg, *, positions, q_len, block_tables, cache):
+    """Context prefill against a block-paged cache: x (b, C, d) is a chunk
+    whose row-i token j sits at absolute position positions[i, 0] + j. The
+    chunk's K/V go into the pages first (in place), then the chunk attends
+    causally to the prior pages and itself. Padding tokens (j >= q_len[i])
+    clamp their position into the table and write into the null page;
+    their outputs are garbage the caller discards."""
+    q = _chunk_qkv_to_pages(p, x, cfg, positions, q_len, block_tables, cache)
+    b, C = x.shape[:2]
     o = ops.paged_context_attention(q, cache["k"], cache["v"], block_tables,
                                     q_start=positions[:, 0],
                                     kv_len=positions[:, 0] + q_len)
     return o.reshape(b, C, -1) @ p["wo"]
+
+
+def attn_verify_paged(p, x, cfg, *, positions, q_len, block_tables, cache):
+    """Speculative verification against a block-paged cache: x (b, T, d)
+    is each slot's candidate chunk (the bonus token plus its drafts), row
+    i's candidate j at absolute position positions[i, 0] + j, the slot's
+    committed length. The chunk's K/V go into the pages first (in place),
+    then every candidate attends to the committed pages and the candidate
+    prefix; the caller keeps the output at every position. Padding
+    candidates (j >= q_len[i]) write into the null page; rows with
+    q_len == 0 come back dead. Rejected candidates' writes sit past the
+    committed length and are the caller's to roll back."""
+    q = _chunk_qkv_to_pages(p, x, cfg, positions, q_len, block_tables, cache)
+    b, T = x.shape[:2]
+    o = ops.paged_verify_attention(q, cache["k"], cache["v"], block_tables,
+                                   kv_start=positions[:, 0],
+                                   kv_len=positions[:, 0] + q_len)
+    return o.reshape(b, T, -1) @ p["wo"]
 
 
 def mlp(p, x, cfg):

@@ -1,5 +1,6 @@
-"""Model assembly of the port for the paged serving path (twin of the
-attention-only parts of repro.models.model).
+"""Model assembly of the port for the paged serving path and the draft
+model's contiguous cache (twin of the attention-only parts of
+repro.models.model).
 
 Parameters keep the reference's pytree: ``embed`` (V, d), ``final_norm``,
 ``lm_head`` (d, V) and ``blocks/sub0`` whose leaves stack every layer on a
@@ -10,7 +11,10 @@ interchangeable.
 
 Paged caches are one ``{"k", "v"}`` pool pair per layer, shaped
 (n_blocks, block_size, hkv, hd); block 0 is the reserved null/trash page.
-Writes go into the pools in place.
+The contiguous cache (``init_cache``, the speculative draft model's) keeps
+the reference's layout: ``{"sub0": {"k", "v"}}`` with every layer stacked
+on a leading axis, (L, batch, max_len, hkv, hd). Writes go into the caches
+in place.
 """
 from __future__ import annotations
 
@@ -93,6 +97,36 @@ def slice_layer_params(cfg: ModelConfig, params, i: int):
         return {k: take(v) if isinstance(v, dict) else v[i]
                 for k, v in tree.items()}
     return take(params["blocks"]["sub0"])
+
+
+# ---------------------------------------------------------------------------
+# Contiguous cache (the draft model's)
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=None,
+               device="cuda"):
+    """Zeroed contiguous cache {"sub0": {"k", "v"}}, each
+    (L, batch, max_len, hkv, hd)."""
+    _check_supported(cfg)
+    if cfg.swa_window:
+        raise NotImplementedError("the sliding-window ring cache is not "
+                                  "ported yet (ROADMAP.md, slice 5)")
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim_)
+    dt = param_dtype(cfg, dtype)
+    dev = resolve_device(device)
+    return {"sub0": {"k": torch.zeros(shape, dtype=dt, device=dev),
+                     "v": torch.zeros(shape, dtype=dt, device=dev)}}
+
+
+def scatter_cache_rows(cache, rows, slot_ids):
+    """Write `rows` (an init_cache tree whose batch is len(slot_ids)) into
+    `cache` at those batch rows, in place; the rows may be shorter than
+    the cache and fill its leading positions. Returns cache."""
+    for n, t in cache["sub0"].items():
+        src = rows["sub0"][n]
+        idx = torch.as_tensor(list(slot_ids), device=t.device).long()
+        t.narrow(2, 0, src.shape[2]).index_copy_(1, idx, src.to(t.dtype))
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -185,6 +219,18 @@ def apply_sublayer_context_paged(cfg, kind, sp, x, sc, *, positions, q_len,
     return _mlp(cfg, sp, x + o)
 
 
+def apply_sublayer_verify_paged(cfg, kind, sp, x, sc, *, positions, q_len,
+                                block_tables):
+    """One block over each slot's candidate chunk against paged `sc`
+    (speculative verification; attention-only: a recurrent state cannot
+    roll back past a rejected candidate)."""
+    _attn_only(kind)
+    o = layers.attn_verify_paged(sp["mixer"], _norm(cfg, sp["ln1"], x), cfg,
+                                 positions=positions, q_len=q_len,
+                                 block_tables=block_tables, cache=sc)
+    return _mlp(cfg, sp, x + o)
+
+
 # ---------------------------------------------------------------------------
 # Embedding / head
 # ---------------------------------------------------------------------------
@@ -195,3 +241,72 @@ def _embed(cfg, params, tokens):
 
 def _head(cfg, params, x):
     return _norm(cfg, params["final_norm"], x) @ params["lm_head"]
+
+
+# ---------------------------------------------------------------------------
+# Whole-model entry points
+# ---------------------------------------------------------------------------
+
+def prefill(cfg: ModelConfig, params, batch, cache, *, lens=None):
+    """Prompt pass over right-padded rows batch["tokens"] (b, s), writing
+    every layer's K/V into cache positions [0, s) in place. lens (b,): row
+    i's prompt is [0, lens[i]) and its logits come from its own last real
+    token (None: the last column). Returns (logits (b, V), cache)."""
+    tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device)
+    b, s = tokens.shape
+    x = _embed(cfg, params, tokens.long())
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    for i in range(cfg.num_layers):
+        _attn_only(cfg.layer_kind(i))
+        sp = slice_layer_params(cfg, params, i)
+        o, k, v = layers.attn_prefill(sp["mixer"], _norm(cfg, sp["ln1"], x),
+                                      cfg, positions=positions)
+        for n, t in (("k", k), ("v", v)):
+            cache["sub0"][n][i, :, :s] = t.to(cache["sub0"][n].dtype)
+        x = _mlp(cfg, sp, x + o)
+    if lens is not None:
+        last = torch.as_tensor(lens, device=x.device).long() - 1
+        x = x[torch.arange(b, device=x.device), last][:, None]
+    else:
+        x = x[:, -1:]
+    return _head(cfg, params, x)[:, 0], cache
+
+
+def decode_step(cfg: ModelConfig, params, tokens, cache, pos, *,
+                kv_start=None):
+    """One decode step against the contiguous cache, in place. tokens (b,);
+    pos a scalar or (b,) per-row absolute positions. Returns
+    (logits (b, V), cache)."""
+    tokens = torch.as_tensor(tokens, device=params["embed"].device).long()
+    x = _embed(cfg, params, tokens[:, None])
+    pos = torch.as_tensor(pos, device=x.device)
+    for i in range(cfg.num_layers):
+        _attn_only(cfg.layer_kind(i))
+        sp = slice_layer_params(cfg, params, i)
+        c = {n: cache["sub0"][n][i] for n in ("k", "v")}
+        o = layers.attn_decode(sp["mixer"], _norm(cfg, sp["ln1"], x), cfg,
+                               pos=pos, cache=c, kv_start=kv_start)
+        x = _mlp(cfg, sp, x + o)
+    return _head(cfg, params, x)[:, 0], cache
+
+
+def verify_step_paged(cfg: ModelConfig, params, tokens, caches, kv_start,
+                      q_len, block_tables):
+    """Speculative verification of each row's candidate chunk tokens
+    (b, T), row i's candidate j at absolute position kv_start[i] + j,
+    against per-layer page pools `caches` (one {"k","v"} per layer, written
+    in place) through block_tables (b, max_blocks). q_len (b,) real
+    candidate counts (0 = a dead row). Returns (logits (b, T, V) at every
+    position, caches)."""
+    dev = params["embed"].device
+    tokens = torch.as_tensor(tokens, device=dev).long()
+    starts = torch.as_tensor(kv_start, device=dev).long()
+    lens = torch.as_tensor(q_len, device=dev).long()
+    tbl = torch.as_tensor(block_tables, device=dev).to(torch.int32)
+    x = _embed(cfg, params, tokens)
+    positions = starts[:, None] + torch.arange(tokens.shape[1], device=dev)
+    for i, sc in enumerate(caches):
+        x = apply_sublayer_verify_paged(
+            cfg, cfg.layer_kind(i), slice_layer_params(cfg, params, i), x,
+            sc, positions=positions, q_len=lens, block_tables=tbl)
+    return _head(cfg, params, x), caches

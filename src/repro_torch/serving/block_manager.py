@@ -123,6 +123,20 @@ class BlockTable:
             self.pool.free(b)
         self.blocks.clear()
 
+    def truncate(self, n_tokens: int) -> int:
+        """Speculative-page rollback: shrink the table to the blocks that
+        hold ``n_tokens``, dropping one reference to each trailing block
+        (so a block aliased elsewhere, by the prefix index or another
+        table, stays resident for its other holders). Stale candidate K/V
+        in the kept tail block is masked by kv_len and overwritten by the
+        next chunk. Returns the number of blocks dropped."""
+        keep = blocks_for_tokens(n_tokens, self.pool.block_size)
+        dropped = 0
+        while len(self.blocks) > keep:
+            self.pool.free(self.blocks.pop())
+            dropped += 1
+        return dropped
+
     def adopt(self, blocks: Sequence[int]) -> None:
         """Append already-referenced block ids to the table, taking over
         their references (the landing step of prefix aliasing)."""

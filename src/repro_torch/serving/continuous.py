@@ -13,13 +13,17 @@ with the three paths of this slice:
     CONTEXT path, aliasing the longest indexed prefix and prefilling only
     the cold suffix, in chunks interleaved with decode (``_setup_slot``,
     ``_match_slot``, ``_prepare_chunk``, ``_prefill_step``,
-    ``_dispatch_chunks``, ``_register_prefix``).
+    ``_dispatch_chunks``, ``_register_prefix``);
+  * speculative decoding: each decode iteration becomes propose, verify
+    every slot's candidate chunk in one multi-token step, accept the
+    longest prefix matching the target's argmax chain and roll back the
+    speculative pages past it (``_spec_iteration``).
 
 The host logic is the reference's, line for line where it can be, so both
 engines make the same admission, allocation and preemption decisions and
-the same ServeStats counters come out. Speculative decoding, disaggregated
-roles, the host page tier, the cluster prefix directory, KVSAN, quantized
-pools and tracing wait for later slices (ROADMAP.md).
+the same ServeStats counters come out. Disaggregated roles, the host page
+tier, the cluster prefix directory, KVSAN, quantized pools and tracing wait
+for later slices (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ from repro_torch.serving.block_manager import (BlockPool, BlockTable,
 from repro_torch.serving.pipeline import (context_mode_supported,
                                           slot_mode_supported)
 from repro_torch.serving.request import Request
+from repro_torch.serving.spec import SpecConfig, greedy_accept
 
 
 @dataclasses.dataclass
@@ -235,6 +240,15 @@ class PagedPipelineBatcher(SlotEngine):
     prefill longer than N tokens into N-token chunks, one per iteration.
     ``prefill_token_cost`` (virtual clock) charges each prefilled token
     that fraction of an iteration.
+
+    ``spec`` (a ``serving.spec.SpecConfig``) turns on speculative
+    decoding: a proposer guesses up to ``spec.k`` candidates per slot, the
+    target verifies the bonus token plus all candidates in ONE multi-token
+    step (``pipeline.verify_slots_paged``), greedy acceptance commits 1 to
+    k + 1 tokens, and the pages past the committed length go back to the
+    pool (``BlockTable.truncate``). The committed stream is the same as
+    plain greedy decode's; only the step count changes. Needs an
+    attention-only stack.
     """
 
     def __init__(self, pipeline, *, n_slots: int = 8, max_len: int = 256,
@@ -243,7 +257,8 @@ class PagedPipelineBatcher(SlotEngine):
                  admit_headroom: Optional[int] = None, pad_id: int = 0,
                  virtual_step_cost: float = 1.0,
                  prefix_caching: bool = False, prefill_chunk: int = 0,
-                 prefill_token_cost: float = 0.0, replica_id: int = 0):
+                 prefill_token_cost: float = 0.0, replica_id: int = 0,
+                 spec: Optional[SpecConfig] = None):
         if not slot_mode_supported(pipeline.cfg):
             raise NotImplementedError(f"{pipeline.cfg.name}: slot mode "
                                       "needs a uniform text decoder")
@@ -260,6 +275,20 @@ class PagedPipelineBatcher(SlotEngine):
                          virtual_step_cost=virtual_step_cost)
         self.pipeline = pipeline
         self.replica_id = replica_id
+        self.spec = spec
+        self._proposer = None
+        if spec is not None and not context_mode_supported(pipeline.cfg):
+            warnings.warn(
+                f"{pipeline.cfg.name}: speculative decoding needs an "
+                "attention-only stack (a recurrent sublayer's state cannot "
+                "roll back past a rejected candidate); serving without it",
+                stacklevel=2)
+            self.spec = None
+        if self.spec is not None:
+            self._proposer = self.spec.build(
+                n_slots=n_slots, max_len=max_len,
+                vocab_size=pipeline.cfg.vocab_size, pad_id=pad_id,
+                device=pipeline.device, dtype=pipeline.dtype)
         self.block_size = block_size
         self.max_blocks = max_len // block_size
         # tokens of decode headroom a request must find free at admission
@@ -306,8 +335,13 @@ class PagedPipelineBatcher(SlotEngine):
         self.prefix_hit_tokens = 0
         self.prefill_tokens = 0
         self.cow_copies = 0
+        self.spec_steps = 0            # target multi-token verify steps
+        self.spec_proposed = 0         # draft tokens proposed
+        self.spec_accepted = 0         # draft tokens the target agreed with
+        self.spec_tokens = 0           # tokens committed via verify steps
         self.kv_bytes_resident = 0     # allocated page-pool bytes
         self._iter_prefill_tokens = 0
+        self._iter_spec_proposed = 0
 
     # ---- block accounting -------------------------------------------------
     def _min_pool_free(self) -> int:
@@ -605,6 +639,8 @@ class PagedPipelineBatcher(SlotEngine):
             if tabs is not None:
                 tabs[i].release()
         self._bt_cache = None
+        if self._proposer is not None:
+            self._proposer.release(i)
         # recompute: the request restarts from its prompt (greedy decode
         # regenerates the same prefix), at the FRONT of the queue
         self._queue.appendleft(s.req)
@@ -616,22 +652,127 @@ class PagedPipelineBatcher(SlotEngine):
             if tabs is not None:
                 tabs[i].release()
         self._bt_cache = None
+        if self._proposer is not None:
+            self._proposer.release(i)
+
+    # ---- speculative decoding (draft -> multi-token verify -> accept) ----
+    def _spec_iteration(self, now: float):
+        """One target step under speculative decoding: PROPOSE a candidate
+        chunk per decoding slot (the bonus token, the argmax plain decode
+        would feed next, plus up to ``spec.k`` drafts), ENSURE blocks and
+        copy-on-write for the whole chunk (a dry pool preempts the
+        youngest active slot, as decode growth does), VERIFY every slot's
+        chunk in one pipeline step, ACCEPT the longest draft prefix that
+        matches the target's argmax chain and ROLL BACK the pages past the
+        committed length."""
+        k = self.spec.k
+        items = []
+        for i, s in enumerate(self.slots):
+            if not s.decoding:
+                continue
+            bonus = int(self._last_logits[i].argmax())
+            # the chunk must fit the request's remaining budget AND the
+            # slot ceiling (writes stop at max_len - 2, like decode)
+            cap = max(min(k, s.remaining - 1, self.max_len - 2 - s.pos), 0)
+            hist = np.concatenate([
+                np.asarray(s.req.prompt, np.int32),
+                np.asarray(s.out, np.int32),
+                np.asarray([bonus], np.int32)])
+            items.append((i, bonus, hist, cap))
+        props = self._proposer.propose(
+            [(i, hist, cap) for i, _, hist, cap in items])
+        self._iter_spec_proposed += sum(len(p) for p in props.values())
+        # block growth + copy-on-write for the whole chunk, oldest first
+        plan = {}
+        empty = np.zeros(0, np.int32)
+        for i, bonus, hist, cap in sorted(
+                items, key=lambda it: self.slots[it[0]].seq):
+            if not self.slots[i].decoding:
+                continue           # preempted by an earlier slot's turn
+            drafts = np.asarray(props.get(i, empty), np.int32)[:cap]
+            while self.slots[i].decoding and not self._prepare_chunk(
+                    i, self.slots[i].pos + 1 + len(drafts)):
+                active = [j for j, sl in enumerate(self.slots)
+                          if not sl.free]
+                self._preempt(max(active, key=lambda j: self.slots[j].seq))
+            if self.slots[i].decoding:
+                plan[i] = (bonus, drafts)
+        if not plan:
+            return []              # everyone preempted themselves away
+        # joint verification: FIXED chunk width k + 1, per-slot real
+        # counts; absent slots are dead rows with null tables
+        T = k + 1
+        toks = np.zeros((self.n_slots, T), np.int32)
+        qlen = np.zeros((self.n_slots,), np.int32)
+        starts = np.zeros((self.n_slots,), np.int32)
+        for i, (bonus, drafts) in plan.items():
+            toks[i, 0] = bonus
+            toks[i, 1:1 + len(drafts)] = drafts
+            qlen[i] = 1 + len(drafts)
+            starts[i] = self.slots[i].pos
+        tables = [np.zeros((self.n_slots, self.max_blocks), np.int32)
+                  if tabs is None else
+                  np.stack([t.as_array(self.max_blocks) if j in plan
+                            else np.zeros(self.max_blocks, np.int32)
+                            for j, t in enumerate(tabs)])
+                  for tabs in self._tables]
+        logits = self.pipeline.verify_slots_paged(toks, qlen, starts, tables)
+        done = []
+        for i, (bonus, drafts) in plan.items():
+            s = self.slots[i]
+            commit, a = greedy_accept(logits[i], bonus, drafts)
+            self.spec_steps += 1
+            self.spec_proposed += len(drafts)
+            self.spec_accepted += a
+            self.spec_tokens += len(commit)
+            # logits[a] follows the last committed token: its argmax is the
+            # next step's bonus token
+            self._last_logits[i] = logits[i, a]
+            if not s.out and s.req.first_token_time is None:
+                s.req.first_token_time = now   # first-wins, like decode
+            s.out.extend(commit)
+            s.pos += len(commit)
+            s.remaining -= len(commit)
+            # speculative-page rollback: blocks wholly past the committed
+            # length go back to the pool (prefix-index aliases survive:
+            # truncate drops one reference like any release)
+            freed = 0
+            for tabs in self._tables:
+                if tabs is not None:
+                    freed += tabs[i].truncate(s.pos)
+            if freed:
+                self._bt_cache = None
+            if s.remaining <= 0 or s.pos >= self.max_len - 1:
+                done.append((s.req, s.out))
+                self._on_slot_free(i)
+                self.slots[i] = _Slot()
+            else:
+                self._proposer.commit(i, a)
+        return done
 
     def _step(self, now: float):
         if self._incremental:
             self._prefill_step(now)
         if any(s.decoding for s in self.slots):
+            if self.spec is not None:
+                return self._spec_iteration(now)
             return self._decode_iteration(now)
         return []                  # every occupied slot is still prefilling
 
     def run_iteration(self, now: float):
         self._iter_prefill_tokens = 0
+        self._iter_spec_proposed = 0
         comps, cost = super().run_iteration(now)
         # virtual accounting: charge prefilled tokens a fraction of an
         # iteration so chunking and prefix hits show up in latency
         if self._iter_prefill_tokens and self.prefill_token_cost:
             cost += (self.virtual_step_cost * self.prefill_token_cost
                      * self._iter_prefill_tokens)
+        # ... and draft proposals their configured fraction
+        if self._iter_spec_proposed and self.spec is not None \
+                and self.spec.draft_token_cost:
+            cost += (self.virtual_step_cost * self.spec.draft_token_cost
+                     * self._iter_spec_proposed)
         return comps, cost
 
     def _decode_all(self, toks, pos):

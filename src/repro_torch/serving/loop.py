@@ -86,6 +86,7 @@ class VirtualClock:
 # engine counters the loop reports as per-replay deltas
 COUNTERS = ("rejected", "preemptions", "prefix_lookups", "prefix_hits",
             "prefix_hit_tokens", "prefill_tokens", "cow_copies",
+            "spec_steps", "spec_proposed", "spec_accepted", "spec_tokens",
             "kv_bytes_resident")
 
 
@@ -105,6 +106,11 @@ class ServeStats:
     prefix_hit_tokens: int = 0     # prompt tokens served from resident blocks
     prefill_tokens: int = 0        # cold prompt tokens actually prefilled
     cow_copies: int = 0            # shared blocks copied before a write
+    # speculative decoding (PagedPipelineBatcher with spec=SpecConfig)
+    spec_steps: int = 0            # target multi-token verification steps
+    spec_proposed: int = 0         # draft tokens proposed
+    spec_accepted: int = 0         # draft tokens the target agreed with
+    spec_tokens: int = 0           # tokens committed via verification steps
     kv_bytes_resident: int = 0     # allocated page-pool bytes
     # total requests this replay accounted (served + rejected + dropped)
     n_requests: int = 0
@@ -122,6 +128,12 @@ class ServeStats:
             extra = (f" hit={hit * 100:.0f}% "
                      f"saved={self.prefix_hit_tokens}tok "
                      f"cow={self.cow_copies}")
+        if self.spec_steps:
+            acc = (self.spec_accepted / self.spec_proposed
+                   if self.spec_proposed else 0.0)
+            extra += (f" spec={self.spec_tokens}tok"
+                      f"/{self.spec_steps}step "
+                      f"acc={acc * 100:.0f}%")
         return (f"n={len(lat)} {pct}"
                 f"slo={self.attainment * 100:.1f}% "
                 f"thpt={self.throughput:.2f} req/s "

@@ -95,6 +95,13 @@ class StageExecutor:
                 block_tables=block_tables)
         return x
 
+    def verify_paged(self, x, caches, positions, q_len, block_tables):
+        for kind, lp, sc in zip(self.kinds, self.layer_params, caches):
+            x = M.apply_sublayer_verify_paged(
+                self.cfg, kind, lp, x, sc, positions=positions, q_len=q_len,
+                block_tables=block_tables)
+        return x
+
 
 class AsymmetricPipeline:
     """A full model replica as a chain of StageExecutors on one device."""
@@ -236,3 +243,29 @@ class AsymmetricPipeline:
             x = st.decode_paged(x, self.paged_caches[si], pos,
                                 self._tables(stage_tables[si]))
         return self._head(x)[:, 0]
+
+    @torch.inference_mode()
+    def verify_slots_paged(self, tokens: np.ndarray, q_len: np.ndarray,
+                           q_start: np.ndarray,
+                           stage_tables: Sequence[np.ndarray]) -> np.ndarray:
+        """Speculative verification over ALL slots: tokens (n_slots, T) is
+        each slot's candidate chunk (the bonus token plus its drafts,
+        right-padded to T = k + 1), row i's candidate j at absolute position
+        q_start[i] + j (the slot's committed length); q_len (n_slots,) real
+        candidate counts. Rows of free / mid-prefill slots carry q_len 0
+        and all-null tables, write into the trash page and come back as
+        garbage the engine discards. Returns logits (n_slots, T, V) at
+        every position: position j is the target's next-token distribution
+        after candidate j. Attention-only stacks."""
+        if not context_mode_supported(self.cfg):
+            raise NotImplementedError(f"{self.cfg.name}: verification "
+                                      "needs an attention-only stack")
+        T = np.asarray(tokens).shape[1]
+        lens_t = self._ints(q_len)
+        positions = self._ints(q_start)[:, None] + torch.arange(
+            T, device=self.device)
+        x = self._embed(tokens)
+        for si, st in enumerate(self.stages):
+            x = st.verify_paged(x, self.paged_caches[si], positions, lens_t,
+                                self._tables(stage_tables[si]))
+        return self._head(x)

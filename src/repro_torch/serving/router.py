@@ -1,14 +1,18 @@
 """Task coordinator of the port (twin of repro.serving.router.Router for
 ``policy="continuous"`` with ``cache_layout="paged"``): one paged
 continuous-batching worker per replica, least-loaded dispatch with the
-lowest replica id breaking ties, all driven by the one serving loop."""
+lowest replica id breaking ties, all driven by the one serving loop.
+``spec`` (a SpecConfig) turns on speculative decoding on every replica;
+``spec_ks`` gives each replica its own depth (0 = plain decode there)."""
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence
 
 from repro_torch.serving.continuous import PagedPipelineBatcher
 from repro_torch.serving.loop import ServeStats, WallClock, run_serve_loop
 from repro_torch.serving.request import Request
+from repro_torch.serving.spec import SpecConfig
 
 __all__ = ["Router", "ServeStats"]
 
@@ -19,7 +23,9 @@ class Router:
                  max_len: int = 256, block_size: int = 16,
                  stage_blocks=None, prefix_caching: bool = False,
                  prefill_chunk: int = 0, prefill_token_cost: float = 0.0,
-                 step_costs: Optional[Sequence[float]] = None):
+                 step_costs: Optional[Sequence[float]] = None,
+                 spec: Optional[SpecConfig] = None,
+                 spec_ks: Optional[Sequence[int]] = None):
         if policy != "continuous" or cache_layout != "paged":
             raise NotImplementedError(
                 f"policy={policy!r}, cache_layout={cache_layout!r}: the port "
@@ -31,12 +37,20 @@ class Router:
             step_costs = [1.0] * len(self.replicas)
         if len(step_costs) != len(self.replicas):
             raise ValueError("one step cost per replica")
+        if spec_ks is not None and len(spec_ks) != len(self.replicas):
+            raise ValueError("one spec depth per replica")
+
+        def replica_spec(i: int) -> Optional[SpecConfig]:
+            if spec is None or spec_ks is None:
+                return spec
+            return dataclasses.replace(spec, k=spec_ks[i]) \
+                if spec_ks[i] >= 1 else None
         self.workers = [PagedPipelineBatcher(
             r, n_slots=n_slots, max_len=max_len,
             block_size=block_size, stage_blocks=stage_blocks,
             prefix_caching=prefix_caching, prefill_chunk=prefill_chunk,
             prefill_token_cost=prefill_token_cost, virtual_step_cost=sc,
-            replica_id=i)
+            replica_id=i, spec=replica_spec(i))
             for i, (r, sc) in enumerate(zip(self.replicas, step_costs))]
 
     def serve(self, requests: Sequence[Request], deadline: float, *,

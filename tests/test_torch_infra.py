@@ -16,6 +16,7 @@ from repro.models import model as JM
 from repro_torch import bridge
 from repro_torch.configs import get_config as port_config
 from repro_torch.core import plan as port_plan
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
@@ -105,6 +106,10 @@ def test_kernel_wrappers_refuse_cpu_tensors(name):
                 q, k, k, torch.zeros(1, 1, dtype=torch.int32)),
             "paged_context_attention": lambda: pa.paged_context_attention_cuda(
                 q, k, k, torch.zeros(1, 1, dtype=torch.int32), q_start=[0],
+                kv_len=[1]),
+            "decode_attention": lambda: da.decode_attention_cuda(q, k, k),
+            "paged_verify_attention": lambda: pa.paged_verify_attention_cuda(
+                q, k, k, torch.zeros(1, 1, dtype=torch.int32), kv_start=[0],
                 kv_len=[1])}
     before = ops.launch_counts()
     with pytest.raises(ValueError, match="CUDA"):
@@ -130,8 +135,8 @@ def test_unported_features_raise_not_implemented():
     cfg = port_config("llama2-70b").reduced()
     asg = port_plan.Assignment([port_plan.PipelinePlan(
         [port_plan.StagePlan([0], 2)])])
-    with pytest.raises(NotImplementedError, match="spec_decode"):
-        InferenceEngine(cfg, asg, device="cpu", spec_decode=True)
+    with pytest.raises(NotImplementedError, match="disaggregate"):
+        InferenceEngine(cfg, asg, device="cpu", disaggregate=True)
     with pytest.raises(NotImplementedError, match="static"):
         InferenceEngine(cfg, asg, device="cpu", policy="static")
     with pytest.raises(NotImplementedError, match="quantized"):
