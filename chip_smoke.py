@@ -12,26 +12,33 @@ JAX. Phases, each of which raises on failure:
   2. kernels against their plain PyTorch versions on the card, at
      Llama-2-70B attention widths (hq 64, hkv 8, d 128, block 16) in bf16
      and fp32 and at the small head dims the CPU tests use (rows that see
-     no key must come out as exact zeros), then timed at the serving
-     path's shapes beside their bound, their plain version and, where one
-     PyTorch call computes the same function (flash and contiguous
-     decode), ``F.scaled_dot_product_attention``;
+     no key must come out as exact zeros), the three paged kernels also on
+     int8 and fp8 pools through their quantized kernels, then timed at
+     the serving path's shapes beside their bound, their plain version
+     and, where one PyTorch call computes the same function (flash and
+     contiguous decode), ``F.scaled_dot_product_attention``;
   3. serving at the full width of llama2-70b in bf16 (depth cut to 8 of 80
      layers, seeded random weights) through the asymmetric 2-stage paged
      pipeline: after a short warm-up serve, a synthetic workload (cold
      joint prefill + decode), a shared-prefix workload (prefix caching +
      chunked prefill), and the synthetic workload under speculative
      decoding twice, with the n-gram proposer and with a self-draft (the
-     draft model is the target: a second copy of its weights). Launch
+     draft model is the target: a second copy of its weights), then three
+     quantized serves: the shared-prefix workload on int8 pages with the
+     first and last layers at bf16, the synthetic one on fp8 pages under
+     n-gram speculation, and the synthetic one with int8 weights. Launch
      counters are zeroed before each serve and read after it, and every
-     kernel of that path must have run at least layers x steps times. One
-     more synthetic and one more self-draft serve run under torch.profiler
-     for a breakdown of device time;
+     kernel of that path must have run at least layers x steps times (on
+     quantized pools: the quantized kernels on the quantized layers, the
+     unquantized ones on the guard layers only). The synthetic,
+     shared-prefix, self-draft, quant-int8 and quant-w8 serves run once
+     more under torch.profiler for a breakdown of device time;
   4. engine parity at the same widths in fp32 (2 layers): the same
-     workloads, speculative ones included, served through the kernels and
-     through the plain versions must give identical tokens and ServeStats
-     counters, and the speculative serves must give plain greedy decode's
-     tokens.
+     workloads, speculative ones included, and the synthetic and
+     shared-prefix ones on int8 and fp8 pages and n-gram speculation on
+     int8 pages, served through the kernels and through the plain versions
+     must give identical tokens and ServeStats counters, and the
+     speculative serves must give plain greedy decode's tokens.
 
 The last line of standard output is the JSON result
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel
@@ -44,6 +51,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -71,6 +79,15 @@ KERNEL_INFO = {
                          "src/repro/kernels/decode_attention.py:63"),
     "paged_verify_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                "src/repro/kernels/paged_attention.py:424"),
+    "paged_decode_attention_quant": (
+        "src/repro_torch/csrc/paged_attention.cu",
+        "src/repro/kernels/paged_attention.py:165"),
+    "paged_context_attention_quant": (
+        "src/repro_torch/csrc/paged_attention.cu",
+        "src/repro/kernels/paged_attention.py:359"),
+    "paged_verify_attention_quant": (
+        "src/repro_torch/csrc/paged_attention.cu",
+        "src/repro/kernels/paged_attention.py:438"),
 }
 
 
@@ -101,9 +118,12 @@ def phase_device_and_build():
     for name, so in libs.items():
         report = so.with_suffix(".log")
         if report.exists():
-            for line in report.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"  ptxas {name}: {line.strip()}")
+            text = report.read_text()
+            regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+            spills = re.findall(r"(\d+) bytes spill stores", text)
+            log(f"  ptxas {name}: {len(regs)} kernels, {min(regs)}-"
+                f"{max(regs)} registers, {sum(int(x) > 0 for x in spills)} "
+                f"with spill stores (at most {max(map(int, spills))} bytes)")
     return smi
 
 
@@ -156,14 +176,25 @@ def flash_cases(gen, dev, dtype, hq=64, hkv=8, d=128):
         q, k, v, causal=False, kv_len=kv_len), None
 
 
-def _pool(gen, dev, dtype, n_blocks, bs, hkv, d):
-    return (_rand(gen, (n_blocks, bs, hkv, d), dtype, dev),
-            _rand(gen, (n_blocks, bs, hkv, d), dtype, dev))
+def _pool(gen, dev, dtype, n_blocks, bs, hkv, d, kv=None):
+    """Random K/V page pools in `dtype`, and {} for the ops call; with
+    `kv` ("int8" / "fp8") the pools are quantized rows and the dict holds
+    their k_scale / v_scale. The null page's scales are 0, as in a fresh
+    pool."""
+    from repro_torch.models import quant
+    kp = _rand(gen, (n_blocks, bs, hkv, d), dtype, dev)
+    vp = _rand(gen, (n_blocks, bs, hkv, d), dtype, dev)
+    if kv is None:
+        return kp, vp, {}
+    (kq, ks), (vq, vs) = (quant.quantize_kv_rows(t, kv) for t in (kp, vp))
+    ks[0] = 0.0
+    vs[0] = 0.0
+    return kq, vq, dict(k_scale=ks, v_scale=vs)
 
 
-def decode_cases(gen, dev, dtype, hq=64, hkv=8, d=128, bs=16):
+def decode_cases(gen, dev, dtype, hq=64, hkv=8, d=128, bs=16, kv=None):
     from repro_torch.kernels import ops
-    kp, vp = _pool(gen, dev, dtype, 48, bs, hkv, d)
+    kp, vp, sc = _pool(gen, dev, dtype, 48, bs, hkv, d, kv)
     nb = 8
     perm = torch.randperm(47, generator=gen, device=dev)[:5 * nb] + 1
     tbl = perm.reshape(5, nb).to(torch.int32)
@@ -171,12 +202,24 @@ def decode_cases(gen, dev, dtype, hq=64, hkv=8, d=128, bs=16):
     kv_len = torch.tensor([1, 17, nb * bs, 1, 33], device=dev)
     q = _rand(gen, (5, 1, hq, d), dtype, dev)
     yield "ragged+null-row", lambda: ops.paged_decode_attention(
-        q, kp, vp, tbl, kv_len=kv_len), None
+        q, kp, vp, tbl, kv_len=kv_len, **sc), None
+    if kv is None:
+        return
+    # split-KV over a 1600-key table: the short row has 2 live tiles and
+    # more splits than that, so its trailing splits see no key
+    kp, vp, sc = _pool(gen, dev, dtype, 301, bs, hkv, d, kv)
+    nb = 100
+    perm = torch.randperm(300, generator=gen, device=dev)[:3 * nb] + 1
+    tbl = perm.reshape(3, nb).to(torch.int32)
+    kv_len = torch.tensor([1600, 40, 999], device=dev)
+    q = _rand(gen, (3, 1, hq, d), dtype, dev)
+    yield "long+splits", lambda: ops.paged_decode_attention(
+        q, kp, vp, tbl, kv_len=kv_len, **sc), None
 
 
-def context_cases(gen, dev, dtype, hq=64, hkv=8, d=128, bs=16):
+def context_cases(gen, dev, dtype, hq=64, hkv=8, d=128, bs=16, kv=None):
     from repro_torch.kernels import ops
-    kp, vp = _pool(gen, dev, dtype, 48, bs, hkv, d)
+    kp, vp, sc = _pool(gen, dev, dtype, 48, bs, hkv, d, kv)
     nb = 8
     perm = torch.randperm(47, generator=gen, device=dev)[:4 * nb] + 1
     tbl = perm.reshape(4, nb).to(torch.int32)
@@ -186,7 +229,7 @@ def context_cases(gen, dev, dtype, hq=64, hkv=8, d=128, bs=16):
     q_start = torch.tensor([32, 21, 0, 0], device=dev)
     kv_len = q_start + torch.tensor([37, 20, 5, 0], device=dev)
     yield "boundary+midpage+dead", lambda: ops.paged_context_attention(
-        q, kp, vp, tbl, q_start=q_start, kv_len=kv_len), lambda o: o[3]
+        q, kp, vp, tbl, q_start=q_start, kv_len=kv_len, **sc), lambda o: o[3]
 
 
 def contiguous_decode_cases(gen, dev, dtype, hq=64, hkv=8, d=128):
@@ -213,9 +256,9 @@ def contiguous_decode_cases(gen, dev, dtype, hq=64, hkv=8, d=128):
         q, k, v, kv_len=kv_len, kv_start=kv_start), None
 
 
-def verify_cases(gen, dev, dtype, hq=64, hkv=8, d=128, bs=16):
+def verify_cases(gen, dev, dtype, hq=64, hkv=8, d=128, bs=16, kv=None):
     from repro_torch.kernels import ops
-    kp, vp = _pool(gen, dev, dtype, 48, bs, hkv, d)
+    kp, vp, sc = _pool(gen, dev, dtype, 48, bs, hkv, d, kv)
     nb = 8
     perm = torch.randperm(47, generator=gen, device=dev)[:4 * nb] + 1
     tbl = perm.reshape(4, nb).to(torch.int32)
@@ -227,20 +270,33 @@ def verify_cases(gen, dev, dtype, hq=64, hkv=8, d=128, bs=16):
     q_len = torch.tensor([5, 2, 0, 5], device=dev)
     q = _rand(gen, (4, 5, hq, d), dtype, dev)
     yield "T=5 padded+dead", lambda: ops.paged_verify_attention(
-        q, kp, vp, tbl, kv_start=kv_start, kv_len=kv_start + q_len), \
+        q, kp, vp, tbl, kv_start=kv_start, kv_len=kv_start + q_len, **sc), \
         lambda o: o[2]
     q1 = _rand(gen, (4, 1, hq, d), dtype, dev)
     start1 = torch.tensor([36, 25, 0, 127], device=dev)
     len1 = start1 + torch.tensor([1, 1, 0, 1], device=dev)
     yield "T=1", lambda: ops.paged_verify_attention(
-        q1, kp, vp, tbl, kv_start=start1, kv_len=len1), lambda o: o[2]
+        q1, kp, vp, tbl, kv_start=start1, kv_len=len1, **sc), lambda o: o[2]
+
+
+def _quantized(cases):
+    """The cases of a paged kernel on int8 and on fp8 pools (the ops calls
+    then carry k_scale / v_scale and reach the quantized kernel)."""
+    def quant_cases(gen, dev, dtype, **widths):
+        for kv in ("int8", "fp8"):
+            for case, fn, dead in cases(gen, dev, dtype, kv=kv, **widths):
+                yield f"{kv} {case}", fn, dead
+    return quant_cases
 
 
 CASES = {"flash_attention": flash_cases,
          "paged_decode_attention": decode_cases,
          "paged_context_attention": context_cases,
          "decode_attention": contiguous_decode_cases,
-         "paged_verify_attention": verify_cases}
+         "paged_verify_attention": verify_cases,
+         "paged_decode_attention_quant": _quantized(decode_cases),
+         "paged_context_attention_quant": _quantized(context_cases),
+         "paged_verify_attention_quant": _quantized(verify_cases)}
 
 
 def check_kernels(dev):
@@ -302,7 +358,9 @@ def timing_inputs(dev, gen):
     pool, a 4-row 256-token context chunk at 256-token offsets, a 16-slot
     draft decode step over 512..1100-token contexts of a 2048-wide
     contiguous cache, and a 16-slot verification of k + 1 = 5 candidates
-    at committed lengths 512..1100 in the same pool."""
+    at committed lengths 512..1100 in the same pool. The quantized paged
+    kernels take the same shapes on the pool's rows quantized to int8 and
+    to fp8 (``quant``: kv_dtype -> (k, v, k_scale, v_scale))."""
     dt, hq, hkv, d, bs = torch.bfloat16, 64, 8, 128, 16
     out = {}
     b, s = 16, 1024
@@ -311,7 +369,12 @@ def timing_inputs(dev, gen):
         k=_rand(gen, (b, s, hkv, d), dt, dev),
         v=_rand(gen, (b, s, hkv, d), dt, dev))
     n_blocks, nb = 16 * 128 + 1, 128
-    kp, vp = _pool(gen, dev, dt, n_blocks, bs, hkv, d)
+    kp, vp, _ = _pool(gen, dev, dt, n_blocks, bs, hkv, d)
+    from repro_torch.models import quant
+    out["quant"] = {}
+    for kv in ("int8", "fp8"):
+        (kq, ks), (vq, vs) = (quant.quantize_kv_rows(t, kv) for t in (kp, vp))
+        out["quant"][kv] = (kq, vq, ks, vs)
     tbl = (torch.randperm(n_blocks - 1, generator=gen, device=dev)
            + 1).reshape(16, nb).to(torch.int32)
     kv_len = torch.randint(512, 1041, (16,), generator=gen, device=dev)
@@ -419,6 +482,35 @@ def time_kernels(dev):
         + 4 * (w["tbl"].numel() + 32),
         flops=4 * d * hq * pairs, library_ms=None)
 
+    # the quantized kernels at the same shapes: the same calls with the
+    # pools' one-byte payloads and scales; a key costs 2 d + 8 bytes per kv
+    # head (K and V rows, two fp32 scales) instead of 2 d es
+    for kv, (kq, vq, ks, vs) in inp["quant"].items():
+        sc = dict(k_scale=ks, v_scale=vs)
+        tag = "" if kv == "int8" else f"[{kv}]"
+        kv_tok = int(x["kv_len"].sum())
+        res["paged_decode_attention_quant" + tag] = dict(
+            fn=lambda kq=kq, vq=vq, sc=sc: ops.paged_decode_attention(
+                x["q"], kq, vq, x["tbl"], kv_len=x["kv_len"], **sc),
+            nbytes=es * 2 * x["q"].numel() + kv_tok * hkv * (2 * d + 8)
+            + 4 * (x["tbl"].numel() + 16),
+            flops=res["paged_decode_attention"]["flops"], library_ms=None)
+        res["paged_context_attention_quant" + tag] = dict(
+            fn=lambda kq=kq, vq=vq, sc=sc: ops.paged_context_attention(
+                y["q"], kq, vq, y["tbl"], q_start=y["q_start"],
+                kv_len=y["kv_len"], **sc),
+            nbytes=es * 2 * y["q"].numel()
+            + sum(y["kv_len"].tolist()) * hkv * (2 * d + 8)
+            + 4 * (y["tbl"].numel() + 8),
+            flops=res["paged_context_attention"]["flops"], library_ms=None)
+        res["paged_verify_attention_quant" + tag] = dict(
+            fn=lambda kq=kq, vq=vq, sc=sc: ops.paged_verify_attention(
+                w["q"], kq, vq, w["tbl"], kv_start=w["kv_start"],
+                kv_len=w["kv_len"], **sc),
+            nbytes=es * 2 * w["q"].numel() + sum(lens) * hkv * (2 * d + 8)
+            + 4 * (w["tbl"].numel() + 32),
+            flops=res["paged_verify_attention"]["flops"], library_ms=None)
+
     out = {}
     for name, r in res.items():
         got, want = _run_both(r["fn"])
@@ -457,7 +549,8 @@ def _llama(num_layers):
 def _serve(cfg, asg, params, reqs, around=contextlib.nullcontext, **kw):
     """Serve reqs on a fresh engine, inside the context `around()` (the
     engine is built outside it); check every request got its tokens.
-    Returns (stats, wall seconds, draft decode steps run)."""
+    Returns (stats, wall seconds, dict(draft_steps: draft decode steps
+    run, weight_bytes: bytes of the replica's weights on the card))."""
     from repro_torch.serving.engine import InferenceEngine
     from repro_torch.serving.loop import VirtualClock
     eng = InferenceEngine(cfg, asg, params=params, device=DEVICE, **kw)
@@ -476,10 +569,16 @@ def _serve(cfg, asg, params, reqs, around=contextlib.nullcontext, **kw):
             raise AssertionError(f"request {r.rid}: token out of vocab")
     if stats.rejected or stats.dropped:
         raise AssertionError(stats.summary())
-    draft_steps = sum(getattr(w._proposer, "draft_steps", 0)
-                      for w in eng.router.workers)
+    info = dict(draft_steps=sum(getattr(w._proposer, "draft_steps", 0)
+                                for w in eng.router.workers))
+    weights = {}        # stages share the head's tensors: count each once
+    for st in eng.replicas[0].stages:
+        for t in _leaves({"layers": dict(enumerate(st.layer_params)),
+                          "head": st.head_params or {}}):
+            weights[t.data_ptr()] = t.numel() * t.element_size()
+    info["weight_bytes"] = sum(weights.values())
     del eng
-    return stats, wall, draft_steps
+    return stats, wall, info
 
 
 def _workloads(vocab, n, out_len, prompt_len=512, shared_len=1024):
@@ -497,29 +596,48 @@ def _workloads(vocab, n, out_len, prompt_len=512, shared_len=1024):
     return synth, shared
 
 
-def _check_path(name, stats, launched, draft_steps, reqs, L, n_slots):
-    """Raise unless the path `name` ran its kernels: at least L launches
-    per step of each kernel it drives."""
+PAGED = ("paged_decode_attention", "paged_context_attention",
+         "paged_verify_attention")
+
+
+def _check_path(name, stats, launched, draft_steps, reqs, L, n_slots, kw):
+    """Raise unless the path `name`, served with engine kwargs `kw`, ran its
+    kernels: at least L launches per step of each kernel it drives. On
+    quantized pools (``kv_dtype``) a paged step launches the quantized
+    kernel on the L - G quantized layers and the unquantized one on the G
+    guard layers only, so the two counts must stand in that ratio; without
+    ``kv_dtype`` no quantized kernel may run."""
     need = {}
     max_new = max(r.max_new_tokens for r in reqs)
     out_tok = sum(len(r.output) for r in reqs)
-    if name == "synthetic":
-        need["flash_attention"] = L                 # >= 1 joint prefill
-        need["paged_decode_attention"] = L * max_new
-    if name == "shared-prefix":
-        need["paged_context_attention"] = \
-            L * -(-len(reqs[0].prompt) // 256)      # the first prompt's chunks
-        need["paged_decode_attention"] = L * max_new
+    kv = kw.get("kv_dtype")
+    G = len(kw.get("kv_guard_layers", ()))
+
+    def paged(kernel, steps):
+        if kv is None:
+            need[kernel] = L * steps
+            return
+        need[kernel + "_quant"] = (L - G) * steps
+        if G:
+            need[kernel] = G * steps
+
+    if kw.get("prefix_caching"):
+        # the first prompt's chunks, then decode
+        paged("paged_context_attention", -(-len(reqs[0].prompt) // 256))
+        paged("paged_decode_attention", max_new)
         if stats.prefix_hits == 0:
             raise AssertionError(f"{name}: no prefix hit; {stats.summary()}")
-    if name.startswith("spec"):
+    elif kw.get("spec_decode"):
         # one verify dispatch serves every slot's chunk
-        need["paged_verify_attention"] = max(
-            1, -(-L * stats.spec_steps // n_slots))
+        paged("paged_verify_attention",
+              max(1, -(-stats.spec_steps // n_slots)))
         if stats.spec_tokens != out_tok:
             raise AssertionError(f"{name}: spec_tokens {stats.spec_tokens} "
                                  f"!= {out_tok} generated")
-    if name == "spec-draft":
+    else:
+        need["flash_attention"] = L                 # >= 1 joint prefill
+        paged("paged_decode_attention", max_new)
+    if kw.get("draft_model") is not None:
         need["decode_attention"] = max(1, L * draft_steps)
         if stats.spec_steps >= out_tok:
             raise AssertionError(f"{name}: {stats.spec_steps} target steps "
@@ -529,6 +647,12 @@ def _check_path(name, stats, launched, draft_steps, reqs, L, n_slots):
         if launched[k] < n:
             raise AssertionError(f"{name}: {k} ran {launched[k]} < {n} "
                                  "times")
+    for k in PAGED:
+        plain, quant = launched[k], launched[k + "_quant"]
+        if quant if kv is None else plain * (L - G) != quant * G:
+            raise AssertionError(
+                f"{name}: {k} ran {plain} times and its quantized kernel "
+                f"{quant} times on {L - G} quantized of {L} layers")
 
 
 def phase_serving(smi):
@@ -555,29 +679,36 @@ def phase_serving(smi):
     for kw in ({}, spec):
         _serve(cfg, asg, params,
                _workloads(cfg.vocab_size, n=4, out_len=4)[0], **common, **kw)
-    torch.cuda.reset_peak_memory_stats()
     counts = dict.fromkeys(ops.KERNELS, 0)
+    prefix = dict(prefix_caching=True, prefill_chunk=256)
     # the self-draft (draft_seed 0, like the target's weights) is a second
-    # copy of the 8-layer model with a 16 x 2048 contiguous cache
-    for name, kw in (("synthetic", {}),
-                     ("shared-prefix", dict(prefix_caching=True,
-                                            prefill_chunk=256)),
-                     ("spec-ngram", spec),
-                     ("spec-draft", dict(spec, draft_model=cfg))):
+    # copy of the 8-layer model with a 16 x 2048 contiguous cache; the
+    # quantized serves keep the first and last layers' pools at bf16
+    serves = (("synthetic", {}), ("shared-prefix", prefix),
+              ("spec-ngram", spec), ("spec-draft", dict(spec, draft_model=cfg)),
+              ("quant-int8", dict(prefix, kv_dtype="int8",
+                                  kv_guard_layers=(0, L - 1))),
+              ("quant-fp8-ngram", dict(spec, kv_dtype="fp8")),
+              ("quant-w8", dict(quantize=True)))
+    outputs, peaks = {}, []
+    for name, kw in serves:
         synth, shared = _workloads(cfg.vocab_size, n=16, out_len=32)
-        reqs = shared if name == "shared-prefix" else synth
+        base = "shared-prefix" if kw.get("prefix_caching") else "synthetic"
+        reqs = shared if base == "shared-prefix" else synth
+        torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
-        stats, wall, draft_steps = _serve(cfg, asg, params, reqs, **common,
-                                          **kw)
+        stats, wall, info = _serve(cfg, asg, params, reqs, **common, **kw)
         launched = ops.launch_counts()
+        peaks.append(torch.cuda.max_memory_allocated())
         for k in counts:
             counts[k] += launched[k]
+        outputs[name] = [list(r.output) for r in reqs]
         out_tok = sum(len(r.output) for r in reqs)
         in_tok = sum(len(r.prompt) for r in reqs)
         acc = (f"; accept rate {stats.spec_accepted / stats.spec_proposed:.3f}"
                f" ({stats.spec_accepted}/{stats.spec_proposed}), "
                f"{out_tok / stats.spec_steps:.2f} tokens per slot step, "
-               f"{draft_steps} draft steps"
+               f"{info['draft_steps']} draft steps"
                if stats.spec_proposed else "")
         log(f"  serve {name}: {len(reqs)} requests, {in_tok} prompt + "
             f"{out_tok} generated tokens in {wall:.3f} s wall = "
@@ -585,14 +716,34 @@ def phase_serving(smi):
             f"{(in_tok + out_tok) / wall:.1f} total tok/s; "
             f"{stats.iterations} iterations; {stats.summary()}{acc}; "
             f"launches {launched}")
-        _check_path(name, stats, launched, draft_steps, reqs, L,
-                    common["n_slots"])
-    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-        f" GiB (torch.cuda.max_memory_allocated) on {smi}")
-    for name, kw in (("synthetic", {}),
-                     ("spec-draft", dict(spec, draft_model=cfg))):
-        synth, _ = _workloads(cfg.vocab_size, n=16, out_len=32)
-        profile_serve(name, cfg, asg, params, synth, **common, **kw)
+        # at full width on random weights near-ties are common, so how
+        # many greedy outputs a serve keeps against the plain bf16 serve of
+        # its workload is reported, not gated; the bf16 spec serves (the
+        # same weights and pools, another attention path) show how far
+        # rounding alone moves them
+        max_new = max(r.max_new_tokens for r in reqs)
+        same = sum(a == b for a, b in zip(outputs[name], outputs[base]))
+        lead = np.mean([next((j for j, (x, y) in enumerate(zip(a, b))
+                              if x != y), len(a))
+                        for a, b in zip(outputs[name], outputs[base])])
+        log(f"  memory {name}: kv_bytes_resident {stats.kv_bytes_resident} "
+            f"({stats.kv_bytes_resident / 2**30:.3f} GiB), kv_bytes_saved "
+            f"{stats.kv_bytes_saved} ({stats.kv_bytes_saved / 2**30:.3f} "
+            f"GiB), weights {info['weight_bytes'] / 2**30:.2f} GiB, peak "
+            f"device memory {peaks[-1] / 2**30:.2f} GiB; "
+            + (f"{same}/{len(reqs)} requests' greedy outputs equal the bf16 "
+               f"{base} serve's, the first {lead:.2f} of {max_new} tokens "
+               "agree on average" if name != base else ""))
+        _check_path(name, stats, launched, info["draft_steps"], reqs, L,
+                    common["n_slots"], kw)
+    log(f"  peak device memory {max(peaks) / 2**30:.2f} GiB over the serves "
+        f"(torch.cuda.max_memory_allocated) on {smi}")
+    for name, kw in serves:
+        if name in ("synthetic", "shared-prefix", "spec-draft", "quant-int8",
+                    "quant-w8"):
+            synth, shared = _workloads(cfg.vocab_size, n=16, out_len=32)
+            reqs = shared if kw.get("prefix_caching") else synth
+            profile_serve(name, cfg, asg, params, reqs, **common, **kw)
     del params
     torch.cuda.empty_cache()
     return counts
@@ -604,6 +755,8 @@ def _kernel_group(name):
     if any(t in name.lower() for t in ("gemm", "cutlass", "sm90_xmma",
                                        "nvjet", "gemv")):
         return "matmul (cuBLAS)"
+    if "copy" in name:
+        return "copies / casts"
     if "elementwise" in name or "vectorized" in name or "reduce" in name:
         return "elementwise / reductions"
     if "index" in name.lower() or "scatter" in name or "gather" in name:
@@ -659,12 +812,28 @@ def _logit_margin(cfg, params, tokens):
     return float(top[0] - top[1])
 
 
+def _parted(cfg, params, prompts, got, want, what):
+    """Raise at the first token where the streams `got` and `want` part,
+    with the greedy top-2 logit margin after `want`'s prefix there."""
+    i, j = next((i, j) for i, (a, b) in enumerate(zip(want, got))
+                for j, (x, y) in enumerate(zip(a, b)) if x != y)
+    margin = _logit_margin(cfg, params, prompts[i] + want[i][:j])
+    raise AssertionError(
+        f"{what} part for request {i} at token {j} ({got[i][j]} vs "
+        f"{want[i][j]}); the greedy top-2 logit margin there is "
+        f"{margin:.3g}")
+
+
 def phase_parity():
     """The same workloads served through the kernels and through the plain
     versions (fp32, full width, 2 layers): identical greedy tokens and
-    ServeStats counters. The speculative serves (n-gram, and a self-draft:
-    draft_seed 0 draws the target's weights) must also give the plain
-    greedy serve's tokens (tests/test_spec.py's contract)."""
+    ServeStats counters, the page pools' byte counts included. The
+    speculative serves (n-gram, and a self-draft: draft_seed 0 draws the
+    target's weights) must also give the plain greedy serve's tokens on
+    pools of the same precision (tests/test_spec.py's contract). The
+    synthetic and shared-prefix workloads run again on int8 and on fp8
+    pools, and n-gram speculation on int8 pools: the quantized kernels
+    against their plain versions."""
     from repro_torch.core.plan import Assignment, PipelinePlan, StagePlan
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
@@ -676,43 +845,41 @@ def phase_parity():
     fields = ("latencies", "iterations", "prefill_tokens", "prefix_lookups",
               "prefix_hits", "prefix_hit_tokens", "cow_copies",
               "preemptions", "spec_steps", "spec_proposed", "spec_accepted",
-              "spec_tokens")
+              "spec_tokens", "kv_bytes_resident", "kv_bytes_saved")
     spec = dict(spec_decode=True, spec_k=4)
-    greedy = None
-    for name, kw in (("synthetic", {}),
-                     ("shared-prefix", dict(prefix_caching=True,
-                                            prefill_chunk=256)),
+    prefix = dict(prefix_caching=True, prefill_chunk=256)
+    greedy = {}          # kv_dtype -> the plain greedy serve's tokens
+    for name, kw in (("synthetic", {}), ("shared-prefix", prefix),
                      ("spec-ngram", spec),
-                     ("spec-draft", dict(spec, draft_model=cfg))):
+                     ("spec-draft", dict(spec, draft_model=cfg)),
+                     ("synthetic int8", dict(kv_dtype="int8")),
+                     ("shared-prefix int8", dict(prefix, kv_dtype="int8")),
+                     ("synthetic fp8", dict(kv_dtype="fp8")),
+                     ("shared-prefix fp8", dict(prefix, kv_dtype="fp8")),
+                     ("spec-ngram int8", dict(spec, kv_dtype="int8"))):
         outs = []
         for backend in ("kernel", "plain"):
             synth, shared = _workloads(cfg.vocab_size, n=6, out_len=8)
-            reqs = shared if name == "shared-prefix" else synth
+            reqs = shared if kw.get("prefix_caching") else synth
             with ops.backend(backend):
                 stats, wall, _ = _serve(cfg, asg, params, reqs, **common,
                                         **kw)
             outs.append(([list(r.output) for r in reqs], stats, wall))
         (tk, sk, wk), (tp, sp, wp) = outs
+        prompts = [list(r.prompt) for r in reqs]
         if tk != tp:
-            bad = [i for i, (a, b) in enumerate(zip(tk, tp)) if a != b]
-            raise AssertionError(f"{name}: kernel and plain token streams "
-                                 f"differ for requests {bad}")
+            _parted(cfg, params, prompts, tk, tp,
+                    f"{name}: the kernel and plain token streams")
         for f in fields:
             if getattr(sk, f) != getattr(sp, f):
                 raise AssertionError(f"{name}: ServeStats.{f} differs: "
                                      f"{getattr(sk, f)} vs {getattr(sp, f)}")
-        if name == "synthetic":
-            greedy = tk
-        elif name.startswith("spec") and tk != greedy:
-            i, j = next((i, j) for i, (a, b) in enumerate(zip(greedy, tk))
-                        for j, (x, y) in enumerate(zip(a, b)) if x != y)
-            prompt = list(_workloads(cfg.vocab_size, n=6, out_len=8)[0][i]
-                          .prompt)
-            margin = _logit_margin(cfg, params, prompt + greedy[i][:j])
-            raise AssertionError(
-                f"{name}: request {i} parts from plain greedy at token {j} "
-                f"({tk[i][j]} vs {greedy[i][j]}); the greedy top-2 logit "
-                f"margin there is {margin:.3g}")
+        kv = kw.get("kv_dtype")
+        if name.startswith("synthetic"):
+            greedy[kv] = tk
+        elif name.startswith("spec") and tk != greedy[kv]:
+            _parted(cfg, params, prompts, tk, greedy[kv],
+                    f"{name}: the spec and plain greedy token streams")
         log(f"  parity {name}: {len(tk)} requests x {len(tk[0])} tokens "
             f"identical through kernels ({wk:.3f} s) and plain versions "
             f"({wp:.3f} s)"

@@ -8,22 +8,31 @@ port's model code reads the tree as it is (``models.model``). Weights keep
 the reference's (in, out) layout, so every product stays ``x @ w`` and a
 bridged model computes the same function as the reference. The bridge
 takes and returns numpy only; converting a JAX tree to numpy is the
-caller's step (``jax.tree.map(np.asarray, params)``).
+caller's step (``jax.tree.map(np.asarray, params)``). A weight-only int8
+leaf of a quantized tree ({"q": int8, "s": float32}) bridges as it is:
+``dtype`` casts float leaves only, never a quantized leaf's payload or
+scales.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.models.quant import is_quantized
+
 
 def params_from_numpy(tree, *, device, dtype=None):
     """Nested dict of numpy arrays -> the same dict of tensors on `device`
-    (cast to `dtype` when given)."""
+    (float leaves outside a quantized {"q", "s"} leaf cast to `dtype` when
+    given)."""
     if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device=device, dtype=dtype)
+        keep = is_quantized(tree)
+        return {k: params_from_numpy(v, device=device,
+                                     dtype=None if keep else dtype)
                 for k, v in tree.items()}
     t = torch.tensor(np.asarray(tree))        # a copy: inputs may be read-only
-    return t.to(device=device, dtype=dtype if dtype is not None else t.dtype)
+    cast = dtype is not None and t.is_floating_point()
+    return t.to(device=device, dtype=dtype if cast else t.dtype)
 
 
 def params_to_numpy(tree):

@@ -1,7 +1,8 @@
 // Shared core of the port's attention kernels (flash prefill, paged decode,
-// paged context prefill): one tiled online-softmax attention body whose only
-// differences are where a key row comes from (a contiguous (b, skv, hkv, d)
-// cache, or a page pool read through a per-row block table) and the mask.
+// paged context prefill and verification, contiguous decode): one tiled
+// online-softmax attention body whose only differences are where a key row
+// comes from (a contiguous (b, skv, hkv, d) cache, or a page pool read
+// through a per-row block table), the mask, and the element type of K/V.
 //
 // Layout of one thread block: 256 threads as a 16 x 16 grid (ty, tx). The
 // block owns BQ = 16 * ROWS query ROWS, where a row is one (position, query
@@ -29,9 +30,23 @@
 // (decode) whose partial states combine_splits merges. wgmma, TMA and
 // cp.async pipelining are later work; see PERF.md for where each kernel
 // stands against its bound.
+//
+// Quantized page pools (KV = int8_t or __nv_fp8_e4m3, with per-token-per-
+// head fp32 scale pools (n_blocks, bs, hkv) in AttnParams::k_scale/v_scale)
+// run through the same two bodies. A thread still owns one 16-byte load,
+// which now holds 16 one-byte elements of a K or V row; they are widened
+// on their way into shared memory (to fp32 in attn_fwd, to bf16 in
+// attn_fwd_mma: every int8 and every e4m3 value is exact in bf16). The
+// tile's K and V scales are staged in shared memory, one load per key row
+// and kv head, and folded into the arithmetic instead of dequantizing
+// the tile: s_j = (q . kq_j) * k_scale_j * scale before the running max,
+// and the probability that weighs row j of V is p_j * v_scale_j (the row
+// sum l keeps the unscaled p_j). A null page's scales are 0, so a free
+// slot's row reads 0 * payload and stays finite.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -60,6 +75,36 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* src,
     dst[2 * i + 1] = f.y;
   }
 }
+// 16 one-byte elements of a quantized K/V row, widened to float (exact)
+template <typename KV>
+__device__ __forceinline__ void unpack16(const uint4& v, float (&dst)[16]);
+template <>
+__device__ __forceinline__ void unpack16<int8_t>(const uint4& v,
+                                                 float (&dst)[16]) {
+  const int8_t* b = reinterpret_cast<const int8_t*>(&v);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) dst[i] = static_cast<float>(b[i]);
+}
+template <>
+__device__ __forceinline__ void unpack16<__nv_fp8_e4m3>(const uint4& v,
+                                                        float (&dst)[16]) {
+  const __nv_fp8x2_storage_t* h =
+      reinterpret_cast<const __nv_fp8x2_storage_t*>(&v);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float2 f =
+        __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(h[i], __NV_E4M3)));
+    dst[2 * i] = f.x;
+    dst[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void load16(const int8_t* src, float (&dst)[16]) {
+  unpack16<int8_t>(*reinterpret_cast<const uint4*>(src), dst);
+}
+__device__ __forceinline__ void load16(const __nv_fp8_e4m3* src,
+                                       float (&dst)[16]) {
+  unpack16<__nv_fp8_e4m3>(*reinterpret_cast<const uint4*>(src), dst);
+}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
@@ -83,6 +128,10 @@ struct AttnParams {
   // d + 2) fp32, merged by combine_splits
   int n_split;
   float* part;
+  // quantized pools: (n_blocks, bs, hkv) fp32 scales of K and V rows, or
+  // null for pools stored in q's dtype
+  const float* k_scale;
+  const float* v_scale;
 };
 
 // Row of key position kpos in the K/V arrays: (b, skv) rows for a
@@ -97,29 +146,36 @@ __device__ __forceinline__ int64_t key_row(const AttnParams& p, int bi,
   return bi * (int64_t)p.skv + kpos;
 }
 
-template <int ROWS, int D>
+template <int ROWS, int D, bool QUANT>
 constexpr size_t smem_bytes() {
   return sizeof(float) * (16 * ROWS * (D + 1) + BK * (D + 1) + BK * D +
-                          16 * ROWS * (BK + 1));
+                          16 * ROWS * (BK + 1) + (QUANT ? 2 * BK : 0));
 }
 
-template <typename T, int D, int ROWS, bool PAGED>
+// T: q / o element type; KV: K / V element type (T, or a one-byte
+// quantized payload read with the scales of AttnParams)
+template <typename T, typename KV, int D, int ROWS, bool PAGED>
 __global__ void __launch_bounds__(THREADS) attn_fwd(AttnParams p) {
+  constexpr bool QUANT = sizeof(KV) == 1;
   constexpr int BQ = 16 * ROWS;
   constexpr int DP = D + 1;
   constexpr int PP = BK + 1;
   constexpr int DC = D / 16;
-  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
-  constexpr int DV = D / VEC;          // 16-byte loads per row
+  constexpr int VEC = 16 / sizeof(T);    // q elements per 16-byte load
+  constexpr int DV = D / VEC;            // 16-byte loads per q row
+  constexpr int KVEC = 16 / sizeof(KV);  // K/V elements per 16-byte load
+  constexpr int KDV = D / KVEC;          // 16-byte loads per K/V row
   extern __shared__ float smem[];
   float* sQ = smem;
   float* sK = sQ + BQ * DP;
   float* sV = sK + BK * DP;
   float* sP = sV + BK * D;
+  float* sKs = sP + BQ * PP;  // QUANT: the tile's K and V scales
+  float* sVs = sKs + BK;
 
   const T* Q = static_cast<const T*>(p.q);
-  const T* K = static_cast<const T*>(p.k);
-  const T* V = static_cast<const T*>(p.v);
+  const KV* K = static_cast<const KV*>(p.k);
+  const KV* V = static_cast<const KV*>(p.v);
   T* O = static_cast<T*>(p.o);
 
   const int tx = threadIdx.x & 15;
@@ -180,18 +236,31 @@ __global__ void __launch_bounds__(THREADS) attn_fwd(AttnParams p) {
 
   for (int k0 = lo; k0 < hi; k0 += BK) {
     __syncthreads();  // the previous tile's readers are done with sK/sV/sP
-    for (int idx = threadIdx.x; idx < BK * DV; idx += THREADS) {
-      const int j = idx / DV, dd = (idx % DV) * VEC, kpos = k0 + j;
-      float kv[VEC] = {}, vv[VEC] = {};
+    for (int idx = threadIdx.x; idx < BK * KDV; idx += THREADS) {
+      const int j = idx / KDV, dd = (idx % KDV) * KVEC, kpos = k0 + j;
+      float kv[KVEC] = {}, vv[KVEC] = {};
       if (kpos < hi) {
         const int64_t off = (key_row<PAGED>(p, bi, kpos) * p.hkv + kvh) * D + dd;
         load16(K + off, kv);
         load16(V + off, vv);
       }
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) {
+      for (int i = 0; i < KVEC; ++i) {
         sK[j * DP + dd + i] = kv[i];
         sV[j * D + dd + i] = vv[i];
+      }
+    }
+    if constexpr (QUANT) {
+      for (int j = threadIdx.x; j < BK; j += THREADS) {
+        const int kpos = k0 + j;
+        float ks = 0.f, vs = 0.f;
+        if (kpos < hi) {
+          const int64_t r = key_row<PAGED>(p, bi, kpos) * p.hkv + kvh;
+          ks = p.k_scale[r];
+          vs = p.v_scale[r];
+        }
+        sKs[j] = ks;
+        sVs[j] = vs;
       }
     }
     __syncthreads();
@@ -220,7 +289,9 @@ __global__ void __launch_bounds__(THREADS) attn_fwd(AttnParams p) {
         bool ok = live[i] && kpos >= kv_begin && kpos < kv_end;
         if (p.causal) ok = ok && kpos <= qpos[i];
         if (p.window > 0) ok = ok && kpos > qpos[i] - p.window;
-        s[i][j] = ok ? s[i][j] * p.scale : NEG_INF;
+        float sv = s[i][j];
+        if constexpr (QUANT) sv *= sKs[tx + 16 * j];
+        s[i][j] = ok ? sv * p.scale : NEG_INF;
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
@@ -231,7 +302,9 @@ __global__ void __launch_bounds__(THREADS) attn_fwd(AttnParams p) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const float pv = s[i][j] <= NEG_INF / 2 ? 0.f : expf(s[i][j] - m_new);
-        sP[(ty + 16 * i) * PP + tx + 16 * j] = pv;
+        float pw = pv;  // the weight of V row j: p_j * v_scale_j
+        if constexpr (QUANT) pw *= sVs[tx + 16 * j];
+        sP[(ty + 16 * i) * PP + tx + 16 * j] = pw;
         rs += pv;
       }
 #pragma unroll
@@ -304,10 +377,10 @@ __global__ void __launch_bounds__(D) combine_splits(AttnParams p) {
   store(out + threadIdx.x, mx <= NEG_INF / 2 ? 0.f : o / fmaxf(l, 1e-30f));
 }
 
-template <typename T, int D, int ROWS, bool PAGED>
+template <typename T, typename KV, int D, int ROWS, bool PAGED>
 cudaError_t launch(const AttnParams& p, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<ROWS, D>();
-  auto kern = attn_fwd<T, D, ROWS, PAGED>;
+  constexpr size_t smem = smem_bytes<ROWS, D, sizeof(KV) == 1>();
+  auto kern = attn_fwd<T, KV, D, ROWS, PAGED>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -342,9 +415,24 @@ constexpr int MMA_THREADS = 128;
 constexpr int MMA_BQ = 64;
 constexpr int MMA_BK = 64;
 
-template <int D>
+template <int D, bool QUANT>
 constexpr size_t mma_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (MMA_BQ + 2 * MMA_BK) * (D + 8);
+  return sizeof(__nv_bfloat16) * (MMA_BQ + 2 * MMA_BK) * (D + 8) +
+         (QUANT ? sizeof(float) * 2 * MMA_BK : 0);
+}
+
+// 16 one-byte K/V elements -> 16 bf16 at dst (16-byte aligned); exact
+template <typename KV>
+__device__ __forceinline__ void widen16_bf16(const uint4& raw,
+                                             __nv_bfloat16* dst) {
+  float f[16];
+  unpack16<KV>(raw, f);
+  uint4 out[2];
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(out);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+  reinterpret_cast<uint4*>(dst)[0] = out[0];
+  reinterpret_cast<uint4*>(dst)[1] = out[1];
 }
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* ptr) {
@@ -385,21 +473,28 @@ __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1,
       : "r"(addr));
 }
 
-template <int D, bool PAGED>
+// KV: __nv_bfloat16, or a one-byte quantized payload (int8_t,
+// __nv_fp8_e4m3) widened to bf16 on its way into shared memory
+template <typename KV, int D, bool PAGED>
 __global__ void __launch_bounds__(MMA_THREADS) attn_fwd_mma(AttnParams p) {
+  constexpr bool QUANT = sizeof(KV) == 1;
   constexpr int LD = D + 8;       // padded rows: conflict-free fragment loads
   constexpr int KD = D / 16;      // k-steps of Q K^T
   constexpr int ND = D / 8;       // output column blocks of P V
   constexpr int NB = MMA_BK / 8;  // key column blocks of S
-  constexpr int DV = D / 8;       // 16-byte loads per row
+  constexpr int DV = D / 8;       // 16-byte loads per q row
+  constexpr int KVEC = 16 / sizeof(KV);
+  constexpr int KDV = D / KVEC;   // 16-byte loads per K/V row
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* sK = sQ + MMA_BQ * LD;
   __nv_bfloat16* sV = sK + MMA_BK * LD;
+  float* sKs = reinterpret_cast<float*>(sV + MMA_BK * LD);  // QUANT scales
+  float* sVs = sKs + MMA_BK;
 
   const __nv_bfloat16* Q = static_cast<const __nv_bfloat16*>(p.q);
-  const __nv_bfloat16* K = static_cast<const __nv_bfloat16*>(p.k);
-  const __nv_bfloat16* V = static_cast<const __nv_bfloat16*>(p.v);
+  const KV* K = static_cast<const KV*>(p.k);
+  const KV* V = static_cast<const KV*>(p.v);
   __nv_bfloat16* O = static_cast<__nv_bfloat16*>(p.o);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -454,8 +549,8 @@ __global__ void __launch_bounds__(MMA_THREADS) attn_fwd_mma(AttnParams p) {
 
   for (int k0 = lo; k0 < hi; k0 += MMA_BK) {
     __syncthreads();  // the previous tile's readers are done with sK/sV
-    for (int idx = threadIdx.x; idx < MMA_BK * DV; idx += MMA_THREADS) {
-      const int j = idx / DV, c = (idx % DV) * 8, kpos = k0 + j;
+    for (int idx = threadIdx.x; idx < MMA_BK * KDV; idx += MMA_THREADS) {
+      const int j = idx / KDV, c = (idx % KDV) * KVEC, kpos = k0 + j;
       uint4 kv = make_uint4(0, 0, 0, 0), vv = kv;
       if (kpos < hi) {
         const int64_t off =
@@ -463,8 +558,26 @@ __global__ void __launch_bounds__(MMA_THREADS) attn_fwd_mma(AttnParams p) {
         kv = *reinterpret_cast<const uint4*>(K + off);
         vv = *reinterpret_cast<const uint4*>(V + off);
       }
-      *reinterpret_cast<uint4*>(sK + j * LD + c) = kv;
-      *reinterpret_cast<uint4*>(sV + j * LD + c) = vv;
+      if constexpr (QUANT) {
+        widen16_bf16<KV>(kv, sK + j * LD + c);
+        widen16_bf16<KV>(vv, sV + j * LD + c);
+      } else {
+        *reinterpret_cast<uint4*>(sK + j * LD + c) = kv;
+        *reinterpret_cast<uint4*>(sV + j * LD + c) = vv;
+      }
+    }
+    if constexpr (QUANT) {
+      for (int j = threadIdx.x; j < MMA_BK; j += MMA_THREADS) {
+        const int kpos = k0 + j;
+        float ks = 0.f, vs = 0.f;
+        if (kpos < hi) {
+          const int64_t r = key_row<PAGED>(p, bi, kpos) * p.hkv + kvh;
+          ks = p.k_scale[r];
+          vs = p.v_scale[r];
+        }
+        sKs[j] = ks;
+        sVs[j] = vs;
+      }
     }
     __syncthreads();
 
@@ -490,7 +603,9 @@ __global__ void __launch_bounds__(MMA_THREADS) attn_fwd_mma(AttnParams p) {
         bool ok = live[h] && kpos >= kv_begin && kpos < kv_end;
         if (p.causal) ok = ok && kpos <= qpos[h];
         if (p.window > 0) ok = ok && kpos > qpos[h] - p.window;
-        s[nb][e] = ok ? s[nb][e] * p.scale : NEG_INF;
+        float sv = s[nb][e];
+        if constexpr (QUANT) sv *= sKs[nb * 8 + 2 * tq + (e & 1)];
+        s[nb][e] = ok ? sv * p.scale : NEG_INF;
         mx[h] = fmaxf(mx[h], s[nb][e]);
       }
     }
@@ -524,6 +639,12 @@ __global__ void __launch_bounds__(MMA_THREADS) attn_fwd_mma(AttnParams p) {
         acc[nd][2 * h] *= corr;
         acc[nd][2 * h + 1] *= corr;
       }
+    }
+    if constexpr (QUANT) {  // weigh V row j by p_j * v_scale_j
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nb][e] *= sVs[nb * 8 + 2 * tq + (e & 1)];
     }
 
     // O += P V, 16 keys per step; P's accumulator layout is the A layout
@@ -563,10 +684,10 @@ __global__ void __launch_bounds__(MMA_THREADS) attn_fwd_mma(AttnParams p) {
   }
 }
 
-template <int D, bool PAGED>
+template <typename KV, int D, bool PAGED>
 cudaError_t launch_mma(const AttnParams& p, cudaStream_t stream) {
-  constexpr size_t smem = mma_smem_bytes<D>();
-  auto kern = attn_fwd_mma<D, PAGED>;
+  constexpr size_t smem = mma_smem_bytes<D, sizeof(KV) == 1>();
+  auto kern = attn_fwd_mma<KV, D, PAGED>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -582,43 +703,65 @@ cudaError_t launch_mma(const AttnParams& p, cudaStream_t stream) {
 // Larger blocks take the tensor-core body in bf16 and the scalar 64-row
 // block in fp32 (mma.sync has no fp32 inputs; the fp32 path is the one the
 // parity runs use). Head dims the port serves: 32, 64, 128.
-template <typename T, bool PAGED>
+template <typename T, typename KV, bool PAGED>
 cudaError_t dispatch_d(const AttnParams& p, int d, cudaStream_t stream) {
   const bool small = p.sq * (p.hq / p.hkv) <= 16;
-  if (sizeof(T) == 2 && !small) {
-    switch (d) {
-      case 32:
-        return launch_mma<32, PAGED>(p, stream);
-      case 64:
-        return launch_mma<64, PAGED>(p, stream);
-      case 128:
-        return launch_mma<128, PAGED>(p, stream);
-      default:
-        return cudaErrorInvalidValue;
+  if constexpr (sizeof(T) == 2) {
+    if (!small) {
+      switch (d) {
+        case 32:
+          return launch_mma<KV, 32, PAGED>(p, stream);
+        case 64:
+          return launch_mma<KV, 64, PAGED>(p, stream);
+        case 128:
+          return launch_mma<KV, 128, PAGED>(p, stream);
+        default:
+          return cudaErrorInvalidValue;
+      }
     }
   }
   switch (d) {
     case 32:
-      return small ? launch<T, 32, 1, PAGED>(p, stream)
-                   : launch<T, 32, 4, PAGED>(p, stream);
+      return small ? launch<T, KV, 32, 1, PAGED>(p, stream)
+                   : launch<T, KV, 32, 4, PAGED>(p, stream);
     case 64:
-      return small ? launch<T, 64, 1, PAGED>(p, stream)
-                   : launch<T, 64, 4, PAGED>(p, stream);
+      return small ? launch<T, KV, 64, 1, PAGED>(p, stream)
+                   : launch<T, KV, 64, 4, PAGED>(p, stream);
     case 128:
-      return small ? launch<T, 128, 1, PAGED>(p, stream)
-                   : launch<T, 128, 4, PAGED>(p, stream);
+      return small ? launch<T, KV, 128, 1, PAGED>(p, stream)
+                   : launch<T, KV, 128, 4, PAGED>(p, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-// dtype: 0 = float32, 1 = bfloat16
+template <typename KV, bool PAGED>
+cudaError_t dispatch_q(const AttnParams& p, int d, int dtype,
+                       cudaStream_t stream) {
+  if (dtype == 0) return dispatch_d<float, KV, PAGED>(p, d, stream);
+  if (dtype == 1) return dispatch_d<__nv_bfloat16, KV, PAGED>(p, d, stream);
+  return cudaErrorInvalidValue;
+}
+
+// dtype (of q, o): 0 = float32, 1 = bfloat16. kv_type (of the K/V pools):
+// 0 = q's dtype, 1 = int8, 2 = fp8 e4m3; the quantized types need both
+// scale pools and exist for paged pools only.
 template <bool PAGED>
 cudaError_t dispatch(const AttnParams& p, int d, int dtype,
-                     cudaStream_t stream) {
+                     cudaStream_t stream, int kv_type = 0) {
   if (p.hkv <= 0 || p.hq % p.hkv != 0) return cudaErrorInvalidValue;
-  if (dtype == 0) return dispatch_d<float, PAGED>(p, d, stream);
-  if (dtype == 1) return dispatch_d<__nv_bfloat16, PAGED>(p, d, stream);
+  if (kv_type == 0) {
+    if (dtype == 0) return dispatch_d<float, float, PAGED>(p, d, stream);
+    if (dtype == 1)
+      return dispatch_d<__nv_bfloat16, __nv_bfloat16, PAGED>(p, d, stream);
+    return cudaErrorInvalidValue;
+  }
+  if constexpr (PAGED) {
+    if (!p.k_scale || !p.v_scale) return cudaErrorInvalidValue;
+    if (kv_type == 1) return dispatch_q<int8_t, PAGED>(p, d, dtype, stream);
+    if (kv_type == 2)
+      return dispatch_q<__nv_fp8_e4m3, PAGED>(p, d, dtype, stream);
+  }
   return cudaErrorInvalidValue;
 }
 

@@ -1,7 +1,9 @@
 // Paged attention for Hopper (sm_90a): decode, context prefill and
 // speculative verification against a block-paged KV pool
 // (n_blocks, block_size, hkv, d) read through per-row block tables
-// (b, max_blocks).
+// (b, max_blocks), with the pool in q's dtype or quantized (int8 / fp8 e4m3
+// payload plus fp32 per-token-per-head scale pools (n_blocks, block_size,
+// hkv)).
 //
 // Replaces: src/repro/kernels/paged_attention.py:paged_decode_attention_pallas
 // (one query token per row, kv_len mask) and
@@ -13,6 +15,13 @@
 // output kept at every position). Decode is the C = 1 case of the same body
 // with no causal term; verification is the context body with
 // q_start = kv_start, as the TPU kernel rode the context grid.
+//
+// The *_quant_fwd entries replace the quantized-pool kernels of the same
+// file, paged_decode_attention_quant_pallas,
+// paged_context_attention_quant_pallas and
+// paged_verify_attention_quant_pallas (dequantization fused per tile): the
+// same three entries with a K/V type code and the scale pools, on the same
+// bodies (attention.cuh folds the scales into scores and probabilities).
 //
 // Bound on the card: a decode step does ~4 d hq kv_len FLOPs per row on
 // 2 d hkv kv_len K/V elements, a few FLOPs per byte, so it is bound by bytes
@@ -28,20 +37,27 @@
 // bf16, run on the tensor-core body (attn_fwd_mma). Rows of free slots
 // (all-null tables) read the trash page and come out finite; their values
 // are discarded by the caller.
+//
+// A quantized pool moves 2 d + 8 bytes per key and kv head (one-byte K and
+// V rows plus their two fp32 scales) instead of 4 d in bf16, so its decode
+// bound is about half; the bodies widen the payload in registers and never
+// write a dequantized page to memory.
 #include "attention.cuh"
 
-extern "C" int paged_decode_attention_fwd(const void* q, const void* k_pages,
-                                          const void* v_pages, void* o,
-                                          const int* tables, const int* kv_len,
-                                          int b, int hq, int hkv, int d,
-                                          int block_size, int max_blocks,
-                                          float scale, int n_split,
-                                          float* part, int dtype,
-                                          void* stream) {
+namespace {
+
+int paged_decode(const void* q, const void* k_pages, const void* v_pages,
+                 const float* k_scale, const float* v_scale, void* o,
+                 const int* tables, const int* kv_len, int b, int hq, int hkv,
+                 int d, int block_size, int max_blocks, float scale,
+                 int n_split, float* part, int dtype, int kv_type,
+                 void* stream) {
   rt::AttnParams p{};
   p.q = q;
   p.k = k_pages;
   p.v = v_pages;
+  p.k_scale = k_scale;
+  p.v_scale = v_scale;
   p.o = o;
   p.tables = tables;
   p.kv_len = kv_len;
@@ -54,18 +70,21 @@ extern "C" int paged_decode_attention_fwd(const void* q, const void* k_pages,
   p.scale = scale;
   p.n_split = n_split;
   p.part = part;
-  return (int)rt::dispatch<true>(p, d, dtype, (cudaStream_t)stream);
+  return (int)rt::dispatch<true>(p, d, dtype, (cudaStream_t)stream, kv_type);
 }
 
-extern "C" int paged_context_attention_fwd(
-    const void* q, const void* k_pages, const void* v_pages, void* o,
-    const int* tables, const int* q_start, const int* kv_len, int b, int C,
-    int hq, int hkv, int d, int block_size, int max_blocks, float scale,
-    int dtype, void* stream) {
+int paged_context(const void* q, const void* k_pages, const void* v_pages,
+                  const float* k_scale, const float* v_scale, void* o,
+                  const int* tables, const int* q_start, const int* kv_len,
+                  int b, int C, int hq, int hkv, int d, int block_size,
+                  int max_blocks, float scale, int dtype, int kv_type,
+                  void* stream) {
   rt::AttnParams p{};
   p.q = q;
   p.k = k_pages;
   p.v = v_pages;
+  p.k_scale = k_scale;
+  p.v_scale = v_scale;
   p.o = o;
   p.tables = tables;
   p.q_start = q_start;
@@ -78,7 +97,32 @@ extern "C" int paged_context_attention_fwd(
   p.max_blocks = max_blocks;
   p.causal = 1;
   p.scale = scale;
-  return (int)rt::dispatch<true>(p, d, dtype, (cudaStream_t)stream);
+  return (int)rt::dispatch<true>(p, d, dtype, (cudaStream_t)stream, kv_type);
+}
+
+}  // namespace
+
+extern "C" int paged_decode_attention_fwd(const void* q, const void* k_pages,
+                                          const void* v_pages, void* o,
+                                          const int* tables, const int* kv_len,
+                                          int b, int hq, int hkv, int d,
+                                          int block_size, int max_blocks,
+                                          float scale, int n_split,
+                                          float* part, int dtype,
+                                          void* stream) {
+  return paged_decode(q, k_pages, v_pages, nullptr, nullptr, o, tables,
+                      kv_len, b, hq, hkv, d, block_size, max_blocks, scale,
+                      n_split, part, dtype, 0, stream);
+}
+
+extern "C" int paged_context_attention_fwd(
+    const void* q, const void* k_pages, const void* v_pages, void* o,
+    const int* tables, const int* q_start, const int* kv_len, int b, int C,
+    int hq, int hkv, int d, int block_size, int max_blocks, float scale,
+    int dtype, void* stream) {
+  return paged_context(q, k_pages, v_pages, nullptr, nullptr, o, tables,
+                       q_start, kv_len, b, C, hq, hkv, d, block_size,
+                       max_blocks, scale, dtype, 0, stream);
 }
 
 // Verification rows are T x g per kv head (40 at k = 4, g = 8: ragged for
@@ -92,7 +136,44 @@ extern "C" int paged_verify_attention_fwd(
     const int* tables, const int* kv_start, const int* kv_len, int b, int T,
     int hq, int hkv, int d, int block_size, int max_blocks, float scale,
     int dtype, void* stream) {
-  return paged_context_attention_fwd(q, k_pages, v_pages, o, tables, kv_start,
-                                     kv_len, b, T, hq, hkv, d, block_size,
-                                     max_blocks, scale, dtype, stream);
+  return paged_context(q, k_pages, v_pages, nullptr, nullptr, o, tables,
+                       kv_start, kv_len, b, T, hq, hkv, d, block_size,
+                       max_blocks, scale, dtype, 0, stream);
+}
+
+// Quantized pools: kv_type 1 = int8, 2 = fp8 e4m3 payloads (n_blocks,
+// block_size, hkv, d), k_scale / v_scale (n_blocks, block_size, hkv) fp32.
+extern "C" int paged_decode_attention_quant_fwd(
+    const void* q, const void* k_pages, const void* v_pages,
+    const float* k_scale, const float* v_scale, void* o, const int* tables,
+    const int* kv_len, int b, int hq, int hkv, int d, int block_size,
+    int max_blocks, float scale, int n_split, float* part, int dtype,
+    int kv_type, void* stream) {
+  if (kv_type == 0) return (int)cudaErrorInvalidValue;
+  return paged_decode(q, k_pages, v_pages, k_scale, v_scale, o, tables,
+                      kv_len, b, hq, hkv, d, block_size, max_blocks, scale,
+                      n_split, part, dtype, kv_type, stream);
+}
+
+extern "C" int paged_context_attention_quant_fwd(
+    const void* q, const void* k_pages, const void* v_pages,
+    const float* k_scale, const float* v_scale, void* o, const int* tables,
+    const int* q_start, const int* kv_len, int b, int C, int hq, int hkv,
+    int d, int block_size, int max_blocks, float scale, int dtype,
+    int kv_type, void* stream) {
+  if (kv_type == 0) return (int)cudaErrorInvalidValue;
+  return paged_context(q, k_pages, v_pages, k_scale, v_scale, o, tables,
+                       q_start, kv_len, b, C, hq, hkv, d, block_size,
+                       max_blocks, scale, dtype, kv_type, stream);
+}
+
+extern "C" int paged_verify_attention_quant_fwd(
+    const void* q, const void* k_pages, const void* v_pages,
+    const float* k_scale, const float* v_scale, void* o, const int* tables,
+    const int* kv_start, const int* kv_len, int b, int T, int hq, int hkv,
+    int d, int block_size, int max_blocks, float scale, int dtype,
+    int kv_type, void* stream) {
+  return paged_context_attention_quant_fwd(
+      q, k_pages, v_pages, k_scale, v_scale, o, tables, kv_start, kv_len, b,
+      T, hq, hkv, d, block_size, max_blocks, scale, dtype, kv_type, stream);
 }

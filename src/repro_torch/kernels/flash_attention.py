@@ -27,17 +27,25 @@ def _aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def check_attention_inputs(q, k, v):
+def check_attention_inputs(q, k, v, kv_dtypes=None):
     """Raise on what the CUDA kernels do not take: device, dtype, head dim,
-    GQA shape. Returns q, k, v contiguous and 16-byte aligned."""
+    GQA shape. K and V take q's dtype, or, where `kv_dtypes` is given (the
+    quantized pools), one dtype of it. Returns q, k, v contiguous and
+    16-byte aligned."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-        if t.dtype != q.dtype or t.dtype not in DTYPES:
+        if kv_dtypes is None and (t.dtype != q.dtype or t.dtype not in DTYPES):
             raise TypeError(f"{name}: dtype {t.dtype}; the kernels take "
                             "float32 or bfloat16, all inputs alike")
         if t.device != q.device:
             raise ValueError("q, k, v must be on one device")
+    if kv_dtypes is not None and (q.dtype not in DTYPES
+                                  or k.dtype not in kv_dtypes
+                                  or v.dtype != k.dtype):
+        raise TypeError(f"dtypes {q.dtype} / {k.dtype} / {v.dtype}: the "
+                        "kernels take float32 or bfloat16 q and K, V of one "
+                        f"dtype of {list(kv_dtypes)}")
     if q.shape[-1] not in HEAD_DIMS or k.shape[-1] != q.shape[-1] \
             or v.shape != k.shape:
         raise ValueError(f"head dims {q.shape[-1]}/{k.shape[-1]}: the "

@@ -1,13 +1,16 @@
 """Attention entry points used by the model code (twins of
 repro.kernels.ops.flash_attention / decode_attention /
 paged_decode_attention / paged_context_attention /
-paged_verify_attention).
+paged_verify_attention, each paged entry with its quantized-pool variant).
 
 Dispatch is by the tensor's device: a CUDA tensor goes to the hand-written
 kernel, a CPU tensor to its plain PyTorch version in ``ref``. The scoped
 ``backend("plain")`` switch runs the plain versions on the card on purpose,
 for tests and chip_smoke.py only; the library never sets it. Each kernel
-wrapper counts its launches (``launch_counts``).
+wrapper counts its launches (``launch_counts``). ``k_scale`` / ``v_scale``
+on a paged entry mark a quantized pool (int8 / fp8 payload, float32
+per-token-per-head scales) and select its quantized kernel or plain
+version.
 """
 from __future__ import annotations
 
@@ -16,9 +19,10 @@ import contextlib
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
-from repro_torch.kernels.paged_attention import (paged_context_attention_cuda,
-                                                 paged_decode_attention_cuda,
-                                                 paged_verify_attention_cuda)
+from repro_torch.kernels.paged_attention import (
+    paged_context_attention_cuda, paged_context_attention_quant_cuda,
+    paged_decode_attention_cuda, paged_decode_attention_quant_cuda,
+    paged_verify_attention_cuda, paged_verify_attention_quant_cuda)
 
 _BACKEND = "kernel"        # "kernel" | "plain"
 
@@ -28,6 +32,9 @@ KERNELS = {
     "paged_context_attention": paged_context_attention_cuda,
     "decode_attention": decode_attention_cuda,
     "paged_verify_attention": paged_verify_attention_cuda,
+    "paged_decode_attention_quant": paged_decode_attention_quant_cuda,
+    "paged_context_attention_quant": paged_context_attention_quant_cuda,
+    "paged_verify_attention_quant": paged_verify_attention_quant_cuda,
 }
 
 
@@ -62,10 +69,10 @@ def _kernel_for(x) -> bool:
     return _BACKEND == "kernel"
 
 
-def _no_quant(k_scale, v_scale):
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "quantized KV pages are not ported yet (ROADMAP.md, slice 3)")
+def _quant(k_scale, v_scale) -> bool:
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("a quantized pool needs both k_scale and v_scale")
+    return k_scale is not None
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, kv_len=None,
@@ -93,8 +100,16 @@ def decode_attention(q, k, v, *, kv_len=None, kv_start=None, scale=None):
 def paged_decode_attention(q, k_pages, v_pages, block_tables, *, kv_len=None,
                            scale=None, k_scale=None, v_scale=None):
     """q (b,1,hq,d) against pages (n_blocks, block_size, hkv, d) through
-    block_tables (b, max_blocks); kv_len (b,) valid lengths."""
-    _no_quant(k_scale, v_scale)
+    block_tables (b, max_blocks); kv_len (b,) valid lengths. k_scale,
+    v_scale (n_blocks, block_size, hkv) float32 mark an int8 / fp8 pool."""
+    if _quant(k_scale, v_scale):
+        if _kernel_for(q):
+            return paged_decode_attention_quant_cuda(
+                q, k_pages, v_pages, k_scale, v_scale, block_tables,
+                kv_len=kv_len, scale=scale)
+        return ref.paged_decode_attention_quant_ref(
+            q, k_pages, v_pages, k_scale, v_scale, block_tables,
+            kv_len=kv_len, scale=scale)
     if _kernel_for(q):
         return paged_decode_attention_cuda(q, k_pages, v_pages, block_tables,
                                            kv_len=kv_len, scale=scale)
@@ -106,8 +121,16 @@ def paged_context_attention(q, k_pages, v_pages, block_tables, *, q_start,
                             kv_len, scale=None, k_scale=None, v_scale=None):
     """q (b,C,hq,d), row i token j at absolute position q_start[i] + j,
     attending causally to the pages (which already hold the chunk's K/V at
-    [q_start, kv_len)) through block_tables."""
-    _no_quant(k_scale, v_scale)
+    [q_start, kv_len)) through block_tables. k_scale / v_scale mark a
+    quantized pool, as in paged_decode_attention."""
+    if _quant(k_scale, v_scale):
+        if _kernel_for(q):
+            return paged_context_attention_quant_cuda(
+                q, k_pages, v_pages, k_scale, v_scale, block_tables,
+                q_start=q_start, kv_len=kv_len, scale=scale)
+        return ref.paged_context_attention_quant_ref(
+            q, k_pages, v_pages, k_scale, v_scale, block_tables,
+            q_start=q_start, kv_len=kv_len, scale=scale)
     if _kernel_for(q):
         return paged_context_attention_cuda(q, k_pages, v_pages,
                                             block_tables, q_start=q_start,
@@ -123,8 +146,16 @@ def paged_verify_attention(q, k_pages, v_pages, block_tables, *, kv_start,
     absolute position kv_start[i] + j (the slot's committed length),
     attending causally to the committed pages and the candidate prefix
     (whose K/V the pages already hold at [kv_start, kv_len)); the output
-    is kept at every position. Rows with kv_len == 0 give exact zeros."""
-    _no_quant(k_scale, v_scale)
+    is kept at every position. Rows with kv_len == 0 give exact zeros.
+    k_scale / v_scale mark a quantized pool, as in paged_decode_attention."""
+    if _quant(k_scale, v_scale):
+        if _kernel_for(q):
+            return paged_verify_attention_quant_cuda(
+                q, k_pages, v_pages, k_scale, v_scale, block_tables,
+                kv_start=kv_start, kv_len=kv_len, scale=scale)
+        return ref.paged_verify_attention_quant_ref(
+            q, k_pages, v_pages, k_scale, v_scale, block_tables,
+            kv_start=kv_start, kv_len=kv_len, scale=scale)
     if _kernel_for(q):
         return paged_verify_attention_cuda(q, k_pages, v_pages, block_tables,
                                            kv_start=kv_start, kv_len=kv_len,

@@ -1,6 +1,9 @@
 """Wrappers of the paged-attention CUDA kernels (``csrc/paged_attention.cu``),
 the ports of repro.kernels.paged_attention.paged_decode_attention_pallas,
-paged_context_attention_pallas and paged_verify_attention_pallas.
+paged_context_attention_pallas and paged_verify_attention_pallas, and of
+their quantized-pool variants (``*_quant_pallas``: int8 / fp8 e4m3 payload
+pools with float32 per-token-per-head scale pools, dequantized inside the
+kernel).
 
 Each wrapper checks its inputs, allocates the output, launches on the
 current stream and counts its own launches; none falls back to its plain
@@ -45,11 +48,60 @@ def decode_splits(b, hkv, capacity, device):
     return max(1, min(-(-capacity // 32), -(-4 * sms // (b * hkv))))
 
 
-def paged_decode_attention_cuda(q, k_pages, v_pages, block_tables, *,
-                                kv_len=None, scale=None):
-    """q (b,1,hq,d); pages (n_blocks,bs,hkv,d); block_tables (b,nb);
-    kv_len (b,) (default: every table slot full) -> (b,1,hq,d)."""
-    q, k_pages, v_pages = check_attention_inputs(q, k_pages, v_pages)
+# payload dtype of a quantized pool -> the kernels' K/V type code
+KV_TYPES = {torch.int8: 1, torch.float8_e4m3fn: 2}
+
+
+def check_quant_inputs(q, k_pages, v_pages, k_scale, v_scale):
+    """check_attention_inputs for int8 / fp8 payload pools, and float32
+    scale pools of shape (n_blocks, bs, hkv) on q's device. Returns q,
+    k_pages, v_pages (16-byte aligned) and (k_scale, v_scale (contiguous),
+    the kernels' K/V type code)."""
+    q, k_pages, v_pages = check_attention_inputs(q, k_pages, v_pages,
+                                                 tuple(KV_TYPES))
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if t.device != q.device:
+            raise ValueError(f"{name} must be on q's device, got {t.device}")
+        if t.dtype != torch.float32 or t.shape != k_pages.shape[:3]:
+            raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)}, expected "
+                             f"float32 {tuple(k_pages.shape[:3])}")
+    return (q, k_pages, v_pages,
+            (k_scale.contiguous(), v_scale.contiguous(),
+             KV_TYPES[k_pages.dtype]))
+
+
+def _checked(q, k_pages, v_pages, scales):
+    """The inputs checked for the unquantized kernels (scales None: quant
+    None) or the quantized ones (scales (k_scale, v_scale))."""
+    if scales is None:
+        return (*check_attention_inputs(q, k_pages, v_pages), None)
+    return check_quant_inputs(q, k_pages, v_pages, *scales)
+
+
+def _launch(entry, q, k_pages, v_pages, o, quant, tail, tail_types):
+    """Call ``entry(q, k, v, o, *tail, stream)``, or for a quantized pool
+    (quant = (k_scale, v_scale, kv_type)) its twin
+    ``entry_quant_fwd(q, k, v, k_scale, v_scale, o, *tail, kv_type,
+    stream)``; raise on a CUDA error."""
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    kv = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr())
+    if quant is None:
+        args = (*kv, o.data_ptr(), *tail, stream)
+        types = [_P] * 4 + tail_types + [_P]
+    else:
+        k_scale, v_scale, kv_type = quant
+        entry = entry.replace("_fwd", "_quant_fwd")
+        args = (*kv, k_scale.data_ptr(), v_scale.data_ptr(), o.data_ptr(),
+                *tail, kv_type, stream)
+        types = [_P] * 6 + tail_types + [_I, _P]
+    err = _fn(entry, types)(*args)
+    if err:
+        raise RuntimeError(f"{entry}: CUDA error {err}")
+
+
+def _decode(q, k_pages, v_pages, scales, block_tables, kv_len, scale):
+    """Launch the decode entry (quantized when `scales` is given) -> o."""
+    q, k_pages, v_pages, quant = _checked(q, k_pages, v_pages, scales)
     b, one, hq, d = q.shape
     if one != 1:
         raise ValueError(f"decode takes one query token per row, got {one}")
@@ -65,23 +117,42 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, block_tables, *,
     n_split = decode_splits(b, hkv, nb * bs, q.device)
     part = (torch.empty(b * hq * n_split * (d + 2), dtype=torch.float32,
                         device=q.device) if n_split > 1 else None)
-    err = _fn("paged_decode_attention_fwd",
-              [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P,
-               _I, _P])(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), o.data_ptr(),
-        tbl.data_ptr(), lens.data_ptr(), b, hq, hkv, d, bs, nb,
-        float(scale), n_split, part.data_ptr() if part is not None else None,
-        DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"paged_decode_attention_fwd: CUDA error {err}")
-    paged_decode_attention_cuda.launches += 1
+    _launch("paged_decode_attention_fwd", q, k_pages, v_pages, o, quant,
+            (tbl.data_ptr(), lens.data_ptr(), b, hq, hkv, d, bs, nb,
+             float(scale), n_split,
+             part.data_ptr() if part is not None else None, DTYPES[q.dtype]),
+            [_P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _I])
+    return o
+
+
+def paged_decode_attention_cuda(q, k_pages, v_pages, block_tables, *,
+                                kv_len=None, scale=None):
+    """q (b,1,hq,d); pages (n_blocks,bs,hkv,d); block_tables (b,nb);
+    kv_len (b,) (default: every table slot full) -> (b,1,hq,d)."""
+    o = _decode(q, k_pages, v_pages, None, block_tables, kv_len, scale)
+    if o.numel():
+        paged_decode_attention_cuda.launches += 1
+    return o
+
+
+def paged_decode_attention_quant_cuda(q, k_pages, v_pages, k_scale, v_scale,
+                                      block_tables, *, kv_len=None,
+                                      scale=None):
+    """paged_decode_attention_cuda on int8 / fp8 payload pools
+    (n_blocks,bs,hkv,d) with float32 scale pools k_scale, v_scale
+    (n_blocks,bs,hkv) -> (b,1,hq,d) in q's dtype."""
+    o = _decode(q, k_pages, v_pages, (k_scale, v_scale), block_tables,
+                kv_len, scale)
+    if o.numel():
+        paged_decode_attention_quant_cuda.launches += 1
     return o
 
 
 def _chunk_attention(entry, q, k_pages, v_pages, block_tables, q_start,
-                     kv_len, scale):
-    """Launch `entry` (context or verify: the same contract) -> o."""
-    q, k_pages, v_pages = check_attention_inputs(q, k_pages, v_pages)
+                     kv_len, scale, scales=None):
+    """Launch `entry` (context or verify: the same contract; its
+    ``_quant_fwd`` twin when `scales` is (k_scale, v_scale)) -> o."""
+    q, k_pages, v_pages, quant = _checked(q, k_pages, v_pages, scales)
     b, C, hq, d = q.shape
     _, bs, hkv, _ = k_pages.shape
     tbl = _tables(block_tables, b, q.device)
@@ -91,15 +162,10 @@ def _chunk_attention(entry, q, k_pages, v_pages, block_tables, q_start,
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
-    err = _fn(entry,
-              [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
-               _I, _P])(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), o.data_ptr(),
-        tbl.data_ptr(), starts.data_ptr(), lens.data_ptr(), b, C, hq, hkv, d,
-        bs, tbl.shape[1], float(scale), DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"{entry}: CUDA error {err}")
+    _launch(entry, q, k_pages, v_pages, o, quant,
+            (tbl.data_ptr(), starts.data_ptr(), lens.data_ptr(), b, C, hq,
+             hkv, d, bs, tbl.shape[1], float(scale), DTYPES[q.dtype]),
+            [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I])
     return o
 
 
@@ -127,6 +193,35 @@ def paged_verify_attention_cuda(q, k_pages, v_pages, block_tables, *,
     return o
 
 
+def paged_context_attention_quant_cuda(q, k_pages, v_pages, k_scale,
+                                       v_scale, block_tables, *, q_start,
+                                       kv_len, scale=None):
+    """paged_context_attention_cuda on int8 / fp8 payload pools with
+    float32 scale pools (n_blocks,bs,hkv)."""
+    o = _chunk_attention("paged_context_attention_fwd", q, k_pages, v_pages,
+                         block_tables, q_start, kv_len, scale,
+                         (k_scale, v_scale))
+    if o.numel():
+        paged_context_attention_quant_cuda.launches += 1
+    return o
+
+
+def paged_verify_attention_quant_cuda(q, k_pages, v_pages, k_scale, v_scale,
+                                      block_tables, *, kv_start, kv_len,
+                                      scale=None):
+    """paged_verify_attention_cuda on int8 / fp8 payload pools with
+    float32 scale pools (n_blocks,bs,hkv)."""
+    o = _chunk_attention("paged_verify_attention_fwd", q, k_pages, v_pages,
+                         block_tables, kv_start, kv_len, scale,
+                         (k_scale, v_scale))
+    if o.numel():
+        paged_verify_attention_quant_cuda.launches += 1
+    return o
+
+
 paged_decode_attention_cuda.launches = 0
 paged_context_attention_cuda.launches = 0
 paged_verify_attention_cuda.launches = 0
+paged_decode_attention_quant_cuda.launches = 0
+paged_context_attention_quant_cuda.launches = 0
+paged_verify_attention_quant_cuda.launches = 0

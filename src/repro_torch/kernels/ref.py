@@ -143,3 +143,39 @@ def paged_verify_attention_ref(q, k_pages, v_pages, block_tables, *,
     return paged_context_attention_ref(q, k_pages, v_pages, block_tables,
                                        q_start=kv_start, kv_len=kv_len,
                                        scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# Quantized page pools (int8 / fp8 payloads with per-token-per-head float32
+# scales, models/quant.py): each dequantizes the WHOLE pool to float32 and
+# calls the unquantized plain version, as repro.kernels.ref does.
+# ---------------------------------------------------------------------------
+
+def dequant_pages(pages, scales):
+    """(n_blocks, bs, h, d) quantized payload + (n_blocks, bs, h) float32
+    scales -> float32 pages."""
+    return pages.float() * scales[..., None].float()
+
+
+def paged_decode_attention_quant_ref(q, k_pages, v_pages, k_scale, v_scale,
+                                     block_tables, *, kv_len=None,
+                                     scale=None):
+    return paged_decode_attention_ref(
+        q, dequant_pages(k_pages, k_scale), dequant_pages(v_pages, v_scale),
+        block_tables, kv_len=kv_len, scale=scale)
+
+
+def paged_context_attention_quant_ref(q, k_pages, v_pages, k_scale, v_scale,
+                                      block_tables, *, q_start, kv_len,
+                                      scale=None):
+    return paged_context_attention_ref(
+        q, dequant_pages(k_pages, k_scale), dequant_pages(v_pages, v_scale),
+        block_tables, q_start=q_start, kv_len=kv_len, scale=scale)
+
+
+def paged_verify_attention_quant_ref(q, k_pages, v_pages, k_scale, v_scale,
+                                     block_tables, *, kv_start, kv_len,
+                                     scale=None):
+    return paged_verify_attention_ref(
+        q, dequant_pages(k_pages, k_scale), dequant_pages(v_pages, v_scale),
+        block_tables, kv_start=kv_start, kv_len=kv_len, scale=scale)

@@ -3,10 +3,13 @@ RoPE, the GQA attention blocks of the paged serving path and of the
 contiguous draft-model cache, and the MLP.
 
 Parameters are plain dicts of tensors in the reference's (in, out) layout,
-so every weight product is ``x @ w``. Large products stay torch.matmul, as
-the reference left them to XLA; attention goes through
+so every weight product is ``x @ w``, through ``quant.mm`` so that an
+int8 weight ({"q", "s"}) takes a plain weight's place. Large products stay
+torch.matmul, as the reference left them to XLA; attention goes through
 ``repro_torch.kernels.ops``. Paged K/V pools are updated in place where the
-reference donated its buffers to jit.
+reference donated its buffers to jit; a quantized pool (one carrying
+``k_scale`` / ``v_scale``) quantizes the new rows on write and hands its
+scale pools to the attention entry.
 """
 from __future__ import annotations
 
@@ -14,6 +17,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.models.quant import (bits, kv_dtype_name, mm,
+                                      quantize_kv_rows)
 
 
 def rms_norm(x, w, eps=1e-5):
@@ -44,9 +49,9 @@ def rope(x, positions, theta):
 def _qkv(p, x, cfg):
     b, s, _ = x.shape
     hd = cfg.head_dim_
-    return ((x @ p["wq"]).reshape(b, s, cfg.num_heads, hd),
-            (x @ p["wk"]).reshape(b, s, cfg.num_kv_heads, hd),
-            (x @ p["wv"]).reshape(b, s, cfg.num_kv_heads, hd))
+    return (mm(x, p["wq"]).reshape(b, s, cfg.num_heads, hd),
+            mm(x, p["wk"]).reshape(b, s, cfg.num_kv_heads, hd),
+            mm(x, p["wv"]).reshape(b, s, cfg.num_kv_heads, hd))
 
 
 def attn_prefill(p, x, cfg, *, positions):
@@ -62,7 +67,7 @@ def attn_prefill(p, x, cfg, *, positions):
     k = rope(k, positions, cfg.rope_theta)
     o = ops.flash_attention(q, k, v, causal=True)
     b, s = x.shape[:2]
-    return o.reshape(b, s, -1) @ p["wo"], k, v
+    return mm(o.reshape(b, s, -1), p["wo"]), k, v
 
 
 def attn_decode(p, x, cfg, *, pos, cache, kv_start=None):
@@ -84,17 +89,35 @@ def attn_decode(p, x, cfg, *, pos, cache, kv_start=None):
     cache["v"][ridx, pos] = v[:, 0].to(cache["v"].dtype)
     o = ops.decode_attention(q, cache["k"], cache["v"], kv_len=pos + 1,
                              kv_start=kv_start)
-    return o.reshape(b, 1, -1) @ p["wo"]
+    return mm(o.reshape(b, 1, -1), p["wo"])
+
+
+def write_pages(cache, blk, off, k, v):
+    """Write K/V rows k, v (..., hkv, hd) at pages blk, offsets off (same
+    leading shape) of `cache`, in place: cast to the pool dtype, or, for a
+    quantized pool, quantized (payload and scales at the same (blk, off)).
+    Returns the scale kwargs of the ops call ({} for a plain pool)."""
+    if "k_scale" not in cache:
+        cache["k"][blk, off] = k.to(cache["k"].dtype)
+        cache["v"][blk, off] = v.to(cache["v"].dtype)
+        return {}
+    kvd = kv_dtype_name(cache["k"].dtype)
+    for n, rows in (("k", k), ("v", v)):
+        payload, scale = quantize_kv_rows(rows, kvd)
+        bits(cache[n])[blk, off] = bits(payload)
+        cache[n + "_scale"][blk, off] = scale
+    return {"k_scale": cache["k_scale"], "v_scale": cache["v_scale"]}
 
 
 def attn_decode_paged(p, x, cfg, *, pos, block_tables, cache):
     """One-token decode against a block-paged cache. x (b, 1, d); pos (b,)
     per-row absolute positions; block_tables (b, max_blocks) int32; cache
     {"k","v"}: (n_blocks, block_size, hkv, hd) pools shared by every row.
-    The new token's K/V go into the page holding position pos (in place),
-    then attention reads through the tables. Rows with all-null tables
-    (free slots) write into the trash page and read garbage that the
-    caller discards."""
+    The new token's K/V go into the page holding position pos (in place;
+    quantized on write for an int8 / fp8 pool, so the token reads its own
+    K/V back quantized, as in the reference), then attention reads through
+    the tables. Rows with all-null tables (free slots) write into the
+    trash page and read garbage that the caller discards."""
     q, k, v = _qkv(p, x, cfg)
     b = x.shape[0]
     posb = pos[:, None]
@@ -104,17 +127,17 @@ def attn_decode_paged(p, x, cfg, *, pos, block_tables, cache):
     ridx = torch.arange(b, device=x.device)
     blk = block_tables[ridx, pos // bs].long()
     off = pos % bs
-    cache["k"][blk, off] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][blk, off] = v[:, 0].to(cache["v"].dtype)
+    sc = write_pages(cache, blk, off, k[:, 0], v[:, 0])
     o = ops.paged_decode_attention(q, cache["k"], cache["v"], block_tables,
-                                   kv_len=pos + 1)
-    return o.reshape(b, 1, -1) @ p["wo"]
+                                   kv_len=pos + 1, **sc)
+    return mm(o.reshape(b, 1, -1), p["wo"])
 
 
 def _chunk_qkv_to_pages(p, x, cfg, positions, q_len, block_tables, cache):
     """Q, K, V of a chunk x (b, C, d) at absolute positions (b, C); the
     roped K/V go into the pages in place (tokens j >= q_len[i] clamp their
-    position into the table and write the null page). Returns roped q."""
+    position into the table and write the null page). Returns roped q and
+    the scale kwargs of the ops call (``write_pages``)."""
     q, k, v = _qkv(p, x, cfg)
     C = x.shape[1]
     q = rope(q, positions, cfg.rope_theta)
@@ -126,9 +149,7 @@ def _chunk_qkv_to_pages(p, x, cfg, positions, q_len, block_tables, cache):
     blk = torch.gather(block_tables, 1, posc // bs).long()
     blk = torch.where(valid, blk, torch.zeros_like(blk))   # pads -> null page
     off = posc % bs
-    cache["k"][blk, off] = k.to(cache["k"].dtype)
-    cache["v"][blk, off] = v.to(cache["v"].dtype)
-    return q
+    return q, write_pages(cache, blk, off, k, v)
 
 
 def attn_context_paged(p, x, cfg, *, positions, q_len, block_tables, cache):
@@ -138,12 +159,13 @@ def attn_context_paged(p, x, cfg, *, positions, q_len, block_tables, cache):
     causally to the prior pages and itself. Padding tokens (j >= q_len[i])
     clamp their position into the table and write into the null page;
     their outputs are garbage the caller discards."""
-    q = _chunk_qkv_to_pages(p, x, cfg, positions, q_len, block_tables, cache)
+    q, sc = _chunk_qkv_to_pages(p, x, cfg, positions, q_len, block_tables,
+                                cache)
     b, C = x.shape[:2]
     o = ops.paged_context_attention(q, cache["k"], cache["v"], block_tables,
                                     q_start=positions[:, 0],
-                                    kv_len=positions[:, 0] + q_len)
-    return o.reshape(b, C, -1) @ p["wo"]
+                                    kv_len=positions[:, 0] + q_len, **sc)
+    return mm(o.reshape(b, C, -1), p["wo"])
 
 
 def attn_verify_paged(p, x, cfg, *, positions, q_len, block_tables, cache):
@@ -156,14 +178,15 @@ def attn_verify_paged(p, x, cfg, *, positions, q_len, block_tables, cache):
     candidates (j >= q_len[i]) write into the null page; rows with
     q_len == 0 come back dead. Rejected candidates' writes sit past the
     committed length and are the caller's to roll back."""
-    q = _chunk_qkv_to_pages(p, x, cfg, positions, q_len, block_tables, cache)
+    q, sc = _chunk_qkv_to_pages(p, x, cfg, positions, q_len, block_tables,
+                                cache)
     b, T = x.shape[:2]
     o = ops.paged_verify_attention(q, cache["k"], cache["v"], block_tables,
                                    kv_start=positions[:, 0],
-                                   kv_len=positions[:, 0] + q_len)
-    return o.reshape(b, T, -1) @ p["wo"]
+                                   kv_len=positions[:, 0] + q_len, **sc)
+    return mm(o.reshape(b, T, -1), p["wo"])
 
 
 def mlp(p, x, cfg):
     """SwiGLU MLP (the dense decoders' activation)."""
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    return mm(F.silu(mm(x, p["w_gate"])) * mm(x, p["w_up"]), p["w_down"])

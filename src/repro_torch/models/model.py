@@ -11,6 +11,9 @@ interchangeable.
 
 Paged caches are one ``{"k", "v"}`` pool pair per layer, shaped
 (n_blocks, block_size, hkv, hd); block 0 is the reserved null/trash page.
+An int8 / fp8 pool adds float32 ``k_scale`` / ``v_scale`` pools
+(n_blocks, block_size, hkv) addressed by the same block ids
+(``models.quant``).
 The contiguous cache (``init_cache``, the speculative draft model's) keeps
 the reference's layout: ``{"sub0": {"k", "v"}}`` with every layer stacked
 on a leading axis, (L, batch, max_len, hkv, hd). Writes go into the caches
@@ -24,7 +27,7 @@ import torch
 
 from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import layers
+from repro_torch.models import layers, quant
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -133,15 +136,41 @@ def scatter_cache_rows(cache, rows, slot_ids):
 # Paged caches
 # ---------------------------------------------------------------------------
 
+def pool_dtype(kv_dtype, dtype: torch.dtype) -> torch.dtype:
+    """Storage dtype of a page pool for `kv_dtype` (None: the model's
+    `dtype`). An unquantized kv_dtype must name the model's own width: the
+    kernels take q and K/V of one dtype (other widths: ROADMAP.md)."""
+    if kv_dtype is None:
+        return dtype
+    st = quant.kv_storage_dtype(kv_dtype)
+    if not quant.kv_is_quantized(kv_dtype) and st != dtype:
+        raise NotImplementedError(
+            f"kv_dtype={kv_dtype!r} under a {dtype} model: unquantized pools "
+            "of another width than the model's are not ported yet "
+            "(ROADMAP.md)")
+    return st
+
+
 def init_layer_paged_cache(cfg: ModelConfig, i: int, n_blocks: int,
-                           block_size: int, *, dtype, device):
-    """One attention layer's page pools (block 0 = null/trash page)."""
+                           block_size: int, *, dtype, device, kv_dtype=None,
+                           kv_guard_layers=()):
+    """One attention layer's page pools (block 0 = null/trash page).
+    `kv_dtype` ("int8" / "fp8") stores int8 / fp8 payloads with zeroed
+    float32 scale pools; a layer whose global index i is in
+    `kv_guard_layers` keeps the model's `dtype` whatever kv_dtype says."""
     if cfg.layer_kind(i) != ATTN:
         raise NotImplementedError("recurrent-state layers are not ported "
                                   "yet (ROADMAP.md, slice 6)")
+    if i in kv_guard_layers:
+        kv_dtype = None
     shape = (n_blocks, block_size, cfg.num_kv_heads, cfg.head_dim_)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    st = pool_dtype(kv_dtype, dtype)
+    c = {"k": torch.zeros(shape, dtype=st, device=device),
+         "v": torch.zeros(shape, dtype=st, device=device)}
+    if kv_dtype is not None and quant.kv_is_quantized(kv_dtype):
+        for n in quant.KV_SCALE_LEAVES:
+            c[n] = torch.zeros(shape[:3], dtype=torch.float32, device=device)
+    return c
 
 
 def scatter_rows_to_pages(pages, rows, dest_blocks):
@@ -151,24 +180,33 @@ def scatter_rows_to_pages(pages, rows, dest_blocks):
     (m, P, h, d) of m prompts at positions [0, P); dest_blocks:
     (m * max_blocks,) int physical page of each (row, logical block) pair,
     row-major, P <= max_blocks * bs. Unallocated entries point at the null
-    page: what lands there is never unmasked."""
+    page: what lands there is never unmasked. A quantized pool (one with
+    ``k_scale``) quantizes the rows on write and scatters payload and
+    scales through the same rows."""
     m, P = rows["k"].shape[:2]
     bs = pages["k"].shape[1]
     t = torch.arange(P, device=dest_blocks.device)
     blk = dest_blocks.reshape(m, -1)[:, t // bs].long()           # (m, P)
     flat = (blk * bs + t % bs).reshape(-1)
+    quantized = "k_scale" in pages
+    kvd = quant.kv_dtype_name(pages["k"].dtype) if quantized else None
     for n in ("k", "v"):
-        pool = pages[n]
-        pool.view(-1, *pool.shape[2:]).index_copy_(
-            0, flat, rows[n].reshape(m * P, *pool.shape[2:]).to(pool.dtype))
+        pool, src = pages[n], rows[n].reshape(m * P, *pages[n].shape[2:])
+        if quantized:
+            src, scale = quant.quantize_kv_rows(src, kvd)
+            pages[n + "_scale"].view(-1, pool.shape[2]).index_copy_(
+                0, flat, scale)
+        quant.bits(pool).view(-1, *pool.shape[2:]).index_copy_(
+            0, flat, quant.bits(src.to(pool.dtype)))
 
 
 def copy_cache_pages(caches, src_blocks, dst_blocks):
     """Copy-on-write: duplicate page contents src -> dst in every layer's
-    K/V pools, in place."""
+    K/V pools, and their scale pools where quantized, in place."""
     for c in caches:
-        for n in ("k", "v"):
-            c[n][dst_blocks] = c[n][src_blocks]
+        for n in ("k", "v") + quant.KV_SCALE_LEAVES:
+            if n in c:
+                quant.bits(c[n])[dst_blocks] = quant.bits(c[n])[src_blocks]
 
 
 # ---------------------------------------------------------------------------
@@ -240,7 +278,7 @@ def _embed(cfg, params, tokens):
 
 
 def _head(cfg, params, x):
-    return _norm(cfg, params["final_norm"], x) @ params["lm_head"]
+    return quant.mm(_norm(cfg, params["final_norm"], x), params["lm_head"])
 
 
 # ---------------------------------------------------------------------------

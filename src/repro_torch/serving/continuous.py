@@ -17,13 +17,18 @@ with the three paths of this slice:
   * speculative decoding: each decode iteration becomes propose, verify
     every slot's candidate chunk in one multi-token step, accept the
     longest prefix matching the target's argmax chain and roll back the
-    speculative pages past it (``_spec_iteration``).
+    speculative pages past it (``_spec_iteration``);
+  * quantized pools: ``kv_dtype="int8"`` / ``"fp8"`` stores every page
+    pool (but the guard layers') as one-byte payloads with per-token
+    scales, written quantized by every path above and read through the
+    quantized paged kernels (``_ensure_device_caches``,
+    ``_account_kv_bytes``).
 
 The host logic is the reference's, line for line where it can be, so both
 engines make the same admission, allocation and preemption decisions and
 the same ServeStats counters come out. Disaggregated roles, the host page
-tier, the cluster prefix directory, KVSAN, quantized pools and tracing wait
-for later slices (ROADMAP.md).
+tier, the cluster prefix directory, KVSAN and tracing wait for later
+slices (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -33,7 +38,9 @@ from collections import deque
 from typing import Deque, List, Optional, Sequence
 
 import numpy as np
+import torch
 
+from repro_torch.models import model as M
 from repro_torch.serving.block_manager import (BlockPool, BlockTable,
                                                PrefixIndex, blocks_for_tokens,
                                                chunk_hashes)
@@ -249,6 +256,12 @@ class PagedPipelineBatcher(SlotEngine):
     pool (``BlockTable.truncate``). The committed stream is the same as
     plain greedy decode's; only the step count changes. Needs an
     attention-only stack.
+
+    ``kv_dtype`` ("int8" / "fp8", or the model's own width; None = the
+    model's) sets the page pools' precision and ``kv_guard_layers`` the
+    GLOBAL layer indices kept at model precision; ServeStats then reports
+    the pools' bytes (``kv_bytes_resident``, scales included) and what they
+    save against model-precision pools (``kv_bytes_saved``).
     """
 
     def __init__(self, pipeline, *, n_slots: int = 8, max_len: int = 256,
@@ -258,7 +271,9 @@ class PagedPipelineBatcher(SlotEngine):
                  virtual_step_cost: float = 1.0,
                  prefix_caching: bool = False, prefill_chunk: int = 0,
                  prefill_token_cost: float = 0.0, replica_id: int = 0,
-                 spec: Optional[SpecConfig] = None):
+                 spec: Optional[SpecConfig] = None,
+                 kv_dtype: Optional[str] = None,
+                 kv_guard_layers: Sequence[int] = ()):
         if not slot_mode_supported(pipeline.cfg):
             raise NotImplementedError(f"{pipeline.cfg.name}: slot mode "
                                       "needs a uniform text decoder")
@@ -275,6 +290,10 @@ class PagedPipelineBatcher(SlotEngine):
                          virtual_step_cost=virtual_step_cost)
         self.pipeline = pipeline
         self.replica_id = replica_id
+        # refuses an unquantized kv_dtype of another width than the model's
+        M.pool_dtype(kv_dtype, pipeline.dtype)
+        self.kv_dtype = kv_dtype
+        self.kv_guard_layers = tuple(kv_guard_layers)
         self.spec = spec
         self._proposer = None
         if spec is not None and not context_mode_supported(pipeline.cfg):
@@ -339,7 +358,8 @@ class PagedPipelineBatcher(SlotEngine):
         self.spec_proposed = 0         # draft tokens proposed
         self.spec_accepted = 0         # draft tokens the target agreed with
         self.spec_tokens = 0           # tokens committed via verify steps
-        self.kv_bytes_resident = 0     # allocated page-pool bytes
+        self.kv_bytes_resident = 0     # allocated page-pool bytes (+scales)
+        self.kv_bytes_saved = 0        # vs model-precision pools
         self._iter_prefill_tokens = 0
         self._iter_spec_proposed = 0
 
@@ -402,18 +422,31 @@ class PagedPipelineBatcher(SlotEngine):
         if (p.paged_caches is None or p.n_slots != self.n_slots
                 or p.slot_len != self.max_len
                 or p.block_size != self.block_size
-                or p.stage_blocks != self.stage_blocks):
+                or p.stage_blocks != self.stage_blocks
+                or p.kv_dtype != self.kv_dtype
+                or p.kv_guard_layers != self.kv_guard_layers):
             p.init_paged_caches(self.n_slots, self.max_len,
                                 block_size=self.block_size,
-                                stage_blocks=self.stage_blocks)
+                                stage_blocks=self.stage_blocks,
+                                kv_dtype=self.kv_dtype,
+                                kv_guard_layers=self.kv_guard_layers)
             self._account_kv_bytes()
 
     def _account_kv_bytes(self) -> None:
-        """ServeStats counter: bytes the page pools actually occupy."""
-        self.kv_bytes_resident += sum(
-            c[n].numel() * c[n].element_size()
-            for caches in self.pipeline.paged_caches for c in caches
-            for n in ("k", "v"))
+        """ServeStats counters: bytes the page pools actually occupy
+        (payload and scale leaves) and bytes saved against pools at the
+        model's dtype (what kv_dtype=None would have allocated)."""
+        base_itemsize = torch.empty((), dtype=self.pipeline.dtype
+                                    ).element_size()
+        resident, baseline = 0, 0
+        for caches in self.pipeline.paged_caches:
+            for c in caches:
+                for n, t in c.items():
+                    resident += t.numel() * t.element_size()
+                    if n in ("k", "v"):
+                        baseline += t.numel() * base_itemsize
+        self.kv_bytes_resident += resident
+        self.kv_bytes_saved += max(baseline - resident, 0)
 
     def _stage_alloc(self, si: int, table: BlockTable,
                      n_tokens: int) -> bool:

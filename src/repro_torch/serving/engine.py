@@ -15,6 +15,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.plan import Assignment
 from repro_torch.models import model as M
+from repro_torch.models.quant import quantize_params
 from repro_torch.device import resolve_device
 from repro_torch.serving.pipeline import (AsymmetricPipeline,
                                           context_mode_supported)
@@ -36,9 +37,17 @@ class InferenceEngine:
     decode) and ``spec_draft_token_cost`` charges each proposal that
     fraction of an iteration on the virtual clock. As in the reference,
     ``spec_k < 1``, a non-attention stack and an unsuitable draft warn and
-    fall back. The reference's other serving features (disaggregation,
-    quantized KV, host tier, cluster prefix, KVSAN, tracing, static
-    batching) are not ported yet and raise NotImplementedError."""
+    fall back.
+
+    ``kv_dtype`` ("int8" / "fp8", or the model's own width) stores the
+    page pools at that precision: int8 / fp8 pages carry per-token-per-head
+    scales and are read through the quantized paged kernels. ``kv_dtypes``
+    overrides it per replica (a None entry = ``kv_dtype``) and
+    ``kv_guard_layers`` keeps those global layer indices at model
+    precision. ``quantize=True`` serves int8 weight-only matmul weights
+    (``models.quant.quantize_params``). The reference's other serving
+    features (disaggregation, host tier, cluster prefix, KVSAN, tracing,
+    static batching) are not ported yet and raise NotImplementedError."""
 
     def __init__(self, cfg: ModelConfig, assignment: Assignment, *,
                  params=None, device="cuda", dtype=None, n_slots: int = 8,
@@ -50,7 +59,11 @@ class InferenceEngine:
                  spec_decode: bool = False, spec_k: int = 4,
                  draft_model=None,
                  spec_ks: Optional[Sequence[int]] = None,
-                 spec_draft_token_cost: float = 0.0, **unported):
+                 spec_draft_token_cost: float = 0.0,
+                 kv_dtype: Optional[str] = None,
+                 kv_dtypes: Optional[Sequence[Optional[str]]] = None,
+                 kv_guard_layers: Sequence[int] = (),
+                 quantize: bool = False, **unported):
         if unported:
             raise NotImplementedError(
                 f"not ported yet: {sorted(unported)} (see ROADMAP.md)")
@@ -59,6 +72,8 @@ class InferenceEngine:
         assignment.validate(cfg.num_layers)
         if params is None:
             params = M.init_params(cfg, 0, device=self.device, dtype=dtype)
+        if quantize:
+            params = quantize_params(params)
         self.replicas: List[AsymmetricPipeline] = [
             AsymmetricPipeline(cfg, params, pipe.layer_split,
                                device=self.device, dtype=dtype)
@@ -84,7 +99,11 @@ class InferenceEngine:
                              prefill_token_cost=prefill_token_cost,
                              step_costs=step_costs, spec=spec,
                              spec_ks=(list(spec_ks)
-                                      if spec_ks is not None else None))
+                                      if spec_ks is not None else None),
+                             kv_dtype=kv_dtype,
+                             kv_dtypes=(list(kv_dtypes)
+                                        if kv_dtypes is not None else None),
+                             kv_guard_layers=kv_guard_layers)
 
     @staticmethod
     def _spec_config(cfg, spec_k, draft_model, draft_token_cost):

@@ -87,7 +87,7 @@ class VirtualClock:
 COUNTERS = ("rejected", "preemptions", "prefix_lookups", "prefix_hits",
             "prefix_hit_tokens", "prefill_tokens", "cow_copies",
             "spec_steps", "spec_proposed", "spec_accepted", "spec_tokens",
-            "kv_bytes_resident")
+            "kv_bytes_resident", "kv_bytes_saved")
 
 
 @dataclasses.dataclass
@@ -111,7 +111,10 @@ class ServeStats:
     spec_proposed: int = 0         # draft tokens proposed
     spec_accepted: int = 0         # draft tokens the target agreed with
     spec_tokens: int = 0           # tokens committed via verification steps
-    kv_bytes_resident: int = 0     # allocated page-pool bytes
+    # page-pool bytes (PagedPipelineBatcher; quantized with kv_dtype=
+    # "int8" / "fp8")
+    kv_bytes_resident: int = 0     # allocated page-pool bytes (+ scales)
+    kv_bytes_saved: int = 0        # bytes saved vs model-default pools
     # total requests this replay accounted (served + rejected + dropped)
     n_requests: int = 0
 
@@ -134,6 +137,9 @@ class ServeStats:
             extra += (f" spec={self.spec_tokens}tok"
                       f"/{self.spec_steps}step "
                       f"acc={acc * 100:.0f}%")
+        if self.kv_bytes_saved:
+            extra += (f" kv={self.kv_bytes_resident / 1e6:.2f}MB "
+                      f"(-{self.kv_bytes_saved / 1e6:.2f}MB)")
         return (f"n={len(lat)} {pct}"
                 f"slo={self.attainment * 100:.1f}% "
                 f"thpt={self.throughput:.2f} req/s "

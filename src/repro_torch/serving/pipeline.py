@@ -23,6 +23,7 @@ import torch
 from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
+from repro_torch.models.quant import is_quantized
 
 
 def slot_mode_supported(cfg) -> bool:
@@ -53,6 +54,9 @@ class StageExecutor:
         self.kinds = [cfg.layer_kind(i) for i in range(lo, hi)]
 
         def place(tree):
+            # an int8 weight keeps its int8 payload and float32 scales
+            if is_quantized(tree):
+                return {k: v.to(device=device) for k, v in tree.items()}
             return {k: place(v) if isinstance(v, dict)
                     else v.to(device=device, dtype=dtype)
                     for k, v in tree.items()}
@@ -67,11 +71,18 @@ class StageExecutor:
     def has_attn(self) -> bool:
         return ATTN in self.kinds
 
-    def make_paged_caches(self, n_blocks: int, block_size: int):
+    def make_paged_caches(self, n_blocks: int, block_size: int, *,
+                          kv_dtype: Optional[str] = None,
+                          kv_guard_layers: Sequence[int] = ()):
         """Per-layer page pools; this stage's layers share ONE block-id
-        space of `n_blocks` blocks (one table addresses every layer)."""
+        space of `n_blocks` blocks (one table addresses every layer).
+        `kv_dtype` selects the pool precision (None = the model's);
+        `kv_guard_layers` are GLOBAL layer indices kept at model
+        precision."""
         return [M.init_layer_paged_cache(self.cfg, i, n_blocks, block_size,
-                                         dtype=self.dtype, device=self.device)
+                                         dtype=self.dtype, device=self.device,
+                                         kv_dtype=kv_dtype,
+                                         kv_guard_layers=kv_guard_layers)
                 for i in range(self.lo, self.hi)]
 
     def prefill(self, x, caches, positions, dest_blocks):
@@ -128,6 +139,7 @@ class AsymmetricPipeline:
         self.block_size = 0
         self.stage_blocks: List[int] = []
         self.kv_dtype: Optional[str] = None      # model precision pools
+        self.kv_guard_layers: tuple = ()
 
     # ---- host <-> device seam -------------------------------------------
     def _ints(self, a) -> torch.Tensor:
@@ -147,11 +159,15 @@ class AsymmetricPipeline:
     # ---- paged slot mode ---------------------------------------------------
     def init_paged_caches(self, n_slots: int, max_len: int, *,
                           block_size: int = 16,
-                          stage_blocks: Optional[Sequence[int]] = None
-                          ) -> None:
+                          stage_blocks: Optional[Sequence[int]] = None,
+                          kv_dtype: Optional[str] = None,
+                          kv_guard_layers: Sequence[int] = ()) -> None:
         """Per-stage page pools. `stage_blocks[si]` is stage si's pool size
         in blocks (including the reserved null block); None sizes every
-        stage for full occupancy (n_slots * max_len tokens)."""
+        stage for full occupancy (n_slots * max_len tokens). `kv_dtype`
+        ("int8" / "fp8", or the model's own width) selects the pool
+        precision, None the model's; `kv_guard_layers` pins those GLOBAL
+        layer indices at model precision."""
         if not slot_mode_supported(self.cfg):
             raise NotImplementedError(f"{self.cfg.name}: paged slot mode "
                                       "needs a uniform text decoder")
@@ -167,10 +183,13 @@ class AsymmetricPipeline:
         self.stage_blocks = list(stage_blocks)
         if len(self.stage_blocks) != len(self.stages):
             raise ValueError("one pool size per stage")
+        self.kv_dtype = kv_dtype
+        self.kv_guard_layers = tuple(kv_guard_layers)
         self.paged_caches = None            # free the old pools first
-        self.paged_caches = [st.make_paged_caches(nb, block_size)
-                             for st, nb in zip(self.stages,
-                                               self.stage_blocks)]
+        self.paged_caches = [
+            st.make_paged_caches(nb, block_size, kv_dtype=kv_dtype,
+                                 kv_guard_layers=self.kv_guard_layers)
+            for st, nb in zip(self.stages, self.stage_blocks)]
 
     @torch.inference_mode()
     def insert_slots_paged(self, tokens: np.ndarray, lens: np.ndarray,

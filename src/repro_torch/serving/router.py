@@ -3,7 +3,10 @@
 continuous-batching worker per replica, least-loaded dispatch with the
 lowest replica id breaking ties, all driven by the one serving loop.
 ``spec`` (a SpecConfig) turns on speculative decoding on every replica;
-``spec_ks`` gives each replica its own depth (0 = plain decode there)."""
+``spec_ks`` gives each replica its own depth (0 = plain decode there).
+``kv_dtype`` sets every replica's page-pool precision, ``kv_dtypes`` each
+replica's own (a None entry takes ``kv_dtype``), and ``kv_guard_layers``
+the global layer indices kept at model precision."""
 from __future__ import annotations
 
 import dataclasses
@@ -25,7 +28,10 @@ class Router:
                  prefill_chunk: int = 0, prefill_token_cost: float = 0.0,
                  step_costs: Optional[Sequence[float]] = None,
                  spec: Optional[SpecConfig] = None,
-                 spec_ks: Optional[Sequence[int]] = None):
+                 spec_ks: Optional[Sequence[int]] = None,
+                 kv_dtype: Optional[str] = None,
+                 kv_dtypes: Optional[Sequence[Optional[str]]] = None,
+                 kv_guard_layers: Sequence[int] = ()):
         if policy != "continuous" or cache_layout != "paged":
             raise NotImplementedError(
                 f"policy={policy!r}, cache_layout={cache_layout!r}: the port "
@@ -39,6 +45,13 @@ class Router:
             raise ValueError("one step cost per replica")
         if spec_ks is not None and len(spec_ks) != len(self.replicas):
             raise ValueError("one spec depth per replica")
+        if kv_dtypes is not None and len(kv_dtypes) != len(self.replicas):
+            raise ValueError("one KV precision per replica")
+
+        def replica_kv_dtype(i: int) -> Optional[str]:
+            if kv_dtypes is not None and kv_dtypes[i] is not None:
+                return kv_dtypes[i]
+            return kv_dtype
 
         def replica_spec(i: int) -> Optional[SpecConfig]:
             if spec is None or spec_ks is None:
@@ -50,7 +63,8 @@ class Router:
             block_size=block_size, stage_blocks=stage_blocks,
             prefix_caching=prefix_caching, prefill_chunk=prefill_chunk,
             prefill_token_cost=prefill_token_cost, virtual_step_cost=sc,
-            replica_id=i, spec=replica_spec(i))
+            replica_id=i, spec=replica_spec(i),
+            kv_dtype=replica_kv_dtype(i), kv_guard_layers=kv_guard_layers)
             for i, (r, sc) in enumerate(zip(self.replicas, step_costs))]
 
     def serve(self, requests: Sequence[Request], deadline: float, *,

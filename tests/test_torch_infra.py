@@ -101,6 +101,9 @@ def test_kernel_wrappers_refuse_cpu_tensors(name):
     # version itself (ops picks the plain version for CPU tensors)
     q = torch.zeros(1, 1, 4, 32)
     k = torch.zeros(1, 8, 2, 32)
+    kq = torch.zeros(1, 8, 2, 32, dtype=torch.int8)     # a quantized pool
+    ks = torch.zeros(1, 8, 2)
+    tbl = torch.zeros(1, 1, dtype=torch.int32)
     args = {"flash_attention": lambda: fa.flash_attention_cuda(q, k, k),
             "paged_decode_attention": lambda: pa.paged_decode_attention_cuda(
                 q, k, k, torch.zeros(1, 1, dtype=torch.int32)),
@@ -110,7 +113,16 @@ def test_kernel_wrappers_refuse_cpu_tensors(name):
             "decode_attention": lambda: da.decode_attention_cuda(q, k, k),
             "paged_verify_attention": lambda: pa.paged_verify_attention_cuda(
                 q, k, k, torch.zeros(1, 1, dtype=torch.int32), kv_start=[0],
-                kv_len=[1])}
+                kv_len=[1]),
+            "paged_decode_attention_quant":
+                lambda: pa.paged_decode_attention_quant_cuda(
+                    q, kq, kq, ks, ks, tbl),
+            "paged_context_attention_quant":
+                lambda: pa.paged_context_attention_quant_cuda(
+                    q, kq, kq, ks, ks, tbl, q_start=[0], kv_len=[1]),
+            "paged_verify_attention_quant":
+                lambda: pa.paged_verify_attention_quant_cuda(
+                    q, kq, kq, ks, ks, tbl, kv_start=[0], kv_len=[1])}
     before = ops.launch_counts()
     with pytest.raises(ValueError, match="CUDA"):
         args[name]()
@@ -139,6 +151,8 @@ def test_unported_features_raise_not_implemented():
         InferenceEngine(cfg, asg, device="cpu", disaggregate=True)
     with pytest.raises(NotImplementedError, match="static"):
         InferenceEngine(cfg, asg, device="cpu", policy="static")
-    with pytest.raises(NotImplementedError, match="quantized"):
-        ops.paged_decode_attention(None, None, None, None,
-                                   k_scale=torch.zeros(1))
+    # unquantized pools of another width than the model's: not ported
+    with pytest.raises(NotImplementedError, match="kv_dtype"):
+        InferenceEngine(cfg, asg, device="cpu", kv_dtype="bf16")
+    with pytest.raises(NotImplementedError, match="host_blocks"):
+        InferenceEngine(cfg, asg, device="cpu", host_blocks=4)
