@@ -13,10 +13,12 @@ JAX. Phases, each of which raises on failure:
      Llama-2-70B attention widths (hq 64, hkv 8, d 128, block 16) in bf16
      and fp32 and at the small head dims the CPU tests use (rows that see
      no key must come out as exact zeros), the three paged kernels also on
-     int8 and fp8 pools through their quantized kernels, then timed at
-     the serving path's shapes beside their bound, their plain version
-     and, where one PyTorch call computes the same function (flash and
-     contiguous decode), ``F.scaled_dot_product_attention``;
+     int8 and fp8 pools through their quantized kernels, and the selective
+     scan at Jamba's widths (d_inner 8192, d_state 16) and the CPU tests'
+     (output and final state); then timed at the serving path's shapes
+     beside their bound, their plain version and, where one PyTorch call
+     computes the same function (flash and contiguous decode),
+     ``F.scaled_dot_product_attention``;
   3. serving at the full width of llama2-70b in bf16 (depth cut to 8 of 80
      layers, seeded random weights) through the asymmetric 2-stage paged
      pipeline: after a short warm-up serve, a synthetic workload (cold
@@ -32,13 +34,21 @@ JAX. Phases, each of which raises on failure:
      quantized pools: the quantized kernels on the quantized layers, the
      unquantized ones on the guard layers only). The synthetic,
      shared-prefix, self-draft, quant-int8 and quant-w8 serves run once
-     more under torch.profiler for a breakdown of device time;
-  4. engine parity at the same widths in fp32 (2 layers): the same
-     workloads, speculative ones included, and the synthetic and
+     more under torch.profiler for a breakdown of device time. Then the
+     hybrid path: jamba-v0.1-52b at full width in bf16 (depth cut to one
+     8-layer period of 32: seven Mamba layers, one attention layer, MoE
+     with 16 experts top-2 on every other layer; seeded random weights)
+     serves the synthetic workload through the same [3, 5] pipeline, whose
+     first stage holds only Mamba layers; the selective scan must run on
+     all seven Mamba layers of every prefill, flash attention on every
+     prefill and paged decode on every decode iteration; profiled too;
+  4. engine parity in fp32: llama2-70b at full width (2 layers) on the
+     same workloads, speculative ones included, and the synthetic and
      shared-prefix ones on int8 and fp8 pages and n-gram speculation on
-     int8 pages, served through the kernels and through the plain versions
-     must give identical tokens and ServeStats counters, and the
-     speculative serves must give plain greedy decode's tokens.
+     int8 pages; jamba-v0.1-52b at full width (one period) on the
+     synthetic workload. Served through the kernels and through the plain
+     versions, they must give identical tokens and ServeStats counters,
+     and the speculative serves must give plain greedy decode's tokens.
 
 The last line of standard output is the JSON result
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel
@@ -65,6 +75,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12          # dense bf16 tensor-core peak
+FP32_FLOP_PER_S = 67e12           # fp32 outside the tensor cores
+SFU_EX2_PER_CLOCK = 16            # ex2 per clock per SM, compute cap. 9.0
 FP32_ATOL = 2e-5                  # scripts/smoke_serving.py:93
 DEVICE = "cuda"
 
@@ -88,6 +100,8 @@ KERNEL_INFO = {
     "paged_verify_attention_quant": (
         "src/repro_torch/csrc/paged_attention.cu",
         "src/repro/kernels/paged_attention.py:438"),
+    "ssm_scan": ("src/repro_torch/csrc/ssm_scan.cu",
+                 "src/repro/kernels/ssm_scan.py:54"),
 }
 
 
@@ -325,6 +339,85 @@ def check_kernels(dev):
     return errs
 
 
+def _scan_inputs(gen, dev, b, s, din, ds, dtype, dt_dtype=torch.float32,
+                 h0=False):
+    """Selective-scan inputs shaped like a Mamba layer's: dt log-uniform in
+    [1e-3, 0.1] (the model's dt_bias range), A = -(1..ds) scaled per
+    channel, D near 1, B and C of x's dtype; h0 a small random state."""
+    u = torch.rand((b, s, din), generator=gen, device=dev)
+    dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+    A = -torch.arange(1, ds + 1, dtype=torch.float32, device=dev) \
+        * torch.exp(0.3 * torch.randn((din, 1), generator=gen, device=dev))
+    return dict(x=_rand(gen, (b, s, din), dtype, dev), dt=dt.to(dt_dtype),
+                A=A, B=_rand(gen, (b, s, ds), dtype, dev),
+                C=_rand(gen, (b, s, ds), dtype, dev),
+                D=1.0 + 0.1 * torch.randn((din,), generator=gen, device=dev),
+                h0=(0.1 * torch.randn((b, din, ds), generator=gen, device=dev)
+                    if h0 else None))
+
+
+def _compare_out(name, case, got, want, dtype):
+    """_compare for a kernel's output, or for the scan's (y, h_final): y
+    at its dtype's tolerance, the float32 state at FP32_ATOL."""
+    if not isinstance(got, tuple):
+        return _compare(name, case, got, want, dtype)
+    return max(_compare(name, case + " y", got[0], want[0], dtype),
+               _compare(name, case + " h", got[1], want[1], torch.float32))
+
+
+def check_scan(dev):
+    """The selective scan against its plain version: Jamba's widths
+    (d_inner 8192, d_state 16) at s in {1, 17, 144, 1024} and b in
+    {1, 3, 16}, x bf16 with fp32 dt (the model's types) and all fp32, with
+    and without h0, one case with bf16 dt; then the CPU tests' widths
+    (d_inner 16 / 8 / 512, d_state 8 / 4 / 16). Returns the max abs err of
+    the fp32 checks."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev).manual_seed(2)
+    runs = [(din, ds, s, b, dt_, h0)
+            for din, ds in ((8192, 16),)
+            for s in (1, 17, 144, 1024) for b in (1, 3, 16)
+            for dt_ in (torch.bfloat16, torch.float32)
+            for h0 in (False, True)]
+    runs += [(din, ds, s, 3, dt_, h0)
+             for din, ds in ((16, 8), (8, 4), (512, 16))
+             for s in (1, 17, 144)
+             for dt_ in (torch.bfloat16, torch.float32)
+             for h0 in (False, True)]
+    runs.append((8192, 16, 144, 3, "bf16 dt", True))
+    worst = 0.0
+    for din, ds, s, b, dtype, h0 in runs:
+        dt_dtype = torch.float32
+        if dtype == "bf16 dt":
+            dtype = dt_dtype = torch.bfloat16
+        x = _scan_inputs(gen, dev, b, s, din, ds, dtype, dt_dtype, h0)
+        fn = lambda: ops.ssm_scan(x["x"], x["dt"], x["A"], x["B"], x["C"],
+                                  x["D"], h0=x["h0"])
+        got, want = _run_both(fn)
+        torch.cuda.synchronize()
+        case = (f"b={b} s={s} din={din} ds={ds} dt {dt_dtype} "
+                f"{'h0' if h0 else 'no h0'}")
+        err = _compare_out("ssm_scan", case, got, want, dtype)
+        if dtype == torch.float32:
+            worst = max(worst, err)
+        if s == 1024 or din != 8192:
+            log(f"  check ssm_scan [{case}] {dtype}: max abs err {err:.3g}")
+        del x, got, want
+    log(f"  check ssm_scan: {len(runs)} cases agree (fp32 max abs err "
+        f"{worst:.3g}, atol {FP32_ATOL}; bf16 y within one bf16 ulp of the "
+        "largest output)")
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _sm_clock_hz():
+    """The card's maximum SM clock, from nvidia-smi."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
 def _time_ms(fn, flush, iters=10):
     """Mean device time of fn over `iters` calls, each after an L2 flush
     (the serving path meets every layer's pages cold). The card first
@@ -345,10 +438,17 @@ def _time_ms(fn, flush, iters=10):
     return sum(a.elapsed_time(b) for a, b in zip(starts, ends)) / iters
 
 
-def _bound(nbytes, flops):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def _bound(nbytes, flops, flop_rate=BF16_FLOP_PER_S, exps=0):
+    """(ms, by): the larger of the bytes over HBM's rate, the operations
+    over the peak rate of their type and the exponentials over the SFUs'
+    (16 ex2 per clock per SM at the maximum SM clock)."""
+    times = [(nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+             (flops / flop_rate * 1e3, "operations")]
+    if exps:
+        sfu = (SFU_EX2_PER_CLOCK * _sm_clock_hz()
+               * torch.cuda.get_device_properties(0).multi_processor_count)
+        times.append((exps / sfu * 1e3, "exp (SFU)"))
+    return max(times)
 
 
 def timing_inputs(dev, gen):
@@ -358,9 +458,11 @@ def timing_inputs(dev, gen):
     pool, a 4-row 256-token context chunk at 256-token offsets, a 16-slot
     draft decode step over 512..1100-token contexts of a 2048-wide
     contiguous cache, and a 16-slot verification of k + 1 = 5 candidates
-    at committed lengths 512..1100 in the same pool. The quantized paged
-    kernels take the same shapes on the pool's rows quantized to int8 and
-    to fp8 (``quant``: kv_dtype -> (k, v, k_scale, v_scale))."""
+    at committed lengths 512..1100 in the same pool, and the selective scan
+    of a Jamba prefill (16 prompts padded to 1024, d_inner 8192, d_state
+    16, x bf16, dt fp32). The quantized paged kernels take the same shapes
+    on the pool's rows quantized to int8 and to fp8 (``quant``: kv_dtype ->
+    (k, v, k_scale, v_scale))."""
     dt, hq, hkv, d, bs = torch.bfloat16, 64, 8, 128, 16
     out = {}
     b, s = 16, 1024
@@ -394,6 +496,7 @@ def timing_inputs(dev, gen):
     out["paged_verify_attention"] = dict(
         q=_rand(gen, (16, 5, hq, d), dt, dev), kp=kp, vp=vp, tbl=tbl,
         kv_start=kv_start, kv_len=kv_start + 5)
+    out["ssm_scan"] = _scan_inputs(gen, dev, 16, 1024, 8192, 16, dt)
     return out
 
 
@@ -414,7 +517,8 @@ def _time_sdpa(q, k, v, flush, **kw):
 
 def time_kernels(dev):
     """{kernel: dict(ms, plain_ms, bound_ms, bound_by, library_ms,
-    max_abs_err)} at the serving path's shapes, bf16."""
+    max_abs_err)} at the serving path's shapes, bf16 (the scan's state and
+    dt fp32)."""
     from repro_torch.kernels import ops
     gen = torch.Generator(device=dev).manual_seed(1)
     inp = timing_inputs(dev, gen)
@@ -511,15 +615,34 @@ def time_kernels(dev):
             + 4 * (w["tbl"].numel() + 32),
             flops=res["paged_verify_attention"]["flops"], library_ms=None)
 
+    # the scan: x, dt, B, C, A, D read once, y and the fp32 state written
+    # once; per (row, step, channel) ds exponentials and ~6 ds + 3 fp32
+    # operations (the exponent's product, the state update's product and
+    # FMA, C's FMA; dt x, D x and the sum)
+    g = inp["ssm_scan"]
+    b, s, din = g["x"].shape
+    ds = g["A"].shape[1]
+    res["ssm_scan"] = dict(
+        fn=lambda: ops.ssm_scan(g["x"], g["dt"], g["A"], g["B"], g["C"],
+                                g["D"]),
+        nbytes=sum(t.numel() * t.element_size()
+                   for k, t in g.items() if t is not None)
+        + g["x"].numel() * g["x"].element_size() + b * din * ds * 4,
+        flops=b * s * din * (6 * ds + 3), flop_rate=FP32_FLOP_PER_S,
+        exps=b * s * din * ds, library_ms=None)
+
     out = {}
     for name, r in res.items():
         got, want = _run_both(r["fn"])
-        err = _compare(name, "serving shape", got, want, torch.bfloat16)
+        err = _compare_out(name, "serving shape", got, want, torch.bfloat16)
         del got, want
         ms = _time_ms(r["fn"], flush)
         with ops.backend("plain"):
             plain_ms = _time_ms(r["fn"], flush, iters=3)
-        bound_ms, bound_by = _bound(r["nbytes"], r["flops"])
+        bound_ms, bound_by = _bound(
+            r["nbytes"], r["flops"],
+            flop_rate=r.get("flop_rate", BF16_FLOP_PER_S),
+            exps=r.get("exps", 0))
         out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=r["library_ms"],
                          max_abs_err=err)
@@ -550,7 +673,8 @@ def _serve(cfg, asg, params, reqs, around=contextlib.nullcontext, **kw):
     """Serve reqs on a fresh engine, inside the context `around()` (the
     engine is built outside it); check every request got its tokens.
     Returns (stats, wall seconds, dict(draft_steps: draft decode steps
-    run, weight_bytes: bytes of the replica's weights on the card))."""
+    run, weight_bytes: bytes of the replica's weights on the card,
+    state_bytes: bytes of its Mamba layers' per-slot state))."""
     from repro_torch.serving.engine import InferenceEngine
     from repro_torch.serving.loop import VirtualClock
     eng = InferenceEngine(cfg, asg, params=params, device=DEVICE, **kw)
@@ -577,6 +701,10 @@ def _serve(cfg, asg, params, reqs, around=contextlib.nullcontext, **kw):
                           "head": st.head_params or {}}):
             weights[t.data_ptr()] = t.numel() * t.element_size()
     info["weight_bytes"] = sum(weights.values())
+    info["state_bytes"] = sum(        # Mamba layers' per-slot state
+        t.numel() * t.element_size()
+        for caches in eng.replicas[0].paged_caches or () for c in caches
+        if "k" not in c for t in c.values())
     del eng
     return stats, wall, info
 
@@ -749,12 +877,113 @@ def phase_serving(smi):
     return counts
 
 
+def _jamba(periods, dtype=None):
+    """jamba-v0.1-52b at its published widths, depth cut to `periods`
+    8-layer periods."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config("jamba-v0.1-52b")
+    return dataclasses.replace(cfg, num_layers=8 * periods,
+                               dtype=dtype or cfg.dtype)
+
+
+@contextlib.contextmanager
+def _pipeline_calls():
+    """Counts AsymmetricPipeline's joint prefills and decode iterations
+    while the block runs."""
+    from repro_torch.serving.pipeline import AsymmetricPipeline as AP
+    calls = dict.fromkeys(("insert_slots_paged", "decode_slots_paged"), 0)
+    saved = {n: getattr(AP, n) for n in calls}
+
+    def counted(n):
+        def call(self, *a, **kw):
+            calls[n] += 1
+            return saved[n](self, *a, **kw)
+        return call
+    for n in calls:
+        setattr(AP, n, counted(n))
+    try:
+        yield calls
+    finally:
+        for n, fn in saved.items():
+            setattr(AP, n, fn)
+
+
+def _jamba_asg():
+    from repro_torch.core.plan import Assignment, PipelinePlan, StagePlan
+    # stage 0: layers 0-2, all Mamba; stage 1: layers 3-7, the attention
+    # layer 4 among them
+    return Assignment([PipelinePlan([StagePlan([0, 1], 3),
+                                     StagePlan([2], 5)])])
+
+
+def phase_jamba(smi):
+    """Full-width bf16 hybrid serving: jamba-v0.1-52b, one period, through
+    the [3, 5] pipeline. Returns the launch counts of the measured serve,
+    zeroed just before it and read just after."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    cfg = _jamba(1)
+    kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
+    n_mamba, n_attn = kinds.count("mamba"), kinds.count("attn")
+    asg = _jamba_asg()
+    params = M.init_params(cfg, 0, device=DEVICE)
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"phase 3 (hybrid): {cfg.name} at full width, {cfg.num_layers} of "
+        f"32 layers ({n_mamba} Mamba, {n_attn} attention, MoE on "
+        f"{sum(map(cfg.is_moe_layer, range(cfg.num_layers)))}), "
+        f"{n_params / 1e9:.2f}e9 params {cfg.dtype} "
+        f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB), stages "
+        f"{asg.pipelines[0].layer_split}")
+    common = dict(n_slots=16, max_len=2048, block_size=16)
+    _serve(cfg, asg, params, _workloads(cfg.vocab_size, n=4, out_len=4)[0],
+           **common)                                      # warm-up
+    reqs = _workloads(cfg.vocab_size, n=16, out_len=32)[0]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with _pipeline_calls() as calls:
+        stats, wall, info = _serve(cfg, asg, params, reqs, **common)
+    launched = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    out_tok = sum(len(r.output) for r in reqs)
+    in_tok = sum(len(r.prompt) for r in reqs)
+    prefills, steps = calls["insert_slots_paged"], calls["decode_slots_paged"]
+    log(f"  serve jamba synthetic: {len(reqs)} requests, {in_tok} prompt + "
+        f"{out_tok} generated tokens in {wall:.3f} s wall = "
+        f"{out_tok / wall:.1f} generated tok/s, "
+        f"{(in_tok + out_tok) / wall:.1f} total tok/s; {prefills} joint "
+        f"prefills, {steps} decode iterations, {stats.iterations} "
+        f"iterations; {stats.summary()}; launches {launched}")
+    log(f"  memory jamba synthetic: weights {info['weight_bytes']} bytes "
+        f"({info['weight_bytes'] / 2**30:.2f} GiB), Mamba slot state "
+        f"{info['state_bytes']} bytes ({info['state_bytes'] / 2**20:.1f} "
+        f"MiB), page pools (kv_bytes_resident) {stats.kv_bytes_resident} "
+        f"bytes ({stats.kv_bytes_resident / 2**20:.1f} MiB), peak device "
+        f"memory {peak / 2**30:.2f} GiB on {smi}")
+    need = {"ssm_scan": n_mamba * prefills,
+            "flash_attention": n_attn * prefills,
+            "paged_decode_attention": n_attn * steps}
+    if not prefills or not steps:
+        raise AssertionError(f"jamba: {prefills} prefills, {steps} decode "
+                             "iterations")
+    for k, n in need.items():
+        if launched[k] < n:
+            raise AssertionError(f"jamba: {k} ran {launched[k]} < {n} times")
+    profile_serve("jamba synthetic", cfg, asg, params,
+                  _workloads(cfg.vocab_size, n=16, out_len=32)[0], **common)
+    del params
+    torch.cuda.empty_cache()
+    return launched
+
+
 def _kernel_group(name):
     if name.startswith(("void rt::attn_fwd", "void rt::combine_splits")):
         return "attention kernels (port)"
+    if name.startswith("void ss::ssm_scan_kernel"):
+        return "scan (port)"
     if any(t in name.lower() for t in ("gemm", "cutlass", "sm90_xmma",
                                        "nvjet", "gemv")):
-        return "matmul (cuBLAS)"
+        return "matmul (cuBLAS)"       # MoE expert einsums (bmm) included
     if "copy" in name:
         return "copies / casts"
     if "elementwise" in name or "vectorized" in name or "reduce" in name:
@@ -824,6 +1053,13 @@ def _parted(cfg, params, prompts, got, want, what):
         f"{margin:.3g}")
 
 
+PARITY_FIELDS = ("latencies", "iterations", "prefill_tokens",
+                 "prefix_lookups", "prefix_hits", "prefix_hit_tokens",
+                 "cow_copies", "preemptions", "spec_steps", "spec_proposed",
+                 "spec_accepted", "spec_tokens", "kv_bytes_resident",
+                 "kv_bytes_saved")
+
+
 def phase_parity():
     """The same workloads served through the kernels and through the plain
     versions (fp32, full width, 2 layers): identical greedy tokens and
@@ -842,10 +1078,6 @@ def phase_parity():
     params = M.init_params(cfg, 0, device=DEVICE, dtype=torch.float32)
     common = dict(n_slots=8, max_len=2048, block_size=16,
                   dtype=torch.float32)
-    fields = ("latencies", "iterations", "prefill_tokens", "prefix_lookups",
-              "prefix_hits", "prefix_hit_tokens", "cow_copies",
-              "preemptions", "spec_steps", "spec_proposed", "spec_accepted",
-              "spec_tokens", "kv_bytes_resident", "kv_bytes_saved")
     spec = dict(spec_decode=True, spec_k=4)
     prefix = dict(prefix_caching=True, prefill_chunk=256)
     greedy = {}          # kv_dtype -> the plain greedy serve's tokens
@@ -870,7 +1102,7 @@ def phase_parity():
         if tk != tp:
             _parted(cfg, params, prompts, tk, tp,
                     f"{name}: the kernel and plain token streams")
-        for f in fields:
+        for f in PARITY_FIELDS:
             if getattr(sk, f) != getattr(sp, f):
                 raise AssertionError(f"{name}: ServeStats.{f} differs: "
                                      f"{getattr(sk, f)} vs {getattr(sp, f)}")
@@ -889,14 +1121,58 @@ def phase_parity():
     torch.cuda.empty_cache()
 
 
+def phase_parity_jamba():
+    """The synthetic workload on jamba-v0.1-52b at full width in fp32 (one
+    period, 49.5 GiB of weights) through the kernels and through the plain
+    versions: identical tokens and ServeStats counters, with the selective
+    scan launched only by the kernel serve."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    cfg = _jamba(1, dtype="float32")
+    asg = _jamba_asg()
+    params = M.init_params(cfg, 0, device=DEVICE, dtype=torch.float32)
+    common = dict(n_slots=8, max_len=2048, block_size=16,
+                  dtype=torch.float32)
+    outs = []
+    for backend in ("kernel", "plain"):
+        reqs = _workloads(cfg.vocab_size, n=6, out_len=8)[0]
+        ops.reset_launch_counts()
+        with ops.backend(backend):
+            stats, wall, _ = _serve(cfg, asg, params, reqs, **common)
+        scans = ops.launch_counts()["ssm_scan"]
+        if (scans > 0) != (backend == "kernel"):
+            raise AssertionError(f"jamba parity: the {backend} serve "
+                                 f"launched the scan kernel {scans} times")
+        outs.append(([list(r.output) for r in reqs], stats, wall))
+    (tk, sk, wk), (tp, sp, wp) = outs
+    prompts = [list(r.prompt) for r in reqs]
+    if tk != tp:
+        _parted(cfg, params, prompts, tk, tp,
+                "jamba: the kernel and plain token streams")
+    for f in PARITY_FIELDS:
+        if getattr(sk, f) != getattr(sp, f):
+            raise AssertionError(f"jamba: ServeStats.{f} differs: "
+                                 f"{getattr(sk, f)} vs {getattr(sp, f)}")
+    log(f"  parity jamba synthetic (fp32, full width, {cfg.num_layers} "
+        f"layers): {len(tk)} requests x {len(tk[0])} tokens identical "
+        f"through kernels ({wk:.3f} s) and plain versions ({wp:.3f} s); "
+        f"{sk.summary()}")
+    del params
+    torch.cuda.empty_cache()
+
+
 def main():
     smi = phase_device_and_build()
     log("phase 2: kernels against their plain versions")
     check_kernels(torch.device("cuda"))
+    check_scan(torch.device("cuda"))
     timed = time_kernels(torch.device("cuda"))
     counts = phase_serving(smi)
+    for k, n in phase_jamba(smi).items():
+        counts[k] += n
     log("phase 4: engine parity through kernels and plain versions, fp32")
     phase_parity()
+    phase_parity_jamba()
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         kernels.append(dict(name=name, route="cuda", source=src,

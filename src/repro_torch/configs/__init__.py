@@ -1,11 +1,13 @@
 """Architecture registry of the port: ``get_config("llama2-70b")``.
 
-Holds the two dense GQA decoders this slice serves, with the published
-numbers of repro/configs/llama2_70b.py and repro/configs/granite_8b.py.
+Holds the configurations the port serves, with the published numbers of
+repro/configs/llama2_70b.py, repro/configs/granite_8b.py (dense GQA
+decoders) and repro/configs/jamba_v0_1_52b.py (hybrid Mamba + attention
+1:7 with MoE, 16 experts top-2, on every other layer).
 """
 from __future__ import annotations
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ATTN, MAMBA, ModelConfig
 
 _REGISTRY = {
     cfg.name: cfg for cfg in (
@@ -17,6 +19,14 @@ _REGISTRY = {
                     family="dense", num_layers=36, d_model=4096,
                     num_heads=32, num_kv_heads=8, d_ff=14336,
                     vocab_size=49152),
+        ModelConfig(name="jamba-v0.1-52b", source="arXiv:2403.19887",
+                    family="hybrid", num_layers=32, d_model=4096,
+                    num_heads=32, num_kv_heads=8, d_ff=14336,
+                    vocab_size=65536, num_experts=16, top_k=2, moe_every=2,
+                    moe_offset=1,
+                    layer_pattern=(MAMBA, MAMBA, MAMBA, MAMBA, ATTN, MAMBA,
+                                   MAMBA, MAMBA),
+                    ssm_d_state=16, ssm_d_conv=4, ssm_expand=2),
     )
 }
 

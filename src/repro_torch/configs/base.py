@@ -1,7 +1,8 @@
 """Model configuration: a copy of repro.configs.base.ModelConfig (the port
 imports nothing of the JAX package). One frozen dataclass covers every
-family the reference knows; this slice serves the dense attention-only
-decoders (``family="dense"``, no ``layer_pattern``).
+family the reference knows; the port serves the dense attention-only
+decoders and the hybrid Mamba + attention stacks with MoE (``layer_pattern``
+of ATTN and MAMBA, ``num_experts``).
 """
 from __future__ import annotations
 

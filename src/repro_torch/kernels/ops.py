@@ -1,7 +1,8 @@
-"""Attention entry points used by the model code (twins of
+"""Kernel entry points used by the model code (twins of
 repro.kernels.ops.flash_attention / decode_attention /
 paged_decode_attention / paged_context_attention /
-paged_verify_attention, each paged entry with its quantized-pool variant).
+paged_verify_attention, each paged entry with its quantized-pool variant,
+and ssm_scan, the Mamba layers' selective scan).
 
 Dispatch is by the tensor's device: a CUDA tensor goes to the hand-written
 kernel, a CPU tensor to its plain PyTorch version in ``ref``. The scoped
@@ -23,6 +24,7 @@ from repro_torch.kernels.paged_attention import (
     paged_context_attention_cuda, paged_context_attention_quant_cuda,
     paged_decode_attention_cuda, paged_decode_attention_quant_cuda,
     paged_verify_attention_cuda, paged_verify_attention_quant_cuda)
+from repro_torch.kernels.ssm_scan import ssm_scan_cuda
 
 _BACKEND = "kernel"        # "kernel" | "plain"
 
@@ -35,6 +37,7 @@ KERNELS = {
     "paged_decode_attention_quant": paged_decode_attention_quant_cuda,
     "paged_context_attention_quant": paged_context_attention_quant_cuda,
     "paged_verify_attention_quant": paged_verify_attention_quant_cuda,
+    "ssm_scan": ssm_scan_cuda,
 }
 
 
@@ -65,7 +68,7 @@ def _kernel_for(x) -> bool:
     if x.device.type == "cpu":
         return False
     if x.device.type != "cuda":
-        raise ValueError(f"no attention path for device {x.device}")
+        raise ValueError(f"no kernel path for device {x.device}")
     return _BACKEND == "kernel"
 
 
@@ -163,3 +166,12 @@ def paged_verify_attention(q, k_pages, v_pages, block_tables, *, kv_start,
     return ref.paged_verify_attention_ref(q, k_pages, v_pages, block_tables,
                                           kv_start=kv_start, kv_len=kv_len,
                                           scale=scale)
+
+
+def ssm_scan(x, dt, A, B, C, D, *, h0=None):
+    """Selective scan (Mamba S6): x, dt (b, s, din); A (din, ds); B, C
+    (b, s, ds); D (din,); h0 (b, din, ds) or None. Returns (y in x's dtype,
+    h_final float32); see ref.ssm_scan_ref."""
+    if _kernel_for(x):
+        return ssm_scan_cuda(x, dt, A, B, C, D, h0=h0)
+    return ref.ssm_scan_ref(x, dt, A, B, C, D, h0=h0)

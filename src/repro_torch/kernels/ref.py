@@ -1,8 +1,10 @@
-"""Plain PyTorch versions of the port's attention kernels: simple,
+"""Plain PyTorch versions of the port's kernels: simple,
 materialized, O(s^2) where applicable. They are the kernels' oracles on the
 card and the path every CPU tensor takes.
 
-Twins of repro.kernels.ref (same shapes, masks and dead-row contract):
+Twins of repro.kernels.ref (same shapes, masks and dead-row contract), and
+the selective scan of the Mamba layers (``ssm_scan_ref``, ``ssm_step``,
+below). The attention versions take:
   q:     (b, s_q, h_q, d)
   k, v:  (b, s_kv, h_kv, d)      h_q % h_kv == 0 (GQA)
 Scores, softmax and the weighted sum run in float32 whatever the input
@@ -179,3 +181,37 @@ def paged_verify_attention_quant_ref(q, k_pages, v_pages, k_scale, v_scale,
     return paged_verify_attention_ref(
         q, dequant_pages(k_pages, k_scale), dequant_pages(v_pages, v_scale),
         block_tables, kv_start=kv_start, kv_len=kv_len, scale=scale)
+
+
+def ssm_scan_ref(x, dt, A, B, C, D, *, h0=None):
+    """Sequential selective scan (Mamba S6), twin of repro.kernels.ref.
+    ssm_scan_ref: x, dt (b, s, din); A (din, ds); B, C (b, s, ds); D (din,);
+    h0 (b, din, ds) or None (zeros); any s >= 1. Runs in float32. Returns
+    (y (b, s, din) in x's dtype, h_final (b, din, ds) float32)."""
+    xf, dtf, Bf, Cf = (t.float() for t in (x, dt, B, C))
+    b, s, din = x.shape
+    h = (torch.zeros((b, din, A.shape[-1]), dtype=torch.float32,
+                     device=x.device) if h0 is None else h0.float())
+    ys = []
+    for t in range(s):
+        h, y = _ssm_update(xf[:, t], dtf[:, t], A, Bf[:, t], Cf[:, t], h)
+        ys.append(y)
+    y = torch.stack(ys, 1) + xf * D.float()[None, None]
+    return y.to(x.dtype), h
+
+
+def _ssm_update(xt, dtt, A, Bt, Ct, h):
+    dA = torch.exp(dtt[..., None] * A.float()[None])          # (b, din, ds)
+    dBx = (dtt * xt)[..., None] * Bt[:, None, :]
+    h = dA * h + dBx
+    return h, torch.einsum("bdn,bn->bd", h, Ct)
+
+
+def ssm_step(x_t, dt_t, A, B_t, C_t, D, h):
+    """One decode step of the scan (twin of repro.kernels.ops.ssm_step,
+    plain torch on every device): x_t, dt_t (b, din); B_t, C_t (b, ds);
+    h (b, din, ds) float32. Returns (y (b, din) in x_t's dtype, h)."""
+    xf = x_t.float()
+    h, y = _ssm_update(xf, dt_t.float(), A, B_t.float(), C_t.float(), h)
+    y = y + xf * D.float()[None]
+    return y.to(x_t.dtype), h

@@ -1,23 +1,29 @@
-"""Model assembly of the port for the paged serving path and the draft
-model's contiguous cache (twin of the attention-only parts of
-repro.models.model).
+"""Model assembly of the port for the paged serving path and the
+contiguous cache (twin of repro.models.model for the dense decoders and the
+hybrid Mamba + attention stacks with MoE).
 
+Layers are organized into *periods*, as in the reference: the layer
+pattern of a hybrid model (Jamba's seven Mamba layers and one attention
+layer, MoE on every other layer) repeats with period ``period_len(cfg)``.
 Parameters keep the reference's pytree: ``embed`` (V, d), ``final_norm``,
-``lm_head`` (d, V) and ``blocks/sub0`` whose leaves stack every layer on a
-leading axis — the dense decoders this slice serves have a period of one
-layer, so layer i is index i of each leaf (``slice_layer_params``). That
-keeps a bridged JAX pytree (``repro_torch.bridge``) and a seeded torch one
+``lm_head`` (d, V) and ``blocks/sub{j}`` for each position j of a period,
+whose leaves stack the ``n_periods`` layers at that position on a leading
+axis. A dense decoder has a period of one layer, so ``sub0`` leaf index i
+is layer i. ``slice_layer_params`` takes global layer i's views. That keeps
+a bridged JAX pytree (``repro_torch.bridge``) and a seeded torch one
 interchangeable.
 
-Paged caches are one ``{"k", "v"}`` pool pair per layer, shaped
-(n_blocks, block_size, hkv, hd); block 0 is the reserved null/trash page.
-An int8 / fp8 pool adds float32 ``k_scale`` / ``v_scale`` pools
-(n_blocks, block_size, hkv) addressed by the same block ids
-(``models.quant``).
-The contiguous cache (``init_cache``, the speculative draft model's) keeps
-the reference's layout: ``{"sub0": {"k", "v"}}`` with every layer stacked
-on a leading axis, (L, batch, max_len, hkv, hd). Writes go into the caches
-in place.
+Paged caches are one dict per layer: an attention layer's ``{"k", "v"}``
+pools, shaped (n_blocks, block_size, hkv, hd), with block 0 the reserved
+null/trash page (an int8 / fp8 pool adds float32 ``k_scale`` / ``v_scale``
+pools (n_blocks, block_size, hkv) addressed by the same block ids,
+``models.quant``); a Mamba layer's per-slot recurrent state ``{"conv":
+(n_slots, w-1, din), "h": (n_slots, din, ds) float32}``, whose rows are the
+slots (nothing to page). The contiguous cache (``init_cache``: the
+speculative draft model's, and the reference-shaped prefill / decode)
+keeps the reference's layout: ``{"sub{j}": ...}`` with each period
+position's leaves stacked on a leading axis, attention rows
+(P, batch, max_len, hkv, hd). Writes go into the caches in place.
 """
 from __future__ import annotations
 
@@ -25,17 +31,16 @@ import math
 
 import torch
 
-from repro_torch.configs.base import ATTN, ModelConfig
+from repro_torch.configs.base import ATTN, MAMBA, ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import layers, quant
+from repro_torch.models import layers, mamba, moe, quant
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     unported = []
-    if cfg.layer_pattern is not None:
-        unported.append("recurrent/hybrid layers (slice 6)")
-    if cfg.num_experts:
-        unported.append("MoE layers (slice 6)")
+    if cfg.layer_pattern is not None and any(
+            k not in (ATTN, MAMBA) for k in cfg.layer_pattern):
+        unported.append("xLSTM layers (slice 6)")
     if cfg.is_encoder_decoder or cfg.num_image_tokens:
         unported.append("encoder-decoder / VLM inputs (slice 6)")
     if cfg.activation != "silu":
@@ -53,82 +58,170 @@ def param_dtype(cfg: ModelConfig, dtype=None) -> torch.dtype:
 
 
 # ---------------------------------------------------------------------------
+# Period structure
+# ---------------------------------------------------------------------------
+
+def period_len(cfg: ModelConfig) -> int:
+    p = len(cfg.layer_pattern) if cfg.layer_pattern else 1
+    m = cfg.moe_every if cfg.num_experts else 1
+    return math.lcm(p, m)
+
+
+def n_periods(cfg: ModelConfig) -> int:
+    pl = period_len(cfg)
+    if cfg.num_layers % pl:
+        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers are not a "
+                         f"whole number of {pl}-layer periods")
+    return cfg.num_layers // pl
+
+
+def sub_kinds(cfg: ModelConfig):
+    """(kind, is_moe) of each position within one period."""
+    return [(cfg.layer_kind(j), cfg.is_moe_layer(j))
+            for j in range(period_len(cfg))]
+
+
+def layer_sub_index(cfg: ModelConfig, i: int):
+    """Global layer i -> (period index, position within the period)."""
+    pl = period_len(cfg)
+    return i // pl, i % pl
+
+
+# ---------------------------------------------------------------------------
 # Initialization
 # ---------------------------------------------------------------------------
 
 def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
                 dtype=None):
     """Random parameters from a torch.Generator seeded with `seed` on
-    `device`: N(0, 0.02) weights (N(0, 0.02 / sqrt(2 L)) for the residual
-    outputs wo and w_down) and unit norms, in the reference's layout. Each
-    leaf is drawn in place at its own dtype, so a full-width model needs no
-    float32 copy. The same seed gives the same weights on the same kind of
-    device (CPU and CUDA generators draw different streams)."""
+    `device`, in the reference's layout: N(0, 0.02) weights
+    (N(0, 0.02 / sqrt(2 L)) for the residual outputs wo, w_down, out_proj),
+    unit norms, and the reference's Mamba dynamics (A_log = log(1..ds),
+    D = 1 and dt_bias the inverse softplus of a log-uniform dt in
+    [1e-3, 0.1], all three float32 whatever the model dtype). Each leaf is
+    drawn in place at its own dtype, so a full-width model needs no float32
+    copy. The same seed gives the same weights on the same kind of device
+    (CPU and CUDA generators draw different streams)."""
     _check_supported(cfg)
     dev = resolve_device(device)
     generator = torch.Generator(device=dev).manual_seed(seed)
     dt = param_dtype(cfg, dtype)
-    d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim_
-    hq, hkv, L = cfg.num_heads, cfg.num_kv_heads, cfg.num_layers
-    out_scale = 0.02 / math.sqrt(2 * L)
+    d, f, hd, V = cfg.d_model, cfg.d_ff, cfg.head_dim_, cfg.vocab_size
+    hq, hkv, E = cfg.num_heads, cfg.num_kv_heads, cfg.num_experts
+    P = n_periods(cfg)
+    out_scale = 0.02 / math.sqrt(2 * cfg.num_layers)
 
     def rand(shape, scale=0.02):
         return torch.empty(shape, dtype=dt, device=dev).normal_(
             0.0, scale, generator=generator)
 
-    def ones(shape):
-        return torch.ones(shape, dtype=dt, device=dev)
+    def full(shape, value, dtype=dt):
+        return torch.full(shape, value, dtype=dtype, device=dev)
 
-    sub = {
-        "ln1": {"w": ones((L, d))},
-        "mixer": {"wq": rand((L, d, hq * hd)), "wk": rand((L, d, hkv * hd)),
-                  "wv": rand((L, d, hkv * hd)),
-                  "wo": rand((L, hq * hd, d), out_scale)},
-        "ln2": {"w": ones((L, d))},
-        "mlp": {"w_gate": rand((L, d, f)), "w_up": rand((L, d, f)),
-                "w_down": rand((L, f, d), out_scale)},
-    }
-    return {"embed": rand((cfg.vocab_size, d)),
-            "final_norm": {"w": ones((d,))},
-            "blocks": {"sub0": sub},
-            "lm_head": rand((d, cfg.vocab_size))}
+    def attn():
+        return {"wq": rand((P, d, hq * hd)), "wk": rand((P, d, hkv * hd)),
+                "wv": rand((P, d, hkv * hd)),
+                "wo": rand((P, hq * hd, d), out_scale)}
+
+    def ssm():
+        din, dtr = mamba.d_inner(cfg), mamba._dt_rank(cfg)
+        ds, w = cfg.ssm_d_state, cfg.ssm_d_conv
+        A = torch.arange(1, ds + 1, dtype=torch.float32, device=dev)
+        u = torch.rand((P, din), generator=generator, device=dev)
+        dt_init = torch.exp(u * (math.log(0.1) - math.log(1e-3))
+                            + math.log(1e-3))
+        return {"in_proj": rand((P, d, 2 * din)),
+                "conv_w": rand((P, din, w), 0.1),
+                "conv_b": full((P, din), 0.0),
+                "x_proj": rand((P, din, dtr + 2 * ds)),
+                "dt_proj": rand((P, dtr, din), 0.1),
+                "dt_bias": dt_init + torch.log(-torch.expm1(-dt_init)),
+                "A_log": torch.log(A).expand(P, din, ds).contiguous(),
+                "D": full((P, din), 1.0, torch.float32),
+                "out_proj": rand((P, din, d), out_scale)}
+
+    def mlp(experts=()):
+        return {"w_gate": rand((P, *experts, d, f)),
+                "w_up": rand((P, *experts, d, f)),
+                "w_down": rand((P, *experts, f, d), out_scale)}
+
+    blocks = {}
+    for j, (kind, is_moe) in enumerate(sub_kinds(cfg)):
+        sub = {"ln1": {"w": full((P, d), 1.0)},
+               "mixer": attn() if kind == ATTN else ssm()}
+        if f > 0:
+            sub["ln2"] = {"w": full((P, d), 1.0)}
+            if is_moe:
+                sub["moe"] = {"router": rand((P, d, E)), **mlp((E,))}
+            else:
+                sub["mlp"] = mlp()
+        blocks[f"sub{j}"] = sub
+    return {"embed": rand((V, d)), "final_norm": {"w": full((d,), 1.0)},
+            "blocks": blocks, "lm_head": rand((d, V))}
 
 
 def slice_layer_params(cfg: ModelConfig, params, i: int):
-    """Params of global layer i (views, leading layer axis removed)."""
+    """Params of global layer i (views, leading period axis removed)."""
+    p, j = layer_sub_index(cfg, i)
+
     def take(tree):
-        return {k: take(v) if isinstance(v, dict) else v[i]
+        return {k: take(v) if isinstance(v, dict) else v[p]
                 for k, v in tree.items()}
-    return take(params["blocks"]["sub0"])
+    return take(params["blocks"][f"sub{j}"])
 
 
 # ---------------------------------------------------------------------------
-# Contiguous cache (the draft model's)
+# Contiguous cache (the draft model's, and the reference-shaped prefill)
 # ---------------------------------------------------------------------------
+
+def _slot_state(cfg, shape, dt, dev):
+    """Zeroed recurrent state of a Mamba layer for `shape` leading dims."""
+    din = mamba.d_inner(cfg)
+    return {"conv": torch.zeros((*shape, cfg.ssm_d_conv - 1, din), dtype=dt,
+                                device=dev),
+            "h": torch.zeros((*shape, din, cfg.ssm_d_state),
+                             dtype=torch.float32, device=dev)}
+
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=None,
                device="cuda"):
-    """Zeroed contiguous cache {"sub0": {"k", "v"}}, each
-    (L, batch, max_len, hkv, hd)."""
+    """Zeroed contiguous cache {"sub{j}": ...} of each period position j,
+    stacked over the n_periods layers there: attention {"k", "v"}
+    (P, batch, max_len, hkv, hd), Mamba {"conv": (P, batch, w-1, din),
+    "h": (P, batch, din, ds) float32}."""
     _check_supported(cfg)
     if cfg.swa_window:
         raise NotImplementedError("the sliding-window ring cache is not "
                                   "ported yet (ROADMAP.md, slice 5)")
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim_)
+    P = n_periods(cfg)
     dt = param_dtype(cfg, dtype)
     dev = resolve_device(device)
-    return {"sub0": {"k": torch.zeros(shape, dtype=dt, device=dev),
-                     "v": torch.zeros(shape, dtype=dt, device=dev)}}
+    shape = (P, batch, max_len, cfg.num_kv_heads, cfg.head_dim_)
+    cache = {}
+    for j, (kind, _) in enumerate(sub_kinds(cfg)):
+        cache[f"sub{j}"] = (
+            {"k": torch.zeros(shape, dtype=dt, device=dev),
+             "v": torch.zeros(shape, dtype=dt, device=dev)}
+            if kind == ATTN else _slot_state(cfg, (P, batch), dt, dev))
+    return cache
+
+
+def _layer_cache(cfg, cache, i):
+    """Views of global layer i's leaves in an init_cache tree."""
+    p, j = layer_sub_index(cfg, i)
+    return {n: t[p] for n, t in cache[f"sub{j}"].items()}
 
 
 def scatter_cache_rows(cache, rows, slot_ids):
     """Write `rows` (an init_cache tree whose batch is len(slot_ids)) into
-    `cache` at those batch rows, in place; the rows may be shorter than
-    the cache and fill its leading positions. Returns cache."""
-    for n, t in cache["sub0"].items():
-        src = rows["sub0"][n]
-        idx = torch.as_tensor(list(slot_ids), device=t.device).long()
-        t.narrow(2, 0, src.shape[2]).index_copy_(1, idx, src.to(t.dtype))
+    `cache` at those batch rows, in place; attention rows may be shorter
+    than the cache and fill its leading positions. Returns cache."""
+    for sub, leaves in cache.items():
+        for n, t in leaves.items():
+            src = rows[sub][n]
+            idx = torch.as_tensor(list(slot_ids), device=t.device).long()
+            dst = t.narrow(2, 0, src.shape[2]) if n in ("k", "v") else t
+            dst.index_copy_(1, idx, src.to(t.dtype))
     return cache
 
 
@@ -152,15 +245,18 @@ def pool_dtype(kv_dtype, dtype: torch.dtype) -> torch.dtype:
 
 
 def init_layer_paged_cache(cfg: ModelConfig, i: int, n_blocks: int,
-                           block_size: int, *, dtype, device, kv_dtype=None,
-                           kv_guard_layers=()):
-    """One attention layer's page pools (block 0 = null/trash page).
+                           block_size: int, *, dtype, device, n_slots=0,
+                           kv_dtype=None, kv_guard_layers=()):
+    """Global layer i's paged cache: an attention layer's page pools (block
+    0 = null/trash page), a Mamba layer's zeroed per-slot state
+    {"conv": (n_slots, w-1, din) `dtype`, "h": (n_slots, din, ds) float32}.
     `kv_dtype` ("int8" / "fp8") stores int8 / fp8 payloads with zeroed
     float32 scale pools; a layer whose global index i is in
     `kv_guard_layers` keeps the model's `dtype` whatever kv_dtype says."""
-    if cfg.layer_kind(i) != ATTN:
-        raise NotImplementedError("recurrent-state layers are not ported "
-                                  "yet (ROADMAP.md, slice 6)")
+    if cfg.layer_kind(i) == MAMBA:
+        if n_slots < 1:
+            raise ValueError("a Mamba layer's slot state needs n_slots >= 1")
+        return _slot_state(cfg, (n_slots,), dtype, device)
     if i in kv_guard_layers:
         kv_dtype = None
     shape = (n_blocks, block_size, cfg.num_kv_heads, cfg.head_dim_)
@@ -202,7 +298,8 @@ def scatter_rows_to_pages(pages, rows, dest_blocks):
 
 def copy_cache_pages(caches, src_blocks, dst_blocks):
     """Copy-on-write: duplicate page contents src -> dst in every layer's
-    K/V pools, and their scale pools where quantized, in place."""
+    K/V pools, and their scale pools where quantized, in place (a Mamba
+    layer's per-slot state has no pages and is left alone)."""
     for c in caches:
         for n in ("k", "v") + quant.KV_SCALE_LEAVES:
             if n in c:
@@ -217,34 +314,68 @@ def _norm(cfg, p, x):
     return layers.rms_norm(x, p["w"], cfg.norm_eps)
 
 
-def _mlp(cfg, sp, x):
-    return x + layers.mlp(sp["mlp"], _norm(cfg, sp["ln2"], x), cfg)
+def _ffn(cfg, sp, x):
+    """The block's second half: x plus its MLP or MoE on the normed x."""
+    if "mlp" in sp:
+        return x + layers.mlp(sp["mlp"], _norm(cfg, sp["ln2"], x), cfg)
+    if "moe" in sp:
+        return x + moe.moe_mlp(sp["moe"], _norm(cfg, sp["ln2"], x), cfg)
+    return x
 
 
 def _attn_only(kind):
     if kind != ATTN:
-        raise NotImplementedError("recurrent-state layers are not ported "
-                                  "yet (ROADMAP.md, slice 6)")
+        raise NotImplementedError(
+            "the paged context and verify paths need attention layers: a "
+            "recurrent state cannot resume per block or roll back")
 
 
-def apply_sublayer_seq(cfg, kind, sp, x, sc, *, positions, dest_blocks):
-    """One block over whole prompts x (m, P, d); its K/V rows go straight
-    into the layer's pages `sc` through dest_blocks (m * max_blocks,).
-    Returns x."""
-    _attn_only(kind)
-    o, k, v = layers.attn_prefill(sp["mixer"], _norm(cfg, sp["ln1"], x),
-                                  cfg, positions=positions)
-    scatter_rows_to_pages(sc, {"k": k, "v": v}, dest_blocks)
-    return _mlp(cfg, sp, x + o)
+def _write_slot_rows(sc, rows, slot_ids):
+    """Scatter a Mamba layer's fresh state rows into its slots, in place."""
+    idx = torch.as_tensor(list(slot_ids), device=sc["h"].device).long()
+    for n, t in sc.items():
+        t.index_copy_(0, idx, rows[n].to(t.dtype))
+
+
+def _mamba_decode(cfg, p, h, sc):
+    """One Mamba decode step of every row of the state `sc`, in place."""
+    o, new = mamba.mamba_decode(p, h, cfg, cache=sc)
+    for n, t in sc.items():
+        t.copy_(new[n])
+    return o
+
+
+def apply_sublayer_seq(cfg, kind, sp, x, sc, *, positions, dest_blocks,
+                       valid=None, lens=None, slot_ids=None):
+    """One block over whole right-padded prompts x (m, P, d). An attention
+    layer's K/V rows go straight into its pages `sc` through dest_blocks
+    (m * max_blocks,); a Mamba layer scans with `valid` (m, P) and `lens`
+    (m,) and writes each row's final state into slot slot_ids[row] of
+    `sc`. Returns x."""
+    h = _norm(cfg, sp["ln1"], x)
+    if kind == MAMBA:
+        o, rows = mamba.mamba_prefill(sp["mixer"], h, cfg, valid=valid,
+                                      lens=lens, cache=sc)
+        _write_slot_rows(sc, rows, slot_ids)
+    else:
+        o, k, v = layers.attn_prefill(sp["mixer"], h, cfg,
+                                      positions=positions)
+        scatter_rows_to_pages(sc, {"k": k, "v": v}, dest_blocks)
+    return _ffn(cfg, sp, x + o)
 
 
 def apply_sublayer_decode_paged(cfg, kind, sp, x, sc, *, pos, block_tables):
-    """One block for a single decode token per row against paged `sc`."""
-    _attn_only(kind)
-    o = layers.attn_decode_paged(sp["mixer"], _norm(cfg, sp["ln1"], x), cfg,
-                                 pos=pos, block_tables=block_tables,
-                                 cache=sc)
-    return _mlp(cfg, sp, x + o)
+    """One block for a single decode token per row against paged `sc`: an
+    attention layer reads and writes its pages, a Mamba layer steps every
+    slot's state (free slots step garbage that their next insert
+    overwrites), in place."""
+    h = _norm(cfg, sp["ln1"], x)
+    if kind == MAMBA:
+        o = _mamba_decode(cfg, sp["mixer"], h, sc)
+    else:
+        o = layers.attn_decode_paged(sp["mixer"], h, cfg, pos=pos,
+                                     block_tables=block_tables, cache=sc)
+    return _ffn(cfg, sp, x + o)
 
 
 def apply_sublayer_context_paged(cfg, kind, sp, x, sc, *, positions, q_len,
@@ -254,7 +385,7 @@ def apply_sublayer_context_paged(cfg, kind, sp, x, sc, *, positions, q_len,
     o = layers.attn_context_paged(sp["mixer"], _norm(cfg, sp["ln1"], x),
                                   cfg, positions=positions, q_len=q_len,
                                   block_tables=block_tables, cache=sc)
-    return _mlp(cfg, sp, x + o)
+    return _ffn(cfg, sp, x + o)
 
 
 def apply_sublayer_verify_paged(cfg, kind, sp, x, sc, *, positions, q_len,
@@ -266,7 +397,7 @@ def apply_sublayer_verify_paged(cfg, kind, sp, x, sc, *, positions, q_len,
     o = layers.attn_verify_paged(sp["mixer"], _norm(cfg, sp["ln1"], x), cfg,
                                  positions=positions, q_len=q_len,
                                  block_tables=block_tables, cache=sc)
-    return _mlp(cfg, sp, x + o)
+    return _ffn(cfg, sp, x + o)
 
 
 # ---------------------------------------------------------------------------
@@ -287,24 +418,35 @@ def _head(cfg, params, x):
 
 def prefill(cfg: ModelConfig, params, batch, cache, *, lens=None):
     """Prompt pass over right-padded rows batch["tokens"] (b, s), writing
-    every layer's K/V into cache positions [0, s) in place. lens (b,): row
-    i's prompt is [0, lens[i]) and its logits come from its own last real
-    token (None: the last column). Returns (logits (b, V), cache)."""
+    every attention layer's K/V into cache positions [0, s) and every
+    Mamba layer's final state into its rows, in place. lens (b,): row i's
+    prompt is [0, lens[i]) (its pad steps leave the recurrent state alone)
+    and its logits come from its own last real token (None: the last
+    column). Returns (logits (b, V), cache)."""
     tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device)
     b, s = tokens.shape
     x = _embed(cfg, params, tokens.long())
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    for i in range(cfg.num_layers):
-        _attn_only(cfg.layer_kind(i))
-        sp = slice_layer_params(cfg, params, i)
-        o, k, v = layers.attn_prefill(sp["mixer"], _norm(cfg, sp["ln1"], x),
-                                      cfg, positions=positions)
-        for n, t in (("k", k), ("v", v)):
-            cache["sub0"][n][i, :, :s] = t.to(cache["sub0"][n].dtype)
-        x = _mlp(cfg, sp, x + o)
+    valid = None
     if lens is not None:
-        last = torch.as_tensor(lens, device=x.device).long() - 1
-        x = x[torch.arange(b, device=x.device), last][:, None]
+        lens = torch.as_tensor(lens, device=x.device).long()
+        valid = (positions < lens[:, None]).to(torch.int32)
+    for i in range(cfg.num_layers):
+        sp = slice_layer_params(cfg, params, i)
+        c = _layer_cache(cfg, cache, i)
+        h = _norm(cfg, sp["ln1"], x)
+        if cfg.layer_kind(i) == MAMBA:
+            o, rows = mamba.mamba_prefill(sp["mixer"], h, cfg, valid=valid,
+                                          lens=lens, cache=c)
+            _write_slot_rows(c, rows, range(b))
+        else:
+            o, k, v = layers.attn_prefill(sp["mixer"], h, cfg,
+                                          positions=positions)
+            for n, t in (("k", k), ("v", v)):
+                c[n][:, :s] = t.to(c[n].dtype)
+        x = _ffn(cfg, sp, x + o)
+    if lens is not None:
+        x = x[torch.arange(b, device=x.device), lens - 1][:, None]
     else:
         x = x[:, -1:]
     return _head(cfg, params, x)[:, 0], cache
@@ -319,12 +461,15 @@ def decode_step(cfg: ModelConfig, params, tokens, cache, pos, *,
     x = _embed(cfg, params, tokens[:, None])
     pos = torch.as_tensor(pos, device=x.device)
     for i in range(cfg.num_layers):
-        _attn_only(cfg.layer_kind(i))
         sp = slice_layer_params(cfg, params, i)
-        c = {n: cache["sub0"][n][i] for n in ("k", "v")}
-        o = layers.attn_decode(sp["mixer"], _norm(cfg, sp["ln1"], x), cfg,
-                               pos=pos, cache=c, kv_start=kv_start)
-        x = _mlp(cfg, sp, x + o)
+        c = _layer_cache(cfg, cache, i)
+        h = _norm(cfg, sp["ln1"], x)
+        if cfg.layer_kind(i) == MAMBA:
+            o = _mamba_decode(cfg, sp["mixer"], h, c)
+        else:
+            o = layers.attn_decode(sp["mixer"], h, cfg, pos=pos, cache=c,
+                                   kv_start=kv_start)
+        x = _ffn(cfg, sp, x + o)
     return _head(cfg, params, x)[:, 0], cache
 
 

@@ -22,7 +22,14 @@ with the three paths of this slice:
     pool (but the guard layers') as one-byte payloads with per-token
     scales, written quantized by every path above and read through the
     quantized paged kernels (``_ensure_device_caches``,
-    ``_account_kv_bytes``).
+    ``_account_kv_bytes``);
+  * hybrid stacks (Mamba + attention, Jamba): the cold joint prefill
+    writes each Mamba layer's final state into the slot's rows beside the
+    attention pages, decode steps it, and a preempted request's re-prefill
+    rewrites it. As in the reference, prefix caching, chunked prefill,
+    quantized pools and speculation warn and serve without themselves on
+    such a stack (a recurrent state has no per-block piece to share,
+    resume, quantize or roll back).
 
 The host logic is the reference's, line for line where it can be, so both
 engines make the same admission, allocation and preemption decisions and
@@ -41,6 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import model as M
+from repro_torch.models.quant import kv_is_quantized
 from repro_torch.serving.block_manager import (BlockPool, BlockTable,
                                                PrefixIndex, blocks_for_tokens,
                                                chunk_hashes)
@@ -282,14 +290,26 @@ class PagedPipelineBatcher(SlotEngine):
                              f"block_size {block_size}")
         if (prefix_caching or prefill_chunk) \
                 and not context_mode_supported(pipeline.cfg):
-            raise NotImplementedError(
+            warnings.warn(
                 f"{pipeline.cfg.name}: prefix caching / chunked prefill "
-                "need an attention-only stack")
+                "need an attention-only stack (recurrent state has no "
+                "per-block identity); serving without them", stacklevel=2)
+            prefix_caching, prefill_chunk = False, 0
         super().__init__(n_slots=n_slots, max_len=max_len,
                          vocab_size=pipeline.cfg.vocab_size, pad_id=pad_id,
                          virtual_step_cost=virtual_step_cost)
         self.pipeline = pipeline
         self.replica_id = replica_id
+        # quantized pools need the paged context / verify write paths,
+        # which exist for attention-only stacks only
+        if kv_dtype is not None and kv_is_quantized(kv_dtype) \
+                and not context_mode_supported(pipeline.cfg):
+            warnings.warn(
+                f"{pipeline.cfg.name}: quantized KV pages need an "
+                "attention-only stack (recurrent slot state has no paged "
+                "rows to quantize); serving at model precision",
+                stacklevel=2)
+            kv_dtype = None
         # refuses an unquantized kv_dtype of another width than the model's
         M.pool_dtype(kv_dtype, pipeline.dtype)
         self.kv_dtype = kv_dtype
@@ -441,6 +461,8 @@ class PagedPipelineBatcher(SlotEngine):
         resident, baseline = 0, 0
         for caches in self.pipeline.paged_caches:
             for c in caches:
+                if "k" not in c:
+                    continue       # a Mamba layer's slot state: not paged
                 for n, t in c.items():
                     resident += t.numel() * t.element_size()
                     if n in ("k", "v"):

@@ -45,7 +45,11 @@ class InferenceEngine:
     overrides it per replica (a None entry = ``kv_dtype``) and
     ``kv_guard_layers`` keeps those global layer indices at model
     precision. ``quantize=True`` serves int8 weight-only matmul weights
-    (``models.quant.quantize_params``). The reference's other serving
+    (``models.quant.quantize_params``). A hybrid Mamba + attention stack
+    (jamba-v0.1-52b) serves with per-slot recurrent state beside the
+    attention pages; on it, as in the reference, prefix caching, chunked
+    prefill, quantized pools and speculation warn and serve without
+    themselves. The reference's other serving
     features (disaggregation, host tier, cluster prefix, KVSAN, tracing,
     static batching) are not ported yet and raise NotImplementedError."""
 

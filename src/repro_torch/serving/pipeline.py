@@ -9,6 +9,10 @@ changes layout). Stages stay separate objects with their own layer ranges
 and their own page pools, sized independently, so the asymmetric split is
 real.
 
+A stage's attention layers keep page pools, its Mamba layers (hybrid
+stacks) one row of recurrent state per slot; a stage may hold no attention
+layer at all (``has_attn``).
+
 The public methods keep the reference's numpy-in / numpy-out signatures:
 they are the whole seam the batcher (serving.continuous) drives. Logits come
 back to the host as float32 numpy arrays every call, as in the reference.
@@ -23,6 +27,7 @@ import torch
 from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
+from repro_torch.models.mamba import FP32_LEAVES
 from repro_torch.models.quant import is_quantized
 
 
@@ -54,11 +59,14 @@ class StageExecutor:
         self.kinds = [cfg.layer_kind(i) for i in range(lo, hi)]
 
         def place(tree):
-            # an int8 weight keeps its int8 payload and float32 scales
+            # an int8 weight keeps its int8 payload and float32 scales, a
+            # Mamba layer its float32 dynamics
             if is_quantized(tree):
                 return {k: v.to(device=device) for k, v in tree.items()}
             return {k: place(v) if isinstance(v, dict)
-                    else v.to(device=device, dtype=dtype)
+                    else v.to(device=device,
+                              dtype=torch.float32 if k in FP32_LEAVES
+                              else dtype)
                     for k, v in tree.items()}
         self.layer_params = [place(M.slice_layer_params(cfg, params, i))
                              for i in range(lo, hi)]
@@ -71,25 +79,28 @@ class StageExecutor:
     def has_attn(self) -> bool:
         return ATTN in self.kinds
 
-    def make_paged_caches(self, n_blocks: int, block_size: int, *,
-                          kv_dtype: Optional[str] = None,
+    def make_paged_caches(self, n_blocks: int, block_size: int,
+                          n_slots: int, *, kv_dtype: Optional[str] = None,
                           kv_guard_layers: Sequence[int] = ()):
-        """Per-layer page pools; this stage's layers share ONE block-id
-        space of `n_blocks` blocks (one table addresses every layer).
+        """Per-layer caches: page pools for the attention layers, which
+        share ONE block-id space of `n_blocks` blocks (one table addresses
+        every layer), and `n_slots` rows of state for the Mamba layers.
         `kv_dtype` selects the pool precision (None = the model's);
         `kv_guard_layers` are GLOBAL layer indices kept at model
         precision."""
         return [M.init_layer_paged_cache(self.cfg, i, n_blocks, block_size,
                                          dtype=self.dtype, device=self.device,
-                                         kv_dtype=kv_dtype,
+                                         n_slots=n_slots, kv_dtype=kv_dtype,
                                          kv_guard_layers=kv_guard_layers)
                 for i in range(self.lo, self.hi)]
 
-    def prefill(self, x, caches, positions, dest_blocks):
+    def prefill(self, x, caches, positions, dest_blocks, valid, lens,
+                slot_ids):
         for kind, lp, sc in zip(self.kinds, self.layer_params, caches):
             x = M.apply_sublayer_seq(self.cfg, kind, lp, x, sc,
                                      positions=positions,
-                                     dest_blocks=dest_blocks)
+                                     dest_blocks=dest_blocks, valid=valid,
+                                     lens=lens, slot_ids=slot_ids)
         return x
 
     def decode_paged(self, x, caches, pos, block_tables):
@@ -187,7 +198,7 @@ class AsymmetricPipeline:
         self.kv_guard_layers = tuple(kv_guard_layers)
         self.paged_caches = None            # free the old pools first
         self.paged_caches = [
-            st.make_paged_caches(nb, block_size, kv_dtype=kv_dtype,
+            st.make_paged_caches(nb, block_size, n_slots, kv_dtype=kv_dtype,
                                  kv_guard_layers=self.kv_guard_layers)
             for st, nb in zip(self.stages, self.stage_blocks)]
 
@@ -198,19 +209,23 @@ class AsymmetricPipeline:
         """Joint right-padded prefill of prompts `tokens` (b, P) with real
         lengths `lens` (b,): the first m = len(slot_ids) rows are real, rows
         beyond m are the batcher's shape padding and are dropped before any
-        work. Each stage's K/V rows go straight into its pages at
-        ``stage_dest[si]`` ((m * max_blocks,) physical page per logical
-        block, row-major; null entries absorb the padding). Returns each
-        row's last-real-token logits (m, V)."""
+        work. Each stage's attention K/V rows go straight into its pages
+        at ``stage_dest[si]`` ((m * max_blocks,) physical page per logical
+        block, row-major; null entries absorb the padding); its Mamba
+        layers scan each row's real steps (pads are identity steps) and
+        write the final state into the row's slot. Returns each row's
+        last-real-token logits (m, V)."""
         m = len(slot_ids)
         tokens = np.asarray(tokens)[:m]
         lens_t = self._ints(np.asarray(lens)[:m])
         P = tokens.shape[1]
         x = self._embed(tokens)
         positions = torch.arange(P, device=self.device)[None].expand(m, P)
+        valid = (positions < lens_t[:, None]).to(torch.int32)
         for si, st in enumerate(self.stages):
             dest = self._ints(stage_dest[si])
-            x = st.prefill(x, self.paged_caches[si], positions, dest)
+            x = st.prefill(x, self.paged_caches[si], positions, dest, valid,
+                           lens_t, slot_ids)
         ridx = torch.arange(m, device=self.device)
         return self._head(x[ridx, lens_t - 1][:, None])[:, 0]
 

@@ -1,6 +1,7 @@
 """The PyTorch port's ground rules: it imports neither jax nor the JAX
 package, the weight bridge is exact, and its entry points run on the card
 unless the caller asks for the CPU — without a card they raise."""
+import dataclasses
 import os
 import subprocess
 import sys
@@ -20,6 +21,8 @@ from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import ssm_scan as ss
+from repro_torch.models.mamba import FP32_LEAVES
 from repro_torch.models import model as PM
 from repro_torch.serving.engine import InferenceEngine
 from repro_torch.serving.pipeline import AsymmetricPipeline
@@ -49,32 +52,68 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert int(out.stdout.strip()) >= 20      # every module was visited
 
 
+def _leaves_with_names(tree, name=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves_with_names(v, k)
+    else:
+        yield name, tree
+
+
 def test_bridge_round_trip_is_exact():
-    cfg = get_config("llama2-70b").reduced()
-    tree = jax.tree.map(np.asarray, JM.init_params(cfg, jax.random.PRNGKey(0)))
-    back = bridge.params_to_numpy(bridge.params_from_numpy(tree,
-                                                           device="cpu"))
-    flat, treedef = jax.tree.flatten(tree)
-    flat_back, treedef_back = jax.tree.flatten(back)
-    assert treedef == treedef_back
-    for a, b in zip(flat, flat_back):
-        assert a.dtype == b.dtype and a.shape == b.shape
-        np.testing.assert_array_equal(a, b)
+    for arch in ("llama2-70b", "jamba-v0.1-52b"):
+        cfg = get_config(arch).reduced()
+        tree = jax.tree.map(np.asarray,
+                            JM.init_params(cfg, jax.random.PRNGKey(0)))
+        back = bridge.params_to_numpy(bridge.params_from_numpy(tree,
+                                                               device="cpu"))
+        flat, treedef = jax.tree.flatten(tree)
+        flat_back, treedef_back = jax.tree.flatten(back)
+        assert treedef == treedef_back
+        for a, b in zip(flat, flat_back):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            np.testing.assert_array_equal(a, b)
+    # a bf16 cast rounds every float leaf but Mamba's float32 dynamics
+    cast = bridge.params_from_numpy(tree, device="cpu", dtype=torch.bfloat16)
+    for (name, a), (_, t) in zip(_leaves_with_names(tree),
+                                 _leaves_with_names(cast)):
+        want = torch.from_numpy(np.array(a))
+        if name in FP32_LEAVES:
+            assert t.dtype == torch.float32 and torch.equal(t, want), name
+        else:
+            assert t.dtype == torch.bfloat16, name
+            assert torch.equal(t, want.to(torch.bfloat16)), name
 
 
 def test_port_params_follow_the_reference_layout():
-    cfg = get_config("llama2-70b").reduced()
-    ref_tree = jax.tree.map(np.asarray,
-                            JM.init_params(cfg, jax.random.PRNGKey(0)))
-    port = PM.init_params(port_config("llama2-70b").reduced(), 3,
-                          device="cpu")
-    shapes = jax.tree.map(lambda a: a.shape, ref_tree)
-    port_shapes = jax.tree.map(lambda t: tuple(t.shape), port)
-    assert shapes == port_shapes
-    again = PM.init_params(port_config("llama2-70b").reduced(), 3,
-                           device="cpu")
-    assert all(torch.equal(a, b) for a, b in zip(
-        jax.tree.leaves(port), jax.tree.leaves(again)))     # seeded
+    for arch in ("llama2-70b", "jamba-v0.1-52b"):
+        cfg = get_config(arch).reduced()
+        ref_tree = jax.tree.map(np.asarray,
+                                JM.init_params(cfg, jax.random.PRNGKey(0)))
+        port = PM.init_params(port_config(arch).reduced(), 3, device="cpu")
+        shapes = jax.tree.map(lambda a: a.shape, ref_tree)
+        port_shapes = jax.tree.map(lambda t: tuple(t.shape), port)
+        assert shapes == port_shapes
+        dtypes = jax.tree.map(lambda a: str(a.dtype), ref_tree)
+        port_dtypes = jax.tree.map(
+            lambda t: str(t.dtype).removeprefix("torch."), port)
+        assert dtypes == port_dtypes
+        again = PM.init_params(port_config(arch).reduced(), 3, device="cpu")
+        assert all(torch.equal(a, b) for a, b in zip(
+            jax.tree.leaves(port), jax.tree.leaves(again)))     # seeded
+    # in a bf16 model the Mamba dynamics stay float32, as in the reference
+    full = get_config("jamba-v0.1-52b")
+    assert full.dtype == "bfloat16"
+    small = dataclasses.replace(full.reduced(), dtype="bfloat16")
+    ref_tree = jax.eval_shape(lambda: JM.init_params(small,
+                                                     jax.random.PRNGKey(0)))
+    port = PM.init_params(dataclasses.replace(
+        port_config("jamba-v0.1-52b").reduced(), dtype="bfloat16"), 3,
+        device="cpu")
+    assert jax.tree.map(lambda a: str(a.dtype), ref_tree) == jax.tree.map(
+        lambda t: str(t.dtype).removeprefix("torch."), port)
+    assert all(t.dtype == torch.float32 for n, t in _leaves_with_names(port)
+               if n in FP32_LEAVES)
 
 
 @pytest.mark.parametrize("entry", ["engine", "pipeline", "init_params"])
@@ -104,6 +143,8 @@ def test_kernel_wrappers_refuse_cpu_tensors(name):
     kq = torch.zeros(1, 8, 2, 32, dtype=torch.int8)     # a quantized pool
     ks = torch.zeros(1, 8, 2)
     tbl = torch.zeros(1, 1, dtype=torch.int32)
+    x = torch.zeros(1, 3, 8)                            # a selective scan
+    A, B, D = torch.zeros(8, 4), torch.zeros(1, 3, 4), torch.zeros(8)
     args = {"flash_attention": lambda: fa.flash_attention_cuda(q, k, k),
             "paged_decode_attention": lambda: pa.paged_decode_attention_cuda(
                 q, k, k, torch.zeros(1, 1, dtype=torch.int32)),
@@ -122,7 +163,8 @@ def test_kernel_wrappers_refuse_cpu_tensors(name):
                     q, kq, kq, ks, ks, tbl, q_start=[0], kv_len=[1]),
             "paged_verify_attention_quant":
                 lambda: pa.paged_verify_attention_quant_cuda(
-                    q, kq, kq, ks, ks, tbl, kv_start=[0], kv_len=[1])}
+                    q, kq, kq, ks, ks, tbl, kv_start=[0], kv_len=[1]),
+            "ssm_scan": lambda: ss.ssm_scan_cuda(x, x, A, B, B, D)}
     before = ops.launch_counts()
     with pytest.raises(ValueError, match="CUDA"):
         args[name]()
