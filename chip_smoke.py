@@ -8,11 +8,18 @@ JAX. Phases, each of which raises on failure:
 
   1. device and build: prints the card's name and power limit, turns TF32
      off, compiles every kernel of the port with nvcc (one process per
-     source, in parallel) into build/repro_torch/;
+     source, in parallel) into build/repro_torch/, and logs for the flash
+     and contiguous-decode libraries each kernel's registers and spills
+     and the counts of the SASS instructions that show how it runs
+     (HGMMA, UTMALDG / UTMASTG, LDGSTS, HMMA, MOVM);
   2. kernels against their plain PyTorch versions on the card, at
-     Llama-2-70B attention widths (hq 64, hkv 8, d 128, block 16) in bf16
+     Llama-2-70B attention widths (hq 64, hkv 8, d 128, block 16) and
+     Jamba's (hq 32, hkv 8) in bf16
      and fp32 and at the small head dims the CPU tests use (rows that see
-     no key must come out as exact zeros), the three paged kernels also on
+     no key must come out as exact zeros; flash also at more key tiles
+     than its ring holds, ragged s, 5 queries and g = 1, contiguous decode
+     also at S = 2048 with kv_len 1..2048 at b = 16 and b = 1), the three
+     paged kernels also on
      int8 and fp8 pools through their quantized kernels, and the selective
      scan at Jamba's widths (d_inner 8192, d_state 16) and the CPU tests'
      (output and final state); then timed at the serving path's shapes
@@ -32,12 +39,18 @@ JAX. Phases, each of which raises on failure:
      counters are zeroed before each serve and read after it, and every
      kernel of that path must have run at least layers x steps times (on
      quantized pools: the quantized kernels on the quantized layers, the
-     unquantized ones on the guard layers only). The synthetic,
+     unquantized ones on the guard layers only). The self-draft serve runs
+     four more times: with its prefill attention and draft decode calls
+     sampled, to log flash's and contiguous decode's errors on its own
+     inputs, then with the draft decode on the paged decode kernel's body
+     and on the plain version, and with prefill attention on the plain
+     version, to log the accept rate of each. The synthetic,
      shared-prefix, self-draft, quant-int8 and quant-w8 serves run once
-     more under torch.profiler for a breakdown of device time. Then the
-     hybrid path: jamba-v0.1-52b at full width in bf16 (depth cut to one
-     8-layer period of 32: seven Mamba layers, one attention layer, MoE
-     with 16 experts top-2 on every other layer; seeded random weights)
+     more under torch.profiler for a breakdown of device time.
+     Then the hybrid path: jamba-v0.1-52b at full width in bf16 (depth
+     cut to one 8-layer period of 32: seven Mamba layers, one attention
+     layer, MoE with 16 experts top-2 on every other layer; seeded random
+     weights)
      serves the synthetic workload through the same [3, 5] pipeline, whose
      first stage holds only Mamba layers; the selective scan must run on
      all seven Mamba layers of every prefill, flash attention on every
@@ -138,7 +151,36 @@ def phase_device_and_build():
             log(f"  ptxas {name}: {len(regs)} kernels, {min(regs)}-"
                 f"{max(regs)} registers, {sum(int(x) > 0 for x in spills)} "
                 f"with spill stores (at most {max(map(int, spills))} bytes)")
+    sass = {name: log_kernel_build(name, libs[name])
+            for name in ("flash_attention", "decode_attention")}
+    if not (sass["flash_attention"]["HGMMA"]
+            and sass["flash_attention"]["UTMALDG"]):
+        raise AssertionError("the flash library has no wgmma or no TMA load: "
+                             f"{sass['flash_attention']}")
     return smi
+
+
+def log_kernel_build(name, so):
+    """Registers and spills of each kernel of library `name` (ptxas), and
+    how many of its SASS instructions are warpgroup MMAs (HGMMA), TMA loads
+    and stores (UTMALDG, UTMASTG), cp.async copies (LDGSTS), mma.sync
+    (HMMA) and matrix transposes (MOVM), from cuobjdump -sass."""
+    from repro_torch.kernels import build
+    text = so.with_suffix(".log").read_text()
+    for fn, spill, regs in re.findall(
+            r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores.*?"
+            r"Used (\d+) registers", text, flags=re.S):
+        log(f"  ptxas {name} {fn}: {regs} registers, {spill} bytes spill "
+            "stores")
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
+    counts = {op: len(re.findall(rf"\b{op}\b", sass))
+              for op in ("HGMMA", "UTMALDG", "UTMASTG", "LDGSTS", "HMMA",
+                         "MOVM")}
+    log(f"  sass {name}: " + ", ".join(f"{op} {n}" for op, n in
+                                        counts.items()))
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -188,6 +230,27 @@ def flash_cases(gen, dev, dtype, hq=64, hkv=8, d=128):
         lambda o: o[2, :40]
     yield "noncausal+kv_len", lambda: ops.flash_attention(
         q, k, v, causal=False, kv_len=kv_len), None
+    # the bf16 body's edges: more key tiles than its ring has stages, a
+    # ragged s that is no multiple of a 128-row tile, a 5-query prompt
+    # (fewer rows than one warpgroup), and g = 1 (hq = hkv)
+    b, s = 2, 645
+    q = _rand(gen, (b, s, hq, d), dtype, dev)
+    k = _rand(gen, (b, s, hkv, d), dtype, dev)
+    v = _rand(gen, (b, s, hkv, d), dtype, dev)
+    kv_len = torch.tensor([645, 600], device=dev)
+    kv_start = torch.tensor([0, 300], device=dev)     # row 1: dead queries
+    yield "long s=645 causal", lambda: ops.flash_attention(q, k, v), None
+    yield "long s=645 window+kv_len+kv_start", lambda: ops.flash_attention(
+        q, k, v, window=200, kv_len=kv_len, kv_start=kv_start), \
+        lambda o: o[1, :300]
+    yield "long s=645 noncausal", lambda: ops.flash_attention(
+        q, k, v, causal=False), None
+    q5, k5, v5 = (_rand(gen, (3, 5, h, d), dtype, dev)
+                  for h in (hq, hkv, hkv))
+    yield "s=5", lambda: ops.flash_attention(q5, k5, v5), None
+    q1 = _rand(gen, (b, 300, hkv, d), dtype, dev)
+    yield "g=1 s=300", lambda: ops.flash_attention(
+        q1, k[:, :300].contiguous(), v[:, :300].contiguous()), None
 
 
 def _pool(gen, dev, dtype, n_blocks, bs, hkv, d, kv=None):
@@ -268,6 +331,23 @@ def contiguous_decode_cases(gen, dev, dtype, hq=64, hkv=8, d=128):
     kv_start = torch.tensor([700, 0, 0], device=dev)
     yield "long+splits", lambda: ops.decode_attention(
         q, k, v, kv_len=kv_len, kv_start=kv_start), None
+    # the draft's cache width: S = 2048, kv_len from 1 to 2048, kv_start
+    # > 0 on some rows, at b = 16 and at b = 1 (the most splits per row)
+    S = 2048
+    q = _rand(gen, (16, 1, hq, d), dtype, dev)
+    k = _rand(gen, (16, S, hkv, d), dtype, dev)
+    v = _rand(gen, (16, S, hkv, d), dtype, dev)
+    kv_len = torch.tensor([1, 2, 15, 16, 17, 63, 64, 65, 100, 511, 512, 1000,
+                           1100, 2047, 2048, 2048], device=dev)
+    kv_start = torch.tensor([0, 1, 0, 3, 16, 0, 0, 64, 99, 0, 500, 0, 7, 0,
+                             2000, 0], device=dev)
+    yield "S=2048 b=16 kv_len 1..2048", lambda: ops.decode_attention(
+        q, k, v, kv_len=kv_len, kv_start=kv_start), None
+    yield "S=2048 b=1 full", lambda: ops.decode_attention(
+        q[:1], k[:1], v[:1]), None
+    yield "S=2048 b=1 kv_start=700", lambda: ops.decode_attention(
+        q[:1], k[:1], v[:1], kv_len=kv_len[-1:],
+        kv_start=kv_start[:1] + 700), None
 
 
 def verify_cases(gen, dev, dtype, hq=64, hkv=8, d=128, bs=16, kv=None):
@@ -314,15 +394,17 @@ CASES = {"flash_attention": flash_cases,
 
 
 def check_kernels(dev):
-    """Every kernel against its plain version: Llama-2-70B widths and the
-    CPU tests' small head dims, in bf16 and fp32; the parts of a case that
+    """Every kernel against its plain version: Llama-2-70B widths (g 8),
+    Jamba's (hq 32, hkv 8: g 4) and the CPU tests' small head dims, in bf16
+    and fp32; the parts of a case that
     see no key must be exact zeros. Returns {kernel: max abs err over its
     fp32 checks}."""
     gen = torch.Generator(device=dev).manual_seed(0)
     errs = {}
     for name, cases in CASES.items():
         runs = [(dt, widths) for dt in (torch.bfloat16, torch.float32)
-                for widths in ({}, dict(hq=4, hkv=2, d=32),
+                for widths in ({}, dict(hq=32, hkv=8, d=128),
+                               dict(hq=4, hkv=2, d=32),
                                dict(hq=4, hkv=1, d=64))]
         for dtype, widths in runs:
             for case, fn, dead in cases(gen, dev, dtype, **widths):
@@ -335,6 +417,7 @@ def check_kernels(dev):
                 if dtype == torch.float32:
                     errs[name] = max(errs.get(name, 0.0), err)
                 log(f"  check {name} [{case}] {dtype} "
+                    f"hq={widths.get('hq', 64)} hkv={widths.get('hkv', 8)} "
                     f"d={widths.get('d', 128)}: max abs err {err:.3g}")
     return errs
 
@@ -783,6 +866,117 @@ def _check_path(name, stats, launched, draft_steps, reqs, L, n_slots, kw):
                 f"{quant} times on {L - G} quantized of {L} layers")
 
 
+def _as_pages(k, v, kv_len, kv_start, bs=16):
+    """Each row's live keys [kv_start, kv_len) of a contiguous cache k, v
+    (b, S, hkv, d), moved to the front of its own pages: pools (b x nb, bs,
+    hkv, d), block tables (b, nb) and the live lengths, for the paged
+    decode kernel, which has no kv_start."""
+    b, S = k.shape[:2]
+    lo = (kv_start.long().clamp(min=0) if kv_start is not None
+          else torch.zeros(b, dtype=torch.long, device=k.device))
+    hi = (kv_len.long().clamp(max=S) if kv_len is not None
+          else torch.full((b,), S, dtype=torch.long, device=k.device))
+    n = (hi - lo).clamp(min=0)
+    nb = max(1, -(-int(n.max()) // bs))
+    idx = (lo[:, None] + torch.arange(nb * bs, device=k.device)).clamp(
+        max=S - 1)[:, :, None, None].expand(-1, -1, *k.shape[2:])
+    kp, vp = (torch.gather(t, 1, idx).reshape(b * nb, bs, *t.shape[2:])
+              for t in (k, v))
+    tbl = torch.arange(b * nb, dtype=torch.int32,
+                       device=k.device).reshape(b, nb)
+    return kp, vp, tbl, n.to(torch.int32)
+
+
+@contextlib.contextmanager
+def _replaced(name, fn):
+    """ops.<name> (flash_attention: every prefill's attention;
+    decode_attention: the self-draft's decode) replaced by fn."""
+    from repro_torch.kernels import ops
+    prev = getattr(ops, name)
+    setattr(ops, name, fn)
+    try:
+        yield
+    finally:
+        setattr(ops, name, prev)
+
+
+def study_rewritten_kernels(cfg, asg, params, kw):
+    """The two kernels this slice rewrote (#1, #8) against what they
+    replaced, on the self-draft serve's own inputs. Before, #8 was an
+    instance of the scalar split-KV body that the paged decode kernel (#2)
+    still runs; #2 stands for it here, fed the same keys moved into pages.
+    The spec-draft serve runs once with its prefill attention and draft
+    decode calls sampled; on each sample #1, #8 and #2 are held against
+    the plain version, which computes in fp32 (its own rounding to bf16 is
+    the floor). Then the serve runs with the draft's decode on #2 and on
+    the plain version, and with every prefill's attention on the plain
+    version, and the accept rates are logged side by side."""
+    from repro_torch.kernels import ops, ref
+    calls = {"flash_attention": [0, 5, []], "decode_attention": [0, 53, []]}
+
+    def sampling(name):
+        real = getattr(ops, name)
+
+        def fn(*a, **k):
+            c = calls[name]
+            if c[0] % c[1] == 0 and len(c[2]) < 4:
+                c[2].append(([t.clone() for t in a], {
+                    x: t.clone() if torch.is_tensor(t) else t
+                    for x, t in k.items()}))
+            c[0] += 1
+            return real(*a, **k)
+        return fn
+
+    def on_paged(q, k, v, *, kv_len=None, kv_start=None, scale=None):
+        kp, vp, tbl, n = _as_pages(k, v, kv_len, kv_start)
+        return ops.paged_decode_attention(q, kp, vp, tbl, kv_len=n,
+                                          scale=scale)
+
+    rates = {}
+    for what, swap in (
+            ("#1 and #8", (("flash_attention", sampling("flash_attention")),
+                           ("decode_attention",
+                            sampling("decode_attention")))),
+            ("the draft decode on #2's body",
+             (("decode_attention", on_paged),)),
+            ("the draft decode on the plain version",
+             (("decode_attention", ref.decode_attention_ref),)),
+            ("every prefill's attention on the plain version",
+             (("flash_attention", ref.attention_ref),))):
+        reqs = _workloads(cfg.vocab_size, n=16, out_len=32)[0]
+        with contextlib.ExitStack() as stack:
+            for name, fn in swap:
+                stack.enter_context(_replaced(name, fn))
+            stats, _, _ = _serve(cfg, asg, params, reqs, **kw)
+        rates[what] = (f"{stats.spec_accepted / stats.spec_proposed:.3f} "
+                       f"({stats.spec_accepted}/{stats.spec_proposed})")
+    for name, alt in (("flash_attention", None),
+                      ("decode_attention", on_paged)):
+        n_calls, _, samples = calls[name]
+        err = {}
+        for a, k in samples:
+            want = (ref.attention_ref if alt is None
+                    else ref.decode_attention_ref)(*(t.float() for t in a),
+                                                   **k)
+            got = {"kernel": getattr(ops, name)(*a, **k),
+                   "plain (bf16 floor)": want.to(a[0].dtype)}
+            if alt is not None:
+                got["#2's body"] = alt(*a, **k)
+            for key, out in got.items():
+                d = (out.float() - want).abs()
+                err.setdefault(key, []).append((float(d.max()),
+                                                float(d.mean())))
+            del want, got
+        log(f"  {name} on the spec-draft serve's inputs ({len(samples)} of "
+            f"{n_calls} calls, q {tuple(samples[0][0][0].shape)}, k "
+            f"{tuple(samples[0][0][1].shape)}) against the fp32 plain "
+            "version: " + "; ".join(
+                f"{key} max abs err {max(m for m, _ in e):.4g}, mean "
+                f"{np.mean([x for _, x in e]):.4g}" for key, e in err.items()))
+    log("  self-draft accept rate with " + ", ".join(
+        f"{k}: {r}" for k, r in rates.items()))
+
+
 def phase_serving(smi):
     """Full-width bf16 serving through the asymmetric 2-stage pipeline on
     the card. Returns the launch counts summed over the measured serves,
@@ -866,6 +1060,8 @@ def phase_serving(smi):
                     common["n_slots"], kw)
     log(f"  peak device memory {max(peaks) / 2**30:.2f} GiB over the serves "
         f"(torch.cuda.max_memory_allocated) on {smi}")
+    study_rewritten_kernels(cfg, asg, params,
+                            dict(common, **dict(serves)["spec-draft"]))
     for name, kw in serves:
         if name in ("synthetic", "shared-prefix", "spec-draft", "quant-int8",
                     "quant-w8"):
@@ -977,7 +1173,8 @@ def phase_jamba(smi):
 
 
 def _kernel_group(name):
-    if name.startswith(("void rt::attn_fwd", "void rt::combine_splits")):
+    if name.startswith(("void rt::attn_fwd", "void rt::combine_splits",
+                        "void fa::flash_fwd", "void dk::decode_fwd")):
         return "attention kernels (port)"
     if name.startswith("void ss::ssm_scan_kernel"):
         return "scan (port)"

@@ -1,8 +1,11 @@
-// Shared core of the port's attention kernels (flash prefill, paged decode,
-// paged context prefill and verification, contiguous decode): one tiled
-// online-softmax attention body whose only differences are where a key row
-// comes from (a contiguous (b, skv, hkv, d) cache, or a page pool read
-// through a per-row block table), the mask, and the element type of K/V.
+// Shared core of the port's paged attention kernels (paged decode, paged
+// context prefill and verification, on bf16 / fp32 / int8 / fp8 pools) and
+// of fp32 flash prefill: one tiled online-softmax attention body whose only
+// differences are where a key row comes from (a contiguous (b, skv, hkv, d)
+// cache, or a page pool read through a per-row block table), the mask, and
+// the element type of K/V. bf16 flash prefill (flash_attention.cu: TMA and
+// wgmma) and contiguous decode (decode_attention.cu) have bodies of their
+// own.
 //
 // Layout of one thread block: 256 threads as a 16 x 16 grid (ty, tx). The
 // block owns BQ = 16 * ROWS query ROWS, where a row is one (position, query
@@ -27,9 +30,9 @@
 // and decode's few rows in any dtype), and attn_fwd_mma below, bf16 tensor
 // cores (mma.sync) for many-row bf16 blocks. Both load tiles with 16-byte
 // vector loads. attn_fwd can also split a row's keys over n_split blocks
-// (decode) whose partial states combine_splits merges. wgmma, TMA and
-// cp.async pipelining are later work; see PERF.md for where each kernel
-// stands against its bound.
+// (decode) whose partial states combine_splits merges. Neither pipelines
+// its loads (cp.async / TMA) nor uses wgmma yet: flash_attention.cu shows
+// both, and PERF.md where each kernel stands against its bound.
 //
 // Quantized page pools (KV = int8_t or __nv_fp8_e4m3, with per-token-per-
 // head fp32 scale pools (n_blocks, bs, hkv) in AttnParams::k_scale/v_scale)
@@ -473,9 +476,10 @@ __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1,
       : "r"(addr));
 }
 
-// KV: __nv_bfloat16, or a one-byte quantized payload (int8_t,
-// __nv_fp8_e4m3) widened to bf16 on its way into shared memory
-template <typename KV, int D, bool PAGED>
+// Page pools only (bf16 flash prefill has a body of its own). KV:
+// __nv_bfloat16, or a one-byte quantized payload (int8_t, __nv_fp8_e4m3)
+// widened to bf16 on its way into shared memory
+template <typename KV, int D>
 __global__ void __launch_bounds__(MMA_THREADS) attn_fwd_mma(AttnParams p) {
   constexpr bool QUANT = sizeof(KV) == 1;
   constexpr int LD = D + 8;       // padded rows: conflict-free fragment loads
@@ -506,7 +510,7 @@ __global__ void __launch_bounds__(MMA_THREADS) attn_fwd_mma(AttnParams p) {
   const int row0 = blockIdx.x * MMA_BQ;
   const int qs = p.q_start ? p.q_start[bi] : 0;
 
-  int kv_end = PAGED ? p.max_blocks * p.bs : p.skv;
+  int kv_end = p.max_blocks * p.bs;
   if (p.kv_len) kv_end = min(kv_end, p.kv_len[bi]);
   const int kv_begin = p.kv_start ? max(p.kv_start[bi], 0) : 0;
   const int last = min(row0 + MMA_BQ, nrows) - 1;
@@ -554,7 +558,7 @@ __global__ void __launch_bounds__(MMA_THREADS) attn_fwd_mma(AttnParams p) {
       uint4 kv = make_uint4(0, 0, 0, 0), vv = kv;
       if (kpos < hi) {
         const int64_t off =
-            (key_row<PAGED>(p, bi, kpos) * p.hkv + kvh) * D + c;
+            (key_row<true>(p, bi, kpos) * p.hkv + kvh) * D + c;
         kv = *reinterpret_cast<const uint4*>(K + off);
         vv = *reinterpret_cast<const uint4*>(V + off);
       }
@@ -571,7 +575,7 @@ __global__ void __launch_bounds__(MMA_THREADS) attn_fwd_mma(AttnParams p) {
         const int kpos = k0 + j;
         float ks = 0.f, vs = 0.f;
         if (kpos < hi) {
-          const int64_t r = key_row<PAGED>(p, bi, kpos) * p.hkv + kvh;
+          const int64_t r = key_row<true>(p, bi, kpos) * p.hkv + kvh;
           ks = p.k_scale[r];
           vs = p.v_scale[r];
         }
@@ -684,10 +688,10 @@ __global__ void __launch_bounds__(MMA_THREADS) attn_fwd_mma(AttnParams p) {
   }
 }
 
-template <typename KV, int D, bool PAGED>
+template <typename KV, int D>
 cudaError_t launch_mma(const AttnParams& p, cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<D, sizeof(KV) == 1>();
-  auto kern = attn_fwd_mma<KV, D, PAGED>;
+  auto kern = attn_fwd_mma<KV, D>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -702,19 +706,21 @@ cudaError_t launch_mma(const AttnParams& p, cudaStream_t stream) {
 // Few rows (a decode step's g query heads) take the scalar 16-row block.
 // Larger blocks take the tensor-core body in bf16 and the scalar 64-row
 // block in fp32 (mma.sync has no fp32 inputs; the fp32 path is the one the
-// parity runs use). Head dims the port serves: 32, 64, 128.
+// parity runs use). Head dims the port serves: 32, 64, 128. Contiguous
+// K/V (PAGED false) is fp32 flash prefill's only.
 template <typename T, typename KV, bool PAGED>
 cudaError_t dispatch_d(const AttnParams& p, int d, cudaStream_t stream) {
   const bool small = p.sq * (p.hq / p.hkv) <= 16;
   if constexpr (sizeof(T) == 2) {
+    static_assert(PAGED, "bf16 on contiguous K/V has bodies of its own");
     if (!small) {
       switch (d) {
         case 32:
-          return launch_mma<KV, 32, PAGED>(p, stream);
+          return launch_mma<KV, 32>(p, stream);
         case 64:
-          return launch_mma<KV, 64, PAGED>(p, stream);
+          return launch_mma<KV, 64>(p, stream);
         case 128:
-          return launch_mma<KV, 128, PAGED>(p, stream);
+          return launch_mma<KV, 128>(p, stream);
         default:
           return cudaErrorInvalidValue;
       }
@@ -735,33 +741,11 @@ cudaError_t dispatch_d(const AttnParams& p, int d, cudaStream_t stream) {
   }
 }
 
-template <typename KV, bool PAGED>
+template <typename KV>
 cudaError_t dispatch_q(const AttnParams& p, int d, int dtype,
                        cudaStream_t stream) {
-  if (dtype == 0) return dispatch_d<float, KV, PAGED>(p, d, stream);
-  if (dtype == 1) return dispatch_d<__nv_bfloat16, KV, PAGED>(p, d, stream);
-  return cudaErrorInvalidValue;
-}
-
-// dtype (of q, o): 0 = float32, 1 = bfloat16. kv_type (of the K/V pools):
-// 0 = q's dtype, 1 = int8, 2 = fp8 e4m3; the quantized types need both
-// scale pools and exist for paged pools only.
-template <bool PAGED>
-cudaError_t dispatch(const AttnParams& p, int d, int dtype,
-                     cudaStream_t stream, int kv_type = 0) {
-  if (p.hkv <= 0 || p.hq % p.hkv != 0) return cudaErrorInvalidValue;
-  if (kv_type == 0) {
-    if (dtype == 0) return dispatch_d<float, float, PAGED>(p, d, stream);
-    if (dtype == 1)
-      return dispatch_d<__nv_bfloat16, __nv_bfloat16, PAGED>(p, d, stream);
-    return cudaErrorInvalidValue;
-  }
-  if constexpr (PAGED) {
-    if (!p.k_scale || !p.v_scale) return cudaErrorInvalidValue;
-    if (kv_type == 1) return dispatch_q<int8_t, PAGED>(p, d, dtype, stream);
-    if (kv_type == 2)
-      return dispatch_q<__nv_fp8_e4m3, PAGED>(p, d, dtype, stream);
-  }
+  if (dtype == 0) return dispatch_d<float, KV, true>(p, d, stream);
+  if (dtype == 1) return dispatch_d<__nv_bfloat16, KV, true>(p, d, stream);
   return cudaErrorInvalidValue;
 }
 

@@ -46,6 +46,25 @@
 
 namespace {
 
+// dtype (of q, o): 0 = float32, 1 = bfloat16. kv_type (of the K/V pools):
+// 0 = q's dtype, 1 = int8, 2 = fp8 e4m3; the quantized types need both
+// scale pools.
+cudaError_t dispatch(const rt::AttnParams& p, int d, int dtype,
+                     cudaStream_t stream, int kv_type) {
+  if (p.hkv <= 0 || p.hq % p.hkv != 0) return cudaErrorInvalidValue;
+  if (kv_type == 0) {
+    if (dtype == 0) return rt::dispatch_d<float, float, true>(p, d, stream);
+    if (dtype == 1)
+      return rt::dispatch_d<__nv_bfloat16, __nv_bfloat16, true>(p, d,
+                                                                stream);
+    return cudaErrorInvalidValue;
+  }
+  if (!p.k_scale || !p.v_scale) return cudaErrorInvalidValue;
+  if (kv_type == 1) return rt::dispatch_q<int8_t>(p, d, dtype, stream);
+  if (kv_type == 2) return rt::dispatch_q<__nv_fp8_e4m3>(p, d, dtype, stream);
+  return cudaErrorInvalidValue;
+}
+
 int paged_decode(const void* q, const void* k_pages, const void* v_pages,
                  const float* k_scale, const float* v_scale, void* o,
                  const int* tables, const int* kv_len, int b, int hq, int hkv,
@@ -70,7 +89,7 @@ int paged_decode(const void* q, const void* k_pages, const void* v_pages,
   p.scale = scale;
   p.n_split = n_split;
   p.part = part;
-  return (int)rt::dispatch<true>(p, d, dtype, (cudaStream_t)stream, kv_type);
+  return (int)dispatch(p, d, dtype, (cudaStream_t)stream, kv_type);
 }
 
 int paged_context(const void* q, const void* k_pages, const void* v_pages,
@@ -97,7 +116,7 @@ int paged_context(const void* q, const void* k_pages, const void* v_pages,
   p.max_blocks = max_blocks;
   p.causal = 1;
   p.scale = scale;
-  return (int)rt::dispatch<true>(p, d, dtype, (cudaStream_t)stream, kv_type);
+  return (int)dispatch(p, d, dtype, (cudaStream_t)stream, kv_type);
 }
 
 }  // namespace

@@ -5,7 +5,9 @@ repro.kernels.decode_attention.decode_attention_pallas.
 ``decode_attention_cuda`` checks its inputs, allocates the output (and the
 split-KV partials), launches on the current stream and counts the launch;
 it never falls back to the plain version (``ref.decode_attention_ref``) —
-``ops`` chooses.
+``ops`` chooses. ``contiguous_splits`` picks how many blocks share a row's
+keys; the kernel divides each row's live keys among them (``split_range``
+in the CUDA source) and checks the count and the merge counters' size.
 """
 from __future__ import annotations
 
@@ -18,7 +20,6 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import (DTYPES,
                                                  check_attention_inputs,
                                                  lengths)
-from repro_torch.kernels.paged_attention import decode_splits
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -26,9 +27,43 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 def _lib():
     fn = build.library("decode_attention").decode_attention_fwd
     fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P,
-                   _I, _P]
+                   _P, _I, _I, _P]
     fn.restype = _I
     return fn
+
+
+# what the split count aims for: blocks per SM, the fewest cache keys per
+# split, the most splits (the kernel's limit, which it checks), and the
+# kernel's query heads per block, to count its blocks
+BLOCKS_PER_SM = 3
+KEYS_PER_SPLIT = 64
+MAX_SPLITS = 64
+HEADS = 8
+
+
+def contiguous_splits(b, hq, hkv, S, sms):
+    """How many blocks share one row's keys: enough blocks (b x hkv x head
+    groups x splits) for ~BLOCKS_PER_SM on each of `sms` SMs, and no more
+    splits than S has KEYS_PER_SPLIT-key shares, nor than MAX_SPLITS. It
+    reads S, not the live lengths, which are on the device."""
+    groups = b * hkv * -(-(hq // hkv) // HEADS)
+    return max(1, min(-(-S // KEYS_PER_SPLIT), MAX_SPLITS,
+                      -(-BLOCKS_PER_SM * sms // groups)))
+
+
+_COUNTERS = {}
+
+
+def _counters(n, device):
+    """Zeroed int32 merge counters of at least n entries on `device`; the
+    kernel's last block per (row, kv head, head group) resets its own, so
+    they are zero again after every launch. b x hq entries hold any head
+    grouping (the kernel checks that it has enough)."""
+    t = _COUNTERS.get(device)
+    if t is None or t.numel() < n:
+        t = _COUNTERS[device] = torch.zeros(n, dtype=torch.int32,
+                                            device=device)
+    return t
 
 
 def decode_attention_cuda(q, k, v, *, kv_len=None, kv_start=None,
@@ -48,14 +83,20 @@ def decode_attention_cuda(q, k, v, *, kv_len=None, kv_start=None,
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
-    n_split = decode_splits(b, hkv, S, q.device)
-    part = (torch.empty(b * hq * n_split * (d + 2), dtype=torch.float32,
-                        device=q.device) if n_split > 1 else None)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    n_split = contiguous_splits(b, hq, hkv, S, sms)
+    part = counters = None
+    if n_split > 1:
+        part = torch.empty(b * hq * n_split * (d + 2), dtype=torch.float32,
+                           device=q.device)
+        counters = _counters(b * hq, q.device)
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  lens.data_ptr() if lens is not None else None,
                  starts.data_ptr() if starts is not None else None,
                  b, S, hq, hkv, d, float(scale), n_split,
                  part.data_ptr() if part is not None else None,
+                 counters.data_ptr() if counters is not None else None,
+                 counters.numel() if counters is not None else 0,
                  DTYPES[q.dtype],
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err:

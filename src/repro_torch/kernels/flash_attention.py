@@ -16,6 +16,8 @@ from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
+# the bf16 kernel's warpgroup rows (64) hold whole GQA groups
+BF16_MAX_GROUP = 64
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -82,6 +84,9 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=0, kv_len=None,
     _, skv, hkv, _ = k.shape
     if k.shape[0] != b:
         raise ValueError(f"batch {k.shape[0]} of k != batch {b} of q")
+    if q.dtype == torch.bfloat16 and hq // hkv > BF16_MAX_GROUP:
+        raise ValueError(f"GQA group of {hq // hkv} query heads: the bf16 "
+                         f"kernel takes at most {BF16_MAX_GROUP} per kv head")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     o = torch.empty_like(q)
     if o.numel() == 0:

@@ -3,6 +3,7 @@ package, the weight bridge is exact, and its entry points run on the card
 unless the caller asks for the CPU — without a card they raise."""
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 
@@ -17,6 +18,7 @@ from repro.models import model as JM
 from repro_torch import bridge
 from repro_torch.configs import get_config as port_config
 from repro_torch.core import plan as port_plan
+from repro_torch.kernels import build
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
@@ -198,3 +200,19 @@ def test_unported_features_raise_not_implemented():
         InferenceEngine(cfg, asg, device="cpu", kv_dtype="bf16")
     with pytest.raises(NotImplementedError, match="host_blocks"):
         InferenceEngine(cfg, asg, device="cpu", host_blocks=4)
+
+
+def test_build_hash_covers_every_source_and_header():
+    # build.target hashes a source with build.HEADERS only: a header that a
+    # source includes and HEADERS does not list would leave a stale library
+    # loaded on the card after an edit; a source SOURCES does not list
+    # would never be built
+    csrc = build.CSRC
+    sources = sorted(p.stem for p in csrc.glob("*.cu"))
+    assert sorted(build.SOURCES) == sources
+    for path in sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh")):
+        for inc in re.findall(r'^\s*#include\s+"([^"]+)"', path.read_text(),
+                              flags=re.M):
+            assert inc in build.HEADERS, f"{path.name} includes {inc}"
+            assert (csrc / inc).exists(), inc
+    assert all((csrc / h).exists() for h in build.HEADERS)

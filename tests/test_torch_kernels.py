@@ -49,7 +49,8 @@ FLASH_CASES = {
 
 
 @pytest.mark.parametrize("case", sorted(FLASH_CASES))
-@pytest.mark.parametrize("hq,hkv,d", [(4, 2, 32), (4, 1, 64)])
+@pytest.mark.parametrize("hq,hkv,d", [(4, 2, 32), (4, 1, 64),
+                                      (16, 2, 128)])  # g 8, as served
 def test_flash_attention_matches_pallas(case, hq, hkv, d):
     rng = np.random.default_rng(0)
     b, s = 2, 37

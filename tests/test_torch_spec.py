@@ -36,6 +36,7 @@ from repro.serving.pipeline import AsymmetricPipeline as JPipeline
 from repro_torch import bridge
 from repro_torch.configs import get_config as port_config
 from repro_torch.core import plan as port_plan
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import ops
 from repro_torch.models import model as PM
 from repro_torch.serving import block_manager as pbm
@@ -85,7 +86,8 @@ DECODE_CASES = {
 
 
 @pytest.mark.parametrize("case", sorted(DECODE_CASES))
-@pytest.mark.parametrize("hq,hkv,d", [(4, 2, 32), (8, 2, 64)])
+@pytest.mark.parametrize("hq,hkv,d", [(4, 2, 32), (8, 2, 64),
+                                      (16, 2, 128)])  # g 8, as served
 def test_decode_attention_matches_pallas(case, hq, hkv, d):
     rng = np.random.default_rng(3)
     kw = dict(DECODE_CASES[case])
@@ -104,6 +106,38 @@ def test_decode_attention_matches_pallas(case, hq, hkv, d):
            "vs repro.kernels.ref")
     if case == "dead-row":
         assert torch.count_nonzero(port[1]) == 0
+
+
+# kernel #8's split count, (b, hq, hkv, S, sms) -> splits per row: the
+# fewest that give each of `sms` SMs ~BLOCKS_PER_SM blocks of (row, kv
+# head, group of <= 8 query heads, split), capped by S's 64-key shares and
+# by the kernel's 64. How the kernel divides a row's live keys among the
+# splits is checked on the card (chip_smoke.py, contiguous_decode_cases).
+SPLIT_COUNTS = {
+    "timing shape": ((16, 64, 8, 2048, 132), 4),
+    "Jamba's width": ((16, 32, 8, 2048, 132), 4),
+    "one row on 8 SMs": ((1, 64, 8, 2048, 8), 3),
+    "one row on 132 SMs, capped by S": ((1, 64, 8, 2048, 132), 32),
+    "g 1 capped by S": ((1, 8, 1, 2048, 1000), 32),
+    "capped by the kernel's limit": ((1, 8, 1, 8192, 1000), 64),
+    "S 65 takes two": ((1, 8, 1, 65, 132), 2),
+    "tiny cache": ((4, 16, 2, 40, 132), 1),
+    "one SM": ((16, 64, 8, 2048, 1), 1),
+    "g 16, two head groups": ((4, 32, 2, 2048, 132), 25),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_COUNTS))
+def test_contiguous_decode_splits_fill_the_card(case):
+    (b, hq, hkv, S, sms), want = SPLIT_COUNTS[case]
+    n = da.contiguous_splits(b, hq, hkv, S, sms)
+    assert n == want
+    blocks = b * hkv * -(-(hq // hkv) // da.HEADS)
+    cap = min(da.MAX_SPLITS, -(-S // da.KEYS_PER_SPLIT))
+    assert 1 <= n <= cap
+    if n < cap:  # the fewest splits that fill the card
+        assert blocks * n >= da.BLOCKS_PER_SM * sms
+        assert n == 1 or blocks * (n - 1) < da.BLOCKS_PER_SM * sms
 
 
 # --- kernel #4: paged verification (mirrors tests/test_spec.py:42-95) -------
