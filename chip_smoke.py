@@ -8,19 +8,25 @@ JAX. Phases, each of which raises on failure:
 
   1. device and build: prints the card's name and power limit, turns TF32
      off, compiles every kernel of the port with nvcc (one process per
-     source, in parallel) into build/repro_torch/, and logs for the flash
-     and contiguous-decode libraries each kernel's registers and spills
-     and the counts of the SASS instructions that show how it runs
-     (HGMMA, UTMALDG / UTMASTG, LDGSTS, HMMA, MOVM);
+     source, in parallel) into build/repro_torch/, and logs for the flash,
+     contiguous-decode and paged libraries each kernel's registers and
+     spills and the counts of the SASS instructions that show how it runs
+     (HGMMA, UTMALDG / UTMASTG, LDGSTS, HMMA, MOVM), for the paged kernels
+     with a digest of each kernel's code; the paged context body must show
+     wgmma, TMA and cp.async without spills, the paged decode body mma.sync
+     and movmatrix;
   2. kernels against their plain PyTorch versions on the card, at
-     Llama-2-70B attention widths (hq 64, hkv 8, d 128, block 16) and
-     Jamba's (hq 32, hkv 8) in bf16
-     and fp32 and at the small head dims the CPU tests use (rows that see
-     no key must come out as exact zeros; flash also at more key tiles
-     than its ring holds, ragged s, 5 queries and g = 1, contiguous decode
-     also at S = 2048 with kv_len 1..2048 at b = 16 and b = 1), the three
-     paged kernels also on
-     int8 and fp8 pools through their quantized kernels, and the selective
+     Llama-2-70B attention widths (hq 64, hkv 8, d 128) and Jamba's (hq 32,
+     hkv 8), at g 1 (hq = hkv 8) and at the small head dims the CPU tests
+     use, in bf16 and fp32 (rows that see no key must come out as exact
+     zeros; flash also at more key tiles than its ring holds, ragged s, 5
+     queries and g = 1, contiguous decode also at S = 2048 with kv_len
+     1..2048 at b = 16 and b = 1; paged decode and context at block sizes
+     1, 2, 8, 12 and 16, decode also on 16 rows of 2048-key tables with
+     kv_len 1..2048 and split-KV, context also with 256-token chunks at
+     q_start up to 1792 and a 45-token chunk), the three paged kernels also
+     on int8 and fp8 pools (block 16) through their quantized kernels, and
+     the selective
      scan at Jamba's widths (d_inner 8192, d_state 16) and the CPU tests'
      (output and final state); then timed at the serving path's shapes
      beside their bound, their plain version and, where one PyTorch call
@@ -39,12 +45,10 @@ JAX. Phases, each of which raises on failure:
      counters are zeroed before each serve and read after it, and every
      kernel of that path must have run at least layers x steps times (on
      quantized pools: the quantized kernels on the quantized layers, the
-     unquantized ones on the guard layers only). The self-draft serve runs
-     four more times: with its prefill attention and draft decode calls
-     sampled, to log flash's and contiguous decode's errors on its own
-     inputs, then with the draft decode on the paged decode kernel's body
-     and on the plain version, and with prefill attention on the plain
-     version, to log the accept rate of each. The synthetic,
+     unquantized ones on the guard layers only). The synthetic and
+     shared-prefix serves run once more with their paged decode and
+     context calls sampled, to log those kernels' errors on their own
+     inputs beside the bf16 floor. The synthetic,
      shared-prefix, self-draft, quant-int8 and quant-w8 serves run once
      more under torch.profiler for a breakdown of device time.
      Then the hybrid path: jamba-v0.1-52b at full width in bf16 (depth
@@ -157,6 +161,7 @@ def phase_device_and_build():
             and sass["flash_attention"]["UTMALDG"]):
         raise AssertionError("the flash library has no wgmma or no TMA load: "
                              f"{sass['flash_attention']}")
+    check_paged_build(libs["paged_attention"])
     return smi
 
 
@@ -165,22 +170,100 @@ def log_kernel_build(name, so):
     how many of its SASS instructions are warpgroup MMAs (HGMMA), TMA loads
     and stores (UTMALDG, UTMASTG), cp.async copies (LDGSTS), mma.sync
     (HMMA) and matrix transposes (MOVM), from cuobjdump -sass."""
-    from repro_torch.kernels import build
-    text = so.with_suffix(".log").read_text()
-    for fn, spill, regs in re.findall(
-            r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores.*?"
-            r"Used (\d+) registers", text, flags=re.S):
+    for fn, (regs, spill) in _ptxas(so).items():
         log(f"  ptxas {name} {fn}: {regs} registers, {spill} bytes spill "
             "stores")
-    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(so)], capture_output=True,
-                          text=True, check=True).stdout
-    counts = {op: len(re.findall(rf"\b{op}\b", sass))
-              for op in ("HGMMA", "UTMALDG", "UTMASTG", "LDGSTS", "HMMA",
-                         "MOVM")}
+    counts = _sass_counts(_sass(so))
     log(f"  sass {name}: " + ", ".join(f"{op} {n}" for op, n in
                                         counts.items()))
     return counts
+
+
+SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "LDGSTS", "HMMA", "MOVM")
+
+
+def _sass(so):
+    from repro_torch.kernels import build
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    return subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
+
+
+def _sass_counts(text):
+    return {op: len(re.findall(rf"\b{op}\b", text)) for op in SASS_OPS}
+
+
+def _demangle(names):
+    """C++ names as cu++filt prints them (unchanged without it)."""
+    from repro_torch.kernels import build
+    filt = os.path.join(os.path.dirname(build.nvcc()), "cu++filt")
+    if not names or not os.path.exists(filt):
+        return list(names)
+    return subprocess.run([filt], input="\n".join(names), capture_output=True,
+                          text=True, check=True).stdout.split("\n")[
+                              :len(names)]
+
+
+def sass_functions(so):
+    """{kernel name: (SASS op counts, digest)} of a library: the digest
+    hashes the kernel's instructions (addresses and encodings left out), so
+    two builds of the same kernel code give the same digest."""
+    import hashlib
+    parts = re.split(r"\n\s*Function : (\S+)", _sass(so))
+    out = {}
+    for name, body in zip(_demangle(parts[1::2]), parts[2::2]):
+        code = "\n".join(
+            " ".join(line.split()) for line in
+            (re.sub(r"/\*[^*]*\*/", "", x) for x in body.splitlines())
+            if line.strip() and not line.strip().startswith("."))
+        out[name] = (_sass_counts(body),
+                     hashlib.sha256(code.encode()).hexdigest()[:12])
+    return out
+
+
+def _ptxas(so):
+    """{kernel name: (registers, spill store bytes)} from nvcc's
+    -Xptxas=-v report of a library."""
+    found = re.findall(
+        r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores.*?"
+        r"Used (\d+) registers", so.with_suffix(".log").read_text(),
+        flags=re.S)
+    return {name: (int(regs), int(spill)) for name, (_, spill, regs) in
+            zip(_demangle([x[0] for x in found]), found)}
+
+
+def check_paged_build(so):
+    """The paged library's kernels, one line each: registers, spills, SASS
+    counts and a digest of the code. The bodies the unquantized paged
+    entries now run must show their instructions: the context body
+    (pc::context_fwd) HGMMA, TMA loads and cp.async (LDGSTS) without
+    spills, the decode body (dk::decode_fwd) HMMA and MOVM in bf16."""
+    funcs = sass_functions(so)
+    regs = _ptxas(so)
+    total = {op: sum(c[op] for c, _ in funcs.values()) for op in SASS_OPS}
+    log(f"  sass paged_attention: {len(funcs)} kernels, " + ", ".join(
+        f"{op} {n}" for op, n in total.items()))
+    for name, (counts, digest) in sorted(funcs.items()):
+        r, spill = regs.get(name, ("?", "?"))
+        log(f"  sass paged_attention {name}: {r} registers, {spill} bytes "
+            f"spill stores, " + ", ".join(f"{op} {n}" for op, n in
+                                          counts.items() if n)
+            + f"; digest {digest}")
+    context = [n for n in funcs if n.startswith("void pc::context_fwd")]
+    decode = [n for n in funcs if n.startswith("void dk::decode_fwd")]
+    if len(context) != 3 or len(decode) != 9:
+        raise AssertionError(f"paged library: {len(context)} context and "
+                             f"{len(decode)} decode kernels, expected 3, 9")
+    for n in context:
+        c = funcs[n][0]
+        if not (c["HGMMA"] and c["UTMALDG"] and c["LDGSTS"]) or \
+                regs.get(n, (0, 0))[1]:
+            raise AssertionError(f"{n}: {c}, spills {regs.get(n)}")
+    for n in decode:
+        c = funcs[n][0]
+        if "bfloat16" in n and not (c["HMMA"] and c["MOVM"]):
+            raise AssertionError(f"{n}: no mma.sync or movmatrix: {c}")
+    return funcs
 
 
 # ---------------------------------------------------------------------------
@@ -269,44 +352,113 @@ def _pool(gen, dev, dtype, n_blocks, bs, hkv, d, kv=None):
     return kq, vq, dict(k_scale=ks, v_scale=vs)
 
 
-def decode_cases(gen, dev, dtype, hq=64, hkv=8, d=128, bs=16, kv=None):
-    from repro_torch.kernels import ops
-    kp, vp, sc = _pool(gen, dev, dtype, 48, bs, hkv, d, kv)
-    nb = 8
-    perm = torch.randperm(47, generator=gen, device=dev)[:5 * nb] + 1
-    tbl = perm.reshape(5, nb).to(torch.int32)
-    tbl[3] = 0                               # a free slot: all-null table
-    kv_len = torch.tensor([1, 17, nb * bs, 1, 33], device=dev)
-    q = _rand(gen, (5, 1, hq, d), dtype, dev)
-    yield "ragged+null-row", lambda: ops.paged_decode_attention(
-        q, kp, vp, tbl, kv_len=kv_len, **sc), None
-    if kv is None:
-        return
-    # split-KV over a 1600-key table: the short row has 2 live tiles and
-    # more splits than that, so its trailing splits see no key
-    kp, vp, sc = _pool(gen, dev, dtype, 301, bs, hkv, d, kv)
-    nb = 100
-    perm = torch.randperm(300, generator=gen, device=dev)[:3 * nb] + 1
-    tbl = perm.reshape(3, nb).to(torch.int32)
-    kv_len = torch.tensor([1600, 40, 999], device=dev)
-    q = _rand(gen, (3, 1, hq, d), dtype, dev)
-    yield "long+splits", lambda: ops.paged_decode_attention(
-        q, kp, vp, tbl, kv_len=kv_len, **sc), None
+def _tables(gen, dev, b, nb, n_blocks):
+    """(b, nb) block tables over distinct random pages 1 .. n_blocks - 1."""
+    perm = torch.randperm(n_blocks - 1, generator=gen, device=dev)[:b * nb]
+    return (perm + 1).reshape(b, nb).to(torch.int32)
 
 
-def context_cases(gen, dev, dtype, hq=64, hkv=8, d=128, bs=16, kv=None):
+# block sizes of the paged checks: the engines' 16, the CPU tests' 2, 4 and
+# 8, and sizes that do not divide 16 (1, 12); the quantized kernels at 16
+BLOCK_SIZES = (16, 1, 2, 8, 12)
+
+
+def _block_sizes(kv):
+    return (16,) if kv is not None else BLOCK_SIZES
+
+
+def decode_cases(gen, dev, dtype, hq=64, hkv=8, d=128, kv=None):
     from repro_torch.kernels import ops
-    kp, vp, sc = _pool(gen, dev, dtype, 48, bs, hkv, d, kv)
-    nb = 8
-    perm = torch.randperm(47, generator=gen, device=dev)[:4 * nb] + 1
-    tbl = perm.reshape(4, nb).to(torch.int32)
-    C = 37
-    q = _rand(gen, (4, C, hq, d), dtype, dev)
-    # page boundary, mid-page, short chunk, and an empty row (dead queries)
-    q_start = torch.tensor([32, 21, 0, 0], device=dev)
-    kv_len = q_start + torch.tensor([37, 20, 5, 0], device=dev)
-    yield "boundary+midpage+dead", lambda: ops.paged_context_attention(
-        q, kp, vp, tbl, q_start=q_start, kv_len=kv_len, **sc), lambda o: o[3]
+    for bs in _block_sizes(kv):
+        # ragged lengths, free slots on all-null tables (one reading the
+        # trash page, one with no live key) over 128-key tables
+        nb = -(-128 // bs)
+        kp, vp, sc = _pool(gen, dev, dtype, 6 * nb + 1, bs, hkv, d, kv)
+        tbl = _tables(gen, dev, 6, nb, 6 * nb + 1)
+        tbl[3] = tbl[5] = 0
+        kv_len = torch.tensor([1, 17, nb * bs, 1, 33, 0], device=dev)
+        q = _rand(gen, (6, 1, hq, d), dtype, dev)
+        yield f"bs={bs} ragged+null-rows", lambda: ops.paged_decode_attention(
+            q, kp, vp, tbl, kv_len=kv_len, **sc), lambda o: o[5]
+        # split-KV over a 1600-key table: the short row has 2 live tiles and
+        # more splits than that, so its trailing splits see no key
+        nb = -(-1600 // bs)
+        kp, vp, sc = _pool(gen, dev, dtype, 4 * nb + 1, bs, hkv, d, kv)
+        tbl = _tables(gen, dev, 4, nb, 4 * nb + 1)
+        tbl[3] = 0
+        kv_len = torch.tensor([nb * bs, 40, 999, 0], device=dev)
+        q = _rand(gen, (4, 1, hq, d), dtype, dev)
+        yield f"bs={bs} long+splits", lambda: ops.paged_decode_attention(
+            q, kp, vp, tbl, kv_len=kv_len, **sc), lambda o: o[3]
+        # the serving tables' width: 16 rows of 2048-key tables, kv_len 1 to
+        # 2048 (contiguous decode's S=2048 case), the last row a free slot
+        nb = -(-2048 // bs)
+        kp, vp, sc = _pool(gen, dev, dtype, 16 * nb + 1, bs, hkv, d, kv)
+        tbl = _tables(gen, dev, 16, nb, 16 * nb + 1)
+        tbl[15] = 0
+        kv_len = torch.tensor([1, 2, 15, 16, 17, 63, 64, 65, 100, 511, 512,
+                               1000, 1100, 2047, 2048, 0], device=dev)
+        q = _rand(gen, (16, 1, hq, d), dtype, dev)
+        yield (f"bs={bs} 16 rows kv_len 1..2048",
+               lambda: ops.paged_decode_attention(
+                   q, kp, vp, tbl, kv_len=kv_len, **sc), lambda o: o[15])
+        del kp, vp, sc
+
+
+def context_cases(gen, dev, dtype, hq=64, hkv=8, d=128, kv=None):
+    from repro_torch.kernels import ops
+    for bs in _block_sizes(kv):
+        # C 37: page boundary, mid-page, short chunk, and an empty row
+        # (dead queries) on 128-key tables
+        nb = -(-128 // bs)
+        kp, vp, sc = _pool(gen, dev, dtype, 4 * nb + 1, bs, hkv, d, kv)
+        tbl = _tables(gen, dev, 4, nb, 4 * nb + 1)
+        q = _rand(gen, (4, 37, hq, d), dtype, dev)
+        q_start = torch.tensor([32, 21, 0, 0], device=dev)
+        kv_len = q_start + torch.tensor([37, 20, 5, 0], device=dev)
+        yield (f"bs={bs} C=37 boundary+midpage+dead",
+               lambda: ops.paged_context_attention(
+                   q, kp, vp, tbl, q_start=q_start, kv_len=kv_len, **sc),
+               lambda o: o[3])
+        # the serving chunk, C 256, at q_start up to 1792 of 2048-key
+        # tables: many pages before it, one row ending mid-chunk, an empty
+        # row
+        nb = -(-2048 // bs)
+        kp, vp, sc = _pool(gen, dev, dtype, 5 * nb + 1, bs, hkv, d, kv)
+        tbl = _tables(gen, dev, 5, nb, 5 * nb + 1)
+        q = _rand(gen, (5, 256, hq, d), dtype, dev)
+        q_start = torch.tensor([0, 256, 1024, 1792, 0], device=dev)
+        kv_len = q_start + torch.tensor([256, 200, 256, 256, 0], device=dev)
+        yield (f"bs={bs} C=256 q_start..1792",
+               lambda: ops.paged_context_attention(
+                   q, kp, vp, tbl, q_start=q_start, kv_len=kv_len, **sc),
+               lambda o: o[4])
+        # C 45 (no multiple of 16): starts past several pages, mid-page, and
+        # ends mid-page
+        nb = -(-256 // bs)
+        kp, vp, sc = _pool(gen, dev, dtype, 3 * nb + 1, bs, hkv, d, kv)
+        tbl = _tables(gen, dev, 3, nb, 3 * nb + 1)
+        q = _rand(gen, (3, 45, hq, d), dtype, dev)
+        q_start = torch.tensor([3, 100, 0], device=dev)
+        kv_len = torch.tensor([48, 130, 0], device=dev)
+        yield (f"bs={bs} C=45 midpage", lambda: ops.paged_context_attention(
+            q, kp, vp, tbl, q_start=q_start, kv_len=kv_len, **sc),
+            lambda o: o[2])
+        del kp, vp, sc
+    if kv is None and (hq, hkv, d) == (4, 1, 64):
+        # more (row tile, row) units, 32 x 65, than the bf16 body ranks in
+        # shared memory: its items then run row tiles longest first
+        b, C, bs = 65, 1024, 16
+        nb = -(-1536 // bs)
+        kp, vp, sc = _pool(gen, dev, dtype, b * nb + 1, bs, hkv, d)
+        tbl = _tables(gen, dev, b, nb, b * nb + 1)
+        q = _rand(gen, (b, C, hq, d), dtype, dev)
+        q_start = torch.arange(b, device=dev) * 8
+        kv_len = q_start + C
+        kv_len[-1] = 0
+        yield ("bs=16 C=1024 b=65 unranked", lambda:
+               ops.paged_context_attention(q, kp, vp, tbl, q_start=q_start,
+                                           kv_len=kv_len), lambda o: o[-1])
 
 
 def contiguous_decode_cases(gen, dev, dtype, hq=64, hkv=8, d=128):
@@ -395,8 +547,9 @@ CASES = {"flash_attention": flash_cases,
 
 def check_kernels(dev):
     """Every kernel against its plain version: Llama-2-70B widths (g 8),
-    Jamba's (hq 32, hkv 8: g 4) and the CPU tests' small head dims, in bf16
-    and fp32; the parts of a case that
+    Jamba's (hq 32, hkv 8: g 4), g 1 (hq = hkv 8) and the CPU tests' small
+    head dims, in bf16 and fp32, the paged kernels at several block sizes;
+    the parts of a case that
     see no key must be exact zeros. Returns {kernel: max abs err over its
     fp32 checks}."""
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -404,6 +557,7 @@ def check_kernels(dev):
     for name, cases in CASES.items():
         runs = [(dt, widths) for dt in (torch.bfloat16, torch.float32)
                 for widths in ({}, dict(hq=32, hkv=8, d=128),
+                               dict(hq=8, hkv=8, d=128),
                                dict(hq=4, hkv=2, d=32),
                                dict(hq=4, hkv=1, d=64))]
         for dtype, widths in runs:
@@ -866,115 +1020,55 @@ def _check_path(name, stats, launched, draft_steps, reqs, L, n_slots, kw):
                 f"{quant} times on {L - G} quantized of {L} layers")
 
 
-def _as_pages(k, v, kv_len, kv_start, bs=16):
-    """Each row's live keys [kv_start, kv_len) of a contiguous cache k, v
-    (b, S, hkv, d), moved to the front of its own pages: pools (b x nb, bs,
-    hkv, d), block tables (b, nb) and the live lengths, for the paged
-    decode kernel, which has no kv_start."""
-    b, S = k.shape[:2]
-    lo = (kv_start.long().clamp(min=0) if kv_start is not None
-          else torch.zeros(b, dtype=torch.long, device=k.device))
-    hi = (kv_len.long().clamp(max=S) if kv_len is not None
-          else torch.full((b,), S, dtype=torch.long, device=k.device))
-    n = (hi - lo).clamp(min=0)
-    nb = max(1, -(-int(n.max()) // bs))
-    idx = (lo[:, None] + torch.arange(nb * bs, device=k.device)).clamp(
-        max=S - 1)[:, :, None, None].expand(-1, -1, *k.shape[2:])
-    kp, vp = (torch.gather(t, 1, idx).reshape(b * nb, bs, *t.shape[2:])
-              for t in (k, v))
-    tbl = torch.arange(b * nb, dtype=torch.int32,
-                       device=k.device).reshape(b, nb)
-    return kp, vp, tbl, n.to(torch.int32)
-
-
-@contextlib.contextmanager
-def _replaced(name, fn):
-    """ops.<name> (flash_attention: every prefill's attention;
-    decode_attention: the self-draft's decode) replaced by fn."""
-    from repro_torch.kernels import ops
-    prev = getattr(ops, name)
-    setattr(ops, name, fn)
-    try:
-        yield
-    finally:
-        setattr(ops, name, prev)
-
-
-def study_rewritten_kernels(cfg, asg, params, kw):
-    """The two kernels this slice rewrote (#1, #8) against what they
-    replaced, on the self-draft serve's own inputs. Before, #8 was an
-    instance of the scalar split-KV body that the paged decode kernel (#2)
-    still runs; #2 stands for it here, fed the same keys moved into pages.
-    The spec-draft serve runs once with its prefill attention and draft
-    decode calls sampled; on each sample #1, #8 and #2 are held against
-    the plain version, which computes in fp32 (its own rounding to bf16 is
-    the floor). Then the serve runs with the draft's decode on #2 and on
-    the plain version, and with every prefill's attention on the plain
-    version, and the accept rates are logged side by side."""
+def study_rewritten_kernels(cfg, asg, params, serves):
+    """The paged decode (#2) and paged context (#3) kernels on the serves'
+    own inputs: the synthetic serve's paged decode
+    calls and the shared-prefix serve's context calls are sampled (the
+    pools copied at the call), and on each sample the kernel and the plain
+    version's own rounding to bf16 (the floor) are held against the plain
+    version in fp32."""
     from repro_torch.kernels import ops, ref
-    calls = {"flash_attention": [0, 5, []], "decode_attention": [0, 53, []]}
+    for name, serve, every, plain in (
+            ("paged_decode_attention", "synthetic", 67,
+             ref.paged_decode_attention_ref),
+            ("paged_context_attention", "shared-prefix", 23,
+             ref.paged_context_attention_ref)):
+        real, calls, samples = getattr(ops, name), [0], []
 
-    def sampling(name):
-        real = getattr(ops, name)
-
-        def fn(*a, **k):
-            c = calls[name]
-            if c[0] % c[1] == 0 and len(c[2]) < 4:
-                c[2].append(([t.clone() for t in a], {
+        def sampling(*a, **k):
+            if calls[0] % every == 0 and len(samples) < 4:
+                samples.append(([t.clone() for t in a], {
                     x: t.clone() if torch.is_tensor(t) else t
                     for x, t in k.items()}))
-            c[0] += 1
+            calls[0] += 1
             return real(*a, **k)
-        return fn
 
-    def on_paged(q, k, v, *, kv_len=None, kv_start=None, scale=None):
-        kp, vp, tbl, n = _as_pages(k, v, kv_len, kv_start)
-        return ops.paged_decode_attention(q, kp, vp, tbl, kv_len=n,
-                                          scale=scale)
-
-    rates = {}
-    for what, swap in (
-            ("#1 and #8", (("flash_attention", sampling("flash_attention")),
-                           ("decode_attention",
-                            sampling("decode_attention")))),
-            ("the draft decode on #2's body",
-             (("decode_attention", on_paged),)),
-            ("the draft decode on the plain version",
-             (("decode_attention", ref.decode_attention_ref),)),
-            ("every prefill's attention on the plain version",
-             (("flash_attention", ref.attention_ref),))):
-        reqs = _workloads(cfg.vocab_size, n=16, out_len=32)[0]
-        with contextlib.ExitStack() as stack:
-            for name, fn in swap:
-                stack.enter_context(_replaced(name, fn))
-            stats, _, _ = _serve(cfg, asg, params, reqs, **kw)
-        rates[what] = (f"{stats.spec_accepted / stats.spec_proposed:.3f} "
-                       f"({stats.spec_accepted}/{stats.spec_proposed})")
-    for name, alt in (("flash_attention", None),
-                      ("decode_attention", on_paged)):
-        n_calls, _, samples = calls[name]
+        kw = dict(serves)[serve]
+        synth, shared = _workloads(cfg.vocab_size, n=16, out_len=32)
+        setattr(ops, name, sampling)
+        try:
+            _serve(cfg, asg, params, shared if kw.get("prefix_caching")
+                   else synth, n_slots=16, max_len=2048, block_size=16, **kw)
+        finally:
+            setattr(ops, name, real)
         err = {}
         for a, k in samples:
-            want = (ref.attention_ref if alt is None
-                    else ref.decode_attention_ref)(*(t.float() for t in a),
-                                                   **k)
-            got = {"kernel": getattr(ops, name)(*a, **k),
-                   "plain (bf16 floor)": want.to(a[0].dtype)}
-            if alt is not None:
-                got["#2's body"] = alt(*a, **k)
-            for key, out in got.items():
+            q, kp, vp, tbl = a
+            want = plain(q.float(), kp.float(), vp.float(), tbl, **k)
+            for key, out in (("kernel", real(*a, **k)),
+                             ("plain (bf16 floor)", want.to(q.dtype))):
                 d = (out.float() - want).abs()
                 err.setdefault(key, []).append((float(d.max()),
                                                 float(d.mean())))
-            del want, got
-        log(f"  {name} on the spec-draft serve's inputs ({len(samples)} of "
-            f"{n_calls} calls, q {tuple(samples[0][0][0].shape)}, k "
+            del want
+        log(f"  {name} on the {serve} serve's inputs ({len(samples)} of "
+            f"{calls[0]} calls, q {tuple(samples[0][0][0].shape)}, pool "
             f"{tuple(samples[0][0][1].shape)}) against the fp32 plain "
             "version: " + "; ".join(
                 f"{key} max abs err {max(m for m, _ in e):.4g}, mean "
                 f"{np.mean([x for _, x in e]):.4g}" for key, e in err.items()))
-    log("  self-draft accept rate with " + ", ".join(
-        f"{k}: {r}" for k, r in rates.items()))
+        del samples
+        torch.cuda.empty_cache()
 
 
 def phase_serving(smi):
@@ -1060,8 +1154,7 @@ def phase_serving(smi):
                     common["n_slots"], kw)
     log(f"  peak device memory {max(peaks) / 2**30:.2f} GiB over the serves "
         f"(torch.cuda.max_memory_allocated) on {smi}")
-    study_rewritten_kernels(cfg, asg, params,
-                            dict(common, **dict(serves)["spec-draft"]))
+    study_rewritten_kernels(cfg, asg, params, serves)
     for name, kw in serves:
         if name in ("synthetic", "shared-prefix", "spec-draft", "quant-int8",
                     "quant-w8"):
@@ -1174,7 +1267,8 @@ def phase_jamba(smi):
 
 def _kernel_group(name):
     if name.startswith(("void rt::attn_fwd", "void rt::combine_splits",
-                        "void fa::flash_fwd", "void dk::decode_fwd")):
+                        "void fa::flash_fwd", "void dk::decode_fwd",
+                        "void pc::context_fwd")):
         return "attention kernels (port)"
     if name.startswith("void ss::ssm_scan_kernel"):
         return "scan (port)"

@@ -1,11 +1,16 @@
-// Shared core of the port's paged attention kernels (paged decode, paged
-// context prefill and verification, on bf16 / fp32 / int8 / fp8 pools) and
-// of fp32 flash prefill: one tiled online-softmax attention body whose only
-// differences are where a key row comes from (a contiguous (b, skv, hkv, d)
-// cache, or a page pool read through a per-row block table), the mask, and
-// the element type of K/V. bf16 flash prefill (flash_attention.cu: TMA and
-// wgmma) and contiguous decode (decode_attention.cu) have bodies of their
-// own.
+// Shared core of the port's first attention bodies: one tiled online-softmax
+// attention body whose only differences are where a key row comes from (a
+// contiguous (b, skv, hkv, d) cache, or a page pool read through a per-row
+// block table), the mask, and the element type of K/V. The entries that
+// still run it:
+//  - paged verification (#4, paged_verify_attention_fwd, bf16 and fp32);
+//  - the quantized paged kernels #5-#7 (paged_{decode,context,verify}_
+//    attention_quant_fwd: int8 / fp8 pools);
+//  - fp32 paged context (#3's parity path) and fp32 flash prefill (#1's).
+// bf16 flash prefill (flash_attention.cu), bf16 paged context
+// (paged_attention.cu, pc::context_fwd: TMA + cp.async + wgmma) and the
+// unquantized decode kernels, paged and contiguous (decode.cuh) have bodies
+// of their own.
 //
 // Layout of one thread block: 256 threads as a 16 x 16 grid (ty, tx). The
 // block owns BQ = 16 * ROWS query ROWS, where a row is one (position, query
@@ -27,12 +32,12 @@
 // negative number), and a row that saw no live key writes exact zeros.
 //
 // Two bodies share that contract: attn_fwd, scalar fp32 FMAs (fp32 inputs,
-// and decode's few rows in any dtype), and attn_fwd_mma below, bf16 tensor
-// cores (mma.sync) for many-row bf16 blocks. Both load tiles with 16-byte
-// vector loads. attn_fwd can also split a row's keys over n_split blocks
-// (decode) whose partial states combine_splits merges. Neither pipelines
-// its loads (cp.async / TMA) nor uses wgmma yet: flash_attention.cu shows
-// both, and PERF.md where each kernel stands against its bound.
+// and a few rows in any dtype), and attn_fwd_mma below, bf16 tensor cores
+// (mma.sync) for many-row bf16 blocks. Both load tiles with 16-byte vector
+// loads. attn_fwd can also split a row's keys over n_split blocks (the
+// quantized decode, #5) whose partial states combine_splits merges. Neither
+// pipelines its loads (cp.async / TMA) nor uses wgmma: PERF.md says where
+// each kernel stands against its bound.
 //
 // Quantized page pools (KV = int8_t or __nv_fp8_e4m3, with per-token-per-
 // head fp32 scale pools (n_blocks, bs, hkv) in AttnParams::k_scale/v_scale)
@@ -713,31 +718,33 @@ cudaError_t dispatch_d(const AttnParams& p, int d, cudaStream_t stream) {
   const bool small = p.sq * (p.hq / p.hkv) <= 16;
   if constexpr (sizeof(T) == 2) {
     static_assert(PAGED, "bf16 on contiguous K/V has bodies of its own");
-    if (!small) {
-      switch (d) {
-        case 32:
-          return launch_mma<KV, 32>(p, stream);
-        case 64:
-          return launch_mma<KV, 64>(p, stream);
-        case 128:
-          return launch_mma<KV, 128>(p, stream);
-        default:
-          return cudaErrorInvalidValue;
-      }
+    switch (d) {
+      case 32:
+        return small ? launch<T, KV, 32, 1, PAGED>(p, stream)
+                     : launch_mma<KV, 32>(p, stream);
+      case 64:
+        return small ? launch<T, KV, 64, 1, PAGED>(p, stream)
+                     : launch_mma<KV, 64>(p, stream);
+      case 128:
+        return small ? launch<T, KV, 128, 1, PAGED>(p, stream)
+                     : launch_mma<KV, 128>(p, stream);
+      default:
+        return cudaErrorInvalidValue;
     }
-  }
-  switch (d) {
-    case 32:
-      return small ? launch<T, KV, 32, 1, PAGED>(p, stream)
-                   : launch<T, KV, 32, 4, PAGED>(p, stream);
-    case 64:
-      return small ? launch<T, KV, 64, 1, PAGED>(p, stream)
-                   : launch<T, KV, 64, 4, PAGED>(p, stream);
-    case 128:
-      return small ? launch<T, KV, 128, 1, PAGED>(p, stream)
-                   : launch<T, KV, 128, 4, PAGED>(p, stream);
-    default:
-      return cudaErrorInvalidValue;
+  } else {
+    switch (d) {
+      case 32:
+        return small ? launch<T, KV, 32, 1, PAGED>(p, stream)
+                     : launch<T, KV, 32, 4, PAGED>(p, stream);
+      case 64:
+        return small ? launch<T, KV, 64, 1, PAGED>(p, stream)
+                     : launch<T, KV, 64, 4, PAGED>(p, stream);
+      case 128:
+        return small ? launch<T, KV, 128, 1, PAGED>(p, stream)
+                     : launch<T, KV, 128, 4, PAGED>(p, stream);
+      default:
+        return cudaErrorInvalidValue;
+    }
   }
 }
 

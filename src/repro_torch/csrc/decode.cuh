@@ -1,0 +1,569 @@
+// GQA decode attention body for Hopper (sm_90a): one query token per row
+// against a K/V cache, shared by the contiguous-cache decode kernel
+// (decode_attention.cu, the draft model's decode step) and the paged decode
+// kernel (paged_attention.cu, every decode iteration of the serving path).
+// The two differ only in where key row j of batch row i lives (KEYS below):
+//
+//  - CONTIGUOUS: row i S + j of a (b, S, hkv, d) cache;
+//  - PAGED16: row tables[i max_blocks + j / bs] bs + j % bs of a
+//    (n_blocks, bs, hkv, d) pool, when bs is a multiple of 16: a warp's 16
+//    keys then lie in one page, looked up once per 16-key group;
+//  - PAGED: the same pool at any other block size, one lookup per key.
+//
+// Within a page the rows of one kv head are strided exactly as in the
+// contiguous cache (hkv d elements apart), so the loads, the products and
+// the merge are one code.
+//
+// Keys at positions >= kv_len[i] or < kv_start[i] are masked; a row with no
+// live key writes exact zeros. S (the cache width, or the table's capacity
+// max_blocks bs) may be any length: loads stop at min(kv_len, S).
+//
+// Bound on the card: ~4 d hq n FLOPs per row on 2 d hkv n K/V elements (n
+// live keys), a few FLOPs per byte, so it is bound by reading the live part
+// of the cache. The design keeps that read wide and in flight:
+//
+//  - One block (4 warps) per (row, kv head, group of <= 8 query heads,
+//    split). The group's heads sit in registers, no thread computes for a
+//    row that does not exist, and each K/V row is read once for all of
+//    them. Splits divide the row's live keys [kv_start, kv_len) into
+//    16-key aligned shares of at least 64 keys (split_range below), so a
+//    short row leaves its trailing splits empty. The host picks the count
+//    from the cache width S (kernels/decode_attention.py:contiguous_splits):
+//    the live lengths are on the device, and reading them would cost a
+//    host sync per call. The merge counters are the caller's buffer of
+//    n_counters entries, which the entry checks against b x hkv x groups.
+//  - bf16: a warp takes 16 keys at a time and loads their K and V rows
+//    straight into registers, 16 bytes per load, all before any
+//    arithmetic (8 KB in flight per warp). S^T = K Q^T runs on mma.sync
+//    m16n8k16 with the keys as M and the heads as N; the d axis is
+//    permuted identically in K and Q so that each thread's fragments are
+//    whole 16-byte loads. P^T goes back through movmatrix into the B
+//    operand of O^T = V^T P^T (d as M), split into a bf16 high part and
+//    remainder so P keeps ~16 bits. fp32 (the parity path): a warp takes
+//    32 keys, one per lane, on scalar FMAs in the same structure.
+//  - The warps' online-softmax states merge in shared memory; with several
+//    splits each block writes its partial (m, l, acc) and the last block
+//    of a (row, kv head, head group) to finish, found by an atomic counter
+//    that it resets, merges them in the same launch.
+//
+// Masking follows repro.kernels.ref: a masked score is NEG_INF, p = 0 where
+// the score is <= NEG_INF / 2. Scores are kept in log2 units.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace dk {
+
+using bf16 = __nv_bfloat16;
+constexpr float NEG_INF = -1e30f;
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int HEADS = 8;           // query heads per block
+constexpr int MIN_SPLIT_KEYS = 64;
+constexpr int MAX_SPLITS = 64;
+
+// where key row j of batch row i lives (see the top of this file)
+enum Keys { CONTIGUOUS = 0, PAGED16 = 1, PAGED = 2 };
+
+struct Params {
+  const void* q;        // (b, 1, hq, d)
+  const void* k;        // (b, S, hkv, d), or the pool (n_blocks, bs, hkv, d)
+  const void* v;
+  void* o;              // (b, 1, hq, d)
+  const int* kv_len;    // (b,) or null
+  const int* kv_start;  // (b,) or null
+  int b, S, hq, hkv, g, groups, n_split;
+  float scale_log2;
+  float* part;          // (b, hq, n_split, d + 2) when n_split > 1
+  int* counters;        // (b, hkv, groups), zero between launches
+  const int* tables;    // paged: (b, max_blocks) page of each logical block
+  int bs, max_blocks;   // paged: S = max_blocks bs
+};
+
+// keys [ks, ke) of split s of a row whose live keys are [lo, hi): 16-key
+// aligned shares of at least MIN_SPLIT_KEYS; empty past the end
+__device__ __forceinline__ void split_range(int lo, int hi, int n_split,
+                                            int s, int& ks, int& ke) {
+  const int n = max(hi - lo, 0);
+  const int per = max(MIN_SPLIT_KEYS,
+                      (n + 16 * n_split - 1) / (16 * n_split) * 16);
+  ks = lo + s * per;
+  ke = min(hi, ks + per);
+}
+
+// pool row of key j of batch row bi (paged caches)
+__device__ __forceinline__ int64_t page_row(const Params& p, int bi, int j) {
+  return (int64_t)p.tables[(int64_t)bi * p.max_blocks + j / p.bs] * p.bs +
+         j % p.bs;
+}
+
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(bf16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// (x0, x1) -> bf16 pair hi and bf16 pair of what hi leaves out
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
+}
+
+// c += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// transpose of an 8x8 b16 matrix held one 32-bit pair per lane
+__device__ __forceinline__ uint32_t movmatrix_t(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(y)
+               : "r"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint4 ld16(const void* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+// The V words of one key row a bf16 lane holds (dims gq D / 8 .. + D / 8
+// from src), or zeros
+template <int MT>
+__device__ __forceinline__ void load_v(uint32_t (&vw)[MT], const bf16* src,
+                                       bool live) {
+  if constexpr (MT >= 4) {
+#pragma unroll
+    for (int w = 0; w < MT / 4; ++w) {
+      const uint4 x = live ? ld16(src + 8 * w) : make_uint4(0, 0, 0, 0);
+      vw[4 * w] = x.x;
+      vw[4 * w + 1] = x.y;
+      vw[4 * w + 2] = x.z;
+      vw[4 * w + 3] = x.w;
+    }
+  } else {
+    const uint2 x =
+        live ? *reinterpret_cast<const uint2*>(src) : make_uint2(0, 0);
+    vw[0] = x.x;
+    vw[1] = x.y;
+  }
+}
+
+// Shared memory of a block: each warp's online-softmax state, then the
+// merge flag
+template <int D>
+struct Smem {
+  float m[WARPS][HEADS], l[WARPS][HEADS];
+  float o[WARPS][HEADS][D];
+  float q[HEADS][D];  // fp32 path: the group's queries
+  // the merge of the splits: per head and split m, then its weight; l
+  float wm[HEADS][MAX_SPLITS], wl[HEADS][MAX_SPLITS], inv[HEADS];
+  int last;
+};
+
+// The bf16 warp loop: keys [ks, ke) in 16-key steps strided over the warps.
+// Leaves this warp's state (for heads 2tq, 2tq+1 and dims gq * D / 8 ...)
+// in sm.
+template <int D, int KEYS>
+__device__ void warp_bf16(const Params& p, int bi, int kvh, int h0, int ge,
+                          int ks, int ke, Smem<D>& sm) {
+  constexpr int QJ = D / 32;   // 16-byte K loads per row, Q loads per head
+  constexpr int MT = D / 16;   // m-tiles of O^T; words of V per key
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane / 4, tq = lane % 4;
+  const bf16* Q = static_cast<const bf16*>(p.q);
+  const bf16* K = static_cast<const bf16*>(p.k);
+  const bf16* V = static_cast<const bf16*>(p.v);
+
+  // B fragments of Q^T: head gq, dims 32 j + 8 tq .. + 7 (the same
+  // permutation of d as the K fragments below)
+  uint4 qb[QJ];
+#pragma unroll
+  for (int j = 0; j < QJ; ++j)
+    qb[j] = gq < ge ? ld16(Q + ((int64_t)bi * p.hq + h0 + gq) * D + 32 * j +
+                           8 * tq)
+                    : make_uint4(0, 0, 0, 0);
+
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[MT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+
+  const int64_t row_stride = (int64_t)p.hkv * D;
+  const bf16* Kb = K + ((int64_t)bi * p.S * p.hkv + kvh) * D;
+  const bf16* Vb = V + ((int64_t)bi * p.S * p.hkv + kvh) * D;
+  for (int c0 = ks + 16 * warp; c0 < ke; c0 += 16 * WARPS) {
+    // K rows c0 + gq, c0 + gq + 8; V rows c0 + 2tq + {0, 1, 8, 9}, dims
+    // gq * D / 8 .. + D / 8; rows past ke read as zeros
+    uint4 kr[2][QJ];
+    uint32_t vw[4][MT];
+    if constexpr (KEYS == CONTIGUOUS) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int key = c0 + gq + 8 * r;
+#pragma unroll
+        for (int j = 0; j < QJ; ++j)
+          kr[r][j] = key < ke ? ld16(Kb + key * row_stride + 32 * j + 8 * tq)
+                              : make_uint4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int key = c0 + 2 * tq + (r & 1) + 8 * (r >> 1);
+        load_v<MT>(vw[r], Vb + key * row_stride + gq * (D / 8), key < ke);
+      }
+    } else {
+      // the pool row of key `key`: in the page of the group (PAGED16), or
+      // looked up per key, for live keys only (PAGED)
+      int64_t r16 = 0;
+      if constexpr (KEYS == PAGED16) r16 = page_row(p, bi, c0) - c0;
+      auto row = [&](const bf16* X, int key) -> const bf16* {
+        const int64_t r = KEYS == PAGED16 ? r16 + key : page_row(p, bi, key);
+        return X + (r * p.hkv + kvh) * D;
+      };
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int key = c0 + gq + 8 * r;
+#pragma unroll
+        for (int j = 0; j < QJ; ++j)
+          kr[r][j] = key < ke ? ld16(row(K, key) + 32 * j + 8 * tq)
+                              : make_uint4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int key = c0 + 2 * tq + (r & 1) + 8 * (r >> 1);
+        load_v<MT>(vw[r], key < ke ? row(V, key) + gq * (D / 8) : V,
+                   key < ke);
+      }
+    }
+
+    // S^T (16 keys x 8 heads) = K Q^T
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < QJ; ++j) {
+      const uint32_t* k0 = reinterpret_cast<const uint32_t*>(&kr[0][j]);
+      const uint32_t* k1 = reinterpret_cast<const uint32_t*>(&kr[1][j]);
+      const uint32_t* qw = reinterpret_cast<const uint32_t*>(&qb[j]);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const uint32_t a[4] = {k0[2 * half], k1[2 * half], k0[2 * half + 1],
+                               k1[2 * half + 1]};
+        mma_bf16(s, a, qw[2 * half], qw[2 * half + 1]);
+      }
+    }
+
+    // online softmax per head (column): s[e] is key gq, s[2 + e] key
+    // gq + 8, head 2 tq + e
+    float pr[4], m_new[2], rs[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool head = 2 * tq + e < ge;
+      float mx = NEG_INF;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const bool ok = head && c0 + gq + 8 * r < ke;
+        const float sv = ok ? s[2 * r + e] * p.scale_log2 : NEG_INF;
+        s[2 * r + e] = sv;
+        mx = fmaxf(mx, sv);
+      }
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      m_new[e] = fmaxf(m[e], mx);
+      rs[e] = 0.f;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float sv = s[2 * r + e];
+        pr[2 * r + e] = sv <= NEG_INF / 2 ? 0.f : exp2f(sv - m_new[e]);
+        rs[e] += pr[2 * r + e];
+      }
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1)
+        rs[e] += __shfl_xor_sync(0xffffffffu, rs[e], off);
+      const float corr = exp2f(m[e] - m_new[e]);
+      l[e] = l[e] * corr + rs[e];
+      m[e] = m_new[e];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        acc[i][e] *= corr;
+        acc[i][2 + e] *= corr;
+      }
+    }
+
+    // P^T as the B operand (keys x heads): transpose the two 8x8 halves
+    uint32_t x0h, x0l, x1h, x1l;
+    split_bf16(pr[0], pr[1], x0h, x0l);
+    split_bf16(pr[2], pr[3], x1h, x1l);
+    const uint32_t b0h = movmatrix_t(x0h), b1h = movmatrix_t(x1h);
+    const uint32_t b0l = movmatrix_t(x0l), b1l = movmatrix_t(x1l);
+
+    // O^T (d x 8 heads) += V^T P^T; m-tile i covers dims gq D/8 + 2i, + 1
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const uint32_t a[4] = {__byte_perm(vw[0][i], vw[1][i], 0x5410),
+                             __byte_perm(vw[0][i], vw[1][i], 0x7632),
+                             __byte_perm(vw[2][i], vw[3][i], 0x5410),
+                             __byte_perm(vw[2][i], vw[3][i], 0x7632)};
+      mma_bf16(acc[i], a, b0h, b1h);
+      mma_bf16(acc[i], a, b0l, b1l);
+    }
+  }
+
+  if (gq == 0) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      sm.m[warp][2 * tq + e] = m[e];
+      sm.l[warp][2 * tq + e] = l[e];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int dim = gq * (D / 8) + 2 * i;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      sm.o[warp][2 * tq + e][dim] = acc[i][e];
+      sm.o[warp][2 * tq + e][dim + 1] = acc[i][2 + e];
+    }
+  }
+}
+
+// The fp32 warp loop: keys [ks, ke) in 32-key steps strided over the warps,
+// one key per lane for the scores, dims lane + 32 i per lane for the output.
+// A 32-key step may span pages, so a paged cache is looked up per key.
+template <int D, int KEYS>
+__device__ void warp_f32(const Params& p, int bi, int kvh, int h0, int ge,
+                         int ks, int ke, Smem<D>& sm) {
+  constexpr int DL = D / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const float* Q = static_cast<const float*>(p.q);
+  const float* K = static_cast<const float*>(p.k);
+  const float* V = static_cast<const float*>(p.v);
+  for (int idx = threadIdx.x; idx < HEADS * D; idx += THREADS) {
+    const int h = idx / D, dd = idx % D;
+    sm.q[h][dd] = h < ge ? Q[((int64_t)bi * p.hq + h0 + h) * D + dd] : 0.f;
+  }
+  __syncthreads();
+
+  float m[HEADS], l[HEADS], acc[HEADS][DL];
+#pragma unroll
+  for (int h = 0; h < HEADS; ++h) {
+    m[h] = NEG_INF;
+    l[h] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DL; ++i) acc[h][i] = 0.f;
+  }
+  const int64_t row_stride = (int64_t)p.hkv * D;
+  const float* Kb = K + ((int64_t)bi * p.S * p.hkv + kvh) * D;
+  const float* Vb = V + ((int64_t)bi * p.S * p.hkv + kvh) * D;
+  auto row = [&](const float* X, const float* Xb, int key) -> const float* {
+    if constexpr (KEYS == CONTIGUOUS) return Xb + key * row_stride;
+    return X + (page_row(p, bi, key) * p.hkv + kvh) * D;
+  };
+  for (int c0 = ks + 32 * warp; c0 < ke; c0 += 32 * WARPS) {
+    const int key = c0 + lane;
+    float s[HEADS];
+#pragma unroll
+    for (int h = 0; h < HEADS; ++h) s[h] = 0.f;
+    if (key < ke) {
+      const float* kr = row(K, Kb, key);
+#pragma unroll 4
+      for (int dd = 0; dd < D; dd += 4) {
+        const float4 kv = *reinterpret_cast<const float4*>(kr + dd);
+#pragma unroll
+        for (int h = 0; h < HEADS; ++h)
+          s[h] += sm.q[h][dd] * kv.x + sm.q[h][dd + 1] * kv.y +
+                  sm.q[h][dd + 2] * kv.z + sm.q[h][dd + 3] * kv.w;
+      }
+    }
+    float pr[HEADS];
+#pragma unroll
+    for (int h = 0; h < HEADS; ++h) {
+      const float sv = key < ke && h < ge ? s[h] * p.scale_log2 : NEG_INF;
+      float mx = sv;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[h], mx);
+      pr[h] = sv <= NEG_INF / 2 ? 0.f : exp2f(sv - m_new);
+      float rs = pr[h];
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1)
+        rs += __shfl_xor_sync(0xffffffffu, rs, off);
+      const float corr = exp2f(m[h] - m_new);
+      l[h] = l[h] * corr + rs;
+      m[h] = m_new;
+#pragma unroll
+      for (int i = 0; i < DL; ++i) acc[h][i] *= corr;
+    }
+    const int n = min(32, ke - c0);
+    for (int j = 0; j < n; ++j) {
+      const float* vr = row(V, Vb, c0 + j);
+      float vv[DL];
+#pragma unroll
+      for (int i = 0; i < DL; ++i) vv[i] = vr[lane + 32 * i];
+#pragma unroll
+      for (int h = 0; h < HEADS; ++h) {
+        const float pj = __shfl_sync(0xffffffffu, pr[h], j);
+#pragma unroll
+        for (int i = 0; i < DL; ++i) acc[h][i] += pj * vv[i];
+      }
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int h = 0; h < HEADS; ++h) {
+      sm.m[warp][h] = m[h];
+      sm.l[warp][h] = l[h];
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < HEADS; ++h)
+#pragma unroll
+    for (int i = 0; i < DL; ++i) sm.o[warp][h][lane + 32 * i] = acc[h][i];
+}
+
+template <typename T, int D, int KEYS>
+__global__ void __launch_bounds__(THREADS) decode_fwd(const Params p) {
+  __shared__ Smem<D> sm;
+  const int split = blockIdx.x;
+  const int kvh = blockIdx.y / p.groups, grp = blockIdx.y % p.groups;
+  const int bi = blockIdx.z;
+  const int h0 = kvh * p.g + grp * HEADS;            // first query head
+  const int ge = min(HEADS, p.g - grp * HEADS);      // heads in this group
+  const int lo = p.kv_start ? max(p.kv_start[bi], 0) : 0;
+  const int hi = p.kv_len ? min(p.kv_len[bi], p.S) : p.S;
+  int ks, ke;
+  split_range(lo, hi, p.n_split, split, ks, ke);
+
+  if constexpr (sizeof(T) == 2)
+    warp_bf16<D, KEYS>(p, bi, kvh, h0, ge, ks, ke, sm);
+  else
+    warp_f32<D, KEYS>(p, bi, kvh, h0, ge, ks, ke, sm);
+  __syncthreads();
+
+  // merge the warps: one (head, dim) per thread and step
+  T* O = static_cast<T*>(p.o);
+  for (int idx = threadIdx.x; idx < ge * D; idx += THREADS) {
+    const int h = idx / D, dd = idx % D;
+    float mx = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, sm.m[w][h]);
+    float l = 0.f, o = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float wt = sm.m[w][h] <= NEG_INF / 2 ? 0.f : exp2f(sm.m[w][h] - mx);
+      l += sm.l[w][h] * wt;
+      o += sm.o[w][h][dd] * wt;
+    }
+    const int64_t r = (int64_t)bi * p.hq + h0 + h;
+    if (p.n_split == 1) {
+      store(O + r * D + dd, mx <= NEG_INF / 2 ? 0.f : o / fmaxf(l, 1e-30f));
+      continue;
+    }
+    float* part = p.part + (r * p.n_split + split) * (D + 2);
+    if (dd == 0) {
+      part[0] = mx;
+      part[1] = l;
+    }
+    part[2 + dd] = o;
+  }
+  if (p.n_split == 1) return;
+
+  // the last split of this (row, kv head, group) to finish merges them all
+  __threadfence();
+  __syncthreads();
+  int* counter = p.counters + ((int64_t)bi * p.hkv + kvh) * p.groups + grp;
+  if (threadIdx.x == 0)
+    sm.last = atomicAdd(counter, 1) == p.n_split - 1;
+  __syncthreads();
+  if (!sm.last) return;
+  __threadfence();
+  // each split's weight per head (its m against the heads' max; its l
+  // summed), then every output column as one pass of independent loads
+  const int64_t r0 = (int64_t)bi * p.hq + h0;  // the group's first row
+  for (int idx = threadIdx.x; idx < ge * p.n_split; idx += THREADS) {
+    const int h = idx / p.n_split, s = idx % p.n_split;
+    const float* ps = p.part + ((r0 + h) * p.n_split + s) * (D + 2);
+    sm.wm[h][s] = __ldcg(ps);
+    sm.wl[h][s] = __ldcg(ps + 1);
+  }
+  __syncthreads();
+  if (threadIdx.x < ge) {
+    const int h = threadIdx.x;
+    float mx = NEG_INF, l = 0.f;
+    for (int s = 0; s < p.n_split; ++s) mx = fmaxf(mx, sm.wm[h][s]);
+    for (int s = 0; s < p.n_split; ++s) {
+      const float w = sm.wm[h][s] <= NEG_INF / 2 ? 0.f
+                                                 : exp2f(sm.wm[h][s] - mx);
+      sm.wm[h][s] = w;
+      l += sm.wl[h][s] * w;
+    }
+    sm.inv[h] = mx <= NEG_INF / 2 ? 0.f : 1.f / fmaxf(l, 1e-30f);
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < ge * D; idx += THREADS) {
+    const int h = idx / D, dd = idx % D;
+    const float* ps = p.part + (r0 + h) * p.n_split * (D + 2) + 2 + dd;
+    float o[4] = {0.f, 0.f, 0.f, 0.f};
+    int s = 0;
+    for (; s + 4 <= p.n_split; s += 4)
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        o[u] += sm.wm[h][s + u] * __ldcg(ps + (s + u) * (D + 2));
+    for (; s < p.n_split; ++s) o[0] += sm.wm[h][s] * __ldcg(ps + s * (D + 2));
+    store(O + (r0 + h) * D + dd, (o[0] + o[1] + o[2] + o[3]) * sm.inv[h]);
+  }
+  if (threadIdx.x == 0) *counter = 0;  // ready for the next launch
+}
+
+template <typename T, int KEYS>
+cudaError_t launch_t(const Params& p, int d, cudaStream_t stream) {
+  dim3 grid(p.n_split, p.hkv * p.groups, p.b);
+  switch (d) {
+    case 32:
+      decode_fwd<T, 32, KEYS><<<grid, THREADS, 0, stream>>>(p);
+      break;
+    case 64:
+      decode_fwd<T, 64, KEYS><<<grid, THREADS, 0, stream>>>(p);
+      break;
+    case 128:
+      decode_fwd<T, 128, KEYS><<<grid, THREADS, 0, stream>>>(p);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+// Checks shared by the entries; fills the head grouping and the scale.
+// n_counters: the merge counters' entries (needed when n_split > 1).
+inline cudaError_t prepare(Params& p, float scale, int n_counters) {
+  if (p.hkv <= 0 || p.hq % p.hkv != 0 || p.n_split < 1 ||
+      p.n_split > MAX_SPLITS)
+    return cudaErrorInvalidValue;
+  p.g = p.hq / p.hkv;
+  p.groups = (p.g + HEADS - 1) / HEADS;
+  if (p.n_split > 1 &&
+      (!p.part || !p.counters ||
+       (int64_t)p.b * p.hkv * p.groups > (int64_t)n_counters))
+    return cudaErrorInvalidValue;
+  p.scale_log2 = scale * 1.4426950408889634f;
+  return cudaSuccess;
+}
+
+}  // namespace dk

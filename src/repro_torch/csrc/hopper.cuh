@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks of the port's flash prefill kernel
-// (flash_attention.cu): TMA tensor maps, loads and stores, mbarriers,
-// warpgroup MMA (wgmma) with shared-memory descriptors, and the register
-// hand-over between warpgroups (setmaxnreg). Inline PTX, no library.
+// Hopper (sm_90a) building blocks of the port's wgmma kernels (flash prefill,
+// flash_attention.cu; paged context, paged_attention.cu): TMA tensor maps,
+// loads and stores, cp.async gathers, mbarriers, warpgroup MMA (wgmma) with
+// shared-memory descriptors, and the register hand-over between warpgroups
+// (setmaxnreg). Inline PTX, no library.
 #pragma once
 
 #include <cuda.h>
@@ -94,6 +95,28 @@ __device__ __forceinline__ void bulk_commit() {
 // wait until this thread's bulk stores have read their shared memory
 __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// --- cp.async ---------------------------------------------------------------
+
+// 16 bytes from global src to shared dst, through L2 only; the bytes past
+// src_bytes (0 or 16) are zero-filled
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+// one arrival on `bar` once every cp.async this thread issued so far has
+// landed (counted against the barrier's expected arrivals)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // make this thread's generic-proxy shared-memory writes visible to the

@@ -5,50 +5,501 @@
 // payload plus fp32 per-token-per-head scale pools (n_blocks, block_size,
 // hkv)).
 //
-// Replaces: src/repro/kernels/paged_attention.py:paged_decode_attention_pallas
-// (one query token per row, kv_len mask) and
-// src/repro/kernels/paged_attention.py:paged_context_attention_pallas (a
-// C-token chunk at absolute offset q_start, causal over the prior pages and
-// itself; fully masked rows give exact zeros) and
-// src/repro/kernels/paged_attention.py:paged_verify_attention_pallas (T =
-// k + 1 candidates per slot at the slot's committed length kv_start, the
-// output kept at every position). Decode is the C = 1 case of the same body
-// with no causal term; verification is the context body with
-// q_start = kv_start, as the TPU kernel rode the context grid.
-//
-// The *_quant_fwd entries replace the quantized-pool kernels of the same
-// file, paged_decode_attention_quant_pallas,
-// paged_context_attention_quant_pallas and
-// paged_verify_attention_quant_pallas (dequantization fused per tile): the
-// same three entries with a K/V type code and the scale pools, on the same
-// bodies (attention.cuh folds the scales into scores and probabilities).
+// Replaces, in src/repro/kernels/paged_attention.py:
+//  - paged_decode_attention_pallas (one query token per row, kv_len mask):
+//    paged_decode_attention_fwd, bf16 and fp32, on the GQA decode body of
+//    decode.cuh (dk::decode_fwd) with its keys read through the block
+//    table: one block of 4 warps per (row, kv head, <= 8 query heads,
+//    split), K and V rows straight to registers, S^T and O^T on mma.sync,
+//    the splits merged in the same launch. Any block size: a page holds
+//    whole 16-key groups when bs % 16 == 0 (one lookup per group), else
+//    each key is looked up. Its split count comes from the table's
+//    capacity (kernels/decode_attention.py:contiguous_splits) and its merge
+//    counters are its own buffer, checked against b x hkv x head groups.
+//  - paged_context_attention_pallas (a C-token chunk at absolute offset
+//    q_start, causal over the prior pages and itself; rows that see no key
+//    give exact zeros): paged_context_attention_fwd in bf16 on the wgmma
+//    body below (pc::context_fwd); in fp32 on attention.cuh's scalar body.
+//  - paged_verify_attention_pallas (T = k + 1 candidates per slot at the
+//    slot's committed length kv_start, the output kept at every position):
+//    paged_verify_attention_fwd on attention.cuh's bodies, as the context
+//    chunk with q_start = kv_start.
+//  - paged_decode_attention_quant_pallas, paged_context_attention_quant_
+//    pallas and paged_verify_attention_quant_pallas (int8 / fp8 pools,
+//    dequantization fused per tile): the *_quant_fwd entries, a K/V type
+//    code and the scale pools on attention.cuh's bodies (scalar split-KV
+//    decode plus combine_splits; mma.sync context), which fold the scales
+//    into scores and probabilities and never write a dequantized page.
 //
 // Bound on the card: a decode step does ~4 d hq kv_len FLOPs per row on
 // 2 d hkv kv_len K/V elements, a few FLOPs per byte, so it is bound by bytes
-// (reading the live pages). Each block serves all g query heads of one kv
-// head, so a page is read once per block instead of g times, and it loops
-// only over the ceil(kv_len / 32) live key tiles, never over the table's
-// null tail, loading each key row with 16-byte vector loads after one table
-// lookup. A decode step has few blocks (rows x kv heads) and each is bound
-// by memory latency, so the keys of a row split over n_split blocks
-// (chosen by the wrapper to fill the SMs) and a second small kernel merges
-// their partial softmax states (split-KV, "flash-decoding"). Context
-// chunks (C x g rows per kv head) sit between the two regimes and, in
-// bf16, run on the tensor-core body (attn_fwd_mma). Rows of free slots
-// (all-null tables) read the trash page and come out finite; their values
-// are discarded by the caller.
+// (reading the live pages); decode.cuh keeps 8 KB of them in flight per
+// warp. A context chunk does C / 2 times more work per key row and is bound
+// by operations at serving lengths; only wgmma reaches the tensor cores'
+// rate, so context_fwd is flash_fwd's design (flash.cuh) with its K/V tiles
+// gathered through the block table:
 //
-// A quantized pool moves 2 d + 8 bytes per key and kv head (one-byte K and
-// V rows plus their two fp32 scales) instead of 4 d in bf16, so its decode
-// bound is about half; the bodies widen the payload in registers and never
-// write a dequantized page to memory.
+//  - A CTA is three warpgroups. In the producer warpgroup one thread TMA-
+//    loads each work item's Q rows (two Q buffers), another TMA-stores its
+//    O, and two warps gather the K and V tiles (TILE_KEYS keys, one key row
+//    per thread: one table lookup, then 16-byte cp.async copies into the
+//    same 128-byte (64-byte at d 32) swizzle the wgmma descriptors read,
+//    zero-filled past the item's last key) into a ring of STAGES, each
+//    stage with full / empty mbarriers for K and for V. TMA cannot gather
+//    rows, and one TMA per page would leave block sizes that do not divide
+//    the tile to another body; the gather takes every bs >= 1.
+//  - Consumer warpgroups 1 and 2 own 64 rows each: P = 64 / g positions x
+//    the g query heads of ONE kv head. S = Q K^T as wgmma (Q in registers,
+//    K from shared memory), the online softmax on the accumulators, and
+//    O += P V with P in registers; tile t's S is issued with tile t - 1's
+//    P V. P is split into a bf16 high part and the bf16 of its remainder
+//    (two P V products, ~16 bits of P) as attention.cuh's mma.sync body
+//    does, so the prefix path's numerics stay where they were.
+//  - Query j of row i sits at q_start[i] + j and sees keys <= its position
+//    and < kv_len[i]; an item's key loop ends at min(kv_len, q_start + its
+//    last position + 1).
+//  - CTAs are persistent, one per SM, and walk the items (row tile, b, kv
+//    head) longest first: the lengths depend on q_start and kv_len, which
+//    are on the device, so every CTA ranks the (row tile, b) units itself
+//    at the start (O(b) per unit: a row's lengths grow with its row tile)
+//    into the same order.
+//
+// Rows of free slots (all-null tables) read the trash page and come out
+// finite; their values are discarded by the caller.
 #include "attention.cuh"
+#include "decode.cuh"
+#include "flash.cuh"
+
+namespace pc {
+
+using bf16 = __nv_bfloat16;
+using fa::NC;
+using fa::NEG_INF;
+using fa::WG_ROWS;
+constexpr int TILE_KEYS = 64;   // keys per K/V tile
+constexpr int STAGES = 3;       // K (and V) tiles in flight
+constexpr int GATHER = 64;      // producer threads that gather K/V (warps 2-3)
+static_assert(GATHER == TILE_KEYS, "one key row per gathering thread");
+// registers a thread: the producer warpgroup gives its to the consumers
+// (PRODUCER_REGS + NC CONSUMER_REGS <= 65536 / 128)
+constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 224;
+// (row tile, b) units ranked in shared memory; past this many the items
+// run row tiles longest first without ranking the rows
+constexpr int ORDER_CAP = 2048;
+
+struct Params {
+  const void* k;        // pools (n_blocks, bs, hkv, d)
+  const void* v;
+  const int* tables;    // (b, max_blocks)
+  const int* q_start;   // (b,)
+  const int* kv_len;    // (b,)
+  int b, C, hq, hkv, g, P, bs, max_blocks;
+  int causal, window;   // 1 and 0: what fa::softmax_tile reads
+  float scale_log2;
+  int n_mtiles, units, items;  // units: n_mtiles x b; items: units x hkv
+};
+
+// Live keys of row bi: [0, kv_end)
+__device__ __forceinline__ int kv_end_of(const Params& p, int bi) {
+  return min(max(p.kv_len[bi], 0), p.max_blocks * p.bs);
+}
+
+// Keys that row tile mt of row bi may see: [0, len)
+__device__ __forceinline__ int unit_len(const Params& p, int bi, int mt) {
+  return max(0, min(kv_end_of(p, bi),
+                    p.q_start[bi] + min((mt + 1) * NC * p.P, p.C)));
+}
+
+// The first row tile of row bi that sees more than L >= 0 keys (n_mtiles if
+// none): a row tile's length grows with mt
+__device__ __forceinline__ int first_longer(const Params& p, int bi, int L) {
+  const int qs = p.q_start[bi];
+  if (kv_end_of(p, bi) <= L || qs + p.C <= L) return p.n_mtiles;
+  return L < qs ? 0 : (L - qs) / (NC * p.P);
+}
+
+// order[t]: the unit (bi n_mtiles + mt) of rank t, longest first; ties go
+// to the lower row, then to the later row tile. Every CTA computes the
+// same order.
+__device__ void rank_units(const Params& p, int* order) {
+  if (p.units > ORDER_CAP) return;
+  for (int u = threadIdx.x; u < p.units; u += blockDim.x) {
+    const int bi = u / p.n_mtiles, mt = u % p.n_mtiles;
+    const int L = unit_len(p, bi, mt);
+    int rank = p.n_mtiles - 1 - mt;  // this row's later tiles
+    for (int b2 = 0; b2 < p.b; ++b2) {
+      if (b2 == bi) continue;
+      // units of a lower row at least as long, of a higher row longer
+      const int first = b2 < bi ? (L > 0 ? first_longer(p, b2, L - 1) : 0)
+                                : first_longer(p, b2, L);
+      rank += p.n_mtiles - first;
+    }
+    order[rank] = u;
+  }
+}
+
+__device__ __forceinline__ int unit_of(const Params& p, const int* order,
+                                       int t) {
+  if (p.units <= ORDER_CAP) return order[t];
+  const int mt = p.n_mtiles - 1 - t / p.b, bi = t % p.b;
+  return bi * p.n_mtiles + mt;
+}
+
+// One work item: positions [pos0, pos0 + NC P) of kv head kvh of row bi,
+// whose query 0 sits at qs; the row's live keys [0, kv_end), of which the
+// item's rows see [0, hi)
+struct Item {
+  int bi, kvh, pos0, qs, kv_end, hi;
+};
+
+__device__ __forceinline__ Item item_at(const Params& p, const int* order,
+                                        int t) {
+  Item it;
+  const int u = unit_of(p, order, t / p.hkv);
+  it.kvh = t % p.hkv;
+  it.bi = u / p.n_mtiles;
+  it.pos0 = (u % p.n_mtiles) * NC * p.P;
+  it.qs = p.q_start[it.bi];
+  it.kv_end = kv_end_of(p, it.bi);
+  const int last = min(it.pos0 + NC * p.P, p.C) - 1;
+  it.hi = max(0, min(it.kv_end, it.qs + last + 1));
+  return it;
+}
+
+template <int D>
+struct Smem {
+  static constexpr int KV = TILE_KEYS * D * 2;  // one K (or V) tile
+  static constexpr size_t K = 0;
+  static constexpr size_t V = K + (size_t)STAGES * KV;
+  static constexpr size_t Q = V + (size_t)STAGES * KV;  // [2][NC] buffers
+  static constexpr size_t ORDER = Q + (size_t)2 * NC * fa::Geo<D>::QBYTES;
+  static constexpr size_t BAR = ORDER + (size_t)ORDER_CAP * 4;
+  static constexpr size_t BYTES = BAR + (4 * STAGES + 6) * 8 + 1024;
+};
+
+// Gather one K or V tile: key k0 + j (j: this thread) of row `it` from the
+// pool X into the swizzled tile at dst; keys past the item's last read as
+// zeros
+template <int D>
+__device__ __forceinline__ void gather(unsigned char* dst, const bf16* X,
+                                       const Params& p, const Item& it,
+                                       int64_t row, bool live, int j) {
+  using G = fa::Geo<D>;
+  const bf16* src = X + (row * p.hkv + it.kvh) * D;
+#pragma unroll
+  for (int u = 0; u < D / 8; ++u)
+    hx::cp_async16(dst + G::template tile_off<TILE_KEYS>(j, u),
+                   live ? src + 8 * u : X, live ? 16 : 0);
+}
+
+template <int D>
+__global__ void __launch_bounds__(128 * (NC + 1), 1)
+    context_fwd(const Params p, const __grid_constant__ CUtensorMap tmq,
+                const __grid_constant__ CUtensorMap tmo) {
+  using G = fa::Geo<D>;
+  using S = Smem<D>;
+  constexpr int BK = TILE_KEYS;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  int* order = reinterpret_cast<int*>(smem + S::ORDER);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + S::BAR);
+  const fa::Ring rg{bars, bars + STAGES, bars + 2 * STAGES,
+                    bars + 3 * STAGES};
+  uint64_t* qfull = bars + 4 * STAGES;  // a Q buffer holds its item's Q
+  uint64_t* staged = qfull + 2;         // ... its item's O
+  uint64_t* qempty = staged + 2;        // ... nothing: O is stored
+  const int wgi = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hx::mbar_init(&rg.kfull[s], GATHER);   // one per gathering thread
+      hx::mbar_init(&rg.vfull[s], GATHER);
+      hx::mbar_init(&rg.kempty[s], 4 * NC);  // one per consumer warp
+      hx::mbar_init(&rg.vempty[s], 4 * NC);
+    }
+    for (int b = 0; b < 2; ++b) {
+      hx::mbar_init(&qfull[b], 1);
+      hx::mbar_init(&staged[b], 4 * NC);
+      hx::mbar_init(&qempty[b], 1);
+    }
+    hx::mbar_fence_init();
+  }
+  rank_units(p, order);
+  __syncthreads();
+
+  if (wgi == 0) {
+    // producer: thread 0 TMA-loads each item's Q, thread 32 TMA-stores
+    // its O once the consumers staged it, warps 2 and 3 gather K and V
+    hx::setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 32) {
+      int j = 0;
+      for (int r = 0; r * (int)gridDim.x < p.items; ++r) {
+        const int t = fa::item_of_round(r);
+        if (t >= p.items) continue;
+        const Item it = item_at(p, order, t);
+        const int qb = j & 1;
+        hx::mbar_wait(&staged[qb], (j >> 1) & 1);
+        for (int w = 0; w < NC; ++w) {
+          const unsigned char* o =
+              smem + S::Q + (size_t)(qb * NC + w) * G::QBYTES;
+#pragma unroll
+          for (int c = 0; c < G::NCH; ++c)
+            hx::tma_store_4d(&tmo, o + c * WG_ROWS * G::ROWB, c * G::CH,
+                             it.kvh * p.g, it.pos0 + w * p.P, it.bi);
+        }
+        hx::bulk_commit();
+        hx::bulk_wait_read();
+        hx::mbar_arrive(&qempty[qb]);
+        ++j;
+      }
+      return;
+    }
+    if (threadIdx.x == 0) {
+      int n = 0;
+      for (int r = 0; r * (int)gridDim.x < p.items; ++r) {
+        const int t = fa::item_of_round(r);
+        if (t >= p.items) continue;
+        const Item it = item_at(p, order, t);
+        const int qb = n & 1;
+        hx::mbar_wait(&qempty[qb], ((n >> 1) & 1) ^ 1);
+        hx::mbar_arrive_tx(&qfull[qb], NC * p.P * p.g * D * 2);
+        for (int w = 0; w < NC; ++w) {
+          unsigned char* q = smem + S::Q + (size_t)(qb * NC + w) * G::QBYTES;
+#pragma unroll
+          for (int c = 0; c < G::NCH; ++c)
+            hx::tma_load_4d(q + c * WG_ROWS * G::ROWB, &tmq, &qfull[qb],
+                            c * G::CH, it.kvh * p.g, it.pos0 + w * p.P,
+                            it.bi);
+        }
+        ++n;
+      }
+      return;
+    }
+    if (threadIdx.x < 64) return;
+    const int j = threadIdx.x - 64;  // this thread's key of every tile
+    const bf16* K = static_cast<const bf16*>(p.k);
+    const bf16* V = static_cast<const bf16*>(p.v);
+    int stage = 0, phase = 0;
+    for (int r = 0; r * (int)gridDim.x < p.items; ++r) {
+      const int t = fa::item_of_round(r);
+      if (t >= p.items) continue;
+      const Item it = item_at(p, order, t);
+      for (int k0 = 0; k0 < it.hi; k0 += BK) {
+        const int key = k0 + j;
+        const bool live = key < it.hi;
+        const int64_t row =
+            live ? (int64_t)p.tables[(int64_t)it.bi * p.max_blocks +
+                                     key / p.bs] * p.bs + key % p.bs
+                 : 0;
+        hx::mbar_wait(&rg.kempty[stage], phase ^ 1);
+        gather<D>(smem + S::K + (size_t)stage * S::KV, K, p, it, row, live,
+                  j);
+        hx::cp_async_arrive(&rg.kfull[stage]);
+        hx::mbar_wait(&rg.vempty[stage], phase ^ 1);
+        gather<D>(smem + S::V + (size_t)stage * S::KV, V, p, it, row, live,
+                  j);
+        hx::cp_async_arrive(&rg.vfull[stage]);
+        fa::advance<STAGES>(stage, phase);
+      }
+    }
+    hx::cp_async_wait_all();
+    return;
+  }
+
+  // consumers
+  hx::setmaxnreg_inc<CONSUMER_REGS>();
+  const int wg = wgi - 1;
+  const int tid = threadIdx.x - 128 * wgi;
+  const int warp = tid / 32, lane = tid % 32, gq = lane / 4, tq = lane % 4;
+  const fa::Turns turn{wg};
+  if (wg == NC - 1) turn.end();  // warpgroup 0 issues first
+  int stage = 0, phase = 0, n = 0;
+  for (int r = 0; r * (int)gridDim.x < p.items; ++r) {
+    const int t = fa::item_of_round(r);
+    if (t >= p.items) continue;
+    const Item it = item_at(p, order, t);
+    const int qb = n & 1;
+    unsigned char* qs = smem + S::Q + (size_t)(qb * NC + wg) * G::QBYTES;
+
+    // this warpgroup's positions (absolute: q_start + position) and the
+    // keys they may see
+    const int pos0 = it.pos0 + wg * p.P;
+    const bool any = pos0 < p.C;
+    const int last = min(pos0 + p.P, p.C) - 1;
+    const int hi_w = max(0, min(it.kv_end, it.qs + last + 1));
+    const int ra = warp * 16 + gq;
+    const fa::Rows rw{0,
+                      it.kv_end,
+                      it.qs + pos0,
+                      it.qs + last,
+                      {it.qs + pos0 + ra / p.g, it.qs + pos0 + (ra + 8) / p.g},
+                      tq};
+
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    fa::PSplit<BK> pa;  // P of the previous tile, high and low parts
+
+    // tiles [0, it.hi): the run this warpgroup's rows see is computed, each
+    // tile's S issued with the previous tile's P V, so no wgmma sits in a
+    // branch; the trailing run (the item's other rows see it) only passes
+    const int c_hi = any ? min(it.hi, hi_w) : 0;
+    int k0 = 0;
+    hx::mbar_wait(&qfull[qb], (n >> 1) & 1);
+    uint32_t qf[D / 16][4];  // Q's A fragments, for the whole item
+    fa::load_q_frags<D>(qf, qs, warp, lane);
+    if (k0 < c_hi) {
+      float s[BK / 2];
+      const unsigned char* kt = smem + S::K + (size_t)stage * S::KV;
+      hx::mbar_wait(&rg.kfull[stage], phase);
+      hx::fence_proxy_async();  // the gathered tile, to the async proxy
+      turn.begin();
+      fa::issue_qk<D, BK>(s, qf, kt);
+      turn.end();
+      hx::wgmma_wait<0>();
+      hx::fence_regs(s);
+      if (lane == 0) hx::mbar_arrive(&rg.kempty[stage]);
+      fa::softmax_tile<D, BK, true>(s, m, l, o, pa, p, rw, k0, nullptr,
+                                    lane);
+      int prev = stage, prev_phase = phase;
+      fa::advance<STAGES>(stage, phase);
+      for (k0 += BK; k0 < c_hi; k0 += BK) {
+        kt = smem + S::K + (size_t)stage * S::KV;
+        hx::mbar_wait(&rg.kfull[stage], phase);
+        hx::mbar_wait(&rg.vfull[prev], prev_phase);
+        hx::fence_proxy_async();
+        turn.begin();
+        fa::issue_qk<D, BK>(s, qf, kt);
+        fa::issue_pv_split<D, BK>(o, pa, smem + S::V + (size_t)prev * S::KV);
+        turn.end();
+        hx::wgmma_wait<1>();
+        hx::fence_regs(s);
+        if (lane == 0) hx::mbar_arrive(&rg.kempty[stage]);
+        fa::softmax_tile<D, BK, false>(s, m, l, o, pa, p, rw, k0,
+                                       &rg.vempty[prev], lane);
+        prev = stage;
+        prev_phase = phase;
+        fa::advance<STAGES>(stage, phase);
+      }
+      hx::mbar_wait(&rg.vfull[prev], prev_phase);
+      hx::fence_proxy_async();
+      turn.begin();
+      fa::issue_pv_split<D, BK>(o, pa, smem + S::V + (size_t)prev * S::KV);
+      turn.end();
+      hx::wgmma_wait<0>();
+      hx::fence_regs(o);
+      if (lane == 0) hx::mbar_arrive(&rg.vempty[prev]);
+    } else {
+      turn.idle();  // every warpgroup takes tiles + 1 turns per item
+    }
+    for (; k0 < it.hi; k0 += BK) {
+      fa::pass_tile<STAGES>(rg, stage, phase, lane);
+      turn.idle();
+    }
+
+    // epilogue: normalise into the Q buffer for the TMA store, which clips
+    // rows past C
+    hx::named_barrier(1 + wg, 128);  // every warp is done reading Q
+    float inv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      inv[h] = m[h] <= NEG_INF / 2 ? 0.f : 1.f / fmaxf(l[h], 1e-30f);
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = 8 * jj + 2 * tq;
+        *reinterpret_cast<uint32_t*>(qs + G::off(ra + 8 * h, c / 8) +
+                                     (c % 8) * 2) =
+            fa::pack_bf16(o[4 * jj + 2 * h] * inv[h],
+                          o[4 * jj + 2 * h + 1] * inv[h]);
+      }
+    }
+    hx::fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) hx::mbar_arrive(&staged[qb]);
+    ++n;
+  }
+}
+
+template <int D>
+cudaError_t launch(Params p, const void* q, void* o, cudaStream_t stream) {
+  using G = fa::Geo<D>;
+  constexpr size_t smem = Smem<D>::BYTES;
+  const CUtensorMapSwizzle swz = G::ROWB == 128
+                                     ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : CU_TENSOR_MAP_SWIZZLE_64B;
+  CUtensorMap tmq, tmo;
+  cudaError_t e = hx::bf16_map_4d(&tmq, q, D, p.hq, p.C, p.b, G::CH, p.g,
+                                  p.P, 1, swz);
+  if (e == cudaSuccess)
+    e = hx::bf16_map_4d(&tmo, o, D, p.hq, p.C, p.b, G::CH, p.g, p.P, 1, swz);
+  if (e != cudaSuccess) return e;
+  auto kern = context_fwd<D>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return e;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  kern<<<min(p.items, sms), 128 * (NC + 1), smem, stream>>>(p, tmq, tmo);
+  return cudaGetLastError();
+}
+
+// bf16 context chunks: a consumer warpgroup's rows are whole GQA groups, so
+// g <= 64
+cudaError_t launch_bf16(const void* q, const void* k_pages,
+                        const void* v_pages, void* o, const int* tables,
+                        const int* q_start, const int* kv_len, int b, int C,
+                        int hq, int hkv, int d, int block_size,
+                        int max_blocks, float scale, cudaStream_t st) {
+  if (hkv <= 0 || hq % hkv != 0 || block_size < 1 || !q_start || !kv_len)
+    return cudaErrorInvalidValue;
+  Params p{};
+  p.k = k_pages;
+  p.v = v_pages;
+  p.tables = tables;
+  p.q_start = q_start;
+  p.kv_len = kv_len;
+  p.b = b;
+  p.C = C;
+  p.hq = hq;
+  p.hkv = hkv;
+  p.g = hq / hkv;
+  p.P = WG_ROWS / p.g;
+  p.bs = block_size;
+  p.max_blocks = max_blocks;
+  p.causal = 1;
+  p.window = 0;
+  p.scale_log2 = scale * 1.4426950408889634f;
+  if (p.P < 1) return cudaErrorInvalidValue;
+  if (b <= 0 || C <= 0) return cudaSuccess;
+  p.n_mtiles = (C + NC * p.P - 1) / (NC * p.P);
+  p.units = p.n_mtiles * b;
+  p.items = p.units * hkv;
+  switch (d) {
+    case 32:
+      return launch<32>(p, q, o, st);
+    case 64:
+      return launch<64>(p, q, o, st);
+    case 128:
+      return launch<128>(p, q, o, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace pc
 
 namespace {
 
 // dtype (of q, o): 0 = float32, 1 = bfloat16. kv_type (of the K/V pools):
 // 0 = q's dtype, 1 = int8, 2 = fp8 e4m3; the quantized types need both
-// scale pools.
+// scale pools. attention.cuh's bodies: fp32 context, verify and the
+// quantized entries.
 cudaError_t dispatch(const rt::AttnParams& p, int d, int dtype,
                      cudaStream_t stream, int kv_type) {
   if (p.hkv <= 0 || p.hq % p.hkv != 0) return cudaErrorInvalidValue;
@@ -63,33 +514,6 @@ cudaError_t dispatch(const rt::AttnParams& p, int d, int dtype,
   if (kv_type == 1) return rt::dispatch_q<int8_t>(p, d, dtype, stream);
   if (kv_type == 2) return rt::dispatch_q<__nv_fp8_e4m3>(p, d, dtype, stream);
   return cudaErrorInvalidValue;
-}
-
-int paged_decode(const void* q, const void* k_pages, const void* v_pages,
-                 const float* k_scale, const float* v_scale, void* o,
-                 const int* tables, const int* kv_len, int b, int hq, int hkv,
-                 int d, int block_size, int max_blocks, float scale,
-                 int n_split, float* part, int dtype, int kv_type,
-                 void* stream) {
-  rt::AttnParams p{};
-  p.q = q;
-  p.k = k_pages;
-  p.v = v_pages;
-  p.k_scale = k_scale;
-  p.v_scale = v_scale;
-  p.o = o;
-  p.tables = tables;
-  p.kv_len = kv_len;
-  p.b = b;
-  p.sq = 1;
-  p.hq = hq;
-  p.hkv = hkv;
-  p.bs = block_size;
-  p.max_blocks = max_blocks;
-  p.scale = scale;
-  p.n_split = n_split;
-  p.part = part;
-  return (int)dispatch(p, d, dtype, (cudaStream_t)stream, kv_type);
 }
 
 int paged_context(const void* q, const void* k_pages, const void* v_pages,
@@ -121,17 +545,41 @@ int paged_context(const void* q, const void* k_pages, const void* v_pages,
 
 }  // namespace
 
-extern "C" int paged_decode_attention_fwd(const void* q, const void* k_pages,
-                                          const void* v_pages, void* o,
-                                          const int* tables, const int* kv_len,
-                                          int b, int hq, int hkv, int d,
-                                          int block_size, int max_blocks,
-                                          float scale, int n_split,
-                                          float* part, int dtype,
-                                          void* stream) {
-  return paged_decode(q, k_pages, v_pages, nullptr, nullptr, o, tables,
-                      kv_len, b, hq, hkv, d, block_size, max_blocks, scale,
-                      n_split, part, dtype, 0, stream);
+// kv_len (b,) or null (every table slot full). counters: this kernel's
+// merge counters, n_counters entries, zero between launches (needed when
+// n_split > 1).
+extern "C" int paged_decode_attention_fwd(
+    const void* q, const void* k_pages, const void* v_pages, void* o,
+    const int* tables, const int* kv_len, int b, int hq, int hkv, int d,
+    int block_size, int max_blocks, float scale, int n_split, float* part,
+    int* counters, int n_counters, int dtype, void* stream) {
+  if (block_size < 1 || max_blocks < 0) return (int)cudaErrorInvalidValue;
+  dk::Params p{};
+  p.q = q;
+  p.k = k_pages;
+  p.v = v_pages;
+  p.o = o;
+  p.kv_len = kv_len;
+  p.b = b;
+  p.S = max_blocks * block_size;
+  p.hq = hq;
+  p.hkv = hkv;
+  p.n_split = n_split;
+  p.part = part;
+  p.counters = counters;
+  p.tables = tables;
+  p.bs = block_size;
+  p.max_blocks = max_blocks;
+  const cudaError_t e = dk::prepare(p, scale, n_counters);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool whole = block_size % 16 == 0;  // 16-key groups in one page
+  if (dtype == 0)  // a 32-key fp32 step may span pages: per-key lookups
+    return (int)dk::launch_t<float, dk::PAGED>(p, d, st);
+  if (dtype == 1)
+    return whole ? (int)dk::launch_t<dk::bf16, dk::PAGED16>(p, d, st)
+                 : (int)dk::launch_t<dk::bf16, dk::PAGED>(p, d, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int paged_context_attention_fwd(
@@ -139,6 +587,11 @@ extern "C" int paged_context_attention_fwd(
     const int* tables, const int* q_start, const int* kv_len, int b, int C,
     int hq, int hkv, int d, int block_size, int max_blocks, float scale,
     int dtype, void* stream) {
+  if (dtype == 1)
+    return (int)pc::launch_bf16(q, k_pages, v_pages, o, tables, q_start,
+                                kv_len, b, C, hq, hkv, d, block_size,
+                                max_blocks, scale, (cudaStream_t)stream);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
   return paged_context(q, k_pages, v_pages, nullptr, nullptr, o, tables,
                        q_start, kv_len, b, C, hq, hkv, d, block_size,
                        max_blocks, scale, dtype, 0, stream);
@@ -162,6 +615,8 @@ extern "C" int paged_verify_attention_fwd(
 
 // Quantized pools: kv_type 1 = int8, 2 = fp8 e4m3 payloads (n_blocks,
 // block_size, hkv, d), k_scale / v_scale (n_blocks, block_size, hkv) fp32.
+// Decode splits a row's keys over n_split blocks whose partials
+// combine_splits merges.
 extern "C" int paged_decode_attention_quant_fwd(
     const void* q, const void* k_pages, const void* v_pages,
     const float* k_scale, const float* v_scale, void* o, const int* tables,
@@ -169,9 +624,25 @@ extern "C" int paged_decode_attention_quant_fwd(
     int max_blocks, float scale, int n_split, float* part, int dtype,
     int kv_type, void* stream) {
   if (kv_type == 0) return (int)cudaErrorInvalidValue;
-  return paged_decode(q, k_pages, v_pages, k_scale, v_scale, o, tables,
-                      kv_len, b, hq, hkv, d, block_size, max_blocks, scale,
-                      n_split, part, dtype, kv_type, stream);
+  rt::AttnParams p{};
+  p.q = q;
+  p.k = k_pages;
+  p.v = v_pages;
+  p.k_scale = k_scale;
+  p.v_scale = v_scale;
+  p.o = o;
+  p.tables = tables;
+  p.kv_len = kv_len;
+  p.b = b;
+  p.sq = 1;
+  p.hq = hq;
+  p.hkv = hkv;
+  p.bs = block_size;
+  p.max_blocks = max_blocks;
+  p.scale = scale;
+  p.n_split = n_split;
+  p.part = part;
+  return (int)dispatch(p, d, dtype, (cudaStream_t)stream, kv_type);
 }
 
 extern "C" int paged_context_attention_quant_fwd(

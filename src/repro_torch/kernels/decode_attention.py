@@ -6,8 +6,10 @@ repro.kernels.decode_attention.decode_attention_pallas.
 split-KV partials), launches on the current stream and counts the launch;
 it never falls back to the plain version (``ref.decode_attention_ref``) —
 ``ops`` chooses. ``contiguous_splits`` picks how many blocks share a row's
-keys; the kernel divides each row's live keys among them (``split_range``
-in the CUDA source) and checks the count and the merge counters' size.
+keys, for this kernel and for the paged decode kernel, which runs the same
+body (``csrc/decode.cuh``) through a block table; the kernel divides each
+row's live keys among them (``split_range``) and checks the count and the
+size of the merge counters (``merge_counters``: one buffer per kernel).
 """
 from __future__ import annotations
 
@@ -54,15 +56,16 @@ def contiguous_splits(b, hq, hkv, S, sms):
 _COUNTERS = {}
 
 
-def _counters(n, device):
-    """Zeroed int32 merge counters of at least n entries on `device`; the
-    kernel's last block per (row, kv head, head group) resets its own, so
+def merge_counters(kernel, n, device):
+    """Zeroed int32 merge counters of at least n entries on `device`, a
+    buffer of `kernel`'s own ("decode_attention", "paged_decode_attention"):
+    a launch's last block per (row, kv head, head group) resets its own, so
     they are zero again after every launch. b x hq entries hold any head
     grouping (the kernel checks that it has enough)."""
-    t = _COUNTERS.get(device)
+    t = _COUNTERS.get((kernel, device))
     if t is None or t.numel() < n:
-        t = _COUNTERS[device] = torch.zeros(n, dtype=torch.int32,
-                                            device=device)
+        t = _COUNTERS[kernel, device] = torch.zeros(n, dtype=torch.int32,
+                                                    device=device)
     return t
 
 
@@ -89,7 +92,7 @@ def decode_attention_cuda(q, k, v, *, kv_len=None, kv_start=None,
     if n_split > 1:
         part = torch.empty(b * hq * n_split * (d + 2), dtype=torch.float32,
                            device=q.device)
-        counters = _counters(b * hq, q.device)
+        counters = merge_counters("decode_attention", b * hq, q.device)
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  lens.data_ptr() if lens is not None else None,
                  starts.data_ptr() if starts is not None else None,

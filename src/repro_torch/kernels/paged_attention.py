@@ -5,6 +5,15 @@ their quantized-pool variants (``*_quant_pallas``: int8 / fp8 e4m3 payload
 pools with float32 per-token-per-head scale pools, dequantized inside the
 kernel).
 
+Bodies (see the CUDA source): decode (#2), bf16 and fp32, runs the GQA
+decode body of ``csrc/decode.cuh`` through the block table, with its split
+count from ``decode_attention.contiguous_splits`` over the table's capacity
+and merge counters of its own; bf16 context (#3) runs the TMA + cp.async +
+wgmma body ``pc::context_fwd``; fp32 context, verification (#4) and the
+quantized entries (#5-#7) run the bodies of ``csrc/attention.cuh``
+(the quantized decode with ``decode_splits`` blocks per row and a second
+merge launch).
+
 Each wrapper checks its inputs, allocates the output, launches on the
 current stream and counts its own launches; none falls back to its plain
 version (``ref.paged_*_ref``) — ``ops`` chooses. Block-table entries are
@@ -19,6 +28,8 @@ import math
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.decode_attention import (contiguous_splits,
+                                                  merge_counters)
 from repro_torch.kernels.flash_attention import (DTYPES,
                                                  check_attention_inputs,
                                                  lengths)
@@ -42,10 +53,18 @@ def _tables(block_tables, b, device):
 
 
 def decode_splits(b, hkv, capacity, device):
-    """How many blocks share one decode row's keys: enough (b x hkv x
-    splits) for ~4 blocks per SM, and at most one 32-key tile each."""
+    """How many blocks share one row's keys in the quantized decode kernel
+    (#5, attention.cuh's scalar body): enough (b x hkv x splits) for ~4
+    blocks per SM, and at most one 32-key tile each."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(-(-capacity // 32), -(-4 * sms // (b * hkv))))
+
+
+def paged_decode_splits(b, hq, hkv, max_blocks, block_size, sms):
+    """How many blocks share one row's keys in the paged decode kernel
+    (#2): ``contiguous_splits`` over the table's capacity max_blocks x
+    block_size (never the live lengths, which are on the device)."""
+    return contiguous_splits(b, hq, hkv, max_blocks * block_size, sms)
 
 
 # payload dtype of a quantized pool -> the kernels' K/V type code
@@ -114,14 +133,25 @@ def _decode(q, k_pages, v_pages, scales, block_tables, kv_len, scale):
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
-    n_split = decode_splits(b, hkv, nb * bs, q.device)
+    if quant is None:
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        n_split = paged_decode_splits(b, hq, hkv, nb, bs, sms)
+    else:
+        n_split = decode_splits(b, hkv, nb * bs, q.device)
     part = (torch.empty(b * hq * n_split * (d + 2), dtype=torch.float32,
                         device=q.device) if n_split > 1 else None)
+    tail = (tbl.data_ptr(), lens.data_ptr(), b, hq, hkv, d, bs, nb,
+            float(scale), n_split,
+            part.data_ptr() if part is not None else None)
+    types = [_P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P]
+    if quant is None:   # #2's own merge counters
+        counters = (merge_counters("paged_decode_attention", b * hq, q.device)
+                    if n_split > 1 else None)
+        tail += (counters.data_ptr() if counters is not None else None,
+                 counters.numel() if counters is not None else 0)
+        types += [_P, _I]
     _launch("paged_decode_attention_fwd", q, k_pages, v_pages, o, quant,
-            (tbl.data_ptr(), lens.data_ptr(), b, hq, hkv, d, bs, nb,
-             float(scale), n_split,
-             part.data_ptr() if part is not None else None, DTYPES[q.dtype]),
-            [_P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _I])
+            (*tail, DTYPES[q.dtype]), types + [_I])
     return o
 
 

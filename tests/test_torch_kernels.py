@@ -80,8 +80,12 @@ def _pool_and_tables(rng, b, nb, n_blocks, bs, hkv, d):
     return kp, vp, perm.reshape(b, nb).astype(np.int32)
 
 
-@pytest.mark.parametrize("bs", [8, 16])
-@pytest.mark.parametrize("hq,hkv,d", [(4, 2, 32), (8, 2, 64)])
+# block sizes: the CPU widths' 8, the engines' 16, and 2 and 12 (no
+# multiple of 16: the kernel looks each key up); widths: the CPU tests',
+# g 8 as served (llama) and g 4 (Jamba's)
+@pytest.mark.parametrize("bs", [2, 8, 12, 16])
+@pytest.mark.parametrize("hq,hkv,d", [(4, 2, 32), (8, 2, 64), (16, 2, 128),
+                                      (8, 2, 128)])
 def test_paged_decode_matches_pallas(bs, hq, hkv, d):
     rng = np.random.default_rng(1)
     b, nb = 4, 5
@@ -107,11 +111,14 @@ CONTEXT_CASES = {
     "boundary+midpage+short": ([16, 13, 0], [16 + 9, 13 + 9, 3]),
     # a row with nothing live: every query is dead and must give zeros
     "dead-row": ([8, 0, 5], [8 + 9, 0, 5 + 2]),
+    # chunks that start past several pages (mid-page) and end mid-page
+    "past-pages+midpage": ([19, 24, 2], [19 + 9, 24 + 6, 2 + 9]),
 }
 
 
 @pytest.mark.parametrize("case", sorted(CONTEXT_CASES))
-@pytest.mark.parametrize("hq,hkv,d", [(4, 2, 32), (4, 1, 64)])
+@pytest.mark.parametrize("hq,hkv,d", [(4, 2, 32), (4, 1, 64),
+                                      (16, 2, 128)])  # g 8, as served
 def test_paged_context_matches_pallas(case, hq, hkv, d):
     rng = np.random.default_rng(2)
     b, nb, bs, C = 3, 4, 8, 9

@@ -38,6 +38,7 @@ from repro_torch.configs import get_config as port_config
 from repro_torch.core import plan as port_plan
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import ops
+from repro_torch.kernels import paged_attention as pa
 from repro_torch.models import model as PM
 from repro_torch.serving import block_manager as pbm
 from repro_torch.serving import request as preq
@@ -138,6 +139,27 @@ def test_contiguous_decode_splits_fill_the_card(case):
     if n < cap:  # the fewest splits that fill the card
         assert blocks * n >= da.BLOCKS_PER_SM * sms
         assert n == 1 or blocks * (n - 1) < da.BLOCKS_PER_SM * sms
+
+
+# the paged decode kernel (#2) runs the same body through a block table and
+# takes its split count from the table's capacity, max_blocks x block_size:
+# (b, hq, hkv, max_blocks, block_size, sms) -> splits
+PAGED_SPLIT_COUNTS = {
+    "16 rows, 128 pages of 16 (timing shape)": ((16, 64, 8, 128, 16, 132), 4),
+    "one row, 128 pages of 16": ((1, 64, 8, 128, 16, 132), 32),
+    "16 rows, 128 pages of 2": ((16, 64, 8, 128, 2, 132), 4),
+    "one row, 128 pages of 2, capped by the capacity": (
+        (1, 64, 8, 128, 2, 132), 4),
+    "Jamba's width, 128 pages of 16": ((16, 32, 8, 128, 16, 132), 4),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PAGED_SPLIT_COUNTS))
+def test_paged_decode_splits_follow_the_table_capacity(case):
+    (b, hq, hkv, nb, bs, sms), want = PAGED_SPLIT_COUNTS[case]
+    n = pa.paged_decode_splits(b, hq, hkv, nb, bs, sms)
+    assert n == want
+    assert n == da.contiguous_splits(b, hq, hkv, nb * bs, sms)
 
 
 # --- kernel #4: paged verification (mirrors tests/test_spec.py:42-95) -------
