@@ -13,8 +13,10 @@ JAX. Phases, each of which raises on failure:
      spills and the counts of the SASS instructions that show how it runs
      (HGMMA, UTMALDG / UTMASTG, LDGSTS, HMMA, MOVM), for the paged kernels
      with a digest of each kernel's code; the paged context body must show
-     wgmma, TMA and cp.async without spills, the paged decode body mma.sync
-     and movmatrix;
+     wgmma and TMA without spills, with cp.async on bf16 pools and none on
+     int8 / fp8 pools, the paged decode and verify body mma.sync and
+     movmatrix; every kernel of the previous tree (chip_smoke_sass.json)
+     must keep its digest or be named there as gone or moved, and why;
   2. kernels against their plain PyTorch versions on the card, at
      Llama-2-70B attention widths (hq 64, hkv 8, d 128) and Jamba's (hq 32,
      hkv 8), at g 1 (hq = hkv 8) and at the small head dims the CPU tests
@@ -24,9 +26,12 @@ JAX. Phases, each of which raises on failure:
      1..2048 at b = 16 and b = 1; paged decode and context at block sizes
      1, 2, 8, 12 and 16, decode also on 16 rows of 2048-key tables with
      kv_len 1..2048 and split-KV, context also with 256-token chunks at
-     q_start up to 1792 and a 45-token chunk), the three paged kernels also
-     on int8 and fp8 pools (block 16) through their quantized kernels, and
-     the selective
+     q_start up to 1792 and a 45-token chunk; verify at block sizes 16 and
+     5 with T = 1, 5, 8 and 9 candidates, padded and dead rows, F2's
+     kv_len == kv_start > 0, and rows long enough for split-KV), the three
+     paged kernels also on int8 and fp8 pools through their quantized
+     kernels (decode at block 16, context and verify at 16 and 5, context
+     also with 65 rows past the ranking's capacity), and the selective
      scan at Jamba's widths (d_inner 8192, d_state 16) and the CPU tests'
      (output and final state); then timed at the serving path's shapes
      beside their bound, their plain version and, where one PyTorch call
@@ -45,10 +50,11 @@ JAX. Phases, each of which raises on failure:
      counters are zeroed before each serve and read after it, and every
      kernel of that path must have run at least layers x steps times (on
      quantized pools: the quantized kernels on the quantized layers, the
-     unquantized ones on the guard layers only). The synthetic and
-     shared-prefix serves run once more with their paged decode and
-     context calls sampled, to log those kernels' errors on their own
-     inputs beside the bf16 floor. The synthetic,
+     unquantized ones on the guard layers only). The synthetic,
+     shared-prefix, n-gram and quant-int8 serves run once more with their
+     paged decode, context, verify and quantized context calls sampled, to
+     log those kernels' errors on their own inputs beside the bf16 floor.
+     The synthetic,
      shared-prefix, self-draft, quant-int8 and quant-w8 serves run once
      more under torch.profiler for a breakdown of device time.
      Then the hybrid path: jamba-v0.1-52b at full width in bf16 (depth
@@ -162,6 +168,7 @@ def phase_device_and_build():
         raise AssertionError("the flash library has no wgmma or no TMA load: "
                              f"{sass['flash_attention']}")
     check_paged_build(libs["paged_attention"])
+    check_sass_against_parent(libs)
     return smi
 
 
@@ -234,10 +241,13 @@ def _ptxas(so):
 
 def check_paged_build(so):
     """The paged library's kernels, one line each: registers, spills, SASS
-    counts and a digest of the code. The bodies the unquantized paged
-    entries now run must show their instructions: the context body
-    (pc::context_fwd) HGMMA, TMA loads and cp.async (LDGSTS) without
-    spills, the decode body (dk::decode_fwd) HMMA and MOVM in bf16."""
+    counts and a digest of the code. The bodies must show their
+    instructions: the context body (pc::context_fwd) HGMMA and TMA loads
+    without spills, with cp.async (LDGSTS) on bf16 pools and none on int8 /
+    fp8 pools (#6), whose tiles the producer widens; the decode body
+    (dk::decode_fwd: #2 on dk::Params, #4 on dk::VParams) HMMA and MOVM
+    in bf16. No attention.cuh body on bf16 pools is left (#4 and bf16 #3
+    moved off them)."""
     funcs = sass_functions(so)
     regs = _ptxas(so)
     total = {op: sum(c[op] for c, _ in funcs.values()) for op in SASS_OPS}
@@ -251,19 +261,70 @@ def check_paged_build(so):
             + f"; digest {digest}")
     context = [n for n in funcs if n.startswith("void pc::context_fwd")]
     decode = [n for n in funcs if n.startswith("void dk::decode_fwd")]
-    if len(context) != 3 or len(decode) != 9:
+    if len(context) != 9 or len(decode) != 18:
         raise AssertionError(f"paged library: {len(context)} context and "
-                             f"{len(decode)} decode kernels, expected 3, 9")
+                             f"{len(decode)} decode kernels, expected 9, 18")
     for n in context:
         c = funcs[n][0]
-        if not (c["HGMMA"] and c["UTMALDG"] and c["LDGSTS"]) or \
+        gathers = bool(c["LDGSTS"]) == n.startswith(
+            "void pc::context_fwd<__nv_bfloat16")
+        if not (c["HGMMA"] and c["UTMALDG"] and gathers) or \
                 regs.get(n, (0, 0))[1]:
             raise AssertionError(f"{n}: {c}, spills {regs.get(n)}")
+    left = [n for n in funcs if n.startswith(
+        ("void rt::attn_fwd_mma<__nv_bfloat16",
+         "void rt::attn_fwd<__nv_bfloat16, __nv_bfloat16"))]
+    if left:
+        raise AssertionError(f"attention.cuh bodies on bf16 pools: {left}")
     for n in decode:
         c = funcs[n][0]
         if "bfloat16" in n and not (c["HMMA"] and c["MOVM"]):
             raise AssertionError(f"{n}: no mma.sync or movmatrix: {c}")
     return funcs
+
+
+# the previous tree's SASS digests (sass_functions), which phase 1 holds
+# this build's against: every kernel kept, or gone, or moved with a reason
+PARENT_SASS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "chip_smoke_sass.json")
+
+
+def _nvcc_release():
+    from repro_torch.kernels import build
+    out = subprocess.run([build.nvcc(), "--version"], capture_output=True,
+                         text=True, check=True).stdout
+    return out.strip().splitlines()[-1]
+
+
+def check_sass_against_parent(libs):
+    """Each kernel of the previous tree (PARENT_SASS, under this tree's
+    names) against this build: the same digest (kept), absent (gone), or
+    another digest (moved). Gone and moved kernels must be named in the
+    file with the reason; with another nvcc than the file's the digests
+    are not comparable, and only the counts are logged."""
+    with open(PARENT_SASS) as f:
+        parent = json.load(f)
+    same_tool = _nvcc_release() == parent["nvcc"]
+    kept, changed = 0, []
+    for lib, digests in parent["digests"].items():
+        funcs = sass_functions(libs[lib])
+        for name, digest in digests.items():
+            now = funcs.get(name, (None, None))[1]
+            if now == digest:
+                kept += 1
+                continue
+            why = parent["changed"].get(name)
+            changed.append(name)
+            log(f"  sass vs {parent['commit']}: {name} "
+                f"{'gone' if now is None else 'moved'} ({why})")
+            if why is None and same_tool:
+                raise AssertionError(f"{name}: SASS digest {now} against the "
+                                     f"previous tree's {digest}, no reason "
+                                     f"given in {PARENT_SASS}")
+    log(f"  sass vs {parent['commit']}: {kept} kernels keep their digest, "
+        f"{len(changed)} gone or moved"
+        + ("" if same_tool else f" (nvcc differs: {parent['nvcc']!r}, "
+           "digests not comparable)"))
 
 
 # ---------------------------------------------------------------------------
@@ -359,17 +420,14 @@ def _tables(gen, dev, b, nb, n_blocks):
 
 
 # block sizes of the paged checks: the engines' 16, the CPU tests' 2, 4 and
-# 8, and sizes that do not divide 16 (1, 12); the quantized kernels at 16
+# 8, and sizes that do not divide 16 (1, 12); the quantized decode at 16,
+# the quantized context and both verify kernels at 16 and 5
 BLOCK_SIZES = (16, 1, 2, 8, 12)
-
-
-def _block_sizes(kv):
-    return (16,) if kv is not None else BLOCK_SIZES
 
 
 def decode_cases(gen, dev, dtype, hq=64, hkv=8, d=128, kv=None):
     from repro_torch.kernels import ops
-    for bs in _block_sizes(kv):
+    for bs in BLOCK_SIZES if kv is None else (16,):
         # ragged lengths, free slots on all-null tables (one reading the
         # trash page, one with no live key) over 128-key tables
         nb = -(-128 // bs)
@@ -407,7 +465,7 @@ def decode_cases(gen, dev, dtype, hq=64, hkv=8, d=128, kv=None):
 
 def context_cases(gen, dev, dtype, hq=64, hkv=8, d=128, kv=None):
     from repro_torch.kernels import ops
-    for bs in _block_sizes(kv):
+    for bs in BLOCK_SIZES if kv is None else (16, 5):
         # C 37: page boundary, mid-page, short chunk, and an empty row
         # (dead queries) on 128-key tables
         nb = -(-128 // bs)
@@ -445,12 +503,12 @@ def context_cases(gen, dev, dtype, hq=64, hkv=8, d=128, kv=None):
             q, kp, vp, tbl, q_start=q_start, kv_len=kv_len, **sc),
             lambda o: o[2])
         del kp, vp, sc
-    if kv is None and (hq, hkv, d) == (4, 1, 64):
+    if (hq, hkv, d) == (4, 1, 64):
         # more (row tile, row) units, 32 x 65, than the bf16 body ranks in
         # shared memory: its items then run row tiles longest first
         b, C, bs = 65, 1024, 16
         nb = -(-1536 // bs)
-        kp, vp, sc = _pool(gen, dev, dtype, b * nb + 1, bs, hkv, d)
+        kp, vp, sc = _pool(gen, dev, dtype, b * nb + 1, bs, hkv, d, kv)
         tbl = _tables(gen, dev, b, nb, b * nb + 1)
         q = _rand(gen, (b, C, hq, d), dtype, dev)
         q_start = torch.arange(b, device=dev) * 8
@@ -458,7 +516,8 @@ def context_cases(gen, dev, dtype, hq=64, hkv=8, d=128, kv=None):
         kv_len[-1] = 0
         yield ("bs=16 C=1024 b=65 unranked", lambda:
                ops.paged_context_attention(q, kp, vp, tbl, q_start=q_start,
-                                           kv_len=kv_len), lambda o: o[-1])
+                                           kv_len=kv_len, **sc),
+               lambda o: o[-1])
 
 
 def contiguous_decode_cases(gen, dev, dtype, hq=64, hkv=8, d=128):
@@ -502,27 +561,54 @@ def contiguous_decode_cases(gen, dev, dtype, hq=64, hkv=8, d=128):
         kv_start=kv_start[:1] + 700), None
 
 
-def verify_cases(gen, dev, dtype, hq=64, hkv=8, d=128, bs=16, kv=None):
+def verify_cases(gen, dev, dtype, hq=64, hkv=8, d=128, kv=None):
     from repro_torch.kernels import ops
-    kp, vp, sc = _pool(gen, dev, dtype, 48, bs, hkv, d, kv)
-    nb = 8
-    perm = torch.randperm(47, generator=gen, device=dev)[:4 * nb] + 1
-    tbl = perm.reshape(4, nb).to(torch.int32)
-    tbl[2] = 0                               # a free slot: all-null table
-    # T = 5 (k = 4): a full chunk, a padded one (3 padding candidates
-    # that still see the committed keys), a dead row (kv_len 0) and a
-    # chunk ending at the table's last position
-    kv_start = torch.tensor([32, 21, 0, 123], device=dev)
-    q_len = torch.tensor([5, 2, 0, 5], device=dev)
-    q = _rand(gen, (4, 5, hq, d), dtype, dev)
-    yield "T=5 padded+dead", lambda: ops.paged_verify_attention(
-        q, kp, vp, tbl, kv_start=kv_start, kv_len=kv_start + q_len, **sc), \
+
+    def case(kp, vp, sc, tbl, T, kv_start, q_len):
+        q = _rand(gen, (len(kv_start), T, hq, d), dtype, dev)
+        start = torch.tensor(kv_start, device=dev)
+        kv_len = start + torch.tensor(q_len, device=dev)
+        return lambda: ops.paged_verify_attention(
+            q, kp, vp, tbl, kv_start=start, kv_len=kv_len, **sc)
+
+    # 128-key tables at the engines' block size and at one that does not
+    # divide 16 (a key lookup each); row 2 is a free slot (all-null table,
+    # kv_len 0: exact zeros)
+    for bs in (16, 5):
+        nb = -(-128 // bs)
+        cap = nb * bs
+        kp, vp, sc = _pool(gen, dev, dtype, 4 * nb + 1, bs, hkv, d, kv)
+        tbl = _tables(gen, dev, 4, nb, 4 * nb + 1)
+        tbl[2] = 0
+        # T = 5 (k = 4): a full chunk, a padded one (3 padding candidates
+        # that still see the committed keys) and a chunk ending at the
+        # table's last position
+        yield f"bs={bs} T=5 padded+dead", case(
+            kp, vp, sc, tbl, 5, [32, 21, 0, cap - 5], [5, 2, 0, 5]), \
+            lambda o: o[2]
+        yield f"bs={bs} T=1", case(
+            kp, vp, sc, tbl, 1, [36, 25, 0, cap - 1], [1, 1, 0, 1]), \
+            lambda o: o[2]
+        # T = 8 (one block's 8 columns at g 1, several column groups at
+        # g > 1), ragged counts, and row 3 with kv_len == kv_start > 0: its
+        # candidates see the committed keys, as the oracle's do (F2)
+        yield f"bs={bs} T=8 ragged+F2", case(
+            kp, vp, sc, tbl, 8, [40, 17, 0, 64], [8, 3, 0, 0]), \
+            lambda o: o[2]
+        # T = 9: more candidates than one block's columns at g 1
+        yield f"bs={bs} T=9", case(
+            kp, vp, sc, tbl, 9, [7, 100, 0, cap - 9], [9, 9, 0, 4]), \
+            lambda o: o[2]
+        del kp, vp, sc
+    # rows long enough for several splits: kv_start up to the capacity of
+    # 2048-key tables
+    nb = 128
+    kp, vp, sc = _pool(gen, dev, dtype, 4 * nb + 1, 16, hkv, d, kv)
+    tbl = _tables(gen, dev, 4, nb, 4 * nb + 1)
+    tbl[2] = 0
+    yield "bs=16 T=5 long+splits", case(
+        kp, vp, sc, tbl, 5, [2043, 1500, 0, 1100], [5, 4, 0, 5]), \
         lambda o: o[2]
-    q1 = _rand(gen, (4, 1, hq, d), dtype, dev)
-    start1 = torch.tensor([36, 25, 0, 127], device=dev)
-    len1 = start1 + torch.tensor([1, 1, 0, 1], device=dev)
-    yield "T=1", lambda: ops.paged_verify_attention(
-        q1, kp, vp, tbl, kv_start=start1, kv_len=len1, **sc), lambda o: o[2]
 
 
 def _quantized(cases):
@@ -548,7 +634,8 @@ CASES = {"flash_attention": flash_cases,
 def check_kernels(dev):
     """Every kernel against its plain version: Llama-2-70B widths (g 8),
     Jamba's (hq 32, hkv 8: g 4), g 1 (hq = hkv 8) and the CPU tests' small
-    head dims, in bf16 and fp32, the paged kernels at several block sizes;
+    head dims (paged verify also at g 16), in bf16 and fp32, the paged
+    kernels at several block sizes;
     the parts of a case that
     see no key must be exact zeros. Returns {kernel: max abs err over its
     fp32 checks}."""
@@ -560,6 +647,9 @@ def check_kernels(dev):
                                dict(hq=8, hkv=8, d=128),
                                dict(hq=4, hkv=2, d=32),
                                dict(hq=4, hkv=1, d=64))]
+        if name == "paged_verify_attention":  # g 16: two head groups
+            runs += [(dt, dict(hq=32, hkv=2, d=64))
+                     for dt in (torch.bfloat16, torch.float32)]
         for dtype, widths in runs:
             for case, fn, dead in cases(gen, dev, dtype, **widths):
                 got, want = _run_both(fn)
@@ -1021,26 +1111,28 @@ def _check_path(name, stats, launched, draft_steps, reqs, L, n_slots, kw):
 
 
 def study_rewritten_kernels(cfg, asg, params, serves):
-    """The paged decode (#2) and paged context (#3) kernels on the serves'
-    own inputs: the synthetic serve's paged decode
-    calls and the shared-prefix serve's context calls are sampled (the
-    pools copied at the call), and on each sample the kernel and the plain
+    """The redesigned paged kernels on the serves' own inputs: the
+    synthetic serve's paged decode calls (#2), the shared-prefix serve's
+    context calls (#3), the n-gram serve's verify calls (#4) and the
+    quant-int8 serve's quantized context calls (#6) are sampled (their
+    inputs copied at the call), and on each sample the kernel and the plain
     version's own rounding to bf16 (the floor) are held against the plain
     version in fp32."""
-    from repro_torch.kernels import ops, ref
-    for name, serve, every, plain in (
-            ("paged_decode_attention", "synthetic", 67,
-             ref.paged_decode_attention_ref),
-            ("paged_context_attention", "shared-prefix", 23,
-             ref.paged_context_attention_ref)):
+    from repro_torch.kernels import ops
+    for name, serve, every, quant in (
+            ("paged_decode_attention", "synthetic", 67, False),
+            ("paged_context_attention", "shared-prefix", 23, False),
+            ("paged_verify_attention", "spec-ngram", 37, False),
+            ("paged_context_attention", "quant-int8", 23, True)):
         real, calls, samples = getattr(ops, name), [0], []
 
         def sampling(*a, **k):
-            if calls[0] % every == 0 and len(samples) < 4:
-                samples.append(([t.clone() for t in a], {
-                    x: t.clone() if torch.is_tensor(t) else t
-                    for x, t in k.items()}))
-            calls[0] += 1
+            if ("k_scale" in k) == quant:
+                if calls[0] % every == 0 and len(samples) < 4:
+                    samples.append(([t.clone() for t in a], {
+                        x: t.clone() if torch.is_tensor(t) else t
+                        for x, t in k.items()}))
+                calls[0] += 1
             return real(*a, **k)
 
         kw = dict(serves)[serve]
@@ -1054,15 +1146,17 @@ def study_rewritten_kernels(cfg, asg, params, serves):
         err = {}
         for a, k in samples:
             q, kp, vp, tbl = a
-            want = plain(q.float(), kp.float(), vp.float(), tbl, **k)
+            with ops.backend("plain"):     # fp32: the plain versions widen
+                want = real(q.float(), kp, vp, tbl, **k)
             for key, out in (("kernel", real(*a, **k)),
                              ("plain (bf16 floor)", want.to(q.dtype))):
                 d = (out.float() - want).abs()
                 err.setdefault(key, []).append((float(d.max()),
                                                 float(d.mean())))
             del want
-        log(f"  {name} on the {serve} serve's inputs ({len(samples)} of "
-            f"{calls[0]} calls, q {tuple(samples[0][0][0].shape)}, pool "
+        log(f"  {name}{' (quantized)' if quant else ''} on the {serve} "
+            f"serve's inputs ({len(samples)} of {calls[0]} calls, q "
+            f"{tuple(samples[0][0][0].shape)}, pool "
             f"{tuple(samples[0][0][1].shape)}) against the fp32 plain "
             "version: " + "; ".join(
                 f"{key} max abs err {max(m for m, _ in e):.4g}, mean "

@@ -3,14 +3,14 @@
 // contiguous (b, skv, hkv, d) cache, or a page pool read through a per-row
 // block table), the mask, and the element type of K/V. The entries that
 // still run it:
-//  - paged verification (#4, paged_verify_attention_fwd, bf16 and fp32);
-//  - the quantized paged kernels #5-#7 (paged_{decode,context,verify}_
-//    attention_quant_fwd: int8 / fp8 pools);
-//  - fp32 paged context (#3's parity path) and fp32 flash prefill (#1's).
-// bf16 flash prefill (flash_attention.cu), bf16 paged context
-// (paged_attention.cu, pc::context_fwd: TMA + cp.async + wgmma) and the
-// unquantized decode kernels, paged and contiguous (decode.cuh) have bodies
-// of their own.
+//  - the quantized paged decode and verify kernels, #5 and #7
+//    (paged_{decode,verify}_attention_quant_fwd: int8 / fp8 pools);
+//  - fp32 quantized paged context (#6's parity path), fp32 paged context
+//    (#3's) and fp32 flash prefill (#1's).
+// bf16 flash prefill (flash_attention.cu), bf16 paged context on bf16 and
+// on one-byte pools (paged_attention.cu, pc::context_fwd: TMA + wgmma on
+// gathered, widened tiles) and the unquantized decode and verify kernels,
+// paged and contiguous (decode.cuh) have bodies of their own.
 //
 // Layout of one thread block: 256 threads as a 16 x 16 grid (ty, tx). The
 // block owns BQ = 16 * ROWS query ROWS, where a row is one (position, query

@@ -1,41 +1,64 @@
 // GQA decode attention body for Hopper (sm_90a): one query token per row
 // against a K/V cache, shared by the contiguous-cache decode kernel
-// (decode_attention.cu, the draft model's decode step) and the paged decode
-// kernel (paged_attention.cu, every decode iteration of the serving path).
-// The two differ only in where key row j of batch row i lives (KEYS below):
+// (decode_attention.cu, the draft model's decode step), the paged decode
+// kernel (paged_attention.cu, every decode iteration of the serving path)
+// and the paged verify kernel (paged_attention.cu, every speculative verify
+// step). They differ in where key row j of batch row i lives (KEYS below):
 //
 //  - CONTIGUOUS: row i S + j of a (b, S, hkv, d) cache;
 //  - PAGED16: row tables[i max_blocks + j / bs] bs + j % bs of a
 //    (n_blocks, bs, hkv, d) pool, when bs is a multiple of 16: a warp's 16
 //    keys then lie in one page, looked up once per 16-key group;
-//  - PAGED: the same pool at any other block size, one lookup per key.
+//  - PAGED: the same pool at any other block size, one lookup per key;
+//
+// and, for verify (decode_fwd on VParams), in what a query column is. A
+// decode block's columns are <= 8 query heads of one kv head. A verify row
+// holds T candidates, candidate t at position q_origin[i] + t (q_origin:
+// the slot's committed length), and a block's 8 columns are (candidate,
+// head) pairs of one kv head: cp = max(1, 8 / g) candidates of g heads
+// each at g <= 8 (1 x 8 at g 8, 2 x 4 at g 4, 8 x 1 at g 1; cp capped by
+// T), or one candidate and a group of 8 heads at g > 8 (VCols below).
+// Column (t, h) reads q[i, t, h] and sees keys [0, min(kv_len[i],
+// q_origin[i] + t + 1)): the committed keys and the candidates up to
+// itself. So padding candidates (t >= the slot's real count, past kv_len)
+// see the committed keys, a free slot (kv_len 0) is dead, and kv_len ==
+// q_origin > 0 sees the committed keys, as the oracle does. The mask is per
+// column; a block's keys end at the largest limit of its columns. The
+// ceil(T / cp) column groups of one (row, kv head, split) are the fastest
+// grid index, so the blocks that read the same keys run side by side and
+// share them in L2. The decode instances compile as before: every verify
+// step is behind if constexpr, decode's own statement in the else branch
+// (VerifyState).
 //
 // Within a page the rows of one kv head are strided exactly as in the
 // contiguous cache (hkv d elements apart), so the loads, the products and
 // the merge are one code.
 //
-// Keys at positions >= kv_len[i] or < kv_start[i] are masked; a row with no
-// live key writes exact zeros. S (the cache width, or the table's capacity
-// max_blocks bs) may be any length: loads stop at min(kv_len, S).
+// Decode masks keys at positions >= kv_len[i] or < kv_start[i]; a column
+// with no live key writes exact zeros. S (the cache width, or the table's
+// capacity max_blocks bs) may be any length: loads stop at min(kv_len, S).
 //
 // Bound on the card: ~4 d hq n FLOPs per row on 2 d hkv n K/V elements (n
 // live keys), a few FLOPs per byte, so it is bound by reading the live part
-// of the cache. The design keeps that read wide and in flight:
+// of the cache (a verify step by the same bytes: T x g columns per kv head
+// read each K/V row once from HBM). The design keeps that read wide and in
+// flight:
 //
-//  - One block (4 warps) per (row, kv head, group of <= 8 query heads,
-//    split). The group's heads sit in registers, no thread computes for a
-//    row that does not exist, and each K/V row is read once for all of
-//    them. Splits divide the row's live keys [kv_start, kv_len) into
+//  - One block (4 warps) per (row, kv head, group of <= 8 columns, split).
+//    The columns' queries sit in registers, no thread computes for a row
+//    that does not exist, and each K/V row is read once for all of them.
+//    Splits divide the block's keys ([kv_start, kv_len) for decode) into
 //    16-key aligned shares of at least 64 keys (split_range below), so a
 //    short row leaves its trailing splits empty. The host picks the count
 //    from the cache width S (kernels/decode_attention.py:contiguous_splits):
 //    the live lengths are on the device, and reading them would cost a
 //    host sync per call. The merge counters are the caller's buffer of
-//    n_counters entries, which the entry checks against b x hkv x groups.
+//    n_counters entries, which the entry checks against b x hkv x head
+//    groups x column groups.
 //  - bf16: a warp takes 16 keys at a time and loads their K and V rows
 //    straight into registers, 16 bytes per load, all before any
 //    arithmetic (8 KB in flight per warp). S^T = K Q^T runs on mma.sync
-//    m16n8k16 with the keys as M and the heads as N; the d axis is
+//    m16n8k16 with the keys as M and the columns as N; the d axis is
 //    permuted identically in K and Q so that each thread's fragments are
 //    whole 16-byte loads. P^T goes back through movmatrix into the B
 //    operand of O^T = V^T P^T (d as M), split into a bf16 high part and
@@ -43,8 +66,8 @@
 //    32 keys, one per lane, on scalar FMAs in the same structure.
 //  - The warps' online-softmax states merge in shared memory; with several
 //    splits each block writes its partial (m, l, acc) and the last block
-//    of a (row, kv head, head group) to finish, found by an atomic counter
-//    that it resets, merges them in the same launch.
+//    of a (row, kv head, head group, column group) to finish, found by an
+//    atomic counter that it resets, merges them in the same launch.
 //
 // Masking follows repro.kernels.ref: a masked score is NEG_INF, p = 0 where
 // the score is <= NEG_INF / 2. Scores are kept in log2 units.
@@ -53,6 +76,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace dk {
 
@@ -82,6 +107,17 @@ struct Params {
   int bs, max_blocks;   // paged: S = max_blocks bs
 };
 
+// Verify's parameters (decode_fwd on VParams): q and o are (b, T, hq, d),
+// part (b, T, hq, n_split, d + 2) and counters (b, hkv, groups, cgroups);
+// kv_len is required and kv_start unused
+struct VParams : Params {
+  const int* q_origin;  // (b,) position of candidate 0: the committed length
+  int T, cp, cgroups;   // candidates; per column group; column groups
+};
+
+template <class P>
+constexpr bool is_verify = std::is_same<P, VParams>::value;
+
 // keys [ks, ke) of split s of a row whose live keys are [lo, hi): 16-key
 // aligned shares of at least MIN_SPLIT_KEYS; empty past the end
 __device__ __forceinline__ void split_range(int lo, int hi, int n_split,
@@ -98,6 +134,55 @@ __device__ __forceinline__ int64_t page_row(const Params& p, int bi, int j) {
   return (int64_t)p.tables[(int64_t)bi * p.max_blocks + j / p.bs] * p.bs +
          j % p.bs;
 }
+
+// Verify's columns of one block (see the top of this file): column c is
+// candidate t = cg cp + c / gb and head h = grp HEADS + c % gb of kv head
+// kvh (gb = min(g, HEADS)); hi = min(kv_len, S) and origin = q_origin of
+// row bi
+struct VCols {
+  int bi, kvh, grp, cg, hi, origin;
+  VCols() = default;
+  __device__ __forceinline__ VCols(const VParams& p, int bi_, int kvh_)
+      : bi(bi_),
+        kvh(kvh_),
+        grp(blockIdx.y % p.groups),
+        cg(blockIdx.x % p.cgroups),
+        hi(min(p.kv_len[bi_], p.S)),
+        origin(p.q_origin[bi_]) {}
+  // the query and output row ((bi T + t) hq + kvh g + h) of column c and,
+  // in lim, the keys it sees, [0, lim); -1 and 0 for a column past T or g
+  __device__ __forceinline__ int64_t col(const VParams& p, int c,
+                                         int& lim) const {
+    const int gb = min(p.g, HEADS);
+    const int t = cg * p.cp + c / gb, h = grp * HEADS + c % gb;
+    if (c >= p.cp * gb || t >= p.T || h >= p.g) {
+      lim = 0;
+      return -1;
+    }
+    lim = min(hi, origin + t + 1);
+    return ((int64_t)bi * p.T + t) * p.hq + kvh * p.g + h;
+  }
+  __device__ __forceinline__ int64_t row(const VParams& p, int c) const {
+    int lim;
+    return col(p, c, lim);
+  }
+  // the block's keys, [0, end): the largest limit of its columns
+  __device__ __forceinline__ int end(const VParams& p) const {
+    return max(0, min(hi, origin + min(p.T, (cg + 1) * p.cp)));
+  }
+};
+
+// What verify keeps beside decode's state, and nothing for decode: the
+// decode instances must compile exactly as before (their SASS is checked
+// against the previous build), so every verify step below sits behind
+// if constexpr with decode's own statement in the else branch
+template <class P, int N>
+struct VerifyState {};
+template <int N>
+struct VerifyState<VParams, N> {
+  VCols vc;
+  int lim[N];  // the keys the thread's columns see, below the split's end
+};
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(bf16* p, float x) {
@@ -176,10 +261,11 @@ struct Smem {
 };
 
 // The bf16 warp loop: keys [ks, ke) in 16-key steps strided over the warps.
-// Leaves this warp's state (for heads 2tq, 2tq+1 and dims gq * D / 8 ...)
-// in sm.
-template <int D, int KEYS>
-__device__ void warp_bf16(const Params& p, int bi, int kvh, int h0, int ge,
+// Leaves this warp's state (for columns 2tq, 2tq+1 and dims gq * D / 8 ...)
+// in sm. Decode's columns are heads h0 .. h0 + ge - 1 of row bi; verify's
+// (P = VParams) are VCols'.
+template <int D, int KEYS, class P>
+__device__ void warp_bf16(const P& p, int bi, int kvh, int h0, int ge,
                           int ks, int ke, Smem<D>& sm) {
   constexpr int QJ = D / 32;   // 16-byte K loads per row, Q loads per head
   constexpr int MT = D / 16;   // m-tiles of O^T; words of V per key
@@ -189,14 +275,29 @@ __device__ void warp_bf16(const Params& p, int bi, int kvh, int h0, int ge,
   const bf16* K = static_cast<const bf16*>(p.k);
   const bf16* V = static_cast<const bf16*>(p.v);
 
-  // B fragments of Q^T: head gq, dims 32 j + 8 tq .. + 7 (the same
+  // B fragments of Q^T: column gq, dims 32 j + 8 tq .. + 7 (the same
   // permutation of d as the K fragments below)
   uint4 qb[QJ];
+  VerifyState<P, 2> vs;  // verify: columns 2 tq, 2 tq + 1
+  if constexpr (is_verify<P>) {
+    vs.vc = VCols(p, bi, kvh);
+    const int64_t r = vs.vc.row(p, gq);
 #pragma unroll
-  for (int j = 0; j < QJ; ++j)
-    qb[j] = gq < ge ? ld16(Q + ((int64_t)bi * p.hq + h0 + gq) * D + 32 * j +
-                           8 * tq)
-                    : make_uint4(0, 0, 0, 0);
+    for (int j = 0; j < QJ; ++j)
+      qb[j] = r >= 0 ? ld16(Q + r * D + 32 * j + 8 * tq)
+                     : make_uint4(0, 0, 0, 0);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      vs.vc.col(p, 2 * tq + e, vs.lim[e]);
+      vs.lim[e] = min(vs.lim[e], ke);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < QJ; ++j)
+      qb[j] = gq < ge ? ld16(Q + ((int64_t)bi * p.hq + h0 + gq) * D + 32 * j +
+                             8 * tq)
+                      : make_uint4(0, 0, 0, 0);
+  }
 
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
   float acc[MT][4];
@@ -267,8 +368,8 @@ __device__ void warp_bf16(const Params& p, int bi, int kvh, int h0, int ge,
       }
     }
 
-    // online softmax per head (column): s[e] is key gq, s[2 + e] key
-    // gq + 8, head 2 tq + e
+    // online softmax per column: s[e] is key gq, s[2 + e] key gq + 8,
+    // column 2 tq + e
     float pr[4], m_new[2], rs[2];
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
@@ -276,7 +377,11 @@ __device__ void warp_bf16(const Params& p, int bi, int kvh, int h0, int ge,
       float mx = NEG_INF;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const bool ok = head && c0 + gq + 8 * r < ke;
+        bool ok;
+        if constexpr (is_verify<P>)
+          ok = c0 + gq + 8 * r < vs.lim[e];
+        else
+          ok = head && c0 + gq + 8 * r < ke;
         const float sv = ok ? s[2 * r + e] * p.scale_log2 : NEG_INF;
         s[2 * r + e] = sv;
         mx = fmaxf(mx, sv);
@@ -345,17 +450,32 @@ __device__ void warp_bf16(const Params& p, int bi, int kvh, int h0, int ge,
 // The fp32 warp loop: keys [ks, ke) in 32-key steps strided over the warps,
 // one key per lane for the scores, dims lane + 32 i per lane for the output.
 // A 32-key step may span pages, so a paged cache is looked up per key.
-template <int D, int KEYS>
-__device__ void warp_f32(const Params& p, int bi, int kvh, int h0, int ge,
+template <int D, int KEYS, class P>
+__device__ void warp_f32(const P& p, int bi, int kvh, int h0, int ge,
                          int ks, int ke, Smem<D>& sm) {
   constexpr int DL = D / 32;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const float* Q = static_cast<const float*>(p.q);
   const float* K = static_cast<const float*>(p.k);
   const float* V = static_cast<const float*>(p.v);
-  for (int idx = threadIdx.x; idx < HEADS * D; idx += THREADS) {
-    const int h = idx / D, dd = idx % D;
-    sm.q[h][dd] = h < ge ? Q[((int64_t)bi * p.hq + h0 + h) * D + dd] : 0.f;
+  VerifyState<P, HEADS> vs;  // verify: every column
+  if constexpr (is_verify<P>) {
+    vs.vc = VCols(p, bi, kvh);
+    for (int idx = threadIdx.x; idx < HEADS * D; idx += THREADS) {
+      const int h = idx / D, dd = idx % D;
+      const int64_t r = vs.vc.row(p, h);
+      sm.q[h][dd] = r >= 0 ? Q[r * D + dd] : 0.f;
+    }
+#pragma unroll
+    for (int h = 0; h < HEADS; ++h) {
+      vs.vc.col(p, h, vs.lim[h]);
+      vs.lim[h] = min(vs.lim[h], ke);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < HEADS * D; idx += THREADS) {
+      const int h = idx / D, dd = idx % D;
+      sm.q[h][dd] = h < ge ? Q[((int64_t)bi * p.hq + h0 + h) * D + dd] : 0.f;
+    }
   }
   __syncthreads();
 
@@ -393,7 +513,11 @@ __device__ void warp_f32(const Params& p, int bi, int kvh, int h0, int ge,
     float pr[HEADS];
 #pragma unroll
     for (int h = 0; h < HEADS; ++h) {
-      const float sv = key < ke && h < ge ? s[h] * p.scale_log2 : NEG_INF;
+      float sv;
+      if constexpr (is_verify<P>)
+        sv = key < vs.lim[h] ? s[h] * p.scale_log2 : NEG_INF;
+      else
+        sv = key < ke && h < ge ? s[h] * p.scale_log2 : NEG_INF;
       float mx = sv;
 #pragma unroll
       for (int off = 1; off < 32; off <<= 1)
@@ -437,18 +561,34 @@ __device__ void warp_f32(const Params& p, int bi, int kvh, int h0, int ge,
     for (int i = 0; i < DL; ++i) sm.o[warp][h][lane + 32 * i] = acc[h][i];
 }
 
-template <typename T, int D, int KEYS>
-__global__ void __launch_bounds__(THREADS) decode_fwd(const Params p) {
+// Decode (P = Params) or verify (P = VParams). Grid (column groups x
+// splits, hkv x head groups, b), the column group fastest (decode: one).
+template <typename T, int D, int KEYS, class P = Params>
+__global__ void __launch_bounds__(THREADS) decode_fwd(const P p) {
   __shared__ Smem<D> sm;
-  const int split = blockIdx.x;
+  int split;
+  if constexpr (is_verify<P>)
+    split = blockIdx.x / p.cgroups;
+  else
+    split = blockIdx.x;
   const int kvh = blockIdx.y / p.groups, grp = blockIdx.y % p.groups;
   const int bi = blockIdx.z;
   const int h0 = kvh * p.g + grp * HEADS;            // first query head
-  const int ge = min(HEADS, p.g - grp * HEADS);      // heads in this group
+  int ge;  // heads in this group; verify: its HEADS columns
+  if constexpr (is_verify<P>)
+    ge = HEADS;
+  else
+    ge = min(HEADS, p.g - grp * HEADS);
   const int lo = p.kv_start ? max(p.kv_start[bi], 0) : 0;
   const int hi = p.kv_len ? min(p.kv_len[bi], p.S) : p.S;
+  VerifyState<P, 1> vs;
   int ks, ke;
-  split_range(lo, hi, p.n_split, split, ks, ke);
+  if constexpr (is_verify<P>) {
+    vs.vc = VCols(p, bi, kvh);
+    split_range(0, vs.vc.end(p), p.n_split, split, ks, ke);
+  } else {
+    split_range(lo, hi, p.n_split, split, ks, ke);
+  }
 
   if constexpr (sizeof(T) == 2)
     warp_bf16<D, KEYS>(p, bi, kvh, h0, ge, ks, ke, sm);
@@ -456,7 +596,7 @@ __global__ void __launch_bounds__(THREADS) decode_fwd(const Params p) {
     warp_f32<D, KEYS>(p, bi, kvh, h0, ge, ks, ke, sm);
   __syncthreads();
 
-  // merge the warps: one (head, dim) per thread and step
+  // merge the warps: one (column, dim) per thread and step
   T* O = static_cast<T*>(p.o);
   for (int idx = threadIdx.x; idx < ge * D; idx += THREADS) {
     const int h = idx / D, dd = idx % D;
@@ -470,7 +610,13 @@ __global__ void __launch_bounds__(THREADS) decode_fwd(const Params p) {
       l += sm.l[w][h] * wt;
       o += sm.o[w][h][dd] * wt;
     }
-    const int64_t r = (int64_t)bi * p.hq + h0 + h;
+    int64_t r;
+    if constexpr (is_verify<P>) {
+      r = vs.vc.row(p, h);
+      if (r < 0) continue;  // a column past T or g
+    } else {
+      r = (int64_t)bi * p.hq + h0 + h;
+    }
     if (p.n_split == 1) {
       store(O + r * D + dd, mx <= NEG_INF / 2 ? 0.f : o / fmaxf(l, 1e-30f));
       continue;
@@ -484,10 +630,17 @@ __global__ void __launch_bounds__(THREADS) decode_fwd(const Params p) {
   }
   if (p.n_split == 1) return;
 
-  // the last split of this (row, kv head, group) to finish merges them all
+  // the last split of this (row, kv head, group, column group) to finish
+  // merges them all
   __threadfence();
   __syncthreads();
-  int* counter = p.counters + ((int64_t)bi * p.hkv + kvh) * p.groups + grp;
+  int* counter;
+  if constexpr (is_verify<P>)
+    counter = p.counters +
+              (((int64_t)bi * p.hkv + kvh) * p.groups + grp) * p.cgroups +
+              vs.vc.cg;
+  else
+    counter = p.counters + ((int64_t)bi * p.hkv + kvh) * p.groups + grp;
   if (threadIdx.x == 0)
     sm.last = atomicAdd(counter, 1) == p.n_split - 1;
   __syncthreads();
@@ -498,7 +651,14 @@ __global__ void __launch_bounds__(THREADS) decode_fwd(const Params p) {
   const int64_t r0 = (int64_t)bi * p.hq + h0;  // the group's first row
   for (int idx = threadIdx.x; idx < ge * p.n_split; idx += THREADS) {
     const int h = idx / p.n_split, s = idx % p.n_split;
-    const float* ps = p.part + ((r0 + h) * p.n_split + s) * (D + 2);
+    const float* ps;
+    if constexpr (is_verify<P>) {
+      const int64_t r = vs.vc.row(p, h);
+      if (r < 0) continue;
+      ps = p.part + (r * p.n_split + s) * (D + 2);
+    } else {
+      ps = p.part + ((r0 + h) * p.n_split + s) * (D + 2);
+    }
     sm.wm[h][s] = __ldcg(ps);
     sm.wl[h][s] = __ldcg(ps + 1);
   }
@@ -518,7 +678,15 @@ __global__ void __launch_bounds__(THREADS) decode_fwd(const Params p) {
   __syncthreads();
   for (int idx = threadIdx.x; idx < ge * D; idx += THREADS) {
     const int h = idx / D, dd = idx % D;
-    const float* ps = p.part + (r0 + h) * p.n_split * (D + 2) + 2 + dd;
+    int64_t vr = 0;  // verify: the output row
+    const float* ps;
+    if constexpr (is_verify<P>) {
+      vr = vs.vc.row(p, h);
+      if (vr < 0) continue;
+      ps = p.part + vr * p.n_split * (D + 2) + 2 + dd;
+    } else {
+      ps = p.part + (r0 + h) * p.n_split * (D + 2) + 2 + dd;
+    }
     float o[4] = {0.f, 0.f, 0.f, 0.f};
     int s = 0;
     for (; s + 4 <= p.n_split; s += 4)
@@ -526,23 +694,28 @@ __global__ void __launch_bounds__(THREADS) decode_fwd(const Params p) {
       for (int u = 0; u < 4; ++u)
         o[u] += sm.wm[h][s + u] * __ldcg(ps + (s + u) * (D + 2));
     for (; s < p.n_split; ++s) o[0] += sm.wm[h][s] * __ldcg(ps + s * (D + 2));
-    store(O + (r0 + h) * D + dd, (o[0] + o[1] + o[2] + o[3]) * sm.inv[h]);
+    if constexpr (is_verify<P>)
+      store(O + vr * D + dd, (o[0] + o[1] + o[2] + o[3]) * sm.inv[h]);
+    else
+      store(O + (r0 + h) * D + dd, (o[0] + o[1] + o[2] + o[3]) * sm.inv[h]);
   }
   if (threadIdx.x == 0) *counter = 0;  // ready for the next launch
 }
 
-template <typename T, int KEYS>
-cudaError_t launch_t(const Params& p, int d, cudaStream_t stream) {
-  dim3 grid(p.n_split, p.hkv * p.groups, p.b);
+template <typename T, int KEYS, class P>
+cudaError_t launch_t(const P& p, int d, cudaStream_t stream) {
+  int cgroups = 1;  // verify's column groups
+  if constexpr (is_verify<P>) cgroups = p.cgroups;
+  dim3 grid(p.n_split * cgroups, p.hkv * p.groups, p.b);
   switch (d) {
     case 32:
-      decode_fwd<T, 32, KEYS><<<grid, THREADS, 0, stream>>>(p);
+      decode_fwd<T, 32, KEYS, P><<<grid, THREADS, 0, stream>>>(p);
       break;
     case 64:
-      decode_fwd<T, 64, KEYS><<<grid, THREADS, 0, stream>>>(p);
+      decode_fwd<T, 64, KEYS, P><<<grid, THREADS, 0, stream>>>(p);
       break;
     case 128:
-      decode_fwd<T, 128, KEYS><<<grid, THREADS, 0, stream>>>(p);
+      decode_fwd<T, 128, KEYS, P><<<grid, THREADS, 0, stream>>>(p);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -563,6 +736,22 @@ inline cudaError_t prepare(Params& p, float scale, int n_counters) {
        (int64_t)p.b * p.hkv * p.groups > (int64_t)n_counters))
     return cudaErrorInvalidValue;
   p.scale_log2 = scale * 1.4426950408889634f;
+  return cudaSuccess;
+}
+
+// prepare for verify: the column packing (cp candidates of a block's
+// HEADS columns, cgroups column groups) and its merge counters
+inline cudaError_t prepare_verify(VParams& p, float scale, int n_counters) {
+  if (!p.q_origin || !p.kv_len || p.T < 1 || p.kv_start)
+    return cudaErrorInvalidValue;
+  const cudaError_t e = prepare(p, scale, n_counters);
+  if (e != cudaSuccess) return e;
+  p.cp = 1;  // at g >= HEADS: one candidate, a head group per block
+  if (p.g < HEADS) p.cp = p.T < HEADS / p.g ? p.T : HEADS / p.g;
+  p.cgroups = (p.T + p.cp - 1) / p.cp;
+  if (p.n_split > 1 &&
+      (int64_t)p.b * p.hkv * p.groups * p.cgroups > (int64_t)n_counters)
+    return cudaErrorInvalidValue;
   return cudaSuccess;
 }
 

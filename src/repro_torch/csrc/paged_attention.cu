@@ -16,20 +16,29 @@
 //    each key is looked up. Its split count comes from the table's
 //    capacity (kernels/decode_attention.py:contiguous_splits) and its merge
 //    counters are its own buffer, checked against b x hkv x head groups.
+//  - paged_verify_attention_pallas (T = k + 1 candidates per slot at the
+//    slot's committed length kv_start, the output kept at every position):
+//    paged_verify_attention_fwd, bf16 and fp32, on the same decode body
+//    with query columns that are (candidate, head) pairs (decode.cuh,
+//    dk::VParams): candidate t sees keys [0, min(kv_len, kv_start + t + 1)),
+//    each block's 8 columns are max(1, 8 / g) candidates of g heads, its
+//    split count counts the column groups (kernels/paged_attention.py:
+//    paged_verify_splits) and its merge counters are its own.
 //  - paged_context_attention_pallas (a C-token chunk at absolute offset
 //    q_start, causal over the prior pages and itself; rows that see no key
 //    give exact zeros): paged_context_attention_fwd in bf16 on the wgmma
 //    body below (pc::context_fwd); in fp32 on attention.cuh's scalar body.
-//  - paged_verify_attention_pallas (T = k + 1 candidates per slot at the
-//    slot's committed length kv_start, the output kept at every position):
-//    paged_verify_attention_fwd on attention.cuh's bodies, as the context
-//    chunk with q_start = kv_start.
-//  - paged_decode_attention_quant_pallas, paged_context_attention_quant_
-//    pallas and paged_verify_attention_quant_pallas (int8 / fp8 pools,
-//    dequantization fused per tile): the *_quant_fwd entries, a K/V type
-//    code and the scale pools on attention.cuh's bodies (scalar split-KV
-//    decode plus combine_splits; mma.sync context), which fold the scales
-//    into scores and probabilities and never write a dequantized page.
+//  - paged_context_attention_quant_pallas (#3 on int8 / fp8 pools):
+//    paged_context_attention_quant_fwd in bf16 on the same wgmma body, its
+//    one-byte K/V widened to bf16 by the gathering warps and the scales
+//    folded into scores and probabilities; in fp32 on attention.cuh's
+//    scalar body.
+//  - paged_decode_attention_quant_pallas and paged_verify_attention_quant_
+//    pallas (int8 / fp8 pools, dequantization fused per tile): the
+//    *_quant_fwd entries, a K/V type code and the scale pools on
+//    attention.cuh's bodies (scalar split-KV decode plus combine_splits;
+//    mma.sync verify), which fold the scales into scores and probabilities
+//    and never write a dequantized page.
 //
 // Bound on the card: a decode step does ~4 d hq kv_len FLOPs per row on
 // 2 d hkv kv_len K/V elements, a few FLOPs per byte, so it is bound by bytes
@@ -48,6 +57,19 @@
 //    stage with full / empty mbarriers for K and for V. TMA cannot gather
 //    rows, and one TMA per page would leave block sizes that do not divide
 //    the tile to another body; the gather takes every bs >= 1.
+//  - One-byte pools (#6): the gathering threads cannot cp.async, which
+//    copies bytes. Each issues its key row's 16-byte loads (D / 16 of K
+//    and of V, and both scales) before waiting for the stage, widens them
+//    exactly to bf16 (widen16), stores them with st.shared into the same
+//    swizzle, writes the key's scales into the stage's scale arrays (zeros
+//    and scale 0 past the item's last key), fences to the async proxy and
+//    arrives on the full barrier. The K and V rows in registers need a
+//    larger share of the register file (WIDE_PRODUCER_REGS). Consumers
+//    multiply S's
+//    column j by k_scale[j] before the running max and P's column j by
+//    v_scale[j] before its high / low split (the row sum keeps the
+//    unscaled P), as attention.cuh does; they wait for a tile's V (and its
+//    scales) before its softmax.
 //  - Consumer warpgroups 1 and 2 own 64 rows each: P = 64 / g positions x
 //    the g query heads of ONE kv head. S = Q K^T as wgmma (Q in registers,
 //    K from shared memory), the online softmax on the accumulators, and
@@ -66,6 +88,8 @@
 //
 // Rows of free slots (all-null tables) read the trash page and come out
 // finite; their values are discarded by the caller.
+#include <type_traits>
+
 #include "attention.cuh"
 #include "decode.cuh"
 #include "flash.cuh"
@@ -81,8 +105,11 @@ constexpr int STAGES = 3;       // K (and V) tiles in flight
 constexpr int GATHER = 64;      // producer threads that gather K/V (warps 2-3)
 static_assert(GATHER == TILE_KEYS, "one key row per gathering thread");
 // registers a thread: the producer warpgroup gives its to the consumers
-// (PRODUCER_REGS + NC CONSUMER_REGS <= 65536 / 128)
+// (PRODUCER_REGS + NC CONSUMER_REGS <= 3 x 168, what the launch gives the
+// three warpgroups); on one-byte pools the gathering threads hold a key
+// row's loads, so the producer keeps more
 constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 224;
+constexpr int WIDE_PRODUCER_REGS = 104, WIDE_CONSUMER_REGS = 192;
 // (row tile, b) units ranked in shared memory; past this many the items
 // run row tiles longest first without ranking the rows
 constexpr int ORDER_CAP = 2048;
@@ -97,6 +124,8 @@ struct Params {
   int causal, window;   // 1 and 0: what fa::softmax_tile reads
   float scale_log2;
   int n_mtiles, units, items;  // units: n_mtiles x b; items: units x hkv
+  const float* k_scale;  // one-byte pools: (n_blocks, bs, hkv) fp32 scales
+  const float* v_scale;
 };
 
 // Live keys of row bi: [0, kv_end)
@@ -166,15 +195,21 @@ __device__ __forceinline__ Item item_at(const Params& p, const int* order,
   return it;
 }
 
-template <int D>
+// KV: the pools' payload (bf16, or one byte: int8_t, __nv_fp8_e4m3, whose
+// tiles are widened to bf16 and whose scales sit per stage after the
+// barriers)
+template <typename KV, int D>
 struct Smem {
-  static constexpr int KV = TILE_KEYS * D * 2;  // one K (or V) tile
+  static constexpr int TILE = TILE_KEYS * D * 2;  // one bf16 K (or V) tile
   static constexpr size_t K = 0;
-  static constexpr size_t V = K + (size_t)STAGES * KV;
-  static constexpr size_t Q = V + (size_t)STAGES * KV;  // [2][NC] buffers
+  static constexpr size_t V = K + (size_t)STAGES * TILE;
+  static constexpr size_t Q = V + (size_t)STAGES * TILE;  // [2][NC] buffers
   static constexpr size_t ORDER = Q + (size_t)2 * NC * fa::Geo<D>::QBYTES;
   static constexpr size_t BAR = ORDER + (size_t)ORDER_CAP * 4;
-  static constexpr size_t BYTES = BAR + (4 * STAGES + 6) * 8 + 1024;
+  // one-byte pools: [STAGES][TILE_KEYS] K scales, then V scales
+  static constexpr size_t SCALE = BAR + (4 * STAGES + 6) * 8;
+  static constexpr size_t BYTES =
+      SCALE + (sizeof(KV) == 1 ? 2 * STAGES * TILE_KEYS * 4 : 0) + 1024;
 };
 
 // Gather one K or V tile: key k0 + j (j: this thread) of row `it` from the
@@ -192,13 +227,148 @@ __device__ __forceinline__ void gather(unsigned char* dst, const bf16* X,
                    live ? src + 8 * u : X, live ? 16 : 0);
 }
 
+// 16 one-byte K/V elements -> 16 bf16 (two 16-byte units), exact, by way
+// of f16 pairs: int8 byte x ^ 0x80 as the low byte of f16 1024 is
+// 1024 + 128 + x, so one f16x2 subtraction leaves x; fp8 e4m3: the
+// hardware's pair conversion. The pair to fp32, whose upper half is then
+// its bf16 (at most 8 significant bits: one byte_perm, no rounding).
+template <typename KV>
+__device__ __forceinline__ void widen16(const uint4& raw, uint4 (&out)[2]);
+template <>
+__device__ __forceinline__ void widen16<int8_t>(const uint4& raw,
+                                                uint4 (&out)[2]) {
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(&raw);
+  uint32_t* o = reinterpret_cast<uint32_t*>(out);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {  // elements 2 i, 2 i + 1
+    const uint32_t h = __byte_perm(w[i / 2] ^ 0x80808080u, 0x64646464u,
+                                   i % 2 ? 0x4342 : 0x4140);
+    const float2 f = __half22float2(__hsub2(
+        *reinterpret_cast<const __half2*>(&h), __float2half2_rn(1152.f)));
+    o[i] = __byte_perm(__float_as_uint(f.x), __float_as_uint(f.y), 0x7632);
+  }
+}
+template <>
+__device__ __forceinline__ void widen16<__nv_fp8_e4m3>(const uint4& raw,
+                                                       uint4 (&out)[2]) {
+  const __nv_fp8x2_storage_t* h =
+      reinterpret_cast<const __nv_fp8x2_storage_t*>(&raw);
+  uint32_t* o = reinterpret_cast<uint32_t*>(out);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float2 f = __half22float2(
+        __half2(__nv_cvt_fp8x2_to_halfraw2(h[i], __NV_E4M3)));
+    o[i] = __byte_perm(__float_as_uint(f.x), __float_as_uint(f.y), 0x7632);
+  }
+}
+
+// Pool row of key `key` of item `it`, or 0 past its last key
+__device__ __forceinline__ int key_row(const Params& p, const Item& it,
+                                       int key) {
+  return key < it.hi ? p.tables[(int64_t)it.bi * p.max_blocks + key / p.bs] *
+                               p.bs + key % p.bs
+                     : 0;
+}
+
+// One-byte pools: a key row's payload (D / 16 16-byte loads) and scale
 template <int D>
+struct RawRow {
+  uint4 u[D / 16];
+  float scale;
+};
+
+// Load key row `row` (of kv head it.kvh) from the payload pool X and the
+// scale pool XS, or zeros and scale 0 for a key past the item's last
+template <typename KV, int D>
+__device__ __forceinline__ void load_row(RawRow<D>& r, const KV* X,
+                                         const float* XS, const Params& p,
+                                         const Item& it, int row, bool live) {
+  const int64_t at = (int64_t)row * p.hkv + it.kvh;
+  const uint4* src = reinterpret_cast<const uint4*>(X + at * D);
+#pragma unroll
+  for (int u = 0; u < D / 16; ++u)
+    r.u[u] = live ? __ldg(src + u) : make_uint4(0, 0, 0, 0);
+  r.scale = live ? __ldg(XS + at) : 0.f;
+}
+
+// Widen row r into row j of the swizzled bf16 tile at dst and its scale
+// into the stage's scales sc, once the consumers have released the stage
+// (empty, parity); then one arrival on full. Shared-space addresses and
+// st.shared keep the producer's registers for the rows in flight.
+template <typename KV, int D>
+__device__ __forceinline__ void store_row(unsigned char* dst, float* sc,
+                                          const RawRow<D>& r, int j,
+                                          uint64_t* empty, int parity,
+                                          uint64_t* full) {
+  using G = fa::Geo<D>;
+  hx::mbar_wait(empty, parity);
+  // j, opaque to the compiler: the tile offsets that follow from it are
+  // computed here, not held in registers across the producer's loop
+  asm volatile("" : "+r"(j));
+  const uint32_t tile = hx::smem_u32(dst);
+#pragma unroll
+  for (int u = 0; u < D / 16; ++u) {
+    // one 16-byte unit at a time: the opaque copy keeps the compiler from
+    // widening the next units (and holding their results) ahead of these
+    // stores
+    uint4 x = r.u[u];
+    asm volatile("" : "+r"(x.x), "+r"(x.y), "+r"(x.z), "+r"(x.w));
+    uint4 w[2];
+    widen16<KV>(x, w);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                       tile + G::template tile_off<TILE_KEYS>(j, 2 * u + h)),
+                   "r"(w[h].x), "r"(w[h].y), "r"(w[h].z), "r"(w[h].w)
+                   : "memory");
+  }
+  asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(hx::smem_u32(sc + j)),
+               "f"(r.scale)
+               : "memory");
+  hx::fence_proxy_async();  // the stores, to the consumers' wgmma
+  hx::mbar_arrive(full);
+}
+
+// s (a consumer thread's S or P accumulators of one tile) times the scale
+// of each column's key, from the tile's scales at shared-space address sc:
+// column pair (i, i + 1) is keys 8 (i / 4) + 2 tq, + 1 of the tile
+// (fa::softmax_tile's layout)
+template <int BK>
+__device__ __forceinline__ void scale_cols(float (&s)[BK / 2], uint32_t sc) {
+  const uint32_t at = sc + 8 * (threadIdx.x % 4);  // 2 tq floats on
+#pragma unroll
+  for (int i = 0; i < BK / 2; i += 2) {
+    float2 f;
+    asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+                 : "=f"(f.x), "=f"(f.y)
+                 : "r"(at + 32 * (i / 4)));
+    s[i] *= f.x;
+    s[i + 1] *= f.y;
+  }
+}
+
+// One-byte pools: P split in two (fa::PSplit) after its column j is
+// weighed by key j's V scale; fa::softmax_tile packs it through pack_p
+// below, after the row sums took the unscaled P
+template <int BK>
+struct PScaled : fa::PSplit<BK> {
+  uint32_t vs;  // the tile's V scales (shared-space address)
+};
+template <int BK>
+__device__ __forceinline__ void pack_p(PScaled<BK>& pa,
+                                       float (&s)[BK / 2]) {
+  scale_cols<BK>(s, pa.vs);
+  fa::pack_p<BK>(static_cast<fa::PSplit<BK>&>(pa), s);
+}
+
+template <typename KV, int D>
 __global__ void __launch_bounds__(128 * (NC + 1), 1)
     context_fwd(const Params p, const __grid_constant__ CUtensorMap tmq,
                 const __grid_constant__ CUtensorMap tmo) {
   using G = fa::Geo<D>;
-  using S = Smem<D>;
+  using S = Smem<KV, D>;
   constexpr int BK = TILE_KEYS;
+  constexpr bool WIDE = sizeof(KV) == 1;  // a one-byte pool
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -231,7 +401,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
   if (wgi == 0) {
     // producer: thread 0 TMA-loads each item's Q, thread 32 TMA-stores
     // its O once the consumers staged it, warps 2 and 3 gather K and V
-    hx::setmaxnreg_dec<PRODUCER_REGS>();
+    hx::setmaxnreg_dec<WIDE ? WIDE_PRODUCER_REGS : PRODUCER_REGS>();
     if (threadIdx.x == 32) {
       int j = 0;
       for (int r = 0; r * (int)gridDim.x < p.items; ++r) {
@@ -278,6 +448,33 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
     }
     if (threadIdx.x < 64) return;
     const int j = threadIdx.x - 64;  // this thread's key of every tile
+    if constexpr (WIDE) {
+      float* ksc = reinterpret_cast<float*>(smem + S::SCALE);
+      float* vsc = ksc + STAGES * BK;
+      int stage = 0, phase = 0;
+      for (int r = 0; r * (int)gridDim.x < p.items; ++r) {
+        const int t = fa::item_of_round(r);
+        if (t >= p.items) continue;
+        const Item it = item_at(p, order, t);
+        for (int k0 = 0; k0 < it.hi; k0 += BK) {
+          const bool live = k0 + j < it.hi;
+          const int row = key_row(p, it, k0 + j);
+          RawRow<D> kr, vr;  // both rows in flight before either waits
+          load_row<KV, D>(kr, static_cast<const KV*>(p.k), p.k_scale, p, it,
+                          row, live);
+          load_row<KV, D>(vr, static_cast<const KV*>(p.v), p.v_scale, p, it,
+                          row, live);
+          store_row<KV, D>(smem + S::K + (size_t)stage * S::TILE,
+                           ksc + stage * BK, kr, j, &rg.kempty[stage],
+                           phase ^ 1, &rg.kfull[stage]);
+          store_row<KV, D>(smem + S::V + (size_t)stage * S::TILE,
+                           vsc + stage * BK, vr, j, &rg.vempty[stage],
+                           phase ^ 1, &rg.vfull[stage]);
+          fa::advance<STAGES>(stage, phase);
+        }
+      }
+      return;
+    }
     const bf16* K = static_cast<const bf16*>(p.k);
     const bf16* V = static_cast<const bf16*>(p.v);
     int stage = 0, phase = 0;
@@ -293,12 +490,12 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
                                      key / p.bs] * p.bs + key % p.bs
                  : 0;
         hx::mbar_wait(&rg.kempty[stage], phase ^ 1);
-        gather<D>(smem + S::K + (size_t)stage * S::KV, K, p, it, row, live,
-                  j);
+        gather<D>(smem + S::K + (size_t)stage * S::TILE, K, p, it, row,
+                  live, j);
         hx::cp_async_arrive(&rg.kfull[stage]);
         hx::mbar_wait(&rg.vempty[stage], phase ^ 1);
-        gather<D>(smem + S::V + (size_t)stage * S::KV, V, p, it, row, live,
-                  j);
+        gather<D>(smem + S::V + (size_t)stage * S::TILE, V, p, it, row,
+                  live, j);
         hx::cp_async_arrive(&rg.vfull[stage]);
         fa::advance<STAGES>(stage, phase);
       }
@@ -308,7 +505,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
   }
 
   // consumers
-  hx::setmaxnreg_inc<CONSUMER_REGS>();
+  hx::setmaxnreg_inc<WIDE ? WIDE_CONSUMER_REGS : CONSUMER_REGS>();
   const int wg = wgi - 1;
   const int tid = threadIdx.x - 128 * wgi;
   const int warp = tid / 32, lane = tid % 32, gq = lane / 4, tq = lane % 4;
@@ -340,7 +537,20 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
     float o[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-    fa::PSplit<BK> pa;  // P of the previous tile, high and low parts
+    // P of the previous tile, high and low parts
+    std::conditional_t<WIDE, PScaled<BK>, fa::PSplit<BK>> pa;
+    // one-byte pools: S of the tile at stage st (phase ph) times its K
+    // scales, before the stage's K is released; and its V scales for
+    // pack_p, which the producer writes with the V tile: so the V tile is
+    // waited for here, before the softmax, not before its P V
+    auto fold = [&](float (&s)[BK / 2], int st, int ph) {
+      if constexpr (WIDE) {
+        const uint32_t ksc = hx::smem_u32(smem + S::SCALE) + 4 * st * BK;
+        scale_cols<BK>(s, ksc);
+        hx::mbar_wait(&rg.vfull[st], ph);
+        pa.vs = ksc + 4 * STAGES * BK;
+      }
+    };
 
     // tiles [0, it.hi): the run this warpgroup's rows see is computed, each
     // tile's S issued with the previous tile's P V, so no wgmma sits in a
@@ -352,7 +562,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
     fa::load_q_frags<D>(qf, qs, warp, lane);
     if (k0 < c_hi) {
       float s[BK / 2];
-      const unsigned char* kt = smem + S::K + (size_t)stage * S::KV;
+      const unsigned char* kt = smem + S::K + (size_t)stage * S::TILE;
       hx::mbar_wait(&rg.kfull[stage], phase);
       hx::fence_proxy_async();  // the gathered tile, to the async proxy
       turn.begin();
@@ -360,22 +570,25 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
       turn.end();
       hx::wgmma_wait<0>();
       hx::fence_regs(s);
+      fold(s, stage, phase);
       if (lane == 0) hx::mbar_arrive(&rg.kempty[stage]);
       fa::softmax_tile<D, BK, true>(s, m, l, o, pa, p, rw, k0, nullptr,
                                     lane);
       int prev = stage, prev_phase = phase;
       fa::advance<STAGES>(stage, phase);
       for (k0 += BK; k0 < c_hi; k0 += BK) {
-        kt = smem + S::K + (size_t)stage * S::KV;
+        kt = smem + S::K + (size_t)stage * S::TILE;
         hx::mbar_wait(&rg.kfull[stage], phase);
         hx::mbar_wait(&rg.vfull[prev], prev_phase);
         hx::fence_proxy_async();
         turn.begin();
         fa::issue_qk<D, BK>(s, qf, kt);
-        fa::issue_pv_split<D, BK>(o, pa, smem + S::V + (size_t)prev * S::KV);
+        fa::issue_pv_split<D, BK>(o, pa,
+                                  smem + S::V + (size_t)prev * S::TILE);
         turn.end();
         hx::wgmma_wait<1>();
         hx::fence_regs(s);
+        fold(s, stage, phase);
         if (lane == 0) hx::mbar_arrive(&rg.kempty[stage]);
         fa::softmax_tile<D, BK, false>(s, m, l, o, pa, p, rw, k0,
                                        &rg.vempty[prev], lane);
@@ -386,7 +599,8 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
       hx::mbar_wait(&rg.vfull[prev], prev_phase);
       hx::fence_proxy_async();
       turn.begin();
-      fa::issue_pv_split<D, BK>(o, pa, smem + S::V + (size_t)prev * S::KV);
+      fa::issue_pv_split<D, BK>(o, pa,
+                                smem + S::V + (size_t)prev * S::TILE);
       turn.end();
       hx::wgmma_wait<0>();
       hx::fence_regs(o);
@@ -424,10 +638,10 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
   }
 }
 
-template <int D>
+template <typename KV, int D>
 cudaError_t launch(Params p, const void* q, void* o, cudaStream_t stream) {
   using G = fa::Geo<D>;
-  constexpr size_t smem = Smem<D>::BYTES;
+  constexpr size_t smem = Smem<KV, D>::BYTES;
   const CUtensorMapSwizzle swz = G::ROWB == 128
                                      ? CU_TENSOR_MAP_SWIZZLE_128B
                                      : CU_TENSOR_MAP_SWIZZLE_64B;
@@ -437,7 +651,7 @@ cudaError_t launch(Params p, const void* q, void* o, cudaStream_t stream) {
   if (e == cudaSuccess)
     e = hx::bf16_map_4d(&tmo, o, D, p.hq, p.C, p.b, G::CH, p.g, p.P, 1, swz);
   if (e != cudaSuccess) return e;
-  auto kern = context_fwd<D>;
+  auto kern = context_fwd<KV, D>;
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
   if (e != cudaSuccess) return e;
@@ -449,18 +663,24 @@ cudaError_t launch(Params p, const void* q, void* o, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// bf16 context chunks: a consumer warpgroup's rows are whole GQA groups, so
+// bf16 context chunks on KV pools (bf16; int8_t or __nv_fp8_e4m3 with
+// their scale pools): a consumer warpgroup's rows are whole GQA groups, so
 // g <= 64
+template <typename KV>
 cudaError_t launch_bf16(const void* q, const void* k_pages,
-                        const void* v_pages, void* o, const int* tables,
+                        const void* v_pages, const float* k_scale,
+                        const float* v_scale, void* o, const int* tables,
                         const int* q_start, const int* kv_len, int b, int C,
                         int hq, int hkv, int d, int block_size,
                         int max_blocks, float scale, cudaStream_t st) {
-  if (hkv <= 0 || hq % hkv != 0 || block_size < 1 || !q_start || !kv_len)
+  if (hkv <= 0 || hq % hkv != 0 || block_size < 1 || !q_start || !kv_len ||
+      (sizeof(KV) == 1 && (!k_scale || !v_scale)))
     return cudaErrorInvalidValue;
   Params p{};
   p.k = k_pages;
   p.v = v_pages;
+  p.k_scale = k_scale;
+  p.v_scale = v_scale;
   p.tables = tables;
   p.q_start = q_start;
   p.kv_len = kv_len;
@@ -482,11 +702,11 @@ cudaError_t launch_bf16(const void* q, const void* k_pages,
   p.items = p.units * hkv;
   switch (d) {
     case 32:
-      return launch<32>(p, q, o, st);
+      return launch<KV, 32>(p, q, o, st);
     case 64:
-      return launch<64>(p, q, o, st);
+      return launch<KV, 64>(p, q, o, st);
     case 128:
-      return launch<128>(p, q, o, st);
+      return launch<KV, 128>(p, q, o, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -497,19 +717,15 @@ cudaError_t launch_bf16(const void* q, const void* k_pages,
 namespace {
 
 // dtype (of q, o): 0 = float32, 1 = bfloat16. kv_type (of the K/V pools):
-// 0 = q's dtype, 1 = int8, 2 = fp8 e4m3; the quantized types need both
-// scale pools. attention.cuh's bodies: fp32 context, verify and the
-// quantized entries.
+// 0 = q's dtype (fp32 only), 1 = int8, 2 = fp8 e4m3; the quantized types
+// need both scale pools. attention.cuh's bodies: fp32 context, the
+// quantized decode (#5) and verify (#7), fp32 quantized context.
 cudaError_t dispatch(const rt::AttnParams& p, int d, int dtype,
                      cudaStream_t stream, int kv_type) {
   if (p.hkv <= 0 || p.hq % p.hkv != 0) return cudaErrorInvalidValue;
-  if (kv_type == 0) {
-    if (dtype == 0) return rt::dispatch_d<float, float, true>(p, d, stream);
-    if (dtype == 1)
-      return rt::dispatch_d<__nv_bfloat16, __nv_bfloat16, true>(p, d,
-                                                                stream);
-    return cudaErrorInvalidValue;
-  }
+  if (kv_type == 0)
+    return dtype == 0 ? rt::dispatch_d<float, float, true>(p, d, stream)
+                      : cudaErrorInvalidValue;
   if (!p.k_scale || !p.v_scale) return cudaErrorInvalidValue;
   if (kv_type == 1) return rt::dispatch_q<int8_t>(p, d, dtype, stream);
   if (kv_type == 2) return rt::dispatch_q<__nv_fp8_e4m3>(p, d, dtype, stream);
@@ -588,29 +804,57 @@ extern "C" int paged_context_attention_fwd(
     int hq, int hkv, int d, int block_size, int max_blocks, float scale,
     int dtype, void* stream) {
   if (dtype == 1)
-    return (int)pc::launch_bf16(q, k_pages, v_pages, o, tables, q_start,
-                                kv_len, b, C, hq, hkv, d, block_size,
-                                max_blocks, scale, (cudaStream_t)stream);
+    return (int)pc::launch_bf16<pc::bf16>(
+        q, k_pages, v_pages, nullptr, nullptr, o, tables, q_start, kv_len, b,
+        C, hq, hkv, d, block_size, max_blocks, scale, (cudaStream_t)stream);
   if (dtype != 0) return (int)cudaErrorInvalidValue;
   return paged_context(q, k_pages, v_pages, nullptr, nullptr, o, tables,
                        q_start, kv_len, b, C, hq, hkv, d, block_size,
                        max_blocks, scale, dtype, 0, stream);
 }
 
-// Verification rows are T x g per kv head (40 at k = 4, g = 8: ragged for
-// the 64-row tensor-core block, whose dead rows are masked like a context
-// chunk's). Padding candidates (j >= the slot's real count) sit past
-// kv_len and still see the committed keys [0, kv_len); a row with
-// kv_len == 0 (a free slot on an all-null table) writes exact zeros. No
-// split-KV: a verify step has T times decode's rows.
+// Verification: the decode body with (candidate, head) columns (decode.cuh,
+// VParams), candidate t of row i at kv_start[i] + t seeing keys
+// [0, min(kv_len, kv_start + t + 1)). Padding candidates (t >= the slot's
+// real count) sit past kv_len and still see the committed keys
+// [0, kv_len); a row with kv_len == 0 (a free slot on an all-null table)
+// writes exact zeros. part: (b, T, hq, n_split, d + 2) fp32; counters: this
+// kernel's merge counters, n_counters entries, zero between launches (both
+// needed when n_split > 1).
 extern "C" int paged_verify_attention_fwd(
     const void* q, const void* k_pages, const void* v_pages, void* o,
     const int* tables, const int* kv_start, const int* kv_len, int b, int T,
     int hq, int hkv, int d, int block_size, int max_blocks, float scale,
-    int dtype, void* stream) {
-  return paged_context(q, k_pages, v_pages, nullptr, nullptr, o, tables,
-                       kv_start, kv_len, b, T, hq, hkv, d, block_size,
-                       max_blocks, scale, dtype, 0, stream);
+    int n_split, float* part, int* counters, int n_counters, int dtype,
+    void* stream) {
+  if (block_size < 1 || max_blocks < 0) return (int)cudaErrorInvalidValue;
+  dk::VParams p{};
+  p.q = q;
+  p.k = k_pages;
+  p.v = v_pages;
+  p.o = o;
+  p.kv_len = kv_len;
+  p.q_origin = kv_start;
+  p.T = T;
+  p.b = b;
+  p.S = max_blocks * block_size;
+  p.hq = hq;
+  p.hkv = hkv;
+  p.n_split = n_split;
+  p.part = part;
+  p.counters = counters;
+  p.tables = tables;
+  p.bs = block_size;
+  p.max_blocks = max_blocks;
+  const cudaError_t e = dk::prepare_verify(p, scale, n_counters);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0) return (int)dk::launch_t<float, dk::PAGED>(p, d, st);
+  if (dtype == 1)
+    return block_size % 16 == 0
+               ? (int)dk::launch_t<dk::bf16, dk::PAGED16>(p, d, st)
+               : (int)dk::launch_t<dk::bf16, dk::PAGED>(p, d, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // Quantized pools: kv_type 1 = int8, 2 = fp8 e4m3 payloads (n_blocks,
@@ -651,19 +895,31 @@ extern "C" int paged_context_attention_quant_fwd(
     const int* q_start, const int* kv_len, int b, int C, int hq, int hkv,
     int d, int block_size, int max_blocks, float scale, int dtype,
     int kv_type, void* stream) {
-  if (kv_type == 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 1 && kv_type == 1)
+    return (int)pc::launch_bf16<int8_t>(
+        q, k_pages, v_pages, k_scale, v_scale, o, tables, q_start, kv_len, b,
+        C, hq, hkv, d, block_size, max_blocks, scale, st);
+  if (dtype == 1 && kv_type == 2)
+    return (int)pc::launch_bf16<__nv_fp8_e4m3>(
+        q, k_pages, v_pages, k_scale, v_scale, o, tables, q_start, kv_len, b,
+        C, hq, hkv, d, block_size, max_blocks, scale, st);
+  if (dtype != 0 || kv_type == 0) return (int)cudaErrorInvalidValue;
   return paged_context(q, k_pages, v_pages, k_scale, v_scale, o, tables,
                        q_start, kv_len, b, C, hq, hkv, d, block_size,
                        max_blocks, scale, dtype, kv_type, stream);
 }
 
+// #7 stays on attention.cuh's bodies (attn_fwd_mma in bf16, attn_fwd in
+// fp32) as the context chunk with q_start = kv_start
 extern "C" int paged_verify_attention_quant_fwd(
     const void* q, const void* k_pages, const void* v_pages,
     const float* k_scale, const float* v_scale, void* o, const int* tables,
     const int* kv_start, const int* kv_len, int b, int T, int hq, int hkv,
     int d, int block_size, int max_blocks, float scale, int dtype,
     int kv_type, void* stream) {
-  return paged_context_attention_quant_fwd(
-      q, k_pages, v_pages, k_scale, v_scale, o, tables, kv_start, kv_len, b,
-      T, hq, hkv, d, block_size, max_blocks, scale, dtype, kv_type, stream);
+  if (kv_type == 0) return (int)cudaErrorInvalidValue;
+  return paged_context(q, k_pages, v_pages, k_scale, v_scale, o, tables,
+                       kv_start, kv_len, b, T, hq, hkv, d, block_size,
+                       max_blocks, scale, dtype, kv_type, stream);
 }

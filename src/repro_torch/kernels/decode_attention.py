@@ -43,12 +43,13 @@ MAX_SPLITS = 64
 HEADS = 8
 
 
-def contiguous_splits(b, hq, hkv, S, sms):
+def contiguous_splits(b, hq, hkv, S, sms, column_groups=1):
     """How many blocks share one row's keys: enough blocks (b x hkv x head
-    groups x splits) for ~BLOCKS_PER_SM on each of `sms` SMs, and no more
-    splits than S has KEYS_PER_SPLIT-key shares, nor than MAX_SPLITS. It
-    reads S, not the live lengths, which are on the device."""
-    groups = b * hkv * -(-(hq // hkv) // HEADS)
+    groups x column groups (the paged verify kernel's; 1 for decode) x
+    splits) for ~BLOCKS_PER_SM on each of `sms` SMs, and no more splits
+    than S has KEYS_PER_SPLIT-key shares, nor than MAX_SPLITS. It reads S,
+    not the live lengths, which are on the device."""
+    groups = b * hkv * -(-(hq // hkv) // HEADS) * column_groups
     return max(1, min(-(-S // KEYS_PER_SPLIT), MAX_SPLITS,
                       -(-BLOCKS_PER_SM * sms // groups)))
 
@@ -58,10 +59,11 @@ _COUNTERS = {}
 
 def merge_counters(kernel, n, device):
     """Zeroed int32 merge counters of at least n entries on `device`, a
-    buffer of `kernel`'s own ("decode_attention", "paged_decode_attention"):
-    a launch's last block per (row, kv head, head group) resets its own, so
-    they are zero again after every launch. b x hq entries hold any head
-    grouping (the kernel checks that it has enough)."""
+    buffer of `kernel`'s own ("decode_attention", "paged_decode_attention",
+    "paged_verify_attention"): a launch's last block per (row, kv head,
+    head group, column group) resets its own, so they are zero again after
+    every launch. b x hq entries (b x T x hq for verify) hold any grouping
+    (the kernel checks that it has enough)."""
     t = _COUNTERS.get((kernel, device))
     if t is None or t.numel() < n:
         t = _COUNTERS[kernel, device] = torch.zeros(n, dtype=torch.int32,

@@ -5,14 +5,19 @@ their quantized-pool variants (``*_quant_pallas``: int8 / fp8 e4m3 payload
 pools with float32 per-token-per-head scale pools, dequantized inside the
 kernel).
 
-Bodies (see the CUDA source): decode (#2), bf16 and fp32, runs the GQA
-decode body of ``csrc/decode.cuh`` through the block table, with its split
-count from ``decode_attention.contiguous_splits`` over the table's capacity
-and merge counters of its own; bf16 context (#3) runs the TMA + cp.async +
-wgmma body ``pc::context_fwd``; fp32 context, verification (#4) and the
-quantized entries (#5-#7) run the bodies of ``csrc/attention.cuh``
-(the quantized decode with ``decode_splits`` blocks per row and a second
-merge launch).
+Bodies (see the CUDA source): decode (#2) and verification (#4), bf16
+and fp32, run the GQA decode body of ``csrc/decode.cuh`` through the block
+table, each with its split count over the table's capacity and merge
+counters of its own. A verify block's 8 query columns are (candidate,
+head) pairs (``verify_columns``): candidate t of row i, at position
+kv_start[i] + t, sees keys [0, min(kv_len[i], kv_start[i] + t + 1)). bf16
+context runs the TMA + wgmma body ``pc::context_fwd`` on bf16 pools (#3,
+K/V tiles gathered by cp.async) and on int8 / fp8 pools (#6, widened to
+bf16 by the gathering warps, scales folded into scores and
+probabilities). fp32 context, fp32 quantized context and the quantized
+decode and verify (#5, #7) run the bodies of ``csrc/attention.cuh`` (the
+quantized decode with ``decode_splits`` blocks per row and a second merge
+launch).
 
 Each wrapper checks its inputs, allocates the output, launches on the
 current stream and counts its own launches; none falls back to its plain
@@ -28,7 +33,7 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention import (contiguous_splits,
+from repro_torch.kernels.decode_attention import (HEADS, contiguous_splits,
                                                   merge_counters)
 from repro_torch.kernels.flash_attention import (DTYPES,
                                                  check_attention_inputs,
@@ -65,6 +70,24 @@ def paged_decode_splits(b, hq, hkv, max_blocks, block_size, sms):
     (#2): ``contiguous_splits`` over the table's capacity max_blocks x
     block_size (never the live lengths, which are on the device)."""
     return contiguous_splits(b, hq, hkv, max_blocks * block_size, sms)
+
+
+def verify_columns(T, g):
+    """(cp, column groups) of the paged verify kernel (#4): a block's HEADS
+    query columns are cp = max(1, HEADS // g) candidates of g heads each
+    (capped by T; one candidate and HEADS heads of a group at g > HEADS),
+    so ceil(T / cp) column groups cover a row's candidates."""
+    cp = min(T, max(1, HEADS // g))
+    return cp, -(-T // cp)
+
+
+def paged_verify_splits(b, T, hq, hkv, max_blocks, block_size, sms):
+    """How many blocks share one row's keys in the paged verify kernel
+    (#4): ``contiguous_splits`` over the table's capacity max_blocks x
+    block_size (never the live lengths, which are on the device), counting
+    its verify_columns column groups among the blocks."""
+    return contiguous_splits(b, hq, hkv, max_blocks * block_size, sms,
+                             column_groups=verify_columns(T, hq // hkv)[1])
 
 
 # payload dtype of a quantized pool -> the kernels' K/V type code
@@ -118,6 +141,22 @@ def _launch(entry, q, k_pages, v_pages, o, quant, tail, tail_types):
         raise RuntimeError(f"{entry}: CUDA error {err}")
 
 
+def _split_buffers(kernel, n_split, rows, d, device):
+    """(part, counters) of a launch with n_split splits over `rows` query
+    rows: fp32 partials (rows, n_split, d + 2) and `kernel`'s merge
+    counters (None for a kernel that merges in a second launch), or
+    (None, None) for one split."""
+    if n_split == 1:
+        return None, None
+    return (torch.empty(rows * n_split * (d + 2), dtype=torch.float32,
+                        device=device),
+            merge_counters(kernel, rows, device) if kernel else None)
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
 def _decode(q, k_pages, v_pages, scales, block_tables, kv_len, scale):
     """Launch the decode entry (quantized when `scales` is given) -> o."""
     q, k_pages, v_pages, quant = _checked(q, k_pages, v_pages, scales)
@@ -138,16 +177,14 @@ def _decode(q, k_pages, v_pages, scales, block_tables, kv_len, scale):
         n_split = paged_decode_splits(b, hq, hkv, nb, bs, sms)
     else:
         n_split = decode_splits(b, hkv, nb * bs, q.device)
-    part = (torch.empty(b * hq * n_split * (d + 2), dtype=torch.float32,
-                        device=q.device) if n_split > 1 else None)
+    part, counters = _split_buffers(
+        "paged_decode_attention" if quant is None else None, n_split,
+        b * hq, d, q.device)
     tail = (tbl.data_ptr(), lens.data_ptr(), b, hq, hkv, d, bs, nb,
-            float(scale), n_split,
-            part.data_ptr() if part is not None else None)
+            float(scale), n_split, _ptr(part))
     types = [_P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P]
     if quant is None:   # #2's own merge counters
-        counters = (merge_counters("paged_decode_attention", b * hq, q.device)
-                    if n_split > 1 else None)
-        tail += (counters.data_ptr() if counters is not None else None,
+        tail += (_ptr(counters),
                  counters.numel() if counters is not None else 0)
         types += [_P, _I]
     _launch("paged_decode_attention_fwd", q, k_pages, v_pages, o, quant,
@@ -180,8 +217,9 @@ def paged_decode_attention_quant_cuda(q, k_pages, v_pages, k_scale, v_scale,
 
 def _chunk_attention(entry, q, k_pages, v_pages, block_tables, q_start,
                      kv_len, scale, scales=None):
-    """Launch `entry` (context or verify: the same contract; its
-    ``_quant_fwd`` twin when `scales` is (k_scale, v_scale)) -> o."""
+    """Launch `entry` (context, or the quantized verify: the context
+    contract at q_start = kv_start; its ``_quant_fwd`` twin when `scales`
+    is (k_scale, v_scale)) -> o."""
     q, k_pages, v_pages, quant = _checked(q, k_pages, v_pages, scales)
     b, C, hq, d = q.shape
     _, bs, hkv, _ = k_pages.shape
@@ -216,10 +254,28 @@ def paged_verify_attention_cuda(q, k_pages, v_pages, block_tables, *,
     """q (b,T,hq,d), T candidates per slot, row i's candidate j at absolute
     position kv_start[i] + j; pages already hold the candidates' K/V at
     [kv_start, kv_len) -> (b,T,hq,d), every position kept."""
-    o = _chunk_attention("paged_verify_attention_fwd", q, k_pages, v_pages,
-                         block_tables, kv_start, kv_len, scale)
-    if o.numel():
-        paged_verify_attention_cuda.launches += 1
+    q, k_pages, v_pages = check_attention_inputs(q, k_pages, v_pages)
+    b, T, hq, d = q.shape
+    _, bs, hkv, _ = k_pages.shape
+    tbl = _tables(block_tables, b, q.device)
+    nb = tbl.shape[1]
+    starts = lengths(kv_start, b, q.device)
+    lens = lengths(kv_len, b, q.device)
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    o = torch.empty_like(q)
+    if o.numel() == 0:
+        return o
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    n_split = paged_verify_splits(b, T, hq, hkv, nb, bs, sms)
+    part, counters = _split_buffers("paged_verify_attention", n_split,
+                                    b * T * hq, d, q.device)
+    _launch("paged_verify_attention_fwd", q, k_pages, v_pages, o, None,
+            (tbl.data_ptr(), starts.data_ptr(), lens.data_ptr(), b, T, hq,
+             hkv, d, bs, nb, float(scale), n_split, _ptr(part),
+             _ptr(counters), counters.numel() if counters is not None else 0,
+             DTYPES[q.dtype]),
+            [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _I, _I])
+    paged_verify_attention_cuda.launches += 1
     return o
 
 

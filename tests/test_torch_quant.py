@@ -144,6 +144,101 @@ def test_quant_paged_attention_matches_pallas(kernel, kv):
         assert err <= ATOL, f"{kernel} {kv} vs {what}: max abs err {err}"
 
 
+# --- kernel #6's arithmetic on the card (csrc/paged_attention.cu) -----------
+# The bf16 context body widens one-byte pages to bf16 and folds the scales
+# in: scores times k_scale per key before the softmax, probabilities times
+# v_scale per key before P V, the row sum over the unscaled
+# probabilities.
+
+def _folded_context(q, kq, vq, ks, vs, tbl, q_start, kv_len):
+    """Context attention on widened pages with the scales folded in, fp32
+    (numpy): the kernel's order of operations."""
+    b, C, hq, d = q.shape
+    _, bs, hkv, _ = kq.shape
+    g = hq // hkv
+    k = np.asarray(kq).astype(np.float32)[tbl].reshape(b, -1, hkv, d)
+    v = np.asarray(vq).astype(np.float32)[tbl].reshape(b, -1, hkv, d)
+    kscale = np.asarray(ks)[tbl].reshape(b, -1, hkv)
+    vscale = np.asarray(vs)[tbl].reshape(b, -1, hkv)
+    S = k.shape[1]
+    qh = q.reshape(b, C, hkv, g, d)
+    s = np.einsum("bchgd,bjhd->bhgcj", qh, k) / np.sqrt(d)
+    s = s * kscale.transpose(0, 2, 1)[:, :, None, None, :]
+    qpos = q_start[:, None] + np.arange(C)[None]
+    live = (np.arange(S)[None, None] <= qpos[:, :, None]) & \
+        (np.arange(S)[None, None] < kv_len[:, None, None])  # (b, C, S)
+    live = live[:, None, None]
+    s = np.where(live, s, -np.inf)
+    m = s.max(-1, keepdims=True)
+    p = np.where(live, np.exp(s - np.where(np.isfinite(m), m, 0.0)), 0.0)
+    l = p.sum(-1, keepdims=True)
+    pw = p * vscale.transpose(0, 2, 1)[:, :, None, None, :]
+    o = np.einsum("bhgcj,bjhd->bchgd", pw, v) / np.maximum(l, 1e-30) \
+        .transpose(0, 3, 1, 2, 4)
+    return o.reshape(b, C, hq, d).astype(np.float32)
+
+
+@pytest.mark.parametrize("bs", [5, 16])
+@pytest.mark.parametrize("kv", KV_DTYPES)
+def test_quant_context_folds_scales_into_widened_pages(kv, bs):
+    rng = np.random.default_rng(11)
+    b, C, hq, hkv, d, nb = 3, 6, 4, 2, 32, 8
+    n_blocks = b * nb + 1
+    kq, ks = JQ.quantize_kv_rows(
+        jnp.asarray(_rn(rng, n_blocks, bs, hkv, d)), kv)
+    vq, vs = JQ.quantize_kv_rows(
+        jnp.asarray(_rn(rng, n_blocks, bs, hkv, d)), kv)
+    pools = tuple(np.asarray(x) for x in (kq, vq, ks, vs))
+    tbl = (rng.permutation(n_blocks - 1)[:b * nb] + 1).reshape(b, nb) \
+        .astype(np.int32)
+    tbl[2] = 0                                # a free slot: exact zeros
+    q = _rn(rng, b, C, hq, d)
+    # a chunk mid-page past several pages, one ending mid-chunk, a dead row
+    q_start = np.array([2 * bs + 3, bs - 1, 0], np.int32)
+    kv_len = q_start + np.array([C, 4, 0], np.int32)
+    want = _folded_context(q, *pools, tbl, q_start, kv_len)
+    assert not np.any(want[2])
+    jargs = (jnp.asarray(q), *map(jnp.asarray, pools), jnp.asarray(tbl))
+    jkw = dict(q_start=jnp.asarray(q_start), kv_len=jnp.asarray(kv_len))
+    port = ops.paged_context_attention(
+        torch.from_numpy(q), _to_torch(pools[0]), _to_torch(pools[1]),
+        torch.from_numpy(tbl), k_scale=_to_torch(pools[2]),
+        v_scale=_to_torch(pools[3]), q_start=torch.from_numpy(q_start),
+        kv_len=torch.from_numpy(kv_len))
+    for what, got in (
+            ("Pallas (interpret)", paged_context_attention_quant_pallas(
+                *jargs, interpret=True, **jkw)),
+            ("repro.kernels.ref", jref.paged_context_attention_quant_ref(
+                *jargs, **jkw)),
+            ("the port's plain version", port.numpy())):
+        err = float(np.abs(np.asarray(got) - want).max())
+        assert err <= ATOL, f"{kv} bs {bs}: folded vs {what}: {err}"
+
+
+@pytest.mark.parametrize("kv", KV_DTYPES)
+def test_one_byte_codes_widen_to_bf16_exactly(kv):
+    """Every int8 code and every finite fp8 e4m3 code is exact in bf16, the
+    premise of #6's bf16 tiles: as fp32 its low 16 bits are zero, so the
+    kernel's upper-half truncation is its bf16. int8 takes the kernel's
+    route: byte x ^ 0x80 as the low byte of f16 1024, minus 1152."""
+    codes = torch.arange(256, dtype=torch.int32).to(torch.uint8)
+    x = codes.view(PQ.kv_storage_dtype(kv))
+    f = x.float()
+    if kv == "fp8":
+        keep = torch.isfinite(f)
+        assert int(keep.sum()) == 254            # 0x7f, 0xff are NaN
+        x, f = x[keep], f[keep]
+    else:
+        bits = ((codes.to(torch.int32) ^ 0x80) | 0x6400).to(torch.int16)
+        magic = bits.view(torch.float16) - torch.tensor(1152.0,
+                                                         dtype=torch.float16)
+        assert magic.dtype == torch.float16 and torch.equal(magic.float(), f)
+    assert not torch.any(f.view(torch.int32) & 0xFFFF)
+    assert torch.equal(x.to(torch.bfloat16).float(), f)
+    assert torch.equal((f.view(torch.int32) >> 16).to(torch.int16)
+                       .view(torch.bfloat16), x.to(torch.bfloat16))
+
+
 # --- pools: scatter, copy-on-write, guard layers (tests/test_paged.py) -------
 
 def _quant_pool(kv, n_blocks, bs, h, d):

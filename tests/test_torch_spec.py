@@ -210,6 +210,99 @@ def test_paged_verify_matches_pallas(case, hq, hkv, d):
                "vs paged decode")
 
 
+# Kernel #4's decomposition on the card (csrc/decode.cuh, VERIFY): a verify
+# step is T paged decodes, candidate t of row i seeing keys
+# [0, min(kv_len, kv_start + t + 1)). Each case: T, kv_start, candidate
+# counts (kv_len - kv_start): ragged counts, a dead row (a free slot: kv_len
+# 0 on an all-null table) and F2's row, kv_len == kv_start > 0, whose
+# candidates all see the committed keys
+PER_CANDIDATE_CASES = {
+    "T=5": (5, [16, 21, 0, 30], [5, 2, 0, 0]),
+    "T=8": (8, [3, 12, 0, 25], [8, 5, 0, 0]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PER_CANDIDATE_CASES))
+@pytest.mark.parametrize("hq,hkv,d", [(2, 2, 32), (4, 2, 32),
+                                      (8, 2, 64)])  # g 1, 2, 4
+def test_paged_verify_is_per_candidate_decode(case, hq, hkv, d):
+    rng = np.random.default_rng(5)
+    T, kv_start, count = PER_CANDIDATE_CASES[case]
+    b, nb, bs = 4, 6, 8
+    kp, vp, bt = _pool_and_tables(rng, b, nb, 32, bs, hkv, d)
+    bt[2] = 0
+    kv_start = np.asarray(kv_start, np.int32)
+    kv_len = kv_start + np.asarray(count, np.int32)
+    q = _rn(rng, b, T, hq, d)
+    targs = tuple(map(torch.from_numpy, (q, kp, vp, bt)))
+    port = ops.paged_verify_attention(*targs,
+                                      kv_start=torch.from_numpy(kv_start),
+                                      kv_len=torch.from_numpy(kv_len))
+    per_t = torch.cat([ops.paged_decode_attention(
+        targs[0][:, t:t + 1], *targs[1:],
+        kv_len=torch.from_numpy(np.minimum(kv_len, kv_start + t + 1)))
+        for t in range(T)], 1)
+    _close(port, per_t.numpy(), "vs T per-candidate paged decodes")
+    want = paged_verify_attention_pallas(
+        *map(jnp.asarray, (q, kp, vp, bt)), kv_start=jnp.asarray(kv_start),
+        kv_len=jnp.asarray(kv_len), interpret=True)
+    _close(port, want, "verify vs Pallas (interpret)")
+    _close(per_t, want, "per-candidate decodes vs Pallas (interpret)")
+    assert torch.count_nonzero(port[2]) == 0
+    assert torch.count_nonzero(port[3]) > 0       # F2: not a dead row
+
+
+@pytest.mark.parametrize("T", [1, 5, 8])
+@pytest.mark.parametrize("g", [1, 2, 4, 8, 16])
+def test_verify_columns_cover_each_candidate_and_head_once(g, T):
+    """The verify kernel's column packing (csrc/decode.cuh VCols): column c
+    of column group cg and head group grp is candidate cg cp + c // gb and
+    head grp HEADS + c % gb (gb = min(g, HEADS)); together the blocks hold
+    every (candidate, head) pair of a kv head exactly once, and the merge
+    counters they need (b hkv groups cgroups) fit the wrapper's b T hq."""
+    cp, cgroups = pa.verify_columns(T, g)
+    assert cp == min(T, max(1, da.HEADS // g))
+    assert cgroups == -(-T // cp)
+    groups, gb = -(-g // da.HEADS), min(g, da.HEADS)
+    seen = [(cg * cp + c // gb, grp * da.HEADS + c % gb)
+            for cg in range(cgroups) for grp in range(groups)
+            for c in range(da.HEADS)
+            if c < cp * gb and cg * cp + c // gb < T
+            and grp * da.HEADS + c % gb < g]
+    assert sorted(seen) == [(t, h) for t in range(T) for h in range(g)]
+    b, hkv = 3, 2
+    assert b * hkv * groups * cgroups <= b * T * g * hkv
+
+
+# kernel #4's split count, (b, T, hq, hkv, max_blocks, block_size, sms) ->
+# splits: paged decode's rule over the table's capacity, its blocks counted
+# with the column groups
+VERIFY_SPLIT_COUNTS = {
+    "timing shape, g 8 T 5: 5 column groups": ((16, 5, 64, 8, 128, 16, 132),
+                                               1),
+    "one row, g 8 T 5": ((1, 5, 64, 8, 128, 16, 132), 10),
+    "Jamba's width, g 4 T 5: 3 column groups": (
+        (16, 5, 32, 8, 128, 16, 132), 2),
+    "g 1 T 8: one column group": ((16, 8, 8, 8, 128, 16, 132), 4),
+    "g 16 T 5: two head groups": ((4, 5, 32, 2, 128, 16, 132), 5),
+}
+
+
+@pytest.mark.parametrize("case", sorted(VERIFY_SPLIT_COUNTS))
+def test_paged_verify_splits_count_column_groups(case):
+    (b, T, hq, hkv, nb, bs, sms), want = VERIFY_SPLIT_COUNTS[case]
+    n = pa.paged_verify_splits(b, T, hq, hkv, nb, bs, sms)
+    assert n == want
+    cgroups = pa.verify_columns(T, hq // hkv)[1]
+    assert n == da.contiguous_splits(b, hq, hkv, nb * bs, sms,
+                                     column_groups=cgroups)
+    blocks = b * hkv * -(-(hq // hkv) // da.HEADS) * cgroups
+    cap = min(da.MAX_SPLITS, -(-nb * bs // da.KEYS_PER_SPLIT))
+    if n < cap:  # the fewest splits that fill the card
+        assert blocks * n >= da.BLOCKS_PER_SM * sms
+        assert n == 1 or blocks * (n - 1) < da.BLOCKS_PER_SM * sms
+
+
 # --- model level -----------------------------------------------------------
 
 def test_contiguous_prefill_and_decode_match_reference(weights):
