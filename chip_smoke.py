@@ -14,8 +14,10 @@ JAX. Phases, each of which raises on failure:
      (HGMMA, UTMALDG / UTMASTG, LDGSTS, HMMA, MOVM), for the paged kernels
      with a digest of each kernel's code; the paged context body must show
      wgmma and TMA without spills, with cp.async on bf16 pools and none on
-     int8 / fp8 pools, the paged decode and verify body mma.sync and
-     movmatrix; every kernel of the previous tree (chip_smoke_sass.json)
+     int8 / fp8 pools, the decode body of the paged decode and verify
+     kernels (on bf16, int8 and fp8 pools) mma.sync and movmatrix in bf16
+     and no spills, and no attention.cuh body but the fp32 one may be left;
+     every kernel of the previous tree (chip_smoke_sass.json)
      must keep its digest or be named there as gone or moved, and why;
   2. kernels against their plain PyTorch versions on the card, at
      Llama-2-70B attention widths (hq 64, hkv 8, d 128) and Jamba's (hq 32,
@@ -30,8 +32,9 @@ JAX. Phases, each of which raises on failure:
      5 with T = 1, 5, 8 and 9 candidates, padded and dead rows, F2's
      kv_len == kv_start > 0, and rows long enough for split-KV), the three
      paged kernels also on int8 and fp8 pools through their quantized
-     kernels (decode at block 16, context and verify at 16 and 5, context
-     also with 65 rows past the ranking's capacity), and the selective
+     kernels (decode at the same five block sizes, context and verify at 16
+     and 5, verify also at g 16, context also with 65 rows past the
+     ranking's capacity), and the selective
      scan at Jamba's widths (d_inner 8192, d_state 16) and the CPU tests'
      (output and final state); then timed at the serving path's shapes
      beside their bound, their plain version and, where one PyTorch call
@@ -51,12 +54,13 @@ JAX. Phases, each of which raises on failure:
      kernel of that path must have run at least layers x steps times (on
      quantized pools: the quantized kernels on the quantized layers, the
      unquantized ones on the guard layers only). The synthetic,
-     shared-prefix, n-gram and quant-int8 serves run once more with their
-     paged decode, context, verify and quantized context calls sampled, to
-     log those kernels' errors on their own inputs beside the bf16 floor.
-     The synthetic,
-     shared-prefix, self-draft, quant-int8 and quant-w8 serves run once
-     more under torch.profiler for a breakdown of device time.
+     shared-prefix, n-gram, quant-int8 and quant-fp8-ngram serves run once
+     more with their paged decode, context, verify, quantized context and
+     decode, and quantized verify calls sampled, to log those kernels'
+     errors on their own inputs beside the bf16 floor. The synthetic,
+     shared-prefix, self-draft, quant-int8, quant-fp8-ngram and quant-w8
+     serves run once more under torch.profiler for a breakdown of device
+     time.
      Then the hybrid path: jamba-v0.1-52b at full width in bf16 (depth
      cut to one 8-layer period of 32: seven Mamba layers, one attention
      layer, MoE with 16 experts top-2 on every other layer; seeded random
@@ -245,9 +249,11 @@ def check_paged_build(so):
     instructions: the context body (pc::context_fwd) HGMMA and TMA loads
     without spills, with cp.async (LDGSTS) on bf16 pools and none on int8 /
     fp8 pools (#6), whose tiles the producer widens; the decode body
-    (dk::decode_fwd: #2 on dk::Params, #4 on dk::VParams) HMMA and MOVM
-    in bf16. No attention.cuh body on bf16 pools is left (#4 and bf16 #3
-    moved off them)."""
+    (dk::decode_fwd: #2 on dk::Params, #4 on dk::VParams, #5 and #7 on
+    dk::QParams / dk::QVParams of int8 and fp8) without spills, with HMMA
+    and MOVM in bf16. Of attention.cuh only the fp32 scalar body is left:
+    no mma.sync body (attn_fwd_mma), no bf16 instance and no second merge
+    launch (combine_splits)."""
     funcs = sass_functions(so)
     regs = _ptxas(so)
     total = {op: sum(c[op] for c, _ in funcs.values()) for op in SASS_OPS}
@@ -261,9 +267,13 @@ def check_paged_build(so):
             + f"; digest {digest}")
     context = [n for n in funcs if n.startswith("void pc::context_fwd")]
     decode = [n for n in funcs if n.startswith("void dk::decode_fwd")]
-    if len(context) != 9 or len(decode) != 18:
+    quant = [n for n in decode if "dk::QParams" in n or "dk::QVParams" in n]
+    # 3 head dims x (bf16 PAGED16, bf16 PAGED, fp32 PAGED) x (#2, #4, and
+    # #5, #7 on int8 and on fp8 pools)
+    if len(context) != 9 or len(decode) != 54 or len(quant) != 36:
         raise AssertionError(f"paged library: {len(context)} context and "
-                             f"{len(decode)} decode kernels, expected 9, 18")
+                             f"{len(decode)} decode kernels ({len(quant)} "
+                             "quantized), expected 9, 54 (36)")
     for n in context:
         c = funcs[n][0]
         gathers = bool(c["LDGSTS"]) == n.startswith(
@@ -272,14 +282,16 @@ def check_paged_build(so):
                 regs.get(n, (0, 0))[1]:
             raise AssertionError(f"{n}: {c}, spills {regs.get(n)}")
     left = [n for n in funcs if n.startswith(
-        ("void rt::attn_fwd_mma<__nv_bfloat16",
-         "void rt::attn_fwd<__nv_bfloat16, __nv_bfloat16"))]
+        ("void rt::attn_fwd_mma", "void rt::attn_fwd<__nv_bfloat16",
+         "void rt::combine_splits"))]
     if left:
-        raise AssertionError(f"attention.cuh bodies on bf16 pools: {left}")
+        raise AssertionError(f"attention.cuh bodies left: {left}")
     for n in decode:
         c = funcs[n][0]
-        if "bfloat16" in n and not (c["HMMA"] and c["MOVM"]):
-            raise AssertionError(f"{n}: no mma.sync or movmatrix: {c}")
+        if regs.get(n, (0, 0))[1] or (
+                n.startswith("void dk::decode_fwd<__nv_bfloat16")
+                and not (c["HMMA"] and c["MOVM"])):
+            raise AssertionError(f"{n}: {c}, spills {regs.get(n)}")
     return funcs
 
 
@@ -420,14 +432,14 @@ def _tables(gen, dev, b, nb, n_blocks):
 
 
 # block sizes of the paged checks: the engines' 16, the CPU tests' 2, 4 and
-# 8, and sizes that do not divide 16 (1, 12); the quantized decode at 16,
-# the quantized context and both verify kernels at 16 and 5
+# 8, and sizes that do not divide 16 (1, 12); both decode kernels at all of
+# them, the quantized context and both verify kernels at 16 and 5
 BLOCK_SIZES = (16, 1, 2, 8, 12)
 
 
 def decode_cases(gen, dev, dtype, hq=64, hkv=8, d=128, kv=None):
     from repro_torch.kernels import ops
-    for bs in BLOCK_SIZES if kv is None else (16,):
+    for bs in BLOCK_SIZES:
         # ragged lengths, free slots on all-null tables (one reading the
         # trash page, one with no live key) over 128-key tables
         nb = -(-128 // bs)
@@ -634,9 +646,8 @@ CASES = {"flash_attention": flash_cases,
 def check_kernels(dev):
     """Every kernel against its plain version: Llama-2-70B widths (g 8),
     Jamba's (hq 32, hkv 8: g 4), g 1 (hq = hkv 8) and the CPU tests' small
-    head dims (paged verify also at g 16), in bf16 and fp32, the paged
-    kernels at several block sizes;
-    the parts of a case that
+    head dims (both verify kernels also at g 16), in bf16 and fp32, the
+    paged kernels at several block sizes; the parts of a case that
     see no key must be exact zeros. Returns {kernel: max abs err over its
     fp32 checks}."""
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -647,7 +658,7 @@ def check_kernels(dev):
                                dict(hq=8, hkv=8, d=128),
                                dict(hq=4, hkv=2, d=32),
                                dict(hq=4, hkv=1, d=64))]
-        if name == "paged_verify_attention":  # g 16: two head groups
+        if name.startswith("paged_verify"):   # g 16: two head groups
             runs += [(dt, dict(hq=32, hkv=2, d=64))
                      for dt in (torch.bfloat16, torch.float32)]
         for dtype, widths in runs:
@@ -1113,8 +1124,9 @@ def _check_path(name, stats, launched, draft_steps, reqs, L, n_slots, kw):
 def study_rewritten_kernels(cfg, asg, params, serves):
     """The redesigned paged kernels on the serves' own inputs: the
     synthetic serve's paged decode calls (#2), the shared-prefix serve's
-    context calls (#3), the n-gram serve's verify calls (#4) and the
-    quant-int8 serve's quantized context calls (#6) are sampled (their
+    context calls (#3), the n-gram serve's verify calls (#4), the
+    quant-int8 serve's quantized context (#6) and decode (#5) calls and the
+    quant-fp8-ngram serve's quantized verify calls (#7) are sampled (their
     inputs copied at the call), and on each sample the kernel and the plain
     version's own rounding to bf16 (the floor) are held against the plain
     version in fp32."""
@@ -1123,7 +1135,9 @@ def study_rewritten_kernels(cfg, asg, params, serves):
             ("paged_decode_attention", "synthetic", 67, False),
             ("paged_context_attention", "shared-prefix", 23, False),
             ("paged_verify_attention", "spec-ngram", 37, False),
-            ("paged_context_attention", "quant-int8", 23, True)):
+            ("paged_context_attention", "quant-int8", 23, True),
+            ("paged_decode_attention", "quant-int8", 67, True),
+            ("paged_verify_attention", "quant-fp8-ngram", 37, True)):
         real, calls, samples = getattr(ops, name), [0], []
 
         def sampling(*a, **k):
@@ -1251,7 +1265,7 @@ def phase_serving(smi):
     study_rewritten_kernels(cfg, asg, params, serves)
     for name, kw in serves:
         if name in ("synthetic", "shared-prefix", "spec-draft", "quant-int8",
-                    "quant-w8"):
+                    "quant-fp8-ngram", "quant-w8"):
             synth, shared = _workloads(cfg.vocab_size, n=16, out_len=32)
             reqs = shared if kw.get("prefix_caching") else synth
             profile_serve(name, cfg, asg, params, reqs, **common, **kw)
@@ -1360,9 +1374,8 @@ def phase_jamba(smi):
 
 
 def _kernel_group(name):
-    if name.startswith(("void rt::attn_fwd", "void rt::combine_splits",
-                        "void fa::flash_fwd", "void dk::decode_fwd",
-                        "void pc::context_fwd")):
+    if name.startswith(("void rt::attn_fwd", "void fa::flash_fwd",
+                        "void dk::decode_fwd", "void pc::context_fwd")):
         return "attention kernels (port)"
     if name.startswith("void ss::ssm_scan_kernel"):
         return "scan (port)"
@@ -1386,19 +1399,24 @@ def profile_serve(name, cfg, asg, params, reqs, **kw):
     from torch.profiler import ProfilerActivity, profile
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     _, wall, _ = _serve(cfg, asg, params, reqs, around=lambda: prof, **kw)
-    groups = {}
+    groups, other = {}, {}
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total",
                     getattr(e, "self_cuda_time_total", 0))
         if t > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
             g = _kernel_group(e.key)
             groups[g] = groups.get(g, 0.0) + t / 1e3        # us -> ms
+            if g == "other":
+                other[e.key] = t / 1e3
     busy = sum(groups.values())
     log(f"  profile {name} (torch.profiler on): wall {wall * 1e3:.1f} ms,"
         f" device busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}% of "
         "wall); device ms by group: "
         + ", ".join(f"{g} {t:.1f}" for g, t in
-                    sorted(groups.items(), key=lambda x: -x[1])))
+                    sorted(groups.items(), key=lambda x: -x[1]))
+        + "; largest in other: " + "; ".join(
+            f"{k[:60]} {t:.1f}" for k, t in
+            sorted(other.items(), key=lambda x: -x[1])[:2]))
 
 
 def _leaves(tree):

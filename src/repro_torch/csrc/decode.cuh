@@ -1,9 +1,11 @@
 // GQA decode attention body for Hopper (sm_90a): one query token per row
 // against a K/V cache, shared by the contiguous-cache decode kernel
 // (decode_attention.cu, the draft model's decode step), the paged decode
-// kernel (paged_attention.cu, every decode iteration of the serving path)
-// and the paged verify kernel (paged_attention.cu, every speculative verify
-// step). They differ in where key row j of batch row i lives (KEYS below):
+// kernel (paged_attention.cu, every decode iteration of the serving path),
+// the paged verify kernel (paged_attention.cu, every speculative verify
+// step) and their twins on int8 / fp8 pools (the quantized paged decode
+// and verify, below). They differ in where key row j of batch row i lives
+// (KEYS below):
 //
 //  - CONTIGUOUS: row i S + j of a (b, S, hkv, d) cache;
 //  - PAGED16: row tables[i max_blocks + j / bs] bs + j % bs of a
@@ -34,6 +36,20 @@
 // contiguous cache (hkv d elements apart), so the loads, the products and
 // the merge are one code.
 //
+// Quantized pools (decode_fwd on QParams<KV>, the quantized paged decode;
+// on QVParams<KV>, the quantized paged verify) hold one-byte K/V rows (KV:
+// int8_t or __nv_fp8_e4m3) and fp32 per-token-per-head scales (n_blocks,
+// bs, hkv). The rows are read as one-byte payloads and widened exactly to
+// q's type in registers (every int8 and e4m3 value is exact in bf16), and
+// the scales are folded into the arithmetic instead of dequantizing: a
+// key's score times its k_scale before the running max, its probability
+// times its v_scale before P V, the row sum l over the unscaled
+// probabilities. A null page's scales are 0, so a free slot's row reads 0
+// times its payload and stays finite. In bf16 a lane's K bytes are whole
+// 16-byte loads (8 at d 32: qdim below), so the d permutation of K and Q
+// differs from the unquantized one; each of them is again behind
+// if constexpr, the unquantized statement in the else branch.
+//
 // Decode masks keys at positions >= kv_len[i] or < kv_start[i]; a column
 // with no live key writes exact zeros. S (the cache width, or the table's
 // capacity max_blocks bs) may be any length: loads stop at min(kv_len, S).
@@ -57,7 +73,9 @@
 //    groups x column groups.
 //  - bf16: a warp takes 16 keys at a time and loads their K and V rows
 //    straight into registers, 16 bytes per load, all before any
-//    arithmetic (8 KB in flight per warp). S^T = K Q^T runs on mma.sync
+//    arithmetic (8 KB in flight per warp; on one-byte pools 4 KB with the
+//    keys' scales, and the quantized verify issues the next step's before
+//    this step's arithmetic). S^T = K Q^T runs on mma.sync
 //    m16n8k16 with the keys as M and the columns as N; the d axis is
 //    permuted identically in K and Q so that each thread's fragments are
 //    whole 16-byte loads. P^T goes back through movmatrix into the B
@@ -74,6 +92,8 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -115,8 +135,36 @@ struct VParams : Params {
   int T, cp, cgroups;   // candidates; per column group; column groups
 };
 
+// Quantized pools (see the top of this file): k and v hold KV payloads
+template <class KV>
+struct QParams : Params {
+  const float* k_scale;  // (n_blocks, bs, hkv)
+  const float* v_scale;
+};
+template <class KV>
+struct QVParams : VParams {
+  const float* k_scale;  // (n_blocks, bs, hkv)
+  const float* v_scale;
+};
+
+// the payload type of P's pools: void for pools in q's type
 template <class P>
-constexpr bool is_verify = std::is_same<P, VParams>::value;
+struct Payload {
+  using type = void;
+};
+template <class KV>
+struct Payload<QParams<KV>> {
+  using type = KV;
+};
+template <class KV>
+struct Payload<QVParams<KV>> {
+  using type = KV;
+};
+
+template <class P>
+constexpr bool is_verify = std::is_base_of<VParams, P>::value;
+template <class P>
+constexpr bool is_quant = !std::is_void<typename Payload<P>::type>::value;
 
 // keys [ks, ke) of split s of a row whose live keys are [lo, hi): 16-key
 // aligned shares of at least MIN_SPLIT_KEYS; empty past the end
@@ -176,10 +224,10 @@ struct VCols {
 // decode instances must compile exactly as before (their SASS is checked
 // against the previous build), so every verify step below sits behind
 // if constexpr with decode's own statement in the else branch
-template <class P, int N>
+template <class P, int N, bool = is_verify<P>>
 struct VerifyState {};
-template <int N>
-struct VerifyState<VParams, N> {
+template <class P, int N>
+struct VerifyState<P, N, true> {
   VCols vc;
   int lim[N];  // the keys the thread's columns see, below the split's end
 };
@@ -248,6 +296,152 @@ __device__ __forceinline__ void load_v(uint32_t (&vw)[MT], const bf16* src,
   }
 }
 
+// Two one-byte K/V elements (bytes 2h, 2h + 1 of w) -> a bf16 pair, exact,
+// by way of an f16 pair: int8 byte x ^ 0x80 as the low byte of f16 1024 is
+// 1024 + 128 + x, so one f16x2 subtraction leaves x; fp8 e4m3: the
+// hardware's pair conversion. The pair to fp32, whose upper half is then
+// its bf16 (at most 8 significant bits: one byte_perm, no rounding).
+template <typename KV>
+__device__ __forceinline__ uint32_t widen2(uint32_t w, int h);
+template <>
+__device__ __forceinline__ uint32_t widen2<int8_t>(uint32_t w, int h) {
+  const uint32_t x = __byte_perm(w ^ 0x80808080u, 0x64646464u,
+                                 h ? 0x4342 : 0x4140);
+  const float2 f = __half22float2(__hsub2(
+      *reinterpret_cast<const __half2*>(&x), __float2half2_rn(1152.f)));
+  return __byte_perm(__float_as_uint(f.x), __float_as_uint(f.y), 0x7632);
+}
+template <>
+__device__ __forceinline__ uint32_t widen2<__nv_fp8_e4m3>(uint32_t w,
+                                                          int h) {
+  const __nv_fp8x2_storage_t* x =
+      reinterpret_cast<const __nv_fp8x2_storage_t*>(&w);
+  const float2 f = __half22float2(
+      __half2(__nv_cvt_fp8x2_to_halfraw2(x[h], __NV_E4M3)));
+  return __byte_perm(__float_as_uint(f.x), __float_as_uint(f.y), 0x7632);
+}
+
+// One one-byte K/V element -> fp32, exact (the fp32 path)
+template <typename KV>
+__device__ __forceinline__ float widen1(uint8_t x);
+template <>
+__device__ __forceinline__ float widen1<int8_t>(uint8_t x) {
+  return static_cast<float>(static_cast<int8_t>(x));
+}
+template <>
+__device__ __forceinline__ float widen1<__nv_fp8_e4m3>(uint8_t x) {
+  return __half2float(__half(__nv_cvt_fp8_to_halfraw(x, __NV_E4M3)));
+}
+
+// One-byte pools, bf16: a lane reads its D / 4 bytes of a K row as whole
+// loads of KBYTES (16 dims, 8 at d 32), and 8 bytes widen into one 8-dim
+// fragment. So fragment j of lane tq holds dims qdim(j, tq) .. + 7, in K
+// and in Q alike (each whole 16-byte loads of bf16).
+template <int D>
+constexpr int KBYTES = D >= 64 ? 16 : 8;
+template <int D>
+__device__ __forceinline__ int qdim(int j, int tq) {
+  constexpr int F = KBYTES<D> / 8;  // fragments per load
+  return (j / F) * 4 * KBYTES<D> + tq * KBYTES<D> + 8 * (j % F);
+}
+
+// N bytes (4, 8 or 16) from src into w[0 .. N / 4), or zeros
+template <int N>
+__device__ __forceinline__ void ldn(uint32_t* w, const uint8_t* src,
+                                    bool live) {
+  if constexpr (N == 16) {
+    const uint4 x = live ? ld16(src) : make_uint4(0, 0, 0, 0);
+    w[0] = x.x;
+    w[1] = x.y;
+    w[2] = x.z;
+    w[3] = x.w;
+  } else if constexpr (N == 8) {
+    const uint2 x =
+        live ? *reinterpret_cast<const uint2*>(src) : make_uint2(0, 0);
+    w[0] = x.x;
+    w[1] = x.y;
+  } else {
+    w[0] = live ? *reinterpret_cast<const uint32_t*>(src) : 0u;
+  }
+}
+
+// One 16-key step of the bf16 warp loop on a quantized pool, as loaded: K
+// rows c0 + gq, c0 + gq + 8 (D / 4 bytes each, in qdim's order) with their
+// K and V scales (the keys of the lane's scores), and V rows c0 + 2tq +
+// {0, 1, 8, 9}, dims gq D / 8 .. + D / 8
+template <int D>
+struct QuantRows {
+  uint32_t k[2][D / 16], v[4][D / 32];
+  float ks[2], vs[2];
+};
+
+// PAGED16: the pool row of key 0 of the page that holds the 16-key group
+// at c0, or 0 past ke
+__device__ __forceinline__ int64_t group_base(const Params& p, int bi, int c0,
+                                              int ke) {
+  return c0 < ke ? page_row(p, bi, c0) - c0 : 0;
+}
+
+// Issue the loads of the step at c0 (P: QParams or QVParams; PAGED16: r16
+// its group_base); keys past ke read as zeros, scale 0
+template <int D, int KEYS, class P>
+__device__ __forceinline__ void load_quant(const P& p, int bi, int kvh,
+                                           int c0, int ke, int64_t r16,
+                                           QuantRows<D>& q) {
+  static_assert(KEYS != CONTIGUOUS, "one-byte K/V come in pages");
+  constexpr int KB = KBYTES<D>, VB = D / 8;
+  const int lane = threadIdx.x % 32, gq = lane / 4, tq = lane % 4;
+  const uint8_t* K = static_cast<const uint8_t*>(p.k);
+  const uint8_t* V = static_cast<const uint8_t*>(p.v);
+  auto at = [&](int key) -> int64_t {  // pool row x hkv + kv head
+    const int64_t r = KEYS == PAGED16 ? r16 + key : page_row(p, bi, key);
+    return r * p.hkv + kvh;
+  };
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = c0 + gq + 8 * r;
+    const bool live = key < ke;
+    const int64_t a = live ? at(key) : 0;
+#pragma unroll
+    for (int u = 0; u < D / 4 / KB; ++u)
+      ldn<KB>(q.k[r] + KB / 4 * u, K + a * D + u * 4 * KB + tq * KB, live);
+    q.ks[r] = live ? __ldg(p.k_scale + a) : 0.f;
+    q.vs[r] = live ? __ldg(p.v_scale + a) : 0.f;
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int key = c0 + 2 * tq + (r & 1) + 8 * (r >> 1);
+    const bool live = key < ke;
+    ldn<VB>(q.v[r], V + (live ? at(key) : 0) * D + gq * VB, live);
+  }
+}
+
+// A step's K rows widened to bf16: fragment j is words 2j, 2j + 1
+template <typename KV, int D>
+__device__ __forceinline__ void widen_k(const QuantRows<D>& q,
+                                        uint4 (&kr)[2][D / 32]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int j = 0; j < D / 32; ++j)
+      kr[r][j] = make_uint4(widen2<KV>(q.k[r][2 * j], 0),
+                            widen2<KV>(q.k[r][2 * j], 1),
+                            widen2<KV>(q.k[r][2 * j + 1], 0),
+                            widen2<KV>(q.k[r][2 * j + 1], 1));
+}
+
+// A step's V rows widened to bf16, as load_v leaves them: pair i of a row
+// (dims gq D / 8 + 2i, + 1) is half i % 2 of word i / 2
+template <typename KV, int D>
+__device__ __forceinline__ void widen_v(const QuantRows<D>& q,
+                                        uint32_t (&vw)[4][D / 16]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int i = 0; i < D / 16; ++i)
+      vw[r][i] = widen2<KV>(q.v[r][i / 2], i % 2);
+}
+
 // Shared memory of a block: each warp's online-softmax state, then the
 // merge flag
 template <int D>
@@ -284,8 +478,12 @@ __device__ void warp_bf16(const P& p, int bi, int kvh, int h0, int ge,
     const int64_t r = vs.vc.row(p, gq);
 #pragma unroll
     for (int j = 0; j < QJ; ++j)
-      qb[j] = r >= 0 ? ld16(Q + r * D + 32 * j + 8 * tq)
-                     : make_uint4(0, 0, 0, 0);
+      if constexpr (is_quant<P>)
+        qb[j] = r >= 0 ? ld16(Q + r * D + qdim<D>(j, tq))
+                       : make_uint4(0, 0, 0, 0);
+      else
+        qb[j] = r >= 0 ? ld16(Q + r * D + 32 * j + 8 * tq)
+                       : make_uint4(0, 0, 0, 0);
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       vs.vc.col(p, 2 * tq + e, vs.lim[e]);
@@ -294,9 +492,14 @@ __device__ void warp_bf16(const P& p, int bi, int kvh, int h0, int ge,
   } else {
 #pragma unroll
     for (int j = 0; j < QJ; ++j)
-      qb[j] = gq < ge ? ld16(Q + ((int64_t)bi * p.hq + h0 + gq) * D + 32 * j +
-                             8 * tq)
-                      : make_uint4(0, 0, 0, 0);
+      if constexpr (is_quant<P>)
+        qb[j] = gq < ge ? ld16(Q + ((int64_t)bi * p.hq + h0 + gq) * D +
+                               qdim<D>(j, tq))
+                        : make_uint4(0, 0, 0, 0);
+      else
+        qb[j] = gq < ge ? ld16(Q + ((int64_t)bi * p.hq + h0 + gq) * D +
+                               32 * j + 8 * tq)
+                        : make_uint4(0, 0, 0, 0);
   }
 
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
@@ -309,12 +512,43 @@ __device__ void warp_bf16(const P& p, int bi, int kvh, int h0, int ge,
   const int64_t row_stride = (int64_t)p.hkv * D;
   const bf16* Kb = K + ((int64_t)bi * p.S * p.hkv + kvh) * D;
   const bf16* Vb = V + ((int64_t)bi * p.S * p.hkv + kvh) * D;
+  // Quantized pools: PAGED16's page of the warp's next 16-key step is
+  // looked up a step ahead (r16n), so no step waits on the table before
+  // its loads. Verify also has the next step's loads in flight (qn) while
+  // this one computes: a verify block walks its row's keys alone (one
+  // split at serving shapes), so its steps' loads would wait in line;
+  // decode's splits keep enough blocks in flight instead, and the second
+  // step's registers (~36 at d 128) would cost it a block per SM.
+  int64_t r16n = 0;
+  QuantRows<D> qn;
+  if constexpr (is_quant<P>) {
+    const int c = ks + 16 * warp;
+    if constexpr (KEYS == PAGED16) r16n = group_base(p, bi, c, ke);
+    if constexpr (is_verify<P>) {
+      load_quant<D, KEYS>(p, bi, kvh, c, ke, r16n, qn);
+      if constexpr (KEYS == PAGED16)
+        r16n = group_base(p, bi, c + 16 * WARPS, ke);
+    }
+  }
   for (int c0 = ks + 16 * warp; c0 < ke; c0 += 16 * WARPS) {
     // K rows c0 + gq, c0 + gq + 8; V rows c0 + 2tq + {0, 1, 8, 9}, dims
     // gq * D / 8 .. + D / 8; rows past ke read as zeros
     uint4 kr[2][QJ];
     uint32_t vw[4][MT];
-    if constexpr (KEYS == CONTIGUOUS) {
+    // quantized: the step's one-byte rows and scales, K widened before S,
+    // V after the softmax (fewer registers in flight)
+    QuantRows<D> qr;
+    if constexpr (is_quant<P>) {
+      const int next = c0 + 16 * WARPS * (is_verify<P> ? 2 : 1);
+      if constexpr (is_verify<P>) {
+        qr = qn;  // issued a step ago; now the next step's
+        load_quant<D, KEYS>(p, bi, kvh, c0 + 16 * WARPS, ke, r16n, qn);
+      } else {
+        load_quant<D, KEYS>(p, bi, kvh, c0, ke, r16n, qr);
+      }
+      if constexpr (KEYS == PAGED16) r16n = group_base(p, bi, next, ke);
+      widen_k<typename Payload<P>::type, D>(qr, kr);
+    } else if constexpr (KEYS == CONTIGUOUS) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int key = c0 + gq + 8 * r;
@@ -367,6 +601,10 @@ __device__ void warp_bf16(const P& p, int bi, int kvh, int h0, int ge,
         mma_bf16(s, a, qw[2 * half], qw[2 * half + 1]);
       }
     }
+    if constexpr (is_quant<P>) {  // each score times its key's k_scale
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[i] *= qr.ks[i / 2];
+    }
 
     // online softmax per column: s[e] is key gq, s[2 + e] key gq + 8,
     // column 2 tq + e
@@ -410,12 +648,18 @@ __device__ void warp_bf16(const P& p, int bi, int kvh, int h0, int ge,
       }
     }
 
+    if constexpr (is_quant<P>) {  // V row j weighed by p_j v_scale_j
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pr[i] *= qr.vs[i / 2];
+    }
+
     // P^T as the B operand (keys x heads): transpose the two 8x8 halves
     uint32_t x0h, x0l, x1h, x1l;
     split_bf16(pr[0], pr[1], x0h, x0l);
     split_bf16(pr[2], pr[3], x1h, x1l);
     const uint32_t b0h = movmatrix_t(x0h), b1h = movmatrix_t(x1h);
     const uint32_t b0l = movmatrix_t(x0l), b1l = movmatrix_t(x1l);
+    if constexpr (is_quant<P>) widen_v<typename Payload<P>::type, D>(qr, vw);
 
     // O^T (d x 8 heads) += V^T P^T; m-tile i covers dims gq D/8 + 2i, + 1
 #pragma unroll
@@ -499,15 +743,38 @@ __device__ void warp_f32(const P& p, int bi, int kvh, int h0, int ge,
     float s[HEADS];
 #pragma unroll
     for (int h = 0; h < HEADS; ++h) s[h] = 0.f;
-    if (key < ke) {
-      const float* kr = row(K, Kb, key);
-#pragma unroll 4
-      for (int dd = 0; dd < D; dd += 4) {
-        const float4 kv = *reinterpret_cast<const float4*>(kr + dd);
+    float vsc = 0.f;  // quantized: the v_scale of the lane's key
+    if constexpr (is_quant<P>) {
+      if (key < ke) {
+        const int64_t a = page_row(p, bi, key) * p.hkv + kvh;
+        const uint8_t* kr = static_cast<const uint8_t*>(p.k) + a * D;
+#pragma unroll 2
+        for (int dd = 0; dd < D; dd += 16) {
+          const uint4 raw = ld16(kr + dd);
+          const uint8_t* kb = reinterpret_cast<const uint8_t*>(&raw);
 #pragma unroll
-        for (int h = 0; h < HEADS; ++h)
-          s[h] += sm.q[h][dd] * kv.x + sm.q[h][dd + 1] * kv.y +
-                  sm.q[h][dd + 2] * kv.z + sm.q[h][dd + 3] * kv.w;
+          for (int t = 0; t < 16; ++t) {
+            const float kv = widen1<typename Payload<P>::type>(kb[t]);
+#pragma unroll
+            for (int h = 0; h < HEADS; ++h) s[h] += sm.q[h][dd + t] * kv;
+          }
+        }
+        const float ksc = p.k_scale[a];
+#pragma unroll
+        for (int h = 0; h < HEADS; ++h) s[h] *= ksc;
+        vsc = p.v_scale[a];
+      }
+    } else {
+      if (key < ke) {
+        const float* kr = row(K, Kb, key);
+#pragma unroll 4
+        for (int dd = 0; dd < D; dd += 4) {
+          const float4 kv = *reinterpret_cast<const float4*>(kr + dd);
+#pragma unroll
+          for (int h = 0; h < HEADS; ++h)
+            s[h] += sm.q[h][dd] * kv.x + sm.q[h][dd + 1] * kv.y +
+                    sm.q[h][dd + 2] * kv.z + sm.q[h][dd + 3] * kv.w;
+        }
       }
     }
     float pr[HEADS];
@@ -534,8 +801,27 @@ __device__ void warp_f32(const P& p, int bi, int kvh, int h0, int ge,
 #pragma unroll
       for (int i = 0; i < DL; ++i) acc[h][i] *= corr;
     }
+    if constexpr (is_quant<P>) {  // V row j weighed by p_j v_scale_j
+#pragma unroll
+      for (int h = 0; h < HEADS; ++h) pr[h] *= vsc;
+    }
     const int n = min(32, ke - c0);
     for (int j = 0; j < n; ++j) {
+      if constexpr (is_quant<P>) {
+        const uint8_t* vr = static_cast<const uint8_t*>(p.v) +
+                            (page_row(p, bi, c0 + j) * p.hkv + kvh) * D;
+        float vv[DL];
+#pragma unroll
+        for (int i = 0; i < DL; ++i)
+          vv[i] = widen1<typename Payload<P>::type>(vr[lane + 32 * i]);
+#pragma unroll
+        for (int h = 0; h < HEADS; ++h) {
+          const float pj = __shfl_sync(0xffffffffu, pr[h], j);
+#pragma unroll
+          for (int i = 0; i < DL; ++i) acc[h][i] += pj * vv[i];
+        }
+        continue;
+      }
       const float* vr = row(V, Vb, c0 + j);
       float vv[DL];
 #pragma unroll
@@ -561,10 +847,11 @@ __device__ void warp_f32(const P& p, int bi, int kvh, int h0, int ge,
     for (int i = 0; i < DL; ++i) sm.o[warp][h][lane + 32 * i] = acc[h][i];
 }
 
-// Decode (P = Params) or verify (P = VParams). Grid (column groups x
-// splits, hkv x head groups, b), the column group fastest (decode: one).
-template <typename T, int D, int KEYS, class P = Params>
-__global__ void __launch_bounds__(THREADS) decode_fwd(const P p) {
+// One block of decode (P = Params, QParams) or verify (P = VParams,
+// QVParams). Grid (column groups x splits, hkv x head groups, b), the
+// column group fastest (decode: one).
+template <typename T, int D, int KEYS, class P>
+__device__ __forceinline__ void decode_block(const P& p) {
   __shared__ Smem<D> sm;
   int split;
   if constexpr (is_verify<P>)
@@ -702,6 +989,25 @@ __global__ void __launch_bounds__(THREADS) decode_fwd(const P p) {
   if (threadIdx.x == 0) *counter = 0;  // ready for the next launch
 }
 
+template <typename T, int D, int KEYS, class P = Params>
+__global__ void __launch_bounds__(THREADS) decode_fwd(const P p) {
+  decode_block<T, D, KEYS>(p);
+}
+
+// Quantized pools: minBlocksPerMultiprocessor 1 keeps ptxas from trading a
+// few bytes of spills for one more resident block at its occupancy
+// thresholds, which it does on some of these instances without it
+template <typename T, int D, int KEYS, class KV>
+__global__ void __launch_bounds__(THREADS, 1)
+    decode_fwd(const QParams<KV> p) {
+  decode_block<T, D, KEYS>(p);
+}
+template <typename T, int D, int KEYS, class KV>
+__global__ void __launch_bounds__(THREADS, 1)
+    decode_fwd(const QVParams<KV> p) {
+  decode_block<T, D, KEYS>(p);
+}
+
 template <typename T, int KEYS, class P>
 cudaError_t launch_t(const P& p, int d, cudaStream_t stream) {
   int cgroups = 1;  // verify's column groups
@@ -709,13 +1015,13 @@ cudaError_t launch_t(const P& p, int d, cudaStream_t stream) {
   dim3 grid(p.n_split * cgroups, p.hkv * p.groups, p.b);
   switch (d) {
     case 32:
-      decode_fwd<T, 32, KEYS, P><<<grid, THREADS, 0, stream>>>(p);
+      decode_fwd<T, 32, KEYS><<<grid, THREADS, 0, stream>>>(p);
       break;
     case 64:
-      decode_fwd<T, 64, KEYS, P><<<grid, THREADS, 0, stream>>>(p);
+      decode_fwd<T, 64, KEYS><<<grid, THREADS, 0, stream>>>(p);
       break;
     case 128:
-      decode_fwd<T, 128, KEYS, P><<<grid, THREADS, 0, stream>>>(p);
+      decode_fwd<T, 128, KEYS><<<grid, THREADS, 0, stream>>>(p);
       break;
     default:
       return cudaErrorInvalidValue;

@@ -422,5 +422,5 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   p.causal = causal;
   p.window = window;
   p.scale = scale;
-  return (int)rt::dispatch_d<float, float, false>(p, d, st);
+  return (int)rt::dispatch_d<float, false>(p, d, st);
 }

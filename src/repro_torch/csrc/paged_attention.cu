@@ -34,11 +34,13 @@
 //    folded into scores and probabilities; in fp32 on attention.cuh's
 //    scalar body.
 //  - paged_decode_attention_quant_pallas and paged_verify_attention_quant_
-//    pallas (int8 / fp8 pools, dequantization fused per tile): the
-//    *_quant_fwd entries, a K/V type code and the scale pools on
-//    attention.cuh's bodies (scalar split-KV decode plus combine_splits;
-//    mma.sync verify), which fold the scales into scores and probabilities
-//    and never write a dequantized page.
+//    pallas (#2 and #4 on int8 / fp8 pools): the *_quant_fwd entries, bf16
+//    and fp32, on the same decode body (dk::QParams / dk::QVParams: the
+//    payload type and the scale pools), which reads each key row's
+//    one-byte K and V, widens them exactly in registers and folds the
+//    scales into scores and probabilities; never a dequantized page. Split
+//    counts and merge counters as #2's and #4's, the counters a buffer of
+//    each kernel's own.
 //
 // Bound on the card: a decode step does ~4 d hq kv_len FLOPs per row on
 // 2 d hkv kv_len K/V elements, a few FLOPs per byte, so it is bound by bytes
@@ -227,39 +229,14 @@ __device__ __forceinline__ void gather(unsigned char* dst, const bf16* X,
                    live ? src + 8 * u : X, live ? 16 : 0);
 }
 
-// 16 one-byte K/V elements -> 16 bf16 (two 16-byte units), exact, by way
-// of f16 pairs: int8 byte x ^ 0x80 as the low byte of f16 1024 is
-// 1024 + 128 + x, so one f16x2 subtraction leaves x; fp8 e4m3: the
-// hardware's pair conversion. The pair to fp32, whose upper half is then
-// its bf16 (at most 8 significant bits: one byte_perm, no rounding).
+// 16 one-byte K/V elements -> 16 bf16 (two 16-byte units), exact
+// (dk::widen2)
 template <typename KV>
-__device__ __forceinline__ void widen16(const uint4& raw, uint4 (&out)[2]);
-template <>
-__device__ __forceinline__ void widen16<int8_t>(const uint4& raw,
-                                                uint4 (&out)[2]) {
+__device__ __forceinline__ void widen16(const uint4& raw, uint4 (&out)[2]) {
   const uint32_t* w = reinterpret_cast<const uint32_t*>(&raw);
   uint32_t* o = reinterpret_cast<uint32_t*>(out);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {  // elements 2 i, 2 i + 1
-    const uint32_t h = __byte_perm(w[i / 2] ^ 0x80808080u, 0x64646464u,
-                                   i % 2 ? 0x4342 : 0x4140);
-    const float2 f = __half22float2(__hsub2(
-        *reinterpret_cast<const __half2*>(&h), __float2half2_rn(1152.f)));
-    o[i] = __byte_perm(__float_as_uint(f.x), __float_as_uint(f.y), 0x7632);
-  }
-}
-template <>
-__device__ __forceinline__ void widen16<__nv_fp8_e4m3>(const uint4& raw,
-                                                       uint4 (&out)[2]) {
-  const __nv_fp8x2_storage_t* h =
-      reinterpret_cast<const __nv_fp8x2_storage_t*>(&raw);
-  uint32_t* o = reinterpret_cast<uint32_t*>(out);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const float2 f = __half22float2(
-        __half2(__nv_cvt_fp8x2_to_halfraw2(h[i], __NV_E4M3)));
-    o[i] = __byte_perm(__float_as_uint(f.x), __float_as_uint(f.y), 0x7632);
-  }
+  for (int i = 0; i < 8; ++i) o[i] = dk::widen2<KV>(w[i / 2], i % 2);
 }
 
 // Pool row of key `key` of item `it`, or 0 past its last key
@@ -716,28 +693,13 @@ cudaError_t launch_bf16(const void* q, const void* k_pages,
 
 namespace {
 
-// dtype (of q, o): 0 = float32, 1 = bfloat16. kv_type (of the K/V pools):
-// 0 = q's dtype (fp32 only), 1 = int8, 2 = fp8 e4m3; the quantized types
-// need both scale pools. attention.cuh's bodies: fp32 context, the
-// quantized decode (#5) and verify (#7), fp32 quantized context.
-cudaError_t dispatch(const rt::AttnParams& p, int d, int dtype,
-                     cudaStream_t stream, int kv_type) {
-  if (p.hkv <= 0 || p.hq % p.hkv != 0) return cudaErrorInvalidValue;
-  if (kv_type == 0)
-    return dtype == 0 ? rt::dispatch_d<float, float, true>(p, d, stream)
-                      : cudaErrorInvalidValue;
-  if (!p.k_scale || !p.v_scale) return cudaErrorInvalidValue;
-  if (kv_type == 1) return rt::dispatch_q<int8_t>(p, d, dtype, stream);
-  if (kv_type == 2) return rt::dispatch_q<__nv_fp8_e4m3>(p, d, dtype, stream);
-  return cudaErrorInvalidValue;
-}
-
+// fp32 paged context on attention.cuh's scalar body: K/V in q's dtype
+// (kv_type 0) or one-byte (1 = int8, 2 = fp8 e4m3, with both scale pools)
 int paged_context(const void* q, const void* k_pages, const void* v_pages,
                   const float* k_scale, const float* v_scale, void* o,
                   const int* tables, const int* q_start, const int* kv_len,
                   int b, int C, int hq, int hkv, int d, int block_size,
-                  int max_blocks, float scale, int dtype, int kv_type,
-                  void* stream) {
+                  int max_blocks, float scale, int kv_type, void* stream) {
   rt::AttnParams p{};
   p.q = q;
   p.k = k_pages;
@@ -756,21 +718,40 @@ int paged_context(const void* q, const void* k_pages, const void* v_pages,
   p.max_blocks = max_blocks;
   p.causal = 1;
   p.scale = scale;
-  return (int)dispatch(p, d, dtype, (cudaStream_t)stream, kv_type);
+  if (hkv <= 0 || hq % hkv != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (kv_type == 0) return (int)rt::dispatch_d<float, true>(p, d, st);
+  if (!k_scale || !v_scale) return (int)cudaErrorInvalidValue;
+  if (kv_type == 1) return (int)rt::dispatch_d<int8_t, true>(p, d, st);
+  if (kv_type == 2) return (int)rt::dispatch_d<__nv_fp8_e4m3, true>(p, d, st);
+  return (int)cudaErrorInvalidValue;
 }
 
-}  // namespace
+// The decode body's instances on P (dtype of q, o: 0 = float32, 1 =
+// bfloat16): bf16 takes one table lookup per 16-key group when a page
+// holds whole groups (bs % 16 == 0), else one per key; fp32 always one per
+// key (a 32-key step may span pages)
+template <class P>
+cudaError_t launch_paged(const P& p, int d, int dtype, cudaStream_t st) {
+  if (dtype == 0) return dk::launch_t<float, dk::PAGED>(p, d, st);
+  if (dtype == 1)
+    return p.bs % 16 == 0 ? dk::launch_t<dk::bf16, dk::PAGED16>(p, d, st)
+                          : dk::launch_t<dk::bf16, dk::PAGED>(p, d, st);
+  return cudaErrorInvalidValue;
+}
 
-// kv_len (b,) or null (every table slot full). counters: this kernel's
+// Decode (#2 on dk::Params, #5 on dk::QParams<KV> with its scales set):
+// kv_len (b,) or null (every table slot full). counters: the kernel's
 // merge counters, n_counters entries, zero between launches (needed when
 // n_split > 1).
-extern "C" int paged_decode_attention_fwd(
-    const void* q, const void* k_pages, const void* v_pages, void* o,
-    const int* tables, const int* kv_len, int b, int hq, int hkv, int d,
-    int block_size, int max_blocks, float scale, int n_split, float* part,
-    int* counters, int n_counters, int dtype, void* stream) {
+template <class P>
+int paged_decode(P p, const void* q, const void* k_pages,
+                 const void* v_pages, void* o, const int* tables,
+                 const int* kv_len, int b, int hq, int hkv, int d,
+                 int block_size, int max_blocks, float scale, int n_split,
+                 float* part, int* counters, int n_counters, int dtype,
+                 void* stream) {
   if (block_size < 1 || max_blocks < 0) return (int)cudaErrorInvalidValue;
-  dk::Params p{};
   p.q = q;
   p.k = k_pages;
   p.v = v_pages;
@@ -788,47 +769,25 @@ extern "C" int paged_decode_attention_fwd(
   p.max_blocks = max_blocks;
   const cudaError_t e = dk::prepare(p, scale, n_counters);
   if (e != cudaSuccess) return (int)e;
-  cudaStream_t st = (cudaStream_t)stream;
-  const bool whole = block_size % 16 == 0;  // 16-key groups in one page
-  if (dtype == 0)  // a 32-key fp32 step may span pages: per-key lookups
-    return (int)dk::launch_t<float, dk::PAGED>(p, d, st);
-  if (dtype == 1)
-    return whole ? (int)dk::launch_t<dk::bf16, dk::PAGED16>(p, d, st)
-                 : (int)dk::launch_t<dk::bf16, dk::PAGED>(p, d, st);
-  return (int)cudaErrorInvalidValue;
+  return (int)launch_paged(p, d, dtype, (cudaStream_t)stream);
 }
 
-extern "C" int paged_context_attention_fwd(
-    const void* q, const void* k_pages, const void* v_pages, void* o,
-    const int* tables, const int* q_start, const int* kv_len, int b, int C,
-    int hq, int hkv, int d, int block_size, int max_blocks, float scale,
-    int dtype, void* stream) {
-  if (dtype == 1)
-    return (int)pc::launch_bf16<pc::bf16>(
-        q, k_pages, v_pages, nullptr, nullptr, o, tables, q_start, kv_len, b,
-        C, hq, hkv, d, block_size, max_blocks, scale, (cudaStream_t)stream);
-  if (dtype != 0) return (int)cudaErrorInvalidValue;
-  return paged_context(q, k_pages, v_pages, nullptr, nullptr, o, tables,
-                       q_start, kv_len, b, C, hq, hkv, d, block_size,
-                       max_blocks, scale, dtype, 0, stream);
-}
-
-// Verification: the decode body with (candidate, head) columns (decode.cuh,
-// VParams), candidate t of row i at kv_start[i] + t seeing keys
-// [0, min(kv_len, kv_start + t + 1)). Padding candidates (t >= the slot's
-// real count) sit past kv_len and still see the committed keys
-// [0, kv_len); a row with kv_len == 0 (a free slot on an all-null table)
-// writes exact zeros. part: (b, T, hq, n_split, d + 2) fp32; counters: this
-// kernel's merge counters, n_counters entries, zero between launches (both
-// needed when n_split > 1).
-extern "C" int paged_verify_attention_fwd(
-    const void* q, const void* k_pages, const void* v_pages, void* o,
-    const int* tables, const int* kv_start, const int* kv_len, int b, int T,
-    int hq, int hkv, int d, int block_size, int max_blocks, float scale,
-    int n_split, float* part, int* counters, int n_counters, int dtype,
-    void* stream) {
+// Verification (#4 on dk::VParams, #7 on dk::QVParams<KV>): the decode
+// body with (candidate, head) columns, candidate t of row i at kv_start[i]
+// + t seeing keys [0, min(kv_len, kv_start + t + 1)). Padding candidates
+// (t >= the slot's real count) sit past kv_len and still see the committed
+// keys [0, kv_len); a row with kv_len == 0 (a free slot on an all-null
+// table) writes exact zeros. part: (b, T, hq, n_split, d + 2) fp32;
+// counters: the kernel's merge counters, n_counters entries, zero between
+// launches (both needed when n_split > 1).
+template <class P>
+int paged_verify(P p, const void* q, const void* k_pages,
+                 const void* v_pages, void* o, const int* tables,
+                 const int* kv_start, const int* kv_len, int b, int T, int hq,
+                 int hkv, int d, int block_size, int max_blocks, float scale,
+                 int n_split, float* part, int* counters, int n_counters,
+                 int dtype, void* stream) {
   if (block_size < 1 || max_blocks < 0) return (int)cudaErrorInvalidValue;
-  dk::VParams p{};
   p.q = q;
   p.k = k_pages;
   p.v = v_pages;
@@ -848,45 +807,79 @@ extern "C" int paged_verify_attention_fwd(
   p.max_blocks = max_blocks;
   const cudaError_t e = dk::prepare_verify(p, scale, n_counters);
   if (e != cudaSuccess) return (int)e;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return (int)dk::launch_t<float, dk::PAGED>(p, d, st);
-  if (dtype == 1)
-    return block_size % 16 == 0
-               ? (int)dk::launch_t<dk::bf16, dk::PAGED16>(p, d, st)
-               : (int)dk::launch_t<dk::bf16, dk::PAGED>(p, d, st);
+  return (int)launch_paged(p, d, dtype, (cudaStream_t)stream);
+}
+
+// Q<KV> with the scale pools set, for kv_type 1 (int8) and 2 (fp8 e4m3):
+// f(params) of the quantized entries, or an error for another code or a
+// missing scale pool
+template <template <class> class Q, class F>
+int with_payload(int kv_type, const float* k_scale, const float* v_scale,
+                 F f) {
+  if (!k_scale || !v_scale) return (int)cudaErrorInvalidValue;
+  auto run = [&](auto p) {
+    p.k_scale = k_scale;
+    p.v_scale = v_scale;
+    return f(p);
+  };
+  if (kv_type == 1) return run(Q<int8_t>{});
+  if (kv_type == 2) return run(Q<__nv_fp8_e4m3>{});
   return (int)cudaErrorInvalidValue;
 }
 
+}  // namespace
+
+extern "C" int paged_decode_attention_fwd(
+    const void* q, const void* k_pages, const void* v_pages, void* o,
+    const int* tables, const int* kv_len, int b, int hq, int hkv, int d,
+    int block_size, int max_blocks, float scale, int n_split, float* part,
+    int* counters, int n_counters, int dtype, void* stream) {
+  return paged_decode(dk::Params{}, q, k_pages, v_pages, o, tables, kv_len,
+                      b, hq, hkv, d, block_size, max_blocks, scale, n_split,
+                      part, counters, n_counters, dtype, stream);
+}
+
+extern "C" int paged_context_attention_fwd(
+    const void* q, const void* k_pages, const void* v_pages, void* o,
+    const int* tables, const int* q_start, const int* kv_len, int b, int C,
+    int hq, int hkv, int d, int block_size, int max_blocks, float scale,
+    int dtype, void* stream) {
+  if (dtype == 1)
+    return (int)pc::launch_bf16<pc::bf16>(
+        q, k_pages, v_pages, nullptr, nullptr, o, tables, q_start, kv_len, b,
+        C, hq, hkv, d, block_size, max_blocks, scale, (cudaStream_t)stream);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  return paged_context(q, k_pages, v_pages, nullptr, nullptr, o, tables,
+                       q_start, kv_len, b, C, hq, hkv, d, block_size,
+                       max_blocks, scale, 0, stream);
+}
+
+extern "C" int paged_verify_attention_fwd(
+    const void* q, const void* k_pages, const void* v_pages, void* o,
+    const int* tables, const int* kv_start, const int* kv_len, int b, int T,
+    int hq, int hkv, int d, int block_size, int max_blocks, float scale,
+    int n_split, float* part, int* counters, int n_counters, int dtype,
+    void* stream) {
+  return paged_verify(dk::VParams{}, q, k_pages, v_pages, o, tables,
+                      kv_start, kv_len, b, T, hq, hkv, d, block_size,
+                      max_blocks, scale, n_split, part, counters, n_counters,
+                      dtype, stream);
+}
+
 // Quantized pools: kv_type 1 = int8, 2 = fp8 e4m3 payloads (n_blocks,
-// block_size, hkv, d), k_scale / v_scale (n_blocks, block_size, hkv) fp32.
-// Decode splits a row's keys over n_split blocks whose partials
-// combine_splits merges.
+// block_size, hkv, d), k_scale / v_scale (n_blocks, block_size, hkv) fp32;
+// otherwise the arguments of the unquantized entries.
 extern "C" int paged_decode_attention_quant_fwd(
     const void* q, const void* k_pages, const void* v_pages,
     const float* k_scale, const float* v_scale, void* o, const int* tables,
     const int* kv_len, int b, int hq, int hkv, int d, int block_size,
-    int max_blocks, float scale, int n_split, float* part, int dtype,
-    int kv_type, void* stream) {
-  if (kv_type == 0) return (int)cudaErrorInvalidValue;
-  rt::AttnParams p{};
-  p.q = q;
-  p.k = k_pages;
-  p.v = v_pages;
-  p.k_scale = k_scale;
-  p.v_scale = v_scale;
-  p.o = o;
-  p.tables = tables;
-  p.kv_len = kv_len;
-  p.b = b;
-  p.sq = 1;
-  p.hq = hq;
-  p.hkv = hkv;
-  p.bs = block_size;
-  p.max_blocks = max_blocks;
-  p.scale = scale;
-  p.n_split = n_split;
-  p.part = part;
-  return (int)dispatch(p, d, dtype, (cudaStream_t)stream, kv_type);
+    int max_blocks, float scale, int n_split, float* part, int* counters,
+    int n_counters, int dtype, int kv_type, void* stream) {
+  return with_payload<dk::QParams>(kv_type, k_scale, v_scale, [&](auto p) {
+    return paged_decode(p, q, k_pages, v_pages, o, tables, kv_len, b, hq,
+                        hkv, d, block_size, max_blocks, scale, n_split, part,
+                        counters, n_counters, dtype, stream);
+  });
 }
 
 extern "C" int paged_context_attention_quant_fwd(
@@ -907,19 +900,19 @@ extern "C" int paged_context_attention_quant_fwd(
   if (dtype != 0 || kv_type == 0) return (int)cudaErrorInvalidValue;
   return paged_context(q, k_pages, v_pages, k_scale, v_scale, o, tables,
                        q_start, kv_len, b, C, hq, hkv, d, block_size,
-                       max_blocks, scale, dtype, kv_type, stream);
+                       max_blocks, scale, kv_type, stream);
 }
 
-// #7 stays on attention.cuh's bodies (attn_fwd_mma in bf16, attn_fwd in
-// fp32) as the context chunk with q_start = kv_start
 extern "C" int paged_verify_attention_quant_fwd(
     const void* q, const void* k_pages, const void* v_pages,
     const float* k_scale, const float* v_scale, void* o, const int* tables,
     const int* kv_start, const int* kv_len, int b, int T, int hq, int hkv,
-    int d, int block_size, int max_blocks, float scale, int dtype,
-    int kv_type, void* stream) {
-  if (kv_type == 0) return (int)cudaErrorInvalidValue;
-  return paged_context(q, k_pages, v_pages, k_scale, v_scale, o, tables,
-                       kv_start, kv_len, b, T, hq, hkv, d, block_size,
-                       max_blocks, scale, dtype, kv_type, stream);
+    int d, int block_size, int max_blocks, float scale, int n_split,
+    float* part, int* counters, int n_counters, int dtype, int kv_type,
+    void* stream) {
+  return with_payload<dk::QVParams>(kv_type, k_scale, v_scale, [&](auto p) {
+    return paged_verify(p, q, k_pages, v_pages, o, tables, kv_start, kv_len,
+                        b, T, hq, hkv, d, block_size, max_blocks, scale,
+                        n_split, part, counters, n_counters, dtype, stream);
+  });
 }

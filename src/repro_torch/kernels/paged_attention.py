@@ -5,19 +5,19 @@ their quantized-pool variants (``*_quant_pallas``: int8 / fp8 e4m3 payload
 pools with float32 per-token-per-head scale pools, dequantized inside the
 kernel).
 
-Bodies (see the CUDA source): decode (#2) and verification (#4), bf16
-and fp32, run the GQA decode body of ``csrc/decode.cuh`` through the block
-table, each with its split count over the table's capacity and merge
-counters of its own. A verify block's 8 query columns are (candidate,
+Bodies (see the CUDA source): decode (#2) and verification (#4), and their
+twins on int8 / fp8 pools (#5, #7), bf16 and fp32, run the GQA decode body
+of ``csrc/decode.cuh`` through the block table, each with its split count
+over the table's capacity and merge counters of its own (the quantized
+ones widen the one-byte rows in registers and fold the scales into scores
+and probabilities). A verify block's 8 query columns are (candidate,
 head) pairs (``verify_columns``): candidate t of row i, at position
 kv_start[i] + t, sees keys [0, min(kv_len[i], kv_start[i] + t + 1)). bf16
 context runs the TMA + wgmma body ``pc::context_fwd`` on bf16 pools (#3,
 K/V tiles gathered by cp.async) and on int8 / fp8 pools (#6, widened to
 bf16 by the gathering warps, scales folded into scores and
-probabilities). fp32 context, fp32 quantized context and the quantized
-decode and verify (#5, #7) run the bodies of ``csrc/attention.cuh`` (the
-quantized decode with ``decode_splits`` blocks per row and a second merge
-launch).
+probabilities). fp32 context and fp32 quantized context run the scalar
+body of ``csrc/attention.cuh``.
 
 Each wrapper checks its inputs, allocates the output, launches on the
 current stream and counts its own launches; none falls back to its plain
@@ -57,33 +57,25 @@ def _tables(block_tables, b, device):
     return t.contiguous()
 
 
-def decode_splits(b, hkv, capacity, device):
-    """How many blocks share one row's keys in the quantized decode kernel
-    (#5, attention.cuh's scalar body): enough (b x hkv x splits) for ~4
-    blocks per SM, and at most one 32-key tile each."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-capacity // 32), -(-4 * sms // (b * hkv))))
-
-
 def paged_decode_splits(b, hq, hkv, max_blocks, block_size, sms):
-    """How many blocks share one row's keys in the paged decode kernel
-    (#2): ``contiguous_splits`` over the table's capacity max_blocks x
+    """How many blocks share one row's keys in the paged decode kernels
+    (#2, #5): ``contiguous_splits`` over the table's capacity max_blocks x
     block_size (never the live lengths, which are on the device)."""
     return contiguous_splits(b, hq, hkv, max_blocks * block_size, sms)
 
 
 def verify_columns(T, g):
-    """(cp, column groups) of the paged verify kernel (#4): a block's HEADS
-    query columns are cp = max(1, HEADS // g) candidates of g heads each
-    (capped by T; one candidate and HEADS heads of a group at g > HEADS),
-    so ceil(T / cp) column groups cover a row's candidates."""
+    """(cp, column groups) of the paged verify kernels (#4, #7): a
+    block's HEADS query columns are cp = max(1, HEADS // g) candidates of
+    g heads each (capped by T; one candidate and HEADS heads of a group at
+    g > HEADS), so ceil(T / cp) column groups cover a row's candidates."""
     cp = min(T, max(1, HEADS // g))
     return cp, -(-T // cp)
 
 
 def paged_verify_splits(b, T, hq, hkv, max_blocks, block_size, sms):
-    """How many blocks share one row's keys in the paged verify kernel
-    (#4): ``contiguous_splits`` over the table's capacity max_blocks x
+    """How many blocks share one row's keys in the paged verify kernels
+    (#4, #7): ``contiguous_splits`` over the table's capacity max_blocks x
     block_size (never the live lengths, which are on the device), counting
     its verify_columns column groups among the blocks."""
     return contiguous_splits(b, hq, hkv, max_blocks * block_size, sms,
@@ -141,24 +133,29 @@ def _launch(entry, q, k_pages, v_pages, o, quant, tail, tail_types):
         raise RuntimeError(f"{entry}: CUDA error {err}")
 
 
-def _split_buffers(kernel, n_split, rows, d, device):
-    """(part, counters) of a launch with n_split splits over `rows` query
-    rows: fp32 partials (rows, n_split, d + 2) and `kernel`'s merge
-    counters (None for a kernel that merges in a second launch), or
-    (None, None) for one split."""
-    if n_split == 1:
-        return None, None
-    return (torch.empty(rows * n_split * (d + 2), dtype=torch.float32,
-                        device=device),
-            merge_counters(kernel, rows, device) if kernel else None)
-
-
 def _ptr(t):
     return t.data_ptr() if t is not None else None
 
 
-def _decode(q, k_pages, v_pages, scales, block_tables, kv_len, scale):
-    """Launch the decode entry (quantized when `scales` is given) -> o."""
+def _splits(kernel, n_split, rows, d, device):
+    """The split arguments of a decode-body entry, (n_split, part,
+    counters, n_counters), for n_split splits over `rows` query rows: fp32
+    partials (rows, n_split, d + 2) and `kernel`'s merge counters (null
+    for one split); and their ctypes."""
+    part = counters = None
+    if n_split > 1:
+        part = torch.empty(rows * n_split * (d + 2), dtype=torch.float32,
+                           device=device)
+        counters = merge_counters(kernel, rows, device)
+    return ((n_split, _ptr(part), _ptr(counters),
+             counters.numel() if counters is not None else 0),
+            [_I, _P, _P, _I])
+
+
+def _decode(kernel, q, k_pages, v_pages, scales, block_tables, kv_len,
+            scale):
+    """Launch the decode entry (quantized when `scales` is given) with the
+    merge counters of `kernel` -> o."""
     q, k_pages, v_pages, quant = _checked(q, k_pages, v_pages, scales)
     b, one, hq, d = q.shape
     if one != 1:
@@ -172,23 +169,14 @@ def _decode(q, k_pages, v_pages, scales, block_tables, kv_len, scale):
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
-    if quant is None:
-        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        n_split = paged_decode_splits(b, hq, hkv, nb, bs, sms)
-    else:
-        n_split = decode_splits(b, hkv, nb * bs, q.device)
-    part, counters = _split_buffers(
-        "paged_decode_attention" if quant is None else None, n_split,
-        b * hq, d, q.device)
-    tail = (tbl.data_ptr(), lens.data_ptr(), b, hq, hkv, d, bs, nb,
-            float(scale), n_split, _ptr(part))
-    types = [_P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P]
-    if quant is None:   # #2's own merge counters
-        tail += (_ptr(counters),
-                 counters.numel() if counters is not None else 0)
-        types += [_P, _I]
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    splits, split_types = _splits(
+        kernel, paged_decode_splits(b, hq, hkv, nb, bs, sms), b * hq, d,
+        q.device)
     _launch("paged_decode_attention_fwd", q, k_pages, v_pages, o, quant,
-            (*tail, DTYPES[q.dtype]), types + [_I])
+            (tbl.data_ptr(), lens.data_ptr(), b, hq, hkv, d, bs, nb,
+             float(scale), *splits, DTYPES[q.dtype]),
+            [_P, _P, _I, _I, _I, _I, _I, _I, _F] + split_types + [_I])
     return o
 
 
@@ -196,7 +184,8 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, block_tables, *,
                                 kv_len=None, scale=None):
     """q (b,1,hq,d); pages (n_blocks,bs,hkv,d); block_tables (b,nb);
     kv_len (b,) (default: every table slot full) -> (b,1,hq,d)."""
-    o = _decode(q, k_pages, v_pages, None, block_tables, kv_len, scale)
+    o = _decode("paged_decode_attention", q, k_pages, v_pages, None,
+                block_tables, kv_len, scale)
     if o.numel():
         paged_decode_attention_cuda.launches += 1
     return o
@@ -208,18 +197,16 @@ def paged_decode_attention_quant_cuda(q, k_pages, v_pages, k_scale, v_scale,
     """paged_decode_attention_cuda on int8 / fp8 payload pools
     (n_blocks,bs,hkv,d) with float32 scale pools k_scale, v_scale
     (n_blocks,bs,hkv) -> (b,1,hq,d) in q's dtype."""
-    o = _decode(q, k_pages, v_pages, (k_scale, v_scale), block_tables,
-                kv_len, scale)
+    o = _decode("paged_decode_attention_quant", q, k_pages, v_pages,
+                (k_scale, v_scale), block_tables, kv_len, scale)
     if o.numel():
         paged_decode_attention_quant_cuda.launches += 1
     return o
 
 
-def _chunk_attention(entry, q, k_pages, v_pages, block_tables, q_start,
-                     kv_len, scale, scales=None):
-    """Launch `entry` (context, or the quantized verify: the context
-    contract at q_start = kv_start; its ``_quant_fwd`` twin when `scales`
-    is (k_scale, v_scale)) -> o."""
+def _context(q, k_pages, v_pages, scales, block_tables, q_start, kv_len,
+             scale):
+    """Launch the context entry (quantized when `scales` is given) -> o."""
     q, k_pages, v_pages, quant = _checked(q, k_pages, v_pages, scales)
     b, C, hq, d = q.shape
     _, bs, hkv, _ = k_pages.shape
@@ -230,7 +217,7 @@ def _chunk_attention(entry, q, k_pages, v_pages, block_tables, q_start,
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
-    _launch(entry, q, k_pages, v_pages, o, quant,
+    _launch("paged_context_attention_fwd", q, k_pages, v_pages, o, quant,
             (tbl.data_ptr(), starts.data_ptr(), lens.data_ptr(), b, C, hq,
              hkv, d, bs, tbl.shape[1], float(scale), DTYPES[q.dtype]),
             [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I])
@@ -242,19 +229,18 @@ def paged_context_attention_cuda(q, k_pages, v_pages, block_tables, *,
     """q (b,C,hq,d), row i token j at absolute position q_start[i] + j;
     pages already hold the chunk's K/V at [q_start, kv_len) -> (b,C,hq,d).
     """
-    o = _chunk_attention("paged_context_attention_fwd", q, k_pages, v_pages,
-                         block_tables, q_start, kv_len, scale)
+    o = _context(q, k_pages, v_pages, None, block_tables, q_start, kv_len,
+                 scale)
     if o.numel():
         paged_context_attention_cuda.launches += 1
     return o
 
 
-def paged_verify_attention_cuda(q, k_pages, v_pages, block_tables, *,
-                                kv_start, kv_len, scale=None):
-    """q (b,T,hq,d), T candidates per slot, row i's candidate j at absolute
-    position kv_start[i] + j; pages already hold the candidates' K/V at
-    [kv_start, kv_len) -> (b,T,hq,d), every position kept."""
-    q, k_pages, v_pages = check_attention_inputs(q, k_pages, v_pages)
+def _verify(kernel, q, k_pages, v_pages, scales, block_tables, kv_start,
+            kv_len, scale):
+    """Launch the verify entry (quantized when `scales` is given) with the
+    merge counters of `kernel` -> o."""
+    q, k_pages, v_pages, quant = _checked(q, k_pages, v_pages, scales)
     b, T, hq, d = q.shape
     _, bs, hkv, _ = k_pages.shape
     tbl = _tables(block_tables, b, q.device)
@@ -266,16 +252,26 @@ def paged_verify_attention_cuda(q, k_pages, v_pages, block_tables, *,
     if o.numel() == 0:
         return o
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    n_split = paged_verify_splits(b, T, hq, hkv, nb, bs, sms)
-    part, counters = _split_buffers("paged_verify_attention", n_split,
-                                    b * T * hq, d, q.device)
-    _launch("paged_verify_attention_fwd", q, k_pages, v_pages, o, None,
+    splits, split_types = _splits(
+        kernel, paged_verify_splits(b, T, hq, hkv, nb, bs, sms), b * T * hq,
+        d, q.device)
+    _launch("paged_verify_attention_fwd", q, k_pages, v_pages, o, quant,
             (tbl.data_ptr(), starts.data_ptr(), lens.data_ptr(), b, T, hq,
-             hkv, d, bs, nb, float(scale), n_split, _ptr(part),
-             _ptr(counters), counters.numel() if counters is not None else 0,
-             DTYPES[q.dtype]),
-            [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _I, _I])
-    paged_verify_attention_cuda.launches += 1
+             hkv, d, bs, nb, float(scale), *splits, DTYPES[q.dtype]),
+            [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F] + split_types
+            + [_I])
+    return o
+
+
+def paged_verify_attention_cuda(q, k_pages, v_pages, block_tables, *,
+                                kv_start, kv_len, scale=None):
+    """q (b,T,hq,d), T candidates per slot, row i's candidate j at absolute
+    position kv_start[i] + j; pages already hold the candidates' K/V at
+    [kv_start, kv_len) -> (b,T,hq,d), every position kept."""
+    o = _verify("paged_verify_attention", q, k_pages, v_pages, None,
+                block_tables, kv_start, kv_len, scale)
+    if o.numel():
+        paged_verify_attention_cuda.launches += 1
     return o
 
 
@@ -284,9 +280,8 @@ def paged_context_attention_quant_cuda(q, k_pages, v_pages, k_scale,
                                        kv_len, scale=None):
     """paged_context_attention_cuda on int8 / fp8 payload pools with
     float32 scale pools (n_blocks,bs,hkv)."""
-    o = _chunk_attention("paged_context_attention_fwd", q, k_pages, v_pages,
-                         block_tables, q_start, kv_len, scale,
-                         (k_scale, v_scale))
+    o = _context(q, k_pages, v_pages, (k_scale, v_scale), block_tables,
+                 q_start, kv_len, scale)
     if o.numel():
         paged_context_attention_quant_cuda.launches += 1
     return o
@@ -297,9 +292,8 @@ def paged_verify_attention_quant_cuda(q, k_pages, v_pages, k_scale, v_scale,
                                       scale=None):
     """paged_verify_attention_cuda on int8 / fp8 payload pools with
     float32 scale pools (n_blocks,bs,hkv)."""
-    o = _chunk_attention("paged_verify_attention_fwd", q, k_pages, v_pages,
-                         block_tables, kv_start, kv_len, scale,
-                         (k_scale, v_scale))
+    o = _verify("paged_verify_attention_quant", q, k_pages, v_pages,
+                (k_scale, v_scale), block_tables, kv_start, kv_len, scale)
     if o.numel():
         paged_verify_attention_quant_cuda.launches += 1
     return o

@@ -215,6 +215,132 @@ def test_quant_context_folds_scales_into_widened_pages(kv, bs):
         assert err <= ATOL, f"{kv} bs {bs}: folded vs {what}: {err}"
 
 
+# --- kernels #5 and #7's arithmetic on the card (csrc/decode.cuh) ------------
+# The decode body on quantized pools widens one-byte K/V rows in registers
+# and folds the scales in, as #6 does: each score times its key's k_scale
+# before the running max, each probability times its key's v_scale before
+# P V, the row sum over the unscaled probabilities; a query column (decode:
+# a head; verify: a (candidate, head) pair) sees the keys below its limit.
+
+def _folded_columns(q, kq, vq, ks, vs, tbl, lim):
+    """Attention of q (b, T, hq, d) on widened pages with the scales folded
+    in, candidate t of row i seeing keys [0, lim[i, t]); fp32 (numpy): the
+    kernels' order of operations. A column with no key gives zeros."""
+    b, T, hq, d = q.shape
+    _, bs, hkv, _ = kq.shape
+    g = hq // hkv
+    k = np.asarray(kq).astype(np.float32)[tbl].reshape(b, -1, hkv, d)
+    v = np.asarray(vq).astype(np.float32)[tbl].reshape(b, -1, hkv, d)
+    kscale = np.asarray(ks)[tbl].reshape(b, -1, hkv).transpose(0, 2, 1)
+    vscale = np.asarray(vs)[tbl].reshape(b, -1, hkv).transpose(0, 2, 1)
+    S = k.shape[1]
+    s = np.einsum("bthgd,bjhd->bthgj", q.reshape(b, T, hkv, g, d), k)
+    s = s * kscale[:, None, :, None, :] / np.sqrt(d)
+    live = (np.arange(S)[None, None] < lim[:, :, None])[:, :, None, None]
+    s = np.where(live, s, -np.inf)
+    m = s.max(-1, keepdims=True)
+    p = np.where(live, np.exp(s - np.where(np.isfinite(m), m, 0.0)), 0.0)
+    l = p.sum(-1, keepdims=True)
+    pw = p * vscale[:, None, :, None, :]
+    o = np.einsum("bthgj,bjhd->bthgd", pw, v) / np.maximum(l, 1e-30)
+    return o.reshape(b, T, hq, d).astype(np.float32)
+
+
+def _folded_decode(q, kq, vq, ks, vs, tbl, kv_len):
+    """#5: one query per row, every head sees keys [0, kv_len)."""
+    return _folded_columns(q, kq, vq, ks, vs, tbl, kv_len[:, None])
+
+
+def _folded_verify(q, kq, vq, ks, vs, tbl, kv_start, kv_len):
+    """#7: candidate t sees keys [0, min(kv_len, kv_start + t + 1))."""
+    T = q.shape[1]
+    lim = np.minimum(kv_len[:, None], kv_start[:, None] + np.arange(T) + 1)
+    return _folded_columns(q, kq, vq, ks, vs, tbl, lim)
+
+
+def _decode_body_inputs(kv, bs, g, T):
+    """4 rows of 48-key (or more) tables at g query heads per kv head (hkv
+    2, d 32) on pools quantized by the reference; row 2 a free slot (an
+    all-null table, kv_len 0), the null page's scales 0 as in a fresh
+    pool."""
+    rng = np.random.default_rng(100 * bs + 10 * g + T)
+    b, hkv, d = 4, 2, 32
+    nb = -(-48 // bs)
+    n_blocks = b * nb + 1
+    kq, ks = JQ.quantize_kv_rows(
+        jnp.asarray(_rn(rng, n_blocks, bs, hkv, d)), kv)
+    vq, vs = JQ.quantize_kv_rows(
+        jnp.asarray(_rn(rng, n_blocks, bs, hkv, d)), kv)
+    ks, vs = (np.asarray(x).copy() for x in (ks, vs))
+    ks[0] = vs[0] = 0.0
+    pools = (np.asarray(kq), np.asarray(vq), ks, vs)
+    tbl = (rng.permutation(n_blocks - 1)[:b * nb] + 1).reshape(b, nb) \
+        .astype(np.int32)
+    tbl[2] = 0
+    return _rn(rng, b, T, g * hkv, d), pools, tbl, nb * bs
+
+
+def _check_folded(what, want, pallas, oracle, port):
+    for name, got in (("Pallas (interpret)", pallas),
+                      ("repro.kernels.ref", oracle),
+                      ("the port's plain version", port.numpy())):
+        err = float(np.abs(np.asarray(got) - want).max())
+        assert err <= ATOL, f"{what}: folded vs {name}: {err}"
+
+
+def _port_args(q, pools, tbl):
+    kq, vq, ks, vs = pools
+    return ((torch.from_numpy(q), _to_torch(kq), _to_torch(vq),
+             torch.from_numpy(tbl)),
+            dict(k_scale=_to_torch(ks), v_scale=_to_torch(vs)))
+
+
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("bs", [5, 16])
+@pytest.mark.parametrize("kv", KV_DTYPES)
+def test_quant_decode_folds_scales_into_widened_pages(kv, bs, g):
+    q, pools, tbl, cap = _decode_body_inputs(kv, bs, g, 1)
+    # a full table, a row ending mid-page, the free slot, a one-key row
+    kv_len = np.array([cap, 17, 0, 1], np.int32)
+    want = _folded_decode(q, *pools, tbl, kv_len)
+    assert not np.any(want[2])
+    jargs = (jnp.asarray(q), *map(jnp.asarray, pools), jnp.asarray(tbl))
+    targs, scales = _port_args(q, pools, tbl)
+    _check_folded(
+        f"decode {kv} bs {bs} g {g}", want,
+        paged_decode_attention_quant_pallas(*jargs, kv_len=jnp.asarray(kv_len),
+                                            interpret=True),
+        jref.paged_decode_attention_quant_ref(*jargs,
+                                              kv_len=jnp.asarray(kv_len)),
+        ops.paged_decode_attention(*targs, kv_len=torch.from_numpy(kv_len),
+                                   **scales))
+
+
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("bs", [5, 16])
+@pytest.mark.parametrize("kv", KV_DTYPES)
+def test_quant_verify_folds_scales_into_widened_pages(kv, bs, g):
+    T = 4
+    q, pools, tbl, cap = _decode_body_inputs(kv, bs, g, T)
+    # a full chunk ending at the table's last key, a chunk with two padding
+    # candidates (they see the committed keys), the free slot (exact
+    # zeros), and F2's kv_len == kv_start > 0 (every candidate sees the
+    # committed keys)
+    kv_start = np.array([cap - T, 7, 0, 12], np.int32)
+    kv_len = kv_start + np.array([T, 2, 0, 0], np.int32)
+    want = _folded_verify(q, *pools, tbl, kv_start, kv_len)
+    assert not np.any(want[2]) and np.all(np.any(want[3], axis=(1, 2)))
+    jargs = (jnp.asarray(q), *map(jnp.asarray, pools), jnp.asarray(tbl))
+    jkw = dict(kv_start=jnp.asarray(kv_start), kv_len=jnp.asarray(kv_len))
+    targs, scales = _port_args(q, pools, tbl)
+    _check_folded(
+        f"verify {kv} bs {bs} g {g}", want,
+        paged_verify_attention_quant_pallas(*jargs, interpret=True, **jkw),
+        jref.paged_verify_attention_quant_ref(*jargs, **jkw),
+        ops.paged_verify_attention(*targs, kv_start=torch.from_numpy(kv_start),
+                                   kv_len=torch.from_numpy(kv_len), **scales))
+
+
 @pytest.mark.parametrize("kv", KV_DTYPES)
 def test_one_byte_codes_widen_to_bf16_exactly(kv):
     """Every int8 code and every finite fp8 e4m3 code is exact in bf16, the

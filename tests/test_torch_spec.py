@@ -303,6 +303,45 @@ def test_paged_verify_splits_count_column_groups(case):
         assert n == 1 or blocks * (n - 1) < da.BLOCKS_PER_SM * sms
 
 
+def test_quantized_kernels_have_merge_counters_of_their_own(monkeypatch):
+    """#5 and #7 merge their splits in the launch (csrc/decode.cuh), as #2
+    and #4 do, on a counter buffer of their own: each of the four wrappers
+    names its own kernel (its ops.KERNELS key) to the launch, and the four
+    buffers are distinct, so a quantized and an unquantized launch in one
+    serving step never share counters."""
+    named = {}
+
+    def recorder(body):
+        def launch(kernel, q, *args):
+            named[kernel] = body
+            return q.new_zeros(q.shape)
+        return launch
+
+    monkeypatch.setattr(pa, "_decode", recorder("decode"))
+    monkeypatch.setattr(pa, "_verify", recorder("verify"))
+    for fn in ops.KERNELS.values():    # the wrappers count their calls
+        monkeypatch.setattr(fn, "launches", fn.launches)
+    q, pages = torch.zeros(2, 1, 4, 32), torch.zeros(3, 16, 2, 32)
+    scales = torch.zeros(3, 16, 2)
+    tbl, lens = torch.zeros(2, 1, dtype=torch.int32), torch.ones(2)
+    for fn in (pa.paged_decode_attention_cuda,
+               pa.paged_decode_attention_quant_cuda):
+        quant = (scales, scales) if "quant" in fn.__name__ else ()
+        fn(q, pages, pages, *quant, tbl, kv_len=lens)
+    for fn in (pa.paged_verify_attention_cuda,
+               pa.paged_verify_attention_quant_cuda):
+        quant = (scales, scales) if "quant" in fn.__name__ else ()
+        fn(q, pages, pages, *quant, tbl, kv_start=lens, kv_len=lens)
+    assert named == {"paged_decode_attention": "decode",
+                     "paged_decode_attention_quant": "decode",
+                     "paged_verify_attention": "verify",
+                     "paged_verify_attention_quant": "verify"}
+    assert all(ops.KERNELS[k].__name__ == k + "_cuda" for k in named)
+    bufs = [da.merge_counters(k, 64, "cpu") for k in named]
+    assert len({b.data_ptr() for b in bufs}) == 4
+    assert all(b.numel() >= 64 and not b.any() for b in bufs)
+
+
 # --- model level -----------------------------------------------------------
 
 def test_contiguous_prefill_and_decode_match_reference(weights):
