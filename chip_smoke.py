@@ -17,6 +17,8 @@ JAX. Phases, each of which raises on failure:
      int8 / fp8 pools, the decode body of the paged decode and verify
      kernels (on bf16, int8 and fp8 pools) mma.sync and movmatrix in bf16
      and no spills, and no attention.cuh body but the fp32 one may be left;
+     the scan's 12 kernels (logged with their registers and digests)
+     exponentials, lane shuffles and cp.async copies, and no spills;
      every kernel of the previous tree (chip_smoke_sass.json)
      must keep its digest or be named there as gone or moved, and why;
   2. kernels against their plain PyTorch versions on the card, at
@@ -35,10 +37,12 @@ JAX. Phases, each of which raises on failure:
      kernels (decode at the same five block sizes, context and verify at 16
      and 5, verify also at g 16, context also with 65 rows past the
      ranking's capacity), and the selective
-     scan at Jamba's widths (d_inner 8192, d_state 16) and the CPU tests'
-     (output and final state); then timed at the serving path's shapes
-     beside their bound, their plain version and, where one PyTorch call
-     computes the same function (flash and contiguous decode),
+     scan at Jamba's widths (d_inner 8192, d_state 16), the CPU tests' and
+     ragged ones (d_inner 200, 24, 100: part-filled last blocks,
+     element-wise loads) (output and final state); then timed at the
+     serving path's shapes (the scan at b 16 and b 1) beside their bound,
+     their plain version and, where one PyTorch call computes the same
+     function (flash and contiguous decode),
      ``F.scaled_dot_product_attention``;
   3. serving at the full width of llama2-70b in bf16 (depth cut to 8 of 80
      layers, seeded random weights) through the asymmetric 2-stage paged
@@ -66,8 +70,9 @@ JAX. Phases, each of which raises on failure:
      layer, MoE with 16 experts top-2 on every other layer; seeded random
      weights)
      serves the synthetic workload through the same [3, 5] pipeline, whose
-     first stage holds only Mamba layers; the selective scan must run on
-     all seven Mamba layers of every prefill, flash attention on every
+     first stage holds only Mamba layers (the (b, s) of each scan launch
+     logged); the selective scan must run on all seven Mamba layers of
+     every prefill, flash attention on every
      prefill and paged decode on every decode iteration; profiled too;
   4. engine parity in fp32: llama2-70b at full width (2 layers) on the
      same workloads, speculative ones included, and the synthetic and
@@ -77,6 +82,10 @@ JAX. Phases, each of which raises on failure:
      versions, they must give identical tokens and ServeStats counters,
      and the speculative serves must give plain greedy decode's tokens.
 
+``python3 chip_smoke.py --sass-of TREE OUT.json`` instead builds the
+kernels of another checkout (the parent commit's ``git archive``) and
+writes their SASS digests, which chip_smoke_sass.json records.
+
 The last line of standard output is the JSON result
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel
 with its launches on the serving path, its error against the plain version
@@ -84,6 +93,7 @@ and its times.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import math
@@ -172,6 +182,7 @@ def phase_device_and_build():
         raise AssertionError("the flash library has no wgmma or no TMA load: "
                              f"{sass['flash_attention']}")
     check_paged_build(libs["paged_attention"])
+    check_scan_build(libs["ssm_scan"])
     check_sass_against_parent(libs)
     return smi
 
@@ -293,6 +304,34 @@ def check_paged_build(so):
                 and not (c["HMMA"] and c["MOVM"])):
             raise AssertionError(f"{n}: {c}, spills {regs.get(n)}")
     return funcs
+
+
+SCAN_OPS = ("MUFU.EX2", "SHFL.BFLY", "LDGSTS")
+
+
+def check_scan_build(so):
+    """The scan library's 12 kernels (d_state 4 / 8 / 16 x x, dt in fp32 /
+    bf16), one line each: registers, spills, its exponentials (MUFU.EX2),
+    the lane tree's shuffles (SHFL.BFLY), its cp.async copies (LDGSTS) and
+    a digest of the code. None may spill, and each must show all three."""
+    regs = _ptxas(so)
+    parts = re.split(r"\n\s*Function : (\S+)", _sass(so))
+    bodies = dict(zip(_demangle(parts[1::2]), parts[2::2]))
+    digests = sass_functions(so)
+    scan = sorted(n for n in bodies
+                  if n.startswith("void ss::ssm_scan_kernel"))
+    if len(scan) != 12:
+        raise AssertionError(f"scan library: {len(scan)} kernels, expected "
+                             "12")
+    for n in scan:
+        counts = {op: len(re.findall(rf"\b{re.escape(op)}\b", bodies[n]))
+                  for op in SCAN_OPS}
+        r, spill = regs.get(n, ("?", "?"))
+        log(f"  sass ssm_scan {n}: {r} registers, {spill} bytes spill "
+            "stores, " + ", ".join(f"{op} {k}" for op, k in counts.items())
+            + f"; digest {digests[n][1]}")
+        if spill != 0 or not all(counts.values()):
+            raise AssertionError(f"{n}: {counts}, spills {spill}")
 
 
 # the previous tree's SASS digests (sass_functions), which phase 1 holds
@@ -708,9 +747,16 @@ def check_scan(dev):
     (d_inner 8192, d_state 16) at s in {1, 17, 144, 1024} and b in
     {1, 3, 16}, x bf16 with fp32 dt (the model's types) and all fp32, with
     and without h0, one case with bf16 dt; then the CPU tests' widths
-    (d_inner 16 / 8 / 512, d_state 8 / 4 / 16). Returns the max abs err of
-    the fp32 checks."""
+    (d_inner 16 / 8 / 512, d_state 8 / 4 / 16) and ragged ones whose last
+    block holds a part of a warp's channels (d_inner 200 at d_state 16, 24
+    at d_state 4) or whose rows miss the 16-byte copies' alignment (d_inner
+    100 at d_state 8: element-wise loads). Returns the max abs err of the
+    fp32 checks."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels import ssm_scan as ss
+    ss._lib()                # checks the library's lanes against ss.LANES
+    log(f"  ssm_scan: {ss.THREADS}-thread blocks, a channel's state split "
+        f"over lanes {ss.LANES} (d_state: lanes, as the library's own)")
     gen = torch.Generator(device=dev).manual_seed(2)
     runs = [(din, ds, s, b, dt_, h0)
             for din, ds in ((8192, 16),)
@@ -718,7 +764,8 @@ def check_scan(dev):
             for dt_ in (torch.bfloat16, torch.float32)
             for h0 in (False, True)]
     runs += [(din, ds, s, 3, dt_, h0)
-             for din, ds in ((16, 8), (8, 4), (512, 16))
+             for din, ds in ((16, 8), (8, 4), (512, 16), (200, 16),
+                             (24, 4), (100, 8))
              for s in (1, 17, 144)
              for dt_ in (torch.bfloat16, torch.float32)
              for h0 in (False, True)]
@@ -798,7 +845,8 @@ def timing_inputs(dev, gen):
     contiguous cache, and a 16-slot verification of k + 1 = 5 candidates
     at committed lengths 512..1100 in the same pool, and the selective scan
     of a Jamba prefill (16 prompts padded to 1024, d_inner 8192, d_state
-    16, x bf16, dt fp32). The quantized paged kernels take the same shapes
+    16, x bf16, dt fp32; "ssm_scan[b1]": one 1024-token prompt). The
+    quantized paged kernels take the same shapes
     on the pool's rows quantized to int8 and to fp8 (``quant``: kv_dtype ->
     (k, v, k_scale, v_scale))."""
     dt, hq, hkv, d, bs = torch.bfloat16, 64, 8, 128, 16
@@ -835,6 +883,8 @@ def timing_inputs(dev, gen):
         q=_rand(gen, (16, 5, hq, d), dt, dev), kp=kp, vp=vp, tbl=tbl,
         kv_start=kv_start, kv_len=kv_start + 5)
     out["ssm_scan"] = _scan_inputs(gen, dev, 16, 1024, 8192, 16, dt)
+    # and a lone 1024-token prompt: 1 / 16 of the work on as many SMs
+    out["ssm_scan[b1]"] = _scan_inputs(gen, dev, 1, 1024, 8192, 16, dt)
     return out
 
 
@@ -957,17 +1007,18 @@ def time_kernels(dev):
     # once; per (row, step, channel) ds exponentials and ~6 ds + 3 fp32
     # operations (the exponent's product, the state update's product and
     # FMA, C's FMA; dt x, D x and the sum)
-    g = inp["ssm_scan"]
-    b, s, din = g["x"].shape
-    ds = g["A"].shape[1]
-    res["ssm_scan"] = dict(
-        fn=lambda: ops.ssm_scan(g["x"], g["dt"], g["A"], g["B"], g["C"],
-                                g["D"]),
-        nbytes=sum(t.numel() * t.element_size()
-                   for k, t in g.items() if t is not None)
-        + g["x"].numel() * g["x"].element_size() + b * din * ds * 4,
-        flops=b * s * din * (6 * ds + 3), flop_rate=FP32_FLOP_PER_S,
-        exps=b * s * din * ds, library_ms=None)
+    for name in ("ssm_scan", "ssm_scan[b1]"):
+        g = inp[name]
+        b, s, din = g["x"].shape
+        ds = g["A"].shape[1]
+        res[name] = dict(
+            fn=lambda g=g: ops.ssm_scan(g["x"], g["dt"], g["A"], g["B"],
+                                        g["C"], g["D"]),
+            nbytes=sum(t.numel() * t.element_size()
+                       for k, t in g.items() if t is not None)
+            + g["x"].numel() * g["x"].element_size() + b * din * ds * 4,
+            flops=b * s * din * (6 * ds + 3), flop_rate=FP32_FLOP_PER_S,
+            exps=b * s * din * ds, library_ms=None)
 
     out = {}
     for name, r in res.items():
@@ -1314,6 +1365,23 @@ def _jamba_asg():
                                      StagePlan([2], 5)])])
 
 
+@contextlib.contextmanager
+def _scan_shapes():
+    """Records the (b, s) of each selective-scan launch while the block
+    runs."""
+    from repro_torch.kernels import ops
+    shapes, launch = [], ops.ssm_scan_cuda
+
+    def logged(x, *a, **kw):
+        shapes.append(tuple(x.shape[:2]))
+        return launch(x, *a, **kw)
+    ops.ssm_scan_cuda = logged
+    try:
+        yield shapes
+    finally:
+        ops.ssm_scan_cuda = launch
+
+
 def phase_jamba(smi):
     """Full-width bf16 hybrid serving: jamba-v0.1-52b, one period, through
     the [3, 5] pipeline. Returns the launch counts of the measured serve,
@@ -1338,7 +1406,7 @@ def phase_jamba(smi):
     reqs = _workloads(cfg.vocab_size, n=16, out_len=32)[0]
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    with _pipeline_calls() as calls:
+    with _pipeline_calls() as calls, _scan_shapes() as scans:
         stats, wall, info = _serve(cfg, asg, params, reqs, **common)
     launched = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -1357,6 +1425,9 @@ def phase_jamba(smi):
         f"MiB), page pools (kv_bytes_resident) {stats.kv_bytes_resident} "
         f"bytes ({stats.kv_bytes_resident / 2**20:.1f} MiB), peak device "
         f"memory {peak / 2**30:.2f} GiB on {smi}")
+    log("  scan launches jamba synthetic (b, s): " + ", ".join(
+        f"{shape} x{n}" for shape, n in
+        sorted(collections.Counter(scans).items())))
     need = {"ssm_scan": n_mamba * prefills,
             "flash_attention": n_attn * prefills,
             "paged_decode_attention": n_attn * steps}
@@ -1564,7 +1635,30 @@ def phase_parity_jamba():
     torch.cuda.empty_cache()
 
 
+def dump_sass(tree, out):
+    """Build the kernel sources of another checkout `tree` (a `git archive`
+    of the parent commit) with this tree's flags and write each library's
+    SASS digests (sass_functions, kernel names as this tree's tools spell
+    them) and the nvcc release to `out`: the content of PARENT_SASS's
+    "digests" and "nvcc"."""
+    from repro_torch.kernels import build
+    from pathlib import Path
+    libs = build.build(csrc=Path(tree) / "src" / "repro_torch" / "csrc",
+                       build_dir=build.BUILD_DIR / "parent")
+    digests = {lib: {name: digest for name, (_, digest) in
+                     sorted(sass_functions(so).items())}
+               for lib, so in libs.items()}
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    with open(out, "w") as f:
+        json.dump({"nvcc": _nvcc_release(), "digests": digests}, f, indent=1)
+    log(f"sass of {tree}: " + ", ".join(f"{lib} {len(d)} kernels" for lib, d
+                                        in digests.items()) + f" -> {out}")
+
+
 def main():
+    if sys.argv[1:2] == ["--sass-of"]:         # --sass-of TREE OUT.json
+        return dump_sass(*sys.argv[2:4])
+    t0 = time.perf_counter()
     smi = phase_device_and_build()
     log("phase 2: kernels against their plain versions")
     check_kernels(torch.device("cuda"))
@@ -1581,6 +1675,8 @@ def main():
         kernels.append(dict(name=name, route="cuda", source=src,
                             replaces=replaces, launches=counts[name],
                             **timed[name]))
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s"
+        ", the build included")
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` compiles on first use into a shared library with a
 plain C interface under ``build/repro_torch/`` at the repository root
 (listed in .gitignore), named by a hash of the sources and flags so an
 edited kernel never loads a stale build. ``build()`` starts one nvcc per
-missing source at once; ``library(name)`` builds if needed and loads.
+missing source at once (``csrc`` / ``build_dir`` name another tree's
+sources, such as a parent commit's, built with the same flags);
+``library(name)`` builds if needed and loads.
 """
 from __future__ import annotations
 
@@ -39,26 +41,27 @@ def nvcc() -> str:
     return found
 
 
-def target(name: str) -> Path:
+def target(name: str, csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
     h = hashlib.sha256()
     for f in (f"{name}.cu",) + HEADERS:
-        h.update((CSRC / f).read_bytes())
+        h.update((csrc / f).read_bytes())
     h.update(" ".join(FLAGS).encode())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return build_dir / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names: Sequence[str] = SOURCES) -> Dict[str, Path]:
+def build(names: Sequence[str] = SOURCES, csrc: Path = CSRC,
+          build_dir: Path = BUILD_DIR) -> Dict[str, Path]:
     """Compile every source in `names` whose library is missing, all at
     once. nvcc's ptxas report (registers, spills) lands in
     ``<library>.log``. Raises with nvcc's output on any failure."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = {n: target(n) for n in names}
+    build_dir.mkdir(parents=True, exist_ok=True)
+    out = {n: target(n, csrc, build_dir) for n in names}
     procs = {}
     for n, so in out.items():
         if so.exists():
             continue
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        cmd = [nvcc(), *FLAGS, "-o", str(tmp), str(csrc / f"{n}.cu")]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp)

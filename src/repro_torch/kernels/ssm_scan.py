@@ -3,7 +3,11 @@ of repro.kernels.ssm_scan.ssm_scan_pallas.
 
 ``ssm_scan_cuda`` checks its inputs, allocates y and the final state,
 launches on the current stream and counts the launch; it never falls back
-to the plain version (``ref.ssm_scan_ref``) — ``ops`` chooses.
+to the plain version (``ref.ssm_scan_ref``) — ``ops`` chooses. ``LANES``,
+``geometry`` and ``thread_map`` restate the kernel's launch geometry (L
+lanes share one channel's state, ``THREADS`` a block) for the CPU tests;
+the wrapper checks ``LANES`` against the library's own table on first
+use.
 """
 from __future__ import annotations
 
@@ -15,12 +19,41 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import DTYPES
 
 D_STATES = (4, 8, 16)          # the kernel's template instances
+LANES = {4: 2, 8: 2, 16: 2}    # lanes sharing a channel (ss::lanes)
+THREADS = 128                  # threads a block (ss::THREADS)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_CHECKED = []                  # libraries whose lanes match LANES
+
+
+def geometry(b, din, ds):
+    """(lanes L, channels a block, grid (x, y)) of the kernel's launch."""
+    lanes = LANES[ds]
+    ch = THREADS // lanes
+    return lanes, ch, (-(-din // ch), b)
+
+
+def thread_map(b, din, ds):
+    """The kernel's index map over every launched thread: (row, channel,
+    first state element) as flat int64 tensors (lane group g = thread // L
+    holds channel c0 + g); a thread with channel >= din is dead, and each
+    live one holds ds / L consecutive elements."""
+    lanes, ch, (gx, gy) = geometry(b, din, ds)
+    bx, by, t = torch.meshgrid(torch.arange(gx), torch.arange(gy),
+                               torch.arange(THREADS), indexing="ij")
+    return (by.flatten(), (bx * ch + t // lanes).flatten(),
+            ((t % lanes) * (ds // lanes)).flatten())
 
 
 def _lib():
-    fn = build.library("ssm_scan").ssm_scan_fwd
+    lib = build.library("ssm_scan")
+    if lib not in _CHECKED:
+        got = {ds: lib.ssm_scan_lanes(ds) for ds in D_STATES}
+        if got != LANES:
+            raise RuntimeError(f"ssm_scan library splits the state over "
+                               f"{got} lanes, LANES says {LANES}")
+        _CHECKED.append(lib)
+    fn = lib.ssm_scan_fwd
     fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                    _I, _P]
     fn.restype = _I

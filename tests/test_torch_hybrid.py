@@ -128,6 +128,94 @@ def test_port_scan_takes_widths_the_pallas_kernel_refuses():
     np.testing.assert_allclose(h.numpy(), np.asarray(want_h), atol=ATOL)
 
 
+# --- (a') the kernel's lane split: its order of sums, its launch geometry ---
+
+def _lane_split_scan(x, dt, A, B, C, D, h0, lanes):
+    """numpy float32 model of csrc/ssm_scan.cu's order of operations: exp
+    as exp2 of dt times A log2 e; lane q of a channel's group sums h . C
+    over its ds / L consecutive state elements in order, lane 0 starting
+    from D x; the L partial sums combine as the kernel's reduce-scatter
+    does (lanes L / 2 apart first, then L / 4, ..., then 1: at L = 4,
+    (P0 + P2) + (P1 + P3))."""
+    f = np.float32
+    b, s, din = x.shape
+    ds = A.shape[-1]
+    k = ds // lanes
+    a2 = A.astype(f) * f(1.4426950408889634)
+    h = np.zeros((b, din, ds), f) if h0 is None else h0.astype(f)
+    y = np.empty((b, s, din), f)
+    for t in range(s):
+        xt, dtt = x[:, t].astype(f), dt[:, t].astype(f)
+        h = np.exp2(dtt[..., None] * a2) * h \
+            + (dtt * xt)[..., None] * B[:, t, None, :].astype(f)
+        hc = h * C[:, t, None, :].astype(f)                # (b, din, ds)
+        part = [np.zeros((b, din), f) for _ in range(lanes)]
+        part[0] = D.astype(f) * xt
+        for q in range(lanes):
+            for j in range(k):
+                part[q] = part[q] + hc[..., q * k + j]
+        w = lanes // 2
+        while w:
+            part = [part[q] + part[q ^ w] for q in range(lanes)]
+            w //= 2
+        y[:, t] = part[0]
+    return y, h
+
+
+@pytest.mark.parametrize("ds", [4, 8, 16])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("s", [1, 17, 40])
+def test_lane_split_order_matches_reference(ds, with_h0, s):
+    # fp32 atol 1e-5 (ATOL): the lane split only reorders the fp32 sum of
+    # ds products and D x (and exp becomes exp2 of a rounded product);
+    # every value is O(1), so a reordering moves it by a few ulps
+    from repro_torch.kernels import ssm_scan as pss
+    lanes = pss.LANES[ds]
+    assert ds % lanes == 0 and 32 % lanes == 0
+    x, dt, A, B, C, D, h0 = _scan_inputs(100 + s, 2, s, 24, ds)
+    h0 = h0 if with_h0 else None
+    y, h = _lane_split_scan(x, dt, A, B, C, D, h0, lanes)
+    want_y, want_h = ref.ssm_scan_ref(
+        *map(torch.from_numpy, (x, dt, A, B, C, D)),
+        h0=None if h0 is None else torch.from_numpy(h0))
+    np.testing.assert_allclose(y, want_y.numpy(), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(h, want_h.numpy(), rtol=0, atol=ATOL)
+    jy, jh = jops.ssm_scan(*map(jnp.asarray, (x, dt, A, B, C, D)),
+                           h0=None if h0 is None else jnp.asarray(h0),
+                           chunk=16)
+    np.testing.assert_allclose(y, np.asarray(jy), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(h, np.asarray(jh), rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("ds", [4, 8, 16])
+@pytest.mark.parametrize("din", [8192, 200, 24, 16])
+def test_scan_launch_covers_each_state_element_once(ds, din):
+    from repro_torch.kernels import ssm_scan as pss
+    b = 3
+    lanes, ch, (gx, gy) = pss.geometry(b, din, ds)
+    assert (gx, gy) == (-(-din * lanes // pss.THREADS), b)
+    assert ch * lanes == pss.THREADS and 32 % lanes == 0
+    row, c, n0 = pss.thread_map(b, din, ds)
+    assert len(row) == gx * gy * pss.THREADS
+    # a channel's lanes are neighbours of one warp, first lane first
+    t = torch.arange(len(row)) % pss.THREADS
+    assert torch.equal(c.view(-1, lanes).amin(1), c.view(-1, lanes).amax(1))
+    assert torch.equal((t // 32).view(-1, lanes).amin(1),
+                       (t // 32).view(-1, lanes).amax(1))
+    assert torch.equal(n0.view(-1, lanes)[:, 0], torch.zeros(len(row) // lanes,
+                                                             dtype=n0.dtype))
+    live = c < din
+    k = ds // lanes
+    # every live thread's elements n0 .. n0 + k - 1, over all threads: each
+    # (row, channel, state element) exactly once; dead threads only past din
+    n = (n0[live, None] + torch.arange(k)).flatten()
+    key = ((row[live, None] * din + c[live, None]) * ds).expand(-1, k) \
+        .flatten() + n
+    counts = torch.bincount(key, minlength=b * din * ds)
+    assert len(counts) == b * din * ds and bool((counts == 1).all())
+    assert int((~live).sum()) == (gx * ch - din) * lanes * b
+
+
 # --- (b) ssm_step: a chain of steps is the scan ------------------------------
 
 def test_ssm_step_chain_equals_scan_prefix():
