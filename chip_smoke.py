@@ -80,7 +80,18 @@ JAX. Phases, each of which raises on failure:
      int8 pages; jamba-v0.1-52b at full width (one period) on the
      synthetic workload. Served through the kernels and through the plain
      versions, they must give identical tokens and ServeStats counters,
-     and the speculative serves must give plain greedy decode's tokens.
+     and the speculative serves must give plain greedy decode's tokens;
+  5. schedule -> plan -> from_config -> serve: the port's scheduler plans
+     the full 80-layer llama2-70b for the launcher's paged settings on the
+     case-study pool and for a shared-prefix workload (prefix caching,
+     256-token chunks) on the half-price pool; each plan is scaled to 8
+     layers at published widths (bf16), built by
+     ``InferenceEngine.from_config`` and serves its config's Poisson
+     workload on the wall clock. Every request must finish with its
+     tokens, the first serve must run #1 and #2, the second #3 and #2.
+     Then ``python -m repro_torch.launch.serve`` (llama2-70b --reduced,
+     paged) runs in a subprocess on the card and must exit 0 with its
+     assignment and summary lines.
 
 ``python3 chip_smoke.py --sass-of TREE OUT.json`` instead builds the
 kernels of another checkout (the parent commit's ``git archive``) and
@@ -88,8 +99,8 @@ writes their SASS digests, which chip_smoke_sass.json records.
 
 The last line of standard output is the JSON result
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel
-with its launches on the serving path, its error against the plain version
-and its times.
+with its launches on the serving paths (phases 3 and 5), its error
+against the plain version and its times.
 """
 from __future__ import annotations
 
@@ -1635,6 +1646,123 @@ def phase_parity_jamba():
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: schedule -> plan -> from_config -> serve (the launcher's spine)
+# ---------------------------------------------------------------------------
+
+def phase_schedule_serve(smi):
+    """The port's scheduler plans the FULL 80-layer llama2-70b on a GPU pool
+    (the paper's setting); the plan is scaled to the served depth (8
+    layers, published widths, bf16), built by InferenceEngine.from_config
+    and serves the config's own Poisson workload on the wall clock. Then
+    the launcher itself runs on the card in a subprocess. Returns the
+    launch counts of the two serves, each zeroed just before its serve and
+    read just after."""
+    from repro_torch.core.scheduler import schedule
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import scale_assignment
+    from repro_torch.models import model as M
+    from repro_torch.serving.config import ServingConfig
+    from repro_torch.serving.engine import InferenceEngine
+    cfg = _llama(SERVE_LAYERS)
+    params = M.init_params(cfg, 0, device=DEVICE)    # ServingConfig.seed 0
+    counts = dict.fromkeys(ops.KERNELS, 0)
+    log(f"phase 5: schedule -> plan -> from_config -> serve, {cfg.name} at "
+        f"full width, {cfg.num_layers} of 80 layers, {cfg.dtype}")
+    # the launcher's paged settings on the paper's case-study pool, and a
+    # shared-prefix workload (prefix caching, 256-token chunks) on the
+    # half-price pool
+    base = dict(arch="llama2-70b", cache_layout="paged", prompt_len=512,
+                out_len=32, rate=2.0, duration=5.0, deadline=30.0)
+    for name, sv in (
+            ("paged", ServingConfig(cluster="case_study", search_iters=10,
+                                    **base)),
+            ("shared-prefix", ServingConfig(
+                cluster="half_price", search_iters=4, prefix_caching=True,
+                prefill_chunk=256, shared_prefix=1024, **base))):
+        sv = sv.normalized()
+        pool = sv.pool()
+        t0 = time.perf_counter()
+        res = schedule(pool, sv.arch, sv.task(), **sv.schedule_kwargs())
+        search_s = time.perf_counter() - t0
+        asg = scale_assignment(res.assignment, 80, cfg.num_layers)
+        log(f"  schedule {name}: {sv.arch} (80 layers) on {sv.cluster} "
+            f"({len(pool)} GPUs, ${pool.price_per_hour:.2f}/h), "
+            f"{sv.search_iters} iterations: assignment "
+            f"{res.assignment.describe()}, estimated SLO attainment "
+            f"{res.attainment * 100:.1f}%, {res.evaluations} evaluations, "
+            f"{search_s:.3f} s of host time; served as {asg.describe()}")
+        reqs = sv.workload(cfg.vocab_size)
+        torch.cuda.reset_peak_memory_stats()
+        eng = InferenceEngine.from_config(cfg, res.plan, sv, assignment=asg,
+                                          params=params, device=DEVICE)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        stats = eng.serve(reqs, deadline=sv.deadline)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        for k in counts:
+            counts[k] += launched[k]
+        for r in reqs:
+            if r.output is None or len(r.output) != sv.out_len:
+                raise AssertionError(
+                    f"schedule {name}: request {r.rid} got "
+                    f"{None if r.output is None else len(r.output)} of "
+                    f"{sv.out_len} tokens")
+        if stats.rejected or stats.dropped:
+            raise AssertionError(f"schedule {name}: {stats.summary()}")
+        # with prefix caching every prompt takes the context path (#3), as
+        # in the reference; the cold joint prefill (#1) runs without it
+        need = ("paged_context_attention" if sv.prefix_caching
+                else "flash_attention", "paged_decode_attention")
+        for k in need:
+            if not launched[k]:
+                raise AssertionError(f"schedule {name}: {k} never ran; "
+                                     f"launches {launched}")
+        out_tok = sum(len(r.output) for r in reqs)
+        in_tok = sum(len(r.prompt) for r in reqs)
+        log(f"  serve {name}: {len(reqs)} requests ({in_tok} prompt + "
+            f"{out_tok} generated tokens) arriving over {sv.duration} s, "
+            f"served in {wall:.3f} s wall = {out_tok / wall:.1f} generated "
+            f"tok/s, {(in_tok + out_tok) / wall:.1f} total tok/s; "
+            f"{stats.iterations} iterations; {stats.summary()}; "
+            f"launches {launched}")
+        log(f"  memory {name}: {asg.num_replicas} replica(s) on the card "
+            f"sharing one copy of the weights, page pools kv_bytes_resident "
+            f"{stats.kv_bytes_resident} ({stats.kv_bytes_resident / 2**30:.3f}"
+            f" GiB), peak device memory {peak / 2**30:.2f} GiB "
+            f"(torch.cuda.max_memory_allocated) on {smi}")
+        del eng
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    argv = ["--arch", "llama2-70b", "--reduced", "--cluster", "case_study",
+            "--cache-layout", "paged", "--rate", "4", "--duration", "1",
+            "--out-len", "4", "--search-iters", "2"]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve"]
+                         + argv, cwd=root, env=env, capture_output=True,
+                         text=True, timeout=600)
+    lines = out.stdout.splitlines()
+    for line in lines:
+        log(f"  cli | {line}")
+    if out.returncode != 0:
+        raise AssertionError(f"python -m repro_torch.launch.serve exited "
+                             f"{out.returncode}: {out.stderr[-2000:]}")
+    if not (any(x.startswith("  assignment: ") for x in lines)
+            and lines and lines[-1].startswith("  n=")):
+        raise AssertionError("the launcher printed no assignment or no "
+                             "summary line")
+    log(f"  cli: python -m repro_torch.launch.serve {' '.join(argv)} exited "
+        f"0 in {time.perf_counter() - t0:.1f} s on the card")
+    return counts
+
+
 def dump_sass(tree, out):
     """Build the kernel sources of another checkout `tree` (a `git archive`
     of the parent commit) with this tree's flags and write each library's
@@ -1659,17 +1787,29 @@ def main():
     if sys.argv[1:2] == ["--sass-of"]:         # --sass-of TREE OUT.json
         return dump_sass(*sys.argv[2:4])
     t0 = time.perf_counter()
+
+    def done(phase):
+        log(f"  ({phase} done {time.perf_counter() - t0:.1f} s into the "
+            "script)")
     smi = phase_device_and_build()
+    done("phase 1")
     log("phase 2: kernels against their plain versions")
     check_kernels(torch.device("cuda"))
     check_scan(torch.device("cuda"))
     timed = time_kernels(torch.device("cuda"))
+    done("phase 2")
     counts = phase_serving(smi)
+    done("phase 3 (llama)")
     for k, n in phase_jamba(smi).items():
         counts[k] += n
+    done("phase 3 (jamba)")
     log("phase 4: engine parity through kernels and plain versions, fp32")
     phase_parity()
     phase_parity_jamba()
+    done("phase 4")
+    for k, n in phase_schedule_serve(smi).items():
+        counts[k] += n
+    done("phase 5")
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         kernels.append(dict(name=name, route="cuda", source=src,

@@ -1,0 +1,91 @@
+"""Serving driver of the port: schedule a heterogeneous pool, build the
+asymmetric pipeline engine, and serve a Poisson workload end to end on the
+card.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-70b \
+      --reduced --cluster case_study --cache-layout paged --rate 4 \
+      --duration 1 --out-len 4 --search-iters 2
+
+Every flag is a ``serving.config.ServingConfig`` field, as in the
+reference's ``repro.launch.serve``; this driver is the parse -> schedule
+-> build -> serve spine. The scheduler plans for the FULL model on the
+chosen GPU pool (the paper's setting); ``--reduced`` serves the reduced
+variant of the same architecture through the scheduled stage layout,
+keeping every structural property (stage count, TP degrees, layer ratios).
+Every replica and stage runs on the one device (``main(device=...)``, the
+card unless a test asks for the CPU). The reference's observability
+branch (``--trace-out``, ``--metrics-out``, ``--calibrate``) is not
+ported: ``InferenceEngine.from_config`` raises NotImplementedError for it.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+from repro_torch.configs import get_config
+from repro_torch.core.plan import Assignment, PipelinePlan, StagePlan
+from repro_torch.core.scheduler import schedule
+from repro_torch.serving.config import ServingConfig
+
+
+def scale_assignment(asg: Assignment, full_layers: int,
+                     run_layers: int) -> Assignment:
+    """Project a full-model layer split onto the reduced layer count,
+    keeping stage proportions (>=1 layer per stage; stages collapse if the
+    reduced model has fewer layers than stages)."""
+    out = []
+    for pipe in asg.pipelines:
+        stages = pipe.stages[:run_layers]
+        raw = [s.num_layers / full_layers * run_layers for s in stages]
+        ls = [max(1, int(round(r))) for r in raw]
+        while sum(ls) > run_layers:
+            i = max(range(len(ls)), key=lambda i: ls[i] - raw[i])
+            if ls[i] > 1:
+                ls[i] -= 1
+            else:
+                ls.pop(i)
+                stages = stages[:i] + stages[i + 1:]
+                raw.pop(i)
+        while sum(ls) < run_layers:
+            i = min(range(len(ls)), key=lambda i: ls[i] - raw[i])
+            ls[i] += 1
+        out.append(PipelinePlan(
+            [StagePlan(list(s.device_ids), l) for s, l in zip(stages, ls)],
+            cost=pipe.cost, bottleneck=pipe.bottleneck))
+    return Assignment(out)
+
+
+def main(argv: Optional[Sequence[str]] = None, *, device="cuda") -> None:
+    sv = ServingConfig.parse(argv).normalized()
+    pool = sv.pool()
+    cfg_full = get_config(sv.arch)
+    print(f"scheduling {sv.arch} on {sv.cluster} "
+          f"({len(pool)} GPUs, ${pool.price_per_hour:.2f}/h)...")
+    res = schedule(pool, sv.arch, sv.task(), **sv.schedule_kwargs())
+    plan = res.plan
+    print(f"  assignment: {plan.assignment.describe()}")
+    print(f"  estimated SLO attainment: {res.attainment*100:.1f}%")
+    if sv.disaggregate:
+        print(f"  roles: "
+              f"{plan.roles if plan.roles is not None else 'colocated'}")
+    if sv.spec_decode:
+        print(f"  spec-k per replica: {plan.spec_ks}")
+    if sv.kv_dtype == "search":
+        shown = [d or "auto" for d in (plan.kv_dtypes or [])]
+        print(f"  kv-dtype per replica: {shown}")
+    if sv.host_mem_gb > 0:
+        print(f"  host-tier blocks per replica: {plan.host_blocks}")
+
+    from repro_torch.serving.engine import InferenceEngine
+    cfg = cfg_full.reduced() if sv.reduced else cfg_full
+    asg = scale_assignment(plan.assignment, cfg_full.num_layers,
+                           cfg.num_layers) if sv.reduced else None
+    engine = InferenceEngine.from_config(cfg, plan, sv, assignment=asg,
+                                         cluster=pool, device=device)
+    reqs = sv.workload(cfg.vocab_size)
+    print(f"serving {len(reqs)} requests...")
+    stats = engine.serve(reqs, deadline=sv.deadline)
+    print("  " + stats.summary())
+
+
+if __name__ == "__main__":
+    main()

@@ -49,9 +49,16 @@ class InferenceEngine:
     (jamba-v0.1-52b) serves with per-slot recurrent state beside the
     attention pages; on it, as in the reference, prefix caching, chunked
     prefill, quantized pools and speculation warn and serve without
-    themselves. The reference's other serving
-    features (disaggregation, host tier, cluster prefix, KVSAN, tracing,
-    static batching) are not ported yet and raise NotImplementedError."""
+    themselves. ``route_seed`` makes the Router's least-loaded tiebreaks
+    a seeded draw; ``prefix_route_weight`` weighs resident prefixes in the
+    reference's cluster prefix directory, which is not ported, so it is
+    accepted and, as in the reference without a directory, unused. The
+    reference's other serving features (disaggregation, host tier, cluster
+    prefix, KVSAN, tracing and metrics, static batching, the contiguous
+    layout, ``generate``) are not ported yet and raise NotImplementedError.
+
+    ``from_config`` builds an engine from a ``ServingConfig`` and a
+    scheduled ``DeploymentPlan``, as ``launch.serve`` does."""
 
     def __init__(self, cfg: ModelConfig, assignment: Assignment, *,
                  params=None, device="cuda", dtype=None, n_slots: int = 8,
@@ -67,7 +74,9 @@ class InferenceEngine:
                  kv_dtype: Optional[str] = None,
                  kv_dtypes: Optional[Sequence[Optional[str]]] = None,
                  kv_guard_layers: Sequence[int] = (),
-                 quantize: bool = False, **unported):
+                 quantize: bool = False,
+                 prefix_route_weight: float = 0.25,
+                 route_seed: Optional[int] = None, **unported):
         if unported:
             raise NotImplementedError(
                 f"not ported yet: {sorted(unported)} (see ROADMAP.md)")
@@ -107,7 +116,54 @@ class InferenceEngine:
                              kv_dtype=kv_dtype,
                              kv_dtypes=(list(kv_dtypes)
                                         if kv_dtypes is not None else None),
-                             kv_guard_layers=kv_guard_layers)
+                             kv_guard_layers=kv_guard_layers,
+                             route_seed=route_seed)
+
+    @classmethod
+    def from_config(cls, cfg: ModelConfig, plan, serving, *,
+                    assignment: Optional[Assignment] = None, cluster=None,
+                    **overrides) -> "InferenceEngine":
+        """Build an engine from the two typed surfaces: a
+        ``serving.config.ServingConfig`` (HOW to serve — policy, layout,
+        feature flags) and a ``core.plan.DeploymentPlan`` (WHERE — the
+        scheduler's replica layouts, spec depths and KV precisions).
+        ``assignment`` overrides the plan's layer split (e.g. the
+        reduced-model projection from launch.serve) while the plan keeps
+        supplying the per-replica dimensions; ``overrides`` pass through
+        any raw ``__init__`` kwarg (n_slots, params, device, ...). Without
+        ``params`` the weights are ``init_params(cfg, serving.seed)``.
+
+        The port serves what the reference's ``from_config`` does except
+        the flags ``_unserved`` names, which raise NotImplementedError;
+        ``cluster`` (the reference's per-pair KV-link costs, used by
+        disaggregation only) is accepted and unused."""
+        sv = serving.normalized()
+        unserved = _unserved(sv, plan)
+        if unserved:
+            raise NotImplementedError(
+                f"not ported yet: {', '.join(unserved)} (see ROADMAP.md)")
+        asg = assignment if assignment is not None else plan.assignment
+        kw = dict(
+            policy=sv.policy, max_len=sv.max_len(),
+            cache_layout=sv.cache_layout, block_size=sv.block_size,
+            prefix_caching=sv.prefix_caching,
+            prefill_chunk=sv.prefill_chunk,
+            prefix_route_weight=sv.prefix_route_weight,
+            route_seed=sv.route_seed,
+            spec_decode=sv.spec_decode, spec_k=sv.spec_k,
+            draft_model=(sv.draft_model or None),
+            spec_draft_token_cost=sv.spec_draft_cost,
+            spec_ks=(plan.spec_ks if sv.spec_decode else None),
+            kv_dtype=sv.fixed_kv_dtype(),
+            kv_dtypes=(plan.kv_dtypes if sv.kv_dtype == "search"
+                       else None),
+            kv_guard_layers=sv.guard_layers(cfg.num_layers))
+        kw.update(overrides)
+        if "params" not in kw:
+            kw["params"] = M.init_params(
+                cfg, sv.seed, device=resolve_device(kw.get("device", "cuda")),
+                dtype=kw.get("dtype"))
+        return cls(cfg, asg, **kw)
 
     @staticmethod
     def _spec_config(cfg, spec_k, draft_model, draft_token_cost):
@@ -147,3 +203,24 @@ class InferenceEngine:
     def serve(self, requests: Sequence[Request], *, deadline: float,
               clock=None) -> ServeStats:
         return self.router.serve(requests, deadline, clock=clock)
+
+
+def _unserved(sv, plan) -> List[str]:
+    """The flags of a normalized ServingConfig that turn on a serving
+    feature the port does not serve yet."""
+    out = []
+    if sv.disaggregate and plan.roles is not None:
+        out.append("--disaggregate (the plan's roles "
+                   f"{plan.roles})")
+    for flag, on in (("--host-mem-gb", sv.host_mem_gb > 0),
+                     ("--cluster-prefix", sv.cluster_prefix),
+                     ("--kvsan", sv.kvsan),
+                     ("--trace-out", bool(sv.trace_out)),
+                     ("--metrics-out", bool(sv.metrics_out)),
+                     ("--calibrate", sv.calibrate),
+                     ("--policy static", sv.policy == "static"),
+                     ("--cache-layout contiguous",
+                      sv.cache_layout == "contiguous")):
+        if on:
+            out.append(flag)
+    return out

@@ -1,5 +1,6 @@
-"""The serving loop of the port (copy of repro.serving.loop without its
-tracing and metrics hooks, which wait for a later slice).
+"""The serving loop of the port (copy of repro.serving.loop, with its
+``dispatch`` hook, without its tracing and metrics hooks, which wait for a
+later slice).
 
 The loop is event-driven at ITERATION granularity: each cycle it (1) admits
 due arrivals one at a time onto the least-loaded worker with capacity,
@@ -176,13 +177,15 @@ class ServeStats:
 # ---------------------------------------------------------------------------
 
 def run_serve_loop(workers: Sequence, requests: Sequence, *, deadline: float,
-                   clock=None) -> ServeStats:
+                   clock=None, dispatch=None) -> ServeStats:
     """Replay a timed workload over `workers` and account the outcome.
 
     Mutates each request in place (`start_time`, `finish_time`, `output`)
     and returns the ServeStats. Dispatch is iteration-level least-loaded
     with a DETERMINISTIC tiebreak (lowest replica id, falling back to
-    worker order) so identical workloads route identically run-to-run.
+    worker order) so identical workloads route identically run-to-run;
+    ``dispatch(cands, req, now) -> worker`` overrides the choice entirely
+    (the Router's seeded tiebreaks).
     """
     clock = clock if clock is not None else WallClock()
     pending = sorted(requests, key=lambda r: (r.arrival, r.rid))
@@ -201,7 +204,10 @@ def run_serve_loop(workers: Sequence, requests: Sequence, *, deadline: float,
             if not cands:
                 break
             req = pending[idx]
-            w = min(cands, key=lambda c: (c.load(now), wid[id(c)]))
+            if dispatch is not None:
+                w = dispatch(cands, req, now)
+            else:
+                w = min(cands, key=lambda c: (c.load(now), wid[id(c)]))
             req.start_time = now
             w.admit([req], now)
             idx += 1

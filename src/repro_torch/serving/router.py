@@ -1,7 +1,8 @@
 """Task coordinator of the port (twin of repro.serving.router.Router for
 ``policy="continuous"`` with ``cache_layout="paged"``): one paged
 continuous-batching worker per replica, least-loaded dispatch with the
-lowest replica id breaking ties, all driven by the one serving loop.
+lowest replica id breaking ties, or a seeded draw when ``route_seed`` is
+given, all driven by the one serving loop.
 ``spec`` (a SpecConfig) turns on speculative decoding on every replica;
 ``spec_ks`` gives each replica its own depth (0 = plain decode there).
 ``kv_dtype`` sets every replica's page-pool precision, ``kv_dtypes`` each
@@ -11,6 +12,8 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Sequence
+
+import numpy as np
 
 from repro_torch.serving.continuous import PagedPipelineBatcher
 from repro_torch.serving.loop import ServeStats, WallClock, run_serve_loop
@@ -31,7 +34,8 @@ class Router:
                  spec_ks: Optional[Sequence[int]] = None,
                  kv_dtype: Optional[str] = None,
                  kv_dtypes: Optional[Sequence[Optional[str]]] = None,
-                 kv_guard_layers: Sequence[int] = ()):
+                 kv_guard_layers: Sequence[int] = (),
+                 route_seed: Optional[int] = None):
         if policy != "continuous" or cache_layout != "paged":
             raise NotImplementedError(
                 f"policy={policy!r}, cache_layout={cache_layout!r}: the port "
@@ -66,6 +70,18 @@ class Router:
             replica_id=i, spec=replica_spec(i),
             kv_dtype=replica_kv_dtype(i), kv_guard_layers=kv_guard_layers)
             for i, (r, sc) in enumerate(zip(self.replicas, step_costs))]
+        self._route_rng = (np.random.RandomState(route_seed)
+                           if route_seed is not None else None)
+
+    def _dispatch(self, cands, req: Request, now: float):
+        """Admission choice (serving.loop hook): least-loaded; ties go to
+        the lowest replica id, or by a seeded draw per candidate when the
+        caller wants reproducible-but-shuffled routing benchmarks."""
+        def key(w):
+            tie = (self._route_rng.random() if self._route_rng is not None
+                   else w.replica_id)
+            return w.load(now), tie
+        return min(cands, key=key)
 
     def serve(self, requests: Sequence[Request], deadline: float, *,
               clock=None) -> ServeStats:
@@ -73,4 +89,5 @@ class Router:
         (VirtualClock for deterministic replay)."""
         return run_serve_loop(
             self.workers, requests, deadline=deadline,
-            clock=clock if clock is not None else WallClock())
+            clock=clock if clock is not None else WallClock(),
+            dispatch=self._dispatch)
