@@ -39,12 +39,19 @@ JAX. Phases, each of which raises on failure:
      ranking's capacity), and the selective
      scan at Jamba's widths (d_inner 8192, d_state 16), the CPU tests' and
      ragged ones (d_inner 200, 24, 100: part-filled last blocks,
-     element-wise loads) (output and final state); then timed at the
-     serving path's shapes (the scan at b 16 and b 1) beside their bound,
-     their plain version and, where one PyTorch call computes the same
-     function (flash and contiguous decode),
+     element-wise loads) (output and final state); flash (#1) and the
+     contiguous decode (#8) also at h2o-danube-1.8b's widths (hq 32, hkv
+     8, head dim 80) on all their cases and on its own: a 4096-token
+     window on 4600 keys with kv_start, a window shorter than a key tile,
+     a ragged s with a dead row; the 4096-slot ring read whole and part
+     filled, a 4672-position cache with kv_start and a dead row; then
+     timed at the serving path's shapes (the scan at b 16 and b 1; #1 and
+     #8 also at the h2o-danube serve's: q (4, 4604, 32, 80) under the
+     window with kv_start 0..4, and one decode step on a full 4096-slot
+     ring) beside their bound, their plain version and, where one PyTorch
+     call computes the same function (flash and contiguous decode),
      ``F.scaled_dot_product_attention``;
-  3. serving at the full width of llama2-70b in bf16 (depth cut to 8 of 80
+  3. serving at the full width of llama2-70b in bf16 (depth cut to 4 of 80
      layers, seeded random weights) through the asymmetric 2-stage paged
      pipeline: after a short warm-up serve, a synthetic workload (cold
      joint prefill + decode), a shared-prefix workload (prefix caching +
@@ -91,7 +98,17 @@ JAX. Phases, each of which raises on failure:
      tokens, the first serve must run #1 and #2, the second #3 and #2.
      Then ``python -m repro_torch.launch.serve`` (llama2-70b --reduced,
      paged) runs in a subprocess on the card and must exit 0 with its
-     assignment and summary lines.
+     assignment and summary lines;
+  6. the launcher's defaults (``phase_danube``): ``python -m
+     repro_torch.launch.serve`` with no flags serves h2o-danube-1.8b at
+     full width and depth in bf16 (static batching after the reference's
+     warning, contiguous caches, the 4096-token window's ring); then 8
+     prompts of 4600..4604 tokens and 64 new tokens each in static
+     batches of 4 (#1 with the window engaged, #8 on the wrapped ring;
+     profiled), the same in fp32 through the kernels and the plain
+     versions (equal tokens, or a part at a near-tie whose margin is
+     reported), and llama2-70b (4 layers) on the contiguous layout under
+     continuous and under static batching (#1 and #8 only).
 
 ``python3 chip_smoke.py --sass-of TREE OUT.json`` instead builds the
 kernels of another checkout (the parent commit's ``git archive``) and
@@ -99,13 +116,15 @@ writes their SASS digests, which chip_smoke_sass.json records.
 
 The last line of standard output is the JSON result
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel
-with its launches on the serving paths (phases 3 and 5), its error
-against the plain version and its times.
+with its launches on the serving paths (phases 3, 5 and 6), its error
+against the plain version and its times, and #1 and #8 once more at head
+dim 80 with phase 6's launches and the times at its shapes.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import json
 import math
 import os
@@ -155,6 +174,14 @@ KERNEL_INFO = {
 
 def log(*a):
     print(*a, flush=True)
+
+
+_T0 = time.perf_counter()
+
+
+def mark(what):
+    """Log how far into the script `what` ended."""
+    log(f"  ({what} done {time.perf_counter() - _T0:.1f} s into the script)")
 
 
 # ---------------------------------------------------------------------------
@@ -215,7 +242,9 @@ def log_kernel_build(name, so):
 SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "LDGSTS", "HMMA", "MOVM")
 
 
+@functools.lru_cache(maxsize=None)
 def _sass(so):
+    """cuobjdump -sass of a library, once per library file."""
     from repro_torch.kernels import build
     tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
     return subprocess.run([tool, "-sass", str(so)], capture_output=True,
@@ -459,6 +488,44 @@ def flash_cases(gen, dev, dtype, hq=64, hkv=8, d=128):
         q1, k[:, :300].contiguous(), v[:, :300].contiguous()), None
 
 
+def window_cases(gen, dev, dtype, hq=32, hkv=8, d=80):
+    """h2o-danube-1.8b's prefills (d 80, g 4): its 4096-token window on
+    4600 keys with left padding (kv_start), a window shorter than a key
+    tile, and a ragged s (no multiple of the 128-row tile) with a dead
+    row."""
+    from repro_torch.kernels import ops
+    q, k, v = (_rand(gen, (1, 4600, h, d), dtype, dev)
+               for h in (hq, hkv, hkv))
+    yield "s=4600 window=4096 kv_start=4", lambda: ops.flash_attention(
+        q, k, v, window=4096, kv_start=torch.tensor([4], device=dev)), None
+    yield "s=4600 window=50", lambda: ops.flash_attention(
+        q, k, v, window=50), None
+    q, k, v = (_rand(gen, (3, 333, h, d), dtype, dev) for h in (hq, hkv, hkv))
+    kv_start = torch.tensor([0, 3, 333], device=dev)     # row 2: dead
+    yield "s=333 window=100 kv_start+dead", lambda: ops.flash_attention(
+        q, k, v, window=100, kv_start=kv_start), lambda o: o[2]
+
+
+def ring_cases(gen, dev, dtype, hq=32, hkv=8, d=80):
+    """h2o-danube-1.8b's target decode (d 80, g 4): its 4096-slot ring read
+    whole or part-filled (kv_len only, as the ring passes no kv_start), a
+    full 4672-position cache with left padding (kv_start; row 3 dead), and
+    a b = 1 row whose keys spread over the most splits."""
+    from repro_torch.kernels import ops
+    q = _rand(gen, (4, 1, hq, d), dtype, dev)
+    k, v = (_rand(gen, (4, 4096, hkv, d), dtype, dev) for _ in range(2))
+    yield "ring S=4096 kv_len=4096", lambda: ops.decode_attention(
+        q, k, v, kv_len=torch.full((4,), 4096, device=dev)), None
+    yield "ring S=4096 kv_len 1..4095", lambda: ops.decode_attention(
+        q, k, v, kv_len=torch.tensor([1, 100, 2000, 4095], device=dev)), None
+    yield "ring S=4096 b=1", lambda: ops.decode_attention(
+        q[:1], k[:1], v[:1], kv_len=torch.tensor([4096], device=dev)), None
+    k, v = (_rand(gen, (4, 4672, hkv, d), dtype, dev) for _ in range(2))
+    yield "full S=4672 kv_start+dead", lambda: ops.decode_attention(
+        q, k, v, kv_len=torch.tensor([4672, 4604, 300, 4], device=dev),
+        kv_start=torch.tensor([0, 4, 200, 4], device=dev)), lambda o: o[3]
+
+
 def _pool(gen, dev, dtype, n_blocks, bs, hkv, d, kv=None):
     """Random K/V page pools in `dtype`, and {} for the ops call; with
     `kv` ("int8" / "fp8") the pools are quantized rows and the dict holds
@@ -693,26 +760,38 @@ CASES = {"flash_attention": flash_cases,
          "paged_verify_attention_quant": _quantized(verify_cases)}
 
 
-def check_kernels(dev):
-    """Every kernel against its plain version: Llama-2-70B widths (g 8),
-    Jamba's (hq 32, hkv 8: g 4), g 1 (hq = hkv 8) and the CPU tests' small
-    head dims (both verify kernels also at g 16), in bf16 and fp32, the
-    paged kernels at several block sizes; the parts of a case that
-    see no key must be exact zeros. Returns {kernel: max abs err over its
-    fp32 checks}."""
+# h2o-danube-1.8b's own cases of #1 and #8 (its window, its ring), at its
+# widths (d 80, g 4)
+D80_CASES = {"flash_attention": window_cases,
+             "decode_attention": ring_cases}
+
+
+def check_kernels(dev, names=None):
+    """Every kernel (of `names`, None: all) against its plain version:
+    Llama-2-70B widths (g 8), Jamba's (hq 32, hkv 8: g 4), g 1 (hq = hkv
+    8) and the CPU tests' small head dims (both verify kernels also at
+    g 16; #1 and #8 also at h2o-danube-1.8b's d 80, g 4, and on its window
+    and ring cases), in bf16 and fp32, the paged kernels at several block
+    sizes; the parts of a case that see no key must be exact zeros.
+    Returns {kernel: max abs err over its fp32 checks}."""
     gen = torch.Generator(device=dev).manual_seed(0)
     errs = {}
+    dtypes = (torch.bfloat16, torch.float32)
     for name, cases in CASES.items():
-        runs = [(dt, widths) for dt in (torch.bfloat16, torch.float32)
+        if names is not None and name not in names:
+            continue
+        runs = [(dt, widths, cases) for dt in dtypes
                 for widths in ({}, dict(hq=32, hkv=8, d=128),
                                dict(hq=8, hkv=8, d=128),
                                dict(hq=4, hkv=2, d=32),
                                dict(hq=4, hkv=1, d=64))]
         if name.startswith("paged_verify"):   # g 16: two head groups
-            runs += [(dt, dict(hq=32, hkv=2, d=64))
-                     for dt in (torch.bfloat16, torch.float32)]
-        for dtype, widths in runs:
-            for case, fn, dead in cases(gen, dev, dtype, **widths):
+            runs += [(dt, dict(hq=32, hkv=2, d=64), cases) for dt in dtypes]
+        if name in D80_CASES:
+            runs += [(dt, dict(hq=32, hkv=8, d=80), c)
+                     for c in (cases, D80_CASES[name]) for dt in dtypes]
+        for dtype, widths, run_cases in runs:
+            for case, fn, dead in run_cases(gen, dev, dtype, **widths):
                 got, want = _run_both(fn)
                 torch.cuda.synchronize()
                 err = _compare(name, case, got, want, dtype)
@@ -896,6 +975,19 @@ def timing_inputs(dev, gen):
     out["ssm_scan"] = _scan_inputs(gen, dev, 16, 1024, 8192, 16, dt)
     # and a lone 1024-token prompt: 1 / 16 of the work on as many SMs
     out["ssm_scan[b1]"] = _scan_inputs(gen, dev, 1, 1024, 8192, 16, dt)
+    # h2o-danube-1.8b's long-prompt serve (phase 6; d 80, g 4): a static
+    # batch of 4 prompts of 4600..4604 tokens left-padded to 4604 under its
+    # 4096-token window, and a decode step on its full 4096-slot ring
+    hq, hkv, d, s = 32, 8, 80, 4604
+    out["flash_attention[d80]"] = dict(
+        q=_rand(gen, (4, s, hq, d), dt, dev),
+        k=_rand(gen, (4, s, hkv, d), dt, dev),
+        v=_rand(gen, (4, s, hkv, d), dt, dev),
+        kv_start=torch.tensor([0, 1, 2, 4], device=dev), window=4096)
+    out["decode_attention[d80]"] = dict(
+        q=_rand(gen, (4, 1, hq, d), dt, dev),
+        k=_rand(gen, (4, 4096, hkv, d), dt, dev),
+        v=_rand(gen, (4, 4096, hkv, d), dt, dev))
     return out
 
 
@@ -971,6 +1063,33 @@ def time_kernels(dev):
         flops=4 * d * hq * kv,
         library_ms=_time_sdpa(z["q"], z["k"], z["v"], flush, attn_mask=mask))
 
+    # h2o-danube-1.8b's (d 80): the keys each query really sees under the
+    # window and the left padding count; the library call takes the same
+    # mask as a boolean tensor
+    f = inp["flash_attention[d80]"]
+    b, s, hq80, d80 = f["q"].shape
+    W, starts80 = f["window"], f["kv_start"].tolist()
+    pairs = sum(p - max(ks, p - W + 1) + 1 for ks in starts80
+                for p in range(ks, s))
+    pos = torch.arange(s, device=dev)
+    mask = ((pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - W)
+            )[None] & (pos[None, None, :] >= f["kv_start"][:, None, None])
+    res["flash_attention[d80]"] = dict(
+        fn=lambda: ops.flash_attention(f["q"], f["k"], f["v"], window=W,
+                                       kv_start=f["kv_start"]),
+        nbytes=es * (2 * f["q"].numel() + f["k"].numel() + f["v"].numel()),
+        flops=4 * d80 * hq80 * pairs,
+        library_ms=_time_sdpa(f["q"], f["k"], f["v"], flush,
+                              attn_mask=mask[:, None]))
+    del mask
+    r80 = inp["decode_attention[d80]"]
+    res["decode_attention[d80]"] = dict(
+        fn=lambda: ops.decode_attention(r80["q"], r80["k"], r80["v"]),
+        nbytes=es * (2 * r80["q"].numel() + r80["k"].numel()
+                     + r80["v"].numel()),
+        flops=4 * d80 * hq80 * r80["k"].shape[0] * r80["k"].shape[1],
+        library_ms=_time_sdpa(r80["q"], r80["k"], r80["v"], flush))
+
     w = inp["paged_verify_attention"]
     T = w["q"].shape[1]
     starts = w["kv_start"].tolist()
@@ -1033,6 +1152,7 @@ def time_kernels(dev):
 
     out = {}
     for name, r in res.items():
+        torch.cuda.empty_cache()      # the plain d-80 prefill takes ~50 GB
         got, want = _run_both(r["fn"])
         err = _compare_out(name, "serving shape", got, want, torch.bfloat16)
         del got, want
@@ -1056,10 +1176,20 @@ def time_kernels(dev):
 
 
 # ---------------------------------------------------------------------------
-# Phase 3: serving at full Llama-2-70B width (bf16, depth cut to 8 layers)
+# Phase 3: serving at full Llama-2-70B width (bf16, depth cut to 4 layers)
 # ---------------------------------------------------------------------------
 
-SERVE_LAYERS = 8
+# llama2-70b's depth in phases 3, 5 and 6: 4 of 80 layers (cut from 8 so
+# that phase 6's full-depth h2o-danube serves fit the script's time)
+SERVE_LAYERS = 4
+
+
+def _llama_asg(L):
+    """Phase 3's two-stage pipeline of an L-layer llama: 3/8 of the layers
+    on a TP-2 stage, the rest on one device ([3, 5] at 8 layers)."""
+    from repro_torch.core.plan import Assignment, PipelinePlan, StagePlan
+    return Assignment([PipelinePlan([StagePlan([0, 1], L * 3 // 8),
+                                     StagePlan([2], L - L * 3 // 8)])])
 
 
 def _llama(num_layers):
@@ -1069,15 +1199,18 @@ def _llama(num_layers):
                                num_layers=num_layers)
 
 
-def _serve(cfg, asg, params, reqs, around=contextlib.nullcontext, **kw):
-    """Serve reqs on a fresh engine, inside the context `around()` (the
-    engine is built outside it); check every request got its tokens.
+def _serve(cfg, asg, params, reqs, around=contextlib.nullcontext,
+           cache_layout="paged", **kw):
+    """Serve reqs on a fresh engine (paged unless `cache_layout` says
+    otherwise), inside the context `around()` (the engine is built outside
+    it); check every request got its tokens.
     Returns (stats, wall seconds, dict(draft_steps: draft decode steps
     run, weight_bytes: bytes of the replica's weights on the card,
     state_bytes: bytes of its Mamba layers' per-slot state))."""
     from repro_torch.serving.engine import InferenceEngine
     from repro_torch.serving.loop import VirtualClock
-    eng = InferenceEngine(cfg, asg, params=params, device=DEVICE, **kw)
+    eng = InferenceEngine(cfg, asg, params=params, device=DEVICE,
+                          cache_layout=cache_layout, **kw)
     torch.cuda.synchronize()
     with around():
         t0 = time.perf_counter()
@@ -1093,8 +1226,9 @@ def _serve(cfg, asg, params, reqs, around=contextlib.nullcontext, **kw):
             raise AssertionError(f"request {r.rid}: token out of vocab")
     if stats.rejected or stats.dropped:
         raise AssertionError(stats.summary())
-    info = dict(draft_steps=sum(getattr(w._proposer, "draft_steps", 0)
-                                for w in eng.router.workers))
+    info = dict(draft_steps=sum(
+        getattr(getattr(w, "_proposer", None), "draft_steps", 0)
+        for w in eng.router.workers))
     weights = {}        # stages share the head's tensors: count each once
     for st in eng.replicas[0].stages:
         for t in _leaves({"layers": dict(enumerate(st.layer_params)),
@@ -1245,13 +1379,11 @@ def phase_serving(smi):
     """Full-width bf16 serving through the asymmetric 2-stage pipeline on
     the card. Returns the launch counts summed over the measured serves,
     each serve's counts zeroed just before it and read just after."""
-    from repro_torch.core.plan import Assignment, PipelinePlan, StagePlan
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
     cfg = _llama(SERVE_LAYERS)
     L = cfg.num_layers
-    asg = Assignment([PipelinePlan([StagePlan([0, 1], 3),
-                                    StagePlan([2], 5)])])
+    asg = _llama_asg(L)
     params = M.init_params(cfg, 0, device=DEVICE)
     n_params = sum(t.numel() for t in _leaves(params))
     log(f"phase 3: {cfg.name} at full width, {L} of 80 layers, "
@@ -1265,10 +1397,11 @@ def phase_serving(smi):
     for kw in ({}, spec):
         _serve(cfg, asg, params,
                _workloads(cfg.vocab_size, n=4, out_len=4)[0], **common, **kw)
+    mark("phase 3 warm-up")
     counts = dict.fromkeys(ops.KERNELS, 0)
     prefix = dict(prefix_caching=True, prefill_chunk=256)
     # the self-draft (draft_seed 0, like the target's weights) is a second
-    # copy of the 8-layer model with a 16 x 2048 contiguous cache; the
+    # copy of the model with a 16 x 2048 contiguous cache; the
     # quantized serves keep the first and last layers' pools at bf16
     serves = (("synthetic", {}), ("shared-prefix", prefix),
               ("spec-ngram", spec), ("spec-draft", dict(spec, draft_model=cfg)),
@@ -1324,7 +1457,9 @@ def phase_serving(smi):
                     common["n_slots"], kw)
     log(f"  peak device memory {max(peaks) / 2**30:.2f} GiB over the serves "
         f"(torch.cuda.max_memory_allocated) on {smi}")
+    mark("phase 3 serves")
     study_rewritten_kernels(cfg, asg, params, serves)
+    mark("phase 3 sampled calls")
     for name, kw in serves:
         if name in ("synthetic", "shared-prefix", "spec-draft", "quant-int8",
                     "quant-fp8-ngram", "quant-w8"):
@@ -1763,6 +1898,233 @@ def phase_schedule_serve(smi):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the launcher's defaults: h2o-danube-1.8b, its window and its ring
+# ---------------------------------------------------------------------------
+
+DANUBE = "h2o-danube-1.8b"
+D80 = ("flash_attention", "decode_attention")
+# the long-prompt serve: prompts past the 4096-token window, 64 new tokens
+# (the ring wraps), caches of at most 4672 positions
+DANUBE_LENS, DANUBE_NEW, DANUBE_MAX_LEN = (4604, 4600, 4603, 4601), 64, 4672
+
+
+def _danube_reqs(vocab, n, out_len=None, seed=0):
+    """n requests at time 0 whose prompts cycle through DANUBE_LENS tokens
+    (each static batch then pads its shorter prompts on the left), of
+    out_len (None: DANUBE_NEW) new tokens each."""
+    from repro_torch.serving.request import Request
+    rng = np.random.default_rng(seed)
+    lens = DANUBE_LENS
+    return [Request(rid=i, prompt=rng.integers(
+        0, vocab, size=lens[i % len(lens)]).astype(np.int32),
+        max_new_tokens=out_len or DANUBE_NEW) for i in range(n)]
+
+
+def _static_margin(eng, reqs, max_batch, want, i, j):
+    """The top-1 minus top-2 logit of request i's step j in its own static
+    batch (the requests in order, max_batch at a time, left-padded), the
+    batch decoded along `want`'s tokens: how near a tie the greedy choice
+    that parted was."""
+    b0 = i // max_batch * max_batch
+    batch = reqs[b0:b0 + max_batch]
+    s = max(len(r.prompt) for r in batch)
+    toks = np.zeros((len(batch), s), np.int32)
+    ks = np.array([s - len(r.prompt) for r in batch], np.int32)
+    for row, r in enumerate(batch):
+        toks[row, ks[row]:] = r.prompt
+    rep = eng.replicas[0]
+    logits = rep.prefill(toks, kv_start=ks, max_new=j + 1)
+    for t in range(j):
+        logits = rep.decode_step(np.array([want[b0 + row][t] for row in
+                                           range(len(batch))], np.int32))
+    top = np.sort(logits[i - b0])[-2:]
+    return float(top[1] - top[0])
+
+
+def phase_danube(smi):
+    """The launcher's default flags serve h2o-danube-1.8b at full width and
+    full depth (24 layers, d_model 2560, 32 / 8 heads of head dim 80, a
+    4096-token sliding window) on the card: it has no slot mode, so the
+    engine falls back to the paper's static whole-batch engine (with the
+    reference's warning) on contiguous caches, the window's ring among
+    them.
+
+      (a) ``python -m repro_torch.launch.serve`` with no flags at all, in a
+          subprocess: bf16, scheduled on the case-study pool, Poisson
+          arrivals on the wall clock; it must exit 0 and print the
+          reference's lines and a ServeStats summary;
+      (b) 8 requests of 4600..4604-token prompts and 64 new tokens each, in
+          static batches of 4, in-process in bf16: #1 runs with the window
+          engaged (prompts past 4096 keys) and #8 on the ring after it
+          wraps; walls, tokens/s, peak memory and launches logged, and the
+          serve profiled;
+      (c) the same in fp32 (batches of 2) through the kernels and through
+          the plain versions: equal tokens, or a part where the greedy
+          top-2 logit margin is within fp32 rounding (reported);
+      (d) phase 3's llama2-70b (4 layers, bf16) on the contiguous layout,
+          under continuous batching (slot pools: #1 on joint right-padded
+          prefills, #8 on per-slot positions) and under policy="static"
+          (#1 on left-padded prompts with kv_start, #8 with kv_start).
+
+    Returns the launch counts of (b) and (d), and of (b) alone (head dim
+    80), each serve's zeroed just before it and read just after."""
+    import dataclasses
+    import warnings
+    from repro_torch.configs import get_config
+    from repro_torch.core.plan import Assignment, PipelinePlan, StagePlan
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    counts = dict.fromkeys(ops.KERNELS, 0)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    log("phase 6: the launcher's defaults, h2o-danube-1.8b at full width "
+        "and depth: its window and its ring")
+
+    # (a) the launcher, no flags
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve"],
+                         cwd=root, env=env, capture_output=True, text=True,
+                         timeout=600)
+    lines = out.stdout.splitlines()
+    for line in lines:
+        log(f"  defaults | {line}")
+    if out.returncode != 0:
+        raise AssertionError(f"python -m repro_torch.launch.serve (no flags) "
+                             f"exited {out.returncode}: {out.stderr[-2000:]}")
+    if not (lines and lines[0].startswith(f"scheduling {DANUBE} on "
+                                          "case_study")
+            and any(x.startswith("  assignment: ") for x in lines)
+            and lines[-1].startswith("  n=")
+            and "policy='static'" in out.stderr):
+        raise AssertionError("the launcher's default run printed no "
+                             "schedule, assignment or summary line, or no "
+                             f"static fallback warning: {out.stderr[-2000:]}")
+    log(f"  defaults: python -m repro_torch.launch.serve exited 0 in "
+        f"{time.perf_counter() - t0:.1f} s on the card (process start and "
+        "scheduling included), with the static fallback warning")
+    mark("phase 6 (a)")
+
+    # (b) long prompts: the window and the ring
+    cfg = get_config(DANUBE)
+    asg = Assignment([PipelinePlan([StagePlan([0], cfg.num_layers)])])
+    params = M.init_params(cfg, 0, device=DEVICE)
+    n_params = sum(t.numel() for t in _leaves(params))
+    lens = DANUBE_LENS
+    kw = dict(cache_layout="contiguous", max_len=DANUBE_MAX_LEN, max_batch=4)
+    log(f"  danube: {cfg.name}, {cfg.num_layers} layers, {n_params / 1e9:.3f}"
+        f"e9 params {cfg.dtype} "
+        f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB), window "
+        f"{cfg.swa_window}, head dim {cfg.head_dim_}")
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        _serve(cfg, asg, params, _danube_reqs(cfg.vocab_size, 4, out_len=4), **kw)   # warm-up
+    if not any("policy='static'" in str(w.message) for w in seen):
+        raise AssertionError("no static fallback warning for h2o-danube")
+    reqs = _danube_reqs(cfg.vocab_size, 8)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        stats, wall, _ = _serve(cfg, asg, params, reqs, **kw)
+    launched = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    d80 = dict(launched)
+    for k in counts:
+        counts[k] += launched[k]
+    L, steps = cfg.num_layers, 2 * (DANUBE_NEW - 1)   # 2 batches
+    if launched["flash_attention"] != 2 * L or \
+            launched["decode_attention"] != steps * L:
+        raise AssertionError(f"danube: #1 / #8 launched {launched}, "
+                             f"expected {2 * L} / {steps * L}")
+    out_tok = sum(len(r.output) for r in reqs)
+    in_tok = sum(len(r.prompt) for r in reqs)
+    log(f"  serve danube-long: {len(reqs)} requests ({in_tok} prompt tokens "
+        f"of {min(lens)}..{max(lens)}, past the {cfg.swa_window}-token "
+        f"window; {out_tok} generated, the ring wrapping) in static batches "
+        f"of 4, {DANUBE_NEW} tokens each: {wall:.3f} s wall = {out_tok / wall:.1f} generated tok/s, "
+        f"{(in_tok + out_tok) / wall:.1f} total tok/s; {stats.summary()}; "
+        f"launches {launched}; peak device memory {peak / 2**30:.2f} GiB "
+        f"on {smi}")
+    mark("phase 6 (b) serve")
+    # one batch of 16 tokens (the profiler's trace of the whole serve would
+    # take a minute to sum up)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        profile_serve("danube-long (4 requests, 16 tokens)", cfg, asg,
+                      params, _danube_reqs(cfg.vocab_size, 4, out_len=16),
+                      **kw)
+    del params
+    torch.cuda.empty_cache()
+    mark("phase 6 (b) profile")
+
+    # (c) fp32: kernels against plain versions
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = M.init_params(cfg32, 0, device=DEVICE)
+    kw32 = dict(kw, max_batch=2)
+    outs = []
+    for backend in ("kernel", "plain"):
+        reqs = _danube_reqs(cfg.vocab_size, 4, out_len=16)
+        with ops.backend(backend), warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            stats, wall, _ = _serve(cfg32, asg, params, reqs, **kw32)
+        outs.append(([list(r.output) for r in reqs], stats, wall))
+    (tk, sk, wk), (tp, sp, wp) = outs
+    note = "identical"
+    if tk != tp:
+        i, j = next((i, j) for i, (a, b) in enumerate(zip(tp, tk))
+                    for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        from repro_torch.serving.engine import InferenceEngine
+        eng = InferenceEngine(cfg32, asg, params=params, device=DEVICE,
+                              **kw32)
+        margin = _static_margin(eng, reqs, 2, tp, i, j)
+        del eng
+        if margin > 1e-3:
+            raise AssertionError(
+                f"danube fp32: the kernel and plain token streams part for "
+                f"request {i} at token {j} ({tk[i][j]} vs {tp[i][j]}); the "
+                f"greedy top-2 logit margin there is {margin:.3g}")
+        note = (f"parting for request {i} at token {j} at a near-tie "
+                f"(greedy top-2 logit margin {margin:.3g})")
+    for f in PARITY_FIELDS:
+        if getattr(sk, f) != getattr(sp, f):
+            raise AssertionError(f"danube fp32: ServeStats.{f} differs: "
+                                 f"{getattr(sk, f)} vs {getattr(sp, f)}")
+    log(f"  parity danube (fp32, full width and depth, static batches of 2 "
+        f"left-padded prompts of {min(lens)}..{max(lens)} tokens): "
+        f"{len(tk)} requests x {len(tk[0])} tokens {note} through kernels "
+        f"({wk:.3f} s) and plain versions ({wp:.3f} s); {sk.summary()}")
+    del params
+    torch.cuda.empty_cache()
+    mark("phase 6 (c)")
+
+    # (d) llama2-70b on the contiguous layout: slot pools, then static
+    cfg = _llama(SERVE_LAYERS)
+    asg = _llama_asg(cfg.num_layers)
+    params = M.init_params(cfg, 0, device=DEVICE)
+    for name, kw in (("contiguous", dict(n_slots=16, max_len=2048)),
+                     ("static", dict(policy="static", max_batch=4,
+                                     max_len=2048))):
+        reqs = _workloads(cfg.vocab_size, n=16, out_len=32)[0]
+        ops.reset_launch_counts()
+        stats, wall, _ = _serve(cfg, asg, params, reqs,
+                                cache_layout="contiguous", **kw)
+        launched = ops.launch_counts()
+        for k in counts:
+            counts[k] += launched[k]
+        bad = [k for k in ops.KERNELS if (launched[k] > 0) != (k in D80)]
+        if bad:
+            raise AssertionError(f"llama {name}: {bad} launched {launched}")
+        out_tok = sum(len(r.output) for r in reqs)
+        log(f"  serve llama-{name} ({cfg.num_layers} layers, bf16): "
+            f"{len(reqs)} requests, {out_tok} generated tokens in "
+            f"{wall:.3f} s wall = {out_tok / wall:.1f} generated tok/s; "
+            f"{stats.summary()}; launches {launched}")
+    del params
+    torch.cuda.empty_cache()
+    return counts, d80
+
+
 def dump_sass(tree, out):
     """Build the kernel sources of another checkout `tree` (a `git archive`
     of the parent commit) with this tree's flags and write each library's
@@ -1786,11 +2148,7 @@ def dump_sass(tree, out):
 def main():
     if sys.argv[1:2] == ["--sass-of"]:         # --sass-of TREE OUT.json
         return dump_sass(*sys.argv[2:4])
-    t0 = time.perf_counter()
-
-    def done(phase):
-        log(f"  ({phase} done {time.perf_counter() - t0:.1f} s into the "
-            "script)")
+    done = mark
     smi = phase_device_and_build()
     done("phase 1")
     log("phase 2: kernels against their plain versions")
@@ -1810,12 +2168,22 @@ def main():
     for k, n in phase_schedule_serve(smi).items():
         counts[k] += n
     done("phase 5")
+    danube, d80 = phase_danube(smi)
+    done("phase 6")
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         kernels.append(dict(name=name, route="cuda", source=src,
-                            replaces=replaces, launches=counts[name],
+                            replaces=replaces,
+                            launches=counts[name] + danube[name],
                             **timed[name]))
-    log(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s"
+    # #1 and #8 at h2o-danube-1.8b's head dim 80: the long-prompt serve's
+    # launches (also in the rows above) and the times at its shapes
+    for name in D80:
+        src, replaces = KERNEL_INFO[name]
+        kernels.append(dict(name=f"{name}[d80]", route="cuda", source=src,
+                            replaces=replaces, launches=d80[name],
+                            **timed[f"{name}[d80]"]))
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - _T0:.1f} s"
         ", the build included")
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels}))

@@ -334,12 +334,19 @@ cudaError_t launch(const AttnParams& p, cudaStream_t stream) {
 // fp32 q / o on K/V of type KV (float, or a one-byte payload read with
 // the scales of AttnParams): a few rows (<= 16, e.g. a short context
 // chunk's g query heads) take the 16-row block, more the 64-row block.
-// Head dims the port serves: 32, 64, 128. Contiguous K/V (PAGED false) is
-// fp32 flash prefill's.
+// Head dims the port serves: 32, 64, 128, and 80 (h2o-danube-1.8b's) for
+// contiguous K/V (PAGED false), which is fp32 flash prefill's; the paged
+// kernels take no config of head dim 80 and have no instance of it.
 template <typename KV, bool PAGED>
 cudaError_t dispatch_d(const AttnParams& p, int d, cudaStream_t stream) {
   const bool small = p.sq * (p.hq / p.hkv) <= 16;
   switch (d) {
+    case 80:
+      if constexpr (!PAGED)
+        return small ? launch<float, KV, 80, 1, PAGED>(p, stream)
+                     : launch<float, KV, 80, 4, PAGED>(p, stream);
+      else
+        return cudaErrorInvalidValue;
     case 32:
       return small ? launch<float, KV, 32, 1, PAGED>(p, stream)
                    : launch<float, KV, 32, 4, PAGED>(p, stream);

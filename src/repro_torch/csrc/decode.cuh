@@ -296,6 +296,29 @@ __device__ __forceinline__ void load_v(uint32_t (&vw)[MT], const bf16* src,
   }
 }
 
+// Head dim 80 (contiguous decode only, h2o-danube-1.8b's): a lane's V
+// words are dims 8 gq .. + 7 (words 0..3, one 16-byte load) and dims
+// 64 + 2 gq, + 1 (word 4), or zeros; so m-tile i < 4 of O^T covers dims
+// 8 gq + 2i, + 1 and m-tile 4 dims 64 + 2 gq, + 1 (vdim below)
+__device__ __forceinline__ void load_v80(uint32_t (&vw)[5], const bf16* row,
+                                         int gq, bool live) {
+  const uint4 x = live ? ld16(row + 8 * gq) : make_uint4(0, 0, 0, 0);
+  vw[0] = x.x;
+  vw[1] = x.y;
+  vw[2] = x.z;
+  vw[3] = x.w;
+  vw[4] = live ? *reinterpret_cast<const uint32_t*>(row + 64 + 2 * gq) : 0u;
+}
+
+// the first of the two dims that m-tile i of O^T covers for lane row gq
+template <int D>
+__device__ __forceinline__ int vdim(int i, int gq) {
+  if constexpr (D == 80)
+    return i < 4 ? 8 * gq + 2 * i : 64 + 2 * gq;
+  else
+    return gq * (D / 8) + 2 * i;
+}
+
 // Two one-byte K/V elements (bytes 2h, 2h + 1 of w) -> a bf16 pair, exact,
 // by way of an f16 pair: int8 byte x ^ 0x80 as the low byte of f16 1024 is
 // 1024 + 128 + x, so one f16x2 subtraction leaves x; fp8 e4m3: the
@@ -463,6 +486,12 @@ __device__ void warp_bf16(const P& p, int bi, int kvh, int h0, int ge,
                           int ks, int ke, Smem<D>& sm) {
   constexpr int QJ = D / 32;   // 16-byte K loads per row, Q loads per head
   constexpr int MT = D / 16;   // m-tiles of O^T; words of V per key
+  // head dim 80: dims 64..79 are one more k-step of S, a lane's 4 of them
+  // (dims 64 + 4 tq .. + 3) an 8-byte load of K and of Q
+  constexpr bool TAIL = D % 32 != 0;
+  static_assert(!TAIL || (D == 80 && KEYS == CONTIGUOUS && !is_verify<P> &&
+                          !is_quant<P>),
+                "head dim 80 is the contiguous decode's only");
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gq = lane / 4, tq = lane % 4;
   const bf16* Q = static_cast<const bf16*>(p.q);
@@ -501,6 +530,12 @@ __device__ void warp_bf16(const P& p, int bi, int kvh, int h0, int ge,
                                32 * j + 8 * tq)
                         : make_uint4(0, 0, 0, 0);
   }
+  uint2 qt = make_uint2(0, 0);  // TAIL: dims 32 QJ + 4 tq .. + 3 of Q
+  if constexpr (TAIL) {
+    if (gq < ge)
+      qt = *reinterpret_cast<const uint2*>(
+          Q + ((int64_t)bi * p.hq + h0 + gq) * D + 32 * QJ + 4 * tq);
+  }
 
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
   float acc[MT][4];
@@ -534,6 +569,7 @@ __device__ void warp_bf16(const P& p, int bi, int kvh, int h0, int ge,
     // K rows c0 + gq, c0 + gq + 8; V rows c0 + 2tq + {0, 1, 8, 9}, dims
     // gq * D / 8 .. + D / 8; rows past ke read as zeros
     uint4 kr[2][QJ];
+    uint2 krt[2];  // TAIL: dims 32 QJ + 4 tq .. + 3 of the two K rows
     uint32_t vw[4][MT];
     // quantized: the step's one-byte rows and scales, K widened before S,
     // V after the softmax (fewer registers in flight)
@@ -548,6 +584,24 @@ __device__ void warp_bf16(const P& p, int bi, int kvh, int h0, int ge,
       }
       if constexpr (KEYS == PAGED16) r16n = group_base(p, bi, next, ke);
       widen_k<typename Payload<P>::type, D>(qr, kr);
+    } else if constexpr (KEYS == CONTIGUOUS && TAIL) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int key = c0 + gq + 8 * r;
+        const bf16* row = Kb + key * row_stride;
+#pragma unroll
+        for (int j = 0; j < QJ; ++j)
+          kr[r][j] = key < ke ? ld16(row + 32 * j + 8 * tq)
+                              : make_uint4(0, 0, 0, 0);
+        krt[r] = key < ke ? *reinterpret_cast<const uint2*>(row + 32 * QJ +
+                                                            4 * tq)
+                          : make_uint2(0, 0);
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int key = c0 + 2 * tq + (r & 1) + 8 * (r >> 1);
+        load_v80(vw[r], Vb + key * row_stride, gq, key < ke);
+      }
     } else if constexpr (KEYS == CONTIGUOUS) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -600,6 +654,10 @@ __device__ void warp_bf16(const P& p, int bi, int kvh, int h0, int ge,
                                k1[2 * half + 1]};
         mma_bf16(s, a, qw[2 * half], qw[2 * half + 1]);
       }
+    }
+    if constexpr (TAIL) {  // dims 64..79: one more k-step
+      const uint32_t a[4] = {krt[0].x, krt[1].x, krt[0].y, krt[1].y};
+      mma_bf16(s, a, qt.x, qt.y);
     }
     if constexpr (is_quant<P>) {  // each score times its key's k_scale
 #pragma unroll
@@ -682,7 +740,11 @@ __device__ void warp_bf16(const P& p, int bi, int kvh, int h0, int ge,
   }
 #pragma unroll
   for (int i = 0; i < MT; ++i) {
-    const int dim = gq * (D / 8) + 2 * i;
+    int dim;
+    if constexpr (TAIL)
+      dim = vdim<D>(i, gq);
+    else
+      dim = gq * (D / 8) + 2 * i;
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       sm.o[warp][2 * tq + e][dim] = acc[i][e];
@@ -697,7 +759,9 @@ __device__ void warp_bf16(const P& p, int bi, int kvh, int h0, int ge,
 template <int D, int KEYS, class P>
 __device__ void warp_f32(const P& p, int bi, int kvh, int h0, int ge,
                          int ks, int ke, Smem<D>& sm) {
-  constexpr int DL = D / 32;
+  // dims lane + 32 i per lane; at head dim 80 the third holds dims 64..79
+  // on lanes 0..15 only
+  constexpr int DL = (D + 31) / 32;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const float* Q = static_cast<const float*>(p.q);
   const float* K = static_cast<const float*>(p.k);
@@ -825,7 +889,11 @@ __device__ void warp_f32(const P& p, int bi, int kvh, int h0, int ge,
       const float* vr = row(V, Vb, c0 + j);
       float vv[DL];
 #pragma unroll
-      for (int i = 0; i < DL; ++i) vv[i] = vr[lane + 32 * i];
+      for (int i = 0; i < DL; ++i)
+        if constexpr (D % 32 == 0)
+          vv[i] = vr[lane + 32 * i];
+        else
+          vv[i] = lane + 32 * i < D ? vr[lane + 32 * i] : 0.f;
 #pragma unroll
       for (int h = 0; h < HEADS; ++h) {
         const float pj = __shfl_sync(0xffffffffu, pr[h], j);
@@ -844,7 +912,11 @@ __device__ void warp_f32(const P& p, int bi, int kvh, int h0, int ge,
 #pragma unroll
   for (int h = 0; h < HEADS; ++h)
 #pragma unroll
-    for (int i = 0; i < DL; ++i) sm.o[warp][h][lane + 32 * i] = acc[h][i];
+    for (int i = 0; i < DL; ++i)
+      if constexpr (D % 32 == 0)
+        sm.o[warp][h][lane + 32 * i] = acc[h][i];
+      else if (lane + 32 * i < D)
+        sm.o[warp][h][lane + 32 * i] = acc[h][i];
 }
 
 // One block of decode (P = Params, QParams) or verify (P = VParams,
@@ -1008,6 +1080,14 @@ __global__ void __launch_bounds__(THREADS, 1)
   decode_block<T, D, KEYS>(p);
 }
 
+// Head dim 80 (the contiguous decode only): minBlocksPerMultiprocessor 1,
+// as the quantized kernels have; without it ptxas caps the bf16 instance
+// at 96 registers and spills 8 bytes
+template <typename T, int KEYS>
+__global__ void __launch_bounds__(THREADS, 1) decode_fwd80(const Params p) {
+  decode_block<T, 80, KEYS>(p);
+}
+
 template <typename T, int KEYS, class P>
 cudaError_t launch_t(const P& p, int d, cudaStream_t stream) {
   int cgroups = 1;  // verify's column groups
@@ -1019,6 +1099,12 @@ cudaError_t launch_t(const P& p, int d, cudaStream_t stream) {
       break;
     case 64:
       decode_fwd<T, 64, KEYS><<<grid, THREADS, 0, stream>>>(p);
+      break;
+    case 80:  // h2o-danube-1.8b: the contiguous decode only
+      if constexpr (KEYS == CONTIGUOUS && std::is_same<P, Params>::value)
+        decode_fwd80<T, KEYS><<<grid, THREADS, 0, stream>>>(p);
+      else
+        return cudaErrorInvalidValue;
       break;
     case 128:
       decode_fwd<T, 128, KEYS><<<grid, THREADS, 0, stream>>>(p);

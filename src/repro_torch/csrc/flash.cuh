@@ -28,11 +28,12 @@ __device__ __forceinline__ int item_of_round(int r) {
 }
 
 // Shared-memory geometry of a head dim: d is cut into chunks of CH columns
-// (the swizzle width: 64 bf16 = 128 B, or 32 = 64 B at d 32); each chunk
-// region holds its rows at ROWB bytes, swizzled in 16-byte units.
+// (the swizzle width: 64 bf16 = 128 B, or 32 = 64 B where d is not a
+// multiple of 64: d 32, and the 96 columns that head dim 80 runs in); each
+// chunk region holds its rows at ROWB bytes, swizzled in 16-byte units.
 template <int D>
 struct Geo {
-  static constexpr int CH = D < 64 ? D : 64;
+  static constexpr int CH = D % 64 ? 32 : 64;
   static constexpr int NCH = D / CH;
   static constexpr int ROWB = CH * 2;
   static constexpr uint32_t SWZ = ROWB == 128 ? 1 : 2;  // descriptor mode
@@ -71,6 +72,7 @@ __device__ __forceinline__ void mma_rs(float (&d)[N / 2],
                                        int accumulate) {
   if constexpr (N == 32) hx::wgmma_rs_n32<TB>(d, a, db, accumulate);
   if constexpr (N == 64) hx::wgmma_rs_n64<TB>(d, a, db, accumulate);
+  if constexpr (N == 96) hx::wgmma_rs_n96<TB>(d, a, db, accumulate);
   if constexpr (N == 128) hx::wgmma_rs_n128<TB>(d, a, db, accumulate);
 }
 

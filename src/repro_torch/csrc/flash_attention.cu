@@ -20,6 +20,14 @@
 //    Tensor maps over the (b, s, h, d) layouts give 128-byte (64-byte at
 //    d 32) swizzled tiles; rows past the tensor's end read as zeros and
 //    are masked, and a store clips them.
+//  - Head dim 80 (h2o-danube-1.8b) runs the 96-wide instance: three
+//    64-byte swizzle chunks of 32 columns, whose tensor maps cover the
+//    real 80 columns (160-byte rows, a multiple of 16 as TMA needs). The
+//    last chunk's columns 80..95 lie past the tensor's end, so TMA fills
+//    them with zeros in Q, K and V: Q K^T is exact, P V's extra columns
+//    come out zero, and the O store clips them. That costs 1.2x the
+//    products of a native 80-wide layout, which wgmma's k-steps of 16 and
+//    the swizzle widths (32 or 64 columns) do not offer.
 //  - Consumer warpgroups 1 and 2 own 64 rows each: P = 64 / g positions x
 //    the g query heads of ONE kv head (row = position * g + head), so one
 //    K/V tile serves all g heads (at g = 8 a 128-row CTA covers 16
@@ -320,23 +328,25 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
   }
 }
 
+// D: the instance's width in shared memory and registers; d: the tensors'
+// head dim (d <= D; the columns past d read as zeros and are not stored)
 template <int D, int BK, int STAGES>
 cudaError_t launch(Params p, const void* q, const void* k, const void* v,
-                   void* o, cudaStream_t stream) {
+                   void* o, int d, cudaStream_t stream) {
   using G = Geo<D>;
   constexpr size_t smem = Smem<D, BK, STAGES>::BYTES;
   const CUtensorMapSwizzle swz = G::ROWB == 128
                                      ? CU_TENSOR_MAP_SWIZZLE_128B
                                      : CU_TENSOR_MAP_SWIZZLE_64B;
   CUtensorMap tmq, tmk, tmv, tmo;
-  cudaError_t e = hx::bf16_map_4d(&tmq, q, D, p.hq, p.sq, p.b, G::CH, p.g,
+  cudaError_t e = hx::bf16_map_4d(&tmq, q, d, p.hq, p.sq, p.b, G::CH, p.g,
                                   p.P, 1, swz);
   if (e == cudaSuccess)
-    e = hx::bf16_map_4d(&tmo, o, D, p.hq, p.sq, p.b, G::CH, p.g, p.P, 1, swz);
+    e = hx::bf16_map_4d(&tmo, o, d, p.hq, p.sq, p.b, G::CH, p.g, p.P, 1, swz);
   if (e == cudaSuccess)
-    e = hx::bf16_map_4d(&tmk, k, D, p.hkv, p.skv, p.b, G::CH, 1, BK, 1, swz);
+    e = hx::bf16_map_4d(&tmk, k, d, p.hkv, p.skv, p.b, G::CH, 1, BK, 1, swz);
   if (e == cudaSuccess)
-    e = hx::bf16_map_4d(&tmv, v, D, p.hkv, p.skv, p.b, G::CH, 1, BK, 1, swz);
+    e = hx::bf16_map_4d(&tmv, v, d, p.hkv, p.skv, p.b, G::CH, 1, BK, 1, swz);
   if (e != cudaSuccess) return e;
   auto kern = flash_fwd<D, BK, STAGES>;
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -353,7 +363,7 @@ cudaError_t launch(Params p, const void* q, const void* k, const void* v,
   // pairs per section: their K and V take at most 1/16 of the L2 cache
   // (6 pairs at the serving shape on an H100), so the K/V tiles that the
   // 132 CTAs fetch at one time come from few pairs and are re-read from L2
-  const int64_t pair_bytes = (int64_t)p.skv * D * 2 * 2;
+  const int64_t pair_bytes = (int64_t)p.skv * d * 2 * 2;
   p.sect = (int)max((int64_t)1, l2 / 16 / pair_bytes);
   kern<<<min(p.items, sms), 128 * (NC + 1), smem, stream>>>(p, tmq, tmk, tmv,
                                                            tmo);
@@ -383,11 +393,13 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
     return cudaMemsetAsync(o, 0, (size_t)b * sq * hq * d * 2, st);
   switch (d) {
     case 32:
-      return launch<32, TILE_KEYS, RING>(p, q, k, v, o, st);
+      return launch<32, TILE_KEYS, RING>(p, q, k, v, o, d, st);
     case 64:
-      return launch<64, TILE_KEYS, RING>(p, q, k, v, o, st);
+      return launch<64, TILE_KEYS, RING>(p, q, k, v, o, d, st);
+    case 80:  // 96 wide: three 32-column chunks, the last one part zeros
+      return launch<96, TILE_KEYS, RING>(p, q, k, v, o, d, st);
     case 128:
-      return launch<128, TILE_KEYS, RING>(p, q, k, v, o, st);
+      return launch<128, TILE_KEYS, RING>(p, q, k, v, o, d, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -19,7 +19,8 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import (DTYPES,
+from repro_torch.kernels.flash_attention import (CONTIGUOUS_HEAD_DIMS,
+                                                 DTYPES,
                                                  check_attention_inputs,
                                                  lengths)
 
@@ -75,7 +76,8 @@ def decode_attention_cuda(q, k, v, *, kv_len=None, kv_start=None,
                           scale=None):
     """q (b,1,hq,d); k,v (b,S,hkv,d) CUDA tensors; kv_len / kv_start (b,)
     or None -> (b,1,hq,d)."""
-    q, k, v = check_attention_inputs(q, k, v)
+    q, k, v = check_attention_inputs(q, k, v, kernel="decode_attention",
+                                     head_dims=CONTIGUOUS_HEAD_DIMS)
     b, one, hq, d = q.shape
     if one != 1:
         raise ValueError(f"decode takes one query token per row, got {one}")

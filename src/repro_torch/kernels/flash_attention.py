@@ -15,7 +15,10 @@ import torch
 from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# head dims every kernel takes; #1 (this kernel) and #8 (contiguous decode)
+# also take h2o-danube-1.8b's 80, which no paged (slot-mode) config has
 HEAD_DIMS = (32, 64, 128)
+CONTIGUOUS_HEAD_DIMS = (32, 64, 80, 128)
 # the bf16 kernel's warpgroup rows (64) hold whole GQA groups
 BF16_MAX_GROUP = 64
 
@@ -29,11 +32,17 @@ def _aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def check_attention_inputs(q, k, v, kv_dtypes=None):
-    """Raise on what the CUDA kernels do not take: device, dtype, head dim,
-    GQA shape. K and V take q's dtype, or, where `kv_dtypes` is given (the
+def check_attention_inputs(q, k, v, kv_dtypes=None, *, kernel,
+                           head_dims=HEAD_DIMS):
+    """Raise on what `kernel`'s CUDA kernel does not take: head dim (one of
+    `head_dims`, checked first, on the shapes alone), device, dtype, GQA
+    shape. K and V take q's dtype, or, where `kv_dtypes` is given (the
     quantized pools), one dtype of it. Returns q, k, v contiguous and
     16-byte aligned."""
+    if q.shape[-1] not in head_dims or k.shape[-1] != q.shape[-1] \
+            or v.shape != k.shape:
+        raise ValueError(f"{kernel}: head dims {q.shape[-1]}/{k.shape[-1]}: "
+                         f"the kernel takes d in {head_dims}, k and v alike")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
@@ -48,10 +57,6 @@ def check_attention_inputs(q, k, v, kv_dtypes=None):
         raise TypeError(f"dtypes {q.dtype} / {k.dtype} / {v.dtype}: the "
                         "kernels take float32 or bfloat16 q and K, V of one "
                         f"dtype of {list(kv_dtypes)}")
-    if q.shape[-1] not in HEAD_DIMS or k.shape[-1] != q.shape[-1] \
-            or v.shape != k.shape:
-        raise ValueError(f"head dims {q.shape[-1]}/{k.shape[-1]}: the "
-                         f"kernels take d in {HEAD_DIMS}, k and v alike")
     if q.shape[2] % k.shape[2]:
         raise ValueError(f"hq={q.shape[2]} is not a multiple of "
                          f"hkv={k.shape[2]}")
@@ -79,7 +84,8 @@ def _lib():
 def flash_attention_cuda(q, k, v, *, causal=True, window=0, kv_len=None,
                          kv_start=None, scale=None):
     """q (b,sq,hq,d); k,v (b,skv,hkv,d) CUDA tensors -> (b,sq,hq,d)."""
-    q, k, v = check_attention_inputs(q, k, v)
+    q, k, v = check_attention_inputs(q, k, v, kernel="flash_attention",
+                                     head_dims=CONTIGUOUS_HEAD_DIMS)
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
     if k.shape[0] != b:

@@ -86,13 +86,14 @@ def paged_verify_splits(b, T, hq, hkv, max_blocks, block_size, sms):
 KV_TYPES = {torch.int8: 1, torch.float8_e4m3fn: 2}
 
 
-def check_quant_inputs(q, k_pages, v_pages, k_scale, v_scale):
-    """check_attention_inputs for int8 / fp8 payload pools, and float32
-    scale pools of shape (n_blocks, bs, hkv) on q's device. Returns q,
-    k_pages, v_pages (16-byte aligned) and (k_scale, v_scale (contiguous),
-    the kernels' K/V type code)."""
+def check_quant_inputs(kernel, q, k_pages, v_pages, k_scale, v_scale):
+    """check_attention_inputs for `kernel` on int8 / fp8 payload pools, and
+    float32 scale pools of shape (n_blocks, bs, hkv) on q's device. Returns
+    q, k_pages, v_pages (16-byte aligned) and (k_scale, v_scale
+    (contiguous), the kernels' K/V type code)."""
     q, k_pages, v_pages = check_attention_inputs(q, k_pages, v_pages,
-                                                 tuple(KV_TYPES))
+                                                 tuple(KV_TYPES),
+                                                 kernel=kernel)
     for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
         if t.device != q.device:
             raise ValueError(f"{name} must be on q's device, got {t.device}")
@@ -104,12 +105,14 @@ def check_quant_inputs(q, k_pages, v_pages, k_scale, v_scale):
              KV_TYPES[k_pages.dtype]))
 
 
-def _checked(q, k_pages, v_pages, scales):
-    """The inputs checked for the unquantized kernels (scales None: quant
-    None) or the quantized ones (scales (k_scale, v_scale))."""
+def _checked(kernel, q, k_pages, v_pages, scales):
+    """The inputs checked for `kernel`, unquantized (scales None: quant
+    None) or quantized (scales (k_scale, v_scale)). The paged kernels take
+    the head dims of the slot-mode configs (HEAD_DIMS)."""
     if scales is None:
-        return (*check_attention_inputs(q, k_pages, v_pages), None)
-    return check_quant_inputs(q, k_pages, v_pages, *scales)
+        return (*check_attention_inputs(q, k_pages, v_pages, kernel=kernel),
+                None)
+    return check_quant_inputs(kernel, q, k_pages, v_pages, *scales)
 
 
 def _launch(entry, q, k_pages, v_pages, o, quant, tail, tail_types):
@@ -156,7 +159,8 @@ def _decode(kernel, q, k_pages, v_pages, scales, block_tables, kv_len,
             scale):
     """Launch the decode entry (quantized when `scales` is given) with the
     merge counters of `kernel` -> o."""
-    q, k_pages, v_pages, quant = _checked(q, k_pages, v_pages, scales)
+    q, k_pages, v_pages, quant = _checked(kernel, q, k_pages, v_pages,
+                                          scales)
     b, one, hq, d = q.shape
     if one != 1:
         raise ValueError(f"decode takes one query token per row, got {one}")
@@ -204,10 +208,11 @@ def paged_decode_attention_quant_cuda(q, k_pages, v_pages, k_scale, v_scale,
     return o
 
 
-def _context(q, k_pages, v_pages, scales, block_tables, q_start, kv_len,
-             scale):
+def _context(kernel, q, k_pages, v_pages, scales, block_tables, q_start,
+             kv_len, scale):
     """Launch the context entry (quantized when `scales` is given) -> o."""
-    q, k_pages, v_pages, quant = _checked(q, k_pages, v_pages, scales)
+    q, k_pages, v_pages, quant = _checked(kernel, q, k_pages, v_pages,
+                                          scales)
     b, C, hq, d = q.shape
     _, bs, hkv, _ = k_pages.shape
     tbl = _tables(block_tables, b, q.device)
@@ -229,8 +234,8 @@ def paged_context_attention_cuda(q, k_pages, v_pages, block_tables, *,
     """q (b,C,hq,d), row i token j at absolute position q_start[i] + j;
     pages already hold the chunk's K/V at [q_start, kv_len) -> (b,C,hq,d).
     """
-    o = _context(q, k_pages, v_pages, None, block_tables, q_start, kv_len,
-                 scale)
+    o = _context("paged_context_attention", q, k_pages, v_pages, None,
+                 block_tables, q_start, kv_len, scale)
     if o.numel():
         paged_context_attention_cuda.launches += 1
     return o
@@ -240,7 +245,8 @@ def _verify(kernel, q, k_pages, v_pages, scales, block_tables, kv_start,
             kv_len, scale):
     """Launch the verify entry (quantized when `scales` is given) with the
     merge counters of `kernel` -> o."""
-    q, k_pages, v_pages, quant = _checked(q, k_pages, v_pages, scales)
+    q, k_pages, v_pages, quant = _checked(kernel, q, k_pages, v_pages,
+                                          scales)
     b, T, hq, d = q.shape
     _, bs, hkv, _ = k_pages.shape
     tbl = _tables(block_tables, b, q.device)
@@ -280,8 +286,8 @@ def paged_context_attention_quant_cuda(q, k_pages, v_pages, k_scale,
                                        kv_len, scale=None):
     """paged_context_attention_cuda on int8 / fp8 payload pools with
     float32 scale pools (n_blocks,bs,hkv)."""
-    o = _context(q, k_pages, v_pages, (k_scale, v_scale), block_tables,
-                 q_start, kv_len, scale)
+    o = _context("paged_context_attention_quant", q, k_pages, v_pages,
+                 (k_scale, v_scale), block_tables, q_start, kv_len, scale)
     if o.numel():
         paged_context_attention_quant_cuda.launches += 1
     return o

@@ -1,6 +1,6 @@
 """Layer primitives of the port (twins of repro.models.layers): RMSNorm,
 RoPE, the GQA attention blocks of the paged serving path and of the
-contiguous draft-model cache, and the MLP.
+contiguous caches (full, or the sliding-window ring), and the MLP.
 
 Parameters are plain dicts of tensors in the reference's (in, out) layout,
 so every weight product is ``x @ w``, through ``quant.mm`` so that an
@@ -54,30 +54,60 @@ def _qkv(p, x, cfg):
             mm(x, p["wv"]).reshape(b, s, cfg.num_kv_heads, hd))
 
 
-def attn_prefill(p, x, cfg, *, positions):
-    """Causal self-attention over whole right-padded prompts x (b, s, d)
-    at absolute positions (b, s). Returns (out, k, v): the roped K/V rows
-    are the caller's to write into its cache (the paged path scatters them
-    straight into pages)."""
-    if cfg.swa_window:
-        raise NotImplementedError("sliding-window attention is not ported "
-                                  "yet (ROADMAP.md, slice 5)")
+def attn_prefill(p, x, cfg, *, positions, kv_start=None, window=None):
+    """Causal self-attention over whole prompts x (b, s, d) at absolute
+    positions (b, s): right-padded (slot insertion), or left-padded with
+    kv_start (b,) the first real index of each row (static batching), whose
+    pad keys are masked. `window` (None: the config's sliding window, 0:
+    none) limits each query to the previous `window` keys. Returns
+    (out, k, v): the roped K/V rows are the caller's to write into its
+    cache (``write_cache`` for a contiguous one; the paged path scatters
+    them straight into pages)."""
+    window = cfg.swa_window if window is None else window
     q, k, v = _qkv(p, x, cfg)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    o = ops.flash_attention(q, k, v, causal=True)
+    o = ops.flash_attention(q, k, v, causal=True, window=window,
+                            kv_start=kv_start)
     b, s = x.shape[:2]
     return mm(o.reshape(b, s, -1), p["wo"]), k, v
 
 
-def attn_decode(p, x, cfg, *, pos, cache, kv_start=None):
-    """One-token decode against a full contiguous cache {"k","v"}
-    (b, S, hkv, hd), in place. x (b, 1, d); pos a scalar or (b,) per-row
-    absolute positions: the new token's K/V go to row i's position pos[i],
-    then it attends to [0, pos + 1) minus the kv_start (b,) padding."""
-    if cfg.swa_window:
-        raise NotImplementedError("the sliding-window ring cache is not "
-                                  "ported yet (ROADMAP.md, slice 5)")
+def _is_ring(cache, window):
+    return bool(window) and cache["k"].shape[1] <= window
+
+
+def write_cache(cache, k, v, *, window=0):
+    """Write a prefill's K/V rows k, v (b, s, hkv, hd) into a contiguous
+    cache {"k","v"} (b, S, hkv, hd), in place. A sliding-window ring
+    (window > 0 and S <= window) keeps the last S keys, position p at slot
+    p % S (so a decode write at pos % S evicts exactly the oldest key), and
+    zeros past s when s < S; a full cache takes them at [0, s)."""
+    S, s = cache["k"].shape[1], k.shape[1]
+    for n, t in (("k", k), ("v", v)):
+        t = t.to(cache[n].dtype)
+        if _is_ring(cache, window):
+            if s >= S:
+                cache[n].copy_(torch.roll(t[:, -S:], s % S, dims=1))
+            else:
+                cache[n][:, :s] = t
+                cache[n][:, s:] = 0
+        else:
+            cache[n][:, :s] = t
+
+
+def attn_decode(p, x, cfg, *, pos, cache, kv_start=None, window=None):
+    """One-token decode against a contiguous cache {"k","v"} (b, S, hkv,
+    hd), in place. x (b, 1, d); pos a scalar (a uniform batch: the static
+    engine) or (b,) per-row absolute positions (slot mode).
+
+    Full cache: the new token's K/V go to position pos, then it attends to
+    [0, pos + 1) minus the kv_start (b,) padding. Ring (sliding window,
+    ``write_cache``): the write goes to slot pos % S and the token attends
+    to the min(pos + 1, S) filled slots. As in the reference, the ring
+    passes no kv_start, so a left-padded row attends to its pad keys until
+    the ring overwrites them (ROADMAP.md F5)."""
+    window = cfg.swa_window if window is None else window
     q, k, v = _qkv(p, x, cfg)
     b = x.shape[0]
     pos = torch.as_tensor(pos, device=x.device).long().expand(b)
@@ -85,9 +115,14 @@ def attn_decode(p, x, cfg, *, pos, cache, kv_start=None):
     q = rope(q, posb, cfg.rope_theta)
     k = rope(k, posb, cfg.rope_theta)
     ridx = torch.arange(b, device=x.device)
-    cache["k"][ridx, pos] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][ridx, pos] = v[:, 0].to(cache["v"].dtype)
-    o = ops.decode_attention(q, cache["k"], cache["v"], kv_len=pos + 1,
+    if _is_ring(cache, window):
+        S = cache["k"].shape[1]
+        slot, kv_len, kv_start = pos % S, (pos + 1).clamp(max=S), None
+    else:
+        slot, kv_len = pos, pos + 1
+    cache["k"][ridx, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][ridx, slot] = v[:, 0].to(cache["v"].dtype)
+    o = ops.decode_attention(q, cache["k"], cache["v"], kv_len=kv_len,
                              kv_start=kv_start)
     return mm(o.reshape(b, 1, -1), p["wo"])
 

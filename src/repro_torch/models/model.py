@@ -23,7 +23,10 @@ slots (nothing to page). The contiguous cache (``init_cache``: the
 speculative draft model's, and the reference-shaped prefill / decode)
 keeps the reference's layout: ``{"sub{j}": ...}`` with each period
 position's leaves stacked on a leading axis, attention rows
-(P, batch, max_len, hkv, hd). Writes go into the caches in place.
+(P, batch, S, hkv, hd), S = max_len or, for a sliding-window model, the
+min(max_len, window)-slot ring; the pipeline's contiguous caches are one
+layer's leaves each (``init_layer_cache``). Writes go into the caches in
+place.
 """
 from __future__ import annotations
 
@@ -183,27 +186,39 @@ def _slot_state(cfg, shape, dt, dev):
                              dtype=torch.float32, device=dev)}
 
 
+def _cache_leaves(cfg, kind, lead, max_len, dt, dev):
+    """Zeroed contiguous cache leaves of one layer kind, `lead` leading
+    dims: attention {"k", "v"} (*lead, S, hkv, hd), S = max_len or, for a
+    sliding-window model, the min(max_len, swa_window)-slot ring
+    (``layers.write_cache``); Mamba's recurrent state."""
+    if kind != ATTN:
+        return _slot_state(cfg, lead, dt, dev)
+    S = min(max_len, cfg.swa_window) if cfg.swa_window else max_len
+    shape = (*lead, S, cfg.num_kv_heads, cfg.head_dim_)
+    return {"k": torch.zeros(shape, dtype=dt, device=dev),
+            "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=None,
                device="cuda"):
     """Zeroed contiguous cache {"sub{j}": ...} of each period position j,
     stacked over the n_periods layers there: attention {"k", "v"}
-    (P, batch, max_len, hkv, hd), Mamba {"conv": (P, batch, w-1, din),
-    "h": (P, batch, din, ds) float32}."""
+    (P, batch, S, hkv, hd), Mamba {"conv": (P, batch, w-1, din),
+    "h": (P, batch, din, ds) float32} (``_cache_leaves``)."""
     _check_supported(cfg)
-    if cfg.swa_window:
-        raise NotImplementedError("the sliding-window ring cache is not "
-                                  "ported yet (ROADMAP.md, slice 5)")
     P = n_periods(cfg)
     dt = param_dtype(cfg, dtype)
     dev = resolve_device(device)
-    shape = (P, batch, max_len, cfg.num_kv_heads, cfg.head_dim_)
-    cache = {}
-    for j, (kind, _) in enumerate(sub_kinds(cfg)):
-        cache[f"sub{j}"] = (
-            {"k": torch.zeros(shape, dtype=dt, device=dev),
-             "v": torch.zeros(shape, dtype=dt, device=dev)}
-            if kind == ATTN else _slot_state(cfg, (P, batch), dt, dev))
-    return cache
+    return {f"sub{j}": _cache_leaves(cfg, kind, (P, batch), max_len, dt, dev)
+            for j, (kind, _) in enumerate(sub_kinds(cfg))}
+
+
+def init_layer_cache(cfg: ModelConfig, i: int, batch: int, max_len: int, *,
+                     dtype=None, device="cuda"):
+    """Global layer i's contiguous cache (no period axis): init_cache's
+    leaves of one layer."""
+    return _cache_leaves(cfg, cfg.layer_kind(i), (batch,), max_len,
+                         param_dtype(cfg, dtype), resolve_device(device))
 
 
 def _layer_cache(cfg, cache, i):
@@ -212,17 +227,22 @@ def _layer_cache(cfg, cache, i):
     return {n: t[p] for n, t in cache[f"sub{j}"].items()}
 
 
-def scatter_cache_rows(cache, rows, slot_ids):
-    """Write `rows` (an init_cache tree whose batch is len(slot_ids)) into
-    `cache` at those batch rows, in place; attention rows may be shorter
-    than the cache and fill its leading positions. Returns cache."""
-    for sub, leaves in cache.items():
-        for n, t in leaves.items():
-            src = rows[sub][n]
-            idx = torch.as_tensor(list(slot_ids), device=t.device).long()
-            dst = t.narrow(2, 0, src.shape[2]) if n in ("k", "v") else t
-            dst.index_copy_(1, idx, src.to(t.dtype))
-    return cache
+def scatter_cache_rows(pool, rows, slot_ids, *, batch_axis=1):
+    """Write `rows` (a cache tree whose batch is len(slot_ids)) into `pool`
+    at those batch rows, in place: batch_axis 1 for an init_cache tree (the
+    period axis first), 0 for one layer's cache (init_layer_cache).
+    Attention rows may be shorter than the pool's and fill its leading
+    positions. Returns pool."""
+    for n, t in pool.items():
+        src = rows[n]
+        if isinstance(t, dict):
+            scatter_cache_rows(t, src, slot_ids, batch_axis=batch_axis)
+            continue
+        idx = torch.as_tensor(list(slot_ids), device=t.device).long()
+        dst = (t.narrow(batch_axis + 1, 0, src.shape[batch_axis + 1])
+               if n in ("k", "v") else t)
+        dst.index_copy_(batch_axis, idx, src.to(t.dtype))
+    return pool
 
 
 # ---------------------------------------------------------------------------
@@ -345,22 +365,42 @@ def _mamba_decode(cfg, p, h, sc):
     return o
 
 
-def apply_sublayer_seq(cfg, kind, sp, x, sc, *, positions, dest_blocks,
-                       valid=None, lens=None, slot_ids=None):
-    """One block over whole right-padded prompts x (m, P, d). An attention
-    layer's K/V rows go straight into its pages `sc` through dest_blocks
-    (m * max_blocks,); a Mamba layer scans with `valid` (m, P) and `lens`
-    (m,) and writes each row's final state into slot slot_ids[row] of
-    `sc`. Returns x."""
+def apply_sublayer_seq(cfg, kind, sp, x, sc, *, positions, dest_blocks=None,
+                       kv_start=None, valid=None, lens=None, slot_ids=None):
+    """One block over whole prompts x (m, P, d): right-padded (lens (m,)),
+    or left-padded from kv_start (m,) (static batching), with `valid`
+    (m, P) marking the real steps. An attention layer's K/V rows go into
+    its pages `sc` through dest_blocks (m * max_blocks,), or, without
+    dest_blocks, into the contiguous cache `sc` (``layers.write_cache``: a
+    full cache or the sliding-window ring); a Mamba layer scans and writes
+    each row's final state into slot slot_ids[row] of `sc` (None: row i
+    into row i). Returns x."""
     h = _norm(cfg, sp["ln1"], x)
     if kind == MAMBA:
         o, rows = mamba.mamba_prefill(sp["mixer"], h, cfg, valid=valid,
                                       lens=lens, cache=sc)
-        _write_slot_rows(sc, rows, slot_ids)
+        _write_slot_rows(sc, rows, range(x.shape[0]) if slot_ids is None
+                         else slot_ids)
     else:
         o, k, v = layers.attn_prefill(sp["mixer"], h, cfg,
-                                      positions=positions)
-        scatter_rows_to_pages(sc, {"k": k, "v": v}, dest_blocks)
+                                      positions=positions, kv_start=kv_start)
+        if dest_blocks is None:
+            layers.write_cache(sc, k, v, window=cfg.swa_window)
+        else:
+            scatter_rows_to_pages(sc, {"k": k, "v": v}, dest_blocks)
+    return _ffn(cfg, sp, x + o)
+
+
+def apply_sublayer_decode(cfg, kind, sp, x, sc, *, pos, kv_start=None):
+    """One block for a single decode token per row against the contiguous
+    cache `sc` (pos a scalar or (b,) per-row positions; kv_start (b,) the
+    left padding), in place."""
+    h = _norm(cfg, sp["ln1"], x)
+    if kind == MAMBA:
+        o = _mamba_decode(cfg, sp["mixer"], h, sc)
+    else:
+        o = layers.attn_decode(sp["mixer"], h, cfg, pos=pos, cache=sc,
+                               kv_start=kv_start)
     return _ffn(cfg, sp, x + o)
 
 
@@ -416,35 +456,36 @@ def _head(cfg, params, x):
 # Whole-model entry points
 # ---------------------------------------------------------------------------
 
-def prefill(cfg: ModelConfig, params, batch, cache, *, lens=None):
-    """Prompt pass over right-padded rows batch["tokens"] (b, s), writing
-    every attention layer's K/V into cache positions [0, s) and every
-    Mamba layer's final state into its rows, in place. lens (b,): row i's
-    prompt is [0, lens[i]) (its pad steps leave the recurrent state alone)
-    and its logits come from its own last real token (None: the last
-    column). Returns (logits (b, V), cache)."""
+def prefill(cfg: ModelConfig, params, batch, cache, *, kv_start=None,
+            lens=None):
+    """Prompt pass over batch["tokens"] (b, s), writing every attention
+    layer's K/V into the cache (``layers.write_cache``: positions [0, s),
+    or the sliding-window ring) and every Mamba layer's final state into
+    its rows, in place. Two padding conventions, as in the reference:
+    kv_start (b,) marks LEFT-padded rows (static batching; logits from the
+    last column), lens (b,) RIGHT-padded ones (row i's prompt is
+    [0, lens[i]), its pad steps leave the recurrent state alone and its
+    logits come from its own last real token). Returns (logits (b, V),
+    cache)."""
+    if kv_start is not None and lens is not None:
+        raise ValueError("pick one padding convention")
     tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device)
     b, s = tokens.shape
     x = _embed(cfg, params, tokens.long())
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     valid = None
+    if kv_start is not None:
+        kv_start = torch.as_tensor(kv_start, device=x.device).long()
+        valid = (positions >= kv_start[:, None]).to(torch.int32)
     if lens is not None:
         lens = torch.as_tensor(lens, device=x.device).long()
         valid = (positions < lens[:, None]).to(torch.int32)
     for i in range(cfg.num_layers):
-        sp = slice_layer_params(cfg, params, i)
-        c = _layer_cache(cfg, cache, i)
-        h = _norm(cfg, sp["ln1"], x)
-        if cfg.layer_kind(i) == MAMBA:
-            o, rows = mamba.mamba_prefill(sp["mixer"], h, cfg, valid=valid,
-                                          lens=lens, cache=c)
-            _write_slot_rows(c, rows, range(b))
-        else:
-            o, k, v = layers.attn_prefill(sp["mixer"], h, cfg,
-                                          positions=positions)
-            for n, t in (("k", k), ("v", v)):
-                c[n][:, :s] = t.to(c[n].dtype)
-        x = _ffn(cfg, sp, x + o)
+        x = apply_sublayer_seq(cfg, cfg.layer_kind(i),
+                               slice_layer_params(cfg, params, i), x,
+                               _layer_cache(cfg, cache, i),
+                               positions=positions, kv_start=kv_start,
+                               valid=valid, lens=lens)
     if lens is not None:
         x = x[torch.arange(b, device=x.device), lens - 1][:, None]
     else:
@@ -455,21 +496,19 @@ def prefill(cfg: ModelConfig, params, batch, cache, *, lens=None):
 def decode_step(cfg: ModelConfig, params, tokens, cache, pos, *,
                 kv_start=None):
     """One decode step against the contiguous cache, in place. tokens (b,);
-    pos a scalar or (b,) per-row absolute positions. Returns
+    pos a scalar (a uniform batch of left-padded prompts, kv_start (b,)
+    their padding) or (b,) per-row absolute positions. Returns
     (logits (b, V), cache)."""
     tokens = torch.as_tensor(tokens, device=params["embed"].device).long()
     x = _embed(cfg, params, tokens[:, None])
     pos = torch.as_tensor(pos, device=x.device)
+    if kv_start is not None:
+        kv_start = torch.as_tensor(kv_start, device=x.device)
     for i in range(cfg.num_layers):
-        sp = slice_layer_params(cfg, params, i)
-        c = _layer_cache(cfg, cache, i)
-        h = _norm(cfg, sp["ln1"], x)
-        if cfg.layer_kind(i) == MAMBA:
-            o = _mamba_decode(cfg, sp["mixer"], h, c)
-        else:
-            o = layers.attn_decode(sp["mixer"], h, cfg, pos=pos, cache=c,
-                                   kv_start=kv_start)
-        x = _ffn(cfg, sp, x + o)
+        x = apply_sublayer_decode(cfg, cfg.layer_kind(i),
+                                  slice_layer_params(cfg, params, i), x,
+                                  _layer_cache(cfg, cache, i), pos=pos,
+                                  kv_start=kv_start)
     return _head(cfg, params, x)[:, 0], cache
 
 

@@ -1,6 +1,8 @@
-"""Continuous (iteration-level) batching over a paged asymmetric pipeline —
-the port of repro.serving.continuous's SlotEngine and PagedPipelineBatcher
-with the three paths of this slice:
+"""Continuous (iteration-level) batching — the port of
+repro.serving.continuous: the SlotEngine, its contiguous executors
+(``ContinuousBatcher`` on the whole model, ``PipelineBatcher`` on an
+asymmetric pipeline with per-stage slot pools) and the paged
+``PagedPipelineBatcher`` with these paths:
 
   * cold joint prefill: admitted prompts are prefilled JOINTLY (one
     right-padded batch with per-row real lengths) and their K/V land in
@@ -47,6 +49,7 @@ from typing import Deque, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
 from repro_torch.models.quant import kv_is_quantized
 from repro_torch.serving.block_manager import (BlockPool, BlockTable,
@@ -54,6 +57,8 @@ from repro_torch.serving.block_manager import (BlockPool, BlockTable,
                                                chunk_hashes)
 from repro_torch.serving.pipeline import (context_mode_supported,
                                           slot_mode_supported)
+from repro_torch.serving.loop import (ServeStats, VirtualClock, WallClock,
+                                     run_serve_loop)
 from repro_torch.serving.request import Request
 from repro_torch.serving.spec import SpecConfig, greedy_accept
 
@@ -236,6 +241,84 @@ class SlotEngine:
 
     def _decode_all(self, toks, pos):
         raise NotImplementedError
+
+    def serve(self, requests: Sequence[Request], *, deadline: float,
+              realtime: bool = False) -> ServeStats:
+        """Replays a workload on this replica alone: on the virtual clock
+        (deterministic latencies in iteration units), or the wall clock."""
+        return run_serve_loop([self], requests, deadline=deadline,
+                              clock=WallClock() if realtime
+                              else VirtualClock())
+
+
+class ContinuousBatcher(SlotEngine):
+    """Slot-based continuous batching on the whole model at once
+    (``models.model.prefill`` / ``decode_step`` on one contiguous cache
+    whose batch rows are the slots); ``PipelineBatcher`` is the
+    asymmetric-pipeline variant. ``params`` lie on the device to serve
+    on."""
+
+    def __init__(self, cfg: ModelConfig, params, *, n_slots: int = 8,
+                 max_len: int = 256, pad_id: int = 0,
+                 virtual_step_cost: float = 1.0):
+        if not slot_mode_supported(cfg):
+            raise NotImplementedError(f"{cfg.name}: slot mode needs a "
+                                      "uniform text decoder; use static "
+                                      "batching")
+        super().__init__(n_slots=n_slots, max_len=max_len,
+                         vocab_size=cfg.vocab_size, pad_id=pad_id,
+                         virtual_step_cost=virtual_step_cost)
+        self.cfg = cfg
+        self.params = params
+        emb = params["embed"]
+        self._cache_kw = dict(dtype=emb.dtype, device=emb.device)
+        self.cache = M.init_cache(cfg, n_slots, max_len, **self._cache_kw)
+
+    @torch.inference_mode()
+    def _prefill_insert(self, toks, lens, slot_ids):
+        m = len(slot_ids)          # rows beyond m are shape padding
+        scratch = M.init_cache(self.cfg, m, self.max_len, **self._cache_kw)
+        logits, scratch = M.prefill(self.cfg, self.params,
+                                    {"tokens": np.asarray(toks)[:m]},
+                                    scratch, lens=np.asarray(lens)[:m])
+        M.scatter_cache_rows(self.cache, scratch, slot_ids)
+        return logits.float().cpu().numpy()
+
+    @torch.inference_mode()
+    def _decode_all(self, toks, pos):
+        logits, _ = M.decode_step(self.cfg, self.params, toks, self.cache,
+                                  pos)
+        return logits.float().cpu().numpy()
+
+
+class PipelineBatcher(SlotEngine):
+    """Slot-based continuous batching over an ``AsymmetricPipeline``
+    replica with contiguous per-stage cache pools (``cache_layout=
+    "contiguous"``): a joint right-padded insert prefill and one joint
+    decode iteration over every slot at per-slot positions."""
+
+    def __init__(self, pipeline, *, n_slots: int = 8, max_len: int = 256,
+                 pad_id: int = 0, virtual_step_cost: float = 1.0):
+        if not slot_mode_supported(pipeline.cfg):
+            raise NotImplementedError(f"{pipeline.cfg.name}: slot mode "
+                                      "needs a uniform text decoder; use "
+                                      "static batching")
+        super().__init__(n_slots=n_slots, max_len=max_len,
+                         vocab_size=pipeline.cfg.vocab_size, pad_id=pad_id,
+                         virtual_step_cost=virtual_step_cost)
+        self.pipeline = pipeline
+
+    def _prefill_insert(self, toks, lens, slot_ids):
+        # the pools are allocated on first use, so an engine that only
+        # generates never pays for them
+        p = self.pipeline
+        if (p.slot_caches is None or p.n_slots != self.n_slots
+                or p.slot_len != self.max_len):
+            p.init_slot_caches(self.n_slots, self.max_len)
+        return p.insert_slots(toks, lens, slot_ids)
+
+    def _decode_all(self, toks, pos):
+        return self.pipeline.decode_slots(toks, pos)
 
 
 class PagedPipelineBatcher(SlotEngine):

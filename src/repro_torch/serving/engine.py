@@ -1,6 +1,6 @@
 """Inference engine of the port: builds replica pipelines from an
 Assignment and serves workloads through the Router (twin of
-repro.serving.engine.InferenceEngine for paged continuous serving).
+repro.serving.engine.InferenceEngine).
 
 Every replica and stage runs on the one device given (``device="cuda"`` by
 default; tests pass ``device="cpu"``). A plan's TP groups collapse onto it,
@@ -11,6 +11,8 @@ from __future__ import annotations
 import warnings
 from typing import List, Optional, Sequence
 
+import numpy as np
+
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.plan import Assignment
@@ -18,7 +20,8 @@ from repro_torch.models import model as M
 from repro_torch.models.quant import quantize_params
 from repro_torch.device import resolve_device
 from repro_torch.serving.pipeline import (AsymmetricPipeline,
-                                          context_mode_supported)
+                                          context_mode_supported,
+                                          slot_mode_supported)
 from repro_torch.serving.request import Request
 from repro_torch.serving.router import Router, ServeStats
 from repro_torch.serving.spec import SpecConfig
@@ -52,21 +55,31 @@ class InferenceEngine:
     themselves. ``route_seed`` makes the Router's least-loaded tiebreaks
     a seeded draw; ``prefix_route_weight`` weighs resident prefixes in the
     reference's cluster prefix directory, which is not ported, so it is
-    accepted and, as in the reference without a directory, unused. The
-    reference's other serving features (disaggregation, host tier, cluster
-    prefix, KVSAN, tracing and metrics, static batching, the contiguous
-    layout, ``generate``) are not ported yet and raise NotImplementedError.
+    accepted and, as in the reference without a directory, unused.
+
+    ``policy`` and ``cache_layout`` choose each replica's worker as in the
+    reference (``serving.router``): paged continuous batching, contiguous
+    slot pools (the default layout), or ``policy="static"``, the paper's
+    whole-batch engine on batches of up to ``max_batch`` left-padded
+    requests. A config that slot mode cannot serve (a sliding-window
+    model, h2o-danube-1.8b) falls back to static batching with the
+    reference's warning. ``generate`` runs one left-padded batch on
+    replica 0. The reference's other serving features (disaggregation,
+    host tier, cluster prefix, KVSAN, tracing and metrics) are not ported
+    yet and raise NotImplementedError.
 
     ``from_config`` builds an engine from a ``ServingConfig`` and a
     scheduled ``DeploymentPlan``, as ``launch.serve`` does."""
 
     def __init__(self, cfg: ModelConfig, assignment: Assignment, *,
                  params=None, device="cuda", dtype=None, n_slots: int = 8,
-                 max_len: int = 256, block_size: int = 16, stage_blocks=None,
+                 max_len: int = 256, max_batch: int = 4,
+                 block_size: int = 16, stage_blocks=None,
                  prefix_caching: bool = False, prefill_chunk: int = 0,
                  step_costs: Optional[Sequence[float]] = None,
                  prefill_token_cost: float = 0.0,
-                 policy: str = "continuous", cache_layout: str = "paged",
+                 policy: str = "continuous",
+                 cache_layout: str = "contiguous",
                  spec_decode: bool = False, spec_k: int = 4,
                  draft_model=None,
                  spec_ks: Optional[Sequence[int]] = None,
@@ -91,6 +104,12 @@ class InferenceEngine:
             AsymmetricPipeline(cfg, params, pipe.layer_split,
                                device=self.device, dtype=dtype)
             for pipe in assignment.pipelines]
+        if policy != "static" and not slot_mode_supported(cfg):
+            warnings.warn(
+                f"{cfg.name}: slot mode needs uniform text decode "
+                "(SWA ring cache / encoder-decoder / VLM); serving with "
+                "policy='static'", stacklevel=2)
+            policy = "static"
         spec = None
         if spec_decode and spec_k < 1:
             # consistent with per-replica spec_ks, where 0 = plain decode
@@ -104,7 +123,8 @@ class InferenceEngine:
             if spec is None:
                 spec_ks = None
         self.router = Router(self.replicas, policy=policy,
-                             cache_layout=cache_layout, n_slots=n_slots,
+                             cache_layout=cache_layout, max_batch=max_batch,
+                             n_slots=n_slots,
                              max_len=max_len, block_size=block_size,
                              stage_blocks=stage_blocks,
                              prefix_caching=prefix_caching,
@@ -200,6 +220,20 @@ class InferenceEngine:
                               draft_token_cost=draft_token_cost)
         return SpecConfig(k=spec_k, draft_token_cost=draft_token_cost)
 
+    def generate(self, prompts: Sequence[np.ndarray], *, max_new: int = 16
+                 ) -> List[np.ndarray]:
+        """One-shot batched greedy generation on replica 0: the prompts
+        left-padded into one batch, max_new tokens each."""
+        maxlen = max(len(p) for p in prompts)
+        toks = np.zeros((len(prompts), maxlen), np.int32)
+        kv_start = np.zeros(len(prompts), np.int32)
+        for i, p in enumerate(prompts):
+            toks[i, maxlen - len(p):] = p
+            kv_start[i] = maxlen - len(p)
+        out = self.replicas[0].generate(toks, max_new=max_new,
+                                        kv_start=kv_start)
+        return [out[i] for i in range(len(prompts))]
+
     def serve(self, requests: Sequence[Request], *, deadline: float,
               clock=None) -> ServeStats:
         return self.router.serve(requests, deadline, clock=clock)
@@ -217,10 +251,7 @@ def _unserved(sv, plan) -> List[str]:
                      ("--kvsan", sv.kvsan),
                      ("--trace-out", bool(sv.trace_out)),
                      ("--metrics-out", bool(sv.metrics_out)),
-                     ("--calibrate", sv.calibrate),
-                     ("--policy static", sv.policy == "static"),
-                     ("--cache-layout contiguous",
-                      sv.cache_layout == "contiguous")):
+                     ("--calibrate", sv.calibrate)):
         if on:
             out.append(flag)
     return out

@@ -1,5 +1,6 @@
-"""Asymmetric pipeline executor of the port (twin of the paged API of
-repro.serving.pipeline, Contribution 1, §3.2).
+"""Asymmetric pipeline executor of the port (twin of
+repro.serving.pipeline, Contribution 1, §3.2): the static whole-batch path
+(``generate``), contiguous slot mode and paged slot mode.
 
 Each stage owns its own contiguous span of layers and, in the plan, its own
 tensor-parallel device group. The port runs every stage on the one card it
@@ -32,7 +33,9 @@ from repro_torch.models.quant import is_quantized
 
 
 def slot_mode_supported(cfg) -> bool:
-    """Slot-based continuous batching drives uniform text decoders."""
+    """Slot-based continuous batching drives uniform text decoders; SWA
+    ring caches need uniform positions and encoder-decoder / VLM prompts
+    carry per-request modality state."""
     return not (cfg.swa_window or cfg.is_encoder_decoder
                 or cfg.num_image_tokens)
 
@@ -79,6 +82,14 @@ class StageExecutor:
     def has_attn(self) -> bool:
         return ATTN in self.kinds
 
+    def make_caches(self, batch: int, max_len: int):
+        """Per-layer contiguous caches of `batch` rows: attention K/V of
+        max_len positions (the sliding-window ring of min(max_len, window)
+        slots), Mamba state rows."""
+        return [M.init_layer_cache(self.cfg, i, batch, max_len,
+                                   dtype=self.dtype, device=self.device)
+                for i in range(self.lo, self.hi)]
+
     def make_paged_caches(self, n_blocks: int, block_size: int,
                           n_slots: int, *, kv_dtype: Optional[str] = None,
                           kv_guard_layers: Sequence[int] = ()):
@@ -94,13 +105,24 @@ class StageExecutor:
                                          kv_guard_layers=kv_guard_layers)
                 for i in range(self.lo, self.hi)]
 
-    def prefill(self, x, caches, positions, dest_blocks, valid, lens,
-                slot_ids):
+    def prefill(self, x, caches, positions, *, dest_blocks=None,
+                kv_start=None, valid=None, lens=None, slot_ids=None):
+        """The stage's layers over whole prompts (``M.apply_sublayer_seq``):
+        attention K/V into pages through dest_blocks, or into the
+        contiguous `caches`."""
         for kind, lp, sc in zip(self.kinds, self.layer_params, caches):
             x = M.apply_sublayer_seq(self.cfg, kind, lp, x, sc,
                                      positions=positions,
-                                     dest_blocks=dest_blocks, valid=valid,
+                                     dest_blocks=dest_blocks,
+                                     kv_start=kv_start, valid=valid,
                                      lens=lens, slot_ids=slot_ids)
+        return x
+
+    def decode(self, x, caches, pos, kv_start=None):
+        """One decode token per row against the contiguous `caches`."""
+        for kind, lp, sc in zip(self.kinds, self.layer_params, caches):
+            x = M.apply_sublayer_decode(self.cfg, kind, lp, x, sc, pos=pos,
+                                        kv_start=kv_start)
         return x
 
     def decode_paged(self, x, caches, pos, block_tables):
@@ -144,6 +166,14 @@ class AsymmetricPipeline:
                 dtype=self.dtype, is_first=(si == 0),
                 is_last=(si == len(stage_layers) - 1)))
             lo += nl
+        # static batching (prefill / decode_step / generate): the caches of
+        # the batch in flight, its left padding and its next position
+        self.caches = None
+        self._kv_start = None
+        self._pos = 0
+        # slot mode (init_slot_caches) and paged slot mode
+        # (init_paged_caches): per-stage caches whose rows are slots
+        self.slot_caches = None
         self.n_slots = 0
         self.slot_len = 0
         self.paged_caches = None
@@ -166,6 +196,105 @@ class AsymmetricPipeline:
     def _head(self, x) -> np.ndarray:
         logits = M._head(self.cfg, self.stages[-1].head_params, x)
         return logits.float().cpu().numpy()
+
+    # ---- static batching ---------------------------------------------------
+    @torch.inference_mode()
+    def prefill(self, tokens: np.ndarray, *, kv_start=None,
+                max_new: int = 32) -> np.ndarray:
+        """Prompt pass of the whole batch `tokens` (b, s), left-padded
+        (kv_start (b,): each row's first real index; None: no padding),
+        into fresh contiguous caches of s + max_new positions (the sliding-
+        window ring of a SWA model). Returns last-position logits (b, V)."""
+        tokens = np.asarray(tokens)
+        b, s = tokens.shape
+        self.caches = None                  # free the old batch's first
+        self.caches = [st.make_caches(b, s + max_new) for st in self.stages]
+        self._kv_start = None if kv_start is None else self._ints(kv_start)
+        x = self._embed(tokens)
+        positions = torch.arange(s, device=self.device)[None].expand(b, s)
+        valid = None
+        if self._kv_start is not None:
+            valid = (positions >= self._kv_start[:, None]).to(torch.int32)
+        for si, st in enumerate(self.stages):
+            x = st.prefill(x, self.caches[si], positions,
+                           kv_start=self._kv_start, valid=valid)
+        self._pos = s
+        return self._head(x[:, -1:])[:, 0]
+
+    @torch.inference_mode()
+    def decode_step(self, tokens: np.ndarray) -> np.ndarray:
+        """tokens (b,) at the batch's next position -> logits (b, V)."""
+        x = self._embed(np.asarray(tokens)[:, None])
+        pos = torch.tensor(self._pos, device=self.device)
+        for si, st in enumerate(self.stages):
+            x = st.decode(x, self.caches[si], pos, self._kv_start)
+        self._pos += 1
+        return self._head(x)[:, 0]
+
+    def generate(self, tokens: np.ndarray, *, max_new: int,
+                 kv_start=None) -> np.ndarray:
+        """Greedy generation of the left-padded batch: (b, max_new) ids.
+        The reference also decodes the last token, whose logits nobody
+        reads; that step is skipped (the same tokens)."""
+        logits = self.prefill(tokens, kv_start=kv_start, max_new=max_new)
+        out = []
+        for step in range(max_new):
+            nxt = logits.argmax(-1).astype(np.int32)
+            out.append(nxt)
+            if step + 1 < max_new:
+                logits = self.decode_step(nxt)
+        return np.stack(out, axis=1)
+
+    # ---- slot mode (contiguous continuous batching) -----------------------
+    def init_slot_caches(self, n_slots: int, max_len: int) -> None:
+        """Per-stage contiguous caches whose n_slots rows are decode slots
+        of max_len positions each."""
+        if not slot_mode_supported(self.cfg):
+            raise NotImplementedError(f"{self.cfg.name}: slot mode needs a "
+                                      "uniform text decoder; use static "
+                                      "batching")
+        self.n_slots = n_slots
+        self.slot_len = max_len
+        self.slot_caches = None             # free the old pools first
+        self.slot_caches = [st.make_caches(n_slots, max_len)
+                            for st in self.stages]
+
+    @torch.inference_mode()
+    def insert_slots(self, tokens: np.ndarray, lens: np.ndarray,
+                     slot_ids: Sequence[int]) -> np.ndarray:
+        """Joint prefill of right-padded prompts `tokens` (b, P) with real
+        lengths `lens` (b,): the first m = len(slot_ids) rows are real, rows
+        beyond m are the batcher's shape padding and are dropped before any
+        work. Each stage prefills into scratch caches of m rows and
+        scatters them into pool slots slot_ids (the K/V past lens[i] are
+        masked by kv_len in decode and overwritten as the slot decodes).
+        Returns each row's last-real-token logits (m, V)."""
+        m = len(slot_ids)
+        tokens = np.asarray(tokens)[:m]
+        lens_t = self._ints(np.asarray(lens)[:m])
+        P = tokens.shape[1]
+        x = self._embed(tokens)
+        positions = torch.arange(P, device=self.device)[None].expand(m, P)
+        valid = (positions < lens_t[:, None]).to(torch.int32)
+        for si, st in enumerate(self.stages):
+            scratch = st.make_caches(m, self.slot_len)
+            x = st.prefill(x, scratch, positions, valid=valid, lens=lens_t)
+            for pool, rows in zip(self.slot_caches[si], scratch):
+                M.scatter_cache_rows(pool, rows, slot_ids, batch_axis=0)
+        ridx = torch.arange(m, device=self.device)
+        return self._head(x[ridx, lens_t - 1][:, None])[:, 0]
+
+    @torch.inference_mode()
+    def decode_slots(self, tokens: np.ndarray,
+                     positions: np.ndarray) -> np.ndarray:
+        """One decode iteration over ALL slots: tokens (n_slots,) at
+        per-slot positions (n_slots,). Free slots decode garbage that the
+        batcher discards. Returns (n_slots, V)."""
+        pos = self._ints(positions)
+        x = self._embed(np.asarray(tokens)[:, None])
+        for si, st in enumerate(self.stages):
+            x = st.decode(x, self.slot_caches[si], pos)
+        return self._head(x)[:, 0]
 
     # ---- paged slot mode ---------------------------------------------------
     def init_paged_caches(self, n_slots: int, max_len: int, *,
@@ -224,8 +353,9 @@ class AsymmetricPipeline:
         valid = (positions < lens_t[:, None]).to(torch.int32)
         for si, st in enumerate(self.stages):
             dest = self._ints(stage_dest[si])
-            x = st.prefill(x, self.paged_caches[si], positions, dest, valid,
-                           lens_t, slot_ids)
+            x = st.prefill(x, self.paged_caches[si], positions,
+                           dest_blocks=dest, valid=valid, lens=lens_t,
+                           slot_ids=slot_ids)
         ridx = torch.arange(m, device=self.device)
         return self._head(x[ridx, lens_t - 1][:, None])[:, 0]
 

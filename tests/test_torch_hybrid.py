@@ -372,7 +372,8 @@ def _port_engine(pcfg, tree, **kw):
          port_plan.StagePlan([1], SPLIT[1])])])
     return PEngine(pcfg, asg, params=bridge.params_from_numpy(tree,
                                                               device="cpu"),
-                   device="cpu", n_slots=4, max_len=64, **kw)
+                   device="cpu", cache_layout="paged", n_slots=4, max_len=64,
+                   **kw)
 
 
 def _port_serve(engine, pcfg, make):

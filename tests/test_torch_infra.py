@@ -193,11 +193,10 @@ def test_unported_features_raise_not_implemented():
         [port_plan.StagePlan([0], 2)])])
     with pytest.raises(NotImplementedError, match="disaggregate"):
         InferenceEngine(cfg, asg, device="cpu", disaggregate=True)
-    with pytest.raises(NotImplementedError, match="static"):
-        InferenceEngine(cfg, asg, device="cpu", policy="static")
     # unquantized pools of another width than the model's: not ported
     with pytest.raises(NotImplementedError, match="kv_dtype"):
-        InferenceEngine(cfg, asg, device="cpu", kv_dtype="bf16")
+        InferenceEngine(cfg, asg, device="cpu", cache_layout="paged",
+                        kv_dtype="bf16")
     with pytest.raises(NotImplementedError, match="host_blocks"):
         InferenceEngine(cfg, asg, device="cpu", host_blocks=4)
 

@@ -5,7 +5,9 @@ Hypothesis case becomes a seeded parametrised one), the same argv parsed
 by both ServingConfigs, the slice as a whole (schedule -> scale ->
 from_config -> serve on a VirtualClock with bridged weights: identical
 tokens and ServeStats), the Router's seeded tiebreaks, the flags the port
-does not serve yet, and ``launch.serve.main``'s report lines."""
+does not serve yet and the ones it serves since static batching and the
+contiguous layout were ported, and ``launch.serve.main``'s report
+lines."""
 import argparse
 import dataclasses
 import sys
@@ -406,12 +408,10 @@ UNSERVED = {
     "--trace-out": ["--trace-out", "trace.json"],
     "--metrics-out": ["--metrics-out", "metrics.jsonl"],
     "--calibrate": ["--calibrate"],
-    "--policy static": ["--policy", "static"],
 }
 
 
-@pytest.mark.parametrize("flag", sorted(UNSERVED) + ["--disaggregate",
-                                                     "--cache-layout"])
+@pytest.mark.parametrize("flag", sorted(UNSERVED) + ["--disaggregate"])
 def test_from_config_refuses_unserved_flags(flag):
     cfg = port_config("granite-8b").reduced()
     asg = _asg(pplan, [0], [1], layers=cfg.num_layers)
@@ -423,13 +423,37 @@ def test_from_config_refuses_unserved_flags(flag):
         # colocated serving won the role search: served, as the reference
         PEngine.from_config(cfg, pplan.DeploymentPlan.from_search(asg),
                             pconfig.ServingConfig.parse(argv), device="cpu")
-    elif flag == "--cache-layout":
-        argv = []                        # the reference's default layout
     else:
         argv = ["--cache-layout", "paged"] + UNSERVED[flag]
     sv = pconfig.ServingConfig.parse(argv)
     with pytest.raises(NotImplementedError, match=flag.split()[0]):
         PEngine.from_config(cfg, plan, sv, device="cpu")
+
+
+# the flags that from_config refused until static batching and the
+# contiguous layout were ported, each now served as the reference serves it
+SERVED = {
+    "--policy static": ["--policy", "static"],
+    "--cache-layout contiguous": [],     # the reference's default layout
+}
+
+
+@pytest.mark.parametrize("flag", sorted(SERVED))
+def test_from_config_serves_the_flags_it_refused(flag, granite):
+    argv = ["--arch", "granite-8b", "--reduced", "--cluster", "half_price",
+            "--prompt-len", "6", "--out-len", "4", "--rate", "4",
+            "--duration", "2", "--search-iters", "2",
+            "--deadline", "60"] + SERVED[flag]
+    (sv_j, jeng), (sv_p, peng) = _serve_slice(argv, granite)
+    want = "StaticBatcher" if "static" in flag else "PipelineBatcher"
+    assert {type(w).__name__ for w in peng.router.workers} == {want}
+    assert [type(w).__name__ for w in peng.router.workers] \
+        == [type(w).__name__ for w in jeng.router.workers]
+    jreqs = sv_j.workload(jeng.cfg.vocab_size)
+    preqs = sv_p.workload(peng.cfg.vocab_size)
+    jstats = jeng.serve(jreqs, deadline=sv_j.deadline, clock=JClock())
+    pstats = peng.serve(preqs, deadline=sv_p.deadline, clock=PClock())
+    _assert_same_serve(jreqs, preqs, jstats, pstats)
 
 
 def test_from_config_seeds_weights_and_threads_the_plan(monkeypatch):
@@ -472,7 +496,10 @@ class _Built(Exception):
      "--cache-layout", "paged", "--rate", "4", "--duration", "1",
      "--out-len", "4", "--search-iters", "2", "--spec-decode",
      "--kv-dtype", "search"],
-], ids=["paged", "spec-kv-search"])
+    # the reference's defaults: h2o-danube-1.8b (sliding window), sent to
+    # static batching with a warning, on the contiguous layout
+    ["--reduced"],
+], ids=["paged", "spec-kv-search", "defaults"])
 def test_main_prints_the_reference_lines(argv, capsys, monkeypatch):
     pserve.main(argv, device="cpu")
     got = capsys.readouterr().out.splitlines()

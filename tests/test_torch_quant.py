@@ -448,7 +448,7 @@ def test_unquantized_pool_of_another_width_is_not_ported(weights):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PEngine(pcfg, pasg, params=bridge.params_from_numpy(tree,
                                                             device="cpu"),
-                device="cpu", kv_dtype="bf16")
+                device="cpu", cache_layout="paged", kv_dtype="bf16")
 
 
 # --- weight-only int8 --------------------------------------------------------
@@ -542,7 +542,7 @@ def test_quantized_serving_token_identical_to_reference(weights, name):
     preqs = make(preq, pcfg.vocab_size)
     eng = PEngine(pcfg, pasg, params=bridge.params_from_numpy(tree,
                                                               device="cpu"),
-                  device="cpu", **common)
+                  device="cpu", cache_layout="paged", **common)
     pstats = eng.serve(preqs, deadline=120.0, clock=PClock())
 
     assert len(preqs) == len(jreqs) > 0

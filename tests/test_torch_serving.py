@@ -75,8 +75,8 @@ def test_port_serves_token_identical_to_reference(weights, name):
     preqs = make(preq, pcfg.vocab_size)
     pstats = PEngine(pcfg, pasg,
                      params=bridge.params_from_numpy(tree, device="cpu"),
-                     device="cpu", **common).serve(preqs, deadline=120.0,
-                                                   clock=PClock())
+                     device="cpu", cache_layout="paged",
+                     **common).serve(preqs, deadline=120.0, clock=PClock())
 
     assert len(preqs) == len(jreqs) > 0
     for a, b in zip(jreqs, preqs):

@@ -581,7 +581,7 @@ def test_engine_ngram_spec_matches_reference(weights, name):
     pparams = bridge.params_from_numpy(tree, device="cpu")
     preqs = make(preq, pcfg.vocab_size)
     eng = PEngine(pcfg, _asg(port_plan), params=pparams, device="cpu",
-                  **common)
+                  cache_layout="paged", **common)
     pstats = eng.serve(preqs, deadline=120.0, clock=PClock())
     assert isinstance(eng.router.workers[0]._proposer, pspec.NgramProposer)
     _same_tokens(jreqs, preqs)
@@ -592,7 +592,8 @@ def test_engine_ngram_spec_matches_reference(weights, name):
     plain = make(preq, pcfg.vocab_size)
     common.pop("spec_decode")
     PEngine(pcfg, _asg(port_plan), params=pparams, device="cpu",
-            **common).serve(plain, deadline=120.0, clock=PClock())
+            cache_layout="paged", **common).serve(plain, deadline=120.0,
+                                                  clock=PClock())
     _same_tokens(plain, preqs)
     if name == "prefix":
         assert pstats.prefix_hits > 0
@@ -705,7 +706,8 @@ def test_engine_self_draft_serves_greedy_tokens():
     so the draft is the target; tokens equal plain greedy and acceptance
     is near-total."""
     pcfg = port_config("llama2-70b").reduced()
-    kw = dict(device="cpu", n_slots=4, max_len=48, block_size=8)
+    kw = dict(device="cpu", cache_layout="paged", n_slots=4, max_len=48,
+              block_size=8)
     plain = _synth(preq, pcfg.vocab_size)
     PEngine(pcfg, _asg(port_plan), **kw).serve(plain, deadline=120.0,
                                                 clock=PClock())
@@ -724,7 +726,8 @@ def test_engine_spec_gating_matches_reference():
     plain; a draft of another vocabulary falls back to n-gram with a
     warning; spec_ks gives each replica its depth, 0 = off."""
     pcfg = port_config("llama2-70b").reduced()
-    kw = dict(device="cpu", n_slots=2, max_len=32, block_size=8)
+    kw = dict(device="cpu", cache_layout="paged", n_slots=2, max_len=32,
+              block_size=8)
     with pytest.warns(UserWarning, match="plain decode"):
         eng = PEngine(pcfg, _asg(port_plan), spec_decode=True, spec_k=0,
                       **kw)
