@@ -23,8 +23,10 @@ JAX. Phases, each of which raises on failure:
      must keep its digest or be named there as gone or moved, and why;
   2. kernels against their plain PyTorch versions on the card, at
      Llama-2-70B attention widths (hq 64, hkv 8, d 128) and Jamba's (hq 32,
-     hkv 8), at g 1 (hq = hkv 8) and at the small head dims the CPU tests
-     use, in bf16 and fp32 (rows that see no key must come out as exact
+     hkv 8), at g 1 (hq = hkv 8), at the small head dims the CPU tests
+     use and at the zoo's new GQA groups (granite-20b's hq 48 / hkv 1 / d
+     128 and granite-moe-3b's hq 24 / hkv 8 / d 64), in bf16 and fp32
+     (rows that see no key must come out as exact
      zeros; flash also at more key tiles than its ring holds, ragged s, 5
      queries and g = 1, contiguous decode also at S = 2048 with kv_len
      1..2048 at b = 16 and b = 1; paged decode and context at block sizes
@@ -50,7 +52,9 @@ JAX. Phases, each of which raises on failure:
      window with kv_start 0..4, and one decode step on a full 4096-slot
      ring) beside their bound, their plain version and, where one PyTorch
      call computes the same function (flash and contiguous decode),
-     ``F.scaled_dot_product_attention``;
+     ``F.scaled_dot_product_attention``; #1, #2 and #3 also at
+     granite-20b's serve shapes (g 48) and #1, #2 and #5 at
+     granite-moe-3b's (g 3);
   3. serving at the full width of llama2-70b in bf16 (depth cut to 4 of 80
      layers, seeded random weights) through the asymmetric 2-stage paged
      pipeline: after a short warm-up serve, a synthetic workload (cold
@@ -85,7 +89,9 @@ JAX. Phases, each of which raises on failure:
      same workloads, speculative ones included, and the synthetic and
      shared-prefix ones on int8 and fp8 pages and n-gram speculation on
      int8 pages; jamba-v0.1-52b at full width (one period) on the
-     synthetic workload. Served through the kernels and through the plain
+     synthetic workload; each zoo configuration of phase 7 at full width
+     (2 layers; xlstm-125m one 4-layer period) on the synthetic workload.
+     Served through the kernels and through the plain
      versions, they must give identical tokens and ServeStats counters,
      and the speculative serves must give plain greedy decode's tokens;
   5. schedule -> plan -> from_config -> serve: the port's scheduler plans
@@ -108,7 +114,20 @@ JAX. Phases, each of which raises on failure:
      profiled), the same in fp32 through the kernels and the plain
      versions (equal tokens, or a part at a near-tie whose margin is
      reported), and llama2-70b (4 layers) on the contiguous layout under
-     continuous and under static batching (#1 and #8 only).
+     continuous and under static batching (#1 and #8 only);
+  7. the rest of the slot-mode zoo (``phase_zoo``) at full width in bf16,
+     seeded weights, through a 2-stage paged pipeline, one model at a
+     time: granite-20b (all 52 layers; MQA, g 48) serving phase 3's
+     synthetic, shared-prefix and n-gram workloads, granite-moe-3b-a800m
+     (all 32; g 3, 40 experts top-8) synthetic, shared-prefix and
+     shared-prefix on int8 pages, codeqwen1.5-7b (all 32; q/k/v bias)
+     synthetic and shared-prefix, phi3.5-moe-42b-a6.6b (8 of 32 layers:
+     the whole model does not fit the card in bf16) and xlstm-125m (all
+     12; no kernel, recurrent slot rows only) synthetic; every kernel of
+     a serve's path must run layers x steps times; granite-20b's and
+     granite-moe's synthetic serves profiled. Then ``python -m
+     repro_torch.launch.serve --arch granite-moe-3b-a800m --reduced`` on
+     the paged layout in a subprocess.
 
 ``python3 chip_smoke.py --sass-of TREE OUT.json`` instead builds the
 kernels of another checkout (the parent commit's ``git archive``) and
@@ -116,9 +135,11 @@ writes their SASS digests, which chip_smoke_sass.json records.
 
 The last line of standard output is the JSON result
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel
-with its launches on the serving paths (phases 3, 5 and 6), its error
-against the plain version and its times, and #1 and #8 once more at head
-dim 80 with phase 6's launches and the times at its shapes.
+with its launches on the serving paths (phases 3, 5, 6 and 7), its error
+against the plain version and its times, #1 and #8 once more at head
+dim 80 with phase 6's launches and the times at its shapes, and #1, #2,
+#3 at g 48 and #1, #2, #5 at g 3 with phase 7's granite-20b and
+granite-moe-3b launches and the times at their shapes.
 """
 from __future__ import annotations
 
@@ -766,14 +787,22 @@ D80_CASES = {"flash_attention": window_cases,
              "decode_attention": ring_cases}
 
 
+# the zoo's new GQA groups: granite-20b's MQA (48 query heads on one kv
+# head of 128: one position fills 48 of a wgmma warpgroup's 64 rows, six
+# head groups of 8 share the decode body's kv head) and granite-moe-3b's
+# (24 on 8 kv heads of 64: 21 positions of 3 heads fill 63 rows)
+ZOO_WIDTHS = (dict(hq=48, hkv=1, d=128), dict(hq=24, hkv=8, d=64))
+
+
 def check_kernels(dev, names=None):
     """Every kernel (of `names`, None: all) against its plain version:
     Llama-2-70B widths (g 8), Jamba's (hq 32, hkv 8: g 4), g 1 (hq = hkv
-    8) and the CPU tests' small head dims (both verify kernels also at
-    g 16; #1 and #8 also at h2o-danube-1.8b's d 80, g 4, and on its window
-    and ring cases), in bf16 and fp32, the paged kernels at several block
-    sizes; the parts of a case that see no key must be exact zeros.
-    Returns {kernel: max abs err over its fp32 checks}."""
+    8), the CPU tests' small head dims and the zoo's g 48 and g 3
+    (ZOO_WIDTHS; both verify kernels also at g 16; #1 and #8 also at
+    h2o-danube-1.8b's d 80, g 4, and on its window and ring cases), in
+    bf16 and fp32, the paged kernels at several block sizes; the parts of
+    a case that see no key must be exact zeros. Returns {kernel: max abs
+    err over its fp32 checks}."""
     gen = torch.Generator(device=dev).manual_seed(0)
     errs = {}
     dtypes = (torch.bfloat16, torch.float32)
@@ -784,7 +813,7 @@ def check_kernels(dev, names=None):
                 for widths in ({}, dict(hq=32, hkv=8, d=128),
                                dict(hq=8, hkv=8, d=128),
                                dict(hq=4, hkv=2, d=32),
-                               dict(hq=4, hkv=1, d=64))]
+                               dict(hq=4, hkv=1, d=64), *ZOO_WIDTHS)]
         if name.startswith("paged_verify"):   # g 16: two head groups
             runs += [(dt, dict(hq=32, hkv=2, d=64), cases) for dt in dtypes]
         if name in D80_CASES:
@@ -939,30 +968,10 @@ def timing_inputs(dev, gen):
     quantized paged kernels take the same shapes
     on the pool's rows quantized to int8 and to fp8 (``quant``: kv_dtype ->
     (k, v, k_scale, v_scale))."""
-    dt, hq, hkv, d, bs = torch.bfloat16, 64, 8, 128, 16
-    out = {}
-    b, s = 16, 1024
-    out["flash_attention"] = dict(
-        q=_rand(gen, (b, s, hq, d), dt, dev),
-        k=_rand(gen, (b, s, hkv, d), dt, dev),
-        v=_rand(gen, (b, s, hkv, d), dt, dev))
-    n_blocks, nb = 16 * 128 + 1, 128
-    kp, vp, _ = _pool(gen, dev, dt, n_blocks, bs, hkv, d)
-    from repro_torch.models import quant
-    out["quant"] = {}
-    for kv in ("int8", "fp8"):
-        (kq, ks), (vq, vs) = (quant.quantize_kv_rows(t, kv) for t in (kp, vp))
-        out["quant"][kv] = (kq, vq, ks, vs)
-    tbl = (torch.randperm(n_blocks - 1, generator=gen, device=dev)
-           + 1).reshape(16, nb).to(torch.int32)
-    kv_len = torch.randint(512, 1041, (16,), generator=gen, device=dev)
-    out["paged_decode_attention"] = dict(
-        q=_rand(gen, (16, 1, hq, d), dt, dev), kp=kp, vp=vp, tbl=tbl,
-        kv_len=kv_len)
-    q_start = torch.tensor([0, 256, 512, 768], device=dev)
-    out["paged_context_attention"] = dict(
-        q=_rand(gen, (4, 256, hq, d), dt, dev), kp=kp, vp=vp, tbl=tbl[:4],
-        q_start=q_start, kv_len=q_start + 256)
+    dt, hq, hkv, d = torch.bfloat16, 64, 8, 128
+    out = _paged_timing_inputs(dev, gen, hq, hkv, d)
+    kp, vp, tbl = (out["paged_decode_attention"][n] for n in
+                   ("kp", "vp", "tbl"))
     out["decode_attention"] = dict(
         q=_rand(gen, (16, 1, hq, d), dt, dev),
         k=_rand(gen, (16, 2048, hkv, d), dt, dev),
@@ -972,6 +981,10 @@ def timing_inputs(dev, gen):
     out["paged_verify_attention"] = dict(
         q=_rand(gen, (16, 5, hq, d), dt, dev), kp=kp, vp=vp, tbl=tbl,
         kv_start=kv_start, kv_len=kv_start + 5)
+    # the zoo's serves: granite-20b (g 48) and granite-moe-3b (g 3)
+    for tag, widths in zip(("g48", "g3"), ZOO_WIDTHS):
+        for name, x in _paged_timing_inputs(dev, gen, **widths).items():
+            out[f"{name}[{tag}]"] = x
     out["ssm_scan"] = _scan_inputs(gen, dev, 16, 1024, 8192, 16, dt)
     # and a lone 1024-token prompt: 1 / 16 of the work on as many SMs
     out["ssm_scan[b1]"] = _scan_inputs(gen, dev, 1, 1024, 8192, 16, dt)
@@ -989,6 +1002,102 @@ def timing_inputs(dev, gen):
         k=_rand(gen, (4, 4096, hkv, d), dt, dev),
         v=_rand(gen, (4, 4096, hkv, d), dt, dev))
     return out
+
+
+def _paged_timing_inputs(dev, gen, hq, hkv, d):
+    """Phase 3's prefill, paged decode and paged context inputs at widths
+    (hq, hkv, d), bf16: flash on 16 prompts padded to 1024, decode on 16
+    slots of 512..1040 keys in a 2049-block pool of 16, the context on 4
+    rows of 256 tokens at 256-token offsets; "quant": the pool's rows
+    quantized to int8 and to fp8, kv_dtype -> (k, v, k_scale, v_scale)."""
+    from repro_torch.models import quant
+    dt, bs, b, s = torch.bfloat16, 16, 16, 1024
+    out = {"flash_attention": dict(
+        q=_rand(gen, (b, s, hq, d), dt, dev),
+        k=_rand(gen, (b, s, hkv, d), dt, dev),
+        v=_rand(gen, (b, s, hkv, d), dt, dev))}
+    n_blocks, nb = 16 * 128 + 1, 128
+    kp, vp, _ = _pool(gen, dev, dt, n_blocks, bs, hkv, d)
+    out["quant"] = {}
+    for kv in ("int8", "fp8"):
+        (kq, ks), (vq, vs) = (quant.quantize_kv_rows(t, kv) for t in (kp, vp))
+        out["quant"][kv] = (kq, vq, ks, vs)
+    tbl = (torch.randperm(n_blocks - 1, generator=gen, device=dev)
+           + 1).reshape(16, nb).to(torch.int32)
+    kv_len = torch.randint(512, 1041, (16,), generator=gen, device=dev)
+    out["paged_decode_attention"] = dict(
+        q=_rand(gen, (16, 1, hq, d), dt, dev), kp=kp, vp=vp, tbl=tbl,
+        kv_len=kv_len)
+    q_start = torch.tensor([0, 256, 512, 768], device=dev)
+    out["paged_context_attention"] = dict(
+        q=_rand(gen, (4, 256, hq, d), dt, dev), kp=kp, vp=vp, tbl=tbl[:4],
+        q_start=q_start, kv_len=q_start + 256)
+    return out
+
+
+def _flash_timing(x, flush):
+    """#1 on a causal joint prefill x: its call, bytes, operations (the
+    causal pairs) and SDPA's time."""
+    from repro_torch.kernels import ops
+    q, k, v = x["q"], x["k"], x["v"]
+    b, s, hq, d = q.shape
+    pairs = b * s * (s + 1) // 2                       # causal
+    return dict(fn=lambda: ops.flash_attention(q, k, v),
+                nbytes=q.element_size() * (2 * q.numel() + k.numel()
+                                           + v.numel()),
+                flops=4 * d * hq * pairs,
+                library_ms=_time_sdpa(q, k, v, flush, is_causal=True))
+
+
+def _paged_decode_timing(x, quant=None):
+    """#2 on the decode inputs x, or #5 with `quant` = (k, v, k_scale,
+    v_scale), the pool's rows quantized: a key costs 2 d es bytes per kv
+    head, or 2 d + 8 on a quantized pool (two one-byte rows, two fp32
+    scales)."""
+    from repro_torch.kernels import ops
+    q, tbl, kv_len = x["q"], x["tbl"], x["kv_len"]
+    _, _, hq, d = q.shape
+    hkv = x["kp"].shape[2]
+    es, kv = q.element_size(), int(kv_len.sum())
+    if quant is None:
+        return dict(fn=lambda: ops.paged_decode_attention(
+            q, x["kp"], x["vp"], tbl, kv_len=kv_len),
+            nbytes=es * (2 * q.numel() + 2 * kv * hkv * d)
+            + 4 * (tbl.numel() + 16),
+            flops=4 * d * hq * kv, library_ms=None)
+    kq, vq, ks, vs = quant
+    return dict(fn=lambda: ops.paged_decode_attention(
+        q, kq, vq, tbl, kv_len=kv_len, k_scale=ks, v_scale=vs),
+        nbytes=es * 2 * q.numel() + kv * hkv * (2 * d + 8)
+        + 4 * (tbl.numel() + 16),
+        flops=4 * d * hq * kv, library_ms=None)
+
+
+def _paged_context_timing(y, quant=None):
+    """#3 on the context inputs y, or #6 on the quantized pool `quant`;
+    the operations count each query's causal keys."""
+    from repro_torch.kernels import ops
+    q, tbl = y["q"], y["tbl"]
+    _, C, hq, d = q.shape
+    hkv = y["kp"].shape[2]
+    es = q.element_size()
+    starts, lens = y["q_start"].tolist(), y["kv_len"].tolist()
+    pairs = sum(sum(min(st + j + 1, ln) for j in range(C))
+                for st, ln in zip(starts, lens))
+    if quant is None:
+        return dict(fn=lambda: ops.paged_context_attention(
+            q, y["kp"], y["vp"], tbl, q_start=y["q_start"],
+            kv_len=y["kv_len"]),
+            nbytes=es * (2 * q.numel() + 2 * sum(lens) * hkv * d)
+            + 4 * (tbl.numel() + 8),
+            flops=4 * d * hq * pairs, library_ms=None)
+    kq, vq, ks, vs = quant
+    return dict(fn=lambda: ops.paged_context_attention(
+        q, kq, vq, tbl, q_start=y["q_start"], kv_len=y["kv_len"],
+        k_scale=ks, v_scale=vs),
+        nbytes=es * 2 * q.numel() + sum(lens) * hkv * (2 * d + 8)
+        + 4 * (tbl.numel() + 8),
+        flops=4 * d * hq * pairs, library_ms=None)
 
 
 def _time_sdpa(q, k, v, flush, **kw):
@@ -1016,41 +1125,15 @@ def time_kernels(dev):
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     res = {}
 
-    x = inp["flash_attention"]
-    q, k, v = x["q"], x["k"], x["v"]
-    b, s, hq, d = q.shape
-    hkv = k.shape[2]
+    q = inp["flash_attention"]["q"]
+    _, _, hq, d = q.shape
+    hkv = inp["flash_attention"]["k"].shape[2]
     es = q.element_size()
-    pairs = b * s * (s + 1) // 2                       # causal
-    lib = _time_sdpa(q, k, v, flush, is_causal=True)
-    res["flash_attention"] = dict(
-        fn=lambda: ops.flash_attention(q, k, v),
-        nbytes=es * (2 * q.numel() + k.numel() + v.numel()),
-        flops=4 * d * hq * pairs, library_ms=lib)
-
+    res["flash_attention"] = _flash_timing(inp["flash_attention"], flush)
     x = inp["paged_decode_attention"]
-    kv = int(x["kv_len"].sum())
-    hkv, bs = x["kp"].shape[2], x["kp"].shape[1]
-    res["paged_decode_attention"] = dict(
-        fn=lambda: ops.paged_decode_attention(
-            x["q"], x["kp"], x["vp"], x["tbl"], kv_len=x["kv_len"]),
-        nbytes=es * (2 * x["q"].numel() + 2 * kv * hkv * d)
-        + 4 * (x["tbl"].numel() + 16),
-        flops=4 * d * hq * kv, library_ms=None)
-
+    res["paged_decode_attention"] = _paged_decode_timing(x)
     y = inp["paged_context_attention"]
-    C = y["q"].shape[1]
-    starts = y["q_start"].tolist()
-    lens = y["kv_len"].tolist()
-    pairs = sum(sum(min(st + j + 1, ln) for j in range(C))
-                for st, ln in zip(starts, lens))
-    res["paged_context_attention"] = dict(
-        fn=lambda: ops.paged_context_attention(
-            y["q"], y["kp"], y["vp"], y["tbl"], q_start=y["q_start"],
-            kv_len=y["kv_len"]),
-        nbytes=es * (2 * y["q"].numel() + 2 * sum(lens) * hkv * d)
-        + 4 * (y["tbl"].numel() + 8),
-        flops=4 * d * hq * pairs, library_ms=None)
+    res["paged_context_attention"] = _paged_context_timing(y)
 
     z = inp["decode_attention"]
     kv = int(z["kv_len"].sum())
@@ -1110,21 +1193,10 @@ def time_kernels(dev):
     for kv, (kq, vq, ks, vs) in inp["quant"].items():
         sc = dict(k_scale=ks, v_scale=vs)
         tag = "" if kv == "int8" else f"[{kv}]"
-        kv_tok = int(x["kv_len"].sum())
-        res["paged_decode_attention_quant" + tag] = dict(
-            fn=lambda kq=kq, vq=vq, sc=sc: ops.paged_decode_attention(
-                x["q"], kq, vq, x["tbl"], kv_len=x["kv_len"], **sc),
-            nbytes=es * 2 * x["q"].numel() + kv_tok * hkv * (2 * d + 8)
-            + 4 * (x["tbl"].numel() + 16),
-            flops=res["paged_decode_attention"]["flops"], library_ms=None)
-        res["paged_context_attention_quant" + tag] = dict(
-            fn=lambda kq=kq, vq=vq, sc=sc: ops.paged_context_attention(
-                y["q"], kq, vq, y["tbl"], q_start=y["q_start"],
-                kv_len=y["kv_len"], **sc),
-            nbytes=es * 2 * y["q"].numel()
-            + sum(y["kv_len"].tolist()) * hkv * (2 * d + 8)
-            + 4 * (y["tbl"].numel() + 8),
-            flops=res["paged_context_attention"]["flops"], library_ms=None)
+        res["paged_decode_attention_quant" + tag] = _paged_decode_timing(
+            x, (kq, vq, ks, vs))
+        res["paged_context_attention_quant" + tag] = _paged_context_timing(
+            y, (kq, vq, ks, vs))
         res["paged_verify_attention_quant" + tag] = dict(
             fn=lambda kq=kq, vq=vq, sc=sc: ops.paged_verify_attention(
                 w["q"], kq, vq, w["tbl"], kv_start=w["kv_start"],
@@ -1132,6 +1204,21 @@ def time_kernels(dev):
             nbytes=es * 2 * w["q"].numel() + sum(lens) * hkv * (2 * d + 8)
             + 4 * (w["tbl"].numel() + 32),
             flops=res["paged_verify_attention"]["flops"], library_ms=None)
+
+    # the zoo's serve shapes: #1, #2 and #3 at granite-20b's g 48, #1, #2
+    # and #5 (int8 pools) at granite-moe-3b's g 3
+    res["flash_attention[g48]"] = _flash_timing(
+        inp["flash_attention[g48]"], flush)
+    res["paged_decode_attention[g48]"] = _paged_decode_timing(
+        inp["paged_decode_attention[g48]"])
+    res["paged_context_attention[g48]"] = _paged_context_timing(
+        inp["paged_context_attention[g48]"])
+    res["flash_attention[g3]"] = _flash_timing(inp["flash_attention[g3]"],
+                                               flush)
+    res["paged_decode_attention[g3]"] = _paged_decode_timing(
+        inp["paged_decode_attention[g3]"])
+    res["paged_decode_attention_quant[g3]"] = _paged_decode_timing(
+        inp["paged_decode_attention[g3]"], inp["quant[g3]"]["int8"])
 
     # the scan: x, dt, B, C, A, D read once, y and the fp32 state written
     # once; per (row, step, channel) ds exponentials and ~6 ds + 3 fp32
@@ -1184,12 +1271,14 @@ def time_kernels(dev):
 SERVE_LAYERS = 4
 
 
-def _llama_asg(L):
-    """Phase 3's two-stage pipeline of an L-layer llama: 3/8 of the layers
-    on a TP-2 stage, the rest on one device ([3, 5] at 8 layers)."""
+def _pipeline_asg(L):
+    """The two-stage pipeline of an L-layer model (phases 3, 4 and 7): 3/8
+    of the layers, at least one, on a TP-2 stage, the rest on one device
+    ([3, 5] at 8 layers)."""
     from repro_torch.core.plan import Assignment, PipelinePlan, StagePlan
-    return Assignment([PipelinePlan([StagePlan([0, 1], L * 3 // 8),
-                                     StagePlan([2], L - L * 3 // 8)])])
+    lo = max(1, L * 3 // 8)
+    return Assignment([PipelinePlan([StagePlan([0, 1], lo),
+                                     StagePlan([2], L - lo)])])
 
 
 def _llama(num_layers):
@@ -1383,7 +1472,7 @@ def phase_serving(smi):
     from repro_torch.models import model as M
     cfg = _llama(SERVE_LAYERS)
     L = cfg.num_layers
-    asg = _llama_asg(L)
+    asg = _pipeline_asg(L)
     params = M.init_params(cfg, 0, device=DEVICE)
     n_params = sum(t.numel() for t in _leaves(params))
     log(f"phase 3: {cfg.name} at full width, {L} of 80 layers, "
@@ -1781,6 +1870,63 @@ def phase_parity_jamba():
     torch.cuda.empty_cache()
 
 
+# the rest of the slot-mode zoo (phases 4 and 7)
+ZOO = ("granite-20b", "granite-moe-3b-a800m", "codeqwen1.5-7b",
+       "phi3.5-moe-42b-a6.6b", "xlstm-125m")
+
+
+def _zoo(arch, num_layers, dtype=None):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, num_layers=num_layers,
+                               dtype=dtype or cfg.dtype)
+
+
+def phase_parity_zoo():
+    """Each zoo configuration at full width in fp32, 2 layers (xlstm-125m:
+    one 4-layer period of three mLSTM layers and an sLSTM one), serves the
+    synthetic workload through the kernels and through the plain versions:
+    identical tokens and ServeStats counters, the attention kernels
+    launched by the kernel serve only (xlstm-125m has no kernel)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    for arch in ZOO:
+        pattern = get_config(arch).layer_pattern
+        L = len(pattern) if pattern else 2
+        cfg = _zoo(arch, L, dtype="float32")
+        asg = _pipeline_asg(L)
+        params = M.init_params(cfg, 0, device=DEVICE, dtype=torch.float32)
+        common = dict(n_slots=8, max_len=2048, block_size=16,
+                      dtype=torch.float32)
+        outs = []
+        for backend in ("kernel", "plain"):
+            reqs = _workloads(cfg.vocab_size, n=6, out_len=8)[0]
+            ops.reset_launch_counts()
+            with ops.backend(backend):
+                stats, wall, _ = _serve(cfg, asg, params, reqs, **common)
+            n = sum(ops.launch_counts().values())
+            if (n > 0) != (backend == "kernel" and cfg.layer_pattern is None):
+                raise AssertionError(f"{arch} parity: the {backend} serve "
+                                     f"launched kernels {n} times")
+            outs.append(([list(r.output) for r in reqs], stats, wall))
+        (tk, sk, wk), (tp, sp, wp) = outs
+        if tk != tp:
+            _parted(cfg, params, [list(r.prompt) for r in reqs], tk, tp,
+                    f"{arch}: the kernel and plain token streams")
+        for f in PARITY_FIELDS:
+            if getattr(sk, f) != getattr(sp, f):
+                raise AssertionError(f"{arch}: ServeStats.{f} differs: "
+                                     f"{getattr(sk, f)} vs {getattr(sp, f)}")
+        log(f"  parity {arch} synthetic (fp32, full width, {L} layers): "
+            f"{len(tk)} requests x {len(tk[0])} tokens identical through "
+            f"kernels ({wk:.3f} s) and plain versions ({wp:.3f} s); "
+            f"{sk.summary()}")
+        del params
+        torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # Phase 5: schedule -> plan -> from_config -> serve (the launcher's spine)
 # ---------------------------------------------------------------------------
@@ -1874,7 +2020,15 @@ def phase_schedule_serve(smi):
         torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
-    argv = ["--arch", "llama2-70b", "--reduced", "--cluster", "case_study",
+    _run_launcher("llama2-70b")
+    return counts
+
+
+def _run_launcher(arch):
+    """``python -m repro_torch.launch.serve`` with phase 5's paged flags on
+    reduced `arch`, in a subprocess on the card: it must exit 0 and print
+    its assignment and summary lines."""
+    argv = ["--arch", arch, "--reduced", "--cluster", "case_study",
             "--cache-layout", "paged", "--rate", "4", "--duration", "1",
             "--out-len", "4", "--search-iters", "2"]
     root = os.path.dirname(os.path.abspath(__file__))
@@ -1895,7 +2049,6 @@ def phase_schedule_serve(smi):
                              "summary line")
     log(f"  cli: python -m repro_torch.launch.serve {' '.join(argv)} exited "
         f"0 in {time.perf_counter() - t0:.1f} s on the card")
-    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -2100,7 +2253,7 @@ def phase_danube(smi):
 
     # (d) llama2-70b on the contiguous layout: slot pools, then static
     cfg = _llama(SERVE_LAYERS)
-    asg = _llama_asg(cfg.num_layers)
+    asg = _pipeline_asg(cfg.num_layers)
     params = M.init_params(cfg, 0, device=DEVICE)
     for name, kw in (("contiguous", dict(n_slots=16, max_len=2048)),
                      ("static", dict(policy="static", max_batch=4,
@@ -2123,6 +2276,123 @@ def phase_danube(smi):
     del params
     torch.cuda.empty_cache()
     return counts, d80
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the rest of the slot-mode zoo at full width
+# ---------------------------------------------------------------------------
+
+# each configuration's depth: the published one, but phi3.5-moe's 41.6e9
+# parameters in bf16 (~83 GB) exceed the card's 80 GB: 8 of its 32 layers
+ZOO_LAYERS = {"granite-20b": 52, "granite-moe-3b-a800m": 32,
+              "codeqwen1.5-7b": 32, "phi3.5-moe-42b-a6.6b": 8,
+              "xlstm-125m": 12}
+ZOO_SERVES = {"granite-20b": ("synthetic", "shared-prefix", "spec-ngram"),
+              "granite-moe-3b-a800m": ("synthetic", "shared-prefix",
+                                       "quant-int8"),
+              "codeqwen1.5-7b": ("synthetic", "shared-prefix"),
+              "phi3.5-moe-42b-a6.6b": ("synthetic",),
+              "xlstm-125m": ("synthetic",)}
+_PREFIX = dict(prefix_caching=True, prefill_chunk=256)
+SERVE_KW = {"synthetic": {}, "shared-prefix": _PREFIX,
+            "spec-ngram": dict(spec_decode=True, spec_k=4),
+            "quant-int8": dict(_PREFIX, kv_dtype="int8")}
+# the zoo's new GQA groups in the kernels line: (tag, architecture)
+ZOO_TAGS = (("g48", "granite-20b"), ("g3", "granite-moe-3b-a800m"))
+ZOO_ROWS = (("flash_attention", "g48"), ("paged_decode_attention", "g48"),
+            ("paged_context_attention", "g48"), ("flash_attention", "g3"),
+            ("paged_decode_attention", "g3"),
+            ("paged_decode_attention_quant", "g3"))
+ZOO_PROFILED = ("granite-20b", "granite-moe-3b-a800m")
+
+
+def phase_zoo(smi):
+    """The rest of the slot-mode zoo at full width in bf16, seeded weights,
+    through the asymmetric 2-stage paged pipeline, one model at a time:
+    granite-20b (all 52 layers; MQA, #1-#4 at g 48) with the synthetic,
+    shared-prefix and n-gram speculation workloads; granite-moe-3b-a800m
+    (all 32 layers; g 3, 40 experts top-8) with the synthetic and
+    shared-prefix ones, the latter also on int8 pages (#6, #5);
+    codeqwen1.5-7b (all 32; q/k/v bias, MHA) synthetic and shared-prefix;
+    phi3.5-moe-42b-a6.6b (8 of 32 layers) synthetic; xlstm-125m (all 12;
+    recurrent slot rows only, no kernel) synthetic. Phase 3's workloads;
+    every kernel of a serve's path must run layers x steps times, counted
+    from 0 just before the serve. Then the launcher on reduced
+    granite-moe-3b-a800m. Returns the launch counts of all serves, and of
+    granite-20b's and granite-moe's alone by tag (ZOO_TAGS)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    counts = dict.fromkeys(ops.KERNELS, 0)
+    by_tag = {}
+    common = dict(n_slots=16, max_len=2048, block_size=16)
+    for arch in ZOO:
+        cfg = _zoo(arch, ZOO_LAYERS[arch])
+        L = cfg.num_layers
+        asg = _pipeline_asg(L)
+        params = M.init_params(cfg, 0, device=DEVICE)
+        n_params = sum(t.numel() for t in _leaves(params))
+        log(f"phase 7: {arch} at full width, {L} of "
+            f"{get_config(arch).num_layers} layers, "
+            f"{n_params / 1e9:.2f}e9 params {cfg.dtype} "
+            f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB), stages "
+            f"{asg.pipelines[0].layer_split}, hq {cfg.num_heads} / hkv "
+            f"{cfg.num_kv_heads}, head dim {cfg.head_dim_}")
+        names = ZOO_SERVES[arch]
+        for kw in [{}] + [SERVE_KW[n] for n in names if n == "spec-ngram"]:
+            _serve(cfg, asg, params,                         # warm-up
+                   _workloads(cfg.vocab_size, n=4, out_len=4)[0], **common,
+                   **kw)
+        tag = dict((a, t) for t, a in ZOO_TAGS).get(arch)
+        attn = cfg.attn_layer_ids
+        for name in names:
+            kw = SERVE_KW[name]
+            synth, shared = _workloads(cfg.vocab_size, n=16, out_len=32)
+            reqs = shared if kw.get("prefix_caching") else synth
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            stats, wall, info = _serve(cfg, asg, params, reqs, **common,
+                                       **kw)
+            launched = ops.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            for k in counts:
+                counts[k] += launched[k]
+            if tag:
+                tc = by_tag.setdefault(tag, dict.fromkeys(ops.KERNELS, 0))
+                for k in tc:
+                    tc[k] += launched[k]
+            out_tok = sum(len(r.output) for r in reqs)
+            in_tok = sum(len(r.prompt) for r in reqs)
+            acc = (f"; accept rate "
+                   f"{stats.spec_accepted / stats.spec_proposed:.3f}, "
+                   f"{out_tok / stats.spec_steps:.2f} tokens per slot step"
+                   if stats.spec_proposed else "")
+            log(f"  serve {arch} {name}: {len(reqs)} requests, {in_tok} "
+                f"prompt + {out_tok} generated tokens in {wall:.3f} s wall "
+                f"= {out_tok / wall:.1f} generated tok/s, "
+                f"{(in_tok + out_tok) / wall:.1f} total tok/s; "
+                f"{stats.iterations} iterations; {stats.summary()}{acc}; "
+                f"weights {info['weight_bytes'] / 2**30:.2f} GiB, page pools "
+                f"{stats.kv_bytes_resident / 2**30:.3f} GiB, slot state "
+                f"{info['state_bytes'] / 2**20:.1f} MiB, peak device memory "
+                f"{peak / 2**30:.2f} GiB on {smi}; launches {launched}")
+            if attn:
+                _check_path(f"{arch} {name}", stats, launched,
+                            info["draft_steps"], reqs, len(attn),
+                            common["n_slots"], kw)
+            elif sum(launched.values()) or not info["state_bytes"]:
+                raise AssertionError(f"{arch}: {launched} launches, "
+                                     f"{info['state_bytes']} bytes of slot "
+                                     "state")
+        if arch in ZOO_PROFILED:
+            profile_serve(f"{arch} synthetic", cfg, asg, params,
+                          _workloads(cfg.vocab_size, n=16, out_len=32)[0],
+                          **common)
+        del params
+        torch.cuda.empty_cache()
+        mark(f"phase 7 {arch}")
+    _run_launcher("granite-moe-3b-a800m")
+    return counts, by_tag
 
 
 def dump_sass(tree, out):
@@ -2164,17 +2434,20 @@ def main():
     log("phase 4: engine parity through kernels and plain versions, fp32")
     phase_parity()
     phase_parity_jamba()
+    phase_parity_zoo()
     done("phase 4")
     for k, n in phase_schedule_serve(smi).items():
         counts[k] += n
     done("phase 5")
     danube, d80 = phase_danube(smi)
     done("phase 6")
+    zoo, by_tag = phase_zoo(smi)
+    done("phase 7")
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         kernels.append(dict(name=name, route="cuda", source=src,
                             replaces=replaces,
-                            launches=counts[name] + danube[name],
+                            launches=counts[name] + danube[name] + zoo[name],
                             **timed[name]))
     # #1 and #8 at h2o-danube-1.8b's head dim 80: the long-prompt serve's
     # launches (also in the rows above) and the times at its shapes
@@ -2183,6 +2456,14 @@ def main():
         kernels.append(dict(name=f"{name}[d80]", route="cuda", source=src,
                             replaces=replaces, launches=d80[name],
                             **timed[f"{name}[d80]"]))
+    # the zoo's g 48 (granite-20b) and g 3 (granite-moe-3b): phase 7's
+    # serves of that model (also in the rows above) and the times at its
+    # shapes
+    for name, tag in ZOO_ROWS:
+        src, replaces = KERNEL_INFO[name]
+        kernels.append(dict(name=f"{name}[{tag}]", route="cuda", source=src,
+                            replaces=replaces, launches=by_tag[tag][name],
+                            **timed[f"{name}[{tag}]"]))
     log(f"chip_smoke: every phase passed in {time.perf_counter() - _T0:.1f} s"
         ", the build included")
     log(f"card: {smi}")

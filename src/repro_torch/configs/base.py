@@ -1,8 +1,9 @@
 """Model configuration: a copy of repro.configs.base.ModelConfig (the port
 imports nothing of the JAX package). One frozen dataclass covers every
 family the reference knows; the port serves the dense attention-only
-decoders and the hybrid Mamba + attention stacks with MoE (``layer_pattern``
-of ATTN and MAMBA, ``num_experts``).
+decoders (with q/k/v bias and gelu MLPs too), MoE, the hybrid Mamba +
+attention stacks and the attention-free xLSTM stacks (``layer_pattern`` of
+ATTN, MAMBA, MLSTM and SLSTM).
 """
 from __future__ import annotations
 

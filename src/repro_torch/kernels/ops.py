@@ -12,10 +12,17 @@ wrapper counts its launches (``launch_counts``). ``k_scale`` / ``v_scale``
 on a paged entry mark a quantized pool (int8 / fp8 payload, float32
 per-token-per-head scales) and select its quantized kernel or plain
 version.
+
+``mlstm_scan`` / ``mlstm_step`` (the xLSTM matrix-memory layers) are plain
+torch on every device, as the reference computes them with plain jnp: the
+JAX package has no Pallas kernel for them.
 """
 from __future__ import annotations
 
 import contextlib
+
+import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
@@ -175,3 +182,73 @@ def ssm_scan(x, dt, A, B, C, D, *, h0=None):
     if _kernel_for(x):
         return ssm_scan_cuda(x, dt, A, B, C, D, h0=h0)
     return ref.ssm_scan_ref(x, dt, A, B, C, D, h0=h0)
+
+
+def mlstm_scan(q, k, v, i_gate, f_gate, *, C0=None, n0=None, chunk=128):
+    """Chunked mLSTM (twin of the reference's, its chunk length and its
+    order of fp32 sums); see ref.mlstm_scan_ref. q, k (b, s, h, dk); v
+    (b, s, h, dv); gates (b, s, h) in (0, 1) (sigmoid); C0 (b, h, dk, dv),
+    n0 (b, h, dk) or None. Returns (y in q's dtype, (C, n) float32)."""
+    b, s, h, dk = q.shape
+    dv = v.shape[-1]
+    chunk = min(chunk, s)
+    pad = (-s) % chunk
+    if pad:                         # pad steps: i = 0, f = 1 (identity)
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+        i_gate = F.pad(i_gate, (0, 0, 0, pad))
+        f_gate = F.pad(f_gate, (0, 0, 0, pad), value=1.0)
+    nc = (s + pad) // chunk
+    scale = 1.0 / (dk ** 0.5)
+
+    def r(t, *last):
+        return t.float().reshape(b, nc, chunk, h, *last)
+
+    qs, ks, vs, i_s, f_s = r(q, dk), r(k, dk), r(v, dv), r(i_gate), \
+        r(f_gate)
+    dev = q.device
+    C = (torch.zeros((b, h, dk, dv), device=dev) if C0 is None
+         else C0.float())
+    n = torch.zeros((b, h, dk), device=dev) if n0 is None else n0.float()
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=dev))
+    ys = []
+    for c in range(nc):
+        qc, kc, vc, ic, fc = (t[:, c] for t in (qs, ks, vs, i_s, f_s))
+        cum = torch.cumsum(torch.log(fc.clamp_min(1e-30)), dim=1)  # log F_t
+        # intra-chunk: decay[t, s] = exp(cum_t - cum_s) for s <= t (<= 1)
+        dec = torch.exp((cum[:, :, None] - cum[:, None, :]).clamp(max=0.0))
+        sc = torch.einsum("bthd,bshd->bhts", qc * scale, kc)
+        sc = sc * (dec * ic[:, None, :, :]).permute(0, 3, 1, 2)
+        sc = torch.where(tri, sc, torch.zeros_like(sc))
+        Ft = torch.exp(cum)                                      # (b, c, h)
+        q_dec = qc * scale * Ft[..., None]
+        num = torch.einsum("bhts,bshd->bthd", sc, vc) + torch.einsum(
+            "bthk,bhkv->bthv", q_dec, C)
+        den = (sc.sum(-1).permute(0, 2, 1)
+               + torch.einsum("bthk,bhk->bth", q_dec, n)).abs()
+        ys.append(num / den.clamp_min(1.0)[..., None])
+        # carry: C <- F_c C + sum_s (F_c / F_s) i_s k_s v_s^T
+        rdec = torch.exp((cum[:, -1:, :] - cum).clamp(max=0.0)) * ic
+        kiv = torch.einsum("bshk,bsh,bshv->bhkv", kc, rdec, vc)
+        kin = torch.einsum("bshk,bsh->bhk", kc, rdec)
+        Fc = Ft[:, -1]
+        C = Fc[..., None, None] * C + kiv
+        n = Fc[..., None] * n + kin
+    y = torch.stack(ys, dim=1).reshape(b, nc * chunk, h, dv)[:, :s]
+    return y.to(q.dtype), (C, n)
+
+
+def mlstm_step(q_t, k_t, v_t, i_t, f_t, C, n):
+    """One mLSTM decode step. q_t, k_t (b, h, dk); v_t (b, h, dv); gates
+    (b, h); C (b, h, dk, dv), n (b, h, dk) float32. Returns (y in q_t's
+    dtype, (C, n))."""
+    scale = 1.0 / (q_t.shape[-1] ** 0.5)
+    qf = q_t.float() * scale
+    kf = k_t.float()
+    C = f_t[..., None, None] * C + i_t[..., None, None] * (
+        kf[..., :, None] * v_t.float()[..., None, :])
+    n = f_t[..., None] * n + i_t[..., None] * kf
+    num = torch.einsum("bhk,bhkv->bhv", qf, C)
+    den = torch.einsum("bhk,bhk->bh", qf, n).abs()
+    y = num / den.clamp_min(1.0)[..., None]
+    return y.to(q_t.dtype), (C, n)

@@ -3,8 +3,9 @@ materialized, O(s^2) where applicable. They are the kernels' oracles on the
 card and the path every CPU tensor takes.
 
 Twins of repro.kernels.ref (same shapes, masks and dead-row contract), and
-the selective scan of the Mamba layers (``ssm_scan_ref``, ``ssm_step``,
-below). The attention versions take:
+the selective scan of the Mamba layers (``ssm_scan_ref``, ``ssm_step``)
+and the mLSTM recurrence (``mlstm_scan_ref``), below. The attention
+versions take:
   q:     (b, s_q, h_q, d)
   k, v:  (b, s_kv, h_kv, d)      h_q % h_kv == 0 (GQA)
 Scores, softmax and the weighted sum run in float32 whatever the input
@@ -215,3 +216,29 @@ def ssm_step(x_t, dt_t, A, B_t, C_t, D, h):
     h, y = _ssm_update(xf, dt_t.float(), A, B_t.float(), C_t.float(), h)
     y = y + xf * D.float()[None]
     return y.to(x_t.dtype), h
+
+
+def mlstm_scan_ref(q, k, v, i_gate, f_gate, *, C0=None, n0=None):
+    """Sequential mLSTM oracle (sigmoid-softened gating, as in the
+    reference). q, k (b, s, h, dk); v (b, s, h, dv); i_gate, f_gate
+    (b, s, h) in (0, 1); state C (b, h, dk, dv), n (b, h, dk), float32.
+    h_t = (q_t^T C_t) / max(|q_t^T n_t|, 1). Returns (y in q's dtype,
+    (C, n))."""
+    b, s, h, dk = q.shape
+    dv = v.shape[-1]
+    qf, kf, vf, i_f, f_f = (t.float() for t in (q, k, v, i_gate, f_gate))
+    C = (torch.zeros((b, h, dk, dv), device=q.device) if C0 is None
+         else C0.float())
+    n = torch.zeros((b, h, dk), device=q.device) if n0 is None else n0.float()
+    scale = 1.0 / math.sqrt(dk)
+    ys = []
+    for t in range(s):
+        qt, kt, vt, it, ft = (x[:, t] for x in (qf, kf, vf, i_f, f_f))
+        C = ft[..., None, None] * C + it[..., None, None] * (
+            kt[..., :, None] * vt[..., None, :])
+        n = ft[..., None] * n + it[..., None] * kt
+        num = torch.einsum("bhk,bhkv->bhv", qt * scale, C)
+        den = torch.einsum("bhk,bhk->bh", qt * scale, n).abs()
+        ys.append(num / den.clamp_min(1.0)[..., None])
+    y = torch.stack(ys, dim=1) if ys else vf[:, :0]
+    return y.to(q.dtype), (C, n)

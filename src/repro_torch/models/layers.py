@@ -1,6 +1,7 @@
 """Layer primitives of the port (twins of repro.models.layers): RMSNorm,
-RoPE, the GQA attention blocks of the paged serving path and of the
-contiguous caches (full, or the sliding-window ring), and the MLP.
+RoPE, the GQA attention blocks (with an optional q/k/v bias) of the paged
+serving path and of the contiguous caches (full, or the sliding-window
+ring), and the MLP (SwiGLU, or gelu without a gate).
 
 Parameters are plain dicts of tensors in the reference's (in, out) layout,
 so every weight product is ``x @ w``, through ``quant.mm`` so that an
@@ -47,11 +48,17 @@ def rope(x, positions, theta):
 
 
 def _qkv(p, x, cfg):
+    """The projections of every attention path (prefill, contiguous and
+    paged decode, context, verify), plus the q/k/v bias of an
+    ``attn_bias`` model (codeqwen1.5-7b)."""
     b, s, _ = x.shape
     hd = cfg.head_dim_
-    return (mm(x, p["wq"]).reshape(b, s, cfg.num_heads, hd),
-            mm(x, p["wk"]).reshape(b, s, cfg.num_kv_heads, hd),
-            mm(x, p["wv"]).reshape(b, s, cfg.num_kv_heads, hd))
+    q, k, v = mm(x, p["wq"]), mm(x, p["wk"]), mm(x, p["wv"])
+    if cfg.attn_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    return (q.reshape(b, s, cfg.num_heads, hd),
+            k.reshape(b, s, cfg.num_kv_heads, hd),
+            v.reshape(b, s, cfg.num_kv_heads, hd))
 
 
 def attn_prefill(p, x, cfg, *, positions, kv_start=None, window=None):
@@ -222,6 +229,16 @@ def attn_verify_paged(p, x, cfg, *, positions, q_len, block_tables, cache):
     return mm(o.reshape(b, T, -1), p["wo"])
 
 
+def gelu(x):
+    """jax.nn.gelu's default, the tanh approximation (torch's default is
+    the exact erf form)."""
+    return F.gelu(x, approximate="tanh")
+
+
 def mlp(p, x, cfg):
-    """SwiGLU MLP (the dense decoders' activation)."""
-    return mm(F.silu(mm(x, p["w_gate"])) * mm(x, p["w_up"]), p["w_down"])
+    """SwiGLU MLP (``activation="silu"``), else w_up -> gelu -> w_down
+    with no gate (granite-20b's gpt-bigcode MLP)."""
+    if cfg.activation == "silu":
+        return mm(F.silu(mm(x, p["w_gate"])) * mm(x, p["w_up"]),
+                  p["w_down"])
+    return mm(gelu(mm(x, p["w_up"])), p["w_down"])

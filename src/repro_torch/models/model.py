@@ -1,6 +1,6 @@
 """Model assembly of the port for the paged serving path and the
-contiguous cache (twin of repro.models.model for the dense decoders and the
-hybrid Mamba + attention stacks with MoE).
+contiguous cache (twin of repro.models.model for the dense decoders, MoE,
+the hybrid Mamba + attention stacks and the attention-free xLSTM stacks).
 
 Layers are organized into *periods*, as in the reference: the layer
 pattern of a hybrid model (Jamba's seven Mamba layers and one attention
@@ -17,10 +17,13 @@ Paged caches are one dict per layer: an attention layer's ``{"k", "v"}``
 pools, shaped (n_blocks, block_size, hkv, hd), with block 0 the reserved
 null/trash page (an int8 / fp8 pool adds float32 ``k_scale`` / ``v_scale``
 pools (n_blocks, block_size, hkv) addressed by the same block ids,
-``models.quant``); a Mamba layer's per-slot recurrent state ``{"conv":
-(n_slots, w-1, din), "h": (n_slots, din, ds) float32}``, whose rows are the
-slots (nothing to page). The contiguous cache (``init_cache``: the
-speculative draft model's, and the reference-shaped prefill / decode)
+``models.quant``); a recurrent layer's per-slot state, whose rows are the
+slots (nothing to page): Mamba's ``{"conv": (n_slots, w-1, din), "h":
+(n_slots, din, ds) float32}``, mLSTM's ``{"C": (n_slots, h, qk_h, v_h),
+"n": (n_slots, h, qk_h)}`` and sLSTM's ``{"c", "n", "m", "h": (n_slots,
+d)}``, these two all float32 (``_slot_state``). The contiguous cache
+(``init_cache``: the speculative draft model's, and the reference-shaped
+prefill / decode)
 keeps the reference's layout: ``{"sub{j}": ...}`` with each period
 position's leaves stacked on a leading axis, attention rows
 (P, batch, S, hkv, hd), S = max_len or, for a sliding-window model, the
@@ -34,22 +37,17 @@ import math
 
 import torch
 
-from repro_torch.configs.base import ATTN, MAMBA, ModelConfig
+from repro_torch.configs.base import ATTN, MAMBA, MLSTM, SLSTM, ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import layers, mamba, moe, quant
+from repro_torch.models import layers, mamba, moe, quant, xlstm
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     unported = []
-    if cfg.layer_pattern is not None and any(
-            k not in (ATTN, MAMBA) for k in cfg.layer_pattern):
-        unported.append("xLSTM layers (slice 6)")
     if cfg.is_encoder_decoder or cfg.num_image_tokens:
         unported.append("encoder-decoder / VLM inputs (slice 6)")
-    if cfg.activation != "silu":
-        unported.append(f"activation {cfg.activation!r} (slice 6)")
-    if cfg.attn_bias or cfg.tie_embeddings:
-        unported.append("attention bias / tied embeddings (slice 6)")
+    if cfg.tie_embeddings:
+        unported.append("tied embeddings (slice 6)")
     if unported:
         raise NotImplementedError(
             f"{cfg.name}: not ported yet: {', '.join(unported)}; see "
@@ -99,9 +97,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
     """Random parameters from a torch.Generator seeded with `seed` on
     `device`, in the reference's layout: N(0, 0.02) weights
     (N(0, 0.02 / sqrt(2 L)) for the residual outputs wo, w_down, out_proj),
-    unit norms, and the reference's Mamba dynamics (A_log = log(1..ds),
+    unit norms, the reference's Mamba dynamics (A_log = log(1..ds),
     D = 1 and dt_bias the inverse softplus of a log-uniform dt in
-    [1e-3, 0.1], all three float32 whatever the model dtype). Each leaf is
+    [1e-3, 0.1], all three float32 whatever the model dtype) and sLSTM
+    gate biases (0, and 1 for the forget gate). The q/k/v biases of an
+    ``attn_bias`` model are drawn N(0, 0.02) where the reference's are
+    zeros, so that a served seeded model exercises them. Each leaf is
     drawn in place at its own dtype, so a full-width model needs no float32
     copy. The same seed gives the same weights on the same kind of device
     (CPU and CUDA generators draw different streams)."""
@@ -122,9 +123,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
         return torch.full(shape, value, dtype=dtype, device=dev)
 
     def attn():
-        return {"wq": rand((P, d, hq * hd)), "wk": rand((P, d, hkv * hd)),
-                "wv": rand((P, d, hkv * hd)),
-                "wo": rand((P, hq * hd, d), out_scale)}
+        p = {"wq": rand((P, d, hq * hd)), "wk": rand((P, d, hkv * hd)),
+             "wv": rand((P, d, hkv * hd)),
+             "wo": rand((P, hq * hd, d), out_scale)}
+        if cfg.attn_bias:
+            p.update(bq=rand((P, hq * hd)), bk=rand((P, hkv * hd)),
+                     bv=rand((P, hkv * hd)))
+        return p
 
     def ssm():
         din, dtr = mamba.d_inner(cfg), mamba._dt_rank(cfg)
@@ -143,16 +148,33 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
                 "D": full((P, din), 1.0, torch.float32),
                 "out_proj": rand((P, din, d), out_scale)}
 
+    def mlstm():
+        din, qk = xlstm.m_d_inner(cfg), xlstm.m_qk_dim(cfg)
+        return {"w_up": rand((P, d, 2 * din)), "wq": rand((P, din, qk)),
+                "wk": rand((P, din, qk)), "wv": rand((P, din, din)),
+                "w_i": rand((P, din, hq)), "w_f": rand((P, din, hq)),
+                "out_proj": rand((P, din, d), out_scale)}
+
+    def slstm():
+        dh = d // hq
+        p = {"out_proj": rand((P, d, d), out_scale)}
+        for g in xlstm.GATES:
+            p[f"w_{g}"] = rand((P, d, d))
+            p[f"r_{g}"] = rand((P, hq, dh, dh))
+            p[f"b_{g}"] = full((P, d), 1.0 if g == "f" else 0.0)
+        return p
+
     def mlp(experts=()):
-        return {"w_gate": rand((P, *experts, d, f)),
-                "w_up": rand((P, *experts, d, f)),
+        gate = ({"w_gate": rand((P, *experts, d, f))}
+                if cfg.activation == "silu" else {})
+        return {**gate, "w_up": rand((P, *experts, d, f)),
                 "w_down": rand((P, *experts, f, d), out_scale)}
 
+    mixers = {ATTN: attn, MAMBA: ssm, MLSTM: mlstm, SLSTM: slstm}
     blocks = {}
     for j, (kind, is_moe) in enumerate(sub_kinds(cfg)):
-        sub = {"ln1": {"w": full((P, d), 1.0)},
-               "mixer": attn() if kind == ATTN else ssm()}
-        if f > 0:
+        sub = {"ln1": {"w": full((P, d), 1.0)}, "mixer": mixers[kind]()}
+        if f > 0 and kind in (ATTN, MAMBA):
             sub["ln2"] = {"w": full((P, d), 1.0)}
             if is_moe:
                 sub["moe"] = {"router": rand((P, d, E)), **mlp((E,))}
@@ -177,22 +199,30 @@ def slice_layer_params(cfg: ModelConfig, params, i: int):
 # Contiguous cache (the draft model's, and the reference-shaped prefill)
 # ---------------------------------------------------------------------------
 
-def _slot_state(cfg, shape, dt, dev):
-    """Zeroed recurrent state of a Mamba layer for `shape` leading dims."""
+def _slot_state(cfg, kind, shape, dt, dev):
+    """Zeroed recurrent state of a Mamba, mLSTM or sLSTM layer for `shape`
+    leading dims (Mamba's conv tail in `dt`, everything else float32)."""
+    def zeros(*dims, dtype=torch.float32):
+        return torch.zeros((*shape, *dims), dtype=dtype, device=dev)
+    if kind == MLSTM:
+        h = cfg.num_heads
+        qk_h = xlstm.m_qk_dim(cfg) // h
+        return {"C": zeros(h, qk_h, xlstm.m_d_inner(cfg) // h),
+                "n": zeros(h, qk_h)}
+    if kind == SLSTM:
+        return {nm: zeros(cfg.d_model) for nm in ("c", "n", "m", "h")}
     din = mamba.d_inner(cfg)
-    return {"conv": torch.zeros((*shape, cfg.ssm_d_conv - 1, din), dtype=dt,
-                                device=dev),
-            "h": torch.zeros((*shape, din, cfg.ssm_d_state),
-                             dtype=torch.float32, device=dev)}
+    return {"conv": zeros(cfg.ssm_d_conv - 1, din, dtype=dt),
+            "h": zeros(din, cfg.ssm_d_state)}
 
 
 def _cache_leaves(cfg, kind, lead, max_len, dt, dev):
     """Zeroed contiguous cache leaves of one layer kind, `lead` leading
     dims: attention {"k", "v"} (*lead, S, hkv, hd), S = max_len or, for a
     sliding-window model, the min(max_len, swa_window)-slot ring
-    (``layers.write_cache``); Mamba's recurrent state."""
+    (``layers.write_cache``); a recurrent layer's state (``_slot_state``)."""
     if kind != ATTN:
-        return _slot_state(cfg, lead, dt, dev)
+        return _slot_state(cfg, kind, lead, dt, dev)
     S = min(max_len, cfg.swa_window) if cfg.swa_window else max_len
     shape = (*lead, S, cfg.num_kv_heads, cfg.head_dim_)
     return {"k": torch.zeros(shape, dtype=dt, device=dev),
@@ -203,8 +233,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=None,
                device="cuda"):
     """Zeroed contiguous cache {"sub{j}": ...} of each period position j,
     stacked over the n_periods layers there: attention {"k", "v"}
-    (P, batch, S, hkv, hd), Mamba {"conv": (P, batch, w-1, din),
-    "h": (P, batch, din, ds) float32} (``_cache_leaves``)."""
+    (P, batch, S, hkv, hd), a recurrent layer's state with leading dims
+    (P, batch) (``_cache_leaves``)."""
     _check_supported(cfg)
     P = n_periods(cfg)
     dt = param_dtype(cfg, dtype)
@@ -268,15 +298,18 @@ def init_layer_paged_cache(cfg: ModelConfig, i: int, n_blocks: int,
                            block_size: int, *, dtype, device, n_slots=0,
                            kv_dtype=None, kv_guard_layers=()):
     """Global layer i's paged cache: an attention layer's page pools (block
-    0 = null/trash page), a Mamba layer's zeroed per-slot state
-    {"conv": (n_slots, w-1, din) `dtype`, "h": (n_slots, din, ds) float32}.
+    0 = null/trash page), a recurrent layer's zeroed per-slot state
+    (``_slot_state``: Mamba's {"conv": (n_slots, w-1, din) `dtype`, "h":
+    (n_slots, din, ds) float32}, mLSTM's and sLSTM's float32 leaves).
     `kv_dtype` ("int8" / "fp8") stores int8 / fp8 payloads with zeroed
     float32 scale pools; a layer whose global index i is in
     `kv_guard_layers` keeps the model's `dtype` whatever kv_dtype says."""
-    if cfg.layer_kind(i) == MAMBA:
+    kind = cfg.layer_kind(i)
+    if kind != ATTN:
         if n_slots < 1:
-            raise ValueError("a Mamba layer's slot state needs n_slots >= 1")
-        return _slot_state(cfg, (n_slots,), dtype, device)
+            raise ValueError(f"a {kind} layer's slot state needs "
+                             "n_slots >= 1")
+        return _slot_state(cfg, kind, (n_slots,), dtype, device)
     if i in kv_guard_layers:
         kv_dtype = None
     shape = (n_blocks, block_size, cfg.num_kv_heads, cfg.head_dim_)
@@ -318,8 +351,8 @@ def scatter_rows_to_pages(pages, rows, dest_blocks):
 
 def copy_cache_pages(caches, src_blocks, dst_blocks):
     """Copy-on-write: duplicate page contents src -> dst in every layer's
-    K/V pools, and their scale pools where quantized, in place (a Mamba
-    layer's per-slot state has no pages and is left alone)."""
+    K/V pools, and their scale pools where quantized, in place (a
+    recurrent layer's per-slot state has no pages and is left alone)."""
     for c in caches:
         for n in ("k", "v") + quant.KV_SCALE_LEAVES:
             if n in c:
@@ -351,15 +384,34 @@ def _attn_only(kind):
 
 
 def _write_slot_rows(sc, rows, slot_ids):
-    """Scatter a Mamba layer's fresh state rows into its slots, in place."""
-    idx = torch.as_tensor(list(slot_ids), device=sc["h"].device).long()
+    """Scatter a recurrent layer's fresh state rows into its slots, in
+    place."""
+    idx = torch.as_tensor(list(slot_ids),
+                          device=next(iter(sc.values())).device).long()
     for n, t in sc.items():
         t.index_copy_(0, idx, rows[n].to(t.dtype))
 
 
-def _mamba_decode(cfg, p, h, sc):
-    """One Mamba decode step of every row of the state `sc`, in place."""
-    o, new = mamba.mamba_decode(p, h, cfg, cache=sc)
+def _recurrent_prefill(cfg, kind, p, h, sc, *, valid, lens):
+    """A recurrent layer over whole prompts h (m, P, d) from a zero state,
+    as the reference's scratch caches start. Returns (out, the m rows of
+    final state)."""
+    if kind == MAMBA:
+        return mamba.mamba_prefill(p, h, cfg, valid=valid, lens=lens,
+                                   cache=sc)
+    zero = _slot_state(cfg, kind, (h.shape[0],), h.dtype, h.device)
+    fn = xlstm.mlstm_prefill if kind == MLSTM else xlstm.slstm_prefill
+    return fn(p, h, cfg, valid=valid, cache=zero)
+
+
+_DECODE = {MAMBA: mamba.mamba_decode, MLSTM: xlstm.mlstm_decode,
+           SLSTM: xlstm.slstm_decode}
+
+
+def _recurrent_decode(cfg, kind, p, h, sc):
+    """One decode step of a recurrent layer over every row of its state
+    `sc`, in place."""
+    o, new = _DECODE[kind](p, h, cfg, cache=sc)
     for n, t in sc.items():
         t.copy_(new[n])
     return o
@@ -372,13 +424,14 @@ def apply_sublayer_seq(cfg, kind, sp, x, sc, *, positions, dest_blocks=None,
     (m, P) marking the real steps. An attention layer's K/V rows go into
     its pages `sc` through dest_blocks (m * max_blocks,), or, without
     dest_blocks, into the contiguous cache `sc` (``layers.write_cache``: a
-    full cache or the sliding-window ring); a Mamba layer scans and writes
-    each row's final state into slot slot_ids[row] of `sc` (None: row i
-    into row i). Returns x."""
+    full cache or the sliding-window ring); a recurrent layer (Mamba,
+    mLSTM, sLSTM) scans from a zero state and writes each row's final
+    state into slot slot_ids[row] of `sc` (None: row i into row i).
+    Returns x."""
     h = _norm(cfg, sp["ln1"], x)
-    if kind == MAMBA:
-        o, rows = mamba.mamba_prefill(sp["mixer"], h, cfg, valid=valid,
-                                      lens=lens, cache=sc)
+    if kind != ATTN:
+        o, rows = _recurrent_prefill(cfg, kind, sp["mixer"], h, sc,
+                                     valid=valid, lens=lens)
         _write_slot_rows(sc, rows, range(x.shape[0]) if slot_ids is None
                          else slot_ids)
     else:
@@ -396,8 +449,8 @@ def apply_sublayer_decode(cfg, kind, sp, x, sc, *, pos, kv_start=None):
     cache `sc` (pos a scalar or (b,) per-row positions; kv_start (b,) the
     left padding), in place."""
     h = _norm(cfg, sp["ln1"], x)
-    if kind == MAMBA:
-        o = _mamba_decode(cfg, sp["mixer"], h, sc)
+    if kind != ATTN:
+        o = _recurrent_decode(cfg, kind, sp["mixer"], h, sc)
     else:
         o = layers.attn_decode(sp["mixer"], h, cfg, pos=pos, cache=sc,
                                kv_start=kv_start)
@@ -406,12 +459,12 @@ def apply_sublayer_decode(cfg, kind, sp, x, sc, *, pos, kv_start=None):
 
 def apply_sublayer_decode_paged(cfg, kind, sp, x, sc, *, pos, block_tables):
     """One block for a single decode token per row against paged `sc`: an
-    attention layer reads and writes its pages, a Mamba layer steps every
-    slot's state (free slots step garbage that their next insert
+    attention layer reads and writes its pages, a recurrent layer steps
+    every slot's state (free slots step garbage that their next insert
     overwrites), in place."""
     h = _norm(cfg, sp["ln1"], x)
-    if kind == MAMBA:
-        o = _mamba_decode(cfg, sp["mixer"], h, sc)
+    if kind != ATTN:
+        o = _recurrent_decode(cfg, kind, sp["mixer"], h, sc)
     else:
         o = layers.attn_decode_paged(sp["mixer"], h, cfg, pos=pos,
                                      block_tables=block_tables, cache=sc)
@@ -460,7 +513,7 @@ def prefill(cfg: ModelConfig, params, batch, cache, *, kv_start=None,
             lens=None):
     """Prompt pass over batch["tokens"] (b, s), writing every attention
     layer's K/V into the cache (``layers.write_cache``: positions [0, s),
-    or the sliding-window ring) and every Mamba layer's final state into
+    or the sliding-window ring) and every recurrent layer's final state into
     its rows, in place. Two padding conventions, as in the reference:
     kv_start (b,) marks LEFT-padded rows (static batching; logits from the
     last column), lens (b,) RIGHT-padded ones (row i's prompt is

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.layers import gelu
 from repro_torch.models.quant import is_quantized
 
 
@@ -61,7 +62,11 @@ def _eins(buf, w, eq):
 
 
 def _expert_ffn(p, buf, cfg):
-    """SwiGLU over buf (..., E, C, d), batched over the expert axis."""
-    hidden = F.silu(_eins(buf, p["w_gate"], "...ecd,edf->...ecf")) \
-        * _eins(buf, p["w_up"], "...ecd,edf->...ecf")
+    """SwiGLU (or, without ``activation="silu"``, w_up -> gelu with no
+    gate) over buf (..., E, C, d), batched over the expert axis."""
+    if cfg.activation == "silu":
+        hidden = F.silu(_eins(buf, p["w_gate"], "...ecd,edf->...ecf")) \
+            * _eins(buf, p["w_up"], "...ecd,edf->...ecf")
+    else:
+        hidden = gelu(_eins(buf, p["w_up"], "...ecd,edf->...ecf"))
     return _eins(hidden, p["w_down"], "...ecf,efd->...ecd")

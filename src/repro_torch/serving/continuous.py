@@ -25,9 +25,9 @@ asymmetric pipeline with per-stage slot pools) and the paged
     scales, written quantized by every path above and read through the
     quantized paged kernels (``_ensure_device_caches``,
     ``_account_kv_bytes``);
-  * hybrid stacks (Mamba + attention, Jamba): the cold joint prefill
-    writes each Mamba layer's final state into the slot's rows beside the
-    attention pages, decode steps it, and a preempted request's re-prefill
+  * recurrent layers (Jamba's Mamba + attention, xlstm-125m's mLSTM and
+    sLSTM): the cold joint prefill writes each recurrent layer's final
+    state into the slot's rows beside the attention pages, decode steps it, and a preempted request's re-prefill
     rewrites it. As in the reference, prefix caching, chunked prefill,
     quantized pools and speculation warn and serve without themselves on
     such a stack (a recurrent state has no per-block piece to share,
@@ -545,7 +545,7 @@ class PagedPipelineBatcher(SlotEngine):
         for caches in self.pipeline.paged_caches:
             for c in caches:
                 if "k" not in c:
-                    continue       # a Mamba layer's slot state: not paged
+                    continue       # a recurrent layer's slot state
                 for n, t in c.items():
                     resident += t.numel() * t.element_size()
                     if n in ("k", "v"):

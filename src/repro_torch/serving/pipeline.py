@@ -10,8 +10,8 @@ changes layout). Stages stay separate objects with their own layer ranges
 and their own page pools, sized independently, so the asymmetric split is
 real.
 
-A stage's attention layers keep page pools, its Mamba layers (hybrid
-stacks) one row of recurrent state per slot; a stage may hold no attention
+A stage's attention layers keep page pools, its recurrent layers (Mamba,
+mLSTM, sLSTM) one row of state per slot; a stage may hold no attention
 layer at all (``has_attn``).
 
 The public methods keep the reference's numpy-in / numpy-out signatures:
@@ -85,7 +85,7 @@ class StageExecutor:
     def make_caches(self, batch: int, max_len: int):
         """Per-layer contiguous caches of `batch` rows: attention K/V of
         max_len positions (the sliding-window ring of min(max_len, window)
-        slots), Mamba state rows."""
+        slots), recurrent state rows."""
         return [M.init_layer_cache(self.cfg, i, batch, max_len,
                                    dtype=self.dtype, device=self.device)
                 for i in range(self.lo, self.hi)]
@@ -95,7 +95,8 @@ class StageExecutor:
                           kv_guard_layers: Sequence[int] = ()):
         """Per-layer caches: page pools for the attention layers, which
         share ONE block-id space of `n_blocks` blocks (one table addresses
-        every layer), and `n_slots` rows of state for the Mamba layers.
+        every layer), and `n_slots` rows of state for the recurrent
+        layers.
         `kv_dtype` selects the pool precision (None = the model's);
         `kv_guard_layers` are GLOBAL layer indices kept at model
         precision."""
@@ -340,7 +341,7 @@ class AsymmetricPipeline:
         beyond m are the batcher's shape padding and are dropped before any
         work. Each stage's attention K/V rows go straight into its pages
         at ``stage_dest[si]`` ((m * max_blocks,) physical page per logical
-        block, row-major; null entries absorb the padding); its Mamba
+        block, row-major; null entries absorb the padding); its recurrent
         layers scan each row's real steps (pads are identity steps) and
         write the final state into the row's slot. Returns each row's
         last-real-token logits (m, V)."""

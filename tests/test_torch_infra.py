@@ -41,6 +41,7 @@ for n in names:
     importlib.import_module(n)
 bad = sorted(k for k in sys.modules if k == "repro" or k.startswith("repro."))
 assert not bad, bad
+assert "repro_torch.models.xlstm" in names, names
 print(len(names))
 """
 
@@ -88,7 +89,9 @@ def test_bridge_round_trip_is_exact():
 
 
 def test_port_params_follow_the_reference_layout():
-    for arch in ("llama2-70b", "jamba-v0.1-52b"):
+    for arch in ("llama2-70b", "jamba-v0.1-52b", "granite-20b",
+                 "codeqwen1.5-7b", "phi3.5-moe-42b-a6.6b",
+                 "granite-moe-3b-a800m", "xlstm-125m"):
         cfg = get_config(arch).reduced()
         ref_tree = jax.tree.map(np.asarray,
                                 JM.init_params(cfg, jax.random.PRNGKey(0)))

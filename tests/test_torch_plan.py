@@ -499,7 +499,11 @@ class _Built(Exception):
     # the reference's defaults: h2o-danube-1.8b (sliding window), sent to
     # static batching with a warning, on the contiguous layout
     ["--reduced"],
-], ids=["paged", "spec-kv-search", "defaults"])
+    # an architecture of the zoo (q/k/v bias, MHA) on the paged layout
+    ["--arch", "codeqwen1.5-7b", "--reduced", "--cluster", "case_study",
+     "--cache-layout", "paged", "--rate", "4", "--duration", "1",
+     "--out-len", "4", "--search-iters", "2"],
+], ids=["paged", "spec-kv-search", "defaults", "codeqwen"])
 def test_main_prints_the_reference_lines(argv, capsys, monkeypatch):
     pserve.main(argv, device="cpu")
     got = capsys.readouterr().out.splitlines()

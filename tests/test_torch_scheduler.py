@@ -251,6 +251,21 @@ def test_schedule_equals_reference(cluster):
     assert len(got.history) == 5
 
 
+ZOO = ("granite-20b", "codeqwen1.5-7b", "phi3.5-moe-42b-a6.6b",
+       "granite-moe-3b-a800m", "xlstm-125m")
+
+
+@pytest.mark.parametrize("arch", ZOO)
+def test_schedule_equals_reference_on_the_zoo(arch):
+    """The port's schedule looks the architecture up in the port's own
+    registry (no config built from the reference's here) and returns the
+    reference's plan, score and evaluation count."""
+    from repro_torch.configs import get_config as port_config
+    got, want = _both_schedules("case_study", iters=4, arch=arch)
+    _assert_same_result(got, want)
+    got.plan.validate(port_config(arch).num_layers)
+
+
 @pytest.mark.parametrize("cluster,extra", [
     ("case_study", dict(spec_decode=True, spec_draft_cost=1e-4)),
     ("case_study", dict(kv_dtype="search", rate=40.0, deadline=10.0)),
