@@ -52,8 +52,8 @@ JAX. Phases, each of which raises on failure:
      window with kv_start 0..4, and one decode step on a full 4096-slot
      ring) beside their bound, their plain version and, where one PyTorch
      call computes the same function (flash and contiguous decode),
-     ``F.scaled_dot_product_attention``; #1, #2 and #3 also at
-     granite-20b's serve shapes (g 48) and #1, #2 and #5 at
+     ``F.scaled_dot_product_attention``; #1-#4 and #7 also at
+     granite-20b's serve shapes (g 48) and #1, #2, #5, #6 and #7 at
      granite-moe-3b's (g 3);
   3. serving at the full width of llama2-70b in bf16 (depth cut to 4 of 80
      layers, seeded random weights) through the asymmetric 2-stage paged
@@ -127,7 +127,30 @@ JAX. Phases, each of which raises on failure:
      a serve's path must run layers x steps times; granite-20b's and
      granite-moe's synthetic serves profiled. Then ``python -m
      repro_torch.launch.serve --arch granite-moe-3b-a800m --reduced`` on
-     the paged layout in a subprocess.
+     the paged layout in a subprocess;
+  8. the multi-replica features and observability: (a) llama2-70b at
+     full width, 2 layers, fp32, two replicas with stage splits [1, 1]
+     and [2], through the kernels and the plain versions, KVSAN off and
+     on: a disaggregated serve (replica 0 prefills, replica 1 decodes)
+     gives the colocated serve's tokens, migrates every request once and
+     ships blocks x bytes per block; two prompt families of 1024 shared +
+     64 unique tokens, with prefix caching, host tiers and the cluster
+     prefix directory over pools that cannot hold both families' shared
+     blocks, give the untiered serve's tokens while spilling to the host
+     and promoting or fetching back; KVSAN stays silent and every counter
+     is the kernels' through the plain versions; (b) llama2-70b at full
+     width in bf16 (4 layers), replicas [1, 3] and [4]: phase 3's 16 x 32
+     synthetic serve colocated and disaggregated (#1 and #2 must run,
+     every request migrates), the two families tiered and clustered (#3
+     must run; spills, and promotions or fetches), and one colocated
+     serve traced on the wall clock into a metrics registry (the trace
+     must validate with serve, queue_wait, iteration, prefill and decode
+     spans, and count every request); (c) the launcher with prefix
+     caching, ``--disaggregate``, ``--host-mem-gb``, ``--cluster-prefix``,
+     ``--kvsan``, ``--trace-out``, ``--metrics-out`` and ``--calibrate``
+     in a subprocess (roles, host-tier blocks and the calibration table
+     printed; trace and metrics under build/phase8/), then ``python -m
+     repro_torch.obs.report`` on them.
 
 ``python3 chip_smoke.py --sass-of TREE OUT.json`` instead builds the
 kernels of another checkout (the parent commit's ``git archive``) and
@@ -135,11 +158,12 @@ writes their SASS digests, which chip_smoke_sass.json records.
 
 The last line of standard output is the JSON result
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel
-with its launches on the serving paths (phases 3, 5, 6 and 7), its error
+with its launches on the serving paths (phases 3, 5, 6, 7 and 8), its error
 against the plain version and its times, #1 and #8 once more at head
-dim 80 with phase 6's launches and the times at its shapes, and #1, #2,
-#3 at g 48 and #1, #2, #5 at g 3 with phase 7's granite-20b and
-granite-moe-3b launches and the times at their shapes.
+dim 80 with phase 6's launches and the times at its shapes, and #1-#4
+at g 48 and #1, #2, #5, #6 at g 3 with phase 7's granite-20b and
+granite-moe-3b launches and the times at their shapes (#7 at both widths
+is timed and logged; no serve launches it there).
 """
 from __future__ import annotations
 
@@ -981,10 +1005,18 @@ def timing_inputs(dev, gen):
     out["paged_verify_attention"] = dict(
         q=_rand(gen, (16, 5, hq, d), dt, dev), kp=kp, vp=vp, tbl=tbl,
         kv_start=kv_start, kv_len=kv_start + 5)
-    # the zoo's serves: granite-20b (g 48) and granite-moe-3b (g 3)
+    # the zoo's serves: granite-20b (g 48) and granite-moe-3b (g 3), and
+    # verify at their widths on their decode pools (phase 3's 16 slots of
+    # k + 1 = 5 candidates at committed lengths 512..1100)
     for tag, widths in zip(("g48", "g3"), ZOO_WIDTHS):
         for name, x in _paged_timing_inputs(dev, gen, **widths).items():
             out[f"{name}[{tag}]"] = x
+        z = out[f"paged_decode_attention[{tag}]"]
+        ks = torch.randint(512, 1101, (16,), generator=gen, device=dev)
+        out[f"paged_verify_attention[{tag}]"] = dict(
+            q=_rand(gen, (16, 5, widths["hq"], widths["d"]), dt, dev),
+            kp=z["kp"], vp=z["vp"], tbl=z["tbl"], kv_start=ks,
+            kv_len=ks + 5)
     out["ssm_scan"] = _scan_inputs(gen, dev, 16, 1024, 8192, 16, dt)
     # and a lone 1024-token prompt: 1 / 16 of the work on as many SMs
     out["ssm_scan[b1]"] = _scan_inputs(gen, dev, 1, 1024, 8192, 16, dt)
@@ -1100,6 +1132,33 @@ def _paged_context_timing(y, quant=None):
         flops=4 * d * hq * pairs, library_ms=None)
 
 
+def _paged_verify_timing(w, quant=None):
+    """#4 on the verify inputs w, or #7 on the quantized pool `quant`; the
+    operations count each candidate's causal keys."""
+    from repro_torch.kernels import ops
+    q, tbl = w["q"], w["tbl"]
+    _, T, hq, d = q.shape
+    hkv = w["kp"].shape[2]
+    es = q.element_size()
+    starts, lens = w["kv_start"].tolist(), w["kv_len"].tolist()
+    pairs = sum(sum(min(st + j + 1, ln) for j in range(T))
+                for st, ln in zip(starts, lens))
+    if quant is None:
+        return dict(fn=lambda: ops.paged_verify_attention(
+            q, w["kp"], w["vp"], tbl, kv_start=w["kv_start"],
+            kv_len=w["kv_len"]),
+            nbytes=es * (2 * q.numel() + 2 * sum(lens) * hkv * d)
+            + 4 * (tbl.numel() + 32),
+            flops=4 * d * hq * pairs, library_ms=None)
+    kq, vq, ks, vs = quant
+    return dict(fn=lambda: ops.paged_verify_attention(
+        q, kq, vq, tbl, kv_start=w["kv_start"], kv_len=w["kv_len"],
+        k_scale=ks, v_scale=vs),
+        nbytes=es * 2 * q.numel() + sum(lens) * hkv * (2 * d + 8)
+        + 4 * (tbl.numel() + 32),
+        flops=4 * d * hq * pairs, library_ms=None)
+
+
 def _time_sdpa(q, k, v, flush, **kw):
     """Device ms of F.scaled_dot_product_attention on the same inputs in
     its (b, h, s, d) layout (the transposes are not timed): the library
@@ -1174,36 +1233,19 @@ def time_kernels(dev):
         library_ms=_time_sdpa(r80["q"], r80["k"], r80["v"], flush))
 
     w = inp["paged_verify_attention"]
-    T = w["q"].shape[1]
-    starts = w["kv_start"].tolist()
-    lens = w["kv_len"].tolist()
-    pairs = sum(sum(min(st + j + 1, ln) for j in range(T))
-                for st, ln in zip(starts, lens))
-    res["paged_verify_attention"] = dict(
-        fn=lambda: ops.paged_verify_attention(
-            w["q"], w["kp"], w["vp"], w["tbl"], kv_start=w["kv_start"],
-            kv_len=w["kv_len"]),
-        nbytes=es * (2 * w["q"].numel() + 2 * sum(lens) * hkv * d)
-        + 4 * (w["tbl"].numel() + 32),
-        flops=4 * d * hq * pairs, library_ms=None)
+    res["paged_verify_attention"] = _paged_verify_timing(w)
 
     # the quantized kernels at the same shapes: the same calls with the
     # pools' one-byte payloads and scales; a key costs 2 d + 8 bytes per kv
     # head (K and V rows, two fp32 scales) instead of 2 d es
     for kv, (kq, vq, ks, vs) in inp["quant"].items():
-        sc = dict(k_scale=ks, v_scale=vs)
         tag = "" if kv == "int8" else f"[{kv}]"
         res["paged_decode_attention_quant" + tag] = _paged_decode_timing(
             x, (kq, vq, ks, vs))
         res["paged_context_attention_quant" + tag] = _paged_context_timing(
             y, (kq, vq, ks, vs))
-        res["paged_verify_attention_quant" + tag] = dict(
-            fn=lambda kq=kq, vq=vq, sc=sc: ops.paged_verify_attention(
-                w["q"], kq, vq, w["tbl"], kv_start=w["kv_start"],
-                kv_len=w["kv_len"], **sc),
-            nbytes=es * 2 * w["q"].numel() + sum(lens) * hkv * (2 * d + 8)
-            + 4 * (w["tbl"].numel() + 32),
-            flops=res["paged_verify_attention"]["flops"], library_ms=None)
+        res["paged_verify_attention_quant" + tag] = _paged_verify_timing(
+            w, (kq, vq, ks, vs))
 
     # the zoo's serve shapes: #1, #2 and #3 at granite-20b's g 48, #1, #2
     # and #5 (int8 pools) at granite-moe-3b's g 3
@@ -1219,6 +1261,17 @@ def time_kernels(dev):
         inp["paged_decode_attention[g3]"])
     res["paged_decode_attention_quant[g3]"] = _paged_decode_timing(
         inp["paged_decode_attention[g3]"], inp["quant[g3]"]["int8"])
+    # and the zoo rows phase 7 launches but did not time: #4 at g 48
+    # (granite-20b's n-gram serve), #6 at g 3 (granite-moe's int8 pages),
+    # and #7 on int8 pools at both widths (no zoo serve launches it)
+    res["paged_verify_attention[g48]"] = _paged_verify_timing(
+        inp["paged_verify_attention[g48]"])
+    res["paged_context_attention_quant[g3]"] = _paged_context_timing(
+        inp["paged_context_attention[g3]"], inp["quant[g3]"]["int8"])
+    for tag in ("g48", "g3"):
+        res[f"paged_verify_attention_quant[{tag}]"] = _paged_verify_timing(
+            inp[f"paged_verify_attention[{tag}]"],
+            inp[f"quant[{tag}]"]["int8"])
 
     # the scan: x, dt, B, C, A, D read once, y and the fp32 state written
     # once; per (row, step, channel) ds exponentials and ~6 ds + 3 fp32
@@ -1294,7 +1347,8 @@ def _serve(cfg, asg, params, reqs, around=contextlib.nullcontext,
     otherwise), inside the context `around()` (the engine is built outside
     it); check every request got its tokens.
     Returns (stats, wall seconds, dict(draft_steps: draft decode steps
-    run, weight_bytes: bytes of the replica's weights on the card,
+    run, kvsan_violations: what KVSAN recorded on the replicas,
+    weight_bytes: bytes of the replica's weights on the card,
     state_bytes: bytes of its Mamba layers' per-slot state))."""
     from repro_torch.serving.engine import InferenceEngine
     from repro_torch.serving.loop import VirtualClock
@@ -1317,7 +1371,9 @@ def _serve(cfg, asg, params, reqs, around=contextlib.nullcontext,
         raise AssertionError(stats.summary())
     info = dict(draft_steps=sum(
         getattr(getattr(w, "_proposer", None), "draft_steps", 0)
-        for w in eng.router.workers))
+        for w in eng.router.workers), kvsan_violations=sum(
+        len(w._san.violations) for w in eng.router.workers
+        if getattr(w, "_san", None) is not None))
     weights = {}        # stages share the head's tensors: count each once
     for st in eng.replicas[0].stages:
         for t in _leaves({"layers": dict(enumerate(st.layer_params)),
@@ -1688,6 +1744,8 @@ def _kernel_group(name):
     if any(t in name.lower() for t in ("gemm", "cutlass", "sm90_xmma",
                                        "nvjet", "gemv")):
         return "matmul (cuBLAS)"       # MoE expert einsums (bmm) included
+    if name.startswith("Memcpy"):
+        return "host <-> device copies (Memcpy)"
     if "copy" in name:
         return "copies / casts"
     if "elementwise" in name or "vectorized" in name or "reduce" in name:
@@ -2024,31 +2082,64 @@ def phase_schedule_serve(smi):
     return counts
 
 
-def _run_launcher(arch):
+def _run_launcher(arch, multi=False):
     """``python -m repro_torch.launch.serve`` with phase 5's paged flags on
     reduced `arch`, in a subprocess on the card: it must exit 0 and print
-    its assignment and summary lines."""
-    argv = ["--arch", arch, "--reduced", "--cluster", "case_study",
+    its assignment and summary lines. ``multi`` (phase 8 (c)) adds prefix
+    caching, every multi-replica flag and every observability flag on the
+    half-price pool: the launcher must also print its roles, its host-tier
+    blocks and the calibration table, and ``python -m
+    repro_torch.obs.report`` must pass the trace and metrics it writes
+    under build/."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    argv = ["--arch", arch, "--reduced", "--cluster",
+            "half_price" if multi else "case_study",
             "--cache-layout", "paged", "--rate", "4", "--duration", "1",
             "--out-len", "4", "--search-iters", "2"]
-    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(root, "build", "phase8")
+    trace = os.path.join(out_dir, "launcher_trace.json")
+    metrics = os.path.join(out_dir, "launcher_metrics.jsonl")
+    if multi:
+        os.makedirs(out_dir, exist_ok=True)
+        argv += ["--prefix-caching", "--disaggregate", "--host-mem-gb", "1.0",
+                 "--cluster-prefix", "--kvsan", "--trace-out", trace,
+                 "--metrics-out", metrics, "--calibrate"]
     env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+
+    def run(mod, args):
+        out = subprocess.run([sys.executable, "-m", mod] + args, cwd=root,
+                             env=env, capture_output=True, text=True,
+                             timeout=600)
+        lines = out.stdout.splitlines()
+        for line in lines:
+            log(f"  cli | {line}")
+        if out.returncode != 0:
+            raise AssertionError(f"python -m {mod} exited {out.returncode}: "
+                                 f"{out.stderr[-2000:]}")
+        return lines
+
     t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve"]
-                         + argv, cwd=root, env=env, capture_output=True,
-                         text=True, timeout=600)
-    lines = out.stdout.splitlines()
-    for line in lines:
-        log(f"  cli | {line}")
-    if out.returncode != 0:
-        raise AssertionError(f"python -m repro_torch.launch.serve exited "
-                             f"{out.returncode}: {out.stderr[-2000:]}")
+    lines = run("repro_torch.launch.serve", argv)
     if not (any(x.startswith("  assignment: ") for x in lines)
-            and lines and lines[-1].startswith("  n=")):
+            and any(x.startswith("  n=") for x in lines)):
         raise AssertionError("the launcher printed no assignment or no "
                              "summary line")
+    if multi:
+        for want in ("  roles: ", "  host-tier blocks per replica: ",
+                     "  trace: ", "  metrics: ",
+                     "  calibration (predicted vs observed"):
+            if not any(x.startswith(want) for x in lines):
+                raise AssertionError(f"the launcher printed no {want!r} "
+                                     "line")
+    elif not lines[-1].startswith("  n="):
+        raise AssertionError("the launcher's last line is not its summary")
     log(f"  cli: python -m repro_torch.launch.serve {' '.join(argv)} exited "
         f"0 in {time.perf_counter() - t0:.1f} s on the card")
+    if multi:
+        run("repro_torch.obs.report", [metrics, "--trace", trace,
+                                       "--require-spans", "prefill,decode"])
+        log("  cli: python -m repro_torch.obs.report passed the launcher's "
+            "trace and metrics")
 
 
 # ---------------------------------------------------------------------------
@@ -2300,9 +2391,11 @@ SERVE_KW = {"synthetic": {}, "shared-prefix": _PREFIX,
 # the zoo's new GQA groups in the kernels line: (tag, architecture)
 ZOO_TAGS = (("g48", "granite-20b"), ("g3", "granite-moe-3b-a800m"))
 ZOO_ROWS = (("flash_attention", "g48"), ("paged_decode_attention", "g48"),
-            ("paged_context_attention", "g48"), ("flash_attention", "g3"),
+            ("paged_context_attention", "g48"),
+            ("paged_verify_attention", "g48"), ("flash_attention", "g3"),
             ("paged_decode_attention", "g3"),
-            ("paged_decode_attention_quant", "g3"))
+            ("paged_decode_attention_quant", "g3"),
+            ("paged_context_attention_quant", "g3"))
 ZOO_PROFILED = ("granite-20b", "granite-moe-3b-a800m")
 
 
@@ -2395,6 +2488,392 @@ def phase_zoo(smi):
     return counts, by_tag
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: disaggregated prefill/decode, the host page tier with the
+# cluster prefix directory, KVSAN, and observability
+# ---------------------------------------------------------------------------
+
+MULTI_SPLITS = ((1, 1), (2,))     # (a): the two replicas' stage splits
+# the prompt families of the tiered serves: how many, and their shared and
+# unique tokens
+FAMILIES, FAMILY_SHARED, FAMILY_UNIQUE = 3, 1024, 64
+
+
+def _multi_asg(L, splits):
+    """One replica per entry of `splits` (each a tuple of stage layer
+    counts), every stage on its own device id."""
+    from repro_torch.core.plan import Assignment, PipelinePlan, StagePlan
+    pipes, d = [], 0
+    for split in splits:
+        stages = []
+        for n in split:
+            stages.append(StagePlan([d], n))
+            d += 1
+        pipes.append(PipelinePlan(stages))
+    return Assignment(pipes)
+
+
+def _families(vocab, n, out_len, gap=40.0):
+    """n requests of FAMILIES prompt families (a shared prefix of
+    FAMILY_SHARED tokens each, then FAMILY_UNIQUE tokens of the request's
+    own), taking the families in turn and arriving in pairs every `gap`
+    units of the virtual clock. Two replicas that each keep at most one
+    shared set on the device (``_tiered``) cannot settle on a family
+    each, wherever the router sends a request: serving another family
+    spills a shared set to the host tier, and a family that comes back
+    finds its prefix there, on the peer, or nowhere."""
+    from repro_torch.serving.request import Request
+    rng = np.random.default_rng(0)
+    shared = [rng.integers(0, vocab, size=FAMILY_SHARED).astype(np.int32)
+              for _ in range(FAMILIES)]
+    reqs = []
+    for i in range(n):
+        prompt = np.concatenate([shared[i % FAMILIES], rng.integers(
+            0, vocab, size=FAMILY_UNIQUE).astype(np.int32)])
+        reqs.append(Request(rid=i, prompt=prompt, max_new_tokens=out_len,
+                            arrival=gap * (i // 2)))
+    return reqs
+
+
+def _tiered(out_len, kvsan=False, block_size=16):
+    """Engine kwargs of the tiered, clustered serves: prefix caching with
+    256-token chunks, a 256-block host tier under every replica, the
+    cluster prefix directory (an ideal link) with the Router's
+    prefix-aware dispatch, and one slot whose ``max_len`` sizes each
+    stage pool (the engine's default, max_len // block_size + 1 blocks)
+    to one family request and a block to spare: never two shared sets."""
+    def blocks(n):
+        return -(-n // block_size)
+    max_blocks = blocks(FAMILY_SHARED + FAMILY_UNIQUE + out_len) + 1
+    assert max_blocks < 2 * blocks(FAMILY_SHARED)
+    return dict(n_slots=1, max_len=max_blocks * block_size,
+                block_size=block_size, prefix_caching=True,
+                prefill_chunk=256, host_blocks=256, cluster_prefix=True,
+                kvsan=kvsan)
+
+
+def _kv_block_bytes(cfg, block_size, elem_bytes, scales=False):
+    """Bytes of one block of K and V pages over every layer, with the
+    float32 per-row, per-head scales of a quantized pool."""
+    row = cfg.num_kv_heads * (cfg.head_dim_ * elem_bytes + 4 * scales)
+    return 2 * cfg.num_layers * block_size * row
+
+
+def _check_tiers(name, stats):
+    if not stats.host_demotions:
+        raise AssertionError(f"{name}: no page spilled to the host tier; "
+                             f"{stats.summary()}")
+    if not stats.host_promotions + stats.prefix_fetches:
+        raise AssertionError(f"{name}: no page promoted from the host tier "
+                             f"or fetched from the peer; {stats.summary()}")
+
+
+def _check_launched(name, need):
+    """Raise unless every kernel in `need` launched since the counts were
+    last reset."""
+    from repro_torch.kernels import ops
+    launched = ops.launch_counts()
+    for k in need:
+        if not launched[k]:
+            raise AssertionError(f"{name}: {k} never ran; {launched}")
+
+
+MULTI_FIELDS = PARITY_FIELDS + ("migrations", "migrated_kv_bytes",
+                                "host_demotions", "host_promotions",
+                                "host_evictions", "host_hit_tokens",
+                                "prefix_fetches", "prefix_fetched_bytes")
+
+
+def phase_multi_parity():
+    """Phase 8 (a): llama2-70b at full width, 2 layers, fp32, two replicas
+    on the card with stage splits [1, 1] and [2], on model-precision,
+    int8 and fp8 page pools. Through the kernels and through the plain
+    versions, each with KVSAN off and on: a colocated synthetic serve;
+    the same disaggregated (replica 0 prefills, replica 1 decodes) must
+    give its tokens, migrate every request once and ship exactly blocks x
+    bytes per block at the pool's width (scales included); a serve of
+    three prompt families through the engine with prefix caching, host
+    tiers, the cluster directory and prefix-aware dispatch, over one-slot
+    pools that hold one shared set, must give the tokens of the untiered
+    serve (one replica, one slot, prefix caching, pools for every block)
+    while spilling to the host and promoting or fetching back. On
+    quantized pools the synthetic requests are served one at a time (see
+    below), and the quantized decode and context kernels (#5, #6) must
+    have run on the migrated, promoted and fetched pages. KVSAN must stay
+    silent, and every serve must give the same tokens and counters
+    through the plain versions."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    cfg = _llama(2)
+    asg = _multi_asg(cfg.num_layers, MULTI_SPLITS)
+    params = M.init_params(cfg, 0, device=DEVICE, dtype=torch.float32)
+    common = dict(n_slots=8, max_len=2048, block_size=16,
+                  dtype=torch.float32)
+    log(f"phase 8 (a): {cfg.name} at full width, 2 layers, fp32, replicas "
+        f"{[p.layer_split for p in asg.pipelines]}, pools fp32 / int8 / "
+        "fp8")
+    want, streams = {}, {}     # the kernels' counters and tokens by serve
+
+    def same_as_kernels(name, backend, got):
+        if streams.setdefault(name, got) != got:
+            raise AssertionError(f"{name}: the {backend} tokens differ from "
+                                 "the kernels'")
+    def synthetic(alone):
+        synth, _ = _workloads(cfg.vocab_size, n=6, out_len=8)
+        if alone:
+            for i, r in enumerate(synth):
+                r.arrival = 1e3 * i
+        return synth
+    for kv in (None, "int8", "fp8"):
+        pool = dict(common, kv_dtype=kv)
+        block_bytes = _kv_block_bytes(cfg, 16, 1, scales=True) if kv \
+            else _kv_block_bytes(cfg, 16, 4)
+        sfx = "_quant" if kv else ""
+        need = ("paged_decode_attention" + sfx,
+                "paged_context_attention" + sfx)
+        # A one-byte page rounds each value to a few mantissa bits, so a
+        # last-bit difference from a GEMM run at another batch size can
+        # move a page value by a whole step and a near-tied greedy choice
+        # with it. On quantized pools every synthetic request is served
+        # alone (arrivals 1e3 apart): the serves compared then run the
+        # same batch shapes and differ only in where the pages come from.
+        # The batched colocated serve is logged beside it.
+        alone = kv is not None
+        for backend in ("kernel", "plain"):
+            with ops.backend(backend):
+                synth = synthetic(alone)
+                _, wc, _ = _serve(cfg, asg, params, synth, **pool)
+                toks = [list(r.output) for r in synth]
+                same_as_kernels((kv, "colocated"), backend, toks)
+                prompts = [list(r.prompt) for r in synth]
+                batched = ""
+                if alone:
+                    synth = synthetic(False)
+                    _serve(cfg, asg, params, synth, **pool)
+                    n = sum(list(r.output) == t for r, t in zip(synth, toks))
+                    batched = (f"; batched colocated: {n}/{len(synth)} "
+                               "streams equal the alone serve's")
+                fams = _families(cfg.vocab_size, 8, 8)
+                _serve(cfg, _multi_asg(2, ((2,),)), params, fams,
+                       **dict(_tiered(8), host_blocks=0,
+                              cluster_prefix=False, stage_blocks=[512]),
+                       dtype=torch.float32, kv_dtype=kv)
+                cold = [list(r.output) for r in fams]
+                same_as_kernels((kv, "untiered"), backend, cold)
+                for kvsan in (False, True):
+                    synth = synthetic(alone)
+                    ops.reset_launch_counts()
+                    dis, wd, di = _serve(cfg, asg, params, synth, **pool,
+                                         roles=["prefill", "decode"],
+                                         kv_link_gbps=100.0, kvsan=kvsan)
+                    if backend == "kernel":
+                        _check_launched(f"disaggregated kv={kv}", need[:1])
+                    got = [list(r.output) for r in synth]
+                    if got != toks:
+                        _parted(cfg, params, prompts, got, toks,
+                                f"{backend} kv={kv} kvsan={kvsan}: the "
+                                "disaggregated and colocated token streams")
+                    nbytes = sum(-(-len(r.prompt) // 16) for r in synth) \
+                        * block_bytes
+                    if dis.migrations != len(synth) \
+                            or dis.migrated_kv_bytes != nbytes:
+                        raise AssertionError(
+                            f"disaggregated kv={kv}: {dis.migrations} "
+                            f"migrations of {dis.migrated_kv_bytes} B, want "
+                            f"{len(synth)} of {nbytes} B")
+                    fams = _families(cfg.vocab_size, 8, 8)
+                    ops.reset_launch_counts()
+                    tier, wt, ti = _serve(cfg, asg, params, fams,
+                                          dtype=torch.float32, kv_dtype=kv,
+                                          **_tiered(8, kvsan=kvsan))
+                    if backend == "kernel":
+                        _check_launched(f"tiered kv={kv}", need)
+                    got = [list(r.output) for r in fams]
+                    if got != cold:
+                        _parted(cfg, params, [list(r.prompt) for r in fams],
+                                got, cold, f"{backend} kv={kv} kvsan={kvsan}"
+                                ": the tiered and untiered token streams")
+                    _check_tiers(f"tiered kv={kv}", tier)
+                    if kvsan and (dis.kvsan_leaks or tier.kvsan_leaks
+                                  or di["kvsan_violations"]
+                                  or ti["kvsan_violations"]):
+                        raise AssertionError("KVSAN reported on a clean "
+                                             "serve")
+                    for key, st in (((kv, "dis", kvsan), dis),
+                                    ((kv, "tier", kvsan), tier)):
+                        want.setdefault(key, st)
+                        for f in MULTI_FIELDS:
+                            if getattr(st, f) != getattr(want[key], f):
+                                raise AssertionError(
+                                    f"{key} {backend}: ServeStats.{f} "
+                                    "differs from the kernels' serve")
+                    log(f"  parity {backend} kv={kv} kvsan={kvsan}: "
+                        f"disaggregated == colocated ({len(synth)} x 8 "
+                        f"tokens, {dis.migrations} migrations, "
+                        f"{dis.migrated_kv_bytes} B = blocks x "
+                        f"{block_bytes} B; {wd:.3f} s, colocated {wc:.3f} "
+                        f"s); tiered + cluster == untiered ({len(fams)} "
+                        f"requests; {tier.host_demotions} spilled, "
+                        f"{tier.host_promotions} promoted, "
+                        f"{tier.prefix_fetches} fetched, "
+                        f"{tier.prefix_fetched_bytes} B; {wt:.3f} s); "
+                        f"{tier.summary()}{batched}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_multi(smi):
+    """Phase 8 (b) and (c): llama2-70b at full width in bf16, SERVE_LAYERS
+    layers, two replicas with splits [1, 3] and [4] sharing one copy of
+    the weights. After a short warm-up serve of each layout, phase 3's 16
+    synthetic requests x 32 tokens served colocated and disaggregated
+    (replica 0 prefills, replica 1 decodes, a 100 Gbit/s link modelled on
+    the virtual clock) three times each, the order alternating; 8
+    requests of FAMILIES families of FAMILY_SHARED shared +
+    FAMILY_UNIQUE unique tokens through the engine with host tiers, the
+    cluster directory and prefix-aware dispatch over pools that hold one
+    shared set (``_tiered``); each of the three once more under
+    torch.profiler; and one colocated serve traced on the wall clock
+    into a metrics registry. Then the launcher with every multi-replica
+    and observability flag in a subprocess, and the report CLI on its
+    artifacts. Returns the launch counts of the measured serves, each
+    zeroed just before it and read just after."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.obs.trace import Tracer, validate_chrome_trace
+    cfg = _llama(SERVE_LAYERS)
+    L = cfg.num_layers
+    lo = _pipeline_asg(L).pipelines[0].layer_split
+    asg = _multi_asg(L, (tuple(lo), (L,)))
+    params = M.init_params(cfg, 0, device=DEVICE)
+    common = dict(n_slots=16, max_len=2048, block_size=16)
+    layouts = {"colocated": {},
+               "disaggregated": dict(roles=["prefill", "decode"],
+                                     kv_link_gbps=100.0)}
+    counts = dict.fromkeys(ops.KERNELS, 0)
+    log(f"phase 8 (b): {cfg.name} at full width, {L} of 80 layers, "
+        f"{cfg.dtype}, replicas {[p.layer_split for p in asg.pipelines]} "
+        f"on {smi}")
+
+    def measured(name, run, need):
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        out = run()
+        launched = ops.launch_counts()
+        for k in counts:
+            counts[k] += launched[k]
+        for k in need:
+            if not launched[k]:
+                raise AssertionError(f"{name}: {k} never ran; {launched}")
+        return out, launched, torch.cuda.max_memory_allocated()
+
+    for kw in layouts.values():                 # warm-up, both layouts
+        synth, _ = _workloads(cfg.vocab_size, n=4, out_len=4)
+        _serve(cfg, asg, params, synth, **common, **kw)
+    walls = {name: [] for name in layouts}
+    outs = {name: [] for name in layouts}
+    for rep in range(3):
+        order = list(layouts) if rep % 2 == 0 else list(layouts)[::-1]
+        for name in order:
+            synth, _ = _workloads(cfg.vocab_size, n=16, out_len=32)
+            (st, wall, _), launched, peak = measured(
+                name, lambda: _serve(cfg, asg, params, synth, **common,
+                                     **layouts[name]),
+                ("flash_attention", "paged_decode_attention"))
+            walls[name].append(wall)
+            outs[name].append([list(r.output) for r in synth])
+            if name == "disaggregated":
+                if st.migrations != len(synth):
+                    raise AssertionError(
+                        f"disaggregated: {st.migrations} migrations for "
+                        f"{len(synth)} requests")
+                dis, dis_launched, dis_peak = st, launched, peak
+    in_tok = sum(len(r.prompt) for r in synth)
+    out_tok = sum(len(r.output) for r in synth)
+    wd = float(np.median(walls["disaggregated"]))
+    wc = float(np.median(walls["colocated"]))
+    same = sum(a == b for a, b in zip(outs["disaggregated"][0],
+                                      outs["colocated"][0]))
+    log(f"  serve disaggregated vs colocated, 3 serves each (order c d, "
+        f"d c, c d after a warm-up of each): {len(synth)} requests, "
+        f"{in_tok} prompt + {out_tok} generated tokens; walls "
+        f"disaggregated {[round(w, 4) for w in walls['disaggregated']]} "
+        f"s, colocated {[round(w, 4) for w in walls['colocated']]} s; "
+        f"median disaggregated {wd:.3f} s = {out_tok / wd:.1f} generated "
+        f"tok/s, {(in_tok + out_tok) / wd:.1f} total tok/s, colocated "
+        f"{wc:.3f} s = {out_tok / wc:.1f} / {(in_tok + out_tok) / wc:.1f};"
+        f" {dis.migrations} migrations, "
+        f"{dis.migrated_kv_bytes / 2**30:.3f} GiB migrated; {same}/"
+        f"{len(synth)} outputs equal the colocated serve's; repeats give "
+        f"their layout's first tokens: "
+        f"{all(o == outs[n][0] for n in layouts for o in outs[n])}; "
+        f"{dis.summary()}; peak device memory {dis_peak / 2**30:.2f} GiB;"
+        f" launches {dis_launched}")
+    fams = _families(cfg.vocab_size, 8, 32, gap=60.0)
+    (tier, wt, _), launched, peak = measured(
+        "shared-prefix tiered",
+        lambda: _serve(cfg, asg, params, fams, **_tiered(32)),
+        ("paged_context_attention", "paged_decode_attention"))
+    _check_tiers("shared-prefix tiered", tier)
+    in_tok = sum(len(r.prompt) for r in fams)
+    out_tok = sum(len(r.output) for r in fams)
+    log(f"  serve shared-prefix tiered: {len(fams)} requests, {in_tok} "
+        f"prompt + {out_tok} generated tokens in {wt:.3f} s wall = "
+        f"{out_tok / wt:.1f} generated tok/s, {(in_tok + out_tok) / wt:.1f}"
+        f" total tok/s; prefill tokens {tier.prefill_tokens} of {in_tok} "
+        f"({in_tok - tier.prefill_tokens} saved: {tier.prefix_hit_tokens} "
+        f"prefix-hit tokens, {tier.host_hit_tokens} from the host tier); "
+        f"{tier.host_demotions} blocks spilled, {tier.host_promotions} "
+        f"promoted, {tier.host_evictions} dropped, {tier.prefix_fetches} "
+        f"fetched ({tier.prefix_fetched_bytes / 2**20:.1f} MiB); "
+        f"{tier.summary()}; peak device memory {peak / 2**30:.2f} GiB; "
+        f"launches {launched}")
+    for name, kw in layouts.items():
+        synth, _ = _workloads(cfg.vocab_size, n=16, out_len=32)
+        profile_serve(name, cfg, asg, params, synth, **common, **kw)
+    profile_serve("shared-prefix tiered", cfg, asg, params,
+                  _families(cfg.vocab_size, 8, 32, gap=60.0), **_tiered(32))
+    tracer, metrics = Tracer(), MetricsRegistry()
+    synth, _ = _workloads(cfg.vocab_size, n=16, out_len=32)
+    from repro_torch.serving.engine import InferenceEngine
+    eng = InferenceEngine(cfg, asg, params=params, device=DEVICE,
+                          cache_layout="paged", **common)
+
+    def traced():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = eng.serve(synth, deadline=60.0, tracer=tracer, metrics=metrics)
+        torch.cuda.synchronize()
+        return st, time.perf_counter() - t0
+    (st, wall), launched, _ = measured(
+        "traced", traced, ("flash_attention", "paged_decode_attention"))
+    del eng
+    errs = validate_chrome_trace(tracer.to_chrome(), require_spans=[
+        "serve", "queue_wait", "iteration", "prefill", "decode"])
+    if errs:
+        raise AssertionError(f"traced serve: {errs[:5]}")
+    if metrics.total("serve_n_requests") != len(synth) \
+            or any(r.output is None or len(r.output) != r.max_new_tokens
+                   for r in synth):
+        raise AssertionError(f"traced serve: {st.summary()}")
+    spans = collections.Counter(e["name"] for e in tracer.events)
+    serve_s = next(e["dur"] for e in tracer.events if e["name"] == "serve")
+    waits = [e["dur"] for e in tracer.events if e["name"] == "queue_wait"]
+    # as in the reference, the engines' spans (prefill, decode, iteration)
+    # carry the virtual step cost they charge, on a wall clock too; the
+    # serve and queue-wait spans are sampled from the clock
+    log(f"  serve traced (wall clock, tracer and metrics on): "
+        f"{len(synth)} requests in {wall:.3f} s; {len(tracer.events)} "
+        f"events {dict(spans)}; serve span {serve_s:.3f} s, queue wait "
+        f"mean {np.mean(waits) * 1e3:.2f} ms; {len(metrics.collect())} "
+        f"metric rows; {st.summary()}")
+    del params
+    torch.cuda.empty_cache()
+    _run_launcher("llama2-70b", multi=True)
+    return counts
+
+
 def dump_sass(tree, out):
     """Build the kernel sources of another checkout `tree` (a `git archive`
     of the parent commit) with this tree's flags and write each library's
@@ -2443,11 +2922,16 @@ def main():
     done("phase 6")
     zoo, by_tag = phase_zoo(smi)
     done("phase 7")
+    phase_multi_parity()
+    done("phase 8 (a)")
+    multi = phase_multi(smi)
+    done("phase 8")
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         kernels.append(dict(name=name, route="cuda", source=src,
                             replaces=replaces,
-                            launches=counts[name] + danube[name] + zoo[name],
+                            launches=(counts[name] + danube[name]
+                                      + zoo[name] + multi[name]),
                             **timed[name]))
     # #1 and #8 at h2o-danube-1.8b's head dim 80: the long-prompt serve's
     # launches (also in the rows above) and the times at its shapes

@@ -13,9 +13,13 @@ chosen GPU pool (the paper's setting); ``--reduced`` serves the reduced
 variant of the same architecture through the scheduled stage layout,
 keeping every structural property (stage count, TP degrees, layer ratios).
 Every replica and stage runs on the one device (``main(device=...)``, the
-card unless a test asks for the CPU). The reference's observability
-branch (``--trace-out``, ``--metrics-out``, ``--calibrate``) is not
-ported: ``InferenceEngine.from_config`` raises NotImplementedError for it.
+card unless a test asks for the CPU). ``--trace-out`` writes the serve's
+Chrome trace, ``--metrics-out`` its metrics JSONL (read them back with
+``python -m repro_torch.obs.report``), and ``--calibrate`` prints the cost
+model's predicted seconds per phase against the traced ones. The traced
+engine spans last the cost the engines charge on the serving clock (see
+``repro_torch.obs``), so the table's "observed" column is a modelled cost
+on the wall clock too; the launcher says so under the table.
 """
 from __future__ import annotations
 
@@ -25,6 +29,10 @@ from repro_torch.configs import get_config
 from repro_torch.core.plan import Assignment, PipelinePlan, StagePlan
 from repro_torch.core.scheduler import schedule
 from repro_torch.serving.config import ServingConfig
+
+# printed under the calibration table: what its "observed" column is
+CALIBRATION_NOTE = ("  (observed: the engine spans' charged serving-clock "
+                    "cost, on any clock; not a measured device time)")
 
 
 def scale_assignment(asg: Assignment, full_layers: int,
@@ -82,9 +90,48 @@ def main(argv: Optional[Sequence[str]] = None, *, device="cuda") -> None:
     engine = InferenceEngine.from_config(cfg, plan, sv, assignment=asg,
                                          cluster=pool, device=device)
     reqs = sv.workload(cfg.vocab_size)
+
+    # ---- observability (repro_torch.obs) --------------------------------
+    tracer = metrics = None
+    if sv.trace_out or sv.calibrate:
+        from repro_torch.obs.trace import Tracer
+        tracer = Tracer()
+    if sv.metrics_out or sv.calibrate:
+        from repro_torch.obs.metrics import MetricsRegistry
+        metrics = MetricsRegistry()
+
     print(f"serving {len(reqs)} requests...")
-    stats = engine.serve(reqs, deadline=sv.deadline)
+    stats = engine.serve(reqs, deadline=sv.deadline, tracer=tracer,
+                         metrics=metrics)
     print("  " + stats.summary())
+
+    if tracer is not None and metrics is not None:
+        from repro_torch.obs.metrics import phase_histograms_from_trace
+        phase_histograms_from_trace(tracer, metrics)
+    if sv.trace_out:
+        tracer.write(sv.trace_out)
+        print(f"  trace: {sv.trace_out} ({len(tracer.events)} events)")
+    if sv.metrics_out:
+        metrics.to_jsonl(sv.metrics_out)
+        print(f"  metrics: {sv.metrics_out}")
+    if sv.calibrate:
+        from repro_torch.core import cost_model as cm
+        from repro_torch.obs.calibration import (CostCalibrator,
+                                                 predictions_from_phase_costs)
+        from repro_torch.obs.report import calibration_table
+        cal = CostCalibrator()
+        task = sv.task()
+        profile = cm.ModelProfile.from_config(
+            cfg_full, bytes_per_el=task.bytes_per_el)
+        for i, pipe in enumerate(plan.assignment.pipelines):
+            pc = cm.pipeline_phase_costs(
+                pool, [list(s.device_ids) for s in pipe.stages],
+                [s.num_layers for s in pipe.stages], profile, task)
+            predictions_from_phase_costs(cal, i, pc, task.s_in)
+        cal.observe_trace(tracer)
+        for line in calibration_table(cal):
+            print("  " + line)
+        print(CALIBRATION_NOTE)
 
 
 if __name__ == "__main__":

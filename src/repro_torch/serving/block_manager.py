@@ -1,5 +1,6 @@
-"""Paged KV-cache bookkeeping of the port (copy of the device-tier parts of
-repro.serving.block_manager; the host page tier waits for a later slice).
+"""Paged KV-cache bookkeeping of the port (copy of
+repro.serving.block_manager): the device tier, and the host page tier
+under it.
 
 A fixed pool of cache BLOCKS per stage and a per-request BlockTable mapping
 logical token positions to physical blocks: admission needs only the
@@ -17,6 +18,12 @@ one reference per indexed block so cached prefixes survive their request.
 Writing into a still-shared block first goes through
 ``BlockTable.writable`` (copy-on-write). Blocks whose only reference is the
 index's are evictable, LRU-first, when the pool runs dry.
+
+``HostPagePool`` is the tier below: a prefix block the index evicts under
+pool pressure demotes its page payload there (``PrefixIndex.spill``)
+instead of vanishing, and a later match promotes it back into a fresh
+device block. Payloads are the pipeline's per-layer dicts of torch
+tensors, at pool precision.
 
 Everything here is host-side Python.
 """
@@ -55,6 +62,9 @@ class BlockPool:
         # optional PrefixIndex notified on 1<->2 ref transitions so it can
         # keep its evictable count O(1) (set by PrefixIndex.__init__)
         self.observer = None
+        # occupancy high-water mark, exported as the kv_pool_peak_blocks
+        # gauge (repro_torch.obs.metrics)
+        self.peak_used = 0
 
     @property
     def n_free(self) -> int:
@@ -72,6 +82,9 @@ class BlockPool:
         for b in out:
             assert self._ref[b] == 0, b
             self._ref[b] = 1
+        used = self.n_used
+        if used > self.peak_used:
+            self.peak_used = used
         return out
 
     def incref(self, bid: int) -> None:
@@ -118,6 +131,10 @@ class BlockTable:
         self.blocks.extend(got)
         return True
 
+    def ensure(self, pos: int) -> bool:
+        """Make position `pos` writable (allocate-on-decode growth)."""
+        return self.allocate_tokens(pos + 1)
+
     def release(self) -> None:
         for b in self.blocks:
             self.pool.free(b)
@@ -142,6 +159,13 @@ class BlockTable:
         their references (the landing step of prefix aliasing)."""
         assert not (set(blocks) & set(self.blocks)), "block adopted twice"
         self.blocks.extend(int(b) for b in blocks)
+
+    def fork(self) -> "BlockTable":
+        """Alias every block (refcount++) — the prefix-sharing enabler.
+        Callers must copy-on-write before mutating a shared block."""
+        for b in self.blocks:
+            self.pool.incref(b)
+        return BlockTable(self.pool, list(self.blocks))
 
     def writable(self, block_idx: int
                  ) -> Union[None, Tuple[int, int], bool]:
@@ -169,6 +193,14 @@ class BlockTable:
         out = np.full(max_blocks, NULL_BLOCK, np.int32)
         out[:len(self.blocks)] = self.blocks
         return out
+
+    def gather_positions(self, n_tokens: int) -> np.ndarray:
+        """Flat physical slot index (block * block_size + offset) of each of
+        the first n_tokens logical positions — the host-side round-trip
+        oracle the property tests check gather/scatter against."""
+        bs = self.pool.block_size
+        pos = np.arange(n_tokens)
+        return np.asarray(self.blocks, np.int64)[pos // bs] * bs + pos % bs
 
 
 # ---------------------------------------------------------------------------
@@ -211,6 +243,11 @@ class PrefixIndex:
         # indexed blocks whose ONLY reference is the index's, kept O(1)
         # through the pool's ref-transition notifications
         self._evictable = 0
+        # optional demotion hook: ``spill(chain_hash, block_id)`` runs for
+        # every evicted block BEFORE its pool slot is freed (page contents
+        # still valid on device), turning eviction into device -> host
+        # demotion when a HostPagePool is wired (serving.continuous)
+        self.spill = None
 
     # ---- BlockPool observer hooks (1 <-> 2 ref transitions) -------------
     def _ref_fell_to_one(self, bid: int) -> None:
@@ -232,6 +269,12 @@ class PrefixIndex:
                 break
             n += 1
         return n
+
+    def lookup(self, h: int) -> Optional[int]:
+        """Resident block id for chain hash `h` (None = not indexed); no
+        refcount or LRU side effects — tier planning and cluster export
+        peek without claiming."""
+        return self._block_of.get(h)
 
     def acquire(self, hashes: Sequence[int]) -> List[int]:
         """Alias the indexed prefix `hashes` (all must be resident):
@@ -271,6 +314,11 @@ class PrefixIndex:
             self._lru.move_to_end(bid)
         return added
 
+    def indexed_blocks(self) -> List[int]:
+        """Every block id the index currently holds a reference on
+        (KVSAN's refcount-conservation audit enumerates these)."""
+        return list(self._hash_of)
+
     def n_evictable(self) -> int:
         """Blocks reclaimable right now (referenced only by the index)."""
         return self._evictable
@@ -288,6 +336,119 @@ class PrefixIndex:
             del self._block_of[h]
             del self._lru[bid]
             self._evictable -= 1
+            if self.spill is not None:
+                self.spill(h, bid)            # demote before the slot frees
             self.pool.free(bid)               # 1 -> 0: back to the free list
             freed += 1
         return freed
+
+    def clear(self) -> None:
+        """Drop every cached prefix (frees the index's references). A reset,
+        not pressure: nothing spills to the host tier."""
+        for bid in list(self._lru):
+            h = self._hash_of.pop(bid)
+            del self._block_of[h]
+            del self._lru[bid]
+            self.pool.free(bid)
+        self._evictable = 0
+
+
+# ---------------------------------------------------------------------------
+# Host-memory page tier (device -> host demotion)
+# ---------------------------------------------------------------------------
+
+class HostPagePool:
+    """Host-memory (CPU DRAM) tier for demoted prefix pages.
+
+    Device eviction under pool pressure DEMOTES a prefix block's page
+    payload here instead of deleting it, keyed by the same chained chunk
+    hash the ``PrefixIndex`` uses; a later prompt that matches the hash
+    PROMOTES the payload back into a fresh device block (``get`` pops —
+    every page lives in exactly one tier). Capacity is counted in blocks
+    and enforced LRU, like the device index but with true deletion at the
+    bottom of the hierarchy (``on_evict`` lets the cluster directory track
+    the final drop).
+
+    The payload is opaque to the pool: the engine stores one pytree per
+    stage layer (``{"k","v"[,"k_scale","v_scale"]}`` torch tensors in host
+    memory, leading axis = one block) captured at POOL precision, so
+    quantized pages spill at their narrow width and re-land verbatim.
+    """
+
+    def __init__(self, capacity: int, block_size: int):
+        if capacity < 1:
+            raise ValueError("host tier needs at least one block")
+        self.capacity = capacity
+        self.block_size = block_size
+        self._pages: OrderedDict = OrderedDict()   # chain hash -> payload
+        # callback(chain_hash) when the LRU bound drops an entry — the page
+        # has now left the replica entirely (directory unpublish)
+        self.on_evict = None
+        self.demotions = 0         # payloads accepted (device -> host)
+        self.promotions = 0        # payloads popped back out (host -> device)
+        self.evictions = 0         # payloads dropped at the LRU bound
+
+    def __len__(self) -> int:
+        return len(self._pages)
+
+    def __contains__(self, h) -> bool:
+        return h in self._pages
+
+    def match_len(self, hashes: Sequence[int]) -> int:
+        """Length (in blocks) of the longest resident prefix of `hashes`."""
+        n = 0
+        for h in hashes:
+            if h not in self._pages:
+                break
+            n += 1
+        return n
+
+    def put(self, h: int, payload) -> None:
+        """Demote a page payload under its chain hash; over capacity the
+        least-recently-touched payload is dropped (true eviction)."""
+        if h in self._pages:
+            self._pages.move_to_end(h)     # refresh, keep first demotion
+            return
+        self._pages[h] = payload
+        self.demotions += 1
+        while len(self._pages) > self.capacity:
+            old, _ = self._pages.popitem(last=False)
+            self.evictions += 1
+            if self.on_evict is not None:
+                self.on_evict(old)
+
+    def get(self, h: int):
+        """Promote: POP the payload for `h` (None on miss). Popping keeps
+        the one-tier invariant — the caller re-registers the page on
+        device, so a host copy left behind would alias it."""
+        payload = self._pages.pop(h, None)
+        if payload is not None:
+            self.promotions += 1
+        return payload
+
+    def peek(self, h: int):
+        """Read without promoting (cluster export: the payload stays
+        host-resident on this replica while a COPY migrates to a peer)."""
+        return self._pages.get(h)
+
+    def restore(self, h: int, payload) -> None:
+        """Undo a ``get`` whose promotion could not allocate a device
+        block: the payload returns to the host tier, counter-neutral."""
+        self.promotions -= 1
+        self.demotions -= 1
+        self.put(h, payload)
+
+    def discard(self, h: int) -> None:
+        """Drop a stale host copy without eviction accounting — the page
+        was re-registered on device (one-tier invariant), the host copy
+        no longer exists anywhere."""
+        self._pages.pop(h, None)
+
+    def hashes(self) -> List[int]:
+        """Resident chain hashes, LRU order (KVSAN's tier audit)."""
+        return list(self._pages)
+
+    def nbytes(self) -> int:
+        return int(sum(a.numel() * a.element_size()
+                       for payload in self._pages.values()
+                       for lkv in payload for a in lkv.values()))

@@ -24,9 +24,7 @@ verdict (replica layouts, roles, spec depths, KV precisions, host-tier
 split) — so the config says HOW to serve and the plan says WHERE.
 
 The port's copy of repro.serving.config, flag for flag and with the same
-defaults, including flags whose features the port does not serve yet:
-``InferenceEngine.from_config`` raises NotImplementedError naming each
-such flag when it is on.
+defaults; ``InferenceEngine.from_config`` serves every flag.
 """
 from __future__ import annotations
 
@@ -167,7 +165,7 @@ class ServingConfig:
                             "sanitizer; leaks surface as "
                             "ServeStats.kvsan_leaks (paged layout)")
 
-    # ---- observability (the reference's repro.obs; not ported yet) -----
+    # ---- observability (repro_torch.obs) ---------------------------------
     trace_out: str = _f("", "write a Chrome-trace/Perfetto JSON of the "
                             "serve's lifecycle spans to this path "
                             "(empty = tracing off, zero overhead)")

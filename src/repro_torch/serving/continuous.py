@@ -33,18 +33,35 @@ asymmetric pipeline with per-stage slot pools) and the paged
     such a stack (a recurrent state has no per-block piece to share,
     resume, quantize or roll back).
 
+  * disaggregated prefill/decode (``role``): a prefill replica hands
+    every prefill-complete slot to a decode replica as a ``KVMigration``
+    (its pages, cached length and last logits), and the decode replica
+    resumes it where the prefill stopped (``_migrate_ready``,
+    ``migrate_in``, ``_place_migrations``);
+  * the host page tier (``host_blocks``): a prefix block the index evicts
+    spills its pages to a ``HostPagePool`` in host memory and a later
+    match promotes them back (``_make_spill``, ``_materialize_hash``);
+  * the cluster prefix directory (``attach_cluster``): a prefix resident
+    only on a peer replica is fetched from it over the modelled KV link
+    (``export_prefix_block``, ``_materialize_hash``);
+  * KVSAN (``kvsan=True``): every pool's page lifecycle shadowed and
+    audited at each iteration boundary (``_kvsan_audit``);
+  * tracing: a live ``Tracer`` in ``self.tracer`` records the lifecycle
+    spans, and ``metrics_gauges`` the pools' occupancy.
+
 The host logic is the reference's, line for line where it can be, so both
-engines make the same admission, allocation and preemption decisions and
-the same ServeStats counters come out. Disaggregated roles, the host page
-tier, the cluster prefix directory, KVSAN and tracing wait for later
-slices (ROADMAP.md).
+engines make the same admission, allocation, preemption, migration and
+tier decisions and the same ServeStats counters and trace events come
+out. The reference's live-slot migration and evacuation (online
+rescheduling) wait for a later slice (ROADMAP.md).
 """
 from __future__ import annotations
 
 import dataclasses
+import heapq
 import warnings
 from collections import deque
-from typing import Deque, List, Optional, Sequence
+from typing import Deque, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -52,9 +69,12 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
 from repro_torch.models.quant import kv_is_quantized
+from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.serving.block_manager import (BlockPool, BlockTable,
-                                               PrefixIndex, blocks_for_tokens,
+                                               HostPagePool, PrefixIndex,
+                                               blocks_for_tokens,
                                                chunk_hashes)
+from repro_torch.serving.disagg import KVLink, KVMigration
 from repro_torch.serving.pipeline import (context_mode_supported,
                                           slot_mode_supported)
 from repro_torch.serving.loop import (ServeStats, VirtualClock, WallClock,
@@ -101,6 +121,9 @@ class SlotEngine:
         self.max_len = max_len
         self.pad_id = pad_id
         self.virtual_step_cost = virtual_step_cost
+        # the Router (or a test) swaps in a live Tracer; the null default
+        # keeps every emission site a single attribute check
+        self.tracer = NULL_TRACER
         self.replica_id = 0
         self.slots = [_Slot() for _ in range(n_slots)]
         self._queue: Deque[Request] = deque()
@@ -202,6 +225,18 @@ class SlotEngine:
         for i, r in enumerate(reqs):
             toks[i, :lens[i]] = r.prompt                   # right pad
         logits = self._prefill_insert(toks, plens, list(slot_ids))
+        if self.tracer.enabled:
+            # one-shot joint prefill: every admitted prompt completes its
+            # prefill within this iteration
+            ntok = int(lens.sum())
+            self.tracer.complete(
+                "prefill",
+                self.virtual_step_cost
+                * getattr(self, "prefill_token_cost", 0.0) * ntok,
+                pid=self.replica_id, tokens=ntok, slots=m)
+            for r in reqs:
+                self.tracer.mark(r.rid, "prefill_finish",
+                                 self.tracer.now())
         for i, (r, slot) in enumerate(zip(reqs, slot_ids)):
             self._last_logits[slot] = np.asarray(logits[i])
             self.slots[slot] = _Slot(req=r, pos=int(lens[i]),
@@ -213,20 +248,30 @@ class SlotEngine:
         self._before_decode()      # grow tables, maybe preempt
         toks = np.zeros((self.n_slots,), np.int32)
         pos = np.zeros((self.n_slots,), np.int32)
+        n_dec = 0
         for i, s in enumerate(self.slots):
             if s.decoding:         # mid-prefill slots sit this one out
                 toks[i] = int(self._last_logits[i].argmax())
                 pos[i] = s.pos
+                n_dec += 1
         logits = self._decode_all(toks, pos)
+        if self.tracer.enabled and n_dec:
+            # one joint decode step; its virtual cost is the flat
+            # iteration cost whatever the batch width
+            self.tracer.complete("decode", self.virtual_step_cost, ts=now,
+                                 pid=self.replica_id, tokens=n_dec)
         done = []
         for i, s in enumerate(self.slots):
             if not s.decoding:
                 continue
             s.out.append(int(toks[i]))
-            if len(s.out) == 1 and s.req.first_token_time is None:
+            if len(s.out) == 1:
                 # first-wins: a preempt-recompute re-produces the stream,
                 # but the client saw the first token at the first emission
-                s.req.first_token_time = now
+                # (trace marks share this discipline)
+                if s.req.first_token_time is None:
+                    s.req.first_token_time = now
+                self.tracer.mark(s.req.rid, "first_token", now)
             s.pos += 1
             s.remaining -= 1
             self._last_logits[i] = logits[i]
@@ -248,7 +293,24 @@ class SlotEngine:
         (deterministic latencies in iteration units), or the wall clock."""
         return run_serve_loop([self], requests, deadline=deadline,
                               clock=WallClock() if realtime
-                              else VirtualClock())
+                              else VirtualClock(),
+                              tracer=(self.tracer if self.tracer.enabled
+                                      else None))
+
+    # seed-API shims (tests, notebooks) ------------------------------------
+    def insert(self, req: Request) -> int:
+        """Immediate single insert; returns the slot index."""
+        free = self.free_slots()
+        if not free:
+            raise RuntimeError("no free slot")
+        self._insert_batch([req], free[:1])
+        return free[0]
+
+    def step(self) -> Dict[int, List[int]]:
+        """One engine step (prefill chunks where pending, then the joint
+        decode — identical to what run_iteration drives). Returns
+        {rid: finished tokens}."""
+        return {req.rid: out for req, out in self._step(0.0)}
 
 
 class ContinuousBatcher(SlotEngine):
@@ -353,6 +415,34 @@ class PagedPipelineBatcher(SlotEngine):
     GLOBAL layer indices kept at model precision; ServeStats then reports
     the pools' bytes (``kv_bytes_resident``, scales included) and what they
     save against model-precision pools (``kv_bytes_saved``).
+
+    ``host_blocks > 0`` adds a HOST-MEMORY PAGE TIER (needs prefix
+    caching): ``PrefixIndex`` eviction under pool pressure DEMOTES a
+    prefix block's page payload into a per-stage ``HostPagePool`` (at
+    pool precision, in pinned host memory on the card) instead of
+    deleting it, and a later prompt that matches past the device-resident
+    prefix PROMOTES pages back into fresh device blocks, block by block.
+    ``host_swap_cost`` (virtual clock) charges each block moved across the
+    device<->host boundary that fraction of an iteration.
+
+    ``attach_cluster`` (serving.cluster_kv.wire_cluster_prefix) joins a
+    CLUSTER PREFIX DIRECTORY: the replica publishes its (hash -> tier)
+    residency, and a prompt whose prefix lives only on a PEER replica
+    fetches those pages in the ``KVMigration`` wire format, charged at
+    ``KVLink.delay`` on the serving clock, before falling back to cold
+    prefill.
+
+    ``role`` splits the two inference phases across replicas
+    (serving.disagg): "both" (colocated, the default), "prefill" (a slot
+    whose prompt is fully cached is EXTRACTED — pages, cached length and
+    last logits — and handed to ``self.dispatcher`` instead of decoding)
+    or "decode" (no fresh arrivals; migrations land in free slots once
+    their transfer delay elapses and resume decode from the migrated
+    pages and logits). Needs an attention-only stack.
+
+    ``kvsan=True`` serves under the KVSAN page-lifecycle sanitizer
+    (repro_torch.analysis.kvsan): pure observation, leaks counted in
+    ``kvsan_leaks``.
     """
 
     def __init__(self, pipeline, *, n_slots: int = 8, max_len: int = 256,
@@ -361,16 +451,25 @@ class PagedPipelineBatcher(SlotEngine):
                  admit_headroom: Optional[int] = None, pad_id: int = 0,
                  virtual_step_cost: float = 1.0,
                  prefix_caching: bool = False, prefill_chunk: int = 0,
-                 prefill_token_cost: float = 0.0, replica_id: int = 0,
+                 prefill_token_cost: float = 0.0,
+                 host_blocks: int = 0, host_swap_cost: float = 0.0,
+                 role: str = "both", replica_id: int = 0,
                  spec: Optional[SpecConfig] = None,
                  kv_dtype: Optional[str] = None,
-                 kv_guard_layers: Sequence[int] = ()):
+                 kv_guard_layers: Sequence[int] = (),
+                 kvsan: bool = False):
         if not slot_mode_supported(pipeline.cfg):
             raise NotImplementedError(f"{pipeline.cfg.name}: slot mode "
                                       "needs a uniform text decoder")
         if max_len % block_size:
             raise ValueError(f"max_len {max_len} is not a multiple of "
                              f"block_size {block_size}")
+        if role not in ("both", "prefill", "decode"):
+            raise ValueError(f"role {role!r}")
+        if role != "both" and not context_mode_supported(pipeline.cfg):
+            raise NotImplementedError(
+                "disaggregation needs an attention-only stack (recurrent "
+                "running state has no pages to migrate)")
         if (prefix_caching or prefill_chunk) \
                 and not context_mode_supported(pipeline.cfg):
             warnings.warn(
@@ -435,6 +534,21 @@ class PagedPipelineBatcher(SlotEngine):
             else:
                 self._pools.append(None)
                 self._tables.append(None)
+        # KVSAN: opt-in page-lifecycle sanitizer (repro_torch.analysis.
+        # kvsan) shadowing every pool's alloc/incref/free, the kernels'
+        # write/read coverage per block, and refcount conservation each
+        # iteration. Pure observation: the same tokens with it on or off.
+        self.kvsan = bool(kvsan)
+        self.kvsan_leaks = 0
+        self._san = None
+        if self.kvsan:
+            from repro_torch.analysis.kvsan import KVSanitizer
+            self._san = KVSanitizer(
+                quant=(self.kv_dtype is not None
+                       and kv_is_quantized(self.kv_dtype)))
+            for si, p in enumerate(self._pools):
+                if p is not None:
+                    self._san.attach_pool(si, p)
         # typical next-request footprint for capacity(), learned from
         # admitted traffic (start at one block)
         self._need_sum = 0
@@ -451,20 +565,70 @@ class PagedPipelineBatcher(SlotEngine):
         self._prefix: List[Optional[PrefixIndex]] = [
             PrefixIndex(p) if (prefix_caching and p is not None) else None
             for p in self._pools]
+        # ---- host page tier (device -> host demotion) ------------------
+        if host_blocks and not self.prefix_caching:
+            warnings.warn(
+                "host_blocks needs prefix_caching=True (the host tier is "
+                "keyed by prefix chunk hashes); serving without a host "
+                "tier", stacklevel=2)
+            host_blocks = 0
+        self.host_blocks = int(host_blocks)
+        self.host_swap_cost = host_swap_cost
+        self._host: List[Optional[HostPagePool]] = [
+            HostPagePool(self.host_blocks, block_size)
+            if (self.host_blocks > 0 and p is not None) else None
+            for p in self._pools]
+        # the first attention stage is the cluster directory's
+        # REPRESENTATIVE: tier transitions publish once per hash, not once
+        # per stage (stages register/evict near-symmetrically; the
+        # directory is a hint and export verifies every stage anyway)
+        self._rep_stage = next(
+            (si for si, p in enumerate(self._pools) if p is not None), None)
+        for si, (ix, host) in enumerate(zip(self._prefix, self._host)):
+            if ix is not None and host is not None:
+                ix.spill = self._make_spill(si)
+                host.on_evict = self._make_host_drop(si)
+        if self._san is not None:
+            # after the on_evict wiring so the sanitizer's LRU-drop
+            # shadowing chains onto (not replaces) the directory hook
+            for si, host in enumerate(self._host):
+                if host is not None:
+                    self._san.attach_host(si, host)
+        # ---- cluster prefix directory (attach_cluster wires these) -----
+        self.cluster_dir = None
+        self.cluster_link: Optional[KVLink] = None
+        self._cluster_peers: Dict[int, "PagedPipelineBatcher"] = {}
+        # ---- disaggregated prefill/decode ------------------------------
+        self.role = role
+        # set by serving.disagg.wire_disaggregation (role="prefill" only)
+        self.dispatcher = None
+        # in-transit migrations: heap of (ready_time, seq, KVMigration)
+        self._migrations: List = []
+        self._mig_seq = 0
         # counters surfaced through ServeStats (the loop reports deltas)
         self.prefix_lookups = 0
         self.prefix_hits = 0
         self.prefix_hit_tokens = 0
         self.prefill_tokens = 0
         self.cow_copies = 0
+        self.migrations = 0            # prefills handed off (sender side)
+        self.migrated_kv_bytes = 0     # payload bytes shipped (sender side)
         self.spec_steps = 0            # target multi-token verify steps
         self.spec_proposed = 0         # draft tokens proposed
         self.spec_accepted = 0         # draft tokens the target agreed with
         self.spec_tokens = 0           # tokens committed via verify steps
         self.kv_bytes_resident = 0     # allocated page-pool bytes (+scales)
         self.kv_bytes_saved = 0        # vs model-precision pools
+        self.host_demotions = 0        # blocks spilled device -> host
+        self.host_promotions = 0       # blocks swapped back host -> device
+        self.host_evictions = 0        # host-tier LRU drops (pages lost)
+        self.host_hit_tokens = 0       # prompt tokens served from host tier
+        self.prefix_fetches = 0        # prefix blocks fetched from peers
+        self.prefix_fetched_bytes = 0  # payload bytes shipped for fetches
         self._iter_prefill_tokens = 0
         self._iter_spec_proposed = 0
+        self._iter_swap_blocks = 0
+        self._iter_fetch_cost = 0.0
 
     # ---- block accounting -------------------------------------------------
     def _min_pool_free(self) -> int:
@@ -492,7 +656,11 @@ class PagedPipelineBatcher(SlotEngine):
     # ---- replica port -----------------------------------------------------
     def capacity(self, now: float) -> int:
         """Admission needs a free slot AND, beyond the queued requests'
-        needs, a typical request's prompt + headroom in every pool."""
+        needs, a typical request's prompt + headroom in every pool. A
+        decode-role replica admits NO fresh arrivals — its work arrives
+        as migrations."""
+        if self.role == "decode":
+            return 0
         slots = len(self.free_slots()) - len(self._queue)
         if slots <= 0:
             return 0
@@ -500,6 +668,143 @@ class PagedPipelineBatcher(SlotEngine):
         if self._min_pool_free() < queued + self._typical_blocks():
             return 0
         return slots
+
+    def load(self, now: float) -> float:
+        # in-transit migrations are queue depth too: the dispatcher picks
+        # decode replicas by this number
+        return super().load(now) + len(self._migrations)
+
+    def busy(self, now: float) -> bool:
+        if super().busy(now):
+            return True
+        return bool(self._migrations) and self._migrations[0][0] <= now
+
+    def inflight(self) -> int:
+        return super().inflight() + len(self._migrations)
+
+    def next_event(self, now: float):
+        # earliest in-transit migration arrival: the idle loop must jump
+        # there, not strand the request
+        if self._migrations and self._migrations[0][0] > now:
+            return self._migrations[0][0]
+        return None
+
+    def metrics_gauges(self):
+        """Gauge snapshot for the loop's metrics publication: per-stage
+        device-pool occupancy (current + high-water) and host-tier
+        residency."""
+        out = []
+        for si, (pool, host) in enumerate(zip(self._pools, self._host)):
+            if pool is None:
+                continue
+            st = {"stage": si}
+            out.append(("kv_pool_used_blocks", st, pool.n_used))
+            out.append(("kv_pool_peak_blocks", st, pool.peak_used))
+            if host is not None:
+                out.append(("host_pool_used_blocks", st, len(host)))
+        return out
+
+    # ---- KV migration (disaggregated prefill/decode) -----------------------
+    def migrate_in(self, mig: KVMigration, ready: float) -> None:
+        """Accept a finished prefill from another replica; it becomes
+        placeable once the serving clock reaches `ready` (the modelled
+        transfer completion)."""
+        if mig.block_size != self.block_size:
+            raise ValueError(f"migrated pages of block size "
+                             f"{mig.block_size}, this replica's "
+                             f"{self.block_size}")
+        heapq.heappush(self._migrations, (ready, self._mig_seq, mig))
+        self._mig_seq += 1
+
+    def _place_migrations(self, now: float) -> List:
+        """Land every arrived migration a free slot + blocks can take:
+        allocate each stage's blocks, scatter the page payloads, and seed
+        the slot at the migrated position with the migrated sampling state
+        — the next decode iteration continues exactly where the prefill
+        replica stopped. Returns reject completions (a migration whose
+        full generation can never fit this replica's pools)."""
+        comps: List = []
+        while self._migrations and self._migrations[0][0] <= now:
+            mig = self._migrations[0][2]
+            r = mig.req
+            remaining = r.max_new_tokens
+            need_all = blocks_for_tokens(
+                mig.n_tokens + remaining, self.block_size)
+            if need_all > self._usable_blocks() \
+                    or mig.n_tokens + remaining > self.max_len - 1:
+                heapq.heappop(self._migrations)
+                self.rejected += 1
+                warnings.warn(
+                    f"request {r.rid}: migrated KV ({mig.n_tokens} tokens) "
+                    f"+ {remaining} more cannot fit this decode "
+                    "replica; rejected with empty output")
+                comps.append((r, np.zeros(0, np.int32), None))
+                continue
+            free = self.free_slots()
+            need_now = blocks_for_tokens(
+                mig.n_tokens + min(self.admit_headroom, remaining),
+                self.block_size)
+            if not free or self._min_pool_free() < need_now:
+                break                  # wait for slots/blocks to free
+            heapq.heappop(self._migrations)
+            self._ensure_device_caches()
+            slot = free[0]
+            dest = []
+            for si, tabs in enumerate(self._tables):
+                if tabs is None:
+                    dest.append(None)
+                    continue
+                t = tabs[slot]
+                assert not t.blocks, "slot freed without releasing blocks"
+                ok = self._stage_alloc(si, t, mig.n_tokens)
+                assert ok, "placement checked free blocks yet ran dry"
+                dest.append(list(t.blocks))
+            self.pipeline.scatter_kv_pages(dest, mig.layer_kv)
+            if self._san is not None:
+                for si, d in enumerate(dest):
+                    if d is not None:
+                        self._san.slot_access(si, d, mig.n_tokens, 0,
+                                              self.block_size)
+            self.slots[slot] = _Slot(req=r, pos=mig.n_tokens,
+                                     remaining=remaining, out=[],
+                                     seq=self._admit_seq)
+            self._admit_seq += 1
+            self._last_logits[slot] = mig.last_logits
+            self._bt_cache = None
+        return comps
+
+    def _migrate_ready(self, now: float) -> None:
+        """Hand every prefill-complete slot to the dispatcher: extract its
+        pages and sampling state, free its blocks (index-registered prefix
+        blocks stay resident), and clear the slot. Oldest first, so
+        dispatch order matches admission order."""
+        if self.dispatcher is None:
+            raise RuntimeError("role='prefill' needs wire_disaggregation "
+                               "to set a dispatcher")
+        order = sorted((i for i, s in enumerate(self.slots)
+                        if s.decoding), key=lambda i: self.slots[i].seq)
+        for i in order:
+            s = self.slots[i]
+            blocks = [list(tabs[i].blocks) if tabs is not None else None
+                      for tabs in self._tables]
+            if self._san is not None:
+                for si, b in enumerate(blocks):
+                    if b is not None:   # pure read: the handoff extraction
+                        self._san.slot_access(si, b, s.pos, s.pos,
+                                              self.block_size)
+            layer_kv = self.pipeline.extract_kv_pages(blocks)
+            mig = KVMigration(
+                req=s.req, n_tokens=s.pos, block_size=self.block_size,
+                layer_kv=layer_kv,
+                last_logits=np.array(self._last_logits[i]),
+                kv_bytes=KVMigration.payload_bytes(layer_kv))
+            s.req.prefill_finish_time = now
+            self.tracer.mark(s.req.rid, "prefill_finish", now)
+            self.migrations += 1
+            self.migrated_kv_bytes += mig.kv_bytes
+            self.dispatcher.send(self, mig, now)
+            self._on_slot_free(i)
+            self.slots[i] = _Slot()
 
     # ---- SlotEngine hooks --------------------------------------------------
     def _fits(self, r: Request) -> bool:
@@ -586,6 +891,9 @@ class PagedPipelineBatcher(SlotEngine):
                 assert not t.blocks, "slot freed without releasing blocks"
                 ok = self._stage_alloc(si, t, int(lens[row]))
                 assert ok, "admission admitted more blocks than the pool has"
+                if self._san is not None:
+                    self._san.slot_access(si, t.blocks, int(lens[row]), 0,
+                                          self.block_size)
                 dest[row] = t.as_array(self.max_blocks)
             stage_dest.append(dest.reshape(-1))
         return self.pipeline.insert_slots_paged(toks, lens, slot_ids,
@@ -616,8 +924,12 @@ class PagedPipelineBatcher(SlotEngine):
         self._admit_seq += 1
 
     def _match_slot(self, i: int) -> None:
-        """First-touch prefix lookup for slot i: alias the longest indexed
-        prefix in every stage and drop it from the pending prefill."""
+        """First-touch prefix lookup for slot i: alias the longest
+        device-indexed prefix (incref per stage), then EXTEND the match
+        down the memory hierarchy — host-tier pages swap back into fresh
+        device blocks, pages resident only on peer replicas migrate over
+        the KV link — and drop the whole matched prefix from the pending
+        prefill."""
         s = self.slots[i]
         s.matched = True
         if not s.hashes:
@@ -625,18 +937,27 @@ class PagedPipelineBatcher(SlotEngine):
         self.prefix_lookups += 1
         L = min(ix.match_len(s.hashes)
                 for ix in self._prefix if ix is not None)
-        if not L:
+        if L:
+            # alias the hit prefix in EVERY stage, incref-ing BEFORE any
+            # tier promotion so a promotion's eviction can never take what
+            # this very match already claimed
+            for tabs, ix in zip(self._tables, self._prefix):
+                if tabs is None:
+                    continue
+                t = tabs[i]
+                assert not t.blocks, "slot freed without releasing"
+                t.adopt(ix.acquire(s.hashes[:L]))
+        Lx = L
+        if self._tiered:
+            while Lx < len(s.hashes) \
+                    and self._materialize_hash(i, s.hashes[Lx]):
+                Lx += 1
+        if not Lx:
             return
-        for tabs, ix in zip(self._tables, self._prefix):
-            if tabs is None:
-                continue
-            t = tabs[i]
-            assert not t.blocks, "slot freed without releasing"
-            t.adopt(ix.acquire(s.hashes[:L]))
         # always leave >= 1 cold token: the final logits must come from a
         # real forward pass (a fully cached prompt re-runs its last token,
         # copy-on-write duplicating the shared tail block)
-        cold = min(L * self.block_size, len(s.req.prompt) - 1)
+        cold = min(Lx * self.block_size, len(s.req.prompt) - 1)
         s.pos = cold
         s.pending = s.pending[cold:]
         self.prefix_hits += 1
@@ -667,6 +988,8 @@ class PagedPipelineBatcher(SlotEngine):
                 if cow is not None:
                     src, dst = cow
                     self.pipeline.copy_pages(si, [src], [dst])
+                    if self._san is not None:
+                        self._san.on_copy(si, src, dst)
                     self.cow_copies += 1
                     self._bt_cache = None
         return True
@@ -725,11 +1048,25 @@ class PagedPipelineBatcher(SlotEngine):
             toks[row, :c] = s.pending[:c]
             lens[row] = c
             starts[row] = s.pos
+        if self._san is not None:
+            for si, tabs in enumerate(self._tables):
+                if tabs is None:
+                    continue
+                for row, (i, c) in enumerate(pairs):
+                    self._san.slot_access(
+                        si, tabs[i].blocks, int(starts[row]) + c,
+                        int(starts[row]), self.block_size)
         tables = [np.zeros((m, self.max_blocks), np.int32) if tabs is None
                   else np.stack([tabs[i].as_array(self.max_blocks)
                                  for i, _ in pairs])
                   for tabs in self._tables]
         logits = self.pipeline.context_slots_paged(toks, lens, starts, tables)
+        if self.tracer.enabled:
+            ntok = int(lens.sum())
+            self.tracer.complete(
+                "prefill",
+                self.virtual_step_cost * self.prefill_token_cost * ntok,
+                pid=self.replica_id, tokens=ntok, slots=m)
         for row, (i, c) in enumerate(pairs):
             s = self.slots[i]
             s.pos += c
@@ -741,17 +1078,236 @@ class PagedPipelineBatcher(SlotEngine):
                 self._last_logits[i] = logits[row]
                 self._register_prefix(i, s)
                 self._bt_cache = None
+                self.tracer.mark(s.req.rid, "prefill_finish",
+                                 self.tracer.now())
 
     def _register_prefix(self, i: int, s: _Slot) -> None:
         """Index the prompt's full blocks so later prompts can alias them
         (the index takes its own reference; entries already present keep
-        their canonical block)."""
+        their canonical block). Registration supersedes any host-tier copy
+        (one-tier invariant) and publishes device residency to the cluster
+        directory."""
         if not self.prefix_caching or not s.hashes:
             return
-        for tabs, ix in zip(self._tables, self._prefix):
+        for tabs, ix, host in zip(self._tables, self._prefix, self._host):
             if tabs is None or ix is None:
                 continue
             ix.register(s.hashes, tabs[i].blocks[:len(s.hashes)])
+            if host is not None:
+                for h in s.hashes:
+                    host.discard(h)
+        if self.cluster_dir is not None:
+            for h in s.hashes:
+                self.cluster_dir.publish(h, self.replica_id, "device")
+
+    # ---- tiered pages: host spill pool + cluster prefix directory ---------
+    @property
+    def _tiered(self) -> bool:
+        return (any(hp is not None for hp in self._host)
+                or self.cluster_dir is not None)
+
+    def _make_spill(self, si: int):
+        """Demotion closure for stage si's PrefixIndex: an evicted prefix
+        block's page payload moves device -> host instead of vanishing."""
+        host = self._host[si]
+
+        def spill(h: int, bid: int) -> None:
+            if self.pipeline.paged_caches is None:
+                return             # nothing ever materialized on device
+            if self._san is not None:
+                self._san.on_spill(si, bid)
+            host.put(h, self.pipeline.extract_stage_pages(si, [bid],
+                                                          host=True))
+            self.host_demotions += 1
+            self._iter_swap_blocks += 1
+            if self.tracer.enabled:
+                self.tracer.complete(
+                    "host_spill",
+                    self.virtual_step_cost * self.host_swap_cost,
+                    pid=self.replica_id, tid=si)
+            if si == self._rep_stage and self.cluster_dir is not None:
+                self.cluster_dir.publish(h, self.replica_id, "host")
+        return spill
+
+    def _make_host_drop(self, si: int):
+        """LRU-bound closure for stage si's HostPagePool: the page has now
+        left this replica entirely (bottom of the hierarchy)."""
+        def dropped(h: int) -> None:
+            self.host_evictions += 1
+            if si == self._rep_stage and self.cluster_dir is not None:
+                self.cluster_dir.unpublish(h, self.replica_id)
+        return dropped
+
+    def attach_cluster(self, directory, peers: Dict[int, object],
+                       link: Optional[KVLink]) -> None:
+        """Join a cluster prefix directory (cluster_kv.wire_cluster_prefix):
+        publish this replica's residency and fetch hot prefixes from
+        `peers` (replica_id -> engine) over `link`."""
+        if not self.prefix_caching:
+            raise ValueError("cluster prefix sharing needs "
+                             "prefix_caching=True")
+        self.cluster_dir = directory
+        self.cluster_link = link if link is not None else KVLink()
+        self._cluster_peers = {rid: w for rid, w in peers.items()
+                               if rid != self.replica_id}
+        # without a host tier, an evicted prefix block leaves the replica
+        # entirely — retract the directory claim at eviction time so the
+        # published residency never outlives the page
+        ix = (self._prefix[self._rep_stage]
+              if self._rep_stage is not None else None)
+        if ix is not None and ix.spill is None:
+            def _unpublish_on_evict(h: int, bid: int) -> None:
+                self.cluster_dir.unpublish(h, self.replica_id)
+            ix.spill = _unpublish_on_evict
+
+    def export_prefix_block(self, h: int):
+        """Package chain hash `h`'s page payload for a peer replica —
+        global layer order, the ``KVMigration`` wire format — sourcing
+        each stage from its device index or host tier (a COPY ships;
+        local residency is untouched). None when some stage no longer
+        holds the page (the caller unpublishes the stale directory
+        entry and prefills cold)."""
+        if self.pipeline.paged_caches is None:
+            return None
+        layer_kv: List[dict] = []
+        for si, (pool, ix, host) in enumerate(
+                zip(self._pools, self._prefix, self._host)):
+            if pool is None or ix is None:
+                return None        # non-attention stage: nothing to export
+            bid = ix.lookup(h)
+            if bid is not None:
+                if self._san is not None:   # peer export reads the page
+                    self._san.on_spill(si, bid)
+                layer_kv.extend(self.pipeline.extract_stage_pages(si, [bid]))
+                continue
+            payload = host.peek(h) if host is not None else None
+            if payload is None:
+                return None
+            layer_kv.extend(payload)
+        return layer_kv
+
+    def _materialize_hash(self, i: int, h: int) -> bool:
+        """Make chain hash `h` device-resident, registered, and aliased
+        into slot i's tables in EVERY attention stage. Per stage the
+        source is the device index (plain alias), this replica's host
+        tier (swap-in: the payload scatters into a fresh block), or a
+        peer replica named by the cluster directory (hot-prefix migration
+        in the KVMigration wire format, charged at KVLink delay on the
+        serving clock). False when some stage holds the page nowhere
+        reachable or a pool stays dry even after eviction — the caller
+        stops extending and prefills the remainder cold."""
+        plan: List = []            # (si, "device" | "host" | "fetch")
+        need_fetch = False
+        for si, (pool, ix, host) in enumerate(
+                zip(self._pools, self._prefix, self._host)):
+            if pool is None or ix is None:
+                continue
+            if ix.lookup(h) is not None:
+                plan.append((si, "device"))
+            elif host is not None and h in host:
+                plan.append((si, "host"))
+            else:
+                plan.append((si, "fetch"))
+                need_fetch = True
+        if not plan:
+            return False
+        layer_kv, src_rid = None, None
+        if need_fetch:
+            if self.cluster_dir is None:
+                return False
+            for rid, _tier in self.cluster_dir.holders(
+                    h, exclude=self.replica_id):
+                peer = self._cluster_peers.get(rid)
+                if peer is None:
+                    continue
+                layer_kv = peer.export_prefix_block(h)
+                if layer_kv is not None:
+                    src_rid = rid
+                    break
+                self.cluster_dir.unpublish(h, rid)   # stale entry
+            if layer_kv is None:
+                return False
+        # pop host payloads BEFORE allocating: allocation may evict-demote
+        # other blocks into the host pool, and the LRU drop absorbing them
+        # must never take the very payload being promoted
+        payloads = {}
+        for si, kind in plan:
+            if kind == "host":
+                payloads[si] = self._host[si].get(h)
+                assert payloads[si] is not None, "planned host page vanished"
+        alloc: Dict[int, int] = {}
+        for si, kind in plan:
+            if kind == "device":
+                continue
+            pool, ix = self._pools[si], self._prefix[si]
+            if pool.n_free < 1:
+                ix.evict(1)
+            got = pool.alloc(1)
+            if got is None:        # dry even after eviction: roll back
+                for sj, bid in alloc.items():
+                    self._pools[sj].free(bid)
+                for sj, payload in payloads.items():
+                    self._host[sj].restore(h, payload)
+                return False
+            alloc[si] = got[0]
+        # land the payloads
+        promoted = False
+        dest: List = [None] * len(self._tables)
+        for si, kind in plan:
+            if kind == "host":
+                self.pipeline.scatter_stage_pages(si, [alloc[si]],
+                                                  payloads[si])
+                if self._san is not None:
+                    self._san.note_write(si, [alloc[si]])
+                promoted = True
+                self.host_promotions += 1
+                self._iter_swap_blocks += 1
+                if self.tracer.enabled:
+                    self.tracer.complete(
+                        "host_promote",
+                        self.virtual_step_cost * self.host_swap_cost,
+                        pid=self.replica_id, tid=si)
+            elif kind == "fetch":
+                dest[si] = [alloc[si]]
+        if need_fetch:
+            # only the locally-missing stages' layer slices cross the link
+            self.pipeline.scatter_kv_pages(dest, layer_kv)
+            if self._san is not None:
+                for sj, d in enumerate(dest):
+                    if d is not None:
+                        self._san.note_write(sj, d)
+            fetch_bytes, li = 0, 0
+            for si, st in enumerate(self.pipeline.stages):
+                n_layers = st.hi - st.lo
+                if dest[si] is not None:
+                    fetch_bytes += KVMigration.payload_bytes(
+                        layer_kv[li:li + n_layers])
+                li += n_layers
+            self.prefix_fetches += 1
+            self.prefix_fetched_bytes += fetch_bytes
+            fetch_cost = self.cluster_link.delay(
+                fetch_bytes, src_rid, self.replica_id)
+            self._iter_fetch_cost += fetch_cost
+            if self.tracer.enabled:
+                self.tracer.complete("prefix_fetch", fetch_cost,
+                                     pid=self.replica_id,
+                                     src=src_rid, bytes=fetch_bytes)
+        if promoted:
+            self.host_hit_tokens += self.block_size
+        # register + alias: the index takes its own reference, the table
+        # takes over the allocation's — refcount 2, exactly the prefill
+        # registration shape, so the new block is immune to eviction while
+        # deeper hashes of this very chain materialize
+        for si, kind in plan:
+            ix, t = self._prefix[si], self._tables[si][i]
+            if kind == "device":
+                t.adopt(ix.acquire([h]))
+            else:
+                ix.register([h], [alloc[si]])
+                t.adopt([alloc[si]])
+        if self.cluster_dir is not None:
+            self.cluster_dir.publish(h, self.replica_id, "device")
+        return True
 
     def _ensure_blocks(self, i: int) -> bool:
         # decode writes at pos: grow to hold it AND copy-on-write if the
@@ -784,6 +1340,11 @@ class PagedPipelineBatcher(SlotEngine):
         self._queue.appendleft(s.req)
         self.slots[i] = _Slot()
         self.preemptions += 1
+        if self.tracer.enabled:
+            # the recompute itself shows up as this request's next
+            # prefill span; the eviction is the instant
+            self.tracer.instant("preempt", pid=self.replica_id,
+                                rid=s.req.rid, slot=i, pos=s.pos)
 
     def _on_slot_free(self, i: int) -> None:
         for tabs in self._tables:
@@ -819,7 +1380,14 @@ class PagedPipelineBatcher(SlotEngine):
             items.append((i, bonus, hist, cap))
         props = self._proposer.propose(
             [(i, hist, cap) for i, _, hist, cap in items])
-        self._iter_spec_proposed += sum(len(p) for p in props.values())
+        n_prop = sum(len(p) for p in props.values())
+        self._iter_spec_proposed += n_prop
+        if self.tracer.enabled and n_prop:
+            self.tracer.complete(
+                "spec_propose",
+                self.virtual_step_cost * self.spec.draft_token_cost
+                * n_prop,
+                ts=now, pid=self.replica_id, tokens=n_prop)
         # block growth + copy-on-write for the whole chunk, oldest first
         plan = {}
         empty = np.zeros(0, np.int32)
@@ -854,7 +1422,21 @@ class PagedPipelineBatcher(SlotEngine):
                             else np.zeros(self.max_blocks, np.int32)
                             for j, t in enumerate(tabs)])
                   for tabs in self._tables]
+        if self._san is not None:
+            for si, tabs in enumerate(self._tables):
+                if tabs is None:
+                    continue
+                for i in plan:
+                    self._san.slot_access(
+                        si, tabs[i].blocks, int(starts[i]) + int(qlen[i]),
+                        int(starts[i]), self.block_size)
         logits = self.pipeline.verify_slots_paged(toks, qlen, starts, tables)
+        if self.tracer.enabled:
+            # the multi-token verification step is the iteration's target
+            # pass: flat iteration cost, like a plain decode step
+            self.tracer.complete("spec_verify", self.virtual_step_cost,
+                                 ts=now, pid=self.replica_id,
+                                 slots=len(plan))
         done = []
         for i, (bonus, drafts) in plan.items():
             s = self.slots[i]
@@ -866,8 +1448,11 @@ class PagedPipelineBatcher(SlotEngine):
             # logits[a] follows the last committed token: its argmax is the
             # next step's bonus token
             self._last_logits[i] = logits[i, a]
-            if not s.out and s.req.first_token_time is None:
-                s.req.first_token_time = now   # first-wins, like decode
+            if not s.out:
+                # first-wins across preempt-recompute, like plain decode
+                if s.req.first_token_time is None:
+                    s.req.first_token_time = now
+                self.tracer.mark(s.req.rid, "first_token", now)
             s.out.extend(commit)
             s.pos += len(commit)
             s.remaining -= len(commit)
@@ -880,6 +1465,10 @@ class PagedPipelineBatcher(SlotEngine):
                     freed += tabs[i].truncate(s.pos)
             if freed:
                 self._bt_cache = None
+                if self.tracer.enabled:
+                    self.tracer.instant("spec_rollback", ts=now,
+                                        pid=self.replica_id, slot=i,
+                                        blocks=freed)
             if s.remaining <= 0 or s.pos >= self.max_len - 1:
                 done.append((s.req, s.out))
                 self._on_slot_free(i)
@@ -891,6 +1480,9 @@ class PagedPipelineBatcher(SlotEngine):
     def _step(self, now: float):
         if self._incremental:
             self._prefill_step(now)
+        if self.role == "prefill":
+            self._migrate_ready(now)   # hand off instead of decoding
+            return []
         if any(s.decoding for s in self.slots):
             if self.spec is not None:
                 return self._spec_iteration(now)
@@ -900,6 +1492,12 @@ class PagedPipelineBatcher(SlotEngine):
     def run_iteration(self, now: float):
         self._iter_prefill_tokens = 0
         self._iter_spec_proposed = 0
+        self._iter_swap_blocks = 0
+        self._iter_fetch_cost = 0.0
+        # land arrived migrations BEFORE the base iteration so their slots
+        # join this very decode step (mirrors colocated serving, where a
+        # prefill finishing in iteration i decodes its first token in i)
+        mig_comps = self._place_migrations(now) if self._migrations else []
         comps, cost = super().run_iteration(now)
         # virtual accounting: charge prefilled tokens a fraction of an
         # iteration so chunking and prefix hits show up in latency
@@ -911,9 +1509,69 @@ class PagedPipelineBatcher(SlotEngine):
                 and self.spec.draft_token_cost:
             cost += (self.virtual_step_cost * self.spec.draft_token_cost
                      * self._iter_spec_proposed)
-        return comps, cost
+        # ... and every block crossing the device<->host boundary its swap
+        # cost, plus cluster prefix fetches their modelled link delay — the
+        # tiers are only a win when the swap is cheaper than the recompute
+        # it replaces, and the clock must be able to say so
+        if self._iter_swap_blocks and self.host_swap_cost:
+            cost += (self.virtual_step_cost * self.host_swap_cost
+                     * self._iter_swap_blocks)
+        if self._iter_fetch_cost:
+            cost += self._iter_fetch_cost
+        if self._san is not None:
+            self._kvsan_audit()
+        return mig_comps + comps, cost
+
+    def _kvsan_audit(self) -> None:
+        """Iteration-boundary KVSAN audit: every pool reference must be
+        explained by a slot's BlockTable or a PrefixIndex entry
+        (unexplained references count as leaks -> kvsan_leaks; a
+        reference a table expects but the pool lost raises), the host
+        shadow must match the actual host tier, and every directory
+        entry this replica published must point at a page it still
+        holds."""
+        san = self._san
+        for si, pool in enumerate(self._pools):
+            if pool is None:
+                continue
+            expected: Dict[int, int] = {}
+            for t in self._tables[si]:
+                for b in t.blocks:
+                    expected[b] = expected.get(b, 0) + 1
+            ix = self._prefix[si]
+            if ix is not None:
+                for bid in ix.indexed_blocks():
+                    expected[bid] = expected.get(bid, 0) + 1
+            self.kvsan_leaks += san.audit_pool(si, pool, expected)
+            host = self._host[si]
+            if host is not None:
+                san.audit_host(si, host)
+        if self.cluster_dir is not None and self._rep_stage is not None:
+            ix = self._prefix[self._rep_stage]
+            host = self._host[self._rep_stage]
+            for h, tier in self.cluster_dir.entries_for(self.replica_id):
+                if tier == "device" and (ix is None
+                                         or ix.lookup(h) is None):
+                    san.violate(
+                        f"kvsan replica {self.replica_id}: directory "
+                        f"says device for hash {h} but no block is "
+                        "resident")
+                elif tier == "host" and (host is None or h not in host):
+                    san.violate(
+                        f"kvsan replica {self.replica_id}: directory "
+                        f"says host for hash {h} but the host tier "
+                        "lacks it")
 
     def _decode_all(self, toks, pos):
+        if self._san is not None:
+            for si, tabs in enumerate(self._tables):
+                if tabs is None:
+                    continue
+                for j, s in enumerate(self.slots):
+                    if s.decoding:
+                        self._san.slot_access(
+                            si, tabs[j].blocks, int(pos[j]) + 1,
+                            int(pos[j]), self.block_size)
         if self._bt_cache is None:
             # rows of slots that are NOT decoding (free, or mid-prefill)
             # present an all-null table so their joint-iteration garbage

@@ -19,11 +19,12 @@ from repro_torch.core.plan import Assignment
 from repro_torch.models import model as M
 from repro_torch.models.quant import quantize_params
 from repro_torch.device import resolve_device
+from repro_torch.serving.disagg import KVLink
 from repro_torch.serving.pipeline import (AsymmetricPipeline,
                                           context_mode_supported,
                                           slot_mode_supported)
 from repro_torch.serving.request import Request
-from repro_torch.serving.router import Router, ServeStats
+from repro_torch.serving.router import Router, ServeStats, default_roles
 from repro_torch.serving.spec import SpecConfig
 
 
@@ -53,9 +54,30 @@ class InferenceEngine:
     attention pages; on it, as in the reference, prefix caching, chunked
     prefill, quantized pools and speculation warn and serve without
     themselves. ``route_seed`` makes the Router's least-loaded tiebreaks
-    a seeded draw; ``prefix_route_weight`` weighs resident prefixes in the
-    reference's cluster prefix directory, which is not ported, so it is
-    accepted and, as in the reference without a directory, unused.
+    a seeded draw.
+
+    ``disaggregate=True`` splits the inference phases across replicas:
+    arrivals prefill on ``role="prefill"`` replicas and their KV pages
+    migrate to ``role="decode"`` replicas (serving.disagg). ``roles``
+    overrides the default split (e.g. the scheduler's SLO-scored one);
+    the transfer is modelled as ``kv_bytes / link_bandwidth`` on the
+    serving clock — flat via ``kv_link_gbps`` (0 = ideal interconnect),
+    or per-replica-pair from ``cluster``'s comm matrices when given. As in
+    the reference, a stack with recurrent layers or a single replica warns
+    and serves colocated.
+
+    ``host_blocks`` (one int, or per replica) adds a host-memory page tier
+    under each replica's device pools: prefix eviction demotes pages there
+    and matches swap them back in at ``host_swap_cost`` per block on the
+    serving clock. ``cluster_prefix=True`` joins every replica into a
+    shared prefix directory (serving.cluster_kv): prompts whose prefix
+    lives only on a peer fetch the pages over the KV link, and the Router
+    scores admission by resident prefix (``prefix_route_weight`` /
+    ``host_route_weight``) against queue depth. Both need prefix caching.
+    ``kvsan=True`` serves under the KVSAN page-lifecycle sanitizer
+    (repro_torch.analysis.kvsan): pure observation, leaks surface as
+    ``ServeStats.kvsan_leaks``. ``serve(..., tracer=, metrics=)`` traces
+    the serve and publishes its counters (repro_torch.obs).
 
     ``policy`` and ``cache_layout`` choose each replica's worker as in the
     reference (``serving.router``): paged continuous batching, contiguous
@@ -64,9 +86,9 @@ class InferenceEngine:
     requests. A config that slot mode cannot serve (a sliding-window
     model, h2o-danube-1.8b) falls back to static batching with the
     reference's warning. ``generate`` runs one left-padded batch on
-    replica 0. The reference's other serving features (disaggregation,
-    host tier, cluster prefix, KVSAN, tracing and metrics) are not ported
-    yet and raise NotImplementedError.
+    replica 0. The reference's ``devices`` and ``key`` raise
+    NotImplementedError: the port serves on the one ``device`` and seeds
+    its weights by an integer.
 
     ``from_config`` builds an engine from a ``ServingConfig`` and a
     scheduled ``DeploymentPlan``, as ``launch.serve`` does."""
@@ -88,8 +110,15 @@ class InferenceEngine:
                  kv_dtypes: Optional[Sequence[Optional[str]]] = None,
                  kv_guard_layers: Sequence[int] = (),
                  quantize: bool = False,
+                 host_blocks=0, host_swap_cost: float = 0.0,
+                 cluster_prefix: bool = False,
                  prefix_route_weight: float = 0.25,
-                 route_seed: Optional[int] = None, **unported):
+                 host_route_weight: float = 0.5,
+                 route_seed: Optional[int] = None,
+                 disaggregate: bool = False,
+                 roles: Optional[Sequence[str]] = None,
+                 kv_link_gbps: float = 0.0, cluster=None,
+                 kvsan: bool = False, **unported):
         if unported:
             raise NotImplementedError(
                 f"not ported yet: {sorted(unported)} (see ROADMAP.md)")
@@ -110,6 +139,21 @@ class InferenceEngine:
                 "(SWA ring cache / encoder-decoder / VLM); serving with "
                 "policy='static'", stacklevel=2)
             policy = "static"
+        # ---- disaggregated prefill/decode ------------------------------
+        if disaggregate and roles is None:
+            roles = default_roles(len(self.replicas))
+        if roles is not None and any(r != "both" for r in roles):
+            if not context_mode_supported(cfg):
+                warnings.warn(
+                    f"{cfg.name}: disaggregation needs an attention-only "
+                    "stack (recurrent running state has no pages to "
+                    "migrate); serving colocated", stacklevel=2)
+                roles = None
+            elif len(self.replicas) < 2:
+                warnings.warn(
+                    "disaggregation needs >= 2 replicas; serving "
+                    "colocated", stacklevel=2)
+                roles = None
         spec = None
         if spec_decode and spec_k < 1:
             # consistent with per-replica spec_ks, where 0 = plain decode
@@ -122,6 +166,22 @@ class InferenceEngine:
                                      spec_draft_token_cost)
             if spec is None:
                 spec_ks = None
+        kv_link = None
+        if (roles is not None and any(r != "both" for r in roles)) \
+                or cluster_prefix:
+            if cluster is not None:
+                # per-pair alpha-beta costs: source replica's LAST stage to
+                # destination replica's FIRST stage, like the cost model's
+                # pipeline-comm term
+                src = [list(p.stages[-1].device_ids)
+                       for p in assignment.pipelines]
+                dst = [list(p.stages[0].device_ids)
+                       for p in assignment.pipelines]
+                kv_link = KVLink.from_cluster(
+                    cluster, [p.device_ids for p in assignment.pipelines],
+                    src_stage_devices=src, dst_stage_devices=dst)
+            else:
+                kv_link = KVLink(gbps=kv_link_gbps)
         self.router = Router(self.replicas, policy=policy,
                              cache_layout=cache_layout, max_batch=max_batch,
                              n_slots=n_slots,
@@ -137,7 +197,14 @@ class InferenceEngine:
                              kv_dtypes=(list(kv_dtypes)
                                         if kv_dtypes is not None else None),
                              kv_guard_layers=kv_guard_layers,
-                             route_seed=route_seed)
+                             host_blocks=host_blocks,
+                             host_swap_cost=host_swap_cost,
+                             cluster_prefix=cluster_prefix,
+                             prefix_route_weight=prefix_route_weight,
+                             host_route_weight=host_route_weight,
+                             route_seed=route_seed, roles=roles,
+                             kv_link=kv_link, kvsan=kvsan)
+        self.roles = self.router.roles
 
     @classmethod
     def from_config(cls, cfg: ModelConfig, plan, serving, *,
@@ -146,30 +213,35 @@ class InferenceEngine:
         """Build an engine from the two typed surfaces: a
         ``serving.config.ServingConfig`` (HOW to serve — policy, layout,
         feature flags) and a ``core.plan.DeploymentPlan`` (WHERE — the
-        scheduler's replica layouts, spec depths and KV precisions).
-        ``assignment`` overrides the plan's layer split (e.g. the
-        reduced-model projection from launch.serve) while the plan keeps
-        supplying the per-replica dimensions; ``overrides`` pass through
-        any raw ``__init__`` kwarg (n_slots, params, device, ...). Without
-        ``params`` the weights are ``init_params(cfg, serving.seed)``.
-
-        The port serves what the reference's ``from_config`` does except
-        the flags ``_unserved`` names, which raise NotImplementedError;
-        ``cluster`` (the reference's per-pair KV-link costs, used by
-        disaggregation only) is accepted and unused."""
+        scheduler's replica layouts, roles, spec depths, KV precisions and
+        host-tier split). ``assignment`` overrides the plan's layer split
+        (e.g. the reduced-model projection from launch.serve) while the
+        plan keeps supplying the per-replica dimensions; ``cluster`` feeds
+        the per-pair KV-link cost model when no flat bandwidth is set;
+        ``overrides`` pass through any raw ``__init__`` kwarg (n_slots,
+        params, device, ...). Without ``params`` the weights are
+        ``init_params(cfg, serving.seed)``. Every flag of ServingConfig
+        is served, as in the reference."""
         sv = serving.normalized()
-        unserved = _unserved(sv, plan)
-        if unserved:
-            raise NotImplementedError(
-                f"not ported yet: {', '.join(unserved)} (see ROADMAP.md)")
         asg = assignment if assignment is not None else plan.assignment
         kw = dict(
             policy=sv.policy, max_len=sv.max_len(),
             cache_layout=sv.cache_layout, block_size=sv.block_size,
             prefix_caching=sv.prefix_caching,
             prefill_chunk=sv.prefill_chunk,
+            host_blocks=(plan.host_blocks
+                         if plan.host_blocks is not None else 0),
+            host_swap_cost=sv.host_swap_cost,
+            cluster_prefix=sv.cluster_prefix,
             prefix_route_weight=sv.prefix_route_weight,
             route_seed=sv.route_seed,
+            # the role split is the SCHEDULER's verdict: roles=None means
+            # colocated serving won the search, so don't force a default
+            disaggregate=(sv.disaggregate and plan.roles is not None),
+            roles=(plan.roles if sv.disaggregate else None),
+            kv_link_gbps=sv.kv_link_gbps,
+            cluster=(cluster if sv.disaggregate and sv.kv_link_gbps <= 0
+                     else None),
             spec_decode=sv.spec_decode, spec_k=sv.spec_k,
             draft_model=(sv.draft_model or None),
             spec_draft_token_cost=sv.spec_draft_cost,
@@ -177,7 +249,8 @@ class InferenceEngine:
             kv_dtype=sv.fixed_kv_dtype(),
             kv_dtypes=(plan.kv_dtypes if sv.kv_dtype == "search"
                        else None),
-            kv_guard_layers=sv.guard_layers(cfg.num_layers))
+            kv_guard_layers=sv.guard_layers(cfg.num_layers),
+            kvsan=sv.kvsan)
         kw.update(overrides)
         if "params" not in kw:
             kw["params"] = M.init_params(
@@ -235,23 +308,6 @@ class InferenceEngine:
         return [out[i] for i in range(len(prompts))]
 
     def serve(self, requests: Sequence[Request], *, deadline: float,
-              clock=None) -> ServeStats:
-        return self.router.serve(requests, deadline, clock=clock)
-
-
-def _unserved(sv, plan) -> List[str]:
-    """The flags of a normalized ServingConfig that turn on a serving
-    feature the port does not serve yet."""
-    out = []
-    if sv.disaggregate and plan.roles is not None:
-        out.append("--disaggregate (the plan's roles "
-                   f"{plan.roles})")
-    for flag, on in (("--host-mem-gb", sv.host_mem_gb > 0),
-                     ("--cluster-prefix", sv.cluster_prefix),
-                     ("--kvsan", sv.kvsan),
-                     ("--trace-out", bool(sv.trace_out)),
-                     ("--metrics-out", bool(sv.metrics_out)),
-                     ("--calibrate", sv.calibrate)):
-        if on:
-            out.append(flag)
-    return out
+              clock=None, tracer=None, metrics=None) -> ServeStats:
+        return self.router.serve(requests, deadline, clock=clock,
+                                 tracer=tracer, metrics=metrics)

@@ -17,6 +17,9 @@ layer at all (``has_attn``).
 The public methods keep the reference's numpy-in / numpy-out signatures:
 they are the whole seam the batcher (serving.continuous) drives. Logits come
 back to the host as float32 numpy arrays every call, as in the reference.
+Page payloads (KV migration, the host tier, cluster prefix fetches) are the
+exception: they are torch tensors at pool precision (numpy has no bf16 or
+fp8), on the card, or in pinned host memory for the host tier.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.models.mamba import FP32_LEAVES
-from repro_torch.models.quant import is_quantized
+from repro_torch.models.quant import KV_SCALE_LEAVES, bits, is_quantized
 
 
 def slot_mode_supported(cfg) -> bool:
@@ -394,6 +397,124 @@ class AsymmetricPipeline:
             return
         M.copy_cache_pages(self.paged_caches[stage_idx],
                            self._ints(src_blocks), self._ints(dst_blocks))
+
+    # ---- KV migration (disaggregated prefill/decode) -----------------------
+    # The wire format is per-GLOBAL-LAYER so the source and destination
+    # pipelines may split their stages differently: stage si's single block
+    # table addresses every one of ITS layers' page pools, but each layer
+    # owns its own K/V arrays, so regrouping layers across stages is just a
+    # different iteration order over the same per-layer payloads.
+
+    def _gather_pages(self, c: dict, blocks: Sequence[int],
+                      host: bool = False) -> dict:
+        """One layer's payload: its K/V pages (and scale pages on a
+        quantized pool) at `blocks`, copied out of the pool at pool
+        precision. ``host`` puts the copy in host memory, pinned when the
+        pool is on the card (one synchronous copy, so the payload is
+        complete when this returns)."""
+        if "k" not in c or "v" not in c:
+            raise NotImplementedError("page payloads cover attention-only "
+                                      "stacks (a recurrent layer's state "
+                                      "has no pages)")
+        idx = torch.as_tensor(np.asarray(blocks, np.int64),
+                              device=self.device)
+        out = {}
+        for n in ("k", "v") + KV_SCALE_LEAVES:
+            if n not in c:
+                continue
+            t = bits(c[n]).index_select(0, idx).view(c[n].dtype)
+            if host and t.is_cuda:
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                bits(h).copy_(bits(t))
+                t = h
+            out[n] = t
+        return out
+
+    def _scatter_pages(self, caches: Sequence[dict], blocks: Sequence[int],
+                       payload: Sequence[dict]) -> None:
+        """Write per-layer payloads into `caches`' pools at `blocks`, in
+        place; a host payload is copied to the card first (synchronously:
+        the host buffer may be dropped as soon as this returns)."""
+        idx = torch.as_tensor(np.asarray(blocks, np.int64),
+                              device=self.device)
+        for c, lkv in zip(caches, payload):
+            if set(lkv) != {n for n in ("k", "v") + KV_SCALE_LEAVES
+                            if n in c}:
+                raise ValueError(f"payload leaves {sorted(lkv)} do not "
+                                 f"match the pool's {sorted(c)}")
+            for n, a in lkv.items():
+                if a.dtype != c[n].dtype:
+                    raise ValueError(f"payload {n} is {a.dtype}, the pool "
+                                     f"{c[n].dtype}: pages land verbatim")
+                bits(c[n]).index_copy_(0, idx, bits(a).to(self.device))
+
+    @torch.inference_mode()
+    def extract_kv_pages(self, stage_blocks: Sequence[Optional[Sequence[int]]]
+                         ) -> List[dict]:
+        """Gather the page CONTENTS of each stage's block list: returns
+        ``layer_kv[l] = {"k","v"}`` of shape (n_blocks, block_size,
+        kv_heads, head_dim) for every global layer l, in layer order, as
+        tensors on this pipeline's device. ``stage_blocks[si]`` is the
+        (ordered) physical block list of one request on stage si — whole
+        blocks, so a partial tail block ships its masked rows rather than a
+        ragged slice. Quantized pools ship at wire width with their
+        ``k_scale`` / ``v_scale`` leaves: the one-byte payload is what
+        crosses the link, so the modelled transfer bytes drop with the pool
+        dtype. Attention-only stacks."""
+        if self.paged_caches is None:
+            raise RuntimeError("no paged caches to extract")
+        return [self._gather_pages(c, stage_blocks[si])
+                for si in range(len(self.stages))
+                for c in self.paged_caches[si]]
+
+    @torch.inference_mode()
+    def scatter_kv_pages(self, stage_blocks: Sequence[Optional[Sequence[int]]],
+                         layer_kv: Sequence[dict]) -> None:
+        """Migrate-in: write per-layer page payloads (extract_kv_pages wire
+        format, possibly from a pipeline with a DIFFERENT stage split) into
+        this pipeline's pools at each stage's freshly allocated block list,
+        in place, verbatim (no requantization). A ``None`` entry in
+        ``stage_blocks`` SKIPS that stage (its layers' payload slices are
+        discarded) — a cluster prefix fetch lands only in the stages that
+        miss locally."""
+        if self.paged_caches is None:
+            raise RuntimeError("call init_paged_caches first")
+        li = 0
+        for si, st in enumerate(self.stages):
+            n_layers = st.hi - st.lo
+            if stage_blocks[si] is not None:
+                self._scatter_pages(self.paged_caches[si], stage_blocks[si],
+                                    layer_kv[li:li + n_layers])
+            li += n_layers
+        if li != len(layer_kv):
+            raise ValueError(f"{len(layer_kv)} layer payloads for a "
+                             f"{li}-layer pipeline")
+
+    # ---- host page tier (device <-> host demotion/promotion) ---------------
+    @torch.inference_mode()
+    def extract_stage_pages(self, stage_idx: int, blocks: Sequence[int], *,
+                            host: bool = False) -> List[dict]:
+        """Gather stage `stage_idx`'s page contents for `blocks` — one
+        ``{"k","v"[,"k_scale","v_scale"]}`` dict per layer OF THIS STAGE,
+        at pool precision (quantized pages spill narrow). The single-stage
+        slice of ``extract_kv_pages``: host-tier demotion is per stage
+        because each stage's pool fills and evicts on its own clock.
+        ``host=True`` (demotion) copies into host memory, pinned on the
+        card; otherwise the payload stays on the device (a peer export)."""
+        if self.paged_caches is None:
+            raise RuntimeError("no paged caches to extract")
+        return [self._gather_pages(c, blocks, host=host)
+                for c in self.paged_caches[stage_idx]]
+
+    @torch.inference_mode()
+    def scatter_stage_pages(self, stage_idx: int, blocks: Sequence[int],
+                            payload: Sequence[dict]) -> None:
+        """Write ``extract_stage_pages`` payloads back into stage
+        `stage_idx`'s pools at `blocks` — host -> device promotion. The
+        payload re-lands verbatim (same pool precision it spilled at)."""
+        if self.paged_caches is None:
+            raise RuntimeError("call init_paged_caches first")
+        self._scatter_pages(self.paged_caches[stage_idx], blocks, payload)
 
     @torch.inference_mode()
     def decode_slots_paged(self, tokens: np.ndarray, positions: np.ndarray,

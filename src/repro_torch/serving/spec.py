@@ -39,6 +39,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
+from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.serving.pipeline import context_mode_supported
 
 ProposeItem = Tuple[int, np.ndarray, int]       # (slot, history, k_cap)
@@ -115,6 +116,7 @@ class NgramProposer:
                              f"{ngram_max}: need 1 <= min <= max")
         self.ngram_max = ngram_max
         self.ngram_min = ngram_min
+        self.tracer = NULL_TRACER      # engine shares its tracer on bind
 
     def propose(self, items: Sequence[ProposeItem]
                 ) -> Dict[int, np.ndarray]:
@@ -185,6 +187,7 @@ class DraftModelProposer:
         # tokens of each slot's history currently cached (0 = unsynced)
         self._pos = np.zeros(n_slots, np.int64)
         self.draft_steps = 0           # draft decode passes run
+        self.tracer = NULL_TRACER      # engine shares its tracer on bind
 
     # ---- sync: (re)prefill slots whose cache doesn't hold history[:-1] ----
     def _sync(self, items: Sequence[ProposeItem]) -> None:
@@ -222,6 +225,8 @@ class DraftModelProposer:
         act = [(slot, h, cap) for slot, h, cap in items if cap > 0]
         if not act:
             return {}
+        synced = sum(1 for slot, h, _ in act
+                     if self._pos[slot] != len(h) - 1)
         self._sync(act)
         # steps 0..cap-1 produce the proposals; one EXTRA step per slot
         # feeds its final proposal back only to write that candidate's K/V
@@ -255,6 +260,9 @@ class DraftModelProposer:
             # the cache holds the history through the bonus token; the
             # proposals' K/V past it become valid only through commit()
             self._pos[slot] = len(h)
+        if self.tracer.enabled:
+            self.tracer.instant("spec_draft", steps=steps, slots=len(act),
+                                synced=synced)
         return {slot: np.asarray(v, np.int32) for slot, v in out.items()}
 
     def commit(self, slot: int, n_accepted: int) -> None:

@@ -42,6 +42,9 @@ for n in names:
 bad = sorted(k for k in sys.modules if k == "repro" or k.startswith("repro."))
 assert not bad, bad
 assert "repro_torch.models.xlstm" in names, names
+for sub in ("obs.trace", "obs.metrics", "obs.calibration", "obs.report",
+            "analysis.kvsan", "serving.disagg", "serving.cluster_kv"):
+    assert "repro_torch." + sub in names, (sub, names)
 print(len(names))
 """
 
@@ -194,14 +197,24 @@ def test_unported_features_raise_not_implemented():
     cfg = port_config("llama2-70b").reduced()
     asg = port_plan.Assignment([port_plan.PipelinePlan(
         [port_plan.StagePlan([0], 2)])])
-    with pytest.raises(NotImplementedError, match="disaggregate"):
-        InferenceEngine(cfg, asg, device="cpu", disaggregate=True)
+    # the reference's devices and key: the port serves on one device and
+    # seeds its weights by an integer
+    for kw in (dict(devices=["cpu"]), dict(key=0)):
+        with pytest.raises(NotImplementedError, match=next(iter(kw))):
+            InferenceEngine(cfg, asg, device="cpu", **kw)
     # unquantized pools of another width than the model's: not ported
     with pytest.raises(NotImplementedError, match="kv_dtype"):
         InferenceEngine(cfg, asg, device="cpu", cache_layout="paged",
                         kv_dtype="bf16")
-    with pytest.raises(NotImplementedError, match="host_blocks"):
-        InferenceEngine(cfg, asg, device="cpu", host_blocks=4)
+    # the multi-replica features are served: one replica disaggregates
+    # colocated with the reference's warning, and the host tier is built
+    with pytest.warns(UserWarning, match="serving colocated"):
+        eng = InferenceEngine(cfg, asg, device="cpu", disaggregate=True)
+    assert eng.roles == ["both"]
+    eng = InferenceEngine(cfg, asg, device="cpu", cache_layout="paged",
+                          prefix_caching=True, host_blocks=4, kvsan=True)
+    w = eng.router.workers[0]
+    assert w.host_blocks == 4 and w.kvsan
 
 
 def test_build_hash_covers_every_source_and_header():

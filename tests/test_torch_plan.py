@@ -398,7 +398,7 @@ def test_route_seed_routes_as_reference(granite):
 
 
 # ---------------------------------------------------------------------------
-# Flags the port does not serve yet
+# Flags the port refused until the multi-replica features were ported
 # ---------------------------------------------------------------------------
 
 UNSERVED = {
@@ -413,21 +413,40 @@ UNSERVED = {
 
 @pytest.mark.parametrize("flag", sorted(UNSERVED) + ["--disaggregate"])
 def test_from_config_refuses_unserved_flags(flag):
+    # none is refused any more: each builds the engine the reference's
+    # from_config builds, the feature threaded through to the workers
     cfg = port_config("granite-8b").reduced()
     asg = _asg(pplan, [0], [1], layers=cfg.num_layers)
-    plan = pplan.DeploymentPlan.from_search(asg)
+    plan = pplan.DeploymentPlan.from_search(
+        asg, host_blocks=[4, 0] if flag == "--host-mem-gb" else None)
     if flag == "--disaggregate":
         argv = ["--cache-layout", "paged", "--disaggregate"]
+        # colocated serving won the role search: served colocated
+        eng = PEngine.from_config(cfg, pplan.DeploymentPlan.from_search(asg),
+                                  pconfig.ServingConfig.parse(argv),
+                                  device="cpu")
+        assert eng.roles == ["both", "both"] and eng.router.dispatcher is None
         plan = pplan.DeploymentPlan.from_search(asg,
                                                 roles=["prefill", "decode"])
-        # colocated serving won the role search: served, as the reference
-        PEngine.from_config(cfg, pplan.DeploymentPlan.from_search(asg),
-                            pconfig.ServingConfig.parse(argv), device="cpu")
     else:
         argv = ["--cache-layout", "paged"] + UNSERVED[flag]
     sv = pconfig.ServingConfig.parse(argv)
-    with pytest.raises(NotImplementedError, match=flag.split()[0]):
-        PEngine.from_config(cfg, plan, sv, device="cpu")
+    eng = PEngine.from_config(cfg, plan, sv, device="cpu")
+    w0, w1 = eng.router.workers
+    if flag == "--disaggregate":
+        assert eng.roles == ["prefill", "decode"]
+        assert (w0.role, w1.role) == ("prefill", "decode")
+        assert w0.dispatcher is eng.router.dispatcher
+    elif flag == "--host-mem-gb":
+        assert (w0.host_blocks, w1.host_blocks) == (4, 0)
+    elif flag == "--cluster-prefix":
+        assert eng.router.cluster_dir is not None
+        assert w0.cluster_dir is w1.cluster_dir is eng.router.cluster_dir
+    elif flag == "--kvsan":
+        assert w0.kvsan and w1.kvsan and w0._san is not None
+    else:                                  # the launcher's own flags
+        assert sv.normalized().trace_out or sv.normalized().metrics_out \
+            or sv.normalized().calibrate
 
 
 # the flags that from_config refused until static batching and the
