@@ -150,7 +150,31 @@ JAX. Phases, each of which raises on failure:
      ``--kvsan``, ``--trace-out``, ``--metrics-out`` and ``--calibrate``
      in a subprocess (roles, host-tier blocks and the calibration table
      printed; trace and metrics under build/phase8/), then ``python -m
-     repro_torch.obs.report`` on them.
+     repro_torch.obs.report`` on them;
+  9. online rescheduling and the encoder-decoder and VLM families: (a)
+     llama2-70b at full width, 2 layers, fp32, on the chaos topology (two
+     replicas whose stage splits cross), paged with chunked prefill and
+     KVSAN on, on fp32, int8 and fp8 pools, through the kernels and the
+     plain versions: replica 1 killed mid-prefill and mid-decode, and a
+     live role re-split mid-decode (a drift detector fires, decoding slots
+     move with their pages, scales and emitted tokens) each give the
+     streams of the serve without a controller, leak no page, orphan and
+     re-dispatch or move requests, and the same counters and controller
+     events through both; #5 and #6 run on quantized pools; (b) the same
+     kill and re-split in bf16 on llama2-70b (4 layers, replicas [1, 3]
+     and [4], phase 3's 16 x 32 synthetic workload): every request
+     finishes, #1 and #2 run; walls and the streams equal to the serve
+     without a controller logged; (c) whisper-base (6 + 6 layers, 1500
+     seeded frames) and paligemma-3b (18 layers, 256 seeded image
+     embeddings) at full width in bf16 through
+     ``AsymmetricPipeline.generate(batch_extras=)`` on a 2-stage split (4
+     prompts of 32 tokens, 32 new): #1 on every encoder layer, decoder
+     prefill and cross-attention, #8 on every decoder layer and step,
+     counted exactly; both at 2 layers in fp32 through the kernels and the
+     plain versions (equal tokens, prefill logits within 2e-4); (d) #1 at
+     head dim 256 and on the cross shapes (1 and 37 queries against 1500
+     keys, the 1500 x 1500 encoder), #8 at head dim 256, against their
+     plain versions in bf16 and fp32, then timed at the serving shapes.
 
 ``python3 chip_smoke.py --sass-of TREE OUT.json`` instead builds the
 kernels of another checkout (the parent commit's ``git archive``) and
@@ -158,17 +182,20 @@ writes their SASS digests, which chip_smoke_sass.json records.
 
 The last line of standard output is the JSON result
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel
-with its launches on the serving paths (phases 3, 5, 6, 7 and 8), its error
-against the plain version and its times, #1 and #8 once more at head
-dim 80 with phase 6's launches and the times at its shapes, and #1-#4
+with its launches on the serving paths (phases 3, 5, 6, 7, 8 and 9), its
+error against the plain version and its times, #1 and #8 once more at
+head dim 80 with phase 6's launches and the times at its shapes, #1-#4
 at g 48 and #1, #2, #5, #6 at g 3 with phase 7's granite-20b and
 granite-moe-3b launches and the times at their shapes (#7 at both widths
-is timed and logged; no serve launches it there).
+is timed and logged; no serve launches it there), and #1 at head dim 256
+and on whisper's cross shapes and #8 at head dim 256 with phase 9 (c)'s
+launches and the times at their shapes.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import functools
 import json
 import math
@@ -1342,9 +1369,10 @@ def _llama(num_layers):
 
 
 def _serve(cfg, asg, params, reqs, around=contextlib.nullcontext,
-           cache_layout="paged", **kw):
+           cache_layout="paged", controller=None, **kw):
     """Serve reqs on a fresh engine (paged unless `cache_layout` says
-    otherwise), inside the context `around()` (the engine is built outside
+    otherwise; an online-rescheduling `controller` attached to its
+    Router), inside the context `around()` (the engine is built outside
     it); check every request got its tokens.
     Returns (stats, wall seconds, dict(draft_steps: draft decode steps
     run, kvsan_violations: what KVSAN recorded on the replicas,
@@ -1354,6 +1382,8 @@ def _serve(cfg, asg, params, reqs, around=contextlib.nullcontext,
     from repro_torch.serving.loop import VirtualClock
     eng = InferenceEngine(cfg, asg, params=params, device=DEVICE,
                           cache_layout=cache_layout, **kw)
+    if controller is not None:
+        eng.router.attach_controller(controller)
     torch.cuda.synchronize()
     with around():
         t0 = time.perf_counter()
@@ -2874,6 +2904,446 @@ def phase_multi(smi):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: online rescheduling; whisper-base and paligemma-3b
+# ---------------------------------------------------------------------------
+
+# (a): requests arrive in pairs CHAOS_GAP units of the virtual clock apart
+# (an iteration costs one); the first of a pair (8 prompt tokens) lands on
+# replica 0, the second (16) on replica 1, each prefilled alone in chunks
+# of CHAOS_CHUNK tokens
+CHAOS_GAP, CHAOS_CHUNK = 30.0, 4
+CHAOS_ENGINE = dict(n_slots=4, max_len=64, block_size=8,
+                    prefill_chunk=CHAOS_CHUNK, kvsan=True,
+                    dtype=torch.float32)
+
+
+def _chaos_reqs(vocab, out_len):
+    """Two pairs of requests (phase 9 (a)): prompts of 8 and 16 tokens
+    at t = 0 and t = CHAOS_GAP. Each replica prefills one prompt at a time,
+    alone, in the serve without a controller and in every scenario below,
+    so the batch shapes of a prefill never change between the serves
+    compared (a last-bit difference from a GEMM of another shape can move
+    a one-byte page value by a whole step and a near-tied greedy choice
+    with it; decode runs every slot's row at every step)."""
+    from repro_torch.serving.request import Request
+    rng = np.random.default_rng(2)
+    return [Request(rid=i, prompt=rng.integers(
+        0, vocab, size=8 if i % 2 == 0 else 16).astype(np.int32),
+        max_new_tokens=out_len, arrival=CHAOS_GAP * (i // 2))
+        for i in range(4)]
+
+
+def _resplit_controller(min_events=4, window=2 * CHAOS_GAP):
+    """The chaos smoke's live re-split (scripts/smoke_serving.py:498-513):
+    a drift detector planned for 1 request a unit of time fires once
+    `min_events` admissions are in its window (in (a) the second pair's:
+    a rate far below plan) and the resolver, once, splits the colocated
+    pair into a prefill replica 0 and a decode replica 1, moving replica
+    0's decoding slots to replica 1 live."""
+    from repro_torch.core.resched import DriftDetector
+    from repro_torch.serving.resched import OnlineRescheduler
+    fired = []
+
+    def resolver(sig, ctl, now):
+        if fired:
+            return None
+        fired.append(sig.kind)
+        return {"roles": ["prefill", "decode"]}
+    return OnlineRescheduler(
+        detector=DriftDetector(rate=1.0, min_events=min_events,
+                               window=window), resolver=resolver)
+
+
+def _chaos_scenarios():
+    """name -> (out_len, controller factory): replica 1 killed while the
+    second pair's 16-token prompt is mid-prefill (its second of four
+    chunks done) and while it decodes; the live re-split while the first
+    pair decodes (40 tokens each)."""
+    from repro_torch.serving.resched import OnlineRescheduler
+    return {"kill mid-prefill": (12, lambda: OnlineRescheduler(
+                kills=[(CHAOS_GAP + 0.5, 1)])),
+            "kill mid-decode": (12, lambda: OnlineRescheduler(
+                kills=[(CHAOS_GAP + 6.0, 1)])),
+            "live re-split": (40, _resplit_controller)}
+
+
+def phase_chaos_parity():
+    """Phase 9 (a): online rescheduling on llama2-70b at full width, 2
+    layers, fp32, on the chaos topology (tests/test_resched.py:317-324: two
+    replicas whose stage splits cross, [1, L - 1] and [L - 1, 1]), paged,
+    chunked prefill, KVSAN on, on model-precision, int8 and fp8 pools,
+    through the kernels and through the plain versions: a kill of replica
+    1 mid-prefill, a kill mid-decode and a live role re-split mid-decode
+    must give the streams of the serve without a controller, leak no
+    page, re-dispatch the killed replica's requests (orphans > 0) and
+    move decoding slots (moved > 0), and give the same counters and
+    controller events through the plain versions as through the kernels.
+    On quantized pools the quantized context and decode kernels (#6, #5)
+    must run in every scenario, #5 on the moved pages."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serving.loop import ServeStats
+    cfg = _llama(2)
+    L = cfg.num_layers
+    asg = _multi_asg(L, ((1, L - 1), (L - 1, 1)))
+    params = M.init_params(cfg, 0, device=DEVICE, dtype=torch.float32)
+    fields = [f.name for f in dataclasses.fields(ServeStats)]
+    log(f"phase 9 (a): {cfg.name} at full width, {L} layers, fp32, "
+        f"replicas {[p.layer_split for p in asg.pipelines]}, paged, "
+        f"chunks of {CHAOS_CHUNK}, KVSAN on, pools fp32 / int8 / fp8")
+    for kv in (None, "int8", "fp8"):
+        sfx = "_quant" if kv else ""
+        need = ("paged_context_attention" + sfx,
+                "paged_decode_attention" + sfx)
+        want = {}
+        for backend in ("kernel", "plain"):
+            with ops.backend(backend):
+                cold = {}
+                for out_len in (12, 40):
+                    reqs = _chaos_reqs(cfg.vocab_size, out_len)
+                    _serve(cfg, asg, params, reqs, kv_dtype=kv,
+                           **CHAOS_ENGINE)
+                    cold[out_len] = [list(r.output) for r in reqs]
+                for name, (out_len, make) in _chaos_scenarios().items():
+                    reqs = _chaos_reqs(cfg.vocab_size, out_len)
+                    ctl = make()
+                    ops.reset_launch_counts()
+                    st, wall, info = _serve(cfg, asg, params, reqs,
+                                            controller=ctl, kv_dtype=kv,
+                                            **CHAOS_ENGINE)
+                    launched = ops.launch_counts()
+                    got = [list(r.output) for r in reqs]
+                    what = f"{backend} kv={kv} {name}"
+                    if got != cold[out_len]:
+                        _parted(cfg, params, [list(r.prompt) for r in reqs],
+                                got, cold[out_len], f"{what}: the streams "
+                                "and those without a controller")
+                    if st.kvsan_leaks or info["kvsan_violations"]:
+                        raise AssertionError(f"{what}: KVSAN reported "
+                                             f"{st.summary()}")
+                    kinds = {e["kind"]: e for e in ctl.events}
+                    if name.startswith("kill"):
+                        if not (kinds.get("kill", {}).get("orphans", 0) > 0
+                                and ctl.redispatches > 0):
+                            raise AssertionError(f"{what}: {ctl.events}, "
+                                                 f"{ctl.redispatches} "
+                                                 "re-dispatches")
+                    elif not (kinds.get("roles", {}).get("moved", 0) > 0
+                              and st.migrations > 0):
+                        raise AssertionError(f"{what}: {ctl.events}")
+                    if backend == "kernel":
+                        _check_launched(what, need)
+                    run = ([getattr(st, f) for f in fields], ctl.events,
+                           ctl.redispatches, got)
+                    if want.setdefault(name, run) != run:
+                        raise AssertionError(f"{what}: counters, events or "
+                                             "tokens differ from the "
+                                             "kernels' serve")
+                    log(f"  chaos {what}: tokens == without a controller "
+                        f"({len(reqs)} x {out_len}); events {ctl.events}; "
+                        f"{ctl.redispatches} re-dispatched, "
+                        f"{st.migrations} moved ({st.migrated_kv_bytes} B);"
+                        f" {wall:.3f} s; {st.summary()}; launches "
+                        f"{launched}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_chaos(smi):
+    """Phase 9 (b): llama2-70b at full width in bf16, SERVE_LAYERS layers,
+    replicas [1, 3] and [4], phase 3's 16 synthetic requests x 32 tokens:
+    served without a controller, with replica 1 killed mid-decode (t = 10:
+    its requests re-prefill on replica 0), and with a live role re-split
+    (a drift detector planned for one request a unit of time fires at the
+    12th admission; replica 0's decoding slots move to replica 1). Every
+    request must finish, #1 and #2 must run, the kill must orphan and
+    re-dispatch requests and the re-split move slots. The walls and how
+    many streams equal the serve without a controller are logged, not
+    gated: in bf16 a changed batch shape may part a stream at a near-tie.
+    Returns the launch counts of the three serves."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serving.resched import OnlineRescheduler
+    cfg = _llama(SERVE_LAYERS)
+    L = cfg.num_layers
+    lo = _pipeline_asg(L).pipelines[0].layer_split
+    asg = _multi_asg(L, (tuple(lo), (L,)))
+    params = M.init_params(cfg, 0, device=DEVICE)
+    common = dict(n_slots=16, max_len=2048, block_size=16)
+    counts = dict.fromkeys(ops.KERNELS, 0)
+    log(f"phase 9 (b): {cfg.name} at full width, {L} of 80 layers, "
+        f"{cfg.dtype}, replicas {[p.layer_split for p in asg.pipelines]} "
+        f"on {smi}")
+
+    runs = (("without a controller", lambda: None),
+            ("kill mid-decode", lambda: OnlineRescheduler(kills=[(10.0, 1)])),
+            ("live re-split", lambda: _resplit_controller(12, 5.0)))
+    base = None
+    for name, make in runs:
+        synth, _ = _workloads(cfg.vocab_size, n=16, out_len=32)
+        ctl = make()
+        ops.reset_launch_counts()
+        st, wall, info = _serve(cfg, asg, params, synth, controller=ctl,
+                                **common)
+        launched = ops.launch_counts()
+        for k in counts:
+            counts[k] += launched[k]
+        _check_launched(name, ("flash_attention", "paged_decode_attention"))
+        outs = [list(r.output) for r in synth]
+        base = outs if base is None else base
+        events = [] if ctl is None else ctl.events
+        kinds = {e["kind"]: e for e in events}
+        if name.startswith("kill") and not (
+                kinds.get("kill", {}).get("orphans", 0) > 0
+                and ctl.redispatches > 0):
+            raise AssertionError(f"{name}: {events}")
+        if name == "live re-split" and not kinds.get("roles", {}).get(
+                "moved", 0):
+            raise AssertionError(f"{name}: {events}")
+        if st.kvsan_leaks:
+            raise AssertionError(f"{name}: {st.summary()}")
+        in_tok = sum(len(r.prompt) for r in synth)
+        out_tok = sum(len(r.output) for r in synth)
+        same = sum(a == b for a, b in zip(outs, base))
+        log(f"  chaos bf16 {name}: {len(synth)} requests, {in_tok} prompt "
+            f"+ {out_tok} generated tokens in {wall:.3f} s wall = "
+            f"{out_tok / wall:.1f} generated tok/s; {same}/{len(synth)} "
+            f"streams equal the serve without a controller; events "
+            f"{events}; {st.migrations} moved "
+            f"({st.migrated_kv_bytes / 2**20:.1f} MiB); {st.summary()}; "
+            f"launches {launched}")
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+# (c): the two families at full width in bf16 (whisper-base all 6 + 6
+# layers, paligemma-3b all 18) and at 2 layers in fp32
+ENCDEC = ("whisper-base", "paligemma-3b")
+ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_NEW = 4, 32, 32
+ENCDEC_FP32_ATOL = 2e-4     # tests/test_serving.py:24-50's prefill bound
+
+
+def _encdec_cfg(arch, layers=None, dtype=None):
+    """`arch` at its published widths, depth cut to `layers` (whisper's
+    encoder too) when given."""
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    kw = {} if dtype is None else dict(dtype=dtype)
+    if layers is not None:
+        kw["num_layers"] = layers
+        if cfg.is_encoder_decoder:
+            kw["num_encoder_layers"] = layers
+    return dc.replace(cfg, **kw)
+
+
+def _encdec_inputs(cfg, seed=0):
+    """ENCDEC_BATCH seeded prompts of ENCDEC_PROMPT tokens and the modality
+    stub: whisper's encoder_seq_len frame embeddings, paligemma's
+    num_image_tokens patch embeddings (standard normal, float32)."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size,
+                        (ENCDEC_BATCH, ENCDEC_PROMPT)).astype(np.int32)
+    n = cfg.encoder_seq_len if cfg.is_encoder_decoder \
+        else cfg.num_image_tokens
+    key = "enc_frames" if cfg.is_encoder_decoder else "image_embeds"
+    return toks, {key: torch.from_numpy(rng.standard_normal(
+        (ENCDEC_BATCH, n, cfg.d_model)).astype(np.float32)).to(DEVICE)}
+
+
+def _encdec_launches(cfg):
+    """{kernel: launches} of one generate: #1 on every encoder layer, every
+    decoder prefill and every cross-attention at prefill and at each of
+    the ENCDEC_NEW - 1 decode steps (the last token needs none); #8 on
+    every decoder layer and step."""
+    L, steps = cfg.num_layers, ENCDEC_NEW - 1
+    flash = L
+    if cfg.is_encoder_decoder:
+        flash += cfg.num_encoder_layers + L + L * steps
+    return {"flash_attention": flash, "decode_attention": L * steps}
+
+
+def phase_encdec(smi):
+    """Phase 9 (c): whisper-base (all 6 encoder and 6 decoder layers, 1500
+    seeded frame embeddings) and paligemma-3b (all 18 layers, 256 seeded
+    image embeddings, vocab 257216) at full width in bf16 through
+    ``AsymmetricPipeline.generate(batch_extras=)`` on a 2-stage split:
+    ENCDEC_BATCH prompts of ENCDEC_PROMPT tokens, ENCDEC_NEW new tokens.
+    #1 and #8 must launch exactly ``_encdec_launches`` times, the prefill's
+    logits must be finite and the tokens in the vocabulary. Then both at 2
+    layers in fp32 through the kernels and the plain versions: equal
+    tokens, prefill logits within ENCDEC_FP32_ATOL. Returns {arch: launch
+    counts of the bf16 generate}."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serving.pipeline import AsymmetricPipeline
+    out = {}
+    for arch in ENCDEC:
+        cfg = _encdec_cfg(arch)
+        split = _pipeline_asg(cfg.num_layers).pipelines[0].layer_split
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        params = M.init_params(cfg, 0, device=DEVICE)
+        pipe = AsymmetricPipeline(cfg, params, split, device=DEVICE)
+        toks, extras = _encdec_inputs(cfg)
+        logits = pipe.prefill(toks, max_new=ENCDEC_NEW, batch_extras=extras)
+        if not np.isfinite(logits).all() \
+                or logits.shape != (ENCDEC_BATCH, cfg.vocab_size):
+            raise AssertionError(f"{arch}: prefill logits {logits.shape}, "
+                                 f"finite {np.isfinite(logits).all()}")
+        pipe.generate(toks, max_new=2, batch_extras=extras)    # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = pipe.generate(toks, max_new=ENCDEC_NEW, batch_extras=extras)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = ops.launch_counts()
+        want = _encdec_launches(cfg)
+        for k, n in want.items():
+            if launched[k] != n:
+                raise AssertionError(f"{arch}: {k} launched {launched[k]} "
+                                     f"times, the path needs {n}")
+        if got.shape != (ENCDEC_BATCH, ENCDEC_NEW) \
+                or not ((0 <= got) & (got < cfg.vocab_size)).all():
+            raise AssertionError(f"{arch}: tokens {got.shape}")
+        extra = next(iter(extras.values()))
+        log(f"  {arch} at full width, {cfg.num_layers} layers"
+            + (f" + {cfg.num_encoder_layers} encoder" if
+               cfg.is_encoder_decoder else "")
+            + f", {cfg.dtype}, stages {split}: {ENCDEC_BATCH} prompts of "
+            f"{ENCDEC_PROMPT} tokens + {tuple(extra.shape)} stub "
+            f"embeddings, {ENCDEC_NEW} new tokens in {wall:.3f} s = "
+            f"{got.size / wall:.1f} generated tok/s; launches {launched} "
+            f"(as the path needs); peak device memory of the model "
+            f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB "
+            f"on {smi}")
+        out[arch] = launched
+        del pipe, params
+        torch.cuda.empty_cache()
+        # fp32 at 2 layers: the kernels against the plain versions
+        cfg = _encdec_cfg(arch, layers=2, dtype="float32")
+        params = M.init_params(cfg, 0, device=DEVICE)
+        toks, extras = _encdec_inputs(cfg, seed=1)
+        res = {}
+        for backend in ("kernel", "plain"):
+            with ops.backend(backend):
+                pipe = AsymmetricPipeline(cfg, params, [1, 1], device=DEVICE)
+                res[backend] = (
+                    pipe.prefill(toks, max_new=ENCDEC_NEW,
+                                 batch_extras=extras),
+                    pipe.generate(toks, max_new=ENCDEC_NEW,
+                                  batch_extras=extras))
+                del pipe
+        err = float(np.abs(res["kernel"][0] - res["plain"][0]).max())
+        if not err <= ENCDEC_FP32_ATOL:
+            raise AssertionError(f"{arch} fp32: prefill logits {err} apart "
+                                 f"> {ENCDEC_FP32_ATOL}")
+        if not np.array_equal(res["kernel"][1], res["plain"][1]):
+            raise AssertionError(f"{arch} fp32: the kernels' tokens differ "
+                                 "from the plain versions'")
+        log(f"  {arch} fp32, 2 layers: tokens through the kernels == plain "
+            f"({res['kernel'][1].shape}); prefill logits max abs diff "
+            f"{err:.3g} (<= {ENCDEC_FP32_ATOL})")
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def cross_cases(gen, dev, dtype, hq=8, hkv=8, d=64):
+    """whisper's cross-attention (g 1, d 64): 1 query (a decode step) and
+    37 (a ragged prompt) against the encoder's 1500 frames, non-causal;
+    and its encoder's 1500 x 1500."""
+    from repro_torch.kernels import ops
+    k = _rand(gen, (4, 1500, hkv, d), dtype, dev)
+    v = _rand(gen, (4, 1500, hkv, d), dtype, dev)
+    for sq in (1, 37):
+        q = _rand(gen, (4, sq, hq, d), dtype, dev)
+        yield f"cross sq={sq} skv=1500", (
+            lambda q=q: ops.flash_attention(q, k, v, causal=False)), None
+    q = _rand(gen, (2, 1500, hq, d), dtype, dev)
+    yield "encoder 1500 x 1500", lambda: ops.flash_attention(
+        q, k[:2], v[:2], causal=False), None
+
+
+# (d): the new instances' cases (rows of the kernels line: name, cases,
+# widths)
+ENCDEC_CASES = (("flash_attention[d256]", flash_cases,
+                 dict(hq=8, hkv=1, d=256)),
+                ("flash_attention[cross]", cross_cases, {}),
+                ("decode_attention[d256]", contiguous_decode_cases,
+                 dict(hq=8, hkv=1, d=256)))
+
+
+def phase_encdec_kernels(dev):
+    """Phase 9 (d): #1 at head dim 256 (paligemma's g 8: causal, the
+    window, kv_len and kv_start with dead rows, s = 5, a ragged s of 645,
+    g 1), #1 non-causal with sq 1 and 37 against 1500 keys and on the
+    1500 x 1500 encoder (whisper's g 1, d 64), and #8 at head dim 256 (g
+    8, phase 2's contiguous cases) against their plain versions in bf16
+    and fp32; then timed at the serving path's shapes: paligemma's prefill
+    (4 rows of 256 image + 32 prompt tokens, causal), whisper's
+    cross-attention of a 32-token prompt to 1500 frames, and paligemma's
+    decode step at 288..319 cached keys, beside their bound, plain version
+    and SDPA. Returns {row: timing dict} as time_kernels does."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev).manual_seed(9)
+    for row, cases, widths in ENCDEC_CASES:
+        name = row.split("[")[0]
+        for dtype in (torch.bfloat16, torch.float32):
+            for case, fn, dead in cases(gen, dev, dtype, **widths):
+                got, want = _run_both(fn)
+                torch.cuda.synchronize()
+                err = _compare(row, case, got, want, dtype)
+                if dead is not None and torch.count_nonzero(dead(got)):
+                    raise AssertionError(f"{row} [{case}, {dtype}]: a row "
+                                         "that sees no key is not zero")
+                log(f"  check {row} [{case}] {dtype} {widths}: max abs err "
+                    f"{err:.3g}")
+    dt, flush = torch.bfloat16, torch.empty(64 << 20, dtype=torch.uint8,
+                                            device=dev)
+    res = {}
+    q = _rand(gen, (4, 288, 8, 256), dt, dev)
+    k, v = (_rand(gen, (4, 288, 1, 256), dt, dev) for _ in range(2))
+    res["flash_attention[d256]"] = _flash_timing(dict(q=q, k=k, v=v), flush)
+    qc = _rand(gen, (4, 32, 8, 64), dt, dev)
+    kc, vc = (_rand(gen, (4, 1500, 8, 64), dt, dev) for _ in range(2))
+    res["flash_attention[cross]"] = dict(
+        fn=lambda: ops.flash_attention(qc, kc, vc, causal=False),
+        nbytes=qc.element_size() * (2 * qc.numel() + kc.numel()
+                                    + vc.numel()),
+        flops=4 * 64 * 8 * 4 * 32 * 1500,
+        library_ms=_time_sdpa(qc, kc, vc, flush))
+    qd = _rand(gen, (4, 1, 8, 256), dt, dev)
+    kd, vd = (_rand(gen, (4, 320, 1, 256), dt, dev) for _ in range(2))
+    kv_len = torch.tensor([288, 300, 311, 319], device=dev)
+    kv = int(kv_len.sum())
+    mask = (torch.arange(320, device=dev)[None] < kv_len[:, None])[
+        :, None, None]
+    res["decode_attention[d256]"] = dict(
+        fn=lambda: ops.decode_attention(qd, kd, vd, kv_len=kv_len),
+        nbytes=dt.itemsize * (2 * qd.numel() + 2 * kv * 256) + 4 * 4,
+        flops=4 * 256 * 8 * kv,
+        library_ms=_time_sdpa(qd, kd, vd, flush, attn_mask=mask))
+    out = {}
+    for name, r in res.items():
+        got, want = _run_both(r["fn"])
+        err = _compare_out(name, "serving shape", got, want, dt)
+        ms = _time_ms(r["fn"], flush)
+        with ops.backend("plain"):
+            plain_ms = _time_ms(r["fn"], flush, iters=3)
+        bound_ms, bound_by = _bound(r["nbytes"], r["flops"])
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=r["library_ms"],
+                         max_abs_err=err)
+        log(f"  time {name}: {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}) library "
+            f"{r['library_ms']:.4f} ms, bf16 max abs err {err:.3g}")
+    return out
+
+
 def dump_sass(tree, out):
     """Build the kernel sources of another checkout `tree` (a `git archive`
     of the parent commit) with this tree's flags and write each library's
@@ -2926,12 +3396,24 @@ def main():
     done("phase 8 (a)")
     multi = phase_multi(smi)
     done("phase 8")
+    log("phase 9: online rescheduling; whisper-base and paligemma-3b")
+    phase_chaos_parity()
+    done("phase 9 (a)")
+    chaos = phase_chaos(smi)
+    done("phase 9 (b)")
+    encdec = phase_encdec(smi)
+    done("phase 9 (c)")
+    timed.update(phase_encdec_kernels(torch.device("cuda")))
+    done("phase 9")
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         kernels.append(dict(name=name, route="cuda", source=src,
                             replaces=replaces,
                             launches=(counts[name] + danube[name]
-                                      + zoo[name] + multi[name]),
+                                      + zoo[name] + multi[name]
+                                      + chaos[name]
+                                      + sum(encdec[a].get(name, 0)
+                                            for a in ENCDEC)),
                             **timed[name]))
     # #1 and #8 at h2o-danube-1.8b's head dim 80: the long-prompt serve's
     # launches (also in the rows above) and the times at its shapes
@@ -2948,6 +3430,19 @@ def main():
         kernels.append(dict(name=f"{name}[{tag}]", route="cuda", source=src,
                             replaces=replaces, launches=by_tag[tag][name],
                             **timed[f"{name}[{tag}]"]))
+    # this slice's instances: #1 at paligemma-3b's head dim 256 and on
+    # whisper-base's cross-attention shapes, #8 at head dim 256, with
+    # phase 9 (c)'s bf16 launches (also in the rows above: paligemma's
+    # #1 and #8, and whisper's #1: encoder, decoder prefill and
+    # cross-attention) and the times at their shapes
+    for row, arch in (("flash_attention[d256]", "paligemma-3b"),
+                      ("flash_attention[cross]", "whisper-base"),
+                      ("decode_attention[d256]", "paligemma-3b")):
+        name = row.split("[")[0]
+        src, replaces = KERNEL_INFO[name]
+        kernels.append(dict(name=row, route="cuda", source=src,
+                            replaces=replaces, launches=encdec[arch][name],
+                            **timed[row]))
     log(f"chip_smoke: every phase passed in {time.perf_counter() - _T0:.1f} s"
         ", the build included")
     log(f"card: {smi}")

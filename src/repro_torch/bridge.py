@@ -4,7 +4,9 @@ port's tensors, and back.
 The JAX package's ``repro.models.model.init_params`` returns a nested dict
 whose layer leaves are stacked on a leading period axis (``blocks/sub{j}``
 for each position j of a period), which the port's model code reads as it
-is (``models.model``). Weights keep
+is (``models.model``), an encoder-decoder's ``encoder`` subtree, LayerNorm
+biases and cross-attention and a tied-embedding model's tree without
+``lm_head`` included: the bridge walks any nested dict. Weights keep
 the reference's (in, out) layout, so every product stays ``x @ w`` and a
 bridged model computes the same function as the reference. The bridge
 takes and returns numpy only; converting a JAX tree to numpy is the

@@ -10,8 +10,12 @@ sliding window, head dim 80: the launcher's default),
 phi3_5_moe_42b_a6_6b.py (16 experts top-2 on every layer),
 granite_moe_3b_a800m.py (40 experts top-8, 24 query heads on 8 kv heads of
 64), jamba_v0_1_52b.py (hybrid Mamba + attention 1:7 with MoE, 16 experts
-top-2, on every other layer) and xlstm_125m.py (attention-free: three
-mLSTM blocks and one sLSTM block a period).
+top-2, on every other layer), xlstm_125m.py (attention-free: three
+mLSTM blocks and one sLSTM block a period), whisper_base.py (an
+encoder-decoder: 6 encoder and 6 decoder layers over 1500 stub frame
+embeddings, LayerNorm, sinusoidal positions, tied embeddings) and
+paligemma_3b.py (gemma's backbone behind 256 stub image embeddings: MQA of
+8 query heads of 256, tied embeddings) — all eleven of the reference's.
 """
 from __future__ import annotations
 
@@ -63,6 +67,21 @@ _REGISTRY = {
                     num_kv_heads=4, d_ff=0, vocab_size=50304,
                     layer_pattern=(MLSTM, MLSTM, MLSTM, SLSTM),
                     ssm_expand=2, xlstm_qk_dim_factor=0.5),
+        # the mel-spectrogram + conv frontend is a stub: requests carry
+        # precomputed frame embeddings ("enc_frames")
+        ModelConfig(name="whisper-base", source="arXiv:2212.04356",
+                    family="audio", num_layers=6, d_model=512, num_heads=8,
+                    num_kv_heads=8, d_ff=2048, vocab_size=51865,
+                    activation="gelu", is_encoder_decoder=True,
+                    num_encoder_layers=6, encoder_seq_len=1500,
+                    rope_theta=0.0, tie_embeddings=True),
+        # the SigLIP tower + projector are a stub: requests carry
+        # precomputed patch embeddings ("image_embeds")
+        ModelConfig(name="paligemma-3b", source="arXiv:2407.07726",
+                    family="vlm", num_layers=18, d_model=2048, num_heads=8,
+                    num_kv_heads=1, head_dim=256, d_ff=16384,
+                    vocab_size=257216, activation="gelu",
+                    tie_embeddings=True, num_image_tokens=256),
     )
 }
 

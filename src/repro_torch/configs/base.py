@@ -1,9 +1,10 @@
 """Model configuration: a copy of repro.configs.base.ModelConfig (the port
 imports nothing of the JAX package). One frozen dataclass covers every
-family the reference knows; the port serves the dense attention-only
-decoders (with q/k/v bias and gelu MLPs too), MoE, the hybrid Mamba +
-attention stacks and the attention-free xLSTM stacks (``layer_pattern`` of
-ATTN, MAMBA, MLSTM and SLSTM).
+family the reference knows, and the port serves every one: the dense
+attention-only decoders (with q/k/v bias and gelu MLPs too), MoE, the
+hybrid Mamba + attention stacks, the attention-free xLSTM stacks
+(``layer_pattern`` of ATTN, MAMBA, MLSTM and SLSTM), the encoder-decoder
+(``is_encoder_decoder``) and the VLM backbone (``num_image_tokens``).
 """
 from __future__ import annotations
 

@@ -73,7 +73,9 @@
 //    groups x column groups.
 //  - bf16: a warp takes 16 keys at a time and loads their K and V rows
 //    straight into registers, 16 bytes per load, all before any
-//    arithmetic (8 KB in flight per warp; on one-byte pools 4 KB with the
+//    arithmetic (at head dim 256, paligemma-3b's contiguous decode, the V
+//    rows after the scores: LATE_V below) (8 KB in flight per warp; on
+//    one-byte pools 4 KB with the
 //    keys' scales, and the quantized verify issues the next step's before
 //    this step's arithmetic). S^T = K Q^T runs on mma.sync
 //    m16n8k16 with the keys as M and the columns as N; the d axis is
@@ -492,6 +494,13 @@ __device__ void warp_bf16(const P& p, int bi, int kvh, int h0, int ge,
   static_assert(!TAIL || (D == 80 && KEYS == CONTIGUOUS && !is_verify<P> &&
                           !is_quant<P>),
                 "head dim 80 is the contiguous decode's only");
+  // head dim 256: a step's V rows are loaded after its scores, so that its
+  // K and V rows (64 registers each at 8 words a lane and row) are not
+  // live at once beside the accumulators (64) and Q (32)
+  constexpr bool LATE_V = D == 256;
+  static_assert(!LATE_V || (KEYS == CONTIGUOUS && !is_verify<P> &&
+                            !is_quant<P>),
+                "head dim 256 is the contiguous decode's only");
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gq = lane / 4, tq = lane % 4;
   const bf16* Q = static_cast<const bf16*>(p.q);
@@ -611,10 +620,12 @@ __device__ void warp_bf16(const P& p, int bi, int kvh, int h0, int ge,
           kr[r][j] = key < ke ? ld16(Kb + key * row_stride + 32 * j + 8 * tq)
                               : make_uint4(0, 0, 0, 0);
       }
+      if constexpr (!LATE_V) {
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int key = c0 + 2 * tq + (r & 1) + 8 * (r >> 1);
-        load_v<MT>(vw[r], Vb + key * row_stride + gq * (D / 8), key < ke);
+        for (int r = 0; r < 4; ++r) {
+          const int key = c0 + 2 * tq + (r & 1) + 8 * (r >> 1);
+          load_v<MT>(vw[r], Vb + key * row_stride + gq * (D / 8), key < ke);
+        }
       }
     } else {
       // the pool row of key `key`: in the page of the group (PAGED16), or
@@ -709,6 +720,13 @@ __device__ void warp_bf16(const P& p, int bi, int kvh, int h0, int ge,
     if constexpr (is_quant<P>) {  // V row j weighed by p_j v_scale_j
 #pragma unroll
       for (int i = 0; i < 4; ++i) pr[i] *= qr.vs[i / 2];
+    }
+    if constexpr (LATE_V) {  // the step's V rows, as the other widths load
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int key = c0 + 2 * tq + (r & 1) + 8 * (r >> 1);
+        load_v<MT>(vw[r], Vb + key * row_stride + gq * (D / 8), key < ke);
+      }
     }
 
     // P^T as the B operand (keys x heads): transpose the two 8x8 halves
@@ -1088,6 +1106,14 @@ __global__ void __launch_bounds__(THREADS, 1) decode_fwd80(const Params p) {
   decode_block<T, 80, KEYS>(p);
 }
 
+// Head dim 256 (the contiguous decode only, paligemma-3b's):
+// minBlocksPerMultiprocessor 1 too, so ptxas may give a thread up to 255
+// registers
+template <typename T, int KEYS>
+__global__ void __launch_bounds__(THREADS, 1) decode_fwd256(const Params p) {
+  decode_block<T, 256, KEYS>(p);
+}
+
 template <typename T, int KEYS, class P>
 cudaError_t launch_t(const P& p, int d, cudaStream_t stream) {
   int cgroups = 1;  // verify's column groups
@@ -1108,6 +1134,12 @@ cudaError_t launch_t(const P& p, int d, cudaStream_t stream) {
       break;
     case 128:
       decode_fwd<T, 128, KEYS><<<grid, THREADS, 0, stream>>>(p);
+      break;
+    case 256:  // paligemma-3b: the contiguous decode only
+      if constexpr (KEYS == CONTIGUOUS && std::is_same<P, Params>::value)
+        decode_fwd256<T, KEYS><<<grid, THREADS, 0, stream>>>(p);
+      else
+        return cudaErrorInvalidValue;
       break;
     default:
       return cudaErrorInvalidValue;

@@ -29,8 +29,9 @@ __device__ __forceinline__ int item_of_round(int r) {
 
 // Shared-memory geometry of a head dim: d is cut into chunks of CH columns
 // (the swizzle width: 64 bf16 = 128 B, or 32 = 64 B where d is not a
-// multiple of 64: d 32, and the 96 columns that head dim 80 runs in); each
-// chunk region holds its rows at ROWB bytes, swizzled in 16-byte units.
+// multiple of 64: d 32, and the 96 columns that head dim 80 runs in; d 256
+// is four 128-byte chunks); each chunk region holds its rows at ROWB
+// bytes, swizzled in 16-byte units.
 template <int D>
 struct Geo {
   static constexpr int CH = D % 64 ? 32 : 64;
@@ -113,8 +114,58 @@ __device__ __forceinline__ void issue_qk(float (&s)[BK / 2],
   hx::wgmma_commit();
 }
 
+// Whether a consumer keeps its Q rows in registers for a work item (A from
+// registers in S = Q K^T). At head dim 256 they would take 64 registers
+// beside O's 128, so Q K^T reads Q from its shared buffer as well
+// (issue_qk_ss) and the Q fragments shrink to a placeholder.
+template <int D>
+constexpr bool QREG = D != 256;
+template <int D>
+constexpr int QFRAGS = QREG<D> ? D / 16 : 1;
+
+// issue S = Q K^T over d in k-steps of 16 with Q from its shared buffer
+// too (wgmma's SS form): the Q buffer's chunks are WG_ROWS rows apart, its
+// rows swizzled like K's
+template <int D, int BK>
+__device__ __forceinline__ void issue_qk_ss(float (&s)[BK / 2],
+                                            const unsigned char* q,
+                                            const unsigned char* k) {
+  using G = Geo<D>;
+  static_assert(BK == 32, "the SS form runs the 32-key tiles only");
+  hx::fence_regs(s);
+  hx::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int c = kk / (G::CH / 16), kb = (kk % (G::CH / 16)) * 32;
+    hx::wgmma_ss_n32(
+        s,
+        hx::gmma_desc(q + c * WG_ROWS * G::ROWB + kb, 16, 8 * G::ROWB,
+                      G::SWZ),
+        hx::gmma_desc(k + c * BK * G::ROWB + kb, 16, 8 * G::ROWB, G::SWZ),
+        kk > 0);
+  }
+  hx::wgmma_commit();
+}
+
+// S = Q K^T with Q in registers (qf) or, where QREG is false, in its
+// shared buffer qs
+template <int D, int BK>
+__device__ __forceinline__ void issue_s(float (&s)[BK / 2],
+                                        const uint32_t (&qf)[QFRAGS<D>][4],
+                                        const unsigned char* qs,
+                                        const unsigned char* k) {
+  if constexpr (QREG<D>)
+    issue_qk<D, BK>(s, qf, k);
+  else
+    issue_qk_ss<D, BK>(s, qs, k);
+}
+
 // issue O += P V, 16 keys per k-step; V's next 16 rows are 2 swizzle atoms
-// further on, its next d chunk BK rows further on
+// further on, its next d chunk BK rows further on. Head dim 256 is two
+// n128 products a k-step (wgmma's widest is n256, whose 128 accumulators
+// a thread are O whole): columns 0..127 from V's chunks 0, 1 into O's
+// first 64 accumulators, 128..255 from chunks 2, 3 into the rest (the
+// accumulators of an n256 product, in that order)
 template <int D, int BK>
 __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
                                          const uint32_t (&pa)[BK / 16][4],
@@ -122,12 +173,29 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
   using G = Geo<D>;
   hx::fence_regs(o);
   hx::wgmma_fence();
+  if constexpr (D == 256) {
+    float(&o0)[64] = *reinterpret_cast<float(*)[64]>(o);
+    float(&o1)[64] = *reinterpret_cast<float(*)[64]>(o + 64);
 #pragma unroll
-  for (int kv = 0; kv < BK / 16; ++kv)
-    mma_rs<D, 1>(o, pa[kv],
-                 hx::gmma_desc(v + kv * 16 * G::ROWB, BK * G::ROWB,
-                               8 * G::ROWB, G::SWZ),
-                 1);
+    for (int kv = 0; kv < BK / 16; ++kv) {
+      hx::wgmma_rs_n128<1>(o0, pa[kv],
+                           hx::gmma_desc(v + kv * 16 * G::ROWB,
+                                         BK * G::ROWB, 8 * G::ROWB, G::SWZ),
+                           1);
+      hx::wgmma_rs_n128<1>(o1, pa[kv],
+                           hx::gmma_desc(v + 2 * BK * G::ROWB +
+                                             kv * 16 * G::ROWB,
+                                         BK * G::ROWB, 8 * G::ROWB, G::SWZ),
+                           1);
+    }
+  } else {
+#pragma unroll
+    for (int kv = 0; kv < BK / 16; ++kv)
+      mma_rs<D, 1>(o, pa[kv],
+                   hx::gmma_desc(v + kv * 16 * G::ROWB, BK * G::ROWB,
+                                 8 * G::ROWB, G::SWZ),
+                   1);
+  }
   hx::wgmma_commit();
 }
 

@@ -20,6 +20,13 @@
 //    Tensor maps over the (b, s, h, d) layouts give 128-byte (64-byte at
 //    d 32) swizzled tiles; rows past the tensor's end read as zeros and
 //    are masked, and a store clips them.
+//  - Head dim 256 (paligemma-3b) runs 32-key K/V tiles: two rings of two
+//    16 KB tiles and the four 32 KB Q buffers take 192 KB of the 227 KB a
+//    block may have (128-key tiles would need 384 KB). A consumer's O is
+//    64 x 256 fp32, 128 registers a thread, so its Q rows stay in their
+//    shared buffer and S = Q K^T takes both operands from shared memory
+//    (wgmma's SS form, flash.cuh issue_qk_ss), and P V runs as two n128
+//    products a k-step, one for each half of d.
 //  - Head dim 80 (h2o-danube-1.8b) runs the 96-wide instance: three
 //    64-byte swizzle chunks of 32 columns, whose tensor maps cover the
 //    real 80 columns (160-byte rows, a multiple of 16 as TMA needs). The
@@ -58,6 +65,7 @@ namespace fa {
 
 using bf16 = __nv_bfloat16;
 constexpr int TILE_KEYS = 128;  // keys per K/V tile
+constexpr int TILE_KEYS_256 = 32;  // ... at head dim 256
 constexpr int RING = 2;         // K (and V) tiles in flight
 // registers a thread: the producer warpgroup gives its to the consumers
 // (PRODUCER_REGS + NC CONSUMER_REGS <= 65536 / 128)
@@ -256,14 +264,16 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
       turn.idle();
     }
     hx::mbar_wait(&qfull[qb], (n >> 1) & 1);
-    uint32_t qf[D / 16][4];  // Q's A fragments, for the whole item
-    load_q_frags<D>(qf, qs, warp, lane);
+    // Q's A fragments, for the whole item (at head dim 256 Q stays in its
+    // buffer: QREG)
+    uint32_t qf[QFRAGS<D>][4];
+    if constexpr (QREG<D>) load_q_frags<D>(qf, qs, warp, lane);
     if (k0 < c_hi) {
       float s[BK / 2];
       const unsigned char* kt = smem + S::K + (size_t)stage * S::KV;
       hx::mbar_wait(&rg.kfull[stage], phase);
       turn.begin();
-      issue_qk<D, BK>(s, qf, kt);
+      issue_s<D, BK>(s, qf, qs, kt);
       turn.end();
       hx::wgmma_wait<0>();
       hx::fence_regs(s);
@@ -276,7 +286,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
         hx::mbar_wait(&rg.kfull[stage], phase);
         hx::mbar_wait(&rg.vfull[prev], prev_phase);
         turn.begin();
-        issue_qk<D, BK>(s, qf, kt);
+        issue_s<D, BK>(s, qf, qs, kt);
         issue_pv<D, BK>(o, pa, smem + S::V + (size_t)prev * S::KV);
         turn.end();
         hx::wgmma_wait<1>();
@@ -400,6 +410,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
       return launch<96, TILE_KEYS, RING>(p, q, k, v, o, d, st);
     case 128:
       return launch<128, TILE_KEYS, RING>(p, q, k, v, o, d, st);
+    case 256:  // 32-key tiles: see the note at the top of this file
+      return launch<256, TILE_KEYS_256, RING>(p, q, k, v, o, d, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -16,9 +16,10 @@ from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # head dims every kernel takes; #1 (this kernel) and #8 (contiguous decode)
-# also take h2o-danube-1.8b's 80, which no paged (slot-mode) config has
+# also take h2o-danube-1.8b's 80 and paligemma-3b's 256, which no paged
+# (slot-mode) config has
 HEAD_DIMS = (32, 64, 128)
-CONTIGUOUS_HEAD_DIMS = (32, 64, 80, 128)
+CONTIGUOUS_HEAD_DIMS = (32, 64, 80, 128, 256)
 # the bf16 kernel's warpgroup rows (64) hold whole GQA groups
 BF16_MAX_GROUP = 64
 

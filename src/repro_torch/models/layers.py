@@ -1,7 +1,9 @@
-"""Layer primitives of the port (twins of repro.models.layers): RMSNorm,
-RoPE, the GQA attention blocks (with an optional q/k/v bias) of the paged
-serving path and of the contiguous caches (full, or the sliding-window
-ring), and the MLP (SwiGLU, or gelu without a gate).
+"""Layer primitives of the port (twins of repro.models.layers): RMSNorm
+and LayerNorm, RoPE and sinusoidal positions, the GQA attention blocks
+(with an optional q/k/v bias) of the paged serving path and of the
+contiguous caches (full, or the sliding-window ring), whisper's
+bidirectional encoder attention and cross-attention, and the MLP (SwiGLU,
+or gelu without a gate).
 
 Parameters are plain dicts of tensors in the reference's (in, out) layout,
 so every weight product is ``x @ w``, through ``quant.mm`` so that an
@@ -27,6 +29,26 @@ def rms_norm(x, w, eps=1e-5):
     xf = x.float()
     var = (xf * xf).mean(-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def layer_norm(x, w, b, eps=1e-5):
+    """LayerNorm with bias (whisper): normalize in float32, cast back to
+    x's dtype, then scale by w and shift by b."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * w + b
+
+
+def sinusoidal_positions(positions, d):
+    """Whisper-style sinusoidal embeddings: positions (b, s) -> (b, s, d)
+    float32, sines then cosines of position x 10000^(-i / (d/2 - 1))."""
+    half = d // 2
+    log_base = torch.log(torch.tensor(10000.0, dtype=torch.float32))
+    freqs = torch.exp(-log_base * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / (half - 1))
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def rope(x, positions, theta):
@@ -227,6 +249,37 @@ def attn_verify_paged(p, x, cfg, *, positions, q_len, block_tables, cache):
                                    kv_start=positions[:, 0],
                                    kv_len=positions[:, 0] + q_len, **sc)
     return mm(o.reshape(b, T, -1), p["wo"])
+
+
+def cross_attn(p, x, cfg, *, enc_kv=None, enc_out=None):
+    """Whisper's cross-attention of decoder rows x (b, s, d) to the encoder:
+    enc_kv {"k", "v"} (b, se, hkv, hd), the K/V cached at prefill, or, when
+    None, computed from the encoder output enc_out (b, se, d). Non-causal
+    flash attention (#1) with sq = s against skv = se keys: a prompt at
+    prefill, one row at every decode step. No bias, no positions. Returns
+    (out, enc_kv)."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim_
+    q = mm(x, p["wq"]).reshape(b, s, cfg.num_heads, hd)
+    if enc_kv is None:
+        se = enc_out.shape[1]
+        enc_kv = {"k": mm(enc_out, p["wk"]).reshape(b, se, cfg.num_kv_heads,
+                                                    hd),
+                  "v": mm(enc_out, p["wv"]).reshape(b, se, cfg.num_kv_heads,
+                                                    hd)}
+    o = ops.flash_attention(q, enc_kv["k"].to(q.dtype),
+                            enc_kv["v"].to(q.dtype), causal=False)
+    return mm(o.reshape(b, s, -1), p["wo"]), enc_kv
+
+
+def attn_encoder(p, x, cfg):
+    """Bidirectional self-attention of whisper's encoder over x (b, se, d):
+    non-causal flash attention (#1) with sq = skv, no positions (the
+    encoder adds sinusoidal ones to its input)."""
+    q, k, v = _qkv(p, x, cfg)
+    o = ops.flash_attention(q, k, v, causal=False)
+    b, s = x.shape[:2]
+    return mm(o.reshape(b, s, -1), p["wo"])
 
 
 def gelu(x):

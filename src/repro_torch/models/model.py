@@ -1,15 +1,20 @@
 """Model assembly of the port for the paged serving path and the
 contiguous cache (twin of repro.models.model for the dense decoders, MoE,
-the hybrid Mamba + attention stacks and the attention-free xLSTM stacks).
+the hybrid Mamba + attention stacks, the attention-free xLSTM stacks,
+whisper's encoder-decoder and paligemma's image-prefixed decoder).
 
 Layers are organized into *periods*, as in the reference: the layer
 pattern of a hybrid model (Jamba's seven Mamba layers and one attention
 layer, MoE on every other layer) repeats with period ``period_len(cfg)``.
 Parameters keep the reference's pytree: ``embed`` (V, d), ``final_norm``,
-``lm_head`` (d, V) and ``blocks/sub{j}`` for each position j of a period,
+``lm_head`` (d, V; absent under tied embeddings, where the head is
+``x @ embed.T``) and ``blocks/sub{j}`` for each position j of a period,
 whose leaves stack the ``n_periods`` layers at that position on a leading
-axis. A dense decoder has a period of one layer, so ``sub0`` leaf index i
-is layer i. ``slice_layer_params`` takes global layer i's views. That keeps
+axis. An encoder-decoder (whisper) has LayerNorms with a bias ``b``, a
+cross-attention ``xattn`` behind its norm ``lnx`` in every decoder layer,
+and ``encoder`` {``blocks/sub0`` (its layers stacked), ``final_norm``}.
+A dense decoder has a period of one layer, so ``sub0`` leaf index i is
+layer i. ``slice_layer_params`` takes global layer i's views. That keeps
 a bridged JAX pytree (``repro_torch.bridge``) and a seeded torch one
 interchangeable.
 
@@ -27,9 +32,17 @@ prefill / decode)
 keeps the reference's layout: ``{"sub{j}": ...}`` with each period
 position's leaves stacked on a leading axis, attention rows
 (P, batch, S, hkv, hd), S = max_len or, for a sliding-window model, the
-min(max_len, window)-slot ring; the pipeline's contiguous caches are one
-layer's leaves each (``init_layer_cache``). Writes go into the caches in
-place.
+min(max_len, window)-slot ring, and an encoder-decoder's cross K/V
+``cross_k`` / ``cross_v`` (P, batch, encoder_seq_len, hkv, hd), written
+once at prefill; the pipeline's contiguous caches are one layer's leaves
+each (``init_layer_cache``). Writes go into the caches in place.
+
+Modality inputs are stubs, as in the reference: whisper's batch carries
+frame embeddings ``enc_frames`` (b, encoder_seq_len, d) for the encoder,
+paligemma's patch embeddings ``image_embeds`` (b, num_image_tokens, d),
+which prefix the prompt's embeddings; both are cast to the model's dtype
+(the reference runs a float32 ``enc_frames`` through a bf16 model's
+encoder in float32; in fp32 the two agree).
 """
 from __future__ import annotations
 
@@ -40,18 +53,6 @@ import torch
 from repro_torch.configs.base import ATTN, MAMBA, MLSTM, SLSTM, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers, mamba, moe, quant, xlstm
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    unported = []
-    if cfg.is_encoder_decoder or cfg.num_image_tokens:
-        unported.append("encoder-decoder / VLM inputs (slice 6)")
-    if cfg.tie_embeddings:
-        unported.append("tied embeddings (slice 6)")
-    if unported:
-        raise NotImplementedError(
-            f"{cfg.name}: not ported yet: {', '.join(unported)}; see "
-            "ROADMAP.md")
 
 
 def param_dtype(cfg: ModelConfig, dtype=None) -> torch.dtype:
@@ -102,11 +103,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
     [1e-3, 0.1], all three float32 whatever the model dtype) and sLSTM
     gate biases (0, and 1 for the forget gate). The q/k/v biases of an
     ``attn_bias`` model are drawn N(0, 0.02) where the reference's are
-    zeros, so that a served seeded model exercises them. Each leaf is
+    zeros, so that a served seeded model exercises them. An
+    encoder-decoder's LayerNorms get zero biases and its cross-attention
+    and encoder the attention and MLP draws; tied embeddings leave out
+    ``lm_head``. Each leaf is
     drawn in place at its own dtype, so a full-width model needs no float32
     copy. The same seed gives the same weights on the same kind of device
     (CPU and CUDA generators draw different streams)."""
-    _check_supported(cfg)
     dev = resolve_device(device)
     generator = torch.Generator(device=dev).manual_seed(seed)
     dt = param_dtype(cfg, dtype)
@@ -122,13 +125,20 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
     def full(shape, value, dtype=dt):
         return torch.full(shape, value, dtype=dtype, device=dev)
 
-    def attn():
-        p = {"wq": rand((P, d, hq * hd)), "wk": rand((P, d, hkv * hd)),
-             "wv": rand((P, d, hkv * hd)),
-             "wo": rand((P, hq * hd, d), out_scale)}
-        if cfg.attn_bias:
-            p.update(bq=rand((P, hq * hd)), bk=rand((P, hkv * hd)),
-                     bv=rand((P, hkv * hd)))
+    def norm(n=P):
+        # LayerNorm with bias for encoder-decoders, RMSNorm's scale else
+        w = {"w": full((n, d) if n else (d,), 1.0)}
+        if cfg.is_encoder_decoder:
+            w["b"] = full((n, d) if n else (d,), 0.0)
+        return w
+
+    def attn(n=P, cross=False):
+        p = {"wq": rand((n, d, hq * hd)), "wk": rand((n, d, hkv * hd)),
+             "wv": rand((n, d, hkv * hd)),
+             "wo": rand((n, hq * hd, d), out_scale)}
+        if cfg.attn_bias and not cross:
+            p.update(bq=rand((n, hq * hd)), bk=rand((n, hkv * hd)),
+                     bv=rand((n, hkv * hd)))
         return p
 
     def ssm():
@@ -164,25 +174,37 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
             p[f"b_{g}"] = full((P, d), 1.0 if g == "f" else 0.0)
         return p
 
-    def mlp(experts=()):
-        gate = ({"w_gate": rand((P, *experts, d, f))}
+    def mlp(experts=(), n=P):
+        gate = ({"w_gate": rand((n, *experts, d, f))}
                 if cfg.activation == "silu" else {})
-        return {**gate, "w_up": rand((P, *experts, d, f)),
-                "w_down": rand((P, *experts, f, d), out_scale)}
+        return {**gate, "w_up": rand((n, *experts, d, f)),
+                "w_down": rand((n, *experts, f, d), out_scale)}
 
     mixers = {ATTN: attn, MAMBA: ssm, MLSTM: mlstm, SLSTM: slstm}
     blocks = {}
     for j, (kind, is_moe) in enumerate(sub_kinds(cfg)):
-        sub = {"ln1": {"w": full((P, d), 1.0)}, "mixer": mixers[kind]()}
+        sub = {"ln1": norm(), "mixer": mixers[kind]()}
+        if cfg.is_encoder_decoder:
+            sub["lnx"] = norm()
+            sub["xattn"] = attn(cross=True)
         if f > 0 and kind in (ATTN, MAMBA):
-            sub["ln2"] = {"w": full((P, d), 1.0)}
+            sub["ln2"] = norm()
             if is_moe:
                 sub["moe"] = {"router": rand((P, d, E)), **mlp((E,))}
             else:
                 sub["mlp"] = mlp()
         blocks[f"sub{j}"] = sub
-    return {"embed": rand((V, d)), "final_norm": {"w": full((d,), 1.0)},
-            "blocks": blocks, "lm_head": rand((d, V))}
+    params = {"embed": rand((V, d)), "final_norm": norm(0),
+              "blocks": blocks}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = rand((d, V))
+    if cfg.is_encoder_decoder:
+        Pe = cfg.num_encoder_layers
+        params["encoder"] = {
+            "blocks": {"sub0": {"ln1": norm(Pe), "mixer": attn(Pe),
+                                "ln2": norm(Pe), "mlp": mlp(n=Pe)}},
+            "final_norm": {"w": full((d,), 1.0), "b": full((d,), 0.0)}}
+    return params
 
 
 def slice_layer_params(cfg: ModelConfig, params, i: int):
@@ -220,13 +242,20 @@ def _cache_leaves(cfg, kind, lead, max_len, dt, dev):
     """Zeroed contiguous cache leaves of one layer kind, `lead` leading
     dims: attention {"k", "v"} (*lead, S, hkv, hd), S = max_len or, for a
     sliding-window model, the min(max_len, swa_window)-slot ring
-    (``layers.write_cache``); a recurrent layer's state (``_slot_state``)."""
+    (``layers.write_cache``), plus an encoder-decoder's {"cross_k",
+    "cross_v"} (*lead, encoder_seq_len, hkv, hd); a recurrent layer's
+    state (``_slot_state``)."""
     if kind != ATTN:
         return _slot_state(cfg, kind, lead, dt, dev)
     S = min(max_len, cfg.swa_window) if cfg.swa_window else max_len
-    shape = (*lead, S, cfg.num_kv_heads, cfg.head_dim_)
-    return {"k": torch.zeros(shape, dtype=dt, device=dev),
-            "v": torch.zeros(shape, dtype=dt, device=dev)}
+    hkv, hd = cfg.num_kv_heads, cfg.head_dim_
+    c = {"k": torch.zeros((*lead, S, hkv, hd), dtype=dt, device=dev),
+         "v": torch.zeros((*lead, S, hkv, hd), dtype=dt, device=dev)}
+    if cfg.is_encoder_decoder:
+        shape = (*lead, cfg.encoder_seq_len, hkv, hd)
+        c["cross_k"] = torch.zeros(shape, dtype=dt, device=dev)
+        c["cross_v"] = torch.zeros(shape, dtype=dt, device=dev)
+    return c
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=None,
@@ -235,7 +264,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=None,
     stacked over the n_periods layers there: attention {"k", "v"}
     (P, batch, S, hkv, hd), a recurrent layer's state with leading dims
     (P, batch) (``_cache_leaves``)."""
-    _check_supported(cfg)
     P = n_periods(cfg)
     dt = param_dtype(cfg, dtype)
     dev = resolve_device(device)
@@ -364,6 +392,8 @@ def copy_cache_pages(caches, src_blocks, dst_blocks):
 # ---------------------------------------------------------------------------
 
 def _norm(cfg, p, x):
+    if cfg.is_encoder_decoder:                       # LayerNorm with bias
+        return layers.layer_norm(x, p["w"], p["b"], cfg.norm_eps)
     return layers.rms_norm(x, p["w"], cfg.norm_eps)
 
 
@@ -417,8 +447,33 @@ def _recurrent_decode(cfg, kind, p, h, sc):
     return o
 
 
+def _cross(cfg, sp, x, sc, enc_out=None):
+    """An encoder-decoder block's cross-attention residual: from the
+    encoder output enc_out (b, se, d), writing the cross K/V into
+    `sc["cross_k"]` / `["cross_v"]` in place (prefill), or, without
+    enc_out, from those cached K/V (decode). Other models: x as it is."""
+    if not cfg.is_encoder_decoder:
+        return x
+    hx = _norm(cfg, sp["lnx"], x)
+    if enc_out is None:
+        o, _ = layers.cross_attn(sp["xattn"], hx, cfg,
+                                 enc_kv={"k": sc["cross_k"],
+                                         "v": sc["cross_v"]})
+        return x + o
+    o, ekv = layers.cross_attn(sp["xattn"], hx, cfg, enc_out=enc_out)
+    for n in ("k", "v"):
+        if ekv[n].shape != sc["cross_" + n].shape:
+            raise ValueError(f"encoder K/V of shape {tuple(ekv[n].shape)}; "
+                             f"the cache holds "
+                             f"{tuple(sc['cross_' + n].shape)} "
+                             f"(encoder_seq_len {cfg.encoder_seq_len})")
+        sc["cross_" + n].copy_(ekv[n])
+    return x + o
+
+
 def apply_sublayer_seq(cfg, kind, sp, x, sc, *, positions, dest_blocks=None,
-                       kv_start=None, valid=None, lens=None, slot_ids=None):
+                       kv_start=None, valid=None, lens=None, slot_ids=None,
+                       enc_out=None):
     """One block over whole prompts x (m, P, d): right-padded (lens (m,)),
     or left-padded from kv_start (m,) (static batching), with `valid`
     (m, P) marking the real steps. An attention layer's K/V rows go into
@@ -426,8 +481,9 @@ def apply_sublayer_seq(cfg, kind, sp, x, sc, *, positions, dest_blocks=None,
     dest_blocks, into the contiguous cache `sc` (``layers.write_cache``: a
     full cache or the sliding-window ring); a recurrent layer (Mamba,
     mLSTM, sLSTM) scans from a zero state and writes each row's final
-    state into slot slot_ids[row] of `sc` (None: row i into row i).
-    Returns x."""
+    state into slot slot_ids[row] of `sc` (None: row i into row i). An
+    encoder-decoder block then attends to the encoder output enc_out
+    (``_cross``, caching its K/V). Returns x."""
     h = _norm(cfg, sp["ln1"], x)
     if kind != ATTN:
         o, rows = _recurrent_prefill(cfg, kind, sp["mixer"], h, sc,
@@ -441,20 +497,21 @@ def apply_sublayer_seq(cfg, kind, sp, x, sc, *, positions, dest_blocks=None,
             layers.write_cache(sc, k, v, window=cfg.swa_window)
         else:
             scatter_rows_to_pages(sc, {"k": k, "v": v}, dest_blocks)
-    return _ffn(cfg, sp, x + o)
+    return _ffn(cfg, sp, _cross(cfg, sp, x + o, sc, enc_out))
 
 
 def apply_sublayer_decode(cfg, kind, sp, x, sc, *, pos, kv_start=None):
     """One block for a single decode token per row against the contiguous
     cache `sc` (pos a scalar or (b,) per-row positions; kv_start (b,) the
-    left padding), in place."""
+    left padding), in place; an encoder-decoder block also attends to its
+    cached cross K/V."""
     h = _norm(cfg, sp["ln1"], x)
     if kind != ATTN:
         o = _recurrent_decode(cfg, kind, sp["mixer"], h, sc)
     else:
         o = layers.attn_decode(sp["mixer"], h, cfg, pos=pos, cache=sc,
                                kv_start=kv_start)
-    return _ffn(cfg, sp, x + o)
+    return _ffn(cfg, sp, _cross(cfg, sp, x + o, sc))
 
 
 def apply_sublayer_decode_paged(cfg, kind, sp, x, sc, *, pos, block_tables):
@@ -498,11 +555,64 @@ def apply_sublayer_verify_paged(cfg, kind, sp, x, sc, *, positions, q_len,
 # ---------------------------------------------------------------------------
 
 def _embed(cfg, params, tokens):
-    return params["embed"][tokens]
+    x = params["embed"][tokens]
+    if cfg.family == "vlm":                      # gemma-style scaling
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    return x
 
 
 def _head(cfg, params, x):
-    return quant.mm(_norm(cfg, params["final_norm"], x), params["lm_head"])
+    x = _norm(cfg, params["final_norm"], x)
+    if cfg.tie_embeddings:
+        return x @ params["embed"].T
+    return quant.mm(x, params["lm_head"])
+
+
+def _encoder_forward(cfg, params, frames):
+    """Whisper's encoder over stub frame embeddings frames (b, se, d), cast
+    to the model's dtype: sinusoidal positions, num_encoder_layers blocks
+    of bidirectional attention (#1, non-causal) and MLP, the final
+    LayerNorm. Returns (b, se, d)."""
+    ep = params["encoder"]
+    w = ep["final_norm"]["w"]
+    x = torch.as_tensor(frames, device=w.device).to(w.dtype)
+    b, se, d = x.shape
+    pos = torch.arange(se, device=x.device)[None].expand(b, se)
+    x = x + layers.sinusoidal_positions(pos, d).to(x.dtype)
+    stack = ep["blocks"]["sub0"]
+    for i in range(cfg.num_encoder_layers):
+        pp = {k: {n: t[i] for n, t in v.items()} for k, v in stack.items()}
+        x = x + layers.attn_encoder(pp["mixer"], _norm(cfg, pp["ln1"], x),
+                                    cfg)
+        x = x + layers.mlp(pp["mlp"], _norm(cfg, pp["ln2"], x), cfg)
+    return layers.layer_norm(x, w, ep["final_norm"]["b"], cfg.norm_eps)
+
+
+def _add_positions(cfg, x, positions):
+    """Whisper's decoder adds sinusoidal positions (b, s) to its token
+    embeddings x (b, s, d), as it has no RoPE; other models: x."""
+    if cfg.is_encoder_decoder and cfg.rope_theta == 0.0:
+        return x + layers.sinusoidal_positions(positions,
+                                               cfg.d_model).to(x.dtype)
+    return x
+
+
+def _prep_input_seq(cfg, params, batch):
+    """batch["tokens"] (b, st) (+ the modality stubs) -> (x, positions,
+    prefix): the embeddings, paligemma's ``image_embeds`` (b, n_img, d)
+    before them (prefix = n_img), positions arange(s) of the whole
+    sequence, and whisper's sinusoidal positions added."""
+    dev = params["embed"].device
+    tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+    x = _embed(cfg, params, tokens)
+    prefix = 0
+    if cfg.num_image_tokens:
+        img = torch.as_tensor(batch["image_embeds"], device=dev)
+        x = torch.cat([img.to(x.dtype), x], dim=1)
+        prefix = cfg.num_image_tokens
+    b, s = x.shape[:2]
+    positions = torch.arange(s, device=dev)[None].expand(b, s)
+    return _add_positions(cfg, x, positions), positions, prefix
 
 
 # ---------------------------------------------------------------------------
@@ -518,14 +628,18 @@ def prefill(cfg: ModelConfig, params, batch, cache, *, kv_start=None,
     kv_start (b,) marks LEFT-padded rows (static batching; logits from the
     last column), lens (b,) RIGHT-padded ones (row i's prompt is
     [0, lens[i]), its pad steps leave the recurrent state alone and its
-    logits come from its own last real token). Returns (logits (b, V),
-    cache)."""
+    logits come from its own last real token). The batch also carries the
+    modality stubs: whisper's ``enc_frames`` (the encoder runs first and
+    every decoder layer caches its cross K/V), paligemma's
+    ``image_embeds`` (the sequence's first num_image_tokens positions).
+    Returns (logits (b, V), cache)."""
     if kv_start is not None and lens is not None:
         raise ValueError("pick one padding convention")
-    tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device)
-    b, s = tokens.shape
-    x = _embed(cfg, params, tokens.long())
-    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    x, positions, _ = _prep_input_seq(cfg, params, batch)
+    b, s = x.shape[:2]
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        enc_out = _encoder_forward(cfg, params, batch["enc_frames"])
     valid = None
     if kv_start is not None:
         kv_start = torch.as_tensor(kv_start, device=x.device).long()
@@ -538,7 +652,7 @@ def prefill(cfg: ModelConfig, params, batch, cache, *, kv_start=None,
                                slice_layer_params(cfg, params, i), x,
                                _layer_cache(cfg, cache, i),
                                positions=positions, kv_start=kv_start,
-                               valid=valid, lens=lens)
+                               valid=valid, lens=lens, enc_out=enc_out)
     if lens is not None:
         x = x[torch.arange(b, device=x.device), lens - 1][:, None]
     else:
@@ -555,6 +669,7 @@ def decode_step(cfg: ModelConfig, params, tokens, cache, pos, *,
     tokens = torch.as_tensor(tokens, device=params["embed"].device).long()
     x = _embed(cfg, params, tokens[:, None])
     pos = torch.as_tensor(pos, device=x.device)
+    x = _add_positions(cfg, x, pos.long().expand(x.shape[0])[:, None])
     if kv_start is not None:
         kv_start = torch.as_tensor(kv_start, device=x.device)
     for i in range(cfg.num_layers):

@@ -19,8 +19,9 @@ iteration, one block swap, one fetch, one handoff).
 
 ``report()`` yields one row per (replica, phase) with absolute and
 relative error, and ``feed()`` pushes the errors into a drift detector
-(duck-typed: anything with ``observe_model_error``, as the reference's
-``core.resched.DriftDetector``) as the model-error drift signal.
+(duck-typed: anything with ``observe_model_error``, as
+``repro_torch.core.resched.DriftDetector``) as the model-error drift
+signal.
 
 Port of repro.obs.calibration, line for line.
 """

@@ -44,6 +44,11 @@ asymmetric pipeline with per-stage slot pools) and the paged
   * the cluster prefix directory (``attach_cluster``): a prefix resident
     only on a peer replica is fetched from it over the modelled KV link
     (``export_prefix_block``, ``_materialize_hash``);
+  * online rescheduling: a decoding slot moves to another replica mid-
+    decode with its pages, sampling state and emitted tokens
+    (``extract_live_slots``, the live branch of ``_place_migrations``),
+    and a killed replica releases everything in flight and hands its
+    requests back for a cold re-prefill elsewhere (``evacuate``);
   * KVSAN (``kvsan=True``): every pool's page lifecycle shadowed and
     audited at each iteration boundary (``_kvsan_audit``);
   * tracing: a live ``Tracer`` in ``self.tracer`` records the lifecycle
@@ -52,8 +57,7 @@ asymmetric pipeline with per-stage slot pools) and the paged
 The host logic is the reference's, line for line where it can be, so both
 engines make the same admission, allocation, preemption, migration and
 tier decisions and the same ServeStats counters and trace events come
-out. The reference's live-slot migration and evacuation (online
-rescheduling) wait for a later slice (ROADMAP.md).
+out.
 """
 from __future__ import annotations
 
@@ -727,7 +731,12 @@ class PagedPipelineBatcher(SlotEngine):
         while self._migrations and self._migrations[0][0] <= now:
             mig = self._migrations[0][2]
             r = mig.req
-            remaining = r.max_new_tokens
+            # a LIVE migration (online rescheduler moving a mid-decode
+            # slot) arrives with the tokens the source already emitted;
+            # the destination owes only the remainder of the generation
+            out = list(mig.out_tokens) if mig.out_tokens is not None \
+                else []
+            remaining = r.max_new_tokens - len(out)
             need_all = blocks_for_tokens(
                 mig.n_tokens + remaining, self.block_size)
             if need_all > self._usable_blocks() \
@@ -747,6 +756,11 @@ class PagedPipelineBatcher(SlotEngine):
             if not free or self._min_pool_free() < need_now:
                 break                  # wait for slots/blocks to free
             heapq.heappop(self._migrations)
+            if remaining <= 0:
+                # the source extracted a slot that had already emitted its
+                # whole budget: nothing left to decode, complete it here
+                comps.append((r, np.asarray(out, np.int32), None))
+                continue
             self._ensure_device_caches()
             slot = free[0]
             dest = []
@@ -766,7 +780,7 @@ class PagedPipelineBatcher(SlotEngine):
                         self._san.slot_access(si, d, mig.n_tokens, 0,
                                               self.block_size)
             self.slots[slot] = _Slot(req=r, pos=mig.n_tokens,
-                                     remaining=remaining, out=[],
+                                     remaining=remaining, out=out,
                                      seq=self._admit_seq)
             self._admit_seq += 1
             self._last_logits[slot] = mig.last_logits
@@ -805,6 +819,78 @@ class PagedPipelineBatcher(SlotEngine):
             self.dispatcher.send(self, mig, now)
             self._on_slot_free(i)
             self.slots[i] = _Slot()
+
+    # ---- live migration / evacuation (online rescheduling) -----------------
+    def extract_live_slots(self, now: float,
+                           slot_ids: Optional[Sequence[int]] = None
+                           ) -> List[KVMigration]:
+        """Package DECODING slots as live ``KVMigration``s — pages (torch
+        payloads at pool precision, with their scales on int8 / fp8 pools),
+        sampling state, AND the tokens already emitted (``out_tokens``) —
+        then free them. The destination's ``_place_migrations`` resumes
+        the stream mid-flight: same pages, same ``last_logits``, same
+        ``out`` prefix, so the token stream is identical to never having
+        moved. Mid-prefill slots are not extractable (their cache is
+        partial); ``evacuate`` requeues those for a cold re-prefill.
+
+        This is the PLANNED-migration half of the online rescheduler: a
+        healthy replica being rebalanced away hands its in-flight work to
+        the new layout without draining."""
+        ids = range(self.n_slots) if slot_ids is None else slot_ids
+        order = sorted((i for i in ids if self.slots[i].decoding),
+                       key=lambda i: self.slots[i].seq)
+        migs: List[KVMigration] = []
+        for i in order:
+            s = self.slots[i]
+            blocks = [list(tabs[i].blocks) if tabs is not None else None
+                      for tabs in self._tables]
+            if self._san is not None:
+                for si, b in enumerate(blocks):
+                    if b is not None:   # pure read: the handoff extraction
+                        self._san.slot_access(si, b, s.pos, s.pos,
+                                              self.block_size)
+            layer_kv = self.pipeline.extract_kv_pages(blocks)
+            migs.append(KVMigration(
+                req=s.req, n_tokens=s.pos, block_size=self.block_size,
+                layer_kv=layer_kv,
+                last_logits=np.array(self._last_logits[i]),
+                kv_bytes=KVMigration.payload_bytes(layer_kv),
+                out_tokens=np.asarray(s.out, np.int32)))
+            self.migrations += 1
+            self.migrated_kv_bytes += migs[-1].kv_bytes
+            if self.tracer.enabled:
+                self.tracer.instant("live_move", ts=now,
+                                    pid=self.replica_id, rid=s.req.rid,
+                                    tokens=s.pos,
+                                    bytes=migs[-1].kv_bytes)
+            self._on_slot_free(i)
+            self.slots[i] = _Slot()
+        return migs
+
+    def evacuate(self, now: float) -> List[Request]:
+        """Release EVERYTHING in flight and return the orphaned requests:
+        queued arrivals, mid-prefill slots, decoding slots, and in-transit
+        migrations parked at this replica. Every page is released through
+        the normal table path (KVSAN-clean — death must not leak), and the
+        requests restart from their prompts wherever the caller
+        re-dispatches them; greedy decode regenerates the identical token
+        stream, so a replica kill costs latency, never correctness.
+
+        This is the FAILURE half of the online rescheduler (and the
+        drain-free teardown for planned removals after
+        ``extract_live_slots`` took the movable slots)."""
+        orphans: List[Request] = list(self._queue)
+        self._queue.clear()
+        for i, s in enumerate(self.slots):
+            if s.free:
+                continue
+            orphans.append(s.req)
+            self._on_slot_free(i)
+            self.slots[i] = _Slot()
+        while self._migrations:
+            _, _, mig = heapq.heappop(self._migrations)
+            orphans.append(mig.req)
+        return orphans
 
     # ---- SlotEngine hooks --------------------------------------------------
     def _fits(self, r: Request) -> bool:

@@ -60,9 +60,13 @@ class KVMigration:
     partial tail block travelling with its (masked, never-read) garbage.
     ``last_logits`` is the prefill's last-position logits: greedy decode on
     the destination argmaxes exactly what the colocated engine would have,
-    so the handoff is bit-invisible to the token stream. (The reference's
-    ``out_tokens`` field, for moving a slot mid-decode, arrives with online
-    rescheduling, ROADMAP queue 1 item 4d.)
+    so the handoff is bit-invisible to the token stream.
+
+    ``out_tokens`` rides along for MID-DECODE migrations (the online
+    rescheduler moving a live slot between layouts): the tokens the source
+    already emitted, so the destination resumes the stream mid-flight
+    instead of restarting it. ``n_tokens`` then counts prompt + emitted
+    tokens resident in the pages. None for the ordinary prefill handoff.
     """
 
     req: object                    # serving.request.Request
@@ -71,6 +75,7 @@ class KVMigration:
     layer_kv: List[Dict[str, "torch.Tensor"]]
     last_logits: np.ndarray        # (vocab,) float32 sampling state
     kv_bytes: int                  # payload size, drives the transfer model
+    out_tokens: Optional[np.ndarray] = None   # emitted tokens (live move)
 
     @staticmethod
     def payload_bytes(layer_kv: Sequence[Dict[str, "torch.Tensor"]]) -> int:

@@ -322,8 +322,8 @@ def run_serve_loop(workers: Sequence, requests: Sequence, *, deadline: float,
                 "host_hit_tokens", "prefix_fetches", "prefix_fetched_bytes",
                 "kvsan_leaks")
     # MEMBERSHIP IS DYNAMIC: `workers` is consulted live each cycle, so a
-    # caller removing a dead replica or adding a new one mid-serve is
-    # visible next iteration.
+    # controller (serving.resched.OnlineRescheduler) removing a dead
+    # replica or adding a new one mid-serve is visible next iteration.
     # `seen` retains every worker that EVER served this replay with its
     # counter baseline, so a removed replica's pre-removal work still
     # lands in the final ServeStats instead of vanishing with it.

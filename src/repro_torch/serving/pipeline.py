@@ -78,8 +78,13 @@ class StageExecutor:
                              for i in range(lo, hi)]
         self.head_params = None
         if is_first or is_last:
-            self.head_params = place(
-                {n: params[n] for n in ("embed", "final_norm", "lm_head")})
+            # no lm_head under tied embeddings; the encoder runs on the
+            # first stage
+            names = [n for n in ("embed", "final_norm", "lm_head")
+                     if n in params]
+            if cfg.is_encoder_decoder and is_first:
+                names.append("encoder")
+            self.head_params = place({n: params[n] for n in names})
 
     @property
     def has_attn(self) -> bool:
@@ -110,16 +115,19 @@ class StageExecutor:
                 for i in range(self.lo, self.hi)]
 
     def prefill(self, x, caches, positions, *, dest_blocks=None,
-                kv_start=None, valid=None, lens=None, slot_ids=None):
+                kv_start=None, valid=None, lens=None, slot_ids=None,
+                enc_out=None):
         """The stage's layers over whole prompts (``M.apply_sublayer_seq``):
         attention K/V into pages through dest_blocks, or into the
-        contiguous `caches`."""
+        contiguous `caches`; an encoder-decoder's layers attend to enc_out
+        and cache its cross K/V."""
         for kind, lp, sc in zip(self.kinds, self.layer_params, caches):
             x = M.apply_sublayer_seq(self.cfg, kind, lp, x, sc,
                                      positions=positions,
                                      dest_blocks=dest_blocks,
                                      kv_start=kv_start, valid=valid,
-                                     lens=lens, slot_ids=slot_ids)
+                                     lens=lens, slot_ids=slot_ids,
+                                     enc_out=enc_out)
         return x
 
     def decode(self, x, caches, pos, kv_start=None):
@@ -193,9 +201,16 @@ class AsymmetricPipeline:
     def _tables(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.int32), device=self.device)
 
-    def _embed(self, tokens):
-        return M._embed(self.cfg, self.stages[0].head_params,
-                        self._ints(tokens))
+    def _embed(self, tokens, batch_extras=None):
+        """Token embeddings (gemma's scale on a VLM), after a VLM's image
+        prefix batch_extras["image_embeds"] (b, n_img, d)."""
+        x = M._embed(self.cfg, self.stages[0].head_params,
+                     self._ints(tokens))
+        if self.cfg.num_image_tokens:
+            img = torch.as_tensor(batch_extras["image_embeds"],
+                                  device=self.device)
+            x = torch.cat([img.to(x.dtype), x], dim=1)
+        return x
 
     def _head(self, x) -> np.ndarray:
         logits = M._head(self.cfg, self.stages[-1].head_params, x)
@@ -204,43 +219,71 @@ class AsymmetricPipeline:
     # ---- static batching ---------------------------------------------------
     @torch.inference_mode()
     def prefill(self, tokens: np.ndarray, *, kv_start=None,
-                max_new: int = 32) -> np.ndarray:
+                max_new: int = 32, batch_extras=None) -> np.ndarray:
         """Prompt pass of the whole batch `tokens` (b, s), left-padded
         (kv_start (b,): each row's first real index; None: no padding),
-        into fresh contiguous caches of s + max_new positions (the sliding-
-        window ring of a SWA model). Returns last-position logits (b, V)."""
+        into fresh contiguous caches of s + num_image_tokens + max_new
+        positions (the sliding-window ring of a SWA model). batch_extras
+        carries the modality stubs: whisper's ``enc_frames`` (b, se, d),
+        through the encoder on the first stage, whose output every
+        decoder layer attends to and caches as cross K/V; paligemma's
+        ``image_embeds`` (b, n_img, d), the sequence's first positions.
+        Without them such a model raises KeyError, as the reference does.
+        Returns last-position logits (b, V)."""
+        cfg = self.cfg
         tokens = np.asarray(tokens)
         b, s = tokens.shape
+        total = s + cfg.num_image_tokens
         self.caches = None                  # free the old batch's first
-        self.caches = [st.make_caches(b, s + max_new) for st in self.stages]
+        self.caches = [st.make_caches(b, total + max_new)
+                       for st in self.stages]
         self._kv_start = None if kv_start is None else self._ints(kv_start)
-        x = self._embed(tokens)
-        positions = torch.arange(s, device=self.device)[None].expand(b, s)
+        batch_extras = batch_extras or {}
+        enc_out = None
+        if cfg.is_encoder_decoder:
+            enc_out = M._encoder_forward(cfg, self.stages[0].head_params,
+                                         batch_extras["enc_frames"])
+        x = self._embed(tokens, batch_extras)
+        positions = torch.arange(total, device=self.device)[None].expand(
+            b, total)
+        x = M._add_positions(cfg, x, positions)
         valid = None
         if self._kv_start is not None:
             valid = (positions >= self._kv_start[:, None]).to(torch.int32)
         for si, st in enumerate(self.stages):
             x = st.prefill(x, self.caches[si], positions,
-                           kv_start=self._kv_start, valid=valid)
-        self._pos = s
+                           kv_start=self._kv_start, valid=valid,
+                           enc_out=enc_out)
+        self._pos = total
         return self._head(x[:, -1:])[:, 0]
+
+    def _embed_decode_tokens(self, tokens, positions):
+        """Single-token decode embedding (b, 1, d): the lookup, the
+        family's scale, and sinusoidal positions (b,) where the
+        architecture uses them."""
+        x = M._embed(self.cfg, self.stages[0].head_params,
+                     self._ints(tokens)[:, None])
+        return M._add_positions(self.cfg, x, positions[:, None])
 
     @torch.inference_mode()
     def decode_step(self, tokens: np.ndarray) -> np.ndarray:
         """tokens (b,) at the batch's next position -> logits (b, V)."""
-        x = self._embed(np.asarray(tokens)[:, None])
+        tokens = np.asarray(tokens)
         pos = torch.tensor(self._pos, device=self.device)
+        x = self._embed_decode_tokens(tokens, pos.expand(tokens.shape[0]))
         for si, st in enumerate(self.stages):
             x = st.decode(x, self.caches[si], pos, self._kv_start)
         self._pos += 1
         return self._head(x)[:, 0]
 
     def generate(self, tokens: np.ndarray, *, max_new: int,
-                 kv_start=None) -> np.ndarray:
-        """Greedy generation of the left-padded batch: (b, max_new) ids.
-        The reference also decodes the last token, whose logits nobody
-        reads; that step is skipped (the same tokens)."""
-        logits = self.prefill(tokens, kv_start=kv_start, max_new=max_new)
+                 kv_start=None, batch_extras=None) -> np.ndarray:
+        """Greedy generation of the left-padded batch: (b, max_new) ids
+        (``batch_extras``: the modality stubs, as in ``prefill``). The
+        reference also decodes the last token, whose logits nobody reads;
+        that step is skipped (the same tokens)."""
+        logits = self.prefill(tokens, kv_start=kv_start, max_new=max_new,
+                              batch_extras=batch_extras)
         out = []
         for step in range(max_new):
             nxt = logits.argmax(-1).astype(np.int32)

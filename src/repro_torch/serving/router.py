@@ -308,6 +308,19 @@ class Router:
         self.host_route_weight = host_route_weight
         self._route_rng = (np.random.RandomState(route_seed)
                            if route_seed is not None else None)
+        # online rescheduling: an attached controller rides self.workers
+        # as one more loop citizen (serving.resched.OnlineRescheduler) and
+        # sees every admission for drift detection
+        self.controller = None
+
+    def attach_controller(self, controller) -> None:
+        """Attach an online-rescheduling controller: it observes every
+        dispatched request (drift detection) and, while ``serve`` runs,
+        participates in the loop to execute kills/re-solves/migrations.
+        ``self.workers`` is the LIVE membership list the controller
+        mutates — the serve loop re-reads it every cycle."""
+        self.controller = controller
+        controller.bind(self)
 
     # ---- admission dispatch (serving.loop hook) --------------------------
     def _route_key(self, w, now: float):
@@ -325,6 +338,8 @@ class Router:
         is cheaper than recompute but dearer than an alias), and the
         bonus is scaled by ``prefix_route_weight`` into queue-depth
         units — so a deep queue still beats a marginal prefix hit."""
+        if self.controller is not None:
+            self.controller.observe_admit(now, req)
         if self.cluster_dir is None or self.prefix_route_weight <= 0:
             return min(cands, key=lambda w: self._route_key(w, now))
         hashes = chunk_hashes(req.prompt, self.block_size)
@@ -339,8 +354,11 @@ class Router:
 
     def bind_tracer(self, tracer) -> None:
         """Hand every tracing-aware collaborator the live tracer: workers
-        (span emission sites), their proposers (draft instants) and the KV
-        dispatcher (migration spans)."""
+        (span emission sites), their proposers (draft instants), the KV
+        dispatcher (migration spans), and the controller (replica_kill
+        instants). Workers created after a controller reschedule inherit
+        it via ``replace_workers`` calling back through the controller's
+        ``tracer`` attribute."""
         for w in self.workers:
             if hasattr(w, "tracer"):
                 w.tracer = tracer
@@ -349,18 +367,30 @@ class Router:
                 prop.tracer = tracer
         if self.dispatcher is not None:
             self.dispatcher.tracer = tracer
+        if self.controller is not None:
+            self.controller.tracer = tracer
 
     def serve(self, requests: Sequence[Request], deadline: float, *,
               clock=None, tracer=None, metrics=None) -> ServeStats:
         """Replays a timed workload; wall-clock by default, or any clock
-        (VirtualClock for deterministic replay). A ``tracer``
-        (repro_torch.obs.trace.Tracer) is bound to every worker for
-        lifecycle spans; a ``metrics`` registry
+        (VirtualClock for deterministic replay). An attached controller
+        (``attach_controller``) joins ``self.workers`` for the replay — the
+        SAME list object the loop re-reads each cycle, so the controller's
+        membership edits (kills, re-solved layouts) are visible next
+        iteration. A ``tracer`` (repro_torch.obs.trace.Tracer) is bound to
+        every worker for lifecycle spans; a ``metrics`` registry
         (repro_torch.obs.metrics.MetricsRegistry) receives per-replica
         counters and pool gauges at the end of the replay."""
         if tracer is not None and tracer.enabled:
             self.bind_tracer(tracer)
-        return run_serve_loop(
-            self.workers, requests, deadline=deadline,
-            clock=clock if clock is not None else WallClock(),
-            dispatch=self._dispatch, tracer=tracer, metrics=metrics)
+        ctl = self.controller
+        if ctl is not None and ctl not in self.workers:
+            self.workers.append(ctl)
+        try:
+            return run_serve_loop(
+                self.workers, requests, deadline=deadline,
+                clock=clock if clock is not None else WallClock(),
+                dispatch=self._dispatch, tracer=tracer, metrics=metrics)
+        finally:
+            if ctl is not None and ctl in self.workers:
+                self.workers.remove(ctl)

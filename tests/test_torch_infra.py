@@ -39,11 +39,13 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                 "repro_torch.")]
 for n in names:
     importlib.import_module(n)
+import chip_smoke                    # the card's smoke script, likewise
 bad = sorted(k for k in sys.modules if k == "repro" or k.startswith("repro."))
 assert not bad, bad
 assert "repro_torch.models.xlstm" in names, names
 for sub in ("obs.trace", "obs.metrics", "obs.calibration", "obs.report",
-            "analysis.kvsan", "serving.disagg", "serving.cluster_kv"):
+            "analysis.kvsan", "serving.disagg", "serving.cluster_kv",
+            "core.resched", "serving.resched"):
     assert "repro_torch." + sub in names, (sub, names)
 print(len(names))
 """
@@ -51,7 +53,8 @@ print(len(names))
 
 def test_port_imports_without_jax_or_the_jax_package():
     # conftest.py already imported jax in this process: use a fresh one
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join([os.path.join(ROOT, "src"), ROOT]))
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

@@ -1,6 +1,6 @@
 """The port's observability (repro_torch.obs) against the JAX package's
-(repro.obs), on the CPU (mirrors tests/test_obs.py but its drift-detector
-cases, which wait for online rescheduling):
+(repro.obs), on the CPU (mirrors tests/test_obs.py; its drift-detector
+cases run on both packages' detectors in tests/test_torch_resched.py):
 
   * the Tracer, the MetricsRegistry, ServeStats.merge / publish /
     from_metrics and the CostCalibrator give the reference's events, rows
@@ -29,7 +29,6 @@ import pytest
 from repro.configs import get_config
 from repro.core import cost_model as jcm
 from repro.core import plan as jplan
-from repro.core.resched import DriftDetector
 from repro.launch import serve as jserve
 from repro.models import model as JM
 from repro.obs import calibration as jcal
@@ -47,6 +46,7 @@ from repro_torch import bridge
 from repro_torch.configs import get_config as port_config
 from repro_torch.core import cost_model as pcm
 from repro_torch.core import plan as pplan
+from repro_torch.core.resched import DriftDetector
 from repro_torch.launch import serve as pserve
 from repro_torch.obs import calibration as pcal
 from repro_torch.obs import metrics as pmet
@@ -240,8 +240,8 @@ def test_calibrator_and_table_equal_reference():
 
 
 def test_calibrator_feed_reaches_a_detector():
-    # feed() is duck-typed: the reference's DriftDetector takes the
-    # port's rows and fires its model-error signal
+    # the port's calibrator drives the port's DriftDetector, which fires
+    # its model-error signal
     cal = pcal.CostCalibrator()
     cal.predict(0, "decode", 1.0)
     cal.observe(0, "decode", 2.0)
