@@ -174,7 +174,26 @@ JAX. Phases, each of which raises on failure:
      plain versions (equal tokens, prefill logits within 2e-4); (d) #1 at
      head dim 256 and on the cross shapes (1 and 37 queries against 1500
      keys, the 1500 x 1500 encoder), #8 at head dim 256, against their
-     plain versions in bf16 and fp32, then timed at the serving shapes.
+     plain versions in bf16 and fp32, then timed at the serving shapes;
+ 10. training through the backward kernels: (a) llama2-70b at full width,
+     2 layers, fp32, batch 2 x 512, and (b) jamba-v0.1-52b reduced, fp32,
+     three steps of batch 2 x 300 (three scan chunks): each step's loss
+     and gradients through the kernels and through the plain versions
+     from the same weights (loss within 1e-5 relative, every gradient
+     leaf within 1e-4 of its largest magnitude; the backward kernels
+     launched by the kernel runs only), then the train step (AdamW)
+     through the kernels; (c) #1's backward at (4, 1024, 64 / 8, 128),
+     bf16 and fp32, causal and not, #1's training forward (o and lse)
+     and backward at the zoo's g 48 / d 128 and g 3 / d 64 (groups that
+     do not divide the bf16 body's 64-row warpgroups), and #9's at
+     Jamba's layer width (4, 1024, 8192, 16) against their plain
+     versions, two runs of each bit for bit, #1's bf16 backward against
+     the fp32 plain version (F4),
+     then both timed beside their bounds and plain versions (and SDPA's
+     backward for #1); (d) llama2-70b at 4 layers, bf16, batch 4 x 1024,
+     five train steps through the kernels: step ms, tokens/s, peak
+     memory, step 1's loss beside the plain bf16 forward's, and one more
+     step profiled.
 
 ``python3 chip_smoke.py --sass-of TREE OUT.json`` instead builds the
 kernels of another checkout (the parent commit's ``git archive``) and
@@ -189,7 +208,8 @@ at g 48 and #1, #2, #5, #6 at g 3 with phase 7's granite-20b and
 granite-moe-3b launches and the times at their shapes (#7 at both widths
 is timed and logged; no serve launches it there), and #1 at head dim 256
 and on whisper's cross shapes and #8 at head dim 256 with phase 9 (c)'s
-launches and the times at their shapes.
+launches and the times at their shapes, and the two backward kernels with
+phase 10's train steps' launches and the times at (c)'s shapes.
 """
 from __future__ import annotations
 
@@ -197,6 +217,7 @@ import collections
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import math
 import os
@@ -241,6 +262,12 @@ KERNEL_INFO = {
         "src/repro/kernels/paged_attention.py:438"),
     "ssm_scan": ("src/repro_torch/csrc/ssm_scan.cu",
                  "src/repro/kernels/ssm_scan.py:54"),
+    # the backward kernels replace the reference's hand-written VJPs (XLA
+    # custom VJPs around #1's and #9's functions, not Pallas kernels)
+    "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                            "src/repro/kernels/ops.py:185"),
+    "ssm_scan_bwd": ("src/repro_torch/csrc/ssm_scan_bwd.cu",
+                     "src/repro/kernels/ops.py:609"),
 }
 
 
@@ -422,19 +449,20 @@ SCAN_OPS = ("MUFU.EX2", "SHFL.BFLY", "LDGSTS")
 
 
 def check_scan_build(so):
-    """The scan library's 12 kernels (d_state 4 / 8 / 16 x x, dt in fp32 /
-    bf16), one line each: registers, spills, its exponentials (MUFU.EX2),
-    the lane tree's shuffles (SHFL.BFLY), its cp.async copies (LDGSTS) and
-    a digest of the code. None may spill, and each must show all three."""
+    """The scan library's 24 kernels (d_state 4 / 8 / 16 x x, dt in fp32 /
+    bf16, serving and training's STATES instances), one line each:
+    registers, spills, its exponentials (MUFU.EX2), the lane tree's
+    shuffles (SHFL.BFLY), its cp.async copies (LDGSTS) and a digest of the
+    code. None may spill, and each must show all three."""
     regs = _ptxas(so)
     parts = re.split(r"\n\s*Function : (\S+)", _sass(so))
     bodies = dict(zip(_demangle(parts[1::2]), parts[2::2]))
     digests = sass_functions(so)
     scan = sorted(n for n in bodies
                   if n.startswith("void ss::ssm_scan_kernel"))
-    if len(scan) != 12:
+    if len(scan) != 24:
         raise AssertionError(f"scan library: {len(scan)} kernels, expected "
-                             "12")
+                             "24")
     for n in scan:
         counts = {op: len(re.findall(rf"\b{re.escape(op)}\b", bodies[n]))
                   for op in SCAN_OPS}
@@ -461,18 +489,22 @@ def _nvcc_release():
 
 def check_sass_against_parent(libs):
     """Each kernel of the previous tree (PARENT_SASS, under this tree's
-    names) against this build: the same digest (kept), absent (gone), or
-    another digest (moved). Gone and moved kernels must be named in the
-    file with the reason; with another nvcc than the file's the digests
-    are not comparable, and only the counts are logged."""
+    names: "renamed" maps a name whose template arguments this tree
+    extended to its new name) against this build: the same digest (kept),
+    absent (gone), or another digest (moved). Gone and moved kernels must
+    be named in the file with the reason; with another nvcc than the
+    file's the digests are not comparable, and only the counts are logged.
+    The kernels this tree added ("added") are logged against the digests
+    recorded for them."""
     with open(PARENT_SASS) as f:
         parent = json.load(f)
     same_tool = _nvcc_release() == parent["nvcc"]
+    renamed = parent.get("renamed", {})
     kept, changed = 0, []
     for lib, digests in parent["digests"].items():
         funcs = sass_functions(libs[lib])
         for name, digest in digests.items():
-            now = funcs.get(name, (None, None))[1]
+            now = funcs.get(renamed.get(name, name), (None, None))[1]
             if now == digest:
                 kept += 1
                 continue
@@ -484,10 +516,20 @@ def check_sass_against_parent(libs):
                 raise AssertionError(f"{name}: SASS digest {now} against the "
                                      f"previous tree's {digest}, no reason "
                                      f"given in {PARENT_SASS}")
-    log(f"  sass vs {parent['commit']}: {kept} kernels keep their digest, "
-        f"{len(changed)} gone or moved"
-        + ("" if same_tool else f" (nvcc differs: {parent['nvcc']!r}, "
-           "digests not comparable)"))
+    log(f"  sass vs {parent['commit']}: {kept} kernels keep their digest "
+        f"({len(renamed)} of them under a new name), {len(changed)} gone or "
+        "moved" + ("" if same_tool else f" (nvcc differs: {parent['nvcc']!r}"
+                   ", digests not comparable)"))
+    for lib, digests in parent.get("added", {}).items():
+        funcs = sass_functions(libs[lib])
+        same = sum(funcs.get(n, (None, None))[1] == d
+                   for n, d in digests.items())
+        missing = [n for n in digests if n not in funcs]
+        if missing:
+            raise AssertionError(f"{lib}: added kernels not built: "
+                                 f"{missing}")
+        log(f"  sass {lib}: {len(digests)} kernels added since "
+            f"{parent['commit']}, {same} with their recorded digest")
 
 
 # ---------------------------------------------------------------------------
@@ -1186,19 +1228,25 @@ def _paged_verify_timing(w, quant=None):
         flops=4 * d * hq * pairs, library_ms=None)
 
 
+def _sdpa_inputs(q, k, v):
+    """q, k, v (b, s, h, d) in F.scaled_dot_product_attention's (b, h, s,
+    d) layout, and its GQA keywords: enable_gqa from torch 2.5 on, before
+    that the kv heads shared by copy."""
+    hq, hkv = q.shape[2], k.shape[2]
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    if tuple(int(x) for x in torch.__version__.split(".")[:2]) >= (2, 5):
+        return qt, kt, vt, dict(enable_gqa=True)
+    kt, vt = (t.repeat_interleave(hq // hkv, dim=1) for t in (kt, vt))
+    return qt, kt, vt, {}
+
+
 def _time_sdpa(q, k, v, flush, **kw):
     """Device ms of F.scaled_dot_product_attention on the same inputs in
     its (b, h, s, d) layout (the transposes are not timed): the library
     yardstick, never called by the port."""
-    hq, hkv = q.shape[2], k.shape[2]
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    if tuple(int(x) for x in torch.__version__.split(".")[:2]) >= (2, 5):
-        return _time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, enable_gqa=True, **kw), flush)
-    # no GQA flag: share kv heads by copy
-    kt, vt = (t.repeat_interleave(hq // hkv, dim=1) for t in (kt, vt))
-    return _time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw),
-                    flush)
+    qt, kt, vt, gqa = _sdpa_inputs(q, k, v)
+    return _time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, **gqa, **kw), flush)
 
 
 def time_kernels(dev):
@@ -1771,6 +1819,8 @@ def _kernel_group(name):
         return "attention kernels (port)"
     if name.startswith("void ss::ssm_scan_kernel"):
         return "scan (port)"
+    if name.startswith(("void fb::", "void sb::")):
+        return "backward kernels (port)"
     if any(t in name.lower() for t in ("gemm", "cutlass", "sm90_xmma",
                                        "nvjet", "gemv")):
         return "matmul (cuBLAS)"       # MoE expert einsums (bmm) included
@@ -1793,6 +1843,12 @@ def profile_serve(name, cfg, asg, params, reqs, **kw):
     from torch.profiler import ProfilerActivity, profile
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     _, wall, _ = _serve(cfg, asg, params, reqs, around=lambda: prof, **kw)
+    _log_profile(name, prof, wall)
+
+
+def _log_profile(name, prof, wall):
+    """Log a profiled run's device ms by kernel group and the share of its
+    wall `wall` (s) the card was busy."""
     groups, other = {}, {}
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total",
@@ -3344,6 +3400,428 @@ def phase_encdec_kernels(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: training (AdamW, the train step) and the backward kernels
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH = (2, 512)            # (a): llama2-70b fp32, 2 layers
+TRAIN_JAMBA_BATCH = (2, 300)      # (b): three chunks of the scan, one ragged
+TRAIN_JAMBA_STEPS = 3
+TRAIN_BF16 = (4, 1024)            # (d): llama2-70b bf16, 4 layers
+TRAIN_BF16_LAYERS = 4
+TRAIN_BF16_STEPS = 5
+GRAD_RTOL = 1e-4                  # kernels vs plain: of a leaf's largest
+LOSS_RTOL = 1e-5
+FP32_BWD_RTOL = 5e-5              # (c) fp32 kernel vs twin, of the largest
+# (c) the forward's lse against the plain version's: fp32 log-sum-exps of
+# O(1) scores over <= 1024 keys differ by ~1e-6 in summation order and
+# ex2; a row over the wrong keys or from the wrong Q is off by >= ~1e-3
+LSE_ATOL = 1e-4
+
+
+def _nonzero(counts):
+    return {k: n for k, n in counts.items() if n}
+
+
+def _train_batch(cfg, b, s, seed, step=0):
+    """Step `step`'s SyntheticStream batch on the card (the models trained
+    here take no modality stubs)."""
+    from repro_torch.training.data import DataConfig, SyntheticStream
+    data = SyntheticStream(DataConfig(cfg.vocab_size, s, b, seed=seed))
+    return {"tokens": torch.as_tensor(data.batch(step)["tokens"],
+                                      device=DEVICE)}
+
+
+def _loss_and_grads(cfg, params, batch):
+    """loss_fn's value and a copy of every float leaf's gradient (in
+    optimizer.leaves order), the grads left cleared."""
+    from repro_torch.models import model as M
+    from repro_torch.training import optimizer
+    leaves = [p for p in optimizer.leaves(params) if p.is_floating_point()]
+    for p in leaves:
+        p.requires_grad_(True)
+        p.grad = None
+    loss = M.loss_fn(cfg, params, batch)
+    loss.backward()
+    grads = [p.grad.clone() if p.grad is not None else torch.zeros_like(p)
+             for p in leaves]
+    for p in leaves:
+        p.grad = None
+    return float(loss.detach()), grads
+
+
+def _gate_grads(what, loss_k, grads_k, loss_p, grads_p):
+    """Raise unless the kernels' loss is within LOSS_RTOL of the plain
+    versions' and every gradient leaf within GRAD_RTOL of its largest
+    magnitude. Returns the worst leaf's error over that magnitude."""
+    if not abs(loss_k - loss_p) <= LOSS_RTOL * abs(loss_p):
+        raise AssertionError(f"{what}: loss {loss_k} through the kernels, "
+                             f"{loss_p} through the plain versions")
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(grads_k, grads_p)):
+        scale = float(w.abs().max())
+        err = float((g - w).abs().max()) / max(scale, 1e-30)
+        if not (math.isfinite(err) and err <= GRAD_RTOL):
+            raise AssertionError(f"{what}: gradient leaf {i} "
+                                 f"{tuple(w.shape)}: max err {err:.3g} of "
+                                 f"its largest magnitude {scale:.3g}")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_train_parity():
+    """Phase 10 (a), (b): fp32 train steps through the kernels and through
+    the plain versions from the same weights: (a) llama2-70b at full
+    width, 2 layers, batch TRAIN_BATCH; (b) jamba-v0.1-52b reduced,
+    TRAIN_JAMBA_STEPS steps, each step's gradients held before the
+    kernels' update. The backward kernels run in the kernel runs only.
+    Returns the kernel runs' launch counts."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import MAMBA
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.training import optimizer
+    from repro_torch.training.train_step import make_train_step
+    counts = dict.fromkeys(ops.KERNELS, 0)
+    opt_cfg = optimizer.AdamWConfig(lr=1e-4, warmup_steps=1,
+                                    total_steps=10)
+    llama = dataclasses.replace(_llama(2), dtype="float32")
+    jamba = get_config("jamba-v0.1-52b").reduced()
+    for cfg, (b, s), steps in ((llama, TRAIN_BATCH, 1),
+                               (jamba, TRAIN_JAMBA_BATCH,
+                                TRAIN_JAMBA_STEPS)):
+        params = M.init_params(cfg, 0, device=DEVICE)
+        state = optimizer.init(params)
+        step_fn = make_train_step(cfg, opt_cfg)
+        for step in range(steps):
+            batch = _train_batch(cfg, b, s, seed=0, step=step)
+            ops.reset_launch_counts()
+            loss_k, grads_k = _loss_and_grads(cfg, params, batch)
+            launched = ops.launch_counts()
+            with ops.backend("plain"):
+                loss_p, grads_p = _loss_and_grads(cfg, params, batch)
+            if ops.launch_counts() != launched:
+                raise AssertionError(f"{cfg.name}: the plain run launched "
+                                     f"{ops.launch_counts()} (kernel run "
+                                     f"{launched})")
+            worst = _gate_grads(f"{cfg.name} step {step}", loss_k, grads_k,
+                                loss_p, grads_p)
+            del grads_k, grads_p
+            # the train step itself (the main path): counted
+            ops.reset_launch_counts()
+            params, state, loss = step_fn(params, state, batch)
+            launched = ops.launch_counts()
+            for k, n in launched.items():
+                counts[k] += n
+            log(f"  train {cfg.name} ({cfg.num_layers} layers, fp32, "
+                f"batch {b} x {s}) step {step + 1}: loss {loss_k:.6f} "
+                f"kernels, {loss_p:.6f} plain, step's loss {float(loss):.6f}"
+                f"; worst gradient leaf {worst:.3g} of its largest "
+                f"magnitude (gate {GRAD_RTOL}); step's launches "
+                f"{_nonzero(launched)}")
+            need = ["flash_attention", "flash_attention_bwd"]
+            if MAMBA in (cfg.layer_pattern or ()):
+                need += ["ssm_scan", "ssm_scan_bwd"]
+            if not all(launched[k] for k in need):
+                raise AssertionError(f"{cfg.name}: {need} must all launch: "
+                                     f"{launched}")
+        del params, state
+        torch.cuda.empty_cache()
+    return counts
+
+
+def _bwd_attention_inputs(gen, dev, dtype, b=4, s=1024, hq=64, hkv=8,
+                          d=128, causal=True):
+    from repro_torch.kernels import flash_attention as fa
+    q = _rand(gen, (b, s, hq, d), dtype, dev)
+    k = _rand(gen, (b, s, hkv, d), dtype, dev)
+    v = _rand(gen, (b, s, hkv, d), dtype, dev)
+    do = _rand(gen, (b, s, hq, d), dtype, dev)
+    o, lse = fa.flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+    return dict(q=q, k=k, v=v, o=o, lse=lse, do=do, causal=causal)
+
+
+def _bwd_scan_inputs(gen, dev, b=4, s=1024, din=8192, ds=16,
+                     dtype=torch.bfloat16):
+    from repro_torch.kernels import ssm_scan as ss
+    x = _scan_inputs(gen, dev, b, s, din, ds, dtype)
+    _, _, x["h_ins"] = ss.ssm_scan_cuda(x["x"], x["dt"], x["A"], x["B"],
+                                        x["C"], x["D"], return_states=True)
+    x["dy"] = _rand(gen, (b, s, din), dtype, dev)
+    return x
+
+
+def _check_bwd(name, case, fn, twin, dtype):
+    """fn (the kernel) twice, bit for bit, and against twin (the plain
+    version) on the same inputs: fp32 within FP32_BWD_RTOL of the largest
+    magnitude, bf16 within one bf16 ulp of it (_bf16_tol). Returns the
+    worst error over the largest magnitude."""
+    got, again = fn(), fn()
+    want = twin()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{name} [{case}, {dtype}]: two runs differ")
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        err = float((g.float() - w.float()).abs().max())
+        scale = float(w.float().abs().max())
+        tol = (FP32_BWD_RTOL * scale if dtype == torch.float32
+               else _bf16_tol(w))
+        if not (math.isfinite(err) and err <= tol):
+            raise AssertionError(f"{name} [{case}, {dtype}]: output {i} max "
+                                 f"abs err {err} > {tol}")
+        worst = max(worst, err / max(scale, 1e-30))
+    return worst
+
+
+def _check_train_gqa(gen, dev, dtype, causal, hq, hkv, d, b=2, s=1024):
+    """#1's training forward (return_lse) and backward at a GQA group that
+    need not divide the bf16 body's 64-row warpgroups (the zoo's g 48 and
+    g 3): o and lse, two runs bit for bit, against attention_fwd_lse_ref;
+    then the backward fed the plain version's o and lse against its twin
+    (_check_bwd)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    case = f"({b}, {s}, {hq}/{hkv}, {d}) causal={causal}"
+    q = _rand(gen, (b, s, hq, d), dtype, dev)
+    k = _rand(gen, (b, s, hkv, d), dtype, dev)
+    v = _rand(gen, (b, s, hkv, d), dtype, dev)
+    do = _rand(gen, (b, s, hq, d), dtype, dev)
+    got, again = [fa.flash_attention_cuda(q, k, v, causal=causal,
+                                          return_lse=True) for _ in range(2)]
+    o, lse = ref.attention_fwd_lse_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"flash_attention lse [{case}, {dtype}]: two "
+                             "runs differ")
+    o_err = float((got[0].float() - o.float()).abs().max())
+    o_tol = FP32_ATOL if dtype == torch.float32 else _bf16_tol(o)
+    lse_err = float((got[1] - lse).abs().max())
+    if not (math.isfinite(o_err) and o_err <= o_tol
+            and math.isfinite(lse_err) and lse_err <= LSE_ATOL):
+        raise AssertionError(f"flash_attention lse [{case}, {dtype}]: o max "
+                             f"abs err {o_err} (tol {o_tol}), lse {lse_err} "
+                             f"(tol {LSE_ATOL})")
+    args = [q, k, v, o, lse, do]
+    err = _check_bwd(
+        "flash_attention_bwd", case,
+        lambda: fa.flash_attention_bwd_cuda(*args, causal=causal),
+        lambda: ref.attention_bwd_ref(*args, causal=causal), dtype)
+    log(f"  check flash_attention lse + flash_attention_bwd [{case}] "
+        f"{dtype}: o max abs err {o_err:.3g}, lse {lse_err:.3g}; backward "
+        f"max err {err:.3g} of the largest gradient; two runs of each "
+        "bit-identical")
+    del q, k, v, do, got, again, o, lse, args
+    torch.cuda.empty_cache()
+
+
+def check_bwd_kernels(dev):
+    """Phase 10 (c): #1's backward at llama2-70b's widths (4, 1024, 64 / 8,
+    128), causal and not; #1's training forward (o, lse) and backward at
+    the zoo's g 48 (d 128) and g 3 (d 64), b 2, s 1024; and #9's at jamba's layer width (4, 1024, 8192,
+    16; x bf16, dt fp32, and all fp32) against their plain versions, two
+    runs of each bit for bit; and #1's bf16 backward against the fp32
+    plain version of the same inputs (F4: both passes round P to bf16)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssm_scan as ss
+    gen = torch.Generator(device=dev).manual_seed(10)
+    for dtype in (torch.bfloat16, torch.float32):
+        for causal in (True, False):
+            x = _bwd_attention_inputs(gen, dev, dtype, causal=causal)
+            args = [x[n] for n in ("q", "k", "v", "o", "lse", "do")]
+            err = _check_bwd(
+                "flash_attention_bwd", f"causal={causal}",
+                lambda: fa.flash_attention_bwd_cuda(*args, causal=causal),
+                lambda: ref.attention_bwd_ref(*args, causal=causal), dtype)
+            log(f"  check flash_attention_bwd [(4, 1024, 64/8, 128) causal="
+                f"{causal}] {dtype}: max err {err:.3g} of the largest "
+                "gradient; two runs bit-identical")
+            if dtype == torch.bfloat16:
+                f32 = [t.float() for t in args[:3]] + [args[5].float()]
+                o32, lse32 = ref.attention_fwd_lse_ref(*f32[:3],
+                                                       causal=causal)
+                want = ref.attention_bwd_ref(*f32[:3], o32, lse32, f32[3],
+                                             causal=causal)
+                got = fa.flash_attention_bwd_cuda(*args, causal=causal)
+                errs = [float((g.float() - w).abs().max()
+                              / w.abs().max()) for g, w in zip(got, want)]
+                log(f"  F4: bf16 flash_attention_bwd (causal={causal}) "
+                    "against the fp32 plain version of the same inputs: "
+                    "dq, dk, dv max err " + ", ".join(f"{e:.3g}"
+                                                      for e in errs)
+                    + " of the largest gradient")
+                del f32, o32, lse32, want, got
+            del x, args
+            torch.cuda.empty_cache()
+    for w in ZOO_WIDTHS:
+        for dtype in (torch.bfloat16, torch.float32):
+            for causal in (True, False):
+                _check_train_gqa(gen, dev, dtype, causal, **w)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = _bwd_scan_inputs(gen, dev, dtype=dtype)
+        args = [x[n] for n in ("x", "dt", "A", "B", "C", "D", "h_ins", "dy")]
+        err = _check_bwd("ssm_scan_bwd", "dh_out 0",
+                         lambda: ss.ssm_scan_bwd_cuda(*args),
+                         lambda: ref.ssm_scan_bwd_ref(*args), dtype)
+        log(f"  check ssm_scan_bwd [(4, 1024, 8192, 16), dt fp32] {dtype}: "
+            f"max err {err:.3g} of the largest gradient; two runs "
+            "bit-identical")
+        del x, args
+    torch.cuda.empty_cache()
+
+
+def time_bwd_kernels(dev):
+    """Phase 10 (c): the backward kernels timed at the training path's
+    shapes (CUDA events after an L2 flush), with their plain versions,
+    bounds, and SDPA's backward for #1 (the library yardstick; the port
+    never calls it). #1's bound: its five products over the causal pairs
+    on the bf16 tensor cores, or its bytes (q, k, v, o, dO, lse read, dq,
+    dk, dv written); #9's: one exponential a state element and step on
+    the SFUs (a[t]; the kernel evaluates three), or its bytes."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssm_scan as ss
+    gen = torch.Generator(device=dev).manual_seed(11)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    res = {}
+    x = _bwd_attention_inputs(gen, dev, torch.bfloat16)
+    args = [x[n] for n in ("q", "k", "v", "o", "lse", "do")]
+    b, s, hq, d = x["q"].shape
+    pairs = b * s * (s + 1) // 2
+    es = x["q"].element_size()
+    nbytes = (es * (5 * x["q"].numel() + 4 * x["k"].numel())
+              + 4 * x["lse"].numel())
+    bound_ms, bound_by = _bound(nbytes, 5 * 2 * d * hq * pairs)
+    qt, kt, vt, gqa = _sdpa_inputs(*args[:3])
+    qt, kt, vt = (t.requires_grad_(True) for t in (qt, kt, vt))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, **gqa)
+    dot = args[5].transpose(1, 2).contiguous()
+    res["flash_attention_bwd"] = dict(
+        ms=_time_ms(lambda: fa.flash_attention_bwd_cuda(*args), flush),
+        plain_ms=_time_ms(lambda: ref.attention_bwd_ref(*args), flush,
+                          iters=3),
+        bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=_time_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), flush),
+        max_abs_err=float(max((g.float() - w.float()).abs().max() for g, w in
+                              zip(fa.flash_attention_bwd_cuda(*args),
+                                  ref.attention_bwd_ref(*args)))))
+    del x, args, qt, kt, vt, out, dot
+    torch.cuda.empty_cache()
+    x = _bwd_scan_inputs(gen, dev)
+    args = [x[n] for n in ("x", "dt", "A", "B", "C", "D", "h_ins", "dy")]
+    b, s, din = x["x"].shape
+    ds = x["A"].shape[1]
+    n = b * s * din * ds
+    es = x["x"].element_size()
+    nbytes = (es * 3 * b * s * din          # x, dy read, dx written
+              + 4 * 2 * b * s * din         # dt (fp32) read, ddt written
+              + es * 4 * b * s * ds         # B, C read, dB, dC written
+              + 4 * (x["h_ins"].numel() + 2 * din * ds + 2 * din
+                     + b * din * ds))       # h_ins, A, dA, D, dD, dh0
+    bound_ms, bound_by = _bound(nbytes, 2 * 7 * n, FP32_FLOP_PER_S, exps=n)
+    res["ssm_scan_bwd"] = dict(
+        ms=_time_ms(lambda: ss.ssm_scan_bwd_cuda(*args), flush),
+        plain_ms=_time_ms(lambda: ref.ssm_scan_bwd_ref(*args), flush,
+                          iters=2),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        max_abs_err=float(max((g.float() - w.float()).abs().max() for g, w in
+                              zip(ss.ssm_scan_bwd_cuda(*args),
+                                  ref.ssm_scan_bwd_ref(*args)))))
+    del x, args
+    torch.cuda.empty_cache()
+    for name, r in res.items():
+        lib = (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None
+               else "none")
+        log(f"  time {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} "
+            f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library "
+            f"{lib}, bf16 max abs err {r['max_abs_err']:.3g}")
+    return res
+
+
+def phase_train_bf16(smi):
+    """Phase 10 (d): llama2-70b at full width, TRAIN_BF16_LAYERS layers,
+    bf16, batch TRAIN_BF16, TRAIN_BF16_STEPS train steps through the
+    kernels (AdamW in place; fp32 moments; a new batch of the stream each
+    step): each step's device time (CUDA events), tokens/s and the peak
+    memory, and the first step's loss beside the plain versions' bf16 loss
+    of the same weights and batch; then one more step profiled. Returns
+    the timed steps' launch counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.training import optimizer
+    from repro_torch.training.train_step import make_train_step
+    cfg = _llama(TRAIN_BF16_LAYERS)
+    b, s = TRAIN_BF16
+    log(f"phase 10 (d): {cfg.name} at full width, {cfg.num_layers} of 80 "
+        f"layers, bf16, batch {b} x {s}, {TRAIN_BF16_STEPS} train steps "
+        f"through the kernels ({smi})")
+    # the earlier phases' engines hold device memory in reference cycles
+    # until a full collection; this phase needs ~62 GiB of the 80
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  device memory held before the weights: {held:.2f} GiB, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB after a full "
+        "garbage collection")
+    params = M.init_params(cfg, 0, device=DEVICE)
+    n_params = sum(p.numel() for p in optimizer.leaves(params))
+    with torch.no_grad(), ops.backend("plain"):
+        plain_loss = float(M.loss_fn(cfg, params,
+                                     _train_batch(cfg, b, s, seed=1)))
+    state = optimizer.init(params)
+    step_fn = make_train_step(cfg, optimizer.AdamWConfig(
+        lr=1e-4, warmup_steps=1, total_steps=TRAIN_BF16_STEPS))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, times = [], []
+    for step in range(TRAIN_BF16_STEPS):
+        batch = _train_batch(cfg, b, s, seed=1, step=step)
+        a, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        params, state, loss = step_fn(params, state, batch)
+        e.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(e))
+        losses.append(float(loss))
+    launched = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # one more step under torch.profiler: where the step's time goes
+    from torch.profiler import ProfilerActivity, profile
+    batch = _train_batch(cfg, b, s, seed=1, step=TRAIN_BF16_STEPS)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, _ = step_fn(params, state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _log_profile(f"train {cfg.name} bf16 step", prof, wall)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"bf16 train losses {losses}")
+    if not abs(losses[0] - plain_loss) <= 0.02 * abs(plain_loss):
+        raise AssertionError(f"bf16 step 1 loss {losses[0]} through the "
+                             f"kernels, {plain_loss} plain")
+    need = TRAIN_BF16_STEPS * cfg.num_layers
+    if launched["flash_attention_bwd"] != need or \
+            launched["flash_attention"] != need:
+        raise AssertionError(f"bf16 training launched {launched}, expected "
+                             f"{need} of #1 and of its backward")
+    steady = times[1:] or times
+    mean = sum(steady) / len(steady)
+    log(f"  train {cfg.name} bf16: {n_params / 1e9:.3f}e9 parameters; step "
+        "ms " + ", ".join(f"{t:.1f}" for t in times) + f" (steps 2-"
+        f"{TRAIN_BF16_STEPS} mean {mean:.1f} ms, {b * s / mean * 1e3:.0f} "
+        f"tokens/s); peak memory {peak:.1f} GiB; losses "
+        + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; step 1 loss {losses[0]:.5f} kernels vs {plain_loss:.5f} "
+        f"plain bf16 forward; launches {_nonzero(launched)}")
+    del params, state
+    torch.cuda.empty_cache()
+    return launched
+
+
 def dump_sass(tree, out):
     """Build the kernel sources of another checkout `tree` (a `git archive`
     of the parent commit) with this tree's flags and write each library's
@@ -3352,8 +3830,10 @@ def dump_sass(tree, out):
     "digests" and "nvcc"."""
     from repro_torch.kernels import build
     from pathlib import Path
-    libs = build.build(csrc=Path(tree) / "src" / "repro_torch" / "csrc",
-                       build_dir=build.BUILD_DIR / "parent")
+    csrc = Path(tree) / "src" / "repro_torch" / "csrc"
+    libs = build.build([n for n in build.SOURCES
+                        if (csrc / f"{n}.cu").exists()],
+                       csrc=csrc, build_dir=build.BUILD_DIR / "parent")
     digests = {lib: {name: digest for name, (_, digest) in
                      sorted(sass_functions(so).items())}
                for lib, so in libs.items()}
@@ -3405,13 +3885,22 @@ def main():
     done("phase 9 (c)")
     timed.update(phase_encdec_kernels(torch.device("cuda")))
     done("phase 9")
+    log("phase 10: training through the backward kernels")
+    train = phase_train_parity()
+    done("phase 10 (a), (b)")
+    check_bwd_kernels(torch.device("cuda"))
+    timed.update(time_bwd_kernels(torch.device("cuda")))
+    done("phase 10 (c)")
+    for k, n in phase_train_bf16(smi).items():
+        train[k] += n
+    done("phase 10")
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         kernels.append(dict(name=name, route="cuda", source=src,
                             replaces=replaces,
                             launches=(counts[name] + danube[name]
                                       + zoo[name] + multi[name]
-                                      + chaos[name]
+                                      + chaos[name] + train[name]
                                       + sum(encdec[a].get(name, 0)
                                             for a in ENCDEC)),
                             **timed[name]))

@@ -15,7 +15,10 @@ leaf of a quantized tree ({"q": int8, "s": float32}) bridges as it is:
 ``dtype`` casts float leaves only, never a quantized leaf's payload or
 scales, nor a Mamba layer's float32 dynamics (``A_log``, ``D``,
 ``dt_bias``: ``models.mamba.FP32_LEAVES``), which stay float32 in every
-model dtype, as in the reference.
+model dtype, as in the reference. Gradients bridge as params do (a bf16
+leaf comes back as float32, which holds it exactly: numpy has no bf16);
+the optimizer's state as ``adamw_state_from_numpy`` /
+``adamw_state_to_numpy``, over the reference's AdamWState fields.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import torch
 
 from repro_torch.models.mamba import FP32_LEAVES
 from repro_torch.models.quant import is_quantized
+from repro_torch.training.optimizer import AdamWState
 
 
 def params_from_numpy(tree, *, device, dtype=None):
@@ -42,7 +46,26 @@ def params_from_numpy(tree, *, device, dtype=None):
 
 
 def params_to_numpy(tree):
-    """Nested dict of tensors -> the same dict of numpy arrays."""
+    """Nested dict of tensors -> the same dict of numpy arrays (bf16 as
+    float32)."""
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
-    return tree.detach().cpu().numpy()
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def adamw_state_from_numpy(state, *, device) -> AdamWState:
+    """An AdamWState of numpy leaves (the reference's, or any object with
+    its step / mu / nu fields) -> the port's on `device`."""
+    return AdamWState(
+        step=torch.tensor(np.asarray(state.step), dtype=torch.int32,
+                          device=device),
+        mu=params_from_numpy(state.mu, device=device),
+        nu=params_from_numpy(state.nu, device=device))
+
+
+def adamw_state_to_numpy(state: AdamWState) -> AdamWState:
+    """The port's AdamWState -> the same fields as numpy."""
+    return AdamWState(step=state.step.cpu().numpy(),
+                      mu=params_to_numpy(state.mu),
+                      nu=params_to_numpy(state.nu))

@@ -112,6 +112,15 @@ struct AttnParams {
   const float* v_scale;
 };
 
+// The fp32 flash entry's training instances (PT below): AttnParams and the
+// rows' log-sum-exp of the scaled scores, lse (b, hq, sq) fp32, m + log l
+// (0 on a row that saw no key), which the backward kernel
+// (flash_attention_bwd.cu) recomputes P from. The serving instances keep
+// PT = AttnParams and the code they had.
+struct AttnParamsLse : AttnParams {
+  float* lse;
+};
+
 // Row of key position kpos in the K/V arrays: (b, skv) rows for a
 // contiguous cache, or (page, offset) through row bi's block table.
 template <bool PAGED>
@@ -132,9 +141,11 @@ constexpr size_t smem_bytes() {
 
 // T: q / o element type (float); KV: K / V element type (T, or a one-byte
 // quantized payload read with the scales of AttnParams)
-template <typename T, typename KV, int D, int ROWS, bool PAGED>
-__global__ void __launch_bounds__(THREADS) attn_fwd(AttnParams p) {
+template <typename T, typename KV, int D, int ROWS, bool PAGED,
+          class PT = AttnParams>
+__global__ void __launch_bounds__(THREADS) attn_fwd(PT p) {
   constexpr bool QUANT = sizeof(KV) == 1;
+  constexpr bool LSE = sizeof(PT) != sizeof(AttnParams);
   constexpr int BQ = 16 * ROWS;
   constexpr int DP = D + 1;
   constexpr int PP = BK + 1;
@@ -313,13 +324,19 @@ __global__ void __launch_bounds__(THREADS) attn_fwd(AttnParams p) {
 #pragma unroll
     for (int cc = 0; cc < DC; ++cc)
       store(out + tx + 16 * cc, dead ? 0.f : acc[i][cc] / den);
+    if constexpr (LSE) {
+      if (tx == 0)
+        p.lse[(bi * (int64_t)p.hq + h) * p.sq + c] =
+            dead ? 0.f : m[i] + logf(den);
+    }
   }
 }
 
-template <typename T, typename KV, int D, int ROWS, bool PAGED>
-cudaError_t launch(const AttnParams& p, cudaStream_t stream) {
+template <typename T, typename KV, int D, int ROWS, bool PAGED,
+          class PT = AttnParams>
+cudaError_t launch(const PT& p, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<ROWS, D, sizeof(KV) == 1>();
-  auto kern = attn_fwd<T, KV, D, ROWS, PAGED>;
+  auto kern = attn_fwd<T, KV, D, ROWS, PAGED, PT>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -337,32 +354,37 @@ cudaError_t launch(const AttnParams& p, cudaStream_t stream) {
 // Head dims the port serves: 32, 64, 128, and 80 (h2o-danube-1.8b's) and
 // 256 (paligemma-3b's) for contiguous K/V (PAGED false), which is fp32
 // flash prefill's; the paged kernels take no config of head dim 80 or 256
-// and have no instance of them.
-template <typename KV, bool PAGED>
-cudaError_t dispatch_d(const AttnParams& p, int d, cudaStream_t stream) {
+// and have no instance of them. PT = AttnParamsLse (training, which also
+// writes lse) has instances of the backward kernel's head dims, 64 and 128.
+template <typename KV, bool PAGED, class PT = AttnParams>
+cudaError_t dispatch_d(const PT& p, int d, cudaStream_t stream) {
+  constexpr bool LSE = sizeof(PT) != sizeof(AttnParams);
   const bool small = p.sq * (p.hq / p.hkv) <= 16;
   switch (d) {
     case 80:
-      if constexpr (!PAGED)
+      if constexpr (!PAGED && !LSE)
         return small ? launch<float, KV, 80, 1, PAGED>(p, stream)
                      : launch<float, KV, 80, 4, PAGED>(p, stream);
       else
         return cudaErrorInvalidValue;
     case 256:
-      if constexpr (!PAGED)
+      if constexpr (!PAGED && !LSE)
         return small ? launch<float, KV, 256, 1, PAGED>(p, stream)
                      : launch<float, KV, 256, 4, PAGED>(p, stream);
       else
         return cudaErrorInvalidValue;
     case 32:
-      return small ? launch<float, KV, 32, 1, PAGED>(p, stream)
-                   : launch<float, KV, 32, 4, PAGED>(p, stream);
+      if constexpr (!LSE)
+        return small ? launch<float, KV, 32, 1, PAGED>(p, stream)
+                     : launch<float, KV, 32, 4, PAGED>(p, stream);
+      else
+        return cudaErrorInvalidValue;
     case 64:
-      return small ? launch<float, KV, 64, 1, PAGED>(p, stream)
-                   : launch<float, KV, 64, 4, PAGED>(p, stream);
+      return small ? launch<float, KV, 64, 1, PAGED, PT>(p, stream)
+                   : launch<float, KV, 64, 4, PAGED, PT>(p, stream);
     case 128:
-      return small ? launch<float, KV, 128, 1, PAGED>(p, stream)
-                   : launch<float, KV, 128, 4, PAGED>(p, stream);
+      return small ? launch<float, KV, 128, 1, PAGED, PT>(p, stream)
+                   : launch<float, KV, 128, 4, PAGED, PT>(p, stream);
     default:
       return cudaErrorInvalidValue;
   }

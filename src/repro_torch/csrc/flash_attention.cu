@@ -4,7 +4,10 @@
 // Computes GQA attention q (b, sq, hq, d) x k/v (b, skv, hkv, d) with causal,
 // sliding-window, kv_len and kv_start masks; sq and skv may be any length
 // (the joint prefill pads prompts to multiples of 16), the ragged edges are
-// masked here.
+// masked here. Training's forward (head dims 64 and 128) also writes each
+// row's log-sum-exp for the backward kernel (flash_attention_bwd.cu), in
+// instances of their own (ParamsLse, rt::AttnParamsLse), so the serving
+// instances keep their code.
 //
 // Bound on the card: at prefill lengths the work is ~4 d sq skv hq / 2 FLOPs
 // against O((sq + skv) d) bytes, far above the H100's ~295 FLOP/byte ridge,
@@ -81,6 +84,16 @@ struct Params {
   int items, n_mtiles, sect;
 };
 
+// The training instances' params (PP below): Params and the rows'
+// log-sum-exp of the scaled scores, lse (b, hq, sq) fp32, m scale + log l
+// (0 on a row that saw no key), which the backward kernel
+// (flash_attention_bwd.cu) recomputes P from. The serving instances keep
+// PP = Params and the code they had.
+struct ParamsLse : Params {
+  float* lse;
+  float scale;
+};
+
 // One work item: positions [pos0, pos0 + NC P) of kv head kvh of row bi,
 // the keys its rows may see before the causal and window limits,
 // [kv_begin, kv_end), and its tiles [lo, hi).
@@ -121,9 +134,9 @@ struct Smem {
   static constexpr size_t BYTES = BAR + (4 * STAGES + 6) * 8 + 1024;
 };
 
-template <int D, int BK, int STAGES>
+template <int D, int BK, int STAGES, class PP = Params>
 __global__ void __launch_bounds__(128 * (NC + 1), 1)
-    flash_fwd(const Params p, const __grid_constant__ CUtensorMap tmq,
+    flash_fwd(const PP p, const __grid_constant__ CUtensorMap tmq,
               const __grid_constant__ CUtensorMap tmk,
               const __grid_constant__ CUtensorMap tmv,
               const __grid_constant__ CUtensorMap tmo) {
@@ -334,14 +347,29 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
     hx::fence_proxy_async();
     __syncwarp();
     if (lane == 0) hx::mbar_arrive(&staged[qb]);
+    if constexpr (sizeof(PP) != sizeof(Params)) {
+      if (tq == 0) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          // rows past the warpgroup's P whole groups (g not dividing 64)
+          // hold stale Q: their positions belong to the next warpgroup
+          const int r = ra + 8 * h;
+          if (r < p.P * p.g && qpos[h] < p.sq)
+            p.lse[((int64_t)it.bi * p.hq + it.kvh * p.g + r % p.g) * p.sq +
+                  qpos[h]] = m[h] <= NEG_INF / 2
+                                 ? 0.f
+                                 : m[h] * p.scale + logf(l[h]);
+        }
+      }
+    }
     ++n;
   }
 }
 
 // D: the instance's width in shared memory and registers; d: the tensors'
 // head dim (d <= D; the columns past d read as zeros and are not stored)
-template <int D, int BK, int STAGES>
-cudaError_t launch(Params p, const void* q, const void* k, const void* v,
+template <int D, int BK, int STAGES, class PP = Params>
+cudaError_t launch(PP p, const void* q, const void* k, const void* v,
                    void* o, int d, cudaStream_t stream) {
   using G = Geo<D>;
   constexpr size_t smem = Smem<D, BK, STAGES>::BYTES;
@@ -358,7 +386,7 @@ cudaError_t launch(Params p, const void* q, const void* k, const void* v,
   if (e == cudaSuccess)
     e = hx::bf16_map_4d(&tmv, v, d, p.hkv, p.skv, p.b, G::CH, 1, BK, 1, swz);
   if (e != cudaSuccess) return e;
-  auto kern = flash_fwd<D, BK, STAGES>;
+  auto kern = flash_fwd<D, BK, STAGES, PP>;
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
   if (e != cudaSuccess) return e;
@@ -382,9 +410,10 @@ cudaError_t launch(Params p, const void* q, const void* k, const void* v,
 
 // bf16: the rows of a consumer warpgroup are whole GQA groups, so g <= 64
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
-                        const int* kv_len, const int* kv_start, int b, int sq,
-                        int skv, int hq, int hkv, int d, int causal,
-                        int window, float scale, cudaStream_t st) {
+                        float* lse, const int* kv_len, const int* kv_start,
+                        int b, int sq, int skv, int hq, int hkv, int d,
+                        int causal, int window, float scale,
+                        cudaStream_t st) {
   Params p{};
   p.kv_len = kv_len;
   p.kv_start = kv_start;
@@ -399,8 +428,26 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
   p.window = window;
   p.scale_log2 = scale * 1.4426950408889634f;
   if (p.P < 1) return cudaErrorInvalidValue;
-  if (skv == 0)  // no key at all: every row is dead
-    return cudaMemsetAsync(o, 0, (size_t)b * sq * hq * d * 2, st);
+  if (skv == 0) {  // no key at all: every row is dead
+    cudaError_t e = cudaMemsetAsync(o, 0, (size_t)b * sq * hq * d * 2, st);
+    if (e == cudaSuccess && lse)
+      e = cudaMemsetAsync(lse, 0, (size_t)b * hq * sq * 4, st);
+    return e;
+  }
+  if (lse) {  // training: the head dims the backward kernel takes
+    ParamsLse pl{};
+    static_cast<Params&>(pl) = p;
+    pl.lse = lse;
+    pl.scale = scale;
+    switch (d) {
+      case 64:
+        return launch<64, TILE_KEYS, RING>(pl, q, k, v, o, d, st);
+      case 128:
+        return launch<128, TILE_KEYS, RING>(pl, q, k, v, o, d, st);
+      default:
+        return cudaErrorInvalidValue;
+    }
+  }
   switch (d) {
     case 32:
       return launch<32, TILE_KEYS, RING>(p, q, k, v, o, d, st);
@@ -419,8 +466,10 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace fa
 
+// lse: null (serving), or (b, hq, sq) fp32 for the rows' log-sum-exp
+// (training; head dims 64 and 128)
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, const int* kv_len,
+                                   void* o, float* lse, const int* kv_len,
                                    const int* kv_start, int b, int sq,
                                    int skv, int hq, int hkv, int d,
                                    int causal, int window, float scale,
@@ -428,8 +477,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   cudaStream_t st = (cudaStream_t)stream;
   if (hkv <= 0 || hq % hkv != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 1)
-    return (int)fa::launch_bf16(q, k, v, o, kv_len, kv_start, b, sq, skv, hq,
-                                hkv, d, causal, window, scale, st);
+    return (int)fa::launch_bf16(q, k, v, o, lse, kv_len, kv_start, b, sq, skv,
+                                hq, hkv, d, causal, window, scale, st);
   if (dtype != 0) return (int)cudaErrorInvalidValue;
   rt::AttnParams p{};
   p.q = q;
@@ -446,5 +495,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   p.causal = causal;
   p.window = window;
   p.scale = scale;
-  return (int)rt::dispatch_d<float, false>(p, d, st);
+  if (lse == nullptr) return (int)rt::dispatch_d<float, false>(p, d, st);
+  rt::AttnParamsLse pl{};
+  static_cast<rt::AttnParams&>(pl) = p;
+  pl.lse = lse;
+  return (int)rt::dispatch_d<float, false>(pl, d, st);
 }

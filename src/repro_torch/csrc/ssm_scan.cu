@@ -50,6 +50,12 @@
 //     the copies' 16-byte alignment (din not a multiple of 16 bytes, odd
 //     offsets) take element-wise loads instead.
 // The state is fp32 whatever the input dtype.
+//
+// Training's forward (STATES) also writes the state entering every CHUNK-
+// step chunk, (b, ceil(s / CHUNK), din, ds) fp32, after the final state in
+// h_out: the backward kernel (ssm_scan_bwd.cu) re-runs each chunk from it,
+// as the reference's _ssm_chunks VJP does. Its instances are the serving
+// ones' code plus those stores.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -62,6 +68,7 @@ namespace ss {
 constexpr int THREADS = 128;
 constexpr int TILE = 32;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr int CHUNK = 128;  // steps between saved states (STATES)
 
 // lanes that share one channel's state, per d_state (kernels/ssm_scan.py:
 // LANES holds the same table): at d_state 16, 2 lanes beat 4 and 8 at b 4
@@ -266,7 +273,7 @@ __device__ __forceinline__ void widen_bc(Smem<DS, L, TX, TDT>& sm,
 // as many as the d_state 16 bf16 instances' 44 KB of shared memory allow:
 // ptxas then takes up to 102 registers a thread (without a minimum it
 // capped some instances at 80 and spilled)
-template <int DS, int L, typename TX, typename TDT>
+template <int DS, int L, typename TX, typename TDT, bool STATES = false>
 __global__ void __launch_bounds__(THREADS, 5)
     ssm_scan_kernel(const TX* __restrict__ x, const TDT* __restrict__ dt,
                     const float* __restrict__ A, const TX* __restrict__ B,
@@ -334,6 +341,16 @@ __global__ void __launch_bounds__(THREADS, 5)
       load_tile_bc(sm, buf, B, C, bcrow + (size_t)(t0 + 2 * TILE) * DS,
                    steps(k + 2));
     if (k + 1 < ntiles) widen_bc(sm, buf ^ 1);
+    if constexpr (STATES) {  // the state entering chunk t0 / CHUNK
+      if (t0 % CHUNK == 0 && live) {
+        const int nc = (s + CHUNK - 1) / CHUNK;
+        float* h_in = h_out + (size_t)gridDim.y * din * DS +
+                      (((size_t)row * nc + t0 / CHUNK) * din + c) * DS +
+                      part * K;
+#pragma unroll
+        for (int j = 0; j < K; ++j) h_in[j] = h[j];
+      }
+    }
 
     // all TILE steps, also past s: the copies zero-filled x, dt, B and C
     // there, and a step with dt = 0 leaves the state as it is (exp2(0) = 1,
@@ -372,7 +389,7 @@ __global__ void __launch_bounds__(THREADS, 5)
   }
 }
 
-template <int DS, int L, typename TX, typename TDT>
+template <int DS, int L, typename TX, typename TDT, bool STATES>
 cudaError_t launch(const void* x, const void* dt, const float* A,
                    const void* B, const void* C, const float* D,
                    const float* h0, void* y, float* h_out, int b, int s,
@@ -382,7 +399,7 @@ cudaError_t launch(const void* x, const void* dt, const float* A,
   constexpr int CH = THREADS / L;
   // dynamic shared memory (with ys_ above 48 KB at ds 4 and 8, x fp32)
   constexpr int SMEM = sizeof(Smem<DS, L, TX, TDT>);
-  auto kernel = ssm_scan_kernel<DS, L, TX, TDT>;
+  auto kernel = ssm_scan_kernel<DS, L, TX, TDT, STATES>;
   const cudaError_t opt_in = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (opt_in != cudaSuccess) return opt_in;
@@ -393,7 +410,7 @@ cudaError_t launch(const void* x, const void* dt, const float* A,
   return cudaGetLastError();
 }
 
-template <int DS>
+template <int DS, bool STATES>
 cudaError_t by_dtype(const void* x, const void* dt, const float* A,
                      const void* B, const void* C, const float* D,
                      const float* h0, void* y, float* h_out, int b, int s,
@@ -402,41 +419,55 @@ cudaError_t by_dtype(const void* x, const void* dt, const float* A,
   constexpr int L = lanes(DS);
   // dtype codes: 0 float32, 1 bfloat16 (kernels/flash_attention.DTYPES)
   if (x_dtype == 0 && dt_dtype == 0)
-    return launch<DS, L, float, float>(x, dt, A, B, C, D, h0, y, h_out, b, s,
-                                       din, stream);
+    return launch<DS, L, float, float, STATES>(x, dt, A, B, C, D, h0, y,
+                                               h_out, b, s, din, stream);
   if (x_dtype == 0 && dt_dtype == 1)
-    return launch<DS, L, float, __nv_bfloat16>(x, dt, A, B, C, D, h0, y,
-                                               h_out, b, s, din, stream);
+    return launch<DS, L, float, __nv_bfloat16, STATES>(
+        x, dt, A, B, C, D, h0, y, h_out, b, s, din, stream);
   if (x_dtype == 1 && dt_dtype == 0)
-    return launch<DS, L, __nv_bfloat16, float>(x, dt, A, B, C, D, h0, y,
-                                               h_out, b, s, din, stream);
+    return launch<DS, L, __nv_bfloat16, float, STATES>(
+        x, dt, A, B, C, D, h0, y, h_out, b, s, din, stream);
   if (x_dtype == 1 && dt_dtype == 1)
-    return launch<DS, L, __nv_bfloat16, __nv_bfloat16>(
+    return launch<DS, L, __nv_bfloat16, __nv_bfloat16, STATES>(
         x, dt, A, B, C, D, h0, y, h_out, b, s, din, stream);
   return cudaErrorInvalidValue;
 }
 
+template <bool STATES>
+cudaError_t by_ds(const void* x, const void* dt, const float* A,
+                  const void* B, const void* C, const float* D,
+                  const float* h0, void* y, float* h_out, int b, int s,
+                  int din, int ds, int x_dtype, int dt_dtype,
+                  cudaStream_t st) {
+  switch (ds) {
+    case 4:
+      return by_dtype<4, STATES>(x, dt, A, B, C, D, h0, y, h_out, b, s, din,
+                                 x_dtype, dt_dtype, st);
+    case 8:
+      return by_dtype<8, STATES>(x, dt, A, B, C, D, h0, y, h_out, b, s, din,
+                                 x_dtype, dt_dtype, st);
+    case 16:
+      return by_dtype<16, STATES>(x, dt, A, B, C, D, h0, y, h_out, b, s, din,
+                                  x_dtype, dt_dtype, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace ss
 
+// states: 0 (serving), or 1 (training: h_out (b, din, ds) is followed by
+// the chunks' entry states (b, ceil(s / 128), din, ds))
 extern "C" int ssm_scan_fwd(const void* x, const void* dt, const float* A,
                             const void* B, const void* C, const float* D,
                             const float* h0, void* y, float* h_out, int b,
                             int s, int din, int ds, int x_dtype, int dt_dtype,
-                            void* stream) {
+                            int states, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  switch (ds) {
-    case 4:
-      return (int)ss::by_dtype<4>(x, dt, A, B, C, D, h0, y, h_out, b, s, din,
-                                  x_dtype, dt_dtype, st);
-    case 8:
-      return (int)ss::by_dtype<8>(x, dt, A, B, C, D, h0, y, h_out, b, s, din,
-                                  x_dtype, dt_dtype, st);
-    case 16:
-      return (int)ss::by_dtype<16>(x, dt, A, B, C, D, h0, y, h_out, b, s,
-                                   din, x_dtype, dt_dtype, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return (int)(states ? ss::by_ds<true>(x, dt, A, B, C, D, h0, y, h_out, b,
+                                        s, din, ds, x_dtype, dt_dtype, st)
+                      : ss::by_ds<false>(x, dt, A, B, C, D, h0, y, h_out, b,
+                                         s, din, ds, x_dtype, dt_dtype, st));
 }
 
 // the lanes a channel's state is split over at d_state ds (kernels/

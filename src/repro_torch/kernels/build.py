@@ -21,7 +21,7 @@ from typing import Dict, Sequence
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("flash_attention", "paged_attention", "decode_attention",
-           "ssm_scan")
+           "ssm_scan", "flash_attention_bwd", "ssm_scan_bwd")
 HEADERS = ("attention.cuh", "decode.cuh", "flash.cuh", "hopper.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

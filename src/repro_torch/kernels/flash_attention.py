@@ -1,9 +1,15 @@
-"""Wrapper of the flash-attention CUDA kernel (``csrc/flash_attention.cu``),
-the port of repro.kernels.flash_attention.flash_attention_pallas.
+"""Wrappers of the flash-attention CUDA kernels: the forward
+(``csrc/flash_attention.cu``), the port of
+repro.kernels.flash_attention.flash_attention_pallas, and its backward
+(``csrc/flash_attention_bwd.cu``), the port of the reference's
+hand-written VJP repro.kernels.ops._fa_full_bwd.
 
-``flash_attention_cuda`` checks its inputs, allocates the output, launches
-the kernel on the current stream and counts the launch; it never falls
-back to the plain version (``ref.attention_ref``) — ``ops`` chooses.
+``flash_attention_cuda`` checks its inputs, allocates the output (and,
+for training, the rows' log-sum-exp), launches the kernel on the current
+stream and counts the launch; ``flash_attention_bwd_cuda`` does the same
+for the gradients. Neither falls back to the plain versions
+(``ref.attention_ref``, ``ref.attention_fwd_lse_ref``,
+``ref.attention_bwd_ref``) — ``ops`` chooses.
 """
 from __future__ import annotations
 
@@ -22,6 +28,9 @@ HEAD_DIMS = (32, 64, 128)
 CONTIGUOUS_HEAD_DIMS = (32, 64, 80, 128, 256)
 # the bf16 kernel's warpgroup rows (64) hold whole GQA groups
 BF16_MAX_GROUP = 64
+# head dims of the training instances (the forward's log-sum-exp and the
+# backward): llama2-70b's 128 and every reduced config's 64
+TRAIN_HEAD_DIMS = (64, 128)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -76,15 +85,31 @@ def lengths(x, b, device):
 def _lib():
     lib = build.library("flash_attention")
     fn = lib.flash_attention_fwd
-    fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                   _F, _I, _P]
+    fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                   _I, _F, _I, _P]
     fn.restype = _I
     return fn
 
 
+def check_train_case(d, window, kernel):
+    """Raise on what the training instances (the forward's log-sum-exp and
+    the backward) do not take: a sliding window, or a head dim outside
+    TRAIN_HEAD_DIMS."""
+    if window:
+        raise ValueError(f"{kernel}: windowed attention (window {window}, "
+                         "h2o-danube-1.8b) has no backward kernel")
+    if d not in TRAIN_HEAD_DIMS:
+        raise ValueError(f"{kernel}: head dim {d} has no backward kernel; "
+                         f"it takes d in {TRAIN_HEAD_DIMS}")
+
+
 def flash_attention_cuda(q, k, v, *, causal=True, window=0, kv_len=None,
-                         kv_start=None, scale=None):
-    """q (b,sq,hq,d); k,v (b,skv,hkv,d) CUDA tensors -> (b,sq,hq,d)."""
+                         kv_start=None, scale=None, return_lse=False):
+    """q (b,sq,hq,d); k,v (b,skv,hkv,d) CUDA tensors -> (b,sq,hq,d), and
+    with return_lse the rows' log-sum-exp of the scaled scores (b, hq, sq)
+    float32 (0 on a row that sees no key) for the backward kernel."""
+    if return_lse:
+        check_train_case(q.shape[-1], window, "flash_attention")
     q, k, v = check_attention_inputs(q, k, v, kernel="flash_attention",
                                      head_dims=CONTIGUOUS_HEAD_DIMS)
     b, sq, hq, d = q.shape
@@ -96,11 +121,14 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=0, kv_len=None,
                          f"kernel takes at most {BF16_MAX_GROUP} per kv head")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     o = torch.empty_like(q)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if o.numel() == 0:
-        return o
+        return (o, lse) if return_lse else o
     lens = lengths(kv_len, b, q.device) if kv_len is not None else None
     starts = lengths(kv_start, b, q.device) if kv_start is not None else None
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 lse.data_ptr() if return_lse else None,
                  lens.data_ptr() if lens is not None else None,
                  starts.data_ptr() if starts is not None else None,
                  b, sq, skv, hq, hkv, d, int(bool(causal)), int(window or 0),
@@ -109,7 +137,57 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=0, kv_len=None,
     if err:
         raise RuntimeError(f"flash_attention_fwd: CUDA error {err}")
     flash_attention_cuda.launches += 1
-    return o
+    return (o, lse) if return_lse else o
 
 
 flash_attention_cuda.launches = 0
+
+
+def _bwd_lib():
+    fn = build.library("flash_attention_bwd").flash_attention_bwd
+    fn.argtypes = [_P] * 12 + [_I] * 7 + [_F, _I, _P]
+    fn.restype = _I
+    return fn
+
+
+def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal=True, window=0,
+                             kv_len=None, kv_start=None, scale=None):
+    """Gradients (dq, dk, dv) of flash_attention_cuda's output o from its
+    lse (b, hq, sq) float32 and the cotangent do (b, sq, hq, d), all CUDA
+    tensors; the gradients take the inputs' dtype (fp32 sums). GQA sums dk
+    and dv over each kv head's g query heads."""
+    check_train_case(q.shape[-1], window, "flash_attention_bwd")
+    q, k, v = check_attention_inputs(q, k, v, kernel="flash_attention_bwd",
+                                     head_dims=TRAIN_HEAD_DIMS)
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype:
+        raise ValueError(f"o {tuple(o.shape)} {o.dtype} and do "
+                         f"{tuple(do.shape)} must have q's shape "
+                         f"{tuple(q.shape)} and dtype")
+    if lse.shape != (b, hq, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype}: expected "
+                         f"({b}, {hq}, {sq}) float32")
+    o, do, lse = _aligned(o), _aligned(do.to(q.dtype)), lse.contiguous()
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if dq.numel() == 0 or dk.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    lens = lengths(kv_len, b, q.device) if kv_len is not None else None
+    starts = lengths(kv_start, b, q.device) if kv_start is not None else None
+    err = _bwd_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                     do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                     lens.data_ptr() if lens is not None else None,
+                     starts.data_ptr() if starts is not None else None,
+                     b, sq, skv, hq, hkv, d, int(bool(causal)), float(scale),
+                     DTYPES[q.dtype],
+                     torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention_bwd: CUDA error {err}")
+    flash_attention_bwd_cuda.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd_cuda.launches = 0

@@ -13,6 +13,18 @@ on a paged entry mark a quantized pool (int8 / fp8 payload, float32
 per-token-per-head scales) and select its quantized kernel or plain
 version.
 
+Training: where grad mode is on and an input requires grad,
+``flash_attention`` and ``ssm_scan`` run as ``torch.autograd.Function``s
+(``FlashAttentionFn``, ``SsmScanFn``), the port of the reference's
+recompute-in-backward custom VJPs (_fa_full, _ssm_chunks): the forward
+kernel also keeps what the backward needs (the rows' log-sum-exp; the
+state entering every 128-step chunk), and the backward is a kernel of its
+own (``flash_attention_bwd``, ``ssm_scan_bwd``, counted like the others).
+The forward decides the device path for both: a CUDA tensor launches the
+kernels (they build or raise; no fallback), a CPU tensor or
+``backend("plain")`` runs the plain versions. Serving runs under
+``torch.inference_mode()`` and never takes this path.
+
 ``mlstm_scan`` / ``mlstm_step`` (the xLSTM matrix-memory layers) are plain
 torch on every device, as the reference computes them with plain jnp: the
 JAX package has no Pallas kernel for them.
@@ -26,12 +38,13 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                  flash_attention_cuda)
 from repro_torch.kernels.paged_attention import (
     paged_context_attention_cuda, paged_context_attention_quant_cuda,
     paged_decode_attention_cuda, paged_decode_attention_quant_cuda,
     paged_verify_attention_cuda, paged_verify_attention_quant_cuda)
-from repro_torch.kernels.ssm_scan import ssm_scan_cuda
+from repro_torch.kernels.ssm_scan import ssm_scan_bwd_cuda, ssm_scan_cuda
 
 _BACKEND = "kernel"        # "kernel" | "plain"
 
@@ -45,6 +58,8 @@ KERNELS = {
     "paged_context_attention_quant": paged_context_attention_quant_cuda,
     "paged_verify_attention_quant": paged_verify_attention_quant_cuda,
     "ssm_scan": ssm_scan_cuda,
+    "flash_attention_bwd": flash_attention_bwd_cuda,
+    "ssm_scan_bwd": ssm_scan_bwd_cuda,
 }
 
 
@@ -85,10 +100,81 @@ def _quant(k_scale, v_scale) -> bool:
     return k_scale is not None
 
 
+def _training(*ts) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention with the FA2 backward: the forward keeps o and the rows'
+    log-sum-exp, the backward recomputes P from them (kernels #1 with its
+    lse and flash_attention_bwd on CUDA tensors, the plain versions
+    attention_fwd_lse_ref / attention_bwd_ref otherwise)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, kv_len, kv_start, scale):
+        ctx.kernel = _kernel_for(q)
+        ctx.mask = dict(causal=causal, window=window, kv_len=kv_len,
+                        kv_start=kv_start, scale=scale)
+        if ctx.kernel:
+            o, lse = flash_attention_cuda(q, k, v, return_lse=True,
+                                          **ctx.mask)
+        else:
+            o, lse = ref.attention_fwd_lse_ref(q, k, v, **ctx.mask)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        bwd = (flash_attention_bwd_cuda if ctx.kernel
+               else ref.attention_bwd_ref)
+        dq, dk, dv = bwd(q, k, v, o, lse, do, **ctx.mask)
+        return dq, dk, dv, None, None, None, None, None
+
+
+class SsmScanFn(torch.autograd.Function):
+    """The selective scan with the reference's chunked backward: the
+    forward keeps the state entering every 128-step chunk, the backward
+    re-runs each chunk from it, last first (kernels #9 with its states and
+    ssm_scan_bwd on CUDA tensors, the plain versions ssm_scan_states_ref /
+    ssm_scan_bwd_ref otherwise). Differentiates y and h_final in x, dt,
+    A, B, C, D and h0."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, D, h0):
+        ctx.kernel = _kernel_for(x)
+        ctx.h0 = h0 is not None
+        if ctx.kernel:
+            y, h, h_ins = ssm_scan_cuda(x, dt, A, B, C, D, h0=h0,
+                                        return_states=True)
+        else:
+            y, h, h_ins = ref.ssm_scan_states_ref(x, dt, A, B, C, D, h0=h0)
+        ctx.save_for_backward(x, dt, A, B, C, D, h_ins)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        x, dt, A, B, C, D, h_ins = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        bwd = ssm_scan_bwd_cuda if ctx.kernel else ref.ssm_scan_bwd_ref
+        dx, ddt, dA, dB, dC, dD, dh0 = bwd(x, dt, A, B, C, D, h_ins, dy, dh)
+        return dx, ddt, dA, dB, dC, dD, dh0 if ctx.h0 else None
+
+
 def flash_attention(q, k, v, *, causal=True, window=0, kv_len=None,
                     kv_start=None, scale=None):
     """q (b,sq,hq,d); k,v (b,skv,hkv,d); GQA via hq % hkv == 0. window > 0:
-    each query sees the previous `window` keys, itself included."""
+    each query sees the previous `window` keys, itself included. Under
+    training (grad mode on, an input requiring grad) it runs as
+    FlashAttentionFn; a window that covers every key is then dropped, as
+    the reference's flash path drops it."""
+    if _training(q, k, v):
+        if window >= k.shape[1]:
+            window = 0
+        return FlashAttentionFn.apply(q, k, v, causal, window, kv_len,
+                                      kv_start, scale)
     if _kernel_for(q):
         return flash_attention_cuda(q, k, v, causal=causal, window=window,
                                     kv_len=kv_len, kv_start=kv_start,
@@ -178,7 +264,10 @@ def paged_verify_attention(q, k_pages, v_pages, block_tables, *, kv_start,
 def ssm_scan(x, dt, A, B, C, D, *, h0=None):
     """Selective scan (Mamba S6): x, dt (b, s, din); A (din, ds); B, C
     (b, s, ds); D (din,); h0 (b, din, ds) or None. Returns (y in x's dtype,
-    h_final float32); see ref.ssm_scan_ref."""
+    h_final float32); see ref.ssm_scan_ref. Under training it runs as
+    SsmScanFn."""
+    if _training(x, dt, A, B, C, D, h0):
+        return SsmScanFn.apply(x, dt, A, B, C, D, h0)
     if _kernel_for(x):
         return ssm_scan_cuda(x, dt, A, B, C, D, h0=h0)
     return ref.ssm_scan_ref(x, dt, A, B, C, D, h0=h0)

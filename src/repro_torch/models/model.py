@@ -37,6 +37,10 @@ min(max_len, window)-slot ring, and an encoder-decoder's cross K/V
 once at prefill; the pipeline's contiguous caches are one layer's leaves
 each (``init_layer_cache``). Writes go into the caches in place.
 
+Training (``train_forward``, ``loss_fn``) runs whole sequences with no
+cache, the reference's mode="train"; attention and the Mamba scan
+differentiate through their backward kernels (``kernels.ops``).
+
 Modality inputs are stubs, as in the reference: whisper's batch carries
 frame embeddings ``enc_frames`` (b, encoder_seq_len, d) for the encoder,
 paligemma's patch embeddings ``image_embeds`` (b, num_image_tokens, d),
@@ -678,6 +682,67 @@ def decode_step(cfg: ModelConfig, params, tokens, cache, pos, *,
                                   _layer_cache(cfg, cache, i), pos=pos,
                                   kv_start=kv_start)
     return _head(cfg, params, x)[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# Training (the reference's mode="train": whole sequences, no cache)
+# ---------------------------------------------------------------------------
+
+def apply_sublayer_train(cfg, kind, sp, x, *, positions, enc_out=None):
+    """One block over whole sequences x (b, s, d) with no cache: the mixer
+    (causal attention through #1, Mamba through #9, or the plain mLSTM /
+    sLSTM recurrences), an encoder-decoder's cross-attention to enc_out,
+    then the MLP or MoE. Returns (x, the MoE router's aux loss or 0)."""
+    h = _norm(cfg, sp["ln1"], x)
+    if kind == ATTN:
+        o, _, _ = layers.attn_prefill(sp["mixer"], h, cfg,
+                                      positions=positions)
+    elif kind == MAMBA:
+        o, _ = mamba.mamba_prefill(sp["mixer"], h, cfg)
+    elif kind == MLSTM:
+        o, _ = xlstm.mlstm_prefill(sp["mixer"], h, cfg)
+    else:
+        o, _ = xlstm.slstm_prefill(sp["mixer"], h, cfg)
+    x = x + o
+    if cfg.is_encoder_decoder:
+        o, _ = layers.cross_attn(sp["xattn"], _norm(cfg, sp["lnx"], x), cfg,
+                                 enc_out=enc_out)
+        x = x + o
+    if "moe" in sp:
+        o, aux = moe.moe_mlp(sp["moe"], _norm(cfg, sp["ln2"], x), cfg,
+                             return_aux=True)
+        return x + o, aux
+    return _ffn(cfg, sp, x), torch.zeros((), device=x.device)
+
+
+def train_forward(cfg: ModelConfig, params, batch):
+    """Full-sequence causal logits for training (twin of the reference's
+    train_forward). batch: {"tokens": (b, s)} plus the modality stubs
+    (paligemma's ``image_embeds``, whisper's ``enc_frames``). Returns
+    (logits (b, s_total, V), the MoE layers' aux losses summed, float32);
+    s_total counts paligemma's image prefix."""
+    x, positions, _ = _prep_input_seq(cfg, params, batch)
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        enc_out = _encoder_forward(cfg, params, batch["enc_frames"])
+    aux = torch.zeros((), device=x.device)
+    for i in range(cfg.num_layers):
+        x, a = apply_sublayer_train(cfg, cfg.layer_kind(i),
+                                    slice_layer_params(cfg, params, i), x,
+                                    positions=positions, enc_out=enc_out)
+        aux = aux + a
+    return _head(cfg, params, x), aux
+
+
+def loss_fn(cfg: ModelConfig, params, batch):
+    """Next-token cross entropy over the text positions (log_softmax in
+    float32; the image prefix's logits dropped) plus the aux loss."""
+    logits, aux = train_forward(cfg, params, batch)
+    tokens = torch.as_tensor(batch["tokens"], device=logits.device).long()
+    pred = logits[:, cfg.num_image_tokens:][:, :-1]
+    logp = torch.log_softmax(pred.float(), dim=-1)
+    nll = -torch.gather(logp, -1, tokens[:, 1:, None])[..., 0]
+    return nll.mean() + aux
 
 
 def verify_step_paged(cfg: ModelConfig, params, tokens, caches, kv_start,

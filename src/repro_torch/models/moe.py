@@ -10,6 +10,10 @@ The capacity therefore depends only on the row's (padded) width, so rows
 are independent of their batch-mates. The expert products stay
 torch.einsum, batched over the expert axis, as the reference left them to
 XLA; an int8 weight ({"q", "s"}, s (E, out)) is widened and post-scaled.
+Training adds the router's load-balancing loss (``return_aux``, the
+reference's _aux_loss). The reference's "global" dispatch, its measurement
+baseline, is not ported (ROADMAP), nor its mesh path (_moe_shard_map), by
+design: the port runs one device a stage.
 """
 from __future__ import annotations
 
@@ -20,8 +24,9 @@ from repro_torch.models.layers import gelu
 from repro_torch.models.quant import is_quantized
 
 
-def moe_mlp(p, x, cfg):
-    """x (b, s, d) -> (b, s, d)."""
+def moe_mlp(p, x, cfg, *, return_aux=False):
+    """x (b, s, d) -> (b, s, d), and with return_aux the router's
+    load-balancing loss (a float32 scalar)."""
     b, s, d = x.shape
     E, k = cfg.num_experts, cfg.top_k
     logits = (x @ p["router"]).float()                          # (b, s, E)
@@ -50,7 +55,22 @@ def moe_mlp(p, x, cfg):
                                   device=x.device)], dim=1)
     gathered = flat[bidx, slot]                                 # (b, sk, d)
     w = (fg * keep).to(x.dtype)
-    return (gathered * w[..., None]).reshape(b, s, k, d).sum(dim=2)
+    out = (gathered * w[..., None]).reshape(b, s, k, d).sum(dim=2)
+    if return_aux:
+        return out, _aux_loss(cfg, probs, fe, b * s * k)
+    return out
+
+
+def _aux_loss(cfg, probs, flat_expert, denom):
+    """E * sum_e (mean router probability of e) * (share of the top-k
+    assignments to e) * router_aux_coef; the assignment counts carry no
+    gradient."""
+    E = cfg.num_experts
+    me = probs.reshape(-1, E).mean(0)
+    ce = torch.zeros(E, dtype=torch.float32, device=probs.device).index_add_(
+        0, flat_expert.reshape(-1),
+        torch.ones(flat_expert.numel(), device=probs.device)) / denom
+    return E * torch.sum(me * ce) * cfg.router_aux_coef
 
 
 def _eins(buf, w, eq):

@@ -45,7 +45,9 @@ assert not bad, bad
 assert "repro_torch.models.xlstm" in names, names
 for sub in ("obs.trace", "obs.metrics", "obs.calibration", "obs.report",
             "analysis.kvsan", "serving.disagg", "serving.cluster_kv",
-            "core.resched", "serving.resched"):
+            "core.resched", "serving.resched", "training.data",
+            "training.optimizer", "training.train_step", "checkpoint.ckpt",
+            "launch.train"):
     assert "repro_torch." + sub in names, (sub, names)
 print(len(names))
 """
@@ -156,6 +158,8 @@ def test_kernel_wrappers_refuse_cpu_tensors(name):
     tbl = torch.zeros(1, 1, dtype=torch.int32)
     x = torch.zeros(1, 3, 8)                            # a selective scan
     A, B, D = torch.zeros(8, 4), torch.zeros(1, 3, 4), torch.zeros(8)
+    q64, k64 = torch.zeros(1, 2, 4, 64), torch.zeros(1, 2, 2, 64)
+    lse, h_ins = torch.zeros(1, 4, 2), torch.zeros(1, 1, 8, 4)
     args = {"flash_attention": lambda: fa.flash_attention_cuda(q, k, k),
             "paged_decode_attention": lambda: pa.paged_decode_attention_cuda(
                 q, k, k, torch.zeros(1, 1, dtype=torch.int32)),
@@ -175,7 +179,11 @@ def test_kernel_wrappers_refuse_cpu_tensors(name):
             "paged_verify_attention_quant":
                 lambda: pa.paged_verify_attention_quant_cuda(
                     q, kq, kq, ks, ks, tbl, kv_start=[0], kv_len=[1]),
-            "ssm_scan": lambda: ss.ssm_scan_cuda(x, x, A, B, B, D)}
+            "ssm_scan": lambda: ss.ssm_scan_cuda(x, x, A, B, B, D),
+            "flash_attention_bwd": lambda: fa.flash_attention_bwd_cuda(
+                q64, k64, k64, q64, lse, q64),
+            "ssm_scan_bwd": lambda: ss.ssm_scan_bwd_cuda(x, x, A, B, B, D,
+                                                         h_ins, x)}
     before = ops.launch_counts()
     with pytest.raises(ValueError, match="CUDA"):
         args[name]()
