@@ -14,9 +14,11 @@ JAX. Phases, each of which raises on failure:
      (HGMMA, UTMALDG / UTMASTG, LDGSTS, HMMA, MOVM), for the paged kernels
      with a digest of each kernel's code; the paged context body must show
      wgmma and TMA without spills, with cp.async on bf16 pools and none on
-     int8 / fp8 pools, the decode body of the paged decode and verify
-     kernels (on bf16, int8 and fp8 pools) mma.sync and movmatrix in bf16
-     and no spills, and no attention.cuh body but the fp32 one may be left;
+     int8 / fp8 pools (and none on fp32 pools under bf16 q), the decode
+     body of the paged decode and verify kernels (on bf16, int8 and fp8
+     pools, and on pools of the other width) mma.sync and movmatrix in
+     bf16 and no spills, and no attention.cuh body but the fp32 one may be
+     left;
      the scan's 12 kernels (logged with their registers and digests)
      exponentials, lane shuffles and cp.async copies, and no spills;
      every kernel of the previous tree (chip_smoke_sass.json)
@@ -54,7 +56,11 @@ JAX. Phases, each of which raises on failure:
      call computes the same function (flash and contiguous decode),
      ``F.scaled_dot_product_attention``; #1-#4 and #7 also at
      granite-20b's serve shapes (g 48) and #1, #2, #5, #6 and #7 at
-     granite-moe-3b's (g 3);
+     granite-moe-3b's (g 3); #2, #3 and #4 also on pools of the other width
+     (K2: bf16 pools under fp32 q, fp32 pools holding bf16 values under
+     bf16 q) on the ragged, null-table, split-KV and dead-row cases at
+     block sizes 16 and 5, g 8 (d 128 and 64), g 48 and g 3, and timed at
+     phase 3's shapes;
   3. serving at the full width of llama2-70b in bf16 (depth cut to 4 of 80
      layers, seeded random weights) through the asymmetric 2-stage paged
      pipeline: after a short warm-up serve, a synthetic workload (cold
@@ -90,10 +96,14 @@ JAX. Phases, each of which raises on failure:
      shared-prefix ones on int8 and fp8 pages and n-gram speculation on
      int8 pages; jamba-v0.1-52b at full width (one period) on the
      synthetic workload; each zoo configuration of phase 7 at full width
-     (2 layers; xlstm-125m one 4-layer period) on the synthetic workload.
-     Served through the kernels and through the plain
+     (2 layers; xlstm-125m one 4-layer period) on the synthetic workload;
+     llama2-70b's synthetic, shared-prefix and n-gram workloads also on
+     bf16 pools (K2). Served through the kernels and through the plain
      versions, they must give identical tokens and ServeStats counters,
-     and the speculative serves must give plain greedy decode's tokens;
+     and the speculative serves must give plain greedy decode's tokens.
+     Then llama2-70b in bf16 (4 layers) on fp32 pools through the kernels,
+     phase 3's synthetic, shared-prefix and n-gram workloads, each path's
+     kernels launched layers x steps times;
   5. schedule -> plan -> from_config -> serve: the port's scheduler plans
      the full 80-layer llama2-70b for the launcher's paged settings on the
      case-study pool and for a shared-prefix workload (prefix caching,
@@ -104,7 +114,9 @@ JAX. Phases, each of which raises on failure:
      tokens, the first serve must run #1 and #2, the second #3 and #2.
      Then ``python -m repro_torch.launch.serve`` (llama2-70b --reduced,
      paged) runs in a subprocess on the card and must exit 0 with its
-     assignment and summary lines;
+     assignment and summary lines, once more with ``--kv-dtype bf16`` (the
+     reduced fp32 model on bf16 pools), and on granite-8b at full size
+     (bf16) with ``--kv-dtype fp32``;
   6. the launcher's defaults (``phase_danube``): ``python -m
      repro_torch.launch.serve`` with no flags serves h2o-danube-1.8b at
      full width and depth in bf16 (static batching after the reference's
@@ -117,9 +129,9 @@ JAX. Phases, each of which raises on failure:
      continuous and under static batching (#1 and #8 only);
   7. the rest of the slot-mode zoo (``phase_zoo``) at full width in bf16,
      seeded weights, through a 2-stage paged pipeline, one model at a
-     time: granite-20b (all 52 layers; MQA, g 48) serving phase 3's
+     time: granite-20b (12 of 52 layers; MQA, g 48) serving phase 3's
      synthetic, shared-prefix and n-gram workloads, granite-moe-3b-a800m
-     (all 32; g 3, 40 experts top-8) synthetic, shared-prefix and
+     (8 of 32; g 3, 40 experts top-8) synthetic, shared-prefix and
      shared-prefix on int8 pages, codeqwen1.5-7b (all 32; q/k/v bias)
      synthetic and shared-prefix, phi3.5-moe-42b-a6.6b (8 of 32 layers:
      the whole model does not fit the card in bf16) and xlstm-125m (all
@@ -185,15 +197,28 @@ JAX. Phases, each of which raises on failure:
      through the kernels; (c) #1's backward at (4, 1024, 64 / 8, 128),
      bf16 and fp32, causal and not, #1's training forward (o and lse)
      and backward at the zoo's g 48 / d 128 and g 3 / d 64 (groups that
-     do not divide the bf16 body's 64-row warpgroups), and #9's at
+     do not divide the bf16 body's 64-row warpgroups), at h2o-danube-1.8b's
+     d 80 and paligemma-3b's d 256, and under a 256-key window on 1024
+     keys at d 64, 80 and 128, and #9's at
      Jamba's layer width (4, 1024, 8192, 16) against their plain
      versions, two runs of each bit for bit, #1's bf16 backward against
      the fp32 plain version (F4),
      then both timed beside their bounds and plain versions (and SDPA's
-     backward for #1); (d) llama2-70b at 4 layers, bf16, batch 4 x 1024,
-     five train steps through the kernels: step ms, tokens/s, peak
-     memory, step 1's loss beside the plain bf16 forward's, and one more
-     step profiled.
+     backward for #1), #1's training forward and backward also in the
+     fp32 instances (e) launches, at d 80, d 256 and windowed d 64 (beside
+     SDPA's forward and backward); (d) the
+     memory the earlier phases left allocated must be under 1 GiB before
+     any garbage collection (F8); llama2-70b at 4 layers, bf16, batch 4 x
+     1024: one step's gradients with activation checkpointing
+     (REMAT_TRAIN) on and off, bit for bit; five train steps through the
+     kernels with it on and three with it off: step ms, tokens/s, peak
+     memory (under PARENT_TRAIN_PEAK_GIB with it on), step 1's loss beside the plain bf16
+     forward's, and one more step profiled; (e) ``launch.train --arch
+     <a> --reduced --steps 2`` (its ``main``) for all eleven
+     architectures on the card, once as ``python -m
+     repro_torch.launch.train``, and h2o-danube-1.8b and paligemma-3b at
+     full width (2 layers, fp32): loss and every gradient leaf through the
+     kernels against the plain versions, as in (a).
 
 ``python3 chip_smoke.py --sass-of TREE OUT.json`` instead builds the
 kernels of another checkout (the parent commit's ``git archive``) and
@@ -209,11 +234,15 @@ granite-moe-3b launches and the times at their shapes (#7 at both widths
 is timed and logged; no serve launches it there), and #1 at head dim 256
 and on whisper's cross shapes and #8 at head dim 256 with phase 9 (c)'s
 launches and the times at their shapes, and the two backward kernels with
-phase 10's train steps' launches and the times at (c)'s shapes.
+phase 10's train steps' launches and the times at (c)'s shapes; #2-#4 on
+pools of the other width with phase 4's serves on them, and #1's training
+forward and backward at d 80, d 256 and windowed with phase 10 (e)'s
+launches there.
 """
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import dataclasses
 import functools
@@ -303,6 +332,11 @@ def phase_device_and_build():
     libs = build.build()
     log(f"built {len(libs)} kernel libraries in "
         f"{time.perf_counter() - t0:.1f}s under {build.BUILD_DIR}")
+    # one cuobjdump a library, all started together
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(_sass, libs.values()))
+    log(f"disassembled them in {time.perf_counter() - t0:.1f}s")
     for name, so in libs.items():
         report = so.with_suffix(".log")
         if report.exists():
@@ -365,8 +399,10 @@ def _demangle(names):
                               :len(names)]
 
 
+@functools.lru_cache(maxsize=None)
 def sass_functions(so):
-    """{kernel name: (SASS op counts, digest)} of a library: the digest
+    """{kernel name: (SASS op counts, digest)} of a library, once per
+    library file (callers only read it): the digest
     hashes the kernel's instructions (addresses and encodings left out), so
     two builds of the same kernel code give the same digest."""
     import hashlib
@@ -400,7 +436,8 @@ def check_paged_build(so):
     without spills, with cp.async (LDGSTS) on bf16 pools and none on int8 /
     fp8 pools (#6), whose tiles the producer widens; the decode body
     (dk::decode_fwd: #2 on dk::Params, #4 on dk::VParams, #5 and #7 on
-    dk::QParams / dk::QVParams of int8 and fp8) without spills, with HMMA
+    dk::QParams / dk::QVParams of int8 and fp8, #2 and #4 on dk::MParams /
+    dk::MVParams of pools of the other width) without spills, with HMMA
     and MOVM in bf16. Of attention.cuh only the fp32 scalar body is left:
     no mma.sync body (attn_fwd_mma), no bf16 instance and no second merge
     launch (combine_splits)."""
@@ -418,12 +455,17 @@ def check_paged_build(so):
     context = [n for n in funcs if n.startswith("void pc::context_fwd")]
     decode = [n for n in funcs if n.startswith("void dk::decode_fwd")]
     quant = [n for n in decode if "dk::QParams" in n or "dk::QVParams" in n]
-    # 3 head dims x (bf16 PAGED16, bf16 PAGED, fp32 PAGED) x (#2, #4, and
-    # #5, #7 on int8 and on fp8 pools)
-    if len(context) != 9 or len(decode) != 54 or len(quant) != 36:
+    mixed = [n for n in decode if "dk::MParams" in n or "dk::MVParams" in n]
+    # context: 3 head dims x (bf16, int8, fp8 and fp32 pools); decode: 3
+    # head dims x (bf16 PAGED16, bf16 PAGED, fp32 PAGED) x (#2, #4, and #5,
+    # #7 on int8 and on fp8 pools), and #2, #4 on pools of the other width
+    # (fp32 pools under bf16 PAGED16 and PAGED, bf16 pools under fp32)
+    if len(context) != 12 or len(decode) != 72 or len(quant) != 36 \
+            or len(mixed) != 18:
         raise AssertionError(f"paged library: {len(context)} context and "
                              f"{len(decode)} decode kernels ({len(quant)} "
-                             "quantized), expected 9, 54 (36)")
+                             f"quantized, {len(mixed)} of the other width), "
+                             "expected 12, 72 (36, 18)")
     for n in context:
         c = funcs[n][0]
         gathers = bool(c["LDGSTS"]) == n.startswith(
@@ -644,12 +686,18 @@ def _pool(gen, dev, dtype, n_blocks, bs, hkv, d, kv=None):
     """Random K/V page pools in `dtype`, and {} for the ops call; with
     `kv` ("int8" / "fp8") the pools are quantized rows and the dict holds
     their k_scale / v_scale. The null page's scales are 0, as in a fresh
-    pool."""
+    pool. kv "other": pools of the other width, bf16 under fp32 q, fp32
+    under bf16 q holding bf16 values (what a bf16 model writes there)."""
     from repro_torch.models import quant
     kp = _rand(gen, (n_blocks, bs, hkv, d), dtype, dev)
     vp = _rand(gen, (n_blocks, bs, hkv, d), dtype, dev)
     if kv is None:
         return kp, vp, {}
+    if kv == "other":
+        other = (torch.float32 if dtype == torch.bfloat16
+                 else torch.bfloat16)
+        return (kp.to(torch.bfloat16).to(other),
+                vp.to(torch.bfloat16).to(other), {})
     (kq, ks), (vq, vs) = (quant.quantize_kv_rows(t, kv) for t in (kp, vp))
     ks[0] = 0.0
     vs[0] = 0.0
@@ -670,7 +718,7 @@ BLOCK_SIZES = (16, 1, 2, 8, 12)
 
 def decode_cases(gen, dev, dtype, hq=64, hkv=8, d=128, kv=None):
     from repro_torch.kernels import ops
-    for bs in BLOCK_SIZES:
+    for bs in BLOCK_SIZES if kv != "other" else (16, 5):
         # ragged lengths, free slots on all-null tables (one reading the
         # trash page, one with no live key) over 128-key tables
         nb = -(-128 // bs)
@@ -885,6 +933,49 @@ D80_CASES = {"flash_attention": window_cases,
 # head groups of 8 share the decode body's kv head) and granite-moe-3b's
 # (24 on 8 kv heads of 64: 21 positions of 3 heads fill 63 rows)
 ZOO_WIDTHS = (dict(hq=48, hkv=1, d=128), dict(hq=24, hkv=8, d=64))
+
+
+# #2, #3 and #4 on pools of the other width than q's (K2): bf16 pools
+# under fp32 q (an fp32 model's --kv-dtype bf16) and fp32 pools under bf16
+# q (a bf16 model's --kv-dtype fp32), at g 8 (d 128 and 64), g 48 and g 3
+MIXED_CASES = {"paged_decode_attention": decode_cases,
+               "paged_context_attention": context_cases,
+               "paged_verify_attention": verify_cases}
+MIXED_WIDTHS = ({}, dict(hq=64, hkv=8, d=64), *ZOO_WIDTHS)
+MIXED_TAGS = {torch.float32: "bf16-pool", torch.bfloat16: "fp32-pool"}
+
+
+def check_mixed_widths(dev):
+    """Phase 2 (K2): #2, #3 and #4 against their plain versions on pools of
+    the other width (MIXED_CASES): ragged rows, null tables, split-KV and
+    dead verify rows, block sizes 16 and 5; fp32 q within FP32_ATOL, bf16
+    q within one bf16 ulp of the largest output (its fp32 pool holds bf16
+    values, so the kernel's narrowing load is exact); rows that see no key
+    exact zeros."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    n = 0
+    for name, cases in MIXED_CASES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            for widths in MIXED_WIDTHS:
+                worst = 0.0
+                for case, fn, dead in cases(gen, dev, dtype, kv="other",
+                                            **widths):
+                    got, want = _run_both(fn)
+                    torch.cuda.synchronize()
+                    worst = max(worst, _compare(
+                        name, f"{MIXED_TAGS[dtype]} {case}", got, want,
+                        dtype))
+                    if dead is not None and torch.count_nonzero(dead(got)):
+                        raise AssertionError(f"{name} [{case}, {dtype} q, "
+                                             f"{MIXED_TAGS[dtype]}]: a row "
+                                             "that sees no key is not zero")
+                    n += 1
+                log(f"  check {name} [{MIXED_TAGS[dtype]}] {dtype} q "
+                    f"hq={widths.get('hq', 64)} hkv={widths.get('hkv', 8)} "
+                    f"d={widths.get('d', 128)}: every case, max abs err "
+                    f"{worst:.3g}")
+    log(f"  check: {n} cases of #2, #3 and #4 on pools of the other width "
+        "agree with their plain versions")
 
 
 def check_kernels(dev, names=None):
@@ -1150,22 +1241,31 @@ def _flash_timing(x, flush):
                 library_ms=_time_sdpa(q, k, v, flush, is_causal=True))
 
 
+def _rate(q):
+    """The peak rate of the body q's dtype runs on: the fp32 bodies are
+    scalar, the bf16 ones use the tensor cores; and the dtype whose
+    tolerance a check of it takes."""
+    return dict(flop_rate=(FP32_FLOP_PER_S if q.dtype == torch.float32
+                           else BF16_FLOP_PER_S), dtype=q.dtype)
+
+
 def _paged_decode_timing(x, quant=None):
     """#2 on the decode inputs x, or #5 with `quant` = (k, v, k_scale,
-    v_scale), the pool's rows quantized: a key costs 2 d es bytes per kv
-    head, or 2 d + 8 on a quantized pool (two one-byte rows, two fp32
-    scales)."""
+    v_scale), the pool's rows quantized: a key costs 2 d kes bytes per kv
+    head (kes: the pool's element size, q's or the other width's), or
+    2 d + 8 on a quantized pool (two one-byte rows, two fp32 scales)."""
     from repro_torch.kernels import ops
     q, tbl, kv_len = x["q"], x["tbl"], x["kv_len"]
     _, _, hq, d = q.shape
     hkv = x["kp"].shape[2]
     es, kv = q.element_size(), int(kv_len.sum())
+    kes = x["kp"].element_size()
     if quant is None:
         return dict(fn=lambda: ops.paged_decode_attention(
             q, x["kp"], x["vp"], tbl, kv_len=kv_len),
-            nbytes=es * (2 * q.numel() + 2 * kv * hkv * d)
+            nbytes=es * 2 * q.numel() + kes * 2 * kv * hkv * d
             + 4 * (tbl.numel() + 16),
-            flops=4 * d * hq * kv, library_ms=None)
+            flops=4 * d * hq * kv, library_ms=None, **_rate(q))
     kq, vq, ks, vs = quant
     return dict(fn=lambda: ops.paged_decode_attention(
         q, kq, vq, tbl, kv_len=kv_len, k_scale=ks, v_scale=vs),
@@ -1181,7 +1281,7 @@ def _paged_context_timing(y, quant=None):
     q, tbl = y["q"], y["tbl"]
     _, C, hq, d = q.shape
     hkv = y["kp"].shape[2]
-    es = q.element_size()
+    es, kes = q.element_size(), y["kp"].element_size()
     starts, lens = y["q_start"].tolist(), y["kv_len"].tolist()
     pairs = sum(sum(min(st + j + 1, ln) for j in range(C))
                 for st, ln in zip(starts, lens))
@@ -1189,9 +1289,9 @@ def _paged_context_timing(y, quant=None):
         return dict(fn=lambda: ops.paged_context_attention(
             q, y["kp"], y["vp"], tbl, q_start=y["q_start"],
             kv_len=y["kv_len"]),
-            nbytes=es * (2 * q.numel() + 2 * sum(lens) * hkv * d)
+            nbytes=es * 2 * q.numel() + kes * 2 * sum(lens) * hkv * d
             + 4 * (tbl.numel() + 8),
-            flops=4 * d * hq * pairs, library_ms=None)
+            flops=4 * d * hq * pairs, library_ms=None, **_rate(q))
     kq, vq, ks, vs = quant
     return dict(fn=lambda: ops.paged_context_attention(
         q, kq, vq, tbl, q_start=y["q_start"], kv_len=y["kv_len"],
@@ -1208,7 +1308,7 @@ def _paged_verify_timing(w, quant=None):
     q, tbl = w["q"], w["tbl"]
     _, T, hq, d = q.shape
     hkv = w["kp"].shape[2]
-    es = q.element_size()
+    es, kes = q.element_size(), w["kp"].element_size()
     starts, lens = w["kv_start"].tolist(), w["kv_len"].tolist()
     pairs = sum(sum(min(st + j + 1, ln) for j in range(T))
                 for st, ln in zip(starts, lens))
@@ -1216,9 +1316,9 @@ def _paged_verify_timing(w, quant=None):
         return dict(fn=lambda: ops.paged_verify_attention(
             q, w["kp"], w["vp"], tbl, kv_start=w["kv_start"],
             kv_len=w["kv_len"]),
-            nbytes=es * (2 * q.numel() + 2 * sum(lens) * hkv * d)
+            nbytes=es * 2 * q.numel() + kes * 2 * sum(lens) * hkv * d
             + 4 * (tbl.numel() + 32),
-            flops=4 * d * hq * pairs, library_ms=None)
+            flops=4 * d * hq * pairs, library_ms=None, **_rate(q))
     kq, vq, ks, vs = quant
     return dict(fn=lambda: ops.paged_verify_attention(
         q, kq, vq, tbl, kv_start=w["kv_start"], kv_len=w["kv_len"],
@@ -1310,6 +1410,19 @@ def time_kernels(dev):
     w = inp["paged_verify_attention"]
     res["paged_verify_attention"] = _paged_verify_timing(w)
 
+    # K2: #2, #3 and #4 at the same shapes on the pool of the other width:
+    # fp32 q on the bf16 pool ("bf16-pool"), bf16 q on it widened to fp32
+    # ("fp32-pool", bf16 values as a bf16 model writes them)
+    for qdt, tag in MIXED_TAGS.items():
+        pdt = torch.bfloat16 if qdt == torch.float32 else torch.float32
+        pools = dict(kp=x["kp"].to(pdt), vp=x["vp"].to(pdt))
+        res[f"paged_decode_attention[{tag}]"] = _paged_decode_timing(
+            dict(x, q=x["q"].to(qdt), **pools))
+        res[f"paged_context_attention[{tag}]"] = _paged_context_timing(
+            dict(y, q=y["q"].to(qdt), **pools))
+        res[f"paged_verify_attention[{tag}]"] = _paged_verify_timing(
+            dict(w, q=w["q"].to(qdt), **pools))
+
     # the quantized kernels at the same shapes: the same calls with the
     # pools' one-byte payloads and scales; a key costs 2 d + 8 bytes per kv
     # head (K and V rows, two fp32 scales) instead of 2 d es
@@ -1369,7 +1482,8 @@ def time_kernels(dev):
     for name, r in res.items():
         torch.cuda.empty_cache()      # the plain d-80 prefill takes ~50 GB
         got, want = _run_both(r["fn"])
-        err = _compare_out(name, "serving shape", got, want, torch.bfloat16)
+        err = _compare_out(name, "serving shape", got, want,
+                           r.get("dtype", torch.bfloat16))
         del got, want
         ms = _time_ms(r["fn"], flush)
         with ops.backend("plain"):
@@ -1384,8 +1498,9 @@ def time_kernels(dev):
         lib_s = ("" if r["library_ms"] is None
                  else f" library {r['library_ms']:.3f} ms")
         log(f"  time {name}: {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-            f"{bound_ms:.3f} ms ({bound_by}){lib_s}, bf16 max abs err "
-            f"{err:.3g}")
+            f"{bound_ms:.3f} ms ({bound_by}){lib_s}, "
+            f"{'fp32' if r.get('dtype') == torch.float32 else 'bf16'} max "
+            f"abs err {err:.3g}")
     torch.cuda.empty_cache()
     return out
 
@@ -1495,7 +1610,9 @@ def _check_path(name, stats, launched, draft_steps, reqs, L, n_slots, kw):
     need = {}
     max_new = max(r.max_new_tokens for r in reqs)
     out_tok = sum(len(r.output) for r in reqs)
-    kv = kw.get("kv_dtype")
+    # an unquantized pool of the other width runs the unquantized kernels
+    kv = kw.get("kv_dtype") if kw.get("kv_dtype") in ("int8", "fp8") \
+        else None
     G = len(kw.get("kv_guard_layers", ()))
 
     def paged(kernel, steps):
@@ -1922,7 +2039,9 @@ def phase_parity():
     pools of the same precision (tests/test_spec.py's contract). The
     synthetic and shared-prefix workloads run again on int8 and on fp8
     pools, and n-gram speculation on int8 pools: the quantized kernels
-    against their plain versions."""
+    against their plain versions; and the synthetic, shared-prefix and
+    n-gram workloads on bf16 pools (K2: #2, #3 and #4 on pools of the
+    other width). Returns the bf16-pool serves' kernel-run launches."""
     from repro_torch.core.plan import Assignment, PipelinePlan, StagePlan
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
@@ -1934,6 +2053,7 @@ def phase_parity():
     spec = dict(spec_decode=True, spec_k=4)
     prefix = dict(prefix_caching=True, prefill_chunk=256)
     greedy = {}          # kv_dtype -> the plain greedy serve's tokens
+    mixed = dict.fromkeys(ops.KERNELS, 0)
     for name, kw in (("synthetic", {}), ("shared-prefix", prefix),
                      ("spec-ngram", spec),
                      ("spec-draft", dict(spec, draft_model=cfg)),
@@ -1941,14 +2061,21 @@ def phase_parity():
                      ("shared-prefix int8", dict(prefix, kv_dtype="int8")),
                      ("synthetic fp8", dict(kv_dtype="fp8")),
                      ("shared-prefix fp8", dict(prefix, kv_dtype="fp8")),
-                     ("spec-ngram int8", dict(spec, kv_dtype="int8"))):
+                     ("spec-ngram int8", dict(spec, kv_dtype="int8")),
+                     ("synthetic bf16", dict(kv_dtype="bf16")),
+                     ("shared-prefix bf16", dict(prefix, kv_dtype="bf16")),
+                     ("spec-ngram bf16", dict(spec, kv_dtype="bf16"))):
         outs = []
         for backend in ("kernel", "plain"):
             synth, shared = _workloads(cfg.vocab_size, n=6, out_len=8)
             reqs = shared if kw.get("prefix_caching") else synth
+            ops.reset_launch_counts()
             with ops.backend(backend):
                 stats, wall, _ = _serve(cfg, asg, params, reqs, **common,
                                         **kw)
+            if backend == "kernel" and kw.get("kv_dtype") == "bf16":
+                for k, n in ops.launch_counts().items():
+                    mixed[k] += n
             outs.append(([list(r.output) for r in reqs], stats, wall))
         (tk, sk, wk), (tp, sp, wp) = outs
         prompts = [list(r.prompt) for r in reqs]
@@ -1970,8 +2097,49 @@ def phase_parity():
             f"({wp:.3f} s)"
             + (", and equal to plain greedy" if name.startswith("spec")
                else "") + f"; {sk.summary()}")
+    if not all(mixed[k] for k in PAGED):
+        raise AssertionError(f"the bf16-pool serves launched {mixed}")
     del params
     torch.cuda.empty_cache()
+    return mixed
+
+
+def phase_fp32_pool(smi):
+    """Phase 4 (K2): llama2-70b at full width in bf16, SERVE_LAYERS layers,
+    on fp32 page pools (a bf16 model's --kv-dtype fp32), through the
+    kernels: phase 3's synthetic, shared-prefix and n-gram workloads, each
+    kernel of a serve's path launched layers x steps times, counted from 0
+    just before the serve. Returns their launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    cfg = _llama(SERVE_LAYERS)
+    L = cfg.num_layers
+    asg = _pipeline_asg(L)
+    params = M.init_params(cfg, 0, device=DEVICE)
+    common = dict(n_slots=16, max_len=2048, block_size=16, kv_dtype="fp32")
+    counts = dict.fromkeys(ops.KERNELS, 0)
+    _serve(cfg, asg, params, _workloads(cfg.vocab_size, n=4, out_len=4)[0],
+           **common)                                        # warm-up
+    for name in ("synthetic", "shared-prefix", "spec-ngram"):
+        kw = dict(common, **SERVE_KW[name])
+        synth, shared = _workloads(cfg.vocab_size, n=16, out_len=32)
+        reqs = shared if kw.get("prefix_caching") else synth
+        ops.reset_launch_counts()
+        stats, wall, info = _serve(cfg, asg, params, reqs, **kw)
+        launched = ops.launch_counts()
+        for k in counts:
+            counts[k] += launched[k]
+        _check_path(f"fp32-pool {name}", stats, launched,
+                    info["draft_steps"], reqs, L, kw["n_slots"], kw)
+        out_tok = sum(len(r.output) for r in reqs)
+        log(f"  serve {cfg.name} bf16 on fp32 pools {name}: {len(reqs)} "
+            f"requests, {out_tok} generated tokens in {wall:.3f} s wall "
+            f"= {out_tok / wall:.1f} tok/s; {stats.summary()}; page pools "
+            f"{stats.kv_bytes_resident / 2**30:.3f} GiB on {smi}; launches "
+            f"{_nonzero(launched)}")
+    del params
+    torch.cuda.empty_cache()
+    return counts
 
 
 def phase_parity_jamba():
@@ -2165,23 +2333,29 @@ def phase_schedule_serve(smi):
     del params
     torch.cuda.empty_cache()
     _run_launcher("llama2-70b")
+    # K2: an unquantized pool of the other width than the model's: a bf16
+    # pool under the reduced (fp32) model, an fp32 pool under a full-size
+    # (bf16) one
+    _run_launcher("llama2-70b", extra=["--kv-dtype", "bf16"])
+    _run_launcher("granite-8b", extra=["--kv-dtype", "fp32"], reduced=False)
     return counts
 
 
-def _run_launcher(arch, multi=False):
-    """``python -m repro_torch.launch.serve`` with phase 5's paged flags on
-    reduced `arch`, in a subprocess on the card: it must exit 0 and print
-    its assignment and summary lines. ``multi`` (phase 8 (c)) adds prefix
+def _run_launcher(arch, multi=False, extra=(), reduced=True):
+    """``python -m repro_torch.launch.serve`` with phase 5's paged flags
+    and `extra` on reduced `arch` (at full size unless `reduced`), in a
+    subprocess on the card: it must exit 0 and print its assignment and
+    summary lines. ``multi`` (phase 8 (c)) adds prefix
     caching, every multi-replica flag and every observability flag on the
     half-price pool: the launcher must also print its roles, its host-tier
     blocks and the calibration table, and ``python -m
     repro_torch.obs.report`` must pass the trace and metrics it writes
     under build/."""
     root = os.path.dirname(os.path.abspath(__file__))
-    argv = ["--arch", arch, "--reduced", "--cluster",
-            "half_price" if multi else "case_study",
-            "--cache-layout", "paged", "--rate", "4", "--duration", "1",
-            "--out-len", "4", "--search-iters", "2"]
+    argv = ["--arch", arch] + (["--reduced"] if reduced else []) + [
+        "--cluster", "half_price" if multi else "case_study",
+        "--cache-layout", "paged", "--rate", "4", "--duration", "1",
+        "--out-len", "4", "--search-iters", "2", *extra]
     out_dir = os.path.join(root, "build", "phase8")
     trace = os.path.join(out_dir, "launcher_trace.json")
     metrics = os.path.join(out_dir, "launcher_metrics.jsonl")
@@ -2461,7 +2635,11 @@ def phase_danube(smi):
 
 # each configuration's depth: the published one, but phi3.5-moe's 41.6e9
 # parameters in bf16 (~83 GB) exceed the card's 80 GB: 8 of its 32 layers
-ZOO_LAYERS = {"granite-20b": 52, "granite-moe-3b-a800m": 32,
+# depth of phase 7's serves (full width): granite-20b 12 of its 52 layers
+# and granite-moe-3b 8 of its 32 (cut from full depth so that the script
+# stays within its time with the training phases), phi3.5-moe 8 of 32 (the
+# whole model does not fit in bf16)
+ZOO_LAYERS = {"granite-20b": 12, "granite-moe-3b-a800m": 8,
               "codeqwen1.5-7b": 32, "phi3.5-moe-42b-a6.6b": 8,
               "xlstm-125m": 12}
 ZOO_SERVES = {"granite-20b": ("synthetic", "shared-prefix", "spec-ngram"),
@@ -2487,10 +2665,11 @@ ZOO_PROFILED = ("granite-20b", "granite-moe-3b-a800m")
 
 def phase_zoo(smi):
     """The rest of the slot-mode zoo at full width in bf16, seeded weights,
-    through the asymmetric 2-stage paged pipeline, one model at a time:
-    granite-20b (all 52 layers; MQA, #1-#4 at g 48) with the synthetic,
-    shared-prefix and n-gram speculation workloads; granite-moe-3b-a800m
-    (all 32 layers; g 3, 40 experts top-8) with the synthetic and
+    through the asymmetric 2-stage paged pipeline, one model at a time
+    (depths: ZOO_LAYERS): granite-20b (12 of 52 layers; MQA, #1-#4 at g
+    48) with the synthetic, shared-prefix and n-gram speculation
+    workloads; granite-moe-3b-a800m (8 of 32 layers; g 3, 40 experts
+    top-8) with the synthetic and
     shared-prefix ones, the latter also on int8 pages (#6, #5);
     codeqwen1.5-7b (all 32; q/k/v bias, MHA) synthetic and shared-prefix;
     phi3.5-moe-42b-a6.6b (8 of 32 layers) synthetic; xlstm-125m (all 12;
@@ -3410,6 +3589,14 @@ TRAIN_JAMBA_STEPS = 3
 TRAIN_BF16 = (4, 1024)            # (d): llama2-70b bf16, 4 layers
 TRAIN_BF16_LAYERS = 4
 TRAIN_BF16_STEPS = 5
+TRAIN_BF16_OFF_STEPS = 3          # (d): the same steps without remat
+TRAIN_WIDE_LAYERS = 2             # (e): danube and paligemma at full width
+# (d): the earlier phases' engines may leave no more than this allocated
+# before a garbage collection (F8: 16.76 GiB when they held cycles)
+F8_HELD_GIB = 1.0
+# (d): the bf16 step's peak before activation checkpointing and the chunked
+# AdamW update (NVIDIA H100 80GB HBM3, 700 W); the step must now stay under
+PARENT_TRAIN_PEAK_GIB = 61.7
 GRAD_RTOL = 1e-4                  # kernels vs plain: of a leaf's largest
 LOSS_RTOL = 1e-5
 FP32_BWD_RTOL = 5e-5              # (c) fp32 kernel vs twin, of the largest
@@ -3575,22 +3762,26 @@ def _check_bwd(name, case, fn, twin, dtype):
     return worst
 
 
-def _check_train_gqa(gen, dev, dtype, causal, hq, hkv, d, b=2, s=1024):
+def _check_train_gqa(gen, dev, dtype, causal, hq, hkv, d, b=2, s=1024,
+                     window=0):
     """#1's training forward (return_lse) and backward at a GQA group that
     need not divide the bf16 body's 64-row warpgroups (the zoo's g 48 and
-    g 3): o and lse, two runs bit for bit, against attention_fwd_lse_ref;
-    then the backward fed the plain version's o and lse against its twin
-    (_check_bwd)."""
+    g 3), at the head dims of h2o-danube-1.8b (80) and paligemma-3b (256),
+    and under a sliding window: o and lse, two runs bit for bit, against
+    attention_fwd_lse_ref; then the backward fed the plain version's o and
+    lse against its twin (_check_bwd)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
-    case = f"({b}, {s}, {hq}/{hkv}, {d}) causal={causal}"
+    case = (f"({b}, {s}, {hq}/{hkv}, {d}) causal={causal}"
+            + (f" window={window}" if window else ""))
+    mask = dict(causal=causal, window=window)
     q = _rand(gen, (b, s, hq, d), dtype, dev)
     k = _rand(gen, (b, s, hkv, d), dtype, dev)
     v = _rand(gen, (b, s, hkv, d), dtype, dev)
     do = _rand(gen, (b, s, hq, d), dtype, dev)
-    got, again = [fa.flash_attention_cuda(q, k, v, causal=causal,
-                                          return_lse=True) for _ in range(2)]
-    o, lse = ref.attention_fwd_lse_ref(q, k, v, causal=causal)
+    got, again = [fa.flash_attention_cuda(q, k, v, return_lse=True, **mask)
+                  for _ in range(2)]
+    o, lse = ref.attention_fwd_lse_ref(q, k, v, **mask)
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"flash_attention lse [{case}, {dtype}]: two "
@@ -3606,8 +3797,8 @@ def _check_train_gqa(gen, dev, dtype, causal, hq, hkv, d, b=2, s=1024):
     args = [q, k, v, o, lse, do]
     err = _check_bwd(
         "flash_attention_bwd", case,
-        lambda: fa.flash_attention_bwd_cuda(*args, causal=causal),
-        lambda: ref.attention_bwd_ref(*args, causal=causal), dtype)
+        lambda: fa.flash_attention_bwd_cuda(*args, **mask),
+        lambda: ref.attention_bwd_ref(*args, **mask), dtype)
     log(f"  check flash_attention lse + flash_attention_bwd [{case}] "
         f"{dtype}: o max abs err {o_err:.3g}, lse {lse_err:.3g}; backward "
         f"max err {err:.3g} of the largest gradient; two runs of each "
@@ -3616,13 +3807,24 @@ def _check_train_gqa(gen, dev, dtype, causal, hq, hkv, d, b=2, s=1024):
     torch.cuda.empty_cache()
 
 
+# phase 10 (c): #1's training instances at h2o-danube-1.8b's head dim 80
+# (g 4), paligemma-3b's 256 (g 8), and under a 256-key window on 1024 keys
+# at d 64, 80 and 128
+TRAIN_WIDTHS = (dict(hq=32, hkv=8, d=80), dict(hq=8, hkv=1, d=256),
+                dict(hq=32, hkv=8, d=64, window=256),
+                dict(hq=32, hkv=8, d=80, window=256),
+                dict(hq=64, hkv=8, d=128, window=256))
+
+
 def check_bwd_kernels(dev):
     """Phase 10 (c): #1's backward at llama2-70b's widths (4, 1024, 64 / 8,
     128), causal and not; #1's training forward (o, lse) and backward at
-    the zoo's g 48 (d 128) and g 3 (d 64), b 2, s 1024; and #9's at jamba's layer width (4, 1024, 8192,
-    16; x bf16, dt fp32, and all fp32) against their plain versions, two
-    runs of each bit for bit; and #1's bf16 backward against the fp32
-    plain version of the same inputs (F4: both passes round P to bf16)."""
+    the zoo's g 48 (d 128) and g 3 (d 64), causal and not, and causal at
+    TRAIN_WIDTHS (d 80, d 256, windowed), b 2, s 1024; and #9's at jamba's
+    layer width (4, 1024, 8192, 16; x bf16, dt fp32, and all fp32) against
+    their plain versions, two runs of each bit for bit; and #1's bf16
+    backward against the fp32 plain version of the same inputs (F4: both
+    passes round P to bf16)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssm_scan as ss
@@ -3659,6 +3861,11 @@ def check_bwd_kernels(dev):
         for dtype in (torch.bfloat16, torch.float32):
             for causal in (True, False):
                 _check_train_gqa(gen, dev, dtype, causal, **w)
+    # the widths and masks that h2o-danube-1.8b (d 80, a window) and
+    # paligemma-3b (d 256) train with (TRAIN_WIDTHS)
+    for w in TRAIN_WIDTHS:
+        for dtype in (torch.bfloat16, torch.float32):
+            _check_train_gqa(gen, dev, dtype, True, **w)
     for dtype in (torch.bfloat16, torch.float32):
         x = _bwd_scan_inputs(gen, dev, dtype=dtype)
         args = [x[n] for n in ("x", "dt", "A", "B", "C", "D", "h_ins", "dy")]
@@ -3672,44 +3879,102 @@ def check_bwd_kernels(dev):
     torch.cuda.empty_cache()
 
 
+# phase 10 (c)'s timing shapes of #1's training instances beyond llama's,
+# in the instances phase 10 (e) launches (fp32): h2o-danube-1.8b's widths
+# (d 80, g 4) and paligemma-3b's (d 256, g 8), as its full-width runs train
+# them, and reduced h2o-danube-1.8b's windowed d 64 at danube's heads under
+# a 256-key window; b 4, s 1024, causal
+TRAIN_TIMING = {"d80": dict(hq=32, hkv=8, d=80),
+                "d256": dict(hq=8, hkv=1, d=256),
+                "window": dict(hq=32, hkv=8, d=64, window=256)}
+
+
+def _time_train_attention(gen, dev, flush, tag, hq, hkv, d, window=0,
+                          b=4, s=1024, dt=torch.float32):
+    """#1's training forward (return_lse) and its backward at (b, s, hq /
+    hkv, d), causal, under `window`, in `dt`: rows
+    "flash_attention[lse-<tag>]" and "flash_attention_bwd[<tag>]" with
+    their plain versions' times, bounds (the forward's two products and
+    the backward's five over the pairs the mask keeps, at the peak rate of
+    the body dt runs on; or their bytes) and SDPA's forward and backward
+    on the same inputs and mask (the library yardstick; the port never
+    calls it)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    mask = dict(causal=True, window=window)
+    q = _rand(gen, (b, s, hq, d), dt, dev)
+    k = _rand(gen, (b, s, hkv, d), dt, dev)
+    v = _rand(gen, (b, s, hkv, d), dt, dev)
+    do = _rand(gen, (b, s, hq, d), dt, dev)
+    o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **mask)
+    args = [q, k, v, o, lse, do]
+    pairs = b * sum(min(p + 1, window or s) for p in range(s))
+    es = q.element_size()
+    pos = torch.arange(s, device=dev)
+    allowed = pos[None, :] <= pos[:, None]
+    if window:
+        allowed &= pos[None, :] > pos[:, None] - window
+    qt, kt, vt, gqa = _sdpa_inputs(q, k, v)
+    sdpa = dict(attn_mask=allowed) if window else dict(is_causal=True)
+    qt, kt, vt = (t.requires_grad_(True) for t in (qt, kt, vt))
+    out = F.scaled_dot_product_attention(qt, kt, vt, **sdpa, **gqa)
+    dot = do.transpose(1, 2).contiguous()
+    rows = {}
+    fwd = lambda: fa.flash_attention_cuda(q, k, v, return_lse=True,  # noqa
+                                          **mask)
+    plain_fwd = lambda: ref.attention_fwd_lse_ref(q, k, v, **mask)  # noqa
+    got, want = fwd(), plain_fwd()
+    rate = _rate(q)["flop_rate"]
+    bound_ms, bound_by = _bound(
+        es * (2 * q.numel() + k.numel() + v.numel()) + 4 * lse.numel(),
+        2 * 2 * d * hq * pairs, rate)
+    with torch.no_grad():
+        lib = _time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, **sdpa, **gqa), flush)
+    rows[f"flash_attention[lse-{tag}]"] = dict(
+        ms=_time_ms(fwd, flush), plain_ms=_time_ms(plain_fwd, flush,
+                                                   iters=3),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=lib,
+        max_abs_err=float((got[0].float() - want[0].float()).abs().max()))
+    del got, want
+    bwd = lambda: fa.flash_attention_bwd_cuda(*args, **mask)  # noqa
+    plain_bwd = lambda: ref.attention_bwd_ref(*args, **mask)  # noqa
+    bound_ms, bound_by = _bound(
+        es * (5 * q.numel() + 4 * k.numel()) + 4 * lse.numel(),
+        5 * 2 * d * hq * pairs, rate)
+    rows[f"flash_attention_bwd[{tag}]"] = dict(
+        ms=_time_ms(bwd, flush), plain_ms=_time_ms(plain_bwd, flush,
+                                                   iters=3),
+        bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=_time_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), flush),
+        max_abs_err=float(max((g.float() - w.float()).abs().max()
+                              for g, w in zip(bwd(), plain_bwd()))))
+    del q, k, v, do, o, lse, args, qt, kt, vt, out, dot, allowed
+    torch.cuda.empty_cache()
+    return rows
+
+
 def time_bwd_kernels(dev):
     """Phase 10 (c): the backward kernels timed at the training path's
     shapes (CUDA events after an L2 flush), with their plain versions,
     bounds, and SDPA's backward for #1 (the library yardstick; the port
     never calls it). #1's bound: its five products over the causal pairs
-    on the bf16 tensor cores, or its bytes (q, k, v, o, dO, lse read, dq,
+    at the peak rate of its dtype's body (bf16 at llama's widths, fp32 at
+    TRAIN_TIMING's), or its bytes (q, k, v, o, dO, lse read, dq,
     dk, dv written); #9's: one exponential a state element and step on
     the SFUs (a[t]; the kernel evaluates three), or its bytes."""
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssm_scan as ss
     gen = torch.Generator(device=dev).manual_seed(11)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    res = {}
-    x = _bwd_attention_inputs(gen, dev, torch.bfloat16)
-    args = [x[n] for n in ("q", "k", "v", "o", "lse", "do")]
-    b, s, hq, d = x["q"].shape
-    pairs = b * s * (s + 1) // 2
-    es = x["q"].element_size()
-    nbytes = (es * (5 * x["q"].numel() + 4 * x["k"].numel())
-              + 4 * x["lse"].numel())
-    bound_ms, bound_by = _bound(nbytes, 5 * 2 * d * hq * pairs)
-    qt, kt, vt, gqa = _sdpa_inputs(*args[:3])
-    qt, kt, vt = (t.requires_grad_(True) for t in (qt, kt, vt))
-    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, **gqa)
-    dot = args[5].transpose(1, 2).contiguous()
-    res["flash_attention_bwd"] = dict(
-        ms=_time_ms(lambda: fa.flash_attention_bwd_cuda(*args), flush),
-        plain_ms=_time_ms(lambda: ref.attention_bwd_ref(*args), flush,
-                          iters=3),
-        bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=_time_ms(lambda: torch.autograd.grad(
-            out, (qt, kt, vt), dot, retain_graph=True), flush),
-        max_abs_err=float(max((g.float() - w.float()).abs().max() for g, w in
-                              zip(fa.flash_attention_bwd_cuda(*args),
-                                  ref.attention_bwd_ref(*args)))))
-    del x, args, qt, kt, vt, out, dot
-    torch.cuda.empty_cache()
+    # #1's backward at llama2-70b's widths (its row of the kernels line),
+    # then at TRAIN_TIMING's with #1's training forward beside it
+    res = {"flash_attention_bwd": _time_train_attention(
+        gen, dev, flush, "llama", hq=64, hkv=8, d=128, dt=torch.bfloat16)[
+            "flash_attention_bwd[llama]"]}
+    for tag, shape in TRAIN_TIMING.items():
+        res.update(_time_train_attention(gen, dev, flush, tag, **shape))
     x = _bwd_scan_inputs(gen, dev)
     args = [x[n] for n in ("x", "dt", "A", "B", "C", "D", "h_ins", "dy")]
     b, s, din = x["x"].shape
@@ -3737,18 +4002,25 @@ def time_bwd_kernels(dev):
                else "none")
         log(f"  time {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} "
             f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library "
-            f"{lib}, bf16 max abs err {r['max_abs_err']:.3g}")
+            f"{lib}, max abs err {r['max_abs_err']:.3g}")
     return res
 
 
 def phase_train_bf16(smi):
     """Phase 10 (d): llama2-70b at full width, TRAIN_BF16_LAYERS layers,
-    bf16, batch TRAIN_BF16, TRAIN_BF16_STEPS train steps through the
-    kernels (AdamW in place; fp32 moments; a new batch of the stream each
-    step): each step's device time (CUDA events), tokens/s and the peak
-    memory, and the first step's loss beside the plain versions' bf16 loss
-    of the same weights and batch; then one more step profiled. Returns
-    the timed steps' launch counts."""
+    bf16, batch TRAIN_BF16. First the memory the earlier phases' engines
+    left: it must be under F8_HELD_GIB before any garbage collection (the
+    engines hold no reference cycles). Then, with REMAT_TRAIN on and off
+    from the same weights and batch, the memory the forward keeps for the
+    backward pass (less with it on) and one step's loss and gradients,
+    bit for bit; TRAIN_BF16_STEPS train steps through the kernels with
+    REMAT_TRAIN
+    on (AdamW in place, a chunk of a leaf at a time; fp32 moments; a new
+    batch of the stream each step), and TRAIN_BF16_OFF_STEPS with it off:
+    each step's device time (CUDA events), tokens/s and each setting's
+    peak memory, no higher with it on, and the first step's loss beside
+    the plain versions' bf16 loss of the same weights and batch; then one
+    more step profiled. Returns the timed steps' launch counts."""
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
     from repro_torch.training import optimizer
@@ -3758,36 +4030,75 @@ def phase_train_bf16(smi):
     log(f"phase 10 (d): {cfg.name} at full width, {cfg.num_layers} of 80 "
         f"layers, bf16, batch {b} x {s}, {TRAIN_BF16_STEPS} train steps "
         f"through the kernels ({smi})")
-    # the earlier phases' engines hold device memory in reference cycles
-    # until a full collection; this phase needs ~62 GiB of the 80
+    # F8: the earlier phases' engines are gone, and with them their pools
+    # and weights, without a full garbage collection
     held = torch.cuda.memory_allocated() / 2 ** 30
     gc.collect()
     torch.cuda.empty_cache()
     log(f"  device memory held before the weights: {held:.2f} GiB, "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB after a full "
         "garbage collection")
+    if held >= F8_HELD_GIB:
+        raise AssertionError(f"the earlier phases left {held:.2f} GiB "
+                             "allocated until a garbage collection")
     params = M.init_params(cfg, 0, device=DEVICE)
     n_params = sum(p.numel() for p in optimizer.leaves(params))
     with torch.no_grad(), ops.backend("plain"):
         plain_loss = float(M.loss_fn(cfg, params,
                                      _train_batch(cfg, b, s, seed=1)))
+    # what the forward keeps for the backward pass, and one step's
+    # gradients, with and without activation checkpointing
+    batch = _train_batch(cfg, b, s, seed=1)
+    for p in optimizer.leaves(params):
+        p.requires_grad_(True)
+    kept, grads = {}, {}
+    for remat in (True, False):
+        M.REMAT_TRAIN = remat
+        base = torch.cuda.memory_allocated()
+        loss = M.loss_fn(cfg, params, batch)
+        kept[remat] = (torch.cuda.memory_allocated() - base) / 2 ** 30
+        del loss
+        grads[remat] = _loss_and_grads(cfg, params, batch)
+    M.REMAT_TRAIN = True
+    (loss_on, g_on), (loss_off, g_off) = grads[True], grads[False]
+    same = loss_on == loss_off and all(torch.equal(x, y)
+                                       for x, y in zip(g_on, g_off))
+    log(f"  train {cfg.name} bf16 one step's loss and {len(g_on)} gradient "
+        f"leaves with REMAT_TRAIN on and off: "
+        f"{'bit-identical' if same else 'DIFFERENT'} (loss {loss_on:.6f}); "
+        f"the forward keeps {kept[True]:.2f} GiB for the backward pass on, "
+        f"{kept[False]:.2f} GiB off")
+    if not same:
+        raise AssertionError("REMAT_TRAIN changed the gradients")
+    if not kept[True] < kept[False]:
+        raise AssertionError(f"the forward keeps {kept[True]:.2f} GiB with "
+                             f"REMAT_TRAIN, {kept[False]:.2f} GiB without")
+    del grads, g_on, g_off
+    torch.cuda.empty_cache()
     state = optimizer.init(params)
     step_fn = make_train_step(cfg, optimizer.AdamWConfig(
-        lr=1e-4, warmup_steps=1, total_steps=TRAIN_BF16_STEPS))
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    losses, times = [], []
-    for step in range(TRAIN_BF16_STEPS):
-        batch = _train_batch(cfg, b, s, seed=1, step=step)
-        a, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        a.record()
-        params, state, loss = step_fn(params, state, batch)
-        e.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(e))
-        losses.append(float(loss))
-    launched = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        lr=1e-4, warmup_steps=1, total_steps=TRAIN_BF16_STEPS
+        + TRAIN_BF16_OFF_STEPS + 1))
+    runs = {}
+    for remat, steps in ((True, TRAIN_BF16_STEPS),
+                         (False, TRAIN_BF16_OFF_STEPS)):
+        M.REMAT_TRAIN = remat
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        losses, times = [], []
+        for step in range(steps):
+            batch = _train_batch(cfg, b, s, seed=1, step=step)
+            a, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            params, state, loss = step_fn(params, state, batch)
+            e.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(e))
+            losses.append(float(loss))
+        runs[remat] = dict(losses=losses, times=times,
+                           launched=ops.launch_counts(),
+                           peak=torch.cuda.max_memory_allocated() / 2 ** 30)
+    M.REMAT_TRAIN = True
     # one more step under torch.profiler: where the step's time goes
     from torch.profiler import ProfilerActivity, profile
     batch = _train_batch(cfg, b, s, seed=1, step=TRAIN_BF16_STEPS)
@@ -3798,28 +4109,136 @@ def phase_train_bf16(smi):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     _log_profile(f"train {cfg.name} bf16 step", prof, wall)
-    if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"bf16 train losses {losses}")
+    on = runs[True]
+    losses, launched = on["losses"], on["launched"]
+    if not all(math.isfinite(x) for r in runs.values()
+               for x in r["losses"]):
+        raise AssertionError(f"bf16 train losses {runs}")
     if not abs(losses[0] - plain_loss) <= 0.02 * abs(plain_loss):
         raise AssertionError(f"bf16 step 1 loss {losses[0]} through the "
                              f"kernels, {plain_loss} plain")
-    need = TRAIN_BF16_STEPS * cfg.num_layers
-    if launched["flash_attention_bwd"] != need or \
-            launched["flash_attention"] != need:
-        raise AssertionError(f"bf16 training launched {launched}, expected "
-                             f"{need} of #1 and of its backward")
-    steady = times[1:] or times
-    mean = sum(steady) / len(steady)
-    log(f"  train {cfg.name} bf16: {n_params / 1e9:.3f}e9 parameters; step "
-        "ms " + ", ".join(f"{t:.1f}" for t in times) + f" (steps 2-"
-        f"{TRAIN_BF16_STEPS} mean {mean:.1f} ms, {b * s / mean * 1e3:.0f} "
-        f"tokens/s); peak memory {peak:.1f} GiB; losses "
-        + ", ".join(f"{x:.4f}" for x in losses)
-        + f"; step 1 loss {losses[0]:.5f} kernels vs {plain_loss:.5f} "
-        f"plain bf16 forward; launches {_nonzero(launched)}")
+    for remat, r in runs.items():
+        # under REMAT_TRAIN the backward recomputes each layer's #1
+        need = len(r["times"]) * cfg.num_layers
+        if r["launched"]["flash_attention_bwd"] != need or \
+                r["launched"]["flash_attention"] != need * (1 + remat):
+            raise AssertionError(f"bf16 training (REMAT_TRAIN {remat}) "
+                                 f"launched {r['launched']}, expected "
+                                 f"{need * (1 + remat)} of #1 and {need} of "
+                                 "its backward")
+        steady = r["times"][1:] or r["times"]
+        mean = sum(steady) / len(steady)
+        log(f"  train {cfg.name} bf16, REMAT_TRAIN {remat}: "
+            f"{n_params / 1e9:.3f}e9 parameters; step ms "
+            + ", ".join(f"{t:.1f}" for t in r["times"])
+            + f" (steady mean {mean:.1f} ms, {b * s / mean * 1e3:.0f} "
+            f"tokens/s); peak memory {r['peak']:.1f} GiB; losses "
+            + ", ".join(f"{x:.4f}" for x in r["losses"])
+            + f"; launches {_nonzero(r['launched'])}")
+    if not on["peak"] < PARENT_TRAIN_PEAK_GIB:
+        raise AssertionError(f"peak memory {on['peak']:.1f} GiB with "
+                             "REMAT_TRAIN, not under the "
+                             f"{PARENT_TRAIN_PEAK_GIB} GiB of the step "
+                             "without checkpointing and chunked AdamW")
+    log(f"  train {cfg.name} bf16: step 1 loss {losses[0]:.5f} kernels vs "
+        f"{plain_loss:.5f} plain bf16 forward")
     del params, state
     torch.cuda.empty_cache()
-    return launched
+    counts = dict.fromkeys(ops.KERNELS, 0)
+    for r in runs.values():
+        for k, n in r["launched"].items():
+            counts[k] += n
+    return counts
+
+
+def phase_train_archs():
+    """Phase 10 (e): the training launcher's entry point,
+    ``repro_torch.launch.train.main(["--arch", a, "--reduced", "--steps",
+    "2"])``, on the card for every registered architecture (reduced
+    h2o-danube-1.8b trains its 64-key window under --seq 128, through the
+    windowed backward), and ``python -m repro_torch.launch.train`` once in
+    a subprocess; then h2o-danube-1.8b (d 80) and paligemma-3b (d 256) at
+    full width, TRAIN_WIDE_LAYERS layers, fp32: the loss within LOSS_RTOL
+    and every gradient leaf within GRAD_RTOL of its largest magnitude
+    through the kernels against the plain versions. Returns {tag: the
+    kernel runs' launches}: "window" (reduced danube), "d80", "d256" (the
+    full-width runs), "all" (everything)."""
+    import io
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.configs.base import ATTN, MAMBA
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    by_tag = {t: dict.fromkeys(ops.KERNELS, 0)
+              for t in ("window", "d80", "d256", "all")}
+
+    def add(tag, launched):
+        for t in {tag, "all"}:
+            for k, n in launched.items():
+                by_tag[t][k] += n
+
+    for arch in list_archs():
+        cfg = get_config(arch).reduced()
+        ops.reset_launch_counts()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            losses = train.main(["--arch", arch, "--reduced", "--steps",
+                                 "2"])
+        launched = ops.launch_counts()
+        add("window" if arch == DANUBE else "all", launched)
+        kinds = {cfg.layer_kind(i) for i in range(cfg.num_layers)}
+        need = (["flash_attention", "flash_attention_bwd"] * (ATTN in kinds)
+                + ["ssm_scan", "ssm_scan_bwd"] * (MAMBA in kinds))
+        if len(losses) != 2 or not all(map(math.isfinite, losses)) or \
+                not all(launched[k] for k in need):
+            raise AssertionError(f"launch.train --arch {arch}: losses "
+                                 f"{losses}, launches {launched}, output "
+                                 f"{out.getvalue()[-500:]}")
+        log(f"  launch.train --arch {arch} --reduced --steps 2: losses "
+            + ", ".join(f"{x:.4f}" for x in losses)
+            + f"; launches {_nonzero(launched)}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    argv = ["--arch", DANUBE, "--reduced", "--steps", "2"]
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train"] + argv, cwd=root,
+        env=dict(os.environ, PYTHONPATH=os.path.join(root, "src")),
+        capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"python -m repro_torch.launch.train exited "
+                             f"{out.returncode}: {out.stderr[-2000:]}")
+    log(f"  cli: python -m repro_torch.launch.train {' '.join(argv)} "
+        f"exited 0 on the card: {out.stdout.splitlines()[-1]}")
+    b, s = TRAIN_BATCH
+    for arch, tag in ((DANUBE, "d80"), ("paligemma-3b", "d256")):
+        cfg = dataclasses.replace(get_config(arch),
+                                  num_layers=TRAIN_WIDE_LAYERS,
+                                  dtype="float32")
+        params = M.init_params(cfg, 0, device=DEVICE)
+        batch = _train_batch(cfg, b, s, seed=0)
+        if cfg.num_image_tokens:
+            batch["image_embeds"] = 0.1 * torch.randn(
+                (b, cfg.num_image_tokens, cfg.d_model),
+                generator=torch.Generator(device=DEVICE).manual_seed(0),
+                device=DEVICE)
+        ops.reset_launch_counts()
+        loss_k, grads_k = _loss_and_grads(cfg, params, batch)
+        launched = ops.launch_counts()
+        with ops.backend("plain"):
+            loss_p, grads_p = _loss_and_grads(cfg, params, batch)
+        worst = _gate_grads(f"{arch} full width", loss_k, grads_k, loss_p,
+                            grads_p)
+        add(tag, launched)
+        if not (launched["flash_attention"]
+                and launched["flash_attention_bwd"]):
+            raise AssertionError(f"{arch}: launches {launched}")
+        log(f"  train {arch} at full width ({cfg.num_layers} layers, fp32, "
+            f"head dim {cfg.head_dim_}, {cfg.num_heads}/{cfg.num_kv_heads} "
+            f"heads, batch {b} x {s}): loss {loss_k:.6f} kernels, "
+            f"{loss_p:.6f} plain; worst gradient leaf {worst:.3g} of its "
+            f"largest magnitude (gate {GRAD_RTOL}); launches "
+            f"{_nonzero(launched)}")
+        del params, grads_k, grads_p
+        torch.cuda.empty_cache()
+    return by_tag
 
 
 def dump_sass(tree, out):
@@ -3852,6 +4271,7 @@ def main():
     done("phase 1")
     log("phase 2: kernels against their plain versions")
     check_kernels(torch.device("cuda"))
+    check_mixed_widths(torch.device("cuda"))
     check_scan(torch.device("cuda"))
     timed = time_kernels(torch.device("cuda"))
     done("phase 2")
@@ -3861,9 +4281,13 @@ def main():
         counts[k] += n
     done("phase 3 (jamba)")
     log("phase 4: engine parity through kernels and plain versions, fp32")
-    phase_parity()
+    mixed = {"bf16-pool": phase_parity()}
     phase_parity_jamba()
     phase_parity_zoo()
+    mixed["fp32-pool"] = phase_fp32_pool(smi)
+    for by in mixed.values():
+        for k, n in by.items():
+            counts[k] += n
     done("phase 4")
     for k, n in phase_schedule_serve(smi).items():
         counts[k] += n
@@ -3892,6 +4316,10 @@ def main():
     timed.update(time_bwd_kernels(torch.device("cuda")))
     done("phase 10 (c)")
     for k, n in phase_train_bf16(smi).items():
+        train[k] += n
+    done("phase 10 (d)")
+    wide = phase_train_archs()
+    for k, n in wide["all"].items():
         train[k] += n
     done("phase 10")
     kernels = []
@@ -3932,6 +4360,29 @@ def main():
         kernels.append(dict(name=row, route="cuda", source=src,
                             replaces=replaces, launches=encdec[arch][name],
                             **timed[row]))
+    # K2: #2, #3 and #4 on pools of the other width, with phase 4's serves
+    # on them (fp32 llama on bf16 pools through the kernels, bf16 llama on
+    # fp32 pools; also in the rows above) and the times at phase 3's shapes
+    for name in PAGED:
+        src, replaces = KERNEL_INFO[name]
+        for tag, by in mixed.items():
+            kernels.append(dict(name=f"{name}[{tag}]", route="cuda",
+                                source=src, replaces=replaces,
+                                launches=by[name],
+                                **timed[f"{name}[{tag}]"]))
+    # #1's training instances and its backward in fp32 at
+    # h2o-danube-1.8b's d 80 and paligemma-3b's d 256 (phase 10 (e)'s
+    # full-width runs' launches) and at d 64 under a window (reduced
+    # danube's 64-key window under launch.train), also in the rows above,
+    # and the times of the same instances at TRAIN_TIMING
+    for tag in TRAIN_TIMING:
+        for name, row in (("flash_attention", f"flash_attention[lse-{tag}]"),
+                          ("flash_attention_bwd",
+                           f"flash_attention_bwd[{tag}]")):
+            src, replaces = KERNEL_INFO[name]
+            kernels.append(dict(name=row, route="cuda", source=src,
+                                replaces=replaces, launches=wide[tag][name],
+                                **timed[row]))
     log(f"chip_smoke: every phase passed in {time.perf_counter() - _T0:.1f} s"
         ", the build included")
     log(f"card: {smi}")

@@ -53,6 +53,7 @@ tests::
 """
 from __future__ import annotations
 
+import weakref
 from typing import Dict, List, Mapping, Optional, Sequence, Set
 
 from repro_torch.serving.block_manager import NULL_BLOCK, blocks_for_tokens
@@ -200,8 +201,12 @@ class KVSanitizer:
         ``host.on_evict`` so the LRU-drop chain stays intact."""
         shadow = self._host.setdefault(si, set())
         shadow.update(getattr(host, "_pages", ()))
-        orig_put, orig_get = host.put, host.get
-        orig_discard, orig_ev = host.discard, host.on_evict
+        # the wrappers live on `host` and hold its methods weakly: bound
+        # methods would make a cycle that keeps the host pages until a full
+        # garbage collection
+        orig_put, orig_get, orig_discard = (
+            weakref.WeakMethod(m) for m in (host.put, host.get, host.discard))
+        orig_ev = host.on_evict
 
         def put(h: int, payload) -> None:
             if h in shadow:
@@ -209,17 +214,17 @@ class KVSanitizer:
                              "already host-resident (two-tier alias)")
             self._check_payload(si, h, payload)
             shadow.add(h)
-            orig_put(h, payload)
+            orig_put()(h, payload)
 
         def get(h: int):
-            payload = orig_get(h)
+            payload = orig_get()(h)
             if payload is not None:
                 shadow.discard(h)
             return payload
 
         def discard(h: int) -> None:
             shadow.discard(h)
-            orig_discard(h)
+            orig_discard()(h)
 
         def on_evict(h: int) -> None:
             shadow.discard(h)

@@ -31,6 +31,9 @@
 // probability is 0 where the score is <= NEG_INF / 2 (no exp of a huge
 // negative number), and a row that saw no live key writes exact zeros.
 //
+// A bf16 page pool under fp32 q (KV = __nv_bfloat16: an fp32 model serving
+// a bf16 pool) is read 8 elements to a 16-byte load and widened exactly.
+//
 // Quantized page pools (KV = int8_t or __nv_fp8_e4m3, with per-token-per-
 // head fp32 scale pools (n_blocks, bs, hkv) in AttnParams::k_scale/v_scale):
 // a thread's 16-byte load holds 16 one-byte elements of a K or V row,
@@ -43,6 +46,7 @@
 // reads 0 * payload and stays finite.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -90,6 +94,19 @@ __device__ __forceinline__ void load16(const int8_t* src, float (&dst)[16]) {
 __device__ __forceinline__ void load16(const __nv_fp8_e4m3* src,
                                        float (&dst)[16]) {
   unpack16<__nv_fp8_e4m3>(*reinterpret_cast<const uint4*>(src), dst);
+}
+// 8 bf16 elements of a K/V row (a bf16 pool under fp32 q), widened to
+// float (exact)
+__device__ __forceinline__ void load16(const __nv_bfloat16* src,
+                                       float (&dst)[8]) {
+  const uint4 v = *reinterpret_cast<const uint4*>(src);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    dst[2 * i] = f.x;
+    dst[2 * i + 1] = f.y;
+  }
 }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 
@@ -355,22 +372,23 @@ cudaError_t launch(const PT& p, cudaStream_t stream) {
 // 256 (paligemma-3b's) for contiguous K/V (PAGED false), which is fp32
 // flash prefill's; the paged kernels take no config of head dim 80 or 256
 // and have no instance of them. PT = AttnParamsLse (training, which also
-// writes lse) has instances of the backward kernel's head dims, 64 and 128.
+// writes lse) has instances of the backward kernel's head dims, 64, 80,
+// 128 and 256.
 template <typename KV, bool PAGED, class PT = AttnParams>
 cudaError_t dispatch_d(const PT& p, int d, cudaStream_t stream) {
   constexpr bool LSE = sizeof(PT) != sizeof(AttnParams);
   const bool small = p.sq * (p.hq / p.hkv) <= 16;
   switch (d) {
     case 80:
-      if constexpr (!PAGED && !LSE)
-        return small ? launch<float, KV, 80, 1, PAGED>(p, stream)
-                     : launch<float, KV, 80, 4, PAGED>(p, stream);
+      if constexpr (!PAGED)
+        return small ? launch<float, KV, 80, 1, PAGED, PT>(p, stream)
+                     : launch<float, KV, 80, 4, PAGED, PT>(p, stream);
       else
         return cudaErrorInvalidValue;
     case 256:
-      if constexpr (!PAGED && !LSE)
-        return small ? launch<float, KV, 256, 1, PAGED>(p, stream)
-                     : launch<float, KV, 256, 4, PAGED>(p, stream);
+      if constexpr (!PAGED)
+        return small ? launch<float, KV, 256, 1, PAGED, PT>(p, stream)
+                     : launch<float, KV, 256, 4, PAGED, PT>(p, stream);
       else
         return cudaErrorInvalidValue;
     case 32:

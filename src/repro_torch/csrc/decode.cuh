@@ -50,6 +50,15 @@
 // differs from the unquantized one; each of them is again behind
 // if constexpr, the unquantized statement in the else branch.
 //
+// Pools of the other unquantized width (decode_fwd on MParams<KV>, the
+// paged decode; on MVParams<KV>, the paged verify) hold K/V rows of KV,
+// float under bf16 q (a bf16 model serving an fp32 pool) or bf16 under fp32
+// q (an fp32 model serving a bf16 pool). The bf16 body narrows each fp32
+// row to bf16 in the load (exact when the pool was written from bf16
+// activations, the only way a bf16 model fills it); the fp32 body widens
+// each bf16 element exactly. Every step of theirs is behind if constexpr
+// too, the unmixed statement in the else branch.
+//
 // Decode masks keys at positions >= kv_len[i] or < kv_start[i]; a column
 // with no live key writes exact zeros. S (the cache width, or the table's
 // capacity max_blocks bs) may be any length: loads stop at min(kv_len, S).
@@ -167,6 +176,28 @@ template <class P>
 constexpr bool is_verify = std::is_base_of<VParams, P>::value;
 template <class P>
 constexpr bool is_quant = !std::is_void<typename Payload<P>::type>::value;
+
+// Pools of the other unquantized width (see the top of this file): KV is
+// the pools' element type, float under bf16 q, bf16 under fp32 q
+template <class KV>
+struct MParams : Params {};
+template <class KV>
+struct MVParams : VParams {};
+// the element type of P's pools when it is not q's: void otherwise
+template <class P>
+struct Width {
+  using type = void;
+};
+template <class KV>
+struct Width<MParams<KV>> {
+  using type = KV;
+};
+template <class KV>
+struct Width<MVParams<KV>> {
+  using type = KV;
+};
+template <class P>
+constexpr bool is_mixed = !std::is_void<typename Width<P>::type>::value;
 
 // keys [ks, ke) of split s of a row whose live keys are [lo, hi): 16-key
 // aligned shares of at least MIN_SPLIT_KEYS; empty past the end
@@ -310,6 +341,36 @@ __device__ __forceinline__ void load_v80(uint32_t (&vw)[5], const bf16* row,
   vw[2] = x.z;
   vw[3] = x.w;
   vw[4] = live ? *reinterpret_cast<const uint32_t*>(row + 64 + 2 * gq) : 0u;
+}
+
+// fp32 pools under bf16 q: 8 fp32 K/V elements at src (two 16-byte loads)
+// narrowed to bf16 and packed as ld16 of a bf16 row would hold them
+__device__ __forceinline__ uint4 ld8_narrow(const float* src) {
+  const float4 a = *reinterpret_cast<const float4*>(src);
+  const float4 b = *reinterpret_cast<const float4*>(src + 4);
+  return make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w),
+                    pack_bf16(b.x, b.y), pack_bf16(b.z, b.w));
+}
+
+// load_v on an fp32 row: the lane's D / 8 elements narrowed to bf16
+template <int MT>
+__device__ __forceinline__ void load_v_narrow(uint32_t (&vw)[MT],
+                                              const float* src, bool live) {
+  if constexpr (MT >= 4) {
+#pragma unroll
+    for (int w = 0; w < MT / 4; ++w) {
+      const uint4 x = live ? ld8_narrow(src + 8 * w) : make_uint4(0, 0, 0, 0);
+      vw[4 * w] = x.x;
+      vw[4 * w + 1] = x.y;
+      vw[4 * w + 2] = x.z;
+      vw[4 * w + 3] = x.w;
+    }
+  } else {
+    const float4 a =
+        live ? *reinterpret_cast<const float4*>(src) : make_float4(0, 0, 0, 0);
+    vw[0] = pack_bf16(a.x, a.y);
+    vw[1] = pack_bf16(a.z, a.w);
+  }
 }
 
 // the first of the two dims that m-tile i of O^T covers for lane row gq
@@ -627,6 +688,31 @@ __device__ void warp_bf16(const P& p, int bi, int kvh, int h0, int ge,
           load_v<MT>(vw[r], Vb + key * row_stride + gq * (D / 8), key < ke);
         }
       }
+    } else if constexpr (is_mixed<P>) {
+      // an fp32 pool: the same rows as below, narrowed to bf16 in the load
+      static_assert(KEYS != CONTIGUOUS, "mixed widths come in pages");
+      int64_t r16 = 0;
+      if constexpr (KEYS == PAGED16) r16 = page_row(p, bi, c0) - c0;
+      const float* Kf = static_cast<const float*>(p.k);
+      const float* Vf = static_cast<const float*>(p.v);
+      auto row = [&](const float* X, int key) -> const float* {
+        const int64_t r = KEYS == PAGED16 ? r16 + key : page_row(p, bi, key);
+        return X + (r * p.hkv + kvh) * D;
+      };
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int key = c0 + gq + 8 * r;
+#pragma unroll
+        for (int j = 0; j < QJ; ++j)
+          kr[r][j] = key < ke ? ld8_narrow(row(Kf, key) + 32 * j + 8 * tq)
+                              : make_uint4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int key = c0 + 2 * tq + (r & 1) + 8 * (r >> 1);
+        load_v_narrow<MT>(vw[r], key < ke ? row(Vf, key) + gq * (D / 8) : Vf,
+                          key < ke);
+      }
     } else {
       // the pool row of key `key`: in the page of the group (PAGED16), or
       // looked up per key, for live keys only (PAGED)
@@ -846,6 +932,25 @@ __device__ void warp_f32(const P& p, int bi, int kvh, int h0, int ge,
         for (int h = 0; h < HEADS; ++h) s[h] *= ksc;
         vsc = p.v_scale[a];
       }
+    } else if constexpr (is_mixed<P>) {  // a bf16 pool, widened exactly
+      if (key < ke) {
+        const bf16* kr = static_cast<const bf16*>(p.k) +
+                         (page_row(p, bi, key) * p.hkv + kvh) * D;
+#pragma unroll 2
+        for (int dd = 0; dd < D; dd += 8) {
+          const uint4 raw = ld16(kr + dd);
+          const __nv_bfloat162* kb =
+              reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            const float2 kv = __bfloat1622float2(kb[t]);
+#pragma unroll
+            for (int h = 0; h < HEADS; ++h)
+              s[h] += sm.q[h][dd + 2 * t] * kv.x +
+                      sm.q[h][dd + 2 * t + 1] * kv.y;
+          }
+        }
+      }
     } else {
       if (key < ke) {
         const float* kr = row(K, Kb, key);
@@ -896,6 +1001,20 @@ __device__ void warp_f32(const P& p, int bi, int kvh, int h0, int ge,
 #pragma unroll
         for (int i = 0; i < DL; ++i)
           vv[i] = widen1<typename Payload<P>::type>(vr[lane + 32 * i]);
+#pragma unroll
+        for (int h = 0; h < HEADS; ++h) {
+          const float pj = __shfl_sync(0xffffffffu, pr[h], j);
+#pragma unroll
+          for (int i = 0; i < DL; ++i) acc[h][i] += pj * vv[i];
+        }
+        continue;
+      }
+      if constexpr (is_mixed<P>) {  // a bf16 pool, widened exactly
+        const bf16* vr = static_cast<const bf16*>(p.v) +
+                         (page_row(p, bi, c0 + j) * p.hkv + kvh) * D;
+        float vv[DL];
+#pragma unroll
+        for (int i = 0; i < DL; ++i) vv[i] = __bfloat162float(vr[lane + 32 * i]);
 #pragma unroll
         for (int h = 0; h < HEADS; ++h) {
           const float pj = __shfl_sync(0xffffffffu, pr[h], j);
@@ -1095,6 +1214,19 @@ __global__ void __launch_bounds__(THREADS, 1)
 template <typename T, int D, int KEYS, class KV>
 __global__ void __launch_bounds__(THREADS, 1)
     decode_fwd(const QVParams<KV> p) {
+  decode_block<T, D, KEYS>(p);
+}
+
+// Pools of the other width: minBlocksPerMultiprocessor 1 as well, so that
+// ptxas may hold the wider rows' loads (bf16 q) in registers
+template <typename T, int D, int KEYS, class KV>
+__global__ void __launch_bounds__(THREADS, 1)
+    decode_fwd(const MParams<KV> p) {
+  decode_block<T, D, KEYS>(p);
+}
+template <typename T, int D, int KEYS, class KV>
+__global__ void __launch_bounds__(THREADS, 1)
+    decode_fwd(const MVParams<KV> p) {
   decode_block<T, D, KEYS>(p);
 }
 

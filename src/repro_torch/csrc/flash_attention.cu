@@ -4,10 +4,10 @@
 // Computes GQA attention q (b, sq, hq, d) x k/v (b, skv, hkv, d) with causal,
 // sliding-window, kv_len and kv_start masks; sq and skv may be any length
 // (the joint prefill pads prompts to multiples of 16), the ragged edges are
-// masked here. Training's forward (head dims 64 and 128) also writes each
-// row's log-sum-exp for the backward kernel (flash_attention_bwd.cu), in
-// instances of their own (ParamsLse, rt::AttnParamsLse), so the serving
-// instances keep their code.
+// masked here. Training's forward (head dims 64, 80, 128 and 256, with or
+// without a sliding window) also writes each row's log-sum-exp for the
+// backward kernel (flash_attention_bwd.cu), in instances of their own
+// (ParamsLse, rt::AttnParamsLse), so the serving instances keep their code.
 //
 // Bound on the card: at prefill lengths the work is ~4 d sq skv hq / 2 FLOPs
 // against O((sq + skv) d) bytes, far above the H100's ~295 FLOP/byte ridge,
@@ -442,8 +442,12 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
     switch (d) {
       case 64:
         return launch<64, TILE_KEYS, RING>(pl, q, k, v, o, d, st);
+      case 80:  // the serving instance's 96-wide layout
+        return launch<96, TILE_KEYS, RING>(pl, q, k, v, o, d, st);
       case 128:
         return launch<128, TILE_KEYS, RING>(pl, q, k, v, o, d, st);
+      case 256:
+        return launch<256, TILE_KEYS_256, RING>(pl, q, k, v, o, d, st);
       default:
         return cudaErrorInvalidValue;
     }
@@ -467,7 +471,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
 }  // namespace fa
 
 // lse: null (serving), or (b, hq, sq) fp32 for the rows' log-sum-exp
-// (training; head dims 64 and 128)
+// (training; head dims 64, 80, 128 and 256)
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, float* lse, const int* kv_len,
                                    const int* kv_start, int b, int sq,

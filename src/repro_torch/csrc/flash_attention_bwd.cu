@@ -12,8 +12,10 @@
 // with dS = P (dO V^T - D) scale. q, dq (b, sq, hq, d); k, v, dk, dv
 // (b, skv, hkv, d) in fp32 or bf16; every sum is fp32. Causal or not,
 // sq != skv (queries at positions 0 .. sq-1, as the forward's causal mask
-// has them), kv_len / kv_start masks, GQA with any g (dK and dV sum over the
-// g query heads of their kv head), d 64 or 128.
+// has them), kv_len / kv_start masks, a sliding window (a row at position p
+// sees keys (p - window, p]), GQA with any g (dK and dV sum over the g query
+// heads of their kv head), d 64, 80 (h2o-danube-1.8b), 128 or 256
+// (paligemma-3b).
 //
 // Deterministic, no atomics: dK / dV and dQ each have one owner, a block
 // that walks the other axis in order, so the gradient is the same bits
@@ -30,7 +32,11 @@
 // A row of a tile is one (position, query head) pair of one kv head's
 // group (row r: position r / g, head kvh g + r % g), as in the forward, so
 // each K / V tile serves all g heads. Masking follows repro.kernels.ref: a
-// masked pair has P = 0 (and so dS = 0).
+// masked pair has P = 0 (and so dS = 0), never exp(S - lse) of a score
+// the forward did not see. A window bounds the tiles each block walks to
+// the band its rows or keys can see, so the work grows with s x window,
+// not s^2. d 256 stages 140 KB of shared memory a block (Smem below),
+// within the 227 KB a block may opt into.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -51,6 +57,7 @@ struct Params {
   const int* kv_start;  // (b,) or null
   int b, sq, skv, hq, hkv, g, causal;
   float scale;
+  int window;  // > 0: a row at position p sees keys (p - window, p]
 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -205,6 +212,7 @@ __device__ __forceinline__ void tile_p_ds(float* sm, int r0, int k0,
       const int jj = tx + 16 * j, kpos = k0 + jj;
       bool ok = r < nrows && kpos >= kv_begin && kpos < kv_end;
       if (p.causal) ok = ok && kpos <= qpos;
+      if (p.window > 0) ok = ok && kpos > qpos - p.window;
       const float pv = ok ? expf(s[i][j] * p.scale - l) : 0.f;
       sm[S::P + rr * (BN + 1) + jj] = pv;
       sm[S::DS + rr * (BN + 1) + jj] = pv * (dp[i][j] - dd) * p.scale;
@@ -234,10 +242,14 @@ __global__ void __launch_bounds__(THREADS) dkdv_kernel(Params p) {
   // thread (ty, tx) owns keys ty + 16 j (j < 2), columns tx + 16 c
   float dk[2][DC] = {}, dv[2][DC] = {};
   const int nrows = p.sq * p.g;
-  // a causal row sees key k0 from position k0 on
+  // a causal row sees key k0 from position k0 on; a windowed row at
+  // position p sees no key of this tile once p >= k0 + BN - 1 + window
   const int r_lo = p.causal ? min(k0, p.sq) * p.g / BM * BM : 0;
+  const int r_hi =
+      p.window > 0 ? min(nrows, min(k0 + BN - 1 + p.window, p.sq) * p.g)
+                   : nrows;
   const bool any = k0 < kv_end && k0 + BN > kv_begin;
-  for (int r0 = any ? r_lo : nrows; r0 < nrows; r0 += BM) {
+  for (int r0 = any ? r_lo : nrows; r0 < r_hi; r0 += BM) {
     __syncthreads();  // the previous tile's readers are done
     load_rows<T, D>(sm + S::Q, static_cast<const T*>(p.q), bi, kvh, r0, p);
     load_rows<T, D>(sm + S::DO, static_cast<const T*>(p.dout), bi, kvh, r0,
@@ -295,13 +307,16 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(Params p) {
   const int nrows = p.sq * p.g;
   const int last = min(r0 + BM, nrows) - 1;
   const int hi = p.causal ? min(kv_end, last / p.g + 1) : kv_end;
+  // a windowed row at position p sees keys past p - window only
+  const int lo =
+      p.window > 0 ? max(kv_begin, r0 / p.g - p.window + 1) : kv_begin;
   load_rows<T, D>(sm + S::Q, static_cast<const T*>(p.q), bi, kvh, r0, p);
   load_rows<T, D>(sm + S::DO, static_cast<const T*>(p.dout), bi, kvh, r0,
                   p);
   load_row_stats(sm + S::L, sm + S::DL, bi, kvh, r0, p);
   // thread (ty, tx) owns rows ty + 16 i (i < 2), columns tx + 16 c
   float dq[2][DC] = {};
-  for (int k0 = kv_begin / BN * BN; k0 < hi; k0 += BN) {
+  for (int k0 = lo / BN * BN; k0 < hi; k0 += BN) {
     __syncthreads();
     load_keys<T, D>(sm + S::K, static_cast<const T*>(p.k), bi, kvh, k0, p);
     load_keys<T, D>(sm + S::V, static_cast<const T*>(p.v), bi, kvh, k0, p);
@@ -363,8 +378,12 @@ cudaError_t by_d(const Params& p, int d, cudaStream_t st) {
   switch (d) {
     case 64:
       return launch<T, 64>(p, st);
+    case 80:  // h2o-danube-1.8b: VEC divides 80 in both dtypes, DC = 5
+      return launch<T, 80>(p, st);
     case 128:
       return launch<T, 128>(p, st);
+    case 256:  // paligemma-3b: 140 KB of shared memory a block
+      return launch<T, 256>(p, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -378,7 +397,7 @@ extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
     void* dv, const int* kv_len, const int* kv_start, int b, int sq, int skv,
-    int hq, int hkv, int d, int causal, float scale, int dtype,
+    int hq, int hkv, int d, int causal, int window, float scale, int dtype,
     void* stream) {
   if (hkv <= 0 || hq % hkv != 0) return (int)cudaErrorInvalidValue;
   fb::Params p{q,  k,      v,        o, dout, lse, delta, dq, dk,
@@ -386,6 +405,7 @@ extern "C" int flash_attention_bwd(
   p.g = hq / hkv;
   p.causal = causal;
   p.scale = scale;
+  p.window = window;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) return (int)fb::by_d<float>(p, d, st);
   if (dtype == 1) return (int)fb::by_d<__nv_bfloat16>(p, d, st);

@@ -28,6 +28,13 @@
 //    q_start, causal over the prior pages and itself; rows that see no key
 //    give exact zeros): paged_context_attention_fwd in bf16 on the wgmma
 //    body below (pc::context_fwd); in fp32 on attention.cuh's scalar body.
+//  - #2, #3 and #4 on pools of the other unquantized width (an fp32 model
+//    on a bf16 pool, a bf16 model on an fp32 pool; kv_type 3 and 4 of the
+//    unquantized entries): decode and verify on the decode body's MParams /
+//    MVParams (decode.cuh), fp32 context on attention.cuh's scalar body
+//    with bf16 K/V widened in the load, bf16 context on context_fwd<float>,
+//    whose gathering threads narrow each fp32 key row to bf16 on its way
+//    into the tile.
 //  - paged_context_attention_quant_pallas (#3 on int8 / fp8 pools):
 //    paged_context_attention_quant_fwd in bf16 on the same wgmma body, its
 //    one-byte K/V widened to bf16 by the gathering warps and the scales
@@ -199,7 +206,7 @@ __device__ __forceinline__ Item item_at(const Params& p, const int* order,
 
 // KV: the pools' payload (bf16, or one byte: int8_t, __nv_fp8_e4m3, whose
 // tiles are widened to bf16 and whose scales sit per stage after the
-// barriers)
+// barriers; or float, whose tiles are narrowed to bf16)
 template <typename KV, int D>
 struct Smem {
   static constexpr int TILE = TILE_KEYS * D * 2;  // one bf16 K (or V) tile
@@ -237,6 +244,33 @@ __device__ __forceinline__ void widen16(const uint4& raw, uint4 (&out)[2]) {
   uint32_t* o = reinterpret_cast<uint32_t*>(out);
 #pragma unroll
   for (int i = 0; i < 8; ++i) o[i] = dk::widen2<KV>(w[i / 2], i % 2);
+}
+
+// fp32 pools: key row `row` (of kv head it.kvh) of X narrowed to bf16 into
+// row j of the swizzled tile at dst (zeros for a key past the item's last),
+// 16 bytes of the tile at a time, then one arrival on full; the stage must
+// be free (the caller waited on its empty barrier)
+template <int D>
+__device__ __forceinline__ void narrow_row(unsigned char* dst,
+                                           const float* X, const Params& p,
+                                           const Item& it, int64_t row,
+                                           bool live, int j, uint64_t* full) {
+  using G = fa::Geo<D>;
+  const float4* src = reinterpret_cast<const float4*>(
+      X + (row * p.hkv + it.kvh) * D);
+  const uint32_t tile = hx::smem_u32(dst);
+#pragma unroll 4
+  for (int u = 0; u < D / 8; ++u) {
+    const float4 a = live ? __ldg(src + 2 * u) : make_float4(0, 0, 0, 0);
+    const float4 b = live ? __ldg(src + 2 * u + 1) : make_float4(0, 0, 0, 0);
+    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                     tile + G::template tile_off<TILE_KEYS>(j, u)),
+                 "r"(fa::pack_bf16(a.x, a.y)), "r"(fa::pack_bf16(a.z, a.w)),
+                 "r"(fa::pack_bf16(b.x, b.y)), "r"(fa::pack_bf16(b.z, b.w))
+                 : "memory");
+  }
+  hx::fence_proxy_async();  // the stores, to the consumers' wgmma
+  hx::mbar_arrive(full);
 }
 
 // Pool row of key `key` of item `it`, or 0 past its last key
@@ -447,6 +481,28 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
           store_row<KV, D>(smem + S::V + (size_t)stage * S::TILE,
                            vsc + stage * BK, vr, j, &rg.vempty[stage],
                            phase ^ 1, &rg.vfull[stage]);
+          fa::advance<STAGES>(stage, phase);
+        }
+      }
+      return;
+    }
+    if constexpr (std::is_same<KV, float>::value) {
+      const float* K = static_cast<const float*>(p.k);
+      const float* V = static_cast<const float*>(p.v);
+      int stage = 0, phase = 0;
+      for (int r = 0; r * (int)gridDim.x < p.items; ++r) {
+        const int t = fa::item_of_round(r);
+        if (t >= p.items) continue;
+        const Item it = item_at(p, order, t);
+        for (int k0 = 0; k0 < it.hi; k0 += BK) {
+          const bool live = k0 + j < it.hi;
+          const int64_t row = key_row(p, it, k0 + j);
+          hx::mbar_wait(&rg.kempty[stage], phase ^ 1);
+          narrow_row<D>(smem + S::K + (size_t)stage * S::TILE, K, p, it, row,
+                        live, j, &rg.kfull[stage]);
+          hx::mbar_wait(&rg.vempty[stage], phase ^ 1);
+          narrow_row<D>(smem + S::V + (size_t)stage * S::TILE, V, p, it, row,
+                        live, j, &rg.vfull[stage]);
           fa::advance<STAGES>(stage, phase);
         }
       }
@@ -694,7 +750,8 @@ cudaError_t launch_bf16(const void* q, const void* k_pages,
 namespace {
 
 // fp32 paged context on attention.cuh's scalar body: K/V in q's dtype
-// (kv_type 0) or one-byte (1 = int8, 2 = fp8 e4m3, with both scale pools)
+// (kv_type 0), bf16 (3) or one-byte (1 = int8, 2 = fp8 e4m3, with both
+// scale pools)
 int paged_context(const void* q, const void* k_pages, const void* v_pages,
                   const float* k_scale, const float* v_scale, void* o,
                   const int* tables, const int* q_start, const int* kv_len,
@@ -721,6 +778,7 @@ int paged_context(const void* q, const void* k_pages, const void* v_pages,
   if (hkv <= 0 || hq % hkv != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (kv_type == 0) return (int)rt::dispatch_d<float, true>(p, d, st);
+  if (kv_type == 3) return (int)rt::dispatch_d<__nv_bfloat16, true>(p, d, st);
   if (!k_scale || !v_scale) return (int)cudaErrorInvalidValue;
   if (kv_type == 1) return (int)rt::dispatch_d<int8_t, true>(p, d, st);
   if (kv_type == 2) return (int)rt::dispatch_d<__nv_fp8_e4m3, true>(p, d, st);
@@ -733,10 +791,21 @@ int paged_context(const void* q, const void* k_pages, const void* v_pages,
 // key (a 32-key step may span pages)
 template <class P>
 cudaError_t launch_paged(const P& p, int d, int dtype, cudaStream_t st) {
-  if (dtype == 0) return dk::launch_t<float, dk::PAGED>(p, d, st);
-  if (dtype == 1)
-    return p.bs % 16 == 0 ? dk::launch_t<dk::bf16, dk::PAGED16>(p, d, st)
-                          : dk::launch_t<dk::bf16, dk::PAGED>(p, d, st);
+  // pools of the other width (dk::MParams, dk::MVParams): q takes the
+  // width the pools do not have
+  using W = typename dk::Width<P>::type;
+  if constexpr (std::is_same<W, dk::bf16>::value) {
+    if (dtype == 0) return dk::launch_t<float, dk::PAGED>(p, d, st);
+  } else if constexpr (std::is_same<W, float>::value) {
+    if (dtype == 1)
+      return p.bs % 16 == 0 ? dk::launch_t<dk::bf16, dk::PAGED16>(p, d, st)
+                            : dk::launch_t<dk::bf16, dk::PAGED>(p, d, st);
+  } else {
+    if (dtype == 0) return dk::launch_t<float, dk::PAGED>(p, d, st);
+    if (dtype == 1)
+      return p.bs % 16 == 0 ? dk::launch_t<dk::bf16, dk::PAGED16>(p, d, st)
+                            : dk::launch_t<dk::bf16, dk::PAGED>(p, d, st);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -829,29 +898,52 @@ int with_payload(int kv_type, const float* k_scale, const float* v_scale,
 
 }  // namespace
 
+namespace {
+
+// Unquantized pools: f(params) with Base for kv_type 0 (K/V in q's dtype),
+// or M<KV> for the other width: 3 = bf16 pools under fp32 q, 4 = fp32 pools
+// under bf16 q
+template <template <class> class M, class Base, class F>
+int with_width(int kv_type, F f) {
+  if (kv_type == 0) return f(Base{});
+  if (kv_type == 3) return f(M<dk::bf16>{});
+  if (kv_type == 4) return f(M<float>{});
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
 extern "C" int paged_decode_attention_fwd(
     const void* q, const void* k_pages, const void* v_pages, void* o,
     const int* tables, const int* kv_len, int b, int hq, int hkv, int d,
     int block_size, int max_blocks, float scale, int n_split, float* part,
-    int* counters, int n_counters, int dtype, void* stream) {
-  return paged_decode(dk::Params{}, q, k_pages, v_pages, o, tables, kv_len,
-                      b, hq, hkv, d, block_size, max_blocks, scale, n_split,
-                      part, counters, n_counters, dtype, stream);
+    int* counters, int n_counters, int dtype, int kv_type, void* stream) {
+  return with_width<dk::MParams, dk::Params>(kv_type, [&](auto p) {
+    return paged_decode(p, q, k_pages, v_pages, o, tables, kv_len, b, hq,
+                        hkv, d, block_size, max_blocks, scale, n_split, part,
+                        counters, n_counters, dtype, stream);
+  });
 }
 
+// kv_type as paged_decode_attention_fwd's
 extern "C" int paged_context_attention_fwd(
     const void* q, const void* k_pages, const void* v_pages, void* o,
     const int* tables, const int* q_start, const int* kv_len, int b, int C,
     int hq, int hkv, int d, int block_size, int max_blocks, float scale,
-    int dtype, void* stream) {
-  if (dtype == 1)
+    int dtype, int kv_type, void* stream) {
+  if (dtype == 1 && kv_type == 0)
     return (int)pc::launch_bf16<pc::bf16>(
         q, k_pages, v_pages, nullptr, nullptr, o, tables, q_start, kv_len, b,
         C, hq, hkv, d, block_size, max_blocks, scale, (cudaStream_t)stream);
-  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && kv_type == 4)
+    return (int)pc::launch_bf16<float>(
+        q, k_pages, v_pages, nullptr, nullptr, o, tables, q_start, kv_len, b,
+        C, hq, hkv, d, block_size, max_blocks, scale, (cudaStream_t)stream);
+  if (dtype != 0 || (kv_type != 0 && kv_type != 3))
+    return (int)cudaErrorInvalidValue;
   return paged_context(q, k_pages, v_pages, nullptr, nullptr, o, tables,
                        q_start, kv_len, b, C, hq, hkv, d, block_size,
-                       max_blocks, scale, 0, stream);
+                       max_blocks, scale, kv_type, stream);
 }
 
 extern "C" int paged_verify_attention_fwd(
@@ -859,11 +951,12 @@ extern "C" int paged_verify_attention_fwd(
     const int* tables, const int* kv_start, const int* kv_len, int b, int T,
     int hq, int hkv, int d, int block_size, int max_blocks, float scale,
     int n_split, float* part, int* counters, int n_counters, int dtype,
-    void* stream) {
-  return paged_verify(dk::VParams{}, q, k_pages, v_pages, o, tables,
-                      kv_start, kv_len, b, T, hq, hkv, d, block_size,
-                      max_blocks, scale, n_split, part, counters, n_counters,
-                      dtype, stream);
+    int kv_type, void* stream) {
+  return with_width<dk::MVParams, dk::VParams>(kv_type, [&](auto p) {
+    return paged_verify(p, q, k_pages, v_pages, o, tables, kv_start, kv_len,
+                        b, T, hq, hkv, d, block_size, max_blocks, scale,
+                        n_split, part, counters, n_counters, dtype, stream);
+  });
 }
 
 // Quantized pools: kv_type 1 = int8, 2 = fp8 e4m3 payloads (n_blocks,

@@ -29,8 +29,9 @@ CONTIGUOUS_HEAD_DIMS = (32, 64, 80, 128, 256)
 # the bf16 kernel's warpgroup rows (64) hold whole GQA groups
 BF16_MAX_GROUP = 64
 # head dims of the training instances (the forward's log-sum-exp and the
-# backward): llama2-70b's 128 and every reduced config's 64
-TRAIN_HEAD_DIMS = (64, 128)
+# backward), with or without a sliding window: llama2-70b's 128, every
+# reduced config's 64, h2o-danube-1.8b's 80 and paligemma-3b's 256
+TRAIN_HEAD_DIMS = (64, 80, 128, 256)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -91,27 +92,15 @@ def _lib():
     return fn
 
 
-def check_train_case(d, window, kernel):
-    """Raise on what the training instances (the forward's log-sum-exp and
-    the backward) do not take: a sliding window, or a head dim outside
-    TRAIN_HEAD_DIMS."""
-    if window:
-        raise ValueError(f"{kernel}: windowed attention (window {window}, "
-                         "h2o-danube-1.8b) has no backward kernel")
-    if d not in TRAIN_HEAD_DIMS:
-        raise ValueError(f"{kernel}: head dim {d} has no backward kernel; "
-                         f"it takes d in {TRAIN_HEAD_DIMS}")
-
-
 def flash_attention_cuda(q, k, v, *, causal=True, window=0, kv_len=None,
                          kv_start=None, scale=None, return_lse=False):
     """q (b,sq,hq,d); k,v (b,skv,hkv,d) CUDA tensors -> (b,sq,hq,d), and
     with return_lse the rows' log-sum-exp of the scaled scores (b, hq, sq)
     float32 (0 on a row that sees no key) for the backward kernel."""
-    if return_lse:
-        check_train_case(q.shape[-1], window, "flash_attention")
-    q, k, v = check_attention_inputs(q, k, v, kernel="flash_attention",
-                                     head_dims=CONTIGUOUS_HEAD_DIMS)
+    # the training instances (return_lse) take the backward's head dims
+    q, k, v = check_attention_inputs(
+        q, k, v, kernel="flash_attention",
+        head_dims=TRAIN_HEAD_DIMS if return_lse else CONTIGUOUS_HEAD_DIMS)
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
     if k.shape[0] != b:
@@ -145,7 +134,7 @@ flash_attention_cuda.launches = 0
 
 def _bwd_lib():
     fn = build.library("flash_attention_bwd").flash_attention_bwd
-    fn.argtypes = [_P] * 12 + [_I] * 7 + [_F, _I, _P]
+    fn.argtypes = [_P] * 12 + [_I] * 8 + [_F, _I, _P]
     fn.restype = _I
     return fn
 
@@ -155,8 +144,8 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal=True, window=0,
     """Gradients (dq, dk, dv) of flash_attention_cuda's output o from its
     lse (b, hq, sq) float32 and the cotangent do (b, sq, hq, d), all CUDA
     tensors; the gradients take the inputs' dtype (fp32 sums). GQA sums dk
-    and dv over each kv head's g query heads."""
-    check_train_case(q.shape[-1], window, "flash_attention_bwd")
+    and dv over each kv head's g query heads; window > 0 masks as the
+    forward does."""
     q, k, v = check_attention_inputs(q, k, v, kernel="flash_attention_bwd",
                                      head_dims=TRAIN_HEAD_DIMS)
     b, sq, hq, d = q.shape
@@ -181,8 +170,8 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal=True, window=0,
                      dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                      lens.data_ptr() if lens is not None else None,
                      starts.data_ptr() if starts is not None else None,
-                     b, sq, skv, hq, hkv, d, int(bool(causal)), float(scale),
-                     DTYPES[q.dtype],
+                     b, sq, skv, hq, hkv, d, int(bool(causal)),
+                     int(window or 0), float(scale), DTYPES[q.dtype],
                      torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention_bwd: CUDA error {err}")

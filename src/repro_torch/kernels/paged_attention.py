@@ -19,6 +19,11 @@ bf16 by the gathering warps, scales folded into scores and
 probabilities). fp32 context and fp32 quantized context run the scalar
 body of ``csrc/attention.cuh``.
 
+The unquantized wrappers also take a pool of the other width than q's (a
+bf16 pool under fp32 q, an fp32 pool under bf16 q; ``KV_TYPES`` codes 3
+and 4): the bodies widen or narrow its rows in the load, as they widen
+one-byte rows.
+
 Each wrapper checks its inputs, allocates the output, launches on the
 current stream and counts its own launches; none falls back to its plain
 version (``ref.paged_*_ref``) — ``ops`` chooses. Block-table entries are
@@ -82,51 +87,59 @@ def paged_verify_splits(b, T, hq, hkv, max_blocks, block_size, sms):
                              column_groups=verify_columns(T, hq // hkv)[1])
 
 
-# payload dtype of a quantized pool -> the kernels' K/V type code
-KV_TYPES = {torch.int8: 1, torch.float8_e4m3fn: 2}
+# K/V dtype of a pool that is not q's -> the kernels' K/V type code: the
+# one-byte payloads of a quantized pool, and an unquantized pool of the
+# other width (bf16 under fp32 q, fp32 under bf16 q)
+KV_TYPES = {torch.int8: 1, torch.float8_e4m3fn: 2, torch.bfloat16: 3,
+            torch.float32: 4}
+QUANT_TYPES = (torch.int8, torch.float8_e4m3fn)
 
 
 def check_quant_inputs(kernel, q, k_pages, v_pages, k_scale, v_scale):
     """check_attention_inputs for `kernel` on int8 / fp8 payload pools, and
     float32 scale pools of shape (n_blocks, bs, hkv) on q's device. Returns
-    q, k_pages, v_pages (16-byte aligned) and (k_scale, v_scale
-    (contiguous), the kernels' K/V type code)."""
+    q, k_pages, v_pages (16-byte aligned) and (k_scale, v_scale)
+    (contiguous)."""
     q, k_pages, v_pages = check_attention_inputs(q, k_pages, v_pages,
-                                                 tuple(KV_TYPES),
-                                                 kernel=kernel)
+                                                 QUANT_TYPES, kernel=kernel)
     for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
         if t.device != q.device:
             raise ValueError(f"{name} must be on q's device, got {t.device}")
         if t.dtype != torch.float32 or t.shape != k_pages.shape[:3]:
             raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)}, expected "
                              f"float32 {tuple(k_pages.shape[:3])}")
-    return (q, k_pages, v_pages,
-            (k_scale.contiguous(), v_scale.contiguous(),
-             KV_TYPES[k_pages.dtype]))
+    return q, k_pages, v_pages, (k_scale.contiguous(), v_scale.contiguous())
 
 
 def _checked(kernel, q, k_pages, v_pages, scales):
-    """The inputs checked for `kernel`, unquantized (scales None: quant
-    None) or quantized (scales (k_scale, v_scale)). The paged kernels take
-    the head dims of the slot-mode configs (HEAD_DIMS)."""
+    """The inputs checked for `kernel`, unquantized (scales None) or
+    quantized (scales (k_scale, v_scale)): q, k_pages, v_pages, the scales
+    (None unquantized) and the kernels' K/V type code (0: K/V in q's
+    dtype). The paged kernels take the head dims of the slot-mode configs
+    (HEAD_DIMS)."""
     if scales is None:
-        return (*check_attention_inputs(q, k_pages, v_pages, kernel=kernel),
-                None)
-    return check_quant_inputs(kernel, q, k_pages, v_pages, *scales)
+        q, k_pages, v_pages = check_attention_inputs(
+            q, k_pages, v_pages, tuple(DTYPES), kernel=kernel)
+    else:
+        q, k_pages, v_pages, scales = check_quant_inputs(
+            kernel, q, k_pages, v_pages, *scales)
+    kv_type = 0 if k_pages.dtype == q.dtype else KV_TYPES[k_pages.dtype]
+    return q, k_pages, v_pages, scales, kv_type
 
 
-def _launch(entry, q, k_pages, v_pages, o, quant, tail, tail_types):
-    """Call ``entry(q, k, v, o, *tail, stream)``, or for a quantized pool
-    (quant = (k_scale, v_scale, kv_type)) its twin
+def _launch(entry, q, k_pages, v_pages, o, scales, kv_type, tail,
+            tail_types):
+    """Call ``entry(q, k, v, o, *tail, kv_type, stream)``, or for a
+    quantized pool (scales = (k_scale, v_scale)) its twin
     ``entry_quant_fwd(q, k, v, k_scale, v_scale, o, *tail, kv_type,
     stream)``; raise on a CUDA error."""
     stream = torch.cuda.current_stream(q.device).cuda_stream
     kv = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr())
-    if quant is None:
-        args = (*kv, o.data_ptr(), *tail, stream)
-        types = [_P] * 4 + tail_types + [_P]
+    if scales is None:
+        args = (*kv, o.data_ptr(), *tail, kv_type, stream)
+        types = [_P] * 4 + tail_types + [_I, _P]
     else:
-        k_scale, v_scale, kv_type = quant
+        k_scale, v_scale = scales
         entry = entry.replace("_fwd", "_quant_fwd")
         args = (*kv, k_scale.data_ptr(), v_scale.data_ptr(), o.data_ptr(),
                 *tail, kv_type, stream)
@@ -159,8 +172,8 @@ def _decode(kernel, q, k_pages, v_pages, scales, block_tables, kv_len,
             scale):
     """Launch the decode entry (quantized when `scales` is given) with the
     merge counters of `kernel` -> o."""
-    q, k_pages, v_pages, quant = _checked(kernel, q, k_pages, v_pages,
-                                          scales)
+    q, k_pages, v_pages, scales, kv_type = _checked(kernel, q, k_pages,
+                                                    v_pages, scales)
     b, one, hq, d = q.shape
     if one != 1:
         raise ValueError(f"decode takes one query token per row, got {one}")
@@ -177,7 +190,7 @@ def _decode(kernel, q, k_pages, v_pages, scales, block_tables, kv_len,
     splits, split_types = _splits(
         kernel, paged_decode_splits(b, hq, hkv, nb, bs, sms), b * hq, d,
         q.device)
-    _launch("paged_decode_attention_fwd", q, k_pages, v_pages, o, quant,
+    _launch("paged_decode_attention_fwd", q, k_pages, v_pages, o, scales, kv_type,
             (tbl.data_ptr(), lens.data_ptr(), b, hq, hkv, d, bs, nb,
              float(scale), *splits, DTYPES[q.dtype]),
             [_P, _P, _I, _I, _I, _I, _I, _I, _F] + split_types + [_I])
@@ -211,8 +224,8 @@ def paged_decode_attention_quant_cuda(q, k_pages, v_pages, k_scale, v_scale,
 def _context(kernel, q, k_pages, v_pages, scales, block_tables, q_start,
              kv_len, scale):
     """Launch the context entry (quantized when `scales` is given) -> o."""
-    q, k_pages, v_pages, quant = _checked(kernel, q, k_pages, v_pages,
-                                          scales)
+    q, k_pages, v_pages, scales, kv_type = _checked(kernel, q, k_pages,
+                                                    v_pages, scales)
     b, C, hq, d = q.shape
     _, bs, hkv, _ = k_pages.shape
     tbl = _tables(block_tables, b, q.device)
@@ -222,7 +235,7 @@ def _context(kernel, q, k_pages, v_pages, scales, block_tables, q_start,
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
-    _launch("paged_context_attention_fwd", q, k_pages, v_pages, o, quant,
+    _launch("paged_context_attention_fwd", q, k_pages, v_pages, o, scales, kv_type,
             (tbl.data_ptr(), starts.data_ptr(), lens.data_ptr(), b, C, hq,
              hkv, d, bs, tbl.shape[1], float(scale), DTYPES[q.dtype]),
             [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I])
@@ -245,8 +258,8 @@ def _verify(kernel, q, k_pages, v_pages, scales, block_tables, kv_start,
             kv_len, scale):
     """Launch the verify entry (quantized when `scales` is given) with the
     merge counters of `kernel` -> o."""
-    q, k_pages, v_pages, quant = _checked(kernel, q, k_pages, v_pages,
-                                          scales)
+    q, k_pages, v_pages, scales, kv_type = _checked(kernel, q, k_pages,
+                                                    v_pages, scales)
     b, T, hq, d = q.shape
     _, bs, hkv, _ = k_pages.shape
     tbl = _tables(block_tables, b, q.device)
@@ -261,7 +274,7 @@ def _verify(kernel, q, k_pages, v_pages, scales, block_tables, kv_start,
     splits, split_types = _splits(
         kernel, paged_verify_splits(b, T, hq, hkv, nb, bs, sms), b * T * hq,
         d, q.device)
-    _launch("paged_verify_attention_fwd", q, k_pages, v_pages, o, quant,
+    _launch("paged_verify_attention_fwd", q, k_pages, v_pages, o, scales, kv_type,
             (tbl.data_ptr(), starts.data_ptr(), lens.data_ptr(), b, T, hq,
              hkv, d, bs, nb, float(scale), *splits, DTYPES[q.dtype]),
             [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F] + split_types

@@ -38,8 +38,9 @@ once at prefill; the pipeline's contiguous caches are one layer's leaves
 each (``init_layer_cache``). Writes go into the caches in place.
 
 Training (``train_forward``, ``loss_fn``) runs whole sequences with no
-cache, the reference's mode="train"; attention and the Mamba scan
-differentiate through their backward kernels (``kernels.ops``).
+cache, the reference's mode="train", each decoder period checkpointed
+(``REMAT_TRAIN``); attention and the Mamba scan differentiate through
+their backward kernels (``kernels.ops``).
 
 Modality inputs are stubs, as in the reference: whisper's batch carries
 frame embeddings ``enc_frames`` (b, encoder_seq_len, d) for the encoder,
@@ -53,6 +54,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ATTN, MAMBA, MLSTM, SLSTM, ModelConfig
 from repro_torch.device import resolve_device
@@ -313,17 +315,13 @@ def scatter_cache_rows(pool, rows, slot_ids, *, batch_axis=1):
 
 def pool_dtype(kv_dtype, dtype: torch.dtype) -> torch.dtype:
     """Storage dtype of a page pool for `kv_dtype` (None: the model's
-    `dtype`). An unquantized kv_dtype must name the model's own width: the
-    kernels take q and K/V of one dtype (other widths: ROADMAP.md)."""
+    `dtype`). An unquantized kv_dtype may name another width than the
+    model's (a bf16 pool under an fp32 model, or fp32 under bf16): rows are
+    cast into the pool on write, and the paged kernels widen or narrow
+    them in the load, as the reference's widen both sides to fp32."""
     if kv_dtype is None:
         return dtype
-    st = quant.kv_storage_dtype(kv_dtype)
-    if not quant.kv_is_quantized(kv_dtype) and st != dtype:
-        raise NotImplementedError(
-            f"kv_dtype={kv_dtype!r} under a {dtype} model: unquantized pools "
-            "of another width than the model's are not ported yet "
-            "(ROADMAP.md)")
-    return st
+    return quant.kv_storage_dtype(kv_dtype)
 
 
 def init_layer_paged_cache(cfg: ModelConfig, i: int, n_blocks: int,
@@ -715,21 +713,48 @@ def apply_sublayer_train(cfg, kind, sp, x, *, positions, enc_out=None):
     return _ffn(cfg, sp, x), torch.zeros((), device=x.device)
 
 
+# Activation checkpointing for training, as the reference's REMAT_TRAIN
+# (jax.checkpoint of each period in its _scan_stack): train_forward runs
+# each decoder period under torch.utils.checkpoint, so the backward pass
+# recomputes the period's activations instead of keeping them. The
+# recompute runs the same deterministic kernels on the same inputs, so the
+# gradients are the bits of a run that keeps everything.
+REMAT_TRAIN = True
+
+
+def _train_period(cfg, params, first, x, positions, enc_out):
+    """Decoder layers [first, first + period_len) over x; returns (x, the
+    period's MoE aux losses summed)."""
+    aux = torch.zeros((), device=x.device)
+    for i in range(first, first + period_len(cfg)):
+        x, a = apply_sublayer_train(cfg, cfg.layer_kind(i),
+                                    slice_layer_params(cfg, params, i), x,
+                                    positions=positions, enc_out=enc_out)
+        aux = aux + a
+    return x, aux
+
+
 def train_forward(cfg: ModelConfig, params, batch):
     """Full-sequence causal logits for training (twin of the reference's
     train_forward). batch: {"tokens": (b, s)} plus the modality stubs
     (paligemma's ``image_embeds``, whisper's ``enc_frames``). Returns
     (logits (b, s_total, V), the MoE layers' aux losses summed, float32);
-    s_total counts paligemma's image prefix."""
+    s_total counts paligemma's image prefix. Under REMAT_TRAIN each
+    decoder period is checkpointed; the encoder is not, as in the
+    reference."""
     x, positions, _ = _prep_input_seq(cfg, params, batch)
     enc_out = None
     if cfg.is_encoder_decoder:
         enc_out = _encoder_forward(cfg, params, batch["enc_frames"])
     aux = torch.zeros((), device=x.device)
-    for i in range(cfg.num_layers):
-        x, a = apply_sublayer_train(cfg, cfg.layer_kind(i),
-                                    slice_layer_params(cfg, params, i), x,
-                                    positions=positions, enc_out=enc_out)
+    for first in range(0, cfg.num_layers, period_len(cfg)):
+        if REMAT_TRAIN:
+            # no random numbers in a period: nothing to replay
+            x, a = torch.utils.checkpoint.checkpoint(
+                _train_period, cfg, params, first, x, positions, enc_out,
+                use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, a = _train_period(cfg, params, first, x, positions, enc_out)
         aux = aux + a
     return _head(cfg, params, x), aux
 

@@ -64,6 +64,7 @@ from __future__ import annotations
 import dataclasses
 import heapq
 import warnings
+import weakref
 from collections import deque
 from typing import Deque, Dict, List, Optional, Sequence
 
@@ -414,8 +415,9 @@ class PagedPipelineBatcher(SlotEngine):
     plain greedy decode's; only the step count changes. Needs an
     attention-only stack.
 
-    ``kv_dtype`` ("int8" / "fp8", or the model's own width; None = the
-    model's) sets the page pools' precision and ``kv_guard_layers`` the
+    ``kv_dtype`` ("int8" / "fp8", or an unquantized "fp32" / "bf16", the
+    model's width or the other one; None = the model's) sets the page
+    pools' precision and ``kv_guard_layers`` the
     GLOBAL layer indices kept at model precision; ServeStats then reports
     the pools' bytes (``kv_bytes_resident``, scales included) and what they
     save against model-precision pools (``kv_bytes_saved``).
@@ -496,8 +498,6 @@ class PagedPipelineBatcher(SlotEngine):
                 "rows to quantize); serving at model precision",
                 stacklevel=2)
             kv_dtype = None
-        # refuses an unquantized kv_dtype of another width than the model's
-        M.pool_dtype(kv_dtype, pipeline.dtype)
         self.kv_dtype = kv_dtype
         self.kv_guard_layers = tuple(kv_guard_layers)
         self.spec = spec
@@ -1196,9 +1196,14 @@ class PagedPipelineBatcher(SlotEngine):
         """Demotion closure for stage si's PrefixIndex: an evicted prefix
         block's page payload moves device -> host instead of vanishing."""
         host = self._host[si]
+        # the index is the batcher's own: a closure over the batcher itself
+        # would make a reference cycle that keeps the pools (device memory)
+        # until a full garbage collection
+        ref = weakref.ref(self)
 
         def spill(h: int, bid: int) -> None:
-            if self.pipeline.paged_caches is None:
+            self = ref()
+            if self is None or self.pipeline.paged_caches is None:
                 return             # nothing ever materialized on device
             if self._san is not None:
                 self._san.on_spill(si, bid)
@@ -1217,8 +1222,14 @@ class PagedPipelineBatcher(SlotEngine):
 
     def _make_host_drop(self, si: int):
         """LRU-bound closure for stage si's HostPagePool: the page has now
-        left this replica entirely (bottom of the hierarchy)."""
+        left this replica entirely (bottom of the hierarchy). Holds the
+        batcher weakly, as _make_spill does."""
+        ref = weakref.ref(self)
+
         def dropped(h: int) -> None:
+            self = ref()
+            if self is None:
+                return
             self.host_evictions += 1
             if si == self._rep_stage and self.cluster_dir is not None:
                 self.cluster_dir.unpublish(h, self.replica_id)
@@ -1234,16 +1245,22 @@ class PagedPipelineBatcher(SlotEngine):
                              "prefix_caching=True")
         self.cluster_dir = directory
         self.cluster_link = link if link is not None else KVLink()
-        self._cluster_peers = {rid: w for rid, w in peers.items()
-                               if rid != self.replica_id}
+        # held weakly: the peers hold this batcher in theirs, and such a
+        # cycle would keep every replica's pools until a full collection
+        self._cluster_peers = weakref.WeakValueDictionary(
+            {rid: w for rid, w in peers.items() if rid != self.replica_id})
         # without a host tier, an evicted prefix block leaves the replica
         # entirely — retract the directory claim at eviction time so the
         # published residency never outlives the page
         ix = (self._prefix[self._rep_stage]
               if self._rep_stage is not None else None)
         if ix is not None and ix.spill is None:
+            ref = weakref.ref(self)        # no cycle (see _make_spill)
+
             def _unpublish_on_evict(h: int, bid: int) -> None:
-                self.cluster_dir.unpublish(h, self.replica_id)
+                self = ref()
+                if self is not None:
+                    self.cluster_dir.unpublish(h, self.replica_id)
             ix.spill = _unpublish_on_evict
 
     def export_prefix_block(self, h: int):

@@ -37,6 +37,7 @@ RuntimeError.
 """
 from __future__ import annotations
 
+import weakref
 from typing import Callable, List, Optional, Sequence, Tuple
 
 from repro_torch.core.resched import DriftDetector, DriftSignal
@@ -103,7 +104,7 @@ class OnlineRescheduler:
         self.resolver = resolver
         self._kills = sorted(kills)
         self.link = link if link is not None else KVLink()
-        self.router = None
+        self._router = None
         self.workers: Optional[List] = None
         self._by_id: dict = {}
         self._orphans: List[Request] = []
@@ -114,6 +115,17 @@ class OnlineRescheduler:
         self.tracer = NULL_TRACER  # Router.bind_tracer swaps in the live one
 
     # ---- binding ---------------------------------------------------------
+    @property
+    def router(self):
+        """The bound Router, held weakly: the Router holds its controller
+        (``attach_controller``), and the pair would otherwise be a cycle
+        that keeps every replica's pools until a full collection."""
+        return self._router() if self._router is not None else None
+
+    @router.setter
+    def router(self, router) -> None:
+        self._router = weakref.ref(router) if router is not None else None
+
     def bind(self, router) -> None:
         """Bind to a Router (its live ``workers`` list and dispatcher)."""
         self.router = router

@@ -7,8 +7,9 @@ float32 global norm of every gradient leaf, ``step`` incremented before
 two or more dims (a stacked leaf, so a norm weight (P, d) is decayed), the
 moments and the update in float32, cast back to the leaf's dtype. Unlike
 the reference's pure function, ``apply`` updates the params and moments
-in place (under ``torch.no_grad()``) and returns them: a full-width model
-on the card has no room for a second copy of either.
+in place (under ``torch.no_grad()``), CHUNK elements of a leaf at a time,
+and returns them: a full-width model on the card has no room for a second
+copy of either.
 """
 from __future__ import annotations
 
@@ -89,13 +90,29 @@ def apply(cfg: AdamWConfig, grads, state: AdamWState, params):
     b1c = 1 - cfg.b1 ** step.to(torch.float32)
     b2c = 1 - cfg.b2 ** step.to(torch.float32)
     for p, g, mu, nu in zip(ps, gs, leaves(state.mu), leaves(state.nu)):
-        g = g.float() * scale
-        mu.mul_(cfg.b1).add_((1 - cfg.b1) * g)
-        nu.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
-        del g
-        step_dir = (mu / b1c).div_(torch.sqrt(nu / b2c).add_(cfg.eps))
-        pf = p.float()
-        if p.dim() >= 2:                       # decay matrices only
-            step_dir.add_(cfg.weight_decay * pf)
-        p.copy_(pf.sub_(lr * step_dir))
+        decay = p.dim() >= 2                   # decay matrices only
+        flat = [t.view(-1) for t in (p, g, mu, nu)]
+        for i in range(0, p.numel(), CHUNK):
+            _update(cfg, *(t[i:i + CHUNK] for t in flat), scale, lr, b1c,
+                    b2c, decay)
     return params, AdamWState(step=step, mu=state.mu, nu=state.nu)
+
+
+# elements of a leaf updated at a time: the update is elementwise, so a
+# chunk at a time gives the same bits as the whole leaf, and its float32
+# temporaries (about four copies of the chunk) stay small beside the
+# moments; whole, the largest leaf's would set a train step's peak memory
+CHUNK = 1 << 26
+
+
+def _update(cfg, p, g, mu, nu, scale, lr, b1c, b2c, decay):
+    """The AdamW update of (a chunk of) one leaf, in place."""
+    g = g.float() * scale
+    mu.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+    nu.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
+    del g
+    step_dir = (mu / b1c).div_(torch.sqrt(nu / b2c).add_(cfg.eps))
+    pf = p.float()
+    if decay:
+        step_dir.add_(cfg.weight_decay * pf)
+    p.copy_(pf.sub_(lr * step_dir))

@@ -213,10 +213,11 @@ def test_unported_features_raise_not_implemented():
     for kw in (dict(devices=["cpu"]), dict(key=0)):
         with pytest.raises(NotImplementedError, match=next(iter(kw))):
             InferenceEngine(cfg, asg, device="cpu", **kw)
-    # unquantized pools of another width than the model's: not ported
-    with pytest.raises(NotImplementedError, match="kv_dtype"):
-        InferenceEngine(cfg, asg, device="cpu", cache_layout="paged",
-                        kv_dtype="bf16")
+    # unquantized pools of another width than the model's are served: a
+    # bf16 pool under the fp32 model is built (test_torch_kv_widths.py)
+    eng = InferenceEngine(cfg, asg, device="cpu", cache_layout="paged",
+                          kv_dtype="bf16")
+    assert eng.router.workers[0].kv_dtype == "bf16"
     # the multi-replica features are served: one replica disaggregates
     # colocated with the reference's warning, and the host tier is built
     with pytest.warns(UserWarning, match="serving colocated"):

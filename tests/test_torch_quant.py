@@ -438,19 +438,6 @@ def test_pool_layout_and_guard_layers_match_reference(weights, kv, guard):
         assert not t.float().any()
 
 
-def test_unquantized_pool_of_another_width_is_not_ported(weights):
-    _, pcfg, tree = weights
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PM.init_layer_paged_cache(pcfg, 0, 6, 8, dtype=torch.float32,
-                                  device="cpu", kv_dtype="bf16")
-    pasg = port_plan.Assignment([port_plan.PipelinePlan(
-        [port_plan.StagePlan([0], 1), port_plan.StagePlan([1], 1)])])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PEngine(pcfg, pasg, params=bridge.params_from_numpy(tree,
-                                                            device="cpu"),
-                device="cpu", cache_layout="paged", kv_dtype="bf16")
-
-
 # --- weight-only int8 --------------------------------------------------------
 
 def test_quantize_params_and_mm_match_reference(weights):

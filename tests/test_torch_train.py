@@ -398,12 +398,21 @@ def test_launch_train_defaults_to_the_card():
     (80, 0, "head dim 80"), (256, 0, "head dim 256"),
     (64, 4096, "windowed attention")])
 def test_backward_kernels_refuse_untaken_cases(d, window, match):
-    # h2o-danube-1.8b's window, its d 80 and paligemma's d 256 have no
-    # backward kernel: the wrappers name the case before anything else
+    # h2o-danube-1.8b's window, its d 80 and paligemma's d 256 have training
+    # instances now: the wrappers take the case (`match`) and refuse only
+    # what no kernel takes, here CPU tensors, naming the kernel; a head dim
+    # with no training instance is refused before anything else
     from repro_torch.kernels import flash_attention as fa
+    assert d in fa.TRAIN_HEAD_DIMS, match
     q, k = torch.zeros(1, 2, 4, d), torch.zeros(1, 2, 2, d)
-    with pytest.raises(ValueError, match=match):
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
         fa.flash_attention_bwd_cuda(q, k, k, q, torch.zeros(1, 4, 2), q,
                                     window=window)
-    with pytest.raises(ValueError, match=match):
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        fa.flash_attention_cuda(q, k, k, window=window, return_lse=True)
+    q, k = torch.zeros(1, 2, 4, 32), torch.zeros(1, 2, 2, 32)
+    with pytest.raises(ValueError, match="flash_attention_bwd: head dims 32"):
+        fa.flash_attention_bwd_cuda(q, k, k, q, torch.zeros(1, 4, 2), q,
+                                    window=window)
+    with pytest.raises(ValueError, match="flash_attention: head dims 32"):
         fa.flash_attention_cuda(q, k, k, window=window, return_lse=True)
