@@ -202,7 +202,9 @@ JAX. Phases, each of which raises on failure:
      keys at d 64, 80 and 128, and #9's at
      Jamba's layer width (4, 1024, 8192, 16) against their plain
      versions, two runs of each bit for bit, #1's bf16 backward against
-     the fp32 plain version (F4),
+     the fp32 plain version (F4), the tensor-core backward's edges and
+     #9's at ragged s and odd din (BWD_EDGES, SCAN_BWD_EDGES), each
+     backward also on NaN-filled scratch (the same bits),
      then both timed beside their bounds and plain versions (and SDPA's
      backward for #1), #1's training forward and backward also in the
      fp32 instances (e) launches, at d 80, d 256 and windowed d 64 (beside
@@ -354,6 +356,7 @@ def phase_device_and_build():
                              f"{sass['flash_attention']}")
     check_paged_build(libs["paged_attention"])
     check_scan_build(libs["ssm_scan"])
+    check_bwd_build(libs)
     check_sass_against_parent(libs)
     return smi
 
@@ -514,6 +517,51 @@ def check_scan_build(so):
             + f"; digest {digests[n][1]}")
         if spill != 0 or not all(counts.values()):
             raise AssertionError(f"{n}: {counts}, spills {spill}")
+
+
+def check_bwd_build(libs):
+    """The backward libraries' kernels, one line each: registers, spills,
+    SASS counts and a digest. #1's backward: 24 SIMT kernels (fb::, pass
+    1-3 x fp32 / bf16 x d 64, 80, 128, 256) and 6 of the tensor-core body
+    (fbh::, pass 1-3 x d 64, 128), whose dK / dV and dQ kernels must show
+    warpgroup MMA (HGMMA) and TMA loads; #9's: 12 sb::ssm_bwd_lanes (d_state
+    4 / 8 / 16 x x, dt in fp32 / bf16), each with its exponentials
+    (MUFU.EX2) and cp.async copies (LDGSTS), and 4 fixed-order reductions.
+    No kernel of the tensor-core body or of #9's may spill."""
+    want = {"flash_attention_bwd": {"void fb::": 24, "void fbh::": 6},
+            "ssm_scan_bwd": {"void sb::ssm_bwd_lanes": 12,
+                             "void sb::ssm_bwd_reduce": 4}}
+    for lib, prefixes in want.items():
+        so = libs[lib]
+        regs = _ptxas(so)
+        parts = re.split(r"\n\s*Function : (\S+)", _sass(so))
+        bodies = dict(zip(_demangle(parts[1::2]), parts[2::2]))
+        funcs = sass_functions(so)
+        got = {pre: sorted(n for n in funcs if n.startswith(pre))
+               for pre in prefixes}
+        if {pre: len(n) for pre, n in got.items()} != prefixes \
+                or len(funcs) != sum(prefixes.values()):
+            raise AssertionError(f"{lib}: {len(funcs)} kernels, "
+                                 f"{ {p: len(n) for p, n in got.items()} }"
+                                 f", expected {prefixes}")
+        for n in sorted(funcs):
+            counts = dict(funcs[n][0])
+            counts["MUFU.EX2"] = len(re.findall(r"MUFU\.EX2",
+                                                bodies.get(n, "")))
+            r, spill = regs.get(n, ("?", "?"))
+            log(f"  sass {lib} {n}: {r} registers, {spill} bytes spill "
+                "stores, " + ", ".join(f"{op} {k}" for op, k in
+                                       counts.items() if k)
+                + f"; digest {funcs[n][1]}")
+            if n.startswith("void fb::"):
+                continue  # the SIMT body: checked against its parent digest
+            need = ()
+            if n.startswith(("void fbh::dkdv_kernel", "void fbh::dq_kernel")):
+                need = ("HGMMA", "UTMALDG")
+            elif n.startswith("void sb::ssm_bwd_lanes"):
+                need = ("MUFU.EX2", "LDGSTS")
+            if spill != 0 or not all(counts[op] for op in need):
+                raise AssertionError(f"{n}: {counts}, spills {spill}")
 
 
 # the previous tree's SASS digests (sass_functions), which phase 1 holds
@@ -1936,7 +1984,7 @@ def _kernel_group(name):
         return "attention kernels (port)"
     if name.startswith("void ss::ssm_scan_kernel"):
         return "scan (port)"
-    if name.startswith(("void fb::", "void sb::")):
+    if name.startswith(("void fb::", "void fbh::", "void sb::")):
         return "backward kernels (port)"
     if any(t in name.lower() for t in ("gemm", "cutlass", "sm90_xmma",
                                        "nvjet", "gemv")):
@@ -3762,6 +3810,36 @@ def _check_bwd(name, case, fn, twin, dtype):
     return worst
 
 
+def _check_scratch_unread(name, case, fn):
+    """fn() (a backward kernel's wrapper) once more with every float tensor
+    that torch.empty makes during it (its scratch) filled with NaN first:
+    each output must equal a run on memory as the allocator hands it out,
+    bit for bit, so that no output depends on scratch the kernel did not
+    write. Returns the number of tensors poisoned (at least one)."""
+    got = fn()
+    real, made = torch.empty, []
+
+    def empty(*args, **kwargs):
+        t = real(*args, **kwargs)
+        if t.is_floating_point():
+            made.append(t.fill_(float("nan")))
+        return t
+
+    torch.empty = empty
+    try:
+        poisoned = fn()
+    finally:
+        torch.empty = real
+    torch.cuda.synchronize()
+    if not made:
+        raise AssertionError(f"{name} [{case}]: no scratch to poison")
+    for i, (a, b) in enumerate(zip(got, poisoned)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name} [{case}]: output {i} changes when "
+                                 "its scratch starts as NaN")
+    return len(made)
+
+
 def _check_train_gqa(gen, dev, dtype, causal, hq, hkv, d, b=2, s=1024,
                      window=0):
     """#1's training forward (return_lse) and backward at a GQA group that
@@ -3769,7 +3847,8 @@ def _check_train_gqa(gen, dev, dtype, causal, hq, hkv, d, b=2, s=1024,
     g 3), at the head dims of h2o-danube-1.8b (80) and paligemma-3b (256),
     and under a sliding window: o and lse, two runs bit for bit, against
     attention_fwd_lse_ref; then the backward fed the plain version's o and
-    lse against its twin (_check_bwd)."""
+    lse against its twin (_check_bwd) and on NaN scratch
+    (_check_scratch_unread)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     case = (f"({b}, {s}, {hq}/{hkv}, {d}) causal={causal}"
@@ -3799,10 +3878,13 @@ def _check_train_gqa(gen, dev, dtype, causal, hq, hkv, d, b=2, s=1024,
         "flash_attention_bwd", case,
         lambda: fa.flash_attention_bwd_cuda(*args, **mask),
         lambda: ref.attention_bwd_ref(*args, **mask), dtype)
+    _check_scratch_unread(
+        "flash_attention_bwd", f"{case}, {dtype}",
+        lambda: fa.flash_attention_bwd_cuda(*args, **mask))
     log(f"  check flash_attention lse + flash_attention_bwd [{case}] "
         f"{dtype}: o max abs err {o_err:.3g}, lse {lse_err:.3g}; backward "
         f"max err {err:.3g} of the largest gradient; two runs of each "
-        "bit-identical")
+        "bit-identical, the backward's the same on NaN scratch")
     del q, k, v, do, got, again, o, lse, args
     torch.cuda.empty_cache()
 
@@ -3876,6 +3958,91 @@ def check_bwd_kernels(dev):
             f"max err {err:.3g} of the largest gradient; two runs "
             "bit-identical")
         del x, args
+    torch.cuda.empty_cache()
+
+
+# phase 10 (c): the tensor-core backward's edges (bf16 at d 128 with g 8
+# and d 64 with g 3): s = 1000 (no multiple of a 64-row tile or a
+# 128-key block), causal and not; live keys from kv_len / kv_start; sq !=
+# skv both ways; a window on sq < skv
+BWD_EDGES = (dict(b=2, sq=1000, skv=1000, causal=True),
+             dict(b=2, sq=1000, skv=1000, causal=False),
+             dict(b=3, sq=384, skv=640, causal=True, kv_len=(640, 500, 333),
+                  kv_start=(0, 37, 129)),
+             dict(b=2, sq=640, skv=384, causal=False, kv_len=(384, 200),
+                  kv_start=(5, 0)),
+             dict(b=2, sq=300, skv=1000, causal=True, window=128))
+BWD_EDGE_WIDTHS = (dict(hq=64, hkv=8, d=128), dict(hq=24, hkv=8, d=64))
+# ... and #9's backward at (2, s, din, ds), dh_out given: three chunks, the
+# last ragged, at d_state 4, 8 and 16; din 1000 (a block's last 64
+# channels part dead, rows still 16-byte aligned); din 1001 at s 301 (no
+# row of x, dt or dy aligned, nor row 1 of B and C in bf16 at d_state 4:
+# the element-wise loads)
+SCAN_BWD_EDGES = ((300, 1024, 4), (300, 1024, 8), (300, 1024, 16),
+                  (300, 1000, 16), (301, 1001, 4))
+
+
+def check_bwd_edges(dev):
+    """Phase 10 (c): #1's backward at BWD_EDGES x BWD_EDGE_WIDTHS in bf16
+    (the tensor-core body), fed its forward's o and lse under the same
+    mask, and #9's at SCAN_BWD_EDGES with dh_out, x bf16 and fp32 (dt
+    fp32): two runs bit for bit and each gradient against the plain
+    version (_check_bwd), and the same bits on NaN scratch
+    (_check_scratch_unread)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssm_scan as ss
+    gen = torch.Generator(device=dev).manual_seed(12)
+    dtype = torch.bfloat16
+    for w in BWD_EDGE_WIDTHS:
+        for e in BWD_EDGES:
+            b, sq, skv = e["b"], e["sq"], e["skv"]
+            mask = dict(causal=e["causal"], window=e.get("window", 0))
+            for name in ("kv_len", "kv_start"):
+                if name in e:
+                    mask[name] = torch.tensor(e[name], dtype=torch.int32,
+                                              device=dev)
+            q = _rand(gen, (b, sq, w["hq"], w["d"]), dtype, dev)
+            k = _rand(gen, (b, skv, w["hkv"], w["d"]), dtype, dev)
+            v = _rand(gen, (b, skv, w["hkv"], w["d"]), dtype, dev)
+            do = _rand(gen, (b, sq, w["hq"], w["d"]), dtype, dev)
+            o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True,
+                                             **mask)
+            args = [q, k, v, o, lse, do]
+            case = (f"({b}, {sq}/{skv}, {w['hq']}/{w['hkv']}, {w['d']}) "
+                    + " ".join(f"{n}={e[n]}" for n in
+                               ("causal", "window", "kv_len", "kv_start")
+                               if n in e))
+            err = _check_bwd(
+                "flash_attention_bwd", case,
+                lambda: fa.flash_attention_bwd_cuda(*args, **mask),
+                lambda: ref.attention_bwd_ref(*args, **mask), dtype)
+            _check_scratch_unread(
+                "flash_attention_bwd", case,
+                lambda: fa.flash_attention_bwd_cuda(*args, **mask))
+            log(f"  check flash_attention_bwd [{case}] {dtype}: max err "
+                f"{err:.3g} of the largest gradient; two runs bit-identical, "
+                "the same on NaN scratch")
+            del q, k, v, do, o, lse, args
+    for s, din, ds in SCAN_BWD_EDGES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = _bwd_scan_inputs(gen, dev, b=2, s=s, din=din, ds=ds,
+                                 dtype=dtype)
+            x["dh_out"] = torch.randn((2, din, ds), generator=gen,
+                                      device=dev)
+            args = [x[n] for n in ("x", "dt", "A", "B", "C", "D", "h_ins",
+                                   "dy", "dh_out")]
+            case = f"(2, {s}, {din}, {ds}), dh_out"
+            err = _check_bwd("ssm_scan_bwd", case,
+                             lambda: ss.ssm_scan_bwd_cuda(*args),
+                             lambda: ref.ssm_scan_bwd_ref(*args), dtype)
+            _check_scratch_unread(
+                "ssm_scan_bwd", f"{case}, {dtype}",
+                lambda: ss.ssm_scan_bwd_cuda(*args))
+            log(f"  check ssm_scan_bwd [(2, {s}, {din}, {ds}), dt fp32, "
+                f"dh_out] {dtype}: max err {err:.3g} of the largest "
+                "gradient; two runs bit-identical, the same on NaN scratch")
+            del x, args
     torch.cuda.empty_cache()
 
 
@@ -4313,6 +4480,7 @@ def main():
     train = phase_train_parity()
     done("phase 10 (a), (b)")
     check_bwd_kernels(torch.device("cuda"))
+    check_bwd_edges(torch.device("cuda"))
     timed.update(time_bwd_kernels(torch.device("cuda")))
     done("phase 10 (c)")
     for k, n in phase_train_bf16(smi).items():

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the port's wgmma kernels (flash prefill,
-// flash_attention.cu; paged context, paged_attention.cu): TMA tensor maps,
-// loads and stores, cp.async gathers, mbarriers, warpgroup MMA (wgmma) with
+// flash_attention.cu; paged context, paged_attention.cu; the attention
+// backward, flash_attention_bwd.cu): TMA tensor maps, loads and stores, bulk
+// copies, cp.async gathers, mbarriers, warpgroup MMA (wgmma) with
 // shared-memory descriptors, and the register hand-over between warpgroups
 // (setmaxnreg). Inline PTX, no library.
 #pragma once
@@ -74,6 +75,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
       "r"(smem_u32(bar))
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) contiguous bytes from global src to shared dst,
+// both 16-byte aligned; completion adds them to `bar`'s transaction count
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -298,6 +310,28 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
         "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, fp32) = A (smem, K-major) * B (smem, K-major), plus d where
+// `accumulate` (the attention backward's S = Q K^T and dP = dO V^T, and
+// their transposes, with both operands resident in shared memory)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      "%28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 

@@ -21,35 +21,52 @@
 // (b, s, ds) of x's dtype, A (din, ds), D (din,) fp32; dx, ddt, dB, dC in
 // their inputs' dtypes, dA, dD, dh0 fp32.
 //
-// Design. A thread holds one state element (channel, n): a block of 256
-// threads is 256 / ds channels of one row at a time and walks a run of
-// such channel groups in turn (cpb channels a block), so the sums over
-// din (dB, dC) leave the block as one partial per (block, t, n). A chunk's
-// 128 states do not fit beside the inputs for many channels (8 KB a
-// channel at ds 16), so the chunk is sub-checkpointed: one pass from its
-// entry state keeps the state at every SUB-th step in registers, then each
-// SUB-step piece, last first, is recomputed into shared memory and walked
-// back. The sums over n (dx, ddt) are shuffles among the ds lanes of a
-// channel; the sums over din (dB, dC) go through shared memory; the sums
-// over b and s (dA, dD) stay in registers and leave as per-row partials.
-// A second kernel adds the partials in a fixed order: no atomics, so the
-// gradients are the same bits from run to run.
+// Bound on the card: like the forward, the exponentials (one per state
+// element and step at least, a[t]) against ~28 bytes of traffic per
+// (row, step, channel); and the recurrence's latency, which the design
+// has to hide.
 //
-// Bound on the card: like the forward, the exponentials: one per state
-// element and step at least (a[t]); this kernel evaluates three (the
-// sub-checkpoint pass, the recompute, the backward step), each on the SFU
-// (ex2.approx.ftz with A pre-scaled by log2 e, as the forward).
+// Design, as the forward (ssm_scan.cu):
+//   - The state split over lanes: 2 neighbouring lanes share a channel,
+//     each holding ds / 2 consecutive state elements, so a 128-thread
+//     block covers 64 channels of one row in one pass over time (grid
+//     (ceil(din / 64), b): 512 blocks at b 4 and d_inner 8192). The sums
+//     over n (dx, ddt) take one shuffle level; the sums over din (dB, dC)
+//     go through shared memory to one partial per (block, t, n); the sums
+//     over b and s (dA, dD) stay in registers and leave as per-row
+//     partials. A second kernel adds the partials in a fixed order: no
+//     atomics, so the gradients are the same bits from run to run.
+//   - Inputs staged a tile ahead: time runs in 16-step tiles; x, dt, dy of
+//     the block's channels and B, C of the row (widened to fp32) of the
+//     next tile are issued by cp.async (16 bytes a copy, zero-filled past s
+//     and din) before the current tile's arithmetic, so the recurrence
+//     reads shared memory, never device memory. Rows that miss the copies'
+//     16-byte alignment take element-wise loads. A chunk's tiles are
+//     visited twice: forwards (the checkpoints), then backwards.
+//   - The states three levels deep: a chunk's forward walk keeps the
+//     state entering each 16-step piece (8 of them, in shared memory: 64
+//     registers a thread at d_state 16 would not fit beside the rest); a
+//     piece, last first, is walked again keeping the state entering each
+//     4-step sub-piece in registers; a sub-piece, last first, is
+//     recomputed keeping h[t] and a[t] of its 4 steps, and walked back
+//     with those a[t]. That is three exponentials per element and step
+//     (ex2.approx.ftz with dt pre-scaled by log2 e), none in the backward
+//     step itself. Keeping a[t] of a whole 16-step piece instead (two
+//     exponentials) would take 1 KB of shared memory a thread at d_state
+//     16, 128 KB a block: one block an SM.
+// Steps past s run on zero-filled inputs (dt = 0: a = 1, no input), which
+// change no state, cotangent or sum; their outputs are not written.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace sb {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 256;  // the reduction's block
 constexpr int CHUNK = 128;           // steps between saved states
-constexpr int SUB = 16;              // steps recomputed at a time
-constexpr int NSUB = CHUNK / SUB;    // sub-checkpoints a chunk
 constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -91,116 +108,328 @@ struct Params {
   float* dD_part;       // (b, din): dD of each row
   float* dB_part;       // (b, nblk, s, ds): dB of each block's channels
   float* dC_part;       // (b, nblk, s, ds)
-  int s, din, nc, cpb, nblk;
+  int s, din, nc, nblk;
+};
+
+
+constexpr int TS = 16;         // steps a tile (a piece)
+constexpr int SUBS = 4;        // steps a sub-piece
+constexpr int NPIECE = CHUNK / TS;
+constexpr int LANES = 2;       // lanes a channel (ss::lanes)
+constexpr int BT = 128;        // threads a block
+constexpr int CH = BT / LANES; // channels a block
+
+// Parts of ssm_bwd_lanes that a build may leave out, to time what each
+// costs (scripts/ssm_scan_bwd_parts.py; the gradients are then wrong):
+// a bit mask of the chunk's forward walk (1), the piece's walk to its
+// sub-pieces (2), the sub-pieces' recompute and backward step (4), the
+// dB / dC sum over the block's channels (8) and the barrier before it
+// (16). 0, every part, unless the build defines it.
+#ifndef SB_SKIP
+#define SB_SKIP 0
+#endif
+constexpr int SKIP = SB_SKIP;
+
+// A thread's 16-byte pieces of a [TS][CH] tile of T: piece q of the
+// tile's TS * PER_ROW is at step q / PER_ROW, channel (q % PER_ROW) E
+template <typename T>
+struct Pieces {
+  static constexpr int E = 16 / sizeof(T), PER_ROW = CH / E,
+                       ALL = TS * PER_ROW, N = (ALL + BT - 1) / BT;
+};
+
+// Steps [t0, t0 + nt) of channels [c0, c0 + CH) of a (b, s, din) tensor
+// (its element `base` is (row, t0, 0)) into dst[TS][CH]; zeros past s and
+// din. cp.async when every 16-byte piece is aligned and wholly inside or
+// outside din (vec), else element-wise loads.
+template <typename T>
+__device__ __forceinline__ void load_steps(T (&dst)[TS][CH],
+                                           const T* __restrict__ src,
+                                           size_t base, int nt, int c0,
+                                           int din, bool vec) {
+  using P = Pieces<T>;
+  if (vec) {
+    const T* tile = src + base + c0;
+#pragma unroll
+    for (int i = 0; i < P::N; ++i) {
+      const int q = threadIdx.x + i * BT;
+      const int tt = q / P::PER_ROW, c = (q % P::PER_ROW) * P::E;
+      const bool in = tt < nt && c0 + c < din;
+      if (P::ALL % BT == 0 || q < P::ALL)
+        hx::cp_async16(&dst[tt][c], in ? tile + (size_t)tt * din + c : src,
+                       in ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < TS * CH; i += BT) {
+      const int tt = i / CH, c = i % CH;
+      dst[tt][c] = (tt < nt && c0 + c < din)
+                       ? src[base + (size_t)tt * din + c0 + c]
+                       : from_f<T>(0.f);
+    }
+  }
+}
+
+// nt steps of B or C (DS values each, contiguous from `off`) into dst;
+// zeros past them
+template <int DS, typename T>
+__device__ __forceinline__ void load_bc(T (&dst)[TS * DS],
+                                        const T* __restrict__ src, size_t off,
+                                        int nt) {
+  constexpr int E = 16 / sizeof(T), N = TS * DS;
+  const int n = nt * DS;
+  if (reinterpret_cast<uintptr_t>(src + off) % 16 == 0) {
+    for (int i = threadIdx.x * E; i < N; i += BT * E) {
+      const int bytes = min(E, max(n - i, 0)) * (int)sizeof(T);
+      hx::cp_async16(&dst[i], bytes ? src + off + i : src, bytes);
+    }
+  } else {
+    for (int i = threadIdx.x; i < N; i += BT)
+      dst[i] = i < n ? src[off + i] : from_f<T>(0.f);
+  }
+}
+
+// K consecutive floats from shared memory as 16- or 8-byte vectors
+template <int K>
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[K]) {
+  if constexpr (K % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < K; j += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(p + j);
+      v[j] = q.x, v[j + 1] = q.y, v[j + 2] = q.z, v[j + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < K; j += 2) {
+      const float2 q = *reinterpret_cast<const float2*>(p + j);
+      v[j] = q.x, v[j + 1] = q.y;
+    }
+  }
+}
+template <int K>
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[K]) {
+  if constexpr (K % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < K; j += 4)
+      *reinterpret_cast<float4*>(p + j) =
+          make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < K; j += 2)
+      *reinterpret_cast<float2*>(p + j) = make_float2(v[j], v[j + 1]);
+  }
+}
+
+template <int DS, typename TX, typename TDT>
+struct Smem {
+  alignas(16) TX x[2][TS][CH];
+  alignas(16) TDT dt[2][TS][CH];
+  alignas(16) TX dy[2][TS][CH];
+  alignas(16) TX bc_raw[2][2][TS * DS];  // B, C of a tile as stored
+  alignas(16) float bc[2][TS][DS];       // the current tile's, in fp32
+  // a sub-piece's dB and dC terms of every (step, channel, element),
+  // summed over the channels after each sub-piece
+  alignas(16) float red[2][SUBS][CH][DS];
+  // each thread's state entering each piece of the chunk
+  alignas(16) float cp[NPIECE][BT][DS / LANES];
 };
 
 template <int DS, typename TX, typename TDT>
-__global__ void __launch_bounds__(THREADS)
-    ssm_bwd_kernel(const Params<TX, TDT> p) {
-  constexpr int CP = THREADS / DS;  // channels a group
-  __shared__ float H[SUB][THREADS];  // the piece's states h[t]
-  __shared__ float G[SUB][THREADS];  // lam dt x of each element (dB)
-  __shared__ float Y[SUB][CP];       // dy of the piece's channels (dC)
+__global__ void __launch_bounds__(BT, 2)
+    ssm_bwd_lanes(const Params<TX, TDT> p) {
+  using S = Smem<DS, TX, TDT>;
+  constexpr int K = DS / LANES;
+  extern __shared__ __align__(16) unsigned char smem[];
+  S& sm = *reinterpret_cast<S*>(smem);
   const int row = blockIdx.y, blk = blockIdx.x;
-  const int lc = threadIdx.x / DS, n = threadIdx.x % DS;
+  const int g = threadIdx.x / LANES, part = threadIdx.x % LANES;
+  const int c0 = blk * CH, c = c0 + g;
+  const bool live = c < p.din;
   const int s = p.s, din = p.din;
-  const size_t xrow = (size_t)row * s * din, brow = (size_t)row * s * DS;
+  const size_t xrow = (size_t)row * s * din, bcrow = (size_t)row * s * DS;
+  const size_t st = ((size_t)row * din + c) * DS + part * K;
+  float A[K], lam[K], dA[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    A[j] = live ? p.A[(size_t)c * DS + part * K + j] : 0.f;
+    lam[j] = live && p.dh_out ? p.dh_out[st + j] : 0.f;
+    dA[j] = 0.f;
+  }
+  const float dcoef = live ? p.D[c] : 0.f;
+  float dD = 0.f;
+  const bool vx = reinterpret_cast<uintptr_t>(p.x) % 16 == 0 &&
+                  (din * sizeof(TX)) % 16 == 0;
+  const bool vdt = reinterpret_cast<uintptr_t>(p.dt) % 16 == 0 &&
+                   (din * sizeof(TDT)) % 16 == 0;
+  const bool vdy = reinterpret_cast<uintptr_t>(p.dy) % 16 == 0 &&
+                   (din * sizeof(TX)) % 16 == 0;
   float* dBp = p.dB_part + ((size_t)row * p.nblk + blk) * s * DS;
   float* dCp = p.dC_part + ((size_t)row * p.nblk + blk) * s * DS;
 
-  for (int g0 = 0; g0 < p.cpb; g0 += CP) {
-    const int c = blk * p.cpb + g0 + lc;
-    const bool live = g0 + lc < p.cpb && c < din;
-    const size_t st = ((size_t)row * din + c) * DS + n;
-    const float a = live ? p.A[(size_t)c * DS + n] : 0.f, a2 = a * LOG2E;
-    const float dcoef = live ? p.D[c] : 0.f;
-    float lam = live && p.dh_out ? p.dh_out[st] : 0.f;
-    float dA = 0.f, dD = 0.f;
-    // inputs of step t of this thread's channel and state element; zeros
-    // for a dead channel, whose state then stays 0
-    auto in = [&](int t, float& xv, float& dtv, float& bv) {
-      xv = live ? to_f(p.x[xrow + (size_t)t * din + c]) : 0.f;
-      dtv = live ? to_f(p.dt[xrow + (size_t)t * din + c]) : 0.f;
-      bv = to_f(p.B[brow + (size_t)t * DS + n]);
+  // jobs: for each chunk, last first, its tiles forwards then backwards
+  auto tiles = [&](int ch) {
+    return (min(s, ch * CHUNK + CHUNK) - ch * CHUNK + TS - 1) / TS;
+  };
+  // tile start of job (ch, j) of a chunk of nt tiles, and whether it walks
+  // back
+  auto load = [&](int buf, int ch, int j, int nt) {
+    const bool back = j >= nt;
+    const int t0 = ch * CHUNK + (back ? 2 * nt - 1 - j : j) * TS;
+    const int n = min(TS, s - t0);
+    const size_t base = xrow + (size_t)t0 * din;
+    load_steps(sm.x[buf], p.x, base, n, c0, din, vx);
+    load_steps(sm.dt[buf], p.dt, base, n, c0, din, vdt);
+    load_bc<DS>(sm.bc_raw[buf][0], p.B, bcrow + (size_t)t0 * DS, n);
+    if (back) {
+      load_steps(sm.dy[buf], p.dy, base, n, c0, din, vdy);
+      load_bc<DS>(sm.bc_raw[buf][1], p.C, bcrow + (size_t)t0 * DS, n);
+    }
+  };
+
+  float h[K];
+  float* cp = &sm.cp[0][threadIdx.x][0];  // piece q's entry: cp + q BT K
+  int ch = p.nc - 1, nt = tiles(ch), j = 0, buf = 0;
+  load(0, ch, 0, nt);
+  for (;;) {
+    hx::cp_async_wait_all();
+    __syncthreads();  // job (ch, j)'s tile is in; the other buffer is free
+    {
+      int ch2 = ch, j2 = j + 1, nt2 = nt;
+      if (j2 == 2 * nt) {
+        --ch2;
+        j2 = 0;
+        nt2 = ch2 >= 0 ? tiles(ch2) : 0;
+      }
+      if (ch2 >= 0) load(buf ^ 1, ch2, j2, nt2);
+    }
+    const bool back = j >= nt;
+    const int piece = back ? 2 * nt - 1 - j : j;
+    const int t0 = ch * CHUNK + piece * TS;
+    // B (and C) of the tile, widened to fp32
+    for (int i = threadIdx.x; i < (back ? 2 : 1) * TS * DS; i += BT)
+      (&sm.bc[0][0][0])[i] = to_f((&sm.bc_raw[buf][0][0])[i]);
+    __syncthreads();
+    const TX* xs = &sm.x[buf][0][g];
+    const TDT* dts = &sm.dt[buf][0][g];
+    const float* bs = &sm.bc[0][0][part * K];
+    // one step forwards: h = a h + dt x B, a = 2^(dt log2 e A)
+    auto step = [&](int tt, float (&hh)[K], float (&a)[K]) {
+      float bv[K];
+      load_vec<K>(bs + tt * DS, bv);
+      const float dtv = to_f(dts[tt * CH]), dtx = dtv * to_f(xs[tt * CH]);
+      const float dtl = dtv * LOG2E;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        a[k] = ex2(dtl * A[k]);
+        hh[k] = fmaf(a[k], hh[k], dtx * bv[k]);
+      }
     };
-    for (int ch = p.nc - 1; ch >= 0; --ch) {
-      const int t0 = ch * CHUNK, t1 = min(s, t0 + CHUNK);
-      float h = live ? p.h_ins[(((size_t)row * p.nc + ch) * din + c) * DS + n]
-                     : 0.f;
-      float hs[NSUB];  // the state entering each piece
+    if (!back) {
+      if (piece == 0) {  // the chunk's entry state
 #pragma unroll
-      for (int j = 0; j < NSUB; ++j) {
-        hs[j] = h;
-        const int ta = t0 + j * SUB, tb = min(t1, ta + SUB);
-        for (int t = ta; t < tb; ++t) {
-          float xv, dtv, bv;
-          in(t, xv, dtv, bv);
-          h = ex2(dtv * a2) * h + dtv * xv * bv;
-        }
+        for (int k = 0; k < K; ++k)
+          h[k] = live ? p.h_ins[(((size_t)row * p.nc + ch) * din + c) * DS +
+                                part * K + k]
+                      : 0.f;
       }
-#pragma unroll
-      for (int j = NSUB - 1; j >= 0; --j) {
-        const int ta = t0 + j * SUB, tb = min(t1, ta + SUB);
-        if (ta >= tb) continue;  // past s: the same for the whole block
-        h = hs[j];
-        for (int t = ta; t < tb; ++t) {
-          float xv, dtv, bv;
-          in(t, xv, dtv, bv);
-          h = ex2(dtv * a2) * h + dtv * xv * bv;
-          H[t - ta][threadIdx.x] = h;
-        }
-        for (int t = tb - 1; t >= ta; --t) {
-          float xv, dtv, bv;
-          in(t, xv, dtv, bv);
-          const float dyv =
-              live ? to_f(p.dy[xrow + (size_t)t * din + c]) : 0.f;
-          const float cv = to_f(p.C[brow + (size_t)t * DS + n]);
-          const float hp = t > ta ? H[t - ta - 1][threadIdx.x] : hs[j];
-          lam += dyv * cv;  // the cotangent of h[t]
-          const float av = ex2(dtv * a2);
-          const float da = lam * hp * av;  // through a[t]
-          const float gx = lam * bv;       // through dt x
-          float ddt = da * a + gx * xv, dx = gx * dtv;
-          dA += da * dtv;
-          G[t - ta][threadIdx.x] = lam * dtv * xv;
-          lam *= av;
-#pragma unroll
-          for (int off = DS / 2; off > 0; off >>= 1) {
-            dx += __shfl_xor_sync(0xffffffffu, dx, off);
-            ddt += __shfl_xor_sync(0xffffffffu, ddt, off);
-          }
-          if (n == 0) {
-            Y[t - ta][lc] = dyv;
-            if (live) {
-              p.dx[xrow + (size_t)t * din + c] = from_f<TX>(dx + dyv * dcoef);
-              p.ddt[xrow + (size_t)t * din + c] = from_f<TDT>(ddt);
-              dD += dyv * xv;
-            }
-          }
-        }
-        __syncthreads();
-        // dB, dC of the piece's steps, summed over this group's channels
-        // (a dead channel's terms are 0), into the block's partials
-        for (int i = threadIdx.x; i < (tb - ta) * DS; i += THREADS) {
-          const int tt = i / DS, nn = i % DS;
-          float sb = 0.f, sc = 0.f;
+      store_vec<K>(cp + piece * BT * K, h);
+      float a[K];
+      // nothing reads the state after the last piece
+      if (!(SKIP & 1) && piece < nt - 1) {
 #pragma unroll 4
-          for (int k = 0; k < CP; ++k) {
-            sb += G[tt][k * DS + nn];
-            sc += Y[tt][k] * H[tt][k * DS + nn];
+        for (int tt = 0; tt < TS; ++tt) step(tt, h, a);
+      }
+    } else {
+      load_vec<K>(cp + piece * BT * K, h);
+      // the state entering each sub-piece
+      float sub[TS / SUBS][K];
+#pragma unroll
+      for (int q = 0; q < TS / SUBS; ++q) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) sub[q][k] = h[k];
+        float a[K];
+        if (!(SKIP & 2) && q < TS / SUBS - 1) {  // ... nor after the last
+#pragma unroll
+          for (int i = 0; i < SUBS; ++i) step(q * SUBS + i, h, a);
+        }
+      }
+      const TX* dys = &sm.dy[buf][0][g];
+      const float* cs = &sm.bc[1][0][part * K];
+#pragma unroll
+      for (int q = TS / SUBS - 1; q >= 0; --q) {
+        // h[t] and a[t] of the sub-piece's steps
+        float hs[SUBS][K], as[SUBS][K];
+#pragma unroll
+        for (int k = 0; k < K; ++k) h[k] = sub[q][k];
+#pragma unroll
+        for (int i = 0; i < SUBS; ++i) {
+          step(q * SUBS + i, h, as[i]);
+#pragma unroll
+          for (int k = 0; k < K; ++k) hs[i][k] = h[k];
+        }
+#pragma unroll
+        for (int i = SUBS - 1; !(SKIP & 4) && i >= 0; --i) {
+          const int tt = q * SUBS + i, t = t0 + tt;
+          float bv[K], cv[K], gb[K], gc[K];
+          load_vec<K>(bs + tt * DS, bv);
+          load_vec<K>(cs + tt * DS, cv);
+          const float dtv = to_f(dts[tt * CH]), xv = to_f(xs[tt * CH]);
+          const float dyv = to_f(dys[tt * CH]), dtx = dtv * xv;
+          float sa = 0.f, sg = 0.f;
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+            const float hp = i > 0 ? hs[i - 1][k] : sub[q][k];
+            lam[k] = fmaf(dyv, cv[k], lam[k]);  // the cotangent of h[t]
+            const float da = lam[k] * hp * as[i][k];  // through a[t]
+            dA[k] = fmaf(da, dtv, dA[k]);
+            sa = fmaf(da, A[k], sa);
+            sg = fmaf(lam[k], bv[k], sg);  // through dt x
+            gb[k] = lam[k] * dtx;
+            gc[k] = dyv * hs[i][k];
+            lam[k] *= as[i][k];
           }
-          const size_t o = (size_t)(ta + tt) * DS + nn;
-          dBp[o] = g0 == 0 ? sb : dBp[o] + sb;
-          dCp[o] = g0 == 0 ? sc : dCp[o] + sc;
+          store_vec<K>(&sm.red[0][i][g][part * K], gb);
+          store_vec<K>(&sm.red[1][i][g][part * K], gc);
+          sa += __shfl_xor_sync(0xffffffffu, sa, 1);
+          sg += __shfl_xor_sync(0xffffffffu, sg, 1);
+          if (part == 0 && live && t < s) {
+            const size_t o = xrow + (size_t)t * din + c;
+            p.dx[o] = from_f<TX>(fmaf(dtv, sg, dyv * dcoef));
+            p.ddt[o] = from_f<TDT>(fmaf(xv, sg, sa));
+            dD = fmaf(dyv, xv, dD);
+          }
+        }
+        if (!(SKIP & 16)) __syncthreads();
+        // dB, dC of the sub-piece's steps summed over the block's
+        // channels, in order, into the block's partials
+        for (int o = threadIdx.x; !(SKIP & 8) && o < 2 * SUBS * DS;
+             o += BT) {
+          const int w = o / (SUBS * DS), i = (o / DS) % SUBS, n = o % DS;
+          const int t = t0 + q * SUBS + i;
+          // four chains of 16, not one of 64: the adds' latency
+          float sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int gg = 0; gg < CH; ++gg) sum[gg % 4] += sm.red[w][i][gg][n];
+          if (t < s)
+            (w ? dCp : dBp)[(size_t)t * DS + n] =
+                (sum[0] + sum[1]) + (sum[2] + sum[3]);
         }
         __syncthreads();
       }
     }
-    if (live) {
-      p.dh0[st] = lam;
-      p.dA_part[st] = dA;
-      if (n == 0) p.dD_part[(size_t)row * din + c] = dD;
+    if (++j == 2 * nt) {
+      if (--ch < 0) break;
+      j = 0;
+      nt = tiles(ch);
     }
+    buf ^= 1;
+  }
+  if (live) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      p.dh0[st + k] = lam[k];
+      p.dA_part[st + k] = dA[k];
+    }
+    if (part == 0) p.dD_part[(size_t)row * din + c] = dD;
   }
 }
 
@@ -238,24 +467,20 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// channels a block: groups of 256 / ds, enough of them that a row has at
-// most BLOCKS_A_ROW blocks (so the dB / dC partials stay small)
-constexpr int BLOCKS_A_ROW = 64;
-
-template <int DS>
-int channels_a_block(int din) {
-  constexpr int CP = THREADS / DS;
-  const int groups = (din + CP * BLOCKS_A_ROW - 1) / (CP * BLOCKS_A_ROW);
-  return CP * (groups > 0 ? groups : 1);
-}
+// dB / dC partials a row: one per block of CH channels
+inline int blocks_a_row(int din) { return (din + CH - 1) / CH; }
 
 template <int DS, typename TX, typename TDT>
 cudaError_t launch(Params<TX, TDT> p, int b, TX* dB, TX* dC, float* dA,
                    float* dD, cudaStream_t st) {
-  p.cpb = channels_a_block<DS>(p.din);
-  p.nblk = (p.din + p.cpb - 1) / p.cpb;
-  ssm_bwd_kernel<DS, TX, TDT><<<dim3(p.nblk, b), THREADS, 0, st>>>(p);
-  cudaError_t e = cudaGetLastError();
+  p.nblk = blocks_a_row(p.din);
+  constexpr int SMEM = sizeof(Smem<DS, TX, TDT>);
+  auto kernel = ssm_bwd_lanes<DS, TX, TDT>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(p.nblk, b), BT, SMEM, st>>>(p);
+  e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int64_t total = (int64_t)b * p.s * DS + (int64_t)p.din * DS + p.din;
   const int blocks = (int)min((total + THREADS - 1) / THREADS, (int64_t)1024);
@@ -315,21 +540,8 @@ extern "C" int ssm_scan_bwd(const void* const* in, void* const* out,
                             float* scratch, int b, int s, int din, int ds,
                             int x_dtype, int dt_dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  int cpb;
-  switch (ds) {
-    case 4:
-      cpb = sb::channels_a_block<4>(din);
-      break;
-    case 8:
-      cpb = sb::channels_a_block<8>(din);
-      break;
-    case 16:
-      cpb = sb::channels_a_block<16>(din);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  const size_t nblk = (din + cpb - 1) / cpb;
+  if (ds != 4 && ds != 8 && ds != 16) return (int)cudaErrorInvalidValue;
+  const size_t nblk = sb::blocks_a_row(din);
   float* part[4] = {scratch, scratch + (size_t)b * din * ds,
                     scratch + (size_t)b * din * (ds + 1),
                     scratch + (size_t)b * din * (ds + 1) +
@@ -350,20 +562,7 @@ extern "C" int ssm_scan_bwd(const void* const* in, void* const* out,
 
 // floats of fp32 scratch ssm_scan_bwd needs at (b, s, din, ds)
 extern "C" long long ssm_scan_bwd_scratch(int b, int s, int din, int ds) {
-  int cpb;
-  switch (ds) {
-    case 4:
-      cpb = sb::channels_a_block<4>(din);
-      break;
-    case 8:
-      cpb = sb::channels_a_block<8>(din);
-      break;
-    case 16:
-      cpb = sb::channels_a_block<16>(din);
-      break;
-    default:
-      return -1;
-  }
-  const long long nblk = (din + cpb - 1) / cpb;
+  if (ds != 4 && ds != 8 && ds != 16) return -1;
+  const long long nblk = sb::blocks_a_row(din);
   return (long long)b * din * (ds + 1) + 2LL * b * nblk * s * ds;
 }

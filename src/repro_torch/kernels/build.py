@@ -5,7 +5,8 @@ plain C interface under ``build/repro_torch/`` at the repository root
 (listed in .gitignore), named by a hash of the sources and flags so an
 edited kernel never loads a stale build. ``build()`` starts one nvcc per
 missing source at once (``csrc`` / ``build_dir`` name another tree's
-sources, such as a parent commit's, built with the same flags);
+sources, such as a parent commit's, built with the same flags;
+``defines`` adds ``-D`` macros, part of the library's name);
 ``library(name)`` builds if needed and loads.
 """
 from __future__ import annotations
@@ -41,27 +42,34 @@ def nvcc() -> str:
     return found
 
 
-def target(name: str, csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
+def _flags(defines: Sequence[str]) -> tuple:
+    return FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def target(name: str, csrc: Path = CSRC, build_dir: Path = BUILD_DIR,
+           defines: Sequence[str] = ()) -> Path:
     h = hashlib.sha256()
     for f in (f"{name}.cu",) + HEADERS:
         h.update((csrc / f).read_bytes())
-    h.update(" ".join(FLAGS).encode())
+    h.update(" ".join(_flags(defines)).encode())
     return build_dir / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Sequence[str] = SOURCES, csrc: Path = CSRC,
-          build_dir: Path = BUILD_DIR) -> Dict[str, Path]:
+          build_dir: Path = BUILD_DIR,
+          defines: Sequence[str] = ()) -> Dict[str, Path]:
     """Compile every source in `names` whose library is missing, all at
     once. nvcc's ptxas report (registers, spills) lands in
     ``<library>.log``. Raises with nvcc's output on any failure."""
     build_dir.mkdir(parents=True, exist_ok=True)
-    out = {n: target(n, csrc, build_dir) for n in names}
+    out = {n: target(n, csrc, build_dir, defines) for n in names}
     procs = {}
     for n, so in out.items():
         if so.exists():
             continue
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *FLAGS, "-o", str(tmp), str(csrc / f"{n}.cu")]
+        cmd = [nvcc(), *_flags(defines), "-o", str(tmp),
+               str(csrc / f"{n}.cu")]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp)

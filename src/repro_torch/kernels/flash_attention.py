@@ -162,7 +162,12 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal=True, window=0,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    # pass 1's output: D (b, hq, sq) on the SIMT body, each row's (lse
+    # log2 e, D) on the tensor-core body (bf16 at d 64 and 128), whose
+    # tiles copy 16-byte aligned windows of up to 132 floats past a row
+    # (the kernel zeroes the 256 past the last)
+    delta = torch.empty(2 * b * hq * sq + 256, dtype=torch.float32,
+                        device=q.device)
     lens = lengths(kv_len, b, q.device) if kv_len is not None else None
     starts = lengths(kv_start, b, q.device) if kv_start is not None else None
     err = _bwd_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),

@@ -416,3 +416,56 @@ def test_backward_kernels_refuse_untaken_cases(d, window, match):
                                     window=window)
     with pytest.raises(ValueError, match="flash_attention: head dims 32"):
         fa.flash_attention_cuda(q, k, k, window=window, return_lse=True)
+
+
+def _bwd_bf16_operands(q, k, v, o, lse, do, *, causal, window):
+    """attention_bwd_ref's arithmetic with P and dS rounded to bf16 before
+    the three products that take them (dV = P^T dO, dK = dS^T Q, dQ = dS K),
+    as the tensor-core backward (bf16 at d 64 and 128) feeds them to wgmma
+    as register fragments; every sum fp32."""
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    scale = 1.0 / np.sqrt(d)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    dof = do.float().reshape(b, sq, hkv, g, d)
+    s = ref._masked_scores(qf, kf, causal=causal, window=window, q_offset=0,
+                           kv_len=None, kv_start=None, scale=scale)
+    lse = lse.float().reshape(b, hkv, g, sq)
+    p = torch.where(s <= ref.NEG_INF / 2, torch.zeros_like(s),
+                    torch.exp(s - lse[..., None]))
+    delta = (dof * o.float().reshape(b, sq, hkv, g, d)).sum(-1)
+    delta = delta.permute(0, 2, 3, 1)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vf)
+    ds = p * (dp - delta[..., None]) * scale
+    p, ds = (t.to(torch.bfloat16).float() for t in (p, ds))
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf.reshape(b, sq, hkv, g, d))
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf).reshape(b, sq, hq, d)
+    return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
+
+
+@pytest.mark.parametrize("g", [1, 3, 8])
+@pytest.mark.parametrize("window", [0, 24])
+def test_bf16_operand_rounding_within_one_ulp(g, window):
+    # the gate phase 10 (c) holds the tensor-core backward to on the card:
+    # each gradient within one bf16 ulp of its largest (2^-7 of the max) of
+    # attention_bwd_ref on the same bf16 inputs, with P and dS rounded to
+    # bf16 as wgmma operands; causal, s 96 (no multiple of a 64-row tile)
+    rng = np.random.default_rng(20 + g + window)
+    b, s, hkv, d = 2, 96, 2, 64
+    q, do = (torch.from_numpy(rng.standard_normal((b, s, g * hkv, d),
+                                                  np.float32)).bfloat16()
+             for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((b, s, hkv, d),
+                                                 np.float32)).bfloat16()
+            for _ in range(2))
+    o, lse = ref.attention_fwd_lse_ref(q, k, v, causal=True, window=window)
+    want = ref.attention_bwd_ref(q, k, v, o, lse, do, causal=True,
+                                 window=window)
+    got = _bwd_bf16_operands(q, k, v, o, lse, do, causal=True,
+                             window=window)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        err = float((a.float() - w.float()).abs().max())
+        tol = float(w.float().abs().max()) * 2.0 ** -7 + 1e-6
+        assert err <= tol, (name, err, tol)
