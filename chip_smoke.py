@@ -220,7 +220,28 @@ JAX. Phases, each of which raises on failure:
      architectures on the card, once as ``python -m
      repro_torch.launch.train``, and h2o-danube-1.8b and paligemma-3b at
      full width (2 layers, fp32): loss and every gradient leaf through the
-     kernels against the plain versions, as in (a).
+     kernels against the plain versions, as in (a);
+ 11. the dry run on the card (``repro_torch.launch.dryrun``'s steps,
+     bf16): (a) llama2-70b at full width, 2 of 80 layers: prefill_32k at
+     batch 1 of 32 (#1), decode_32k at batch 16 of 128 against a
+     32768-token cache (#8), train_4k at batch 1 of 256 with one AdamW
+     step (#1 with its lse, #1's backward); (b) one 8-layer period of
+     jamba-v0.1-52b: prefill_32k at batch 1 (#9, #1) and decode_32k at
+     batch 16 (#8). Each step is counted by ``launch.op_analysis`` on the
+     meta device and on the card (the same cut configuration and shapes):
+     FLOPs, matmul FLOPs, bytes and every op's counts must be equal, the
+     kernel ops the meta pass counted must have launched on the card as
+     often, and the logits (the train step's loss) must be finite; then
+     it is timed (median of 3 after a warm-up) and its record printed
+     (ms, peak GiB, roofline terms on the H100's published peaks, the
+     share, the dominant term) beside the card's name and power limit.
+     (c) granite-moe-3b-a800m at full width, 2 layers: a bf16 prefill of
+     8 x 1024 tokens under MoE's "global" dispatch (dropless at T = 8192)
+     and the "grouped" one, the two agreeing within _bf16_tol on every
+     token the grouped one keeps whole, on each MoE layer's input; then
+     the global dispatch at T = 16384 in fp32 on the card against the
+     CPU within 1e-5 of the largest logit. (d)
+     ``examples/torch_quickstart.py`` in a subprocess on the card.
 
 ``python3 chip_smoke.py --sass-of TREE OUT.json`` instead builds the
 kernels of another checkout (the parent commit's ``git archive``) and
@@ -239,7 +260,11 @@ launches and the times at their shapes, and the two backward kernels with
 phase 10's train steps' launches and the times at (c)'s shapes; #2-#4 on
 pools of the other width with phase 4's serves on them, and #1's training
 forward and backward at d 80, d 256 and windowed with phase 10 (e)'s
-launches there.
+launches there. Phase 11's launches join the rows of the kernels they
+ran. Every bound is the larger of the bytes over HBM's rate and the
+operations over the peak of their dtype (and, for the scan, the
+exponentials over the SFUs'), from analysis/registry.py's cost of the
+op at the row's shapes and lengths.
 """
 from __future__ import annotations
 
@@ -1187,6 +1212,20 @@ def _bound(nbytes, flops, flop_rate=BF16_FLOP_PER_S, exps=0):
     return max(times)
 
 
+def _cost(op, exps=False, **arguments):
+    """_bound's arguments for one call of kernel op `op` on `arguments`
+    (its ops entry point's; lengths as lists): the bytes and operations of
+    analysis/registry.py's cost of the op, the operations at the peak rate
+    of the dtype that does them, and (exps) its exponentials on the
+    SFUs."""
+    from repro_torch.analysis import registry
+    c = registry.call_cost(op, arguments)
+    return dict(nbytes=c["bytes"], flops=c["flops"],
+                flop_rate=(FP32_FLOP_PER_S if c["dtype"] == "fp32"
+                           else BF16_FLOP_PER_S),
+                exps=c["exps"] if exps else 0)
+
+
 def timing_inputs(dev, gen):
     """Inputs at the shapes phase 3 gives each kernel (bf16, Llama-2-70B
     attention widths): a joint cold prefill of 16 prompts padded to 1024,
@@ -1280,46 +1319,32 @@ def _flash_timing(x, flush):
     causal pairs) and SDPA's time."""
     from repro_torch.kernels import ops
     q, k, v = x["q"], x["k"], x["v"]
-    b, s, hq, d = q.shape
-    pairs = b * s * (s + 1) // 2                       # causal
     return dict(fn=lambda: ops.flash_attention(q, k, v),
-                nbytes=q.element_size() * (2 * q.numel() + k.numel()
-                                           + v.numel()),
-                flops=4 * d * hq * pairs,
+                **_cost("flash_attention", q=q, k=k, v=v),
                 library_ms=_time_sdpa(q, k, v, flush, is_causal=True))
-
-
-def _rate(q):
-    """The peak rate of the body q's dtype runs on: the fp32 bodies are
-    scalar, the bf16 ones use the tensor cores; and the dtype whose
-    tolerance a check of it takes."""
-    return dict(flop_rate=(FP32_FLOP_PER_S if q.dtype == torch.float32
-                           else BF16_FLOP_PER_S), dtype=q.dtype)
 
 
 def _paged_decode_timing(x, quant=None):
     """#2 on the decode inputs x, or #5 with `quant` = (k, v, k_scale,
-    v_scale), the pool's rows quantized: a key costs 2 d kes bytes per kv
-    head (kes: the pool's element size, q's or the other width's), or
-    2 d + 8 on a quantized pool (two one-byte rows, two fp32 scales)."""
+    v_scale), the pool's rows quantized; bound from the registry's cost
+    at the rows' kv_len (a key costs 2 d bytes of the pool's width per kv
+    head, or 2 d + 8 on a quantized pool: two one-byte rows, two fp32
+    scales)."""
     from repro_torch.kernels import ops
     q, tbl, kv_len = x["q"], x["tbl"], x["kv_len"]
-    _, _, hq, d = q.shape
-    hkv = x["kp"].shape[2]
-    es, kv = q.element_size(), int(kv_len.sum())
-    kes = x["kp"].element_size()
+    lens = kv_len.tolist()
     if quant is None:
         return dict(fn=lambda: ops.paged_decode_attention(
             q, x["kp"], x["vp"], tbl, kv_len=kv_len),
-            nbytes=es * 2 * q.numel() + kes * 2 * kv * hkv * d
-            + 4 * (tbl.numel() + 16),
-            flops=4 * d * hq * kv, library_ms=None, **_rate(q))
+            **_cost("paged_decode_attention", q=q, k_pages=x["kp"],
+                    block_tables=tbl, kv_len=lens),
+            library_ms=None, dtype=q.dtype)
     kq, vq, ks, vs = quant
     return dict(fn=lambda: ops.paged_decode_attention(
         q, kq, vq, tbl, kv_len=kv_len, k_scale=ks, v_scale=vs),
-        nbytes=es * 2 * q.numel() + kv * hkv * (2 * d + 8)
-        + 4 * (tbl.numel() + 16),
-        flops=4 * d * hq * kv, library_ms=None)
+        **_cost("paged_decode_attention_quant", q=q, k_pages=kq,
+                block_tables=tbl, kv_len=lens, k_scale=ks),
+        library_ms=None)
 
 
 def _paged_context_timing(y, quant=None):
@@ -1327,26 +1352,21 @@ def _paged_context_timing(y, quant=None):
     the operations count each query's causal keys."""
     from repro_torch.kernels import ops
     q, tbl = y["q"], y["tbl"]
-    _, C, hq, d = q.shape
-    hkv = y["kp"].shape[2]
-    es, kes = q.element_size(), y["kp"].element_size()
-    starts, lens = y["q_start"].tolist(), y["kv_len"].tolist()
-    pairs = sum(sum(min(st + j + 1, ln) for j in range(C))
-                for st, ln in zip(starts, lens))
+    lens = dict(q_start=y["q_start"].tolist(), kv_len=y["kv_len"].tolist(),
+                block_tables=tbl, q=q)
     if quant is None:
         return dict(fn=lambda: ops.paged_context_attention(
             q, y["kp"], y["vp"], tbl, q_start=y["q_start"],
             kv_len=y["kv_len"]),
-            nbytes=es * 2 * q.numel() + kes * 2 * sum(lens) * hkv * d
-            + 4 * (tbl.numel() + 8),
-            flops=4 * d * hq * pairs, library_ms=None, **_rate(q))
+            **_cost("paged_context_attention", k_pages=y["kp"], **lens),
+            library_ms=None, dtype=q.dtype)
     kq, vq, ks, vs = quant
     return dict(fn=lambda: ops.paged_context_attention(
         q, kq, vq, tbl, q_start=y["q_start"], kv_len=y["kv_len"],
         k_scale=ks, v_scale=vs),
-        nbytes=es * 2 * q.numel() + sum(lens) * hkv * (2 * d + 8)
-        + 4 * (tbl.numel() + 8),
-        flops=4 * d * hq * pairs, library_ms=None)
+        **_cost("paged_context_attention_quant", k_pages=kq, k_scale=ks,
+                **lens),
+        library_ms=None)
 
 
 def _paged_verify_timing(w, quant=None):
@@ -1354,26 +1374,21 @@ def _paged_verify_timing(w, quant=None):
     operations count each candidate's causal keys."""
     from repro_torch.kernels import ops
     q, tbl = w["q"], w["tbl"]
-    _, T, hq, d = q.shape
-    hkv = w["kp"].shape[2]
-    es, kes = q.element_size(), w["kp"].element_size()
-    starts, lens = w["kv_start"].tolist(), w["kv_len"].tolist()
-    pairs = sum(sum(min(st + j + 1, ln) for j in range(T))
-                for st, ln in zip(starts, lens))
+    lens = dict(kv_start=w["kv_start"].tolist(), kv_len=w["kv_len"].tolist(),
+                block_tables=tbl, q=q)
     if quant is None:
         return dict(fn=lambda: ops.paged_verify_attention(
             q, w["kp"], w["vp"], tbl, kv_start=w["kv_start"],
             kv_len=w["kv_len"]),
-            nbytes=es * 2 * q.numel() + kes * 2 * sum(lens) * hkv * d
-            + 4 * (tbl.numel() + 32),
-            flops=4 * d * hq * pairs, library_ms=None, **_rate(q))
+            **_cost("paged_verify_attention", k_pages=w["kp"], **lens),
+            library_ms=None, dtype=q.dtype)
     kq, vq, ks, vs = quant
     return dict(fn=lambda: ops.paged_verify_attention(
         q, kq, vq, tbl, kv_start=w["kv_start"], kv_len=w["kv_len"],
         k_scale=ks, v_scale=vs),
-        nbytes=es * 2 * q.numel() + sum(lens) * hkv * (2 * d + 8)
-        + 4 * (tbl.numel() + 32),
-        flops=4 * d * hq * pairs, library_ms=None)
+        **_cost("paged_verify_attention_quant", k_pages=kq, k_scale=ks,
+                **lens),
+        library_ms=None)
 
 
 def _sdpa_inputs(q, k, v):
@@ -1407,10 +1422,6 @@ def time_kernels(dev):
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     res = {}
 
-    q = inp["flash_attention"]["q"]
-    _, _, hq, d = q.shape
-    hkv = inp["flash_attention"]["k"].shape[2]
-    es = q.element_size()
     res["flash_attention"] = _flash_timing(inp["flash_attention"], flush)
     x = inp["paged_decode_attention"]
     res["paged_decode_attention"] = _paged_decode_timing(x)
@@ -1418,41 +1429,35 @@ def time_kernels(dev):
     res["paged_context_attention"] = _paged_context_timing(y)
 
     z = inp["decode_attention"]
-    kv = int(z["kv_len"].sum())
     mask = (torch.arange(z["k"].shape[1], device=dev)[None]
             < z["kv_len"][:, None])[:, None, None]          # (b, 1, 1, S)
     res["decode_attention"] = dict(
         fn=lambda: ops.decode_attention(z["q"], z["k"], z["v"],
                                         kv_len=z["kv_len"]),
-        nbytes=es * (2 * z["q"].numel() + 2 * kv * hkv * d) + 4 * 16,
-        flops=4 * d * hq * kv,
+        **_cost("decode_attention", q=z["q"], k=z["k"],
+                kv_len=z["kv_len"].tolist()),
         library_ms=_time_sdpa(z["q"], z["k"], z["v"], flush, attn_mask=mask))
 
     # h2o-danube-1.8b's (d 80): the keys each query really sees under the
     # window and the left padding count; the library call takes the same
     # mask as a boolean tensor
     f = inp["flash_attention[d80]"]
-    b, s, hq80, d80 = f["q"].shape
-    W, starts80 = f["window"], f["kv_start"].tolist()
-    pairs = sum(p - max(ks, p - W + 1) + 1 for ks in starts80
-                for p in range(ks, s))
+    s, W = f["q"].shape[1], f["window"]
     pos = torch.arange(s, device=dev)
     mask = ((pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - W)
             )[None] & (pos[None, None, :] >= f["kv_start"][:, None, None])
     res["flash_attention[d80]"] = dict(
         fn=lambda: ops.flash_attention(f["q"], f["k"], f["v"], window=W,
                                        kv_start=f["kv_start"]),
-        nbytes=es * (2 * f["q"].numel() + f["k"].numel() + f["v"].numel()),
-        flops=4 * d80 * hq80 * pairs,
+        **_cost("flash_attention", q=f["q"], k=f["k"], window=W,
+                kv_start=f["kv_start"].tolist()),
         library_ms=_time_sdpa(f["q"], f["k"], f["v"], flush,
                               attn_mask=mask[:, None]))
     del mask
     r80 = inp["decode_attention[d80]"]
     res["decode_attention[d80]"] = dict(
         fn=lambda: ops.decode_attention(r80["q"], r80["k"], r80["v"]),
-        nbytes=es * (2 * r80["q"].numel() + r80["k"].numel()
-                     + r80["v"].numel()),
-        flops=4 * d80 * hq80 * r80["k"].shape[0] * r80["k"].shape[1],
+        **_cost("decode_attention", q=r80["q"], k=r80["k"]),
         library_ms=_time_sdpa(r80["q"], r80["k"], r80["v"], flush))
 
     w = inp["paged_verify_attention"]
@@ -1515,16 +1520,10 @@ def time_kernels(dev):
     # FMA, C's FMA; dt x, D x and the sum)
     for name in ("ssm_scan", "ssm_scan[b1]"):
         g = inp[name]
-        b, s, din = g["x"].shape
-        ds = g["A"].shape[1]
         res[name] = dict(
             fn=lambda g=g: ops.ssm_scan(g["x"], g["dt"], g["A"], g["B"],
                                         g["C"], g["D"]),
-            nbytes=sum(t.numel() * t.element_size()
-                       for k, t in g.items() if t is not None)
-            + g["x"].numel() * g["x"].element_size() + b * din * ds * 4,
-            flops=b * s * din * (6 * ds + 3), flop_rate=FP32_FLOP_PER_S,
-            exps=b * s * din * ds, library_ms=None)
+            **_cost("ssm_scan", exps=True, **g), library_ms=None)
 
     out = {}
     for name, r in res.items():
@@ -1536,10 +1535,8 @@ def time_kernels(dev):
         ms = _time_ms(r["fn"], flush)
         with ops.backend("plain"):
             plain_ms = _time_ms(r["fn"], flush, iters=3)
-        bound_ms, bound_by = _bound(
-            r["nbytes"], r["flops"],
-            flop_rate=r.get("flop_rate", BF16_FLOP_PER_S),
-            exps=r.get("exps", 0))
+        bound_ms, bound_by = _bound(r["nbytes"], r["flops"],
+                                    flop_rate=r["flop_rate"], exps=r["exps"])
         out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=r["library_ms"],
                          max_abs_err=err)
@@ -3595,20 +3592,16 @@ def phase_encdec_kernels(dev):
     kc, vc = (_rand(gen, (4, 1500, 8, 64), dt, dev) for _ in range(2))
     res["flash_attention[cross]"] = dict(
         fn=lambda: ops.flash_attention(qc, kc, vc, causal=False),
-        nbytes=qc.element_size() * (2 * qc.numel() + kc.numel()
-                                    + vc.numel()),
-        flops=4 * 64 * 8 * 4 * 32 * 1500,
+        **_cost("flash_attention", q=qc, k=kc, causal=False),
         library_ms=_time_sdpa(qc, kc, vc, flush))
     qd = _rand(gen, (4, 1, 8, 256), dt, dev)
     kd, vd = (_rand(gen, (4, 320, 1, 256), dt, dev) for _ in range(2))
     kv_len = torch.tensor([288, 300, 311, 319], device=dev)
-    kv = int(kv_len.sum())
     mask = (torch.arange(320, device=dev)[None] < kv_len[:, None])[
         :, None, None]
     res["decode_attention[d256]"] = dict(
         fn=lambda: ops.decode_attention(qd, kd, vd, kv_len=kv_len),
-        nbytes=dt.itemsize * (2 * qd.numel() + 2 * kv * 256) + 4 * 4,
-        flops=4 * 256 * 8 * kv,
+        **_cost("decode_attention", q=qd, k=kd, kv_len=kv_len.tolist()),
         library_ms=_time_sdpa(qd, kd, vd, flush, attn_mask=mask))
     out = {}
     for name, r in res.items():
@@ -3617,7 +3610,8 @@ def phase_encdec_kernels(dev):
         ms = _time_ms(r["fn"], flush)
         with ops.backend("plain"):
             plain_ms = _time_ms(r["fn"], flush, iters=3)
-        bound_ms, bound_by = _bound(r["nbytes"], r["flops"])
+        bound_ms, bound_by = _bound(r["nbytes"], r["flops"],
+                                    flop_rate=r["flop_rate"])
         out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=r["library_ms"],
                          max_abs_err=err)
@@ -4075,8 +4069,6 @@ def _time_train_attention(gen, dev, flush, tag, hq, hkv, d, window=0,
     do = _rand(gen, (b, s, hq, d), dt, dev)
     o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **mask)
     args = [q, k, v, o, lse, do]
-    pairs = b * sum(min(p + 1, window or s) for p in range(s))
-    es = q.element_size()
     pos = torch.arange(s, device=dev)
     allowed = pos[None, :] <= pos[:, None]
     if window:
@@ -4091,10 +4083,8 @@ def _time_train_attention(gen, dev, flush, tag, hq, hkv, d, window=0,
                                           **mask)
     plain_fwd = lambda: ref.attention_fwd_lse_ref(q, k, v, **mask)  # noqa
     got, want = fwd(), plain_fwd()
-    rate = _rate(q)["flop_rate"]
-    bound_ms, bound_by = _bound(
-        es * (2 * q.numel() + k.numel() + v.numel()) + 4 * lse.numel(),
-        2 * 2 * d * hq * pairs, rate)
+    bound_ms, bound_by = _bound(**_cost("flash_attention", q=q, k=k,
+                                        lse=True, **mask))
     with torch.no_grad():
         lib = _time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, **sdpa, **gqa), flush)
@@ -4106,9 +4096,8 @@ def _time_train_attention(gen, dev, flush, tag, hq, hkv, d, window=0,
     del got, want
     bwd = lambda: fa.flash_attention_bwd_cuda(*args, **mask)  # noqa
     plain_bwd = lambda: ref.attention_bwd_ref(*args, **mask)  # noqa
-    bound_ms, bound_by = _bound(
-        es * (5 * q.numel() + 4 * k.numel()) + 4 * lse.numel(),
-        5 * 2 * d * hq * pairs, rate)
+    bound_ms, bound_by = _bound(**_cost("flash_attention_bwd", q=q, k=k,
+                                        **mask))
     rows[f"flash_attention_bwd[{tag}]"] = dict(
         ms=_time_ms(bwd, flush), plain_ms=_time_ms(plain_bwd, flush,
                                                    iters=3),
@@ -4144,16 +4133,7 @@ def time_bwd_kernels(dev):
         res.update(_time_train_attention(gen, dev, flush, tag, **shape))
     x = _bwd_scan_inputs(gen, dev)
     args = [x[n] for n in ("x", "dt", "A", "B", "C", "D", "h_ins", "dy")]
-    b, s, din = x["x"].shape
-    ds = x["A"].shape[1]
-    n = b * s * din * ds
-    es = x["x"].element_size()
-    nbytes = (es * 3 * b * s * din          # x, dy read, dx written
-              + 4 * 2 * b * s * din         # dt (fp32) read, ddt written
-              + es * 4 * b * s * ds         # B, C read, dB, dC written
-              + 4 * (x["h_ins"].numel() + 2 * din * ds + 2 * din
-                     + b * din * ds))       # h_ins, A, dA, D, dD, dh0
-    bound_ms, bound_by = _bound(nbytes, 2 * 7 * n, FP32_FLOP_PER_S, exps=n)
+    bound_ms, bound_by = _bound(**_cost("ssm_scan_bwd", exps=True, **x))
     res["ssm_scan_bwd"] = dict(
         ms=_time_ms(lambda: ss.ssm_scan_bwd_cuda(*args), flush),
         plain_ms=_time_ms(lambda: ref.ssm_scan_bwd_ref(*args), flush,
@@ -4408,6 +4388,216 @@ def phase_train_archs():
     return by_tag
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the dry run on the card
+# ---------------------------------------------------------------------------
+
+# (arch, input shape, layers, batch): llama2-70b at full width, 2 of 80
+# layers (prefill_32k at batch 1 of 32, decode_32k at 16 of 128 against a
+# 32768-token cache, train_4k at 1 of 256, one AdamW step), and one
+# 8-layer period of jamba-v0.1-52b (prefill and decode)
+DRYRUN_CASES = (("llama2-70b", "prefill_32k", 2, 1),
+                ("llama2-70b", "decode_32k", 2, 16),
+                ("llama2-70b", "train_4k", 2, 1),
+                ("jamba-v0.1-52b", "prefill_32k", 8, 1),
+                ("jamba-v0.1-52b", "decode_32k", 8, 16))
+MOE_ARCH = "granite-moe-3b-a800m"
+MOE_LAYERS = 2
+MOE_SEQ = 1024
+MOE_ROWS = (8, 16)                # T = 8192 (dropless), 16384 (capacity)
+MOE_RTOL = 1e-5                   # global on the card vs on the CPU, fp32
+
+
+def _dryrun_case(arch, shape, layers, batch, smi):
+    """One dry-run step counted on the meta device and on the card (same
+    cut configuration and shapes): FLOPs, matmul FLOPs, bytes and every
+    op's calls / FLOPs / bytes must be equal, every kernel op the meta
+    pass counted must have launched on the card exactly as often, and the
+    logits (a train step: the loss) must be finite. Then the step is timed
+    (dryrun.time_step). Returns (launches, record)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, roofline, specs
+    fn, args, cfg, sh, reduced = specs.build_dryrun(
+        arch, shape, device="meta", layers=layers, batch=batch)
+    meta, _, _ = dryrun.count_step(fn, args)
+    del fn, args
+    fn, args, cfg, sh, reduced = specs.build_dryrun(
+        arch, shape, device=DEVICE, layers=layers, batch=batch)
+    ops.reset_launch_counts()
+    card, mem, out = dryrun.count_step(fn, args)
+    torch.cuda.synchronize()
+    launched = {k: n for k, n in ops.launch_counts().items() if n}
+    what = f"phase 11 {arch} {shape} ({', '.join(reduced)})"
+    ops_diff = {op: (meta.by_op.get(op), card.by_op.get(op))
+                for op in set(meta.by_op) | set(card.by_op)
+                if meta.by_op.get(op) != card.by_op.get(op)}
+    for field in ("flops", "matmul_flops", "bytes", "exps"):
+        if getattr(card, field) != getattr(meta, field):
+            raise AssertionError(f"{what}: {field} {getattr(card, field)} "
+                                 f"on the card, {getattr(meta, field)} on "
+                                 f"meta; ops counted differently (meta, "
+                                 f"card): {ops_diff}")
+    if ops_diff:
+        raise AssertionError(f"{what}: ops counted differently (meta, card):"
+                             f" {ops_diff}")
+    if dict(meta.kernels) != launched or not launched:
+        raise AssertionError(f"{what}: kernel ops counted {dict(meta.kernels)}"
+                             f", launched {launched}")
+    logits = out[2] if sh.kind == "train" else out[0]
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{what}: non-finite logits / loss")
+    del out, logits
+    ms, peak = dryrun.time_step(fn, args)
+    rl = roofline.extract(card, model_flops=roofline.model_flops_estimate(
+        cfg, sh))
+    share = max(rl.compute_s, rl.memory_s) * 1e3 / ms
+    rec = dict(arch=arch, shape=shape, reduced=reduced, step_ms=ms,
+               peak_gib=peak / 2 ** 30, flops=card.flops,
+               matmul_flops=card.matmul_flops, bytes=card.bytes,
+               compute_ms=rl.compute_s * 1e3, memory_ms=rl.memory_s * 1e3,
+               dominant=rl.dominant, roofline_share=share,
+               temp_gib=mem["temp_size_in_bytes"] / 2 ** 30,
+               launches=launched, card=smi)
+    log(f"  dryrun {json.dumps(rec)}")
+    del fn, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launched, rec
+
+
+def _moe_prefill(cfg, params, rows, dispatch, dev, seen=None):
+    """Model prefill of `rows` x MOE_SEQ seeded tokens under MOE_DISPATCH
+    = dispatch; returns the logits. `seen` (a list) collects the (params,
+    input) of every MoE layer's call."""
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    g = torch.Generator(device="cpu").manual_seed(rows)
+    tokens = torch.randint(0, cfg.vocab_size, (rows, MOE_SEQ), generator=g)
+    cache = M.init_cache(cfg, rows, MOE_SEQ, device=dev)
+    prev, moe.MOE_DISPATCH = moe.MOE_DISPATCH, dispatch
+    mlp = moe.moe_mlp
+
+    def spy(p, x, c, **kw):
+        if seen is not None:
+            seen.append((p, x))
+        return mlp(p, x, c, **kw)
+    M.moe.moe_mlp = spy
+    try:
+        with torch.inference_mode():
+            return M.prefill(cfg, params, {"tokens": tokens.to(dev)},
+                             cache)[0]
+    finally:
+        moe.MOE_DISPATCH = prev
+        M.moe.moe_mlp = mlp
+
+
+def _grouped_keeps(p, x, cfg):
+    """(b, s) bool: the tokens none of whose top-k assignments the grouped
+    dispatch drops (its per-row capacity, models.moe._moe_grouped)."""
+    b, s, _ = x.shape
+    k, E = cfg.top_k, cfg.num_experts
+    probs = torch.softmax((x @ p["router"]).float(), dim=-1)
+    fe = torch.topk(probs, k, dim=-1)[1].reshape(b, s * k)
+    onehot = (fe[..., None] == torch.arange(E, device=x.device)).long()
+    rank = torch.gather(torch.cumsum(onehot, 1) - onehot, 2,
+                        fe[..., None])[..., 0]
+    C = s if s * k <= 64 else max(int(cfg.capacity_factor * s * k / E), 1)
+    return (rank < C).reshape(b, s, k).all(-1)
+
+
+def phase_moe_global():
+    """Phase 11 (c): granite-moe-3b-a800m at full width, MOE_LAYERS
+    layers, seeded weights. A bf16 prefill of 8 x 1024 tokens (T = 8192:
+    the global dispatch is dropless) under MOE_DISPATCH "global" and
+    "grouped" (finite logits); on each MoE layer's input of the global
+    prefill the two dispatches agree within _bf16_tol on every token the
+    grouped one keeps whole (its per-row capacity drops the rest; the
+    seeded router is skewed, so it drops many). Then in fp32 at 16 x 1024
+    (T = 16384, the global dispatch's capacity branch) on the card against
+    the same weights on the CPU, within MOE_RTOL of the largest logit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS)
+    params = M.init_params(cfg, 0, device=DEVICE)
+    rows = MOE_ROWS[0]
+    seen = []
+    logits = [_moe_prefill(cfg, params, rows, "global", DEVICE, seen),
+              _moe_prefill(cfg, params, rows, "grouped", DEVICE)]
+    if not all(bool(torch.isfinite(t).all()) for t in logits):
+        raise AssertionError("phase 11 (c): non-finite logits")
+    for i, (p, x) in enumerate(seen[:MOE_LAYERS]):
+        with torch.inference_mode():
+            glob = moe._moe_global(p, x, cfg, return_aux=False)
+            grouped = moe._moe_grouped(p, x, cfg, return_aux=False)
+            keep = _grouped_keeps(p, x, cfg)
+        err = float((glob.float() - grouped.float())[keep].abs().max())
+        tol = _bf16_tol(glob[keep])
+        if not (math.isfinite(err) and err <= tol):
+            raise AssertionError(f"phase 11 (c): MoE layer {i}: global vs "
+                                 f"grouped dispatch (bf16, T = "
+                                 f"{rows * MOE_SEQ}) on the tokens both "
+                                 f"keep: max abs err {err} > {tol}")
+        log(f"  moe {MOE_ARCH} layer {i} (bf16, T = {rows * MOE_SEQ}): "
+            f"global (dropless) vs grouped dispatch max abs err {err:.3g} "
+            f"(tol {tol:.3g}) on the {int(keep.sum())} of {keep.numel()} "
+            "tokens the grouped one keeps whole")
+    del params, seen, logits
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    params = M.init_params(cfg, 0, device=DEVICE)
+    rows = MOE_ROWS[1]
+    card = _moe_prefill(cfg, params, rows, "global", DEVICE).cpu()
+    cpu = _moe_prefill(cfg, _to_cpu(params), rows, "global", "cpu")
+    err = float((card - cpu).abs().max())
+    tol = MOE_RTOL * float(cpu.abs().max())
+    if not (math.isfinite(err) and err <= tol):
+        raise AssertionError(f"phase 11 (c): global dispatch (fp32, T = "
+                             f"{rows * MOE_SEQ}) on the card vs the CPU: max "
+                             f"abs err {err} > {tol}")
+    log(f"  moe {MOE_ARCH} ({MOE_LAYERS} layers, fp32, T = "
+        f"{rows * MOE_SEQ}): global dispatch on the card vs the CPU max abs "
+        f"err {err:.3g} (tol {tol:.3g})")
+    del params, card, cpu
+    torch.cuda.empty_cache()
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree.cpu()
+
+
+def phase_dryrun(smi):
+    """Phase 11: the dry run's steps on the card (DRYRUN_CASES, bf16, full
+    width, cut in depth and batch), each counted on the meta device and on
+    the card with equal counts, its kernels launched, its logits finite,
+    timed beside its roofline terms; MoE's global dispatch (c); and
+    examples/torch_quickstart.py in a subprocess on the card (d). Returns
+    the kernel launches of (a) and (b)."""
+    from repro_torch.kernels import ops
+    total = dict.fromkeys(ops.KERNELS, 0)
+    for arch, shape, layers, batch in DRYRUN_CASES:
+        launched, _ = _dryrun_case(arch, shape, layers, batch, smi)
+        for k, n in launched.items():
+            total[k] += n
+    mark("phase 11 (a), (b)")
+    phase_moe_global()
+    mark("phase 11 (c)")
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run(
+        [sys.executable, os.path.join(root, "examples",
+                                      "torch_quickstart.py")], cwd=root,
+        env=dict(os.environ, PYTHONPATH=os.path.join(root, "src")),
+        capture_output=True, text=True, timeout=600)
+    if out.returncode != 0 or "OK on cuda" not in out.stdout:
+        raise AssertionError(f"examples/torch_quickstart.py exited "
+                             f"{out.returncode}: {out.stdout[-1000:]} "
+                             f"{out.stderr[-2000:]}")
+    log(f"  examples/torch_quickstart.py on the card: "
+        f"{out.stdout.strip().splitlines()[-1]}")
+    return total
+
+
 def dump_sass(tree, out):
     """Build the kernel sources of another checkout `tree` (a `git archive`
     of the parent commit) with this tree's flags and write each library's
@@ -4490,6 +4680,9 @@ def main():
     for k, n in wide["all"].items():
         train[k] += n
     done("phase 10")
+    log("phase 11: the dry run on the card")
+    dry = phase_dryrun(smi)
+    done("phase 11")
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         kernels.append(dict(name=name, route="cuda", source=src,
@@ -4497,6 +4690,7 @@ def main():
                             launches=(counts[name] + danube[name]
                                       + zoo[name] + multi[name]
                                       + chaos[name] + train[name]
+                                      + dry[name]
                                       + sum(encdec[a].get(name, 0)
                                             for a in ENCDEC)),
                             **timed[name]))

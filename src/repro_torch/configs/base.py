@@ -209,3 +209,22 @@ class ModelConfig:
             swa_window=min(self.swa_window, 64) if self.swa_window else 0,
             dtype="float32",
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    """A dry-run input shape (a copy of repro.configs.base.InputShape):
+    ``global_batch`` sequences of ``seq_len`` tokens, for a train step, a
+    prefill, or one decode step against a cache of ``seq_len``."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}

@@ -25,6 +25,15 @@ kernels (they build or raise; no fallback), a CPU tensor or
 ``backend("plain")`` runs the plain versions. Serving runs under
 ``torch.inference_mode()`` and never takes this path.
 
+Counting: inside a ``launch.op_analysis.OpCounter`` (``COUNTERS``, the
+innermost last) each entry point that reaches a kernel hands the counter
+its op and bound arguments, and what runs inside it is not counted
+(``_counted``); under ``backend("plain")`` it hands over nothing and the
+plain versions' ops are counted. A meta tensor takes the plain versions
+for their output shapes, except the scan's, whose per-step loop the
+kernel backend skips on the meta device (``shapes_only``; a model's own
+recurrence runs one step counted n times there, ``repeated``).
+
 ``mlstm_scan`` / ``mlstm_step`` (the xLSTM matrix-memory layers) are plain
 torch on every device, as the reference computes them with plain jnp: the
 JAX package has no Pallas kernel for them.
@@ -32,6 +41,8 @@ JAX package has no Pallas kernel for them.
 from __future__ import annotations
 
 import contextlib
+import functools
+import inspect
 
 import torch
 import torch.nn.functional as F
@@ -47,6 +58,9 @@ from repro_torch.kernels.paged_attention import (
 from repro_torch.kernels.ssm_scan import ssm_scan_bwd_cuda, ssm_scan_cuda
 
 _BACKEND = "kernel"        # "kernel" | "plain"
+
+# the active launch.op_analysis.OpCounter objects, innermost last
+COUNTERS = []
 
 KERNELS = {
     "flash_attention": flash_attention_cuda,
@@ -87,11 +101,100 @@ def reset_launch_counts() -> None:
 
 
 def _kernel_for(x) -> bool:
-    if x.device.type == "cpu":
+    """A CUDA tensor under the kernel backend launches the kernel; a CPU
+    tensor, or a meta tensor (no values: the plain version runs for its
+    output shapes), takes the plain version; any other device raises."""
+    if x.device.type in ("cpu", "meta"):
         return False
     if x.device.type != "cuda":
         raise ValueError(f"no kernel path for device {x.device}")
     return _BACKEND == "kernel"
+
+
+@contextlib.contextmanager
+def repeated(n: int):
+    """Inside OpCounters, count what runs here n times (0: not at all):
+    one step of a recurrence run on the meta device, standing for n steps
+    of the same shapes."""
+    saved = [(c, c.scale) for c in COUNTERS]
+    for c, k in saved:
+        c.scale = k * n
+    try:
+        yield
+    finally:
+        for c, k in saved:
+            c.scale = k
+
+
+class RepeatedStep(torch.autograd.Function):
+    """``RepeatedStep.apply(fn, n, k, *inputs)``: step 0 of an n-step
+    recurrence, counted as all n (``repeated``). The first k inputs are
+    whole sequences (b, n, ...) that fn reads at step 0 (``t[:, 0]``), the
+    rest the carried state and weights; fn returns a tuple of tensors. On
+    the meta device, where every step has the same shapes, this counts
+    what the loop runs: each step's forward and backward n times, and the
+    n - 1 sums autograd makes of the sequences' per-step gradients.
+    The backward recomputes fn uncounted."""
+
+    @staticmethod
+    def forward(ctx, fn, n, k, *inputs):
+        ctx.fn, ctx.n, ctx.k = fn, n, k
+        ctx.save_for_backward(*inputs)
+        with repeated(n):
+            return fn(*inputs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        inputs = [t.detach().requires_grad_(t.requires_grad)
+                  for t in ctx.saved_tensors]
+        with torch.enable_grad(), repeated(0):
+            outs = ctx.fn(*inputs)
+        need = [t for t in inputs if t.requires_grad]
+        pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
+        with repeated(ctx.n):
+            got = torch.autograd.grad([o for o, _ in pairs], need,
+                                      [g for _, g in pairs],
+                                      allow_unused=True)
+        seq = {id(t) for t in inputs[:ctx.k]}
+        with repeated(ctx.n - 1):
+            for t, g in zip(need, got):
+                if id(t) in seq and g is not None:
+                    g.clone().add_(g)       # the per-step gradients' sums
+        got = iter(got)
+        return (None, None, None, *(next(got) if t.requires_grad else None
+                                    for t in inputs))
+
+
+def shapes_only(x) -> bool:
+    """A meta tensor under the kernel backend: the scan's outputs are made
+    from its shapes (its plain version's per-step loop computes nothing
+    on the meta device, and at a dry run's lengths takes minutes)."""
+    return x.device.type == "meta" and _BACKEND == "kernel"
+
+
+def _counted(op, **extra):
+    """Decorate an entry point of kernel op `op`: inside an OpCounter
+    (and not under backend("plain")) the call is counted once by its
+    registry cost (the op's "_quant" variant where k_scale is given;
+    `extra` adds arguments computed from the bound ones) and what runs
+    inside it is not."""
+    def wrap(fn):
+        sig = inspect.signature(fn)
+
+        @functools.wraps(fn)
+        def entry(*args, **kwargs):
+            if not COUNTERS or _BACKEND == "plain":
+                return fn(*args, **kwargs)
+            bound = sig.bind(*args, **kwargs)
+            bound.apply_defaults()
+            a = dict(bound.arguments)
+            a.update(a.pop("mask", {}))
+            a.update({k: f(a) for k, f in extra.items()})
+            name = op + ("_quant" if a.get("k_scale") is not None else "")
+            return COUNTERS[-1].kernel_op(name, a,
+                                          lambda: fn(*args, **kwargs))
+        return entry
+    return wrap
 
 
 def _quant(k_scale, v_scale) -> bool:
@@ -127,10 +230,15 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        bwd = (flash_attention_bwd_cuda if ctx.kernel
-               else ref.attention_bwd_ref)
-        dq, dk, dv = bwd(q, k, v, o, lse, do, **ctx.mask)
+        dq, dk, dv = _flash_attention_bwd(q, k, v, o, lse, do, ctx.kernel,
+                                          **ctx.mask)
         return dq, dk, dv, None, None, None, None, None
+
+
+@_counted("flash_attention_bwd")
+def _flash_attention_bwd(q, k, v, o, lse, do, kernel, **mask):
+    bwd = flash_attention_bwd_cuda if kernel else ref.attention_bwd_ref
+    return bwd(q, k, v, o, lse, do, **mask)
 
 
 class SsmScanFn(torch.autograd.Function):
@@ -148,6 +256,10 @@ class SsmScanFn(torch.autograd.Function):
         if ctx.kernel:
             y, h, h_ins = ssm_scan_cuda(x, dt, A, B, C, D, h0=h0,
                                         return_states=True)
+        elif shapes_only(x):
+            y, h = _scan_shapes(x, A)
+            h_ins = x.new_empty((x.shape[0], -(-x.shape[1] // ref.CHUNK),
+                                 *h.shape[1:]), dtype=torch.float32)
         else:
             y, h, h_ins = ref.ssm_scan_states_ref(x, dt, A, B, C, D, h0=h0)
         ctx.save_for_backward(x, dt, A, B, C, D, h_ins)
@@ -158,11 +270,29 @@ class SsmScanFn(torch.autograd.Function):
         x, dt, A, B, C, D, h_ins = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros_like(x)
-        bwd = ssm_scan_bwd_cuda if ctx.kernel else ref.ssm_scan_bwd_ref
-        dx, ddt, dA, dB, dC, dD, dh0 = bwd(x, dt, A, B, C, D, h_ins, dy, dh)
+        dx, ddt, dA, dB, dC, dD, dh0 = _ssm_scan_bwd(
+            x, dt, A, B, C, D, h_ins, dy, dh, ctx.kernel)
         return dx, ddt, dA, dB, dC, dD, dh0 if ctx.h0 else None
 
 
+def _scan_shapes(x, A):
+    """The scan's outputs (y, h_final) as empty tensors of their shapes."""
+    return torch.empty_like(x), x.new_empty(
+        (x.shape[0], x.shape[2], A.shape[-1]), dtype=torch.float32)
+
+
+@_counted("ssm_scan_bwd")
+def _ssm_scan_bwd(x, dt, A, B, C, D, h_ins, dy, dh, kernel):
+    if kernel:
+        return ssm_scan_bwd_cuda(x, dt, A, B, C, D, h_ins, dy, dh)
+    if shapes_only(x):
+        return (*(torch.empty_like(t) for t in (x, dt, A, B, C, D)),
+                _scan_shapes(x, A)[1])
+    return ref.ssm_scan_bwd_ref(x, dt, A, B, C, D, h_ins, dy, dh)
+
+
+@_counted("flash_attention", lse=lambda a: _training(a["q"], a["k"],
+                                                      a["v"]))
 def flash_attention(q, k, v, *, causal=True, window=0, kv_len=None,
                     kv_start=None, scale=None):
     """q (b,sq,hq,d); k,v (b,skv,hkv,d); GQA via hq % hkv == 0. window > 0:
@@ -183,6 +313,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, kv_len=None,
                              kv_len=kv_len, kv_start=kv_start, scale=scale)
 
 
+@_counted("decode_attention")
 def decode_attention(q, k, v, *, kv_len=None, kv_start=None, scale=None):
     """q (b,1,hq,d) against a contiguous cache k,v (b,S,hkv,d); keys at
     positions >= kv_len or < kv_start (b,) are masked."""
@@ -193,6 +324,7 @@ def decode_attention(q, k, v, *, kv_len=None, kv_start=None, scale=None):
                                     kv_start=kv_start, scale=scale)
 
 
+@_counted("paged_decode_attention")
 def paged_decode_attention(q, k_pages, v_pages, block_tables, *, kv_len=None,
                            scale=None, k_scale=None, v_scale=None):
     """q (b,1,hq,d) against pages (n_blocks, block_size, hkv, d) through
@@ -213,6 +345,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, *, kv_len=None,
                                           kv_len=kv_len, scale=scale)
 
 
+@_counted("paged_context_attention")
 def paged_context_attention(q, k_pages, v_pages, block_tables, *, q_start,
                             kv_len, scale=None, k_scale=None, v_scale=None):
     """q (b,C,hq,d), row i token j at absolute position q_start[i] + j,
@@ -236,6 +369,7 @@ def paged_context_attention(q, k_pages, v_pages, block_tables, *, q_start,
                                            scale=scale)
 
 
+@_counted("paged_verify_attention")
 def paged_verify_attention(q, k_pages, v_pages, block_tables, *, kv_start,
                            kv_len, scale=None, k_scale=None, v_scale=None):
     """Speculative verification: q (b,T,hq,d), row i's candidate j at
@@ -261,6 +395,8 @@ def paged_verify_attention(q, k_pages, v_pages, block_tables, *, kv_start,
                                           scale=scale)
 
 
+@_counted("ssm_scan", states=lambda a: _training(
+    *(a[n] for n in ("x", "dt", "A", "B", "C", "D", "h0"))))
 def ssm_scan(x, dt, A, B, C, D, *, h0=None):
     """Selective scan (Mamba S6): x, dt (b, s, din); A (din, ds); B, C
     (b, s, ds); D (din,); h0 (b, din, ds) or None. Returns (y in x's dtype,
@@ -270,6 +406,8 @@ def ssm_scan(x, dt, A, B, C, D, *, h0=None):
         return SsmScanFn.apply(x, dt, A, B, C, D, h0)
     if _kernel_for(x):
         return ssm_scan_cuda(x, dt, A, B, C, D, h0=h0)
+    if shapes_only(x):
+        return _scan_shapes(x, A)
     return ref.ssm_scan_ref(x, dt, A, B, C, D, h0=h0)
 
 
@@ -300,9 +438,8 @@ def mlstm_scan(q, k, v, i_gate, f_gate, *, C0=None, n0=None, chunk=128):
     n = torch.zeros((b, h, dk), device=dev) if n0 is None else n0.float()
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=dev))
-    ys = []
-    for c in range(nc):
-        qc, kc, vc, ic, fc = (t[:, c] for t in (qs, ks, vs, i_s, f_s))
+
+    def chunk_step(qc, kc, vc, ic, fc, C, n):
         cum = torch.cumsum(torch.log(fc.clamp_min(1e-30)), dim=1)  # log F_t
         # intra-chunk: decay[t, s] = exp(cum_t - cum_s) for s <= t (<= 1)
         dec = torch.exp((cum[:, :, None] - cum[:, None, :]).clamp(max=0.0))
@@ -315,14 +452,27 @@ def mlstm_scan(q, k, v, i_gate, f_gate, *, C0=None, n0=None, chunk=128):
             "bthk,bhkv->bthv", q_dec, C)
         den = (sc.sum(-1).permute(0, 2, 1)
                + torch.einsum("bthk,bhk->bth", q_dec, n)).abs()
-        ys.append(num / den.clamp_min(1.0)[..., None])
+        y = num / den.clamp_min(1.0)[..., None]
         # carry: C <- F_c C + sum_s (F_c / F_s) i_s k_s v_s^T
         rdec = torch.exp((cum[:, -1:, :] - cum).clamp(max=0.0)) * ic
         kiv = torch.einsum("bshk,bsh,bshv->bhkv", kc, rdec, vc)
         kin = torch.einsum("bshk,bsh->bhk", kc, rdec)
         Fc = Ft[:, -1]
-        C = Fc[..., None, None] * C + kiv
-        n = Fc[..., None] * n + kin
+        return y, Fc[..., None, None] * C + kiv, Fc[..., None] * n + kin
+
+    if shapes_only(q) and nc > 1:       # every chunk has the same shapes
+        y, C, n = RepeatedStep.apply(
+            lambda *a: chunk_step(*(t[:, 0] for t in a[:5]), *a[5:]), nc, 5,
+            qs, ks, vs, i_s, f_s, C, n)
+        # torch.stack of the nc chunks' y: the same bytes as this copy
+        y = y[:, None].expand(b, nc, *y.shape[1:]).contiguous().reshape(
+            b, nc * chunk, h, dv)[:, :s]
+        return y.to(q.dtype), (C, n)
+    ys = []
+    for c in range(nc):
+        y, C, n = chunk_step(*(t[:, c] for t in (qs, ks, vs, i_s, f_s)),
+                             C, n)
+        ys.append(y)
     y = torch.stack(ys, dim=1).reshape(b, nc * chunk, h, dv)[:, :s]
     return y.to(q.dtype), (C, n)
 

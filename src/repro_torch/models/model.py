@@ -115,9 +115,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
     ``lm_head``. Each leaf is
     drawn in place at its own dtype, so a full-width model needs no float32
     copy. The same seed gives the same weights on the same kind of device
-    (CPU and CUDA generators draw different streams)."""
+    (CPU and CUDA generators draw different streams). On the meta device
+    it makes the leaves' shapes and dtypes only."""
     dev = resolve_device(device)
-    generator = torch.Generator(device=dev).manual_seed(seed)
+    # the meta device (a dry run's shapes) has values to draw none of
+    generator = (None if dev.type == "meta"
+                 else torch.Generator(device=dev).manual_seed(seed))
     dt = param_dtype(cfg, dtype)
     d, f, hd, V = cfg.d_model, cfg.d_ff, cfg.head_dim_, cfg.vocab_size
     hq, hkv, E = cfg.num_heads, cfg.num_kv_heads, cfg.num_experts

@@ -1,19 +1,27 @@
-"""Mixture-of-Experts MLP of the port: top-k router and the single-device
-grouped capacity dispatch (twin of repro.models.moe._moe_grouped, the path
-the reference's ``moe_mlp`` takes outside a mesh).
+"""Mixture-of-Experts MLP of the port: top-k router and the two
+single-device capacity dispatches of the reference (repro.models.moe),
+chosen by ``MOE_DISPATCH``.
 
-Ranking and capacity are per batch row: row i's tokens fill each expert's
-C slots in token order, a token past its expert's capacity is dropped (its
-combine weight is 0), and decode-sized rows (s * k <= 64) get C = s, which
-drops nothing since an expert appears at most once in a token's top-k.
-The capacity therefore depends only on the row's (padded) width, so rows
-are independent of their batch-mates. The expert products stay
-torch.einsum, batched over the expert axis, as the reference left them to
-XLA; an int8 weight ({"q", "s"}, s (E, out)) is widened and post-scaled.
-Training adds the router's load-balancing loss (``return_aux``, the
-reference's _aux_loss). The reference's "global" dispatch, its measurement
-baseline, is not ported (ROADMAP), nor its mesh path (_moe_shard_map), by
-design: the port runs one device a stage.
+"grouped" (the default; twin of _moe_grouped, the path the reference's
+``moe_mlp`` takes outside a mesh): ranking and capacity are per batch
+row: row i's tokens fill each expert's C slots in token order, a token
+past its expert's capacity is dropped (its combine weight is 0), and
+decode-sized rows (s * k <= 64) get C = s, which drops nothing since an
+expert appears at most once in a token's top-k. The capacity therefore
+depends only on the row's (padded) width, so rows are independent of
+their batch-mates.
+
+"global" (twin of _moe_global, the reference's measurement baseline):
+one rank cumsum over all b * s tokens and one buffer of C slots an expert,
+dropless (C = T) up to T = 8192 tokens and C = capacity_factor T k / E
+above.
+
+The expert products stay torch.einsum, batched over the expert axis, as
+the reference left them to XLA; an int8 weight ({"q", "s"}, s (E, out)) is
+widened and post-scaled. Training adds the router's load-balancing loss
+(``return_aux``, the reference's _aux_loss). The reference's mesh path
+(_moe_shard_map) is not ported, by design: the port runs one device a
+stage.
 """
 from __future__ import annotations
 
@@ -24,9 +32,20 @@ from repro_torch.models.layers import gelu
 from repro_torch.models.quant import is_quantized
 
 
+MOE_DISPATCH = "grouped"            # "grouped" | "global"
+
+
 def moe_mlp(p, x, cfg, *, return_aux=False):
     """x (b, s, d) -> (b, s, d), and with return_aux the router's
-    load-balancing loss (a float32 scalar)."""
+    load-balancing loss (a float32 scalar), by ``MOE_DISPATCH``."""
+    if MOE_DISPATCH == "global":
+        return _moe_global(p, x, cfg, return_aux=return_aux)
+    if MOE_DISPATCH != "grouped":
+        raise ValueError(f"unknown MOE_DISPATCH {MOE_DISPATCH!r}")
+    return _moe_grouped(p, x, cfg, return_aux=return_aux)
+
+
+def _moe_grouped(p, x, cfg, *, return_aux):
     b, s, d = x.shape
     E, k = cfg.num_experts, cfg.top_k
     logits = (x @ p["router"]).float()                          # (b, s, E)
@@ -37,7 +56,7 @@ def moe_mlp(p, x, cfg, *, return_aux=False):
 
     fe = expert_ids.reshape(b, s * k)
     fg = gate_vals.reshape(b, s * k)
-    onehot = F.one_hot(fe, E)                                   # (b, sk, E)
+    onehot = _one_hot(fe, E)                                   # (b, sk, E)
     ranks = torch.cumsum(onehot, dim=1) - onehot                # row-local
     rank = torch.gather(ranks, 2, fe[..., None])[..., 0]
     keep = rank < C
@@ -59,6 +78,50 @@ def moe_mlp(p, x, cfg, *, return_aux=False):
     if return_aux:
         return out, _aux_loss(cfg, probs, fe, b * s * k)
     return out
+
+
+def _moe_global(p, x, cfg, *, return_aux):
+    b, s, d = x.shape
+    E, k = cfg.num_experts, cfg.top_k
+    T = b * s
+    xt = x.reshape(T, d)
+    logits = (xt @ p["router"]).float()                         # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_ids = torch.topk(probs, k, dim=-1)        # (T, k)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    C = T if T <= 8192 else max(int(cfg.capacity_factor * T * k / E), 1)
+
+    fe = expert_ids.reshape(T * k)
+    fg = gate_vals.reshape(T * k)
+    onehot = _one_hot(fe, E)                                   # (Tk, E)
+    ranks = torch.cumsum(onehot, dim=0) - onehot                # global
+    rank = torch.gather(ranks, 1, fe[:, None])[:, 0]
+    keep = rank < C
+    slot = torch.where(keep, fe * C + rank, torch.full_like(fe, E * C))
+
+    src = torch.repeat_interleave(xt, k, dim=0)                 # (Tk, d)
+    buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
+    buf[slot] = src                    # dropped tokens land in slot E * C
+    buf = buf[:E * C].reshape(E, C, d)
+
+    out_buf = _expert_ffn(p, buf, cfg)                          # (E, C, d)
+    flat = torch.cat([out_buf.reshape(E * C, d),
+                      torch.zeros((1, d), dtype=out_buf.dtype,
+                                  device=x.device)], dim=0)
+    gathered = flat[slot]                                       # (Tk, d)
+    w = (fg * keep).to(x.dtype)
+    out = (gathered * w[:, None]).reshape(T, k, d).sum(dim=1).reshape(
+        b, s, d)
+    if return_aux:
+        return out, _aux_loss(cfg, probs, fe, T * k)
+    return out
+
+
+def _one_hot(ids, E):
+    """(..., E) int64 one-hot rows of ids, by comparison: the same ops on
+    every device (F.one_hot reads the ids' range on the CPU and scatters
+    on the card), so that a count of the step is the device's."""
+    return (ids[..., None] == torch.arange(E, device=ids.device)).long()
 
 
 def _aux_loss(cfg, probs, flat_expert, denom):

@@ -139,6 +139,12 @@ def slstm_prefill(p, x, cfg, *, valid=None, cache=None):
         b, d, device=x.device)
     state = {k: v.float() for k, v in state.items()}
     gx = {g: mm(x, p[f"w_{g}"]) + p[f"b_{g}"] for g in GATES}
+    if ops.shapes_only(x) and s > 1:
+        y, state = _slstm_meta_scan(p, gx, state, cfg, valid)
+        out = mm(y.to(x.dtype), p["out_proj"])
+        if cache is None:
+            return out, None
+        return out, {k: state[k].to(cache[k].dtype) for k in state}
     hs = []
     for t in range(s):
         new = _slstm_step_pre(p, {g: gx[g][:, t] for g in GATES}, state, cfg)
@@ -152,6 +158,33 @@ def slstm_prefill(p, x, cfg, *, valid=None, cache=None):
     if cache is None:
         return out, None
     return out, {k: state[k].to(cache[k].dtype) for k in state}
+
+
+def _slstm_meta_scan(p, gx, state, cfg, valid):
+    """The sLSTM scan on the meta device, where every step has the same
+    shapes: step 0 counted s times (``ops.RepeatedStep``) stands for the
+    loop, in the forward and the backward. Returns (h of every step
+    (b, s, d) float32, the final state)."""
+    b, s, d = gx["z"].shape
+    keys = sorted(state)
+    seqs = [gx[g] for g in GATES] + ([valid] if valid is not None else [])
+
+    def step(*args):
+        seq, rest = args[:len(seqs)], args[len(seqs):]
+        g_t = {g: t[:, 0] for g, t in zip(GATES, seq)}
+        st = dict(zip(keys, rest[:4]))
+        new = _slstm_step_pre(dict(zip((f"r_{g}" for g in GATES),
+                                       rest[4:])), g_t, st, cfg)
+        if valid is not None:
+            vm = seq[4][:, 0].float()[:, None]
+            new = {k: vm * new[k] + (1 - vm) * st[k] for k in st}
+        return tuple(new[k] for k in keys)
+    out = ops.RepeatedStep.apply(step, s, len(seqs), *seqs,
+                                 *(state[k] for k in keys),
+                                 *(p[f"r_{g}"] for g in GATES))
+    state = dict(zip(keys, out))
+    # torch.stack of the s steps' h: the same bytes as this copy
+    return state["h"][:, None].expand(b, s, d).contiguous(), state
 
 
 def slstm_decode(p, x, cfg, *, cache):

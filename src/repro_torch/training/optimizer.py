@@ -19,6 +19,8 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.kernels import ops
+
 
 @dataclasses.dataclass(frozen=True)
 class AdamWConfig:
@@ -92,7 +94,16 @@ def apply(cfg: AdamWConfig, grads, state: AdamWState, params):
     for p, g, mu, nu in zip(ps, gs, leaves(state.mu), leaves(state.nu)):
         decay = p.dim() >= 2                   # decay matrices only
         flat = [t.view(-1) for t in (p, g, mu, nu)]
-        for i in range(0, p.numel(), CHUNK):
+        starts = range(0, p.numel(), CHUNK)
+        full = p.numel() // CHUNK
+        if ops.shapes_only(p) and full > 1:
+            # the meta device: the full chunks have the same shapes, so
+            # one stands for them in a count, then the tail
+            with ops.repeated(full):
+                _update(cfg, *(t[:CHUNK] for t in flat), scale, lr, b1c,
+                        b2c, decay)
+            starts = range(full * CHUNK, p.numel(), CHUNK)
+        for i in starts:
             _update(cfg, *(t[i:i + CHUNK] for t in flat), scale, lr, b1c,
                     b2c, decay)
     return params, AdamWState(step=step, mu=state.mu, nu=state.nu)
