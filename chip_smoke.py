@@ -296,6 +296,20 @@ SFU_EX2_PER_CLOCK = 16            # ex2 per clock per SM, compute cap. 9.0
 FP32_ATOL = 2e-5                  # scripts/smoke_serving.py:93
 DEVICE = "cuda"
 
+
+def _one_card():
+    """The engines of phases 3-11 run on the first card alone, whatever
+    the host has: their launch gates count one card's launches (phase 12
+    (e) spreads an engine over every card)."""
+    return [torch.device(DEVICE, 0)]
+
+
+def _one_card_env(env):
+    """`env` for a child process that serves (the launcher, an example):
+    the first visible card alone, for the reason of ``_one_card``."""
+    first = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    return dict(env, CUDA_VISIBLE_DEVICES=first)
+
 KERNEL_INFO = {
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:77"),
@@ -1588,7 +1602,7 @@ def _serve(cfg, asg, params, reqs, around=contextlib.nullcontext,
     state_bytes: bytes of its Mamba layers' per-slot state))."""
     from repro_torch.serving.engine import InferenceEngine
     from repro_torch.serving.loop import VirtualClock
-    eng = InferenceEngine(cfg, asg, params=params, device=DEVICE,
+    eng = InferenceEngine(cfg, asg, params=params, devices=_one_card(),
                           cache_layout=cache_layout, **kw)
     if controller is not None:
         eng.router.attach_controller(controller)
@@ -2333,7 +2347,7 @@ def phase_schedule_serve(smi):
         reqs = sv.workload(cfg.vocab_size)
         torch.cuda.reset_peak_memory_stats()
         eng = InferenceEngine.from_config(cfg, res.plan, sv, assignment=asg,
-                                          params=params, device=DEVICE)
+                                          params=params, devices=_one_card())
         torch.cuda.synchronize()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
@@ -2409,7 +2423,8 @@ def _run_launcher(arch, multi=False, extra=(), reduced=True):
         argv += ["--prefix-caching", "--disaggregate", "--host-mem-gb", "1.0",
                  "--cluster-prefix", "--kvsan", "--trace-out", trace,
                  "--metrics-out", metrics, "--calibrate"]
-    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    env = _one_card_env(dict(os.environ,
+                             PYTHONPATH=os.path.join(root, "src")))
 
     def run(mod, args):
         out = subprocess.run([sys.executable, "-m", mod] + args, cwd=root,
@@ -2526,7 +2541,8 @@ def phase_danube(smi):
     from repro_torch.models import model as M
     counts = dict.fromkeys(ops.KERNELS, 0)
     root = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    env = _one_card_env(dict(os.environ,
+                             PYTHONPATH=os.path.join(root, "src")))
     log("phase 6: the launcher's defaults, h2o-danube-1.8b at full width "
         "and depth: its window and its ring")
 
@@ -2624,8 +2640,8 @@ def phase_danube(smi):
         i, j = next((i, j) for i, (a, b) in enumerate(zip(tp, tk))
                     for j, (x, y) in enumerate(zip(a, b)) if x != y)
         from repro_torch.serving.engine import InferenceEngine
-        eng = InferenceEngine(cfg32, asg, params=params, device=DEVICE,
-                              **kw32)
+        eng = InferenceEngine(cfg32, asg, params=params,
+                              devices=_one_card(), **kw32)
         margin = _static_margin(eng, reqs, 2, tp, i, j)
         del eng
         if margin > 1e-3:
@@ -3147,7 +3163,7 @@ def phase_multi(smi):
     tracer, metrics = Tracer(), MetricsRegistry()
     synth, _ = _workloads(cfg.vocab_size, n=16, out_len=32)
     from repro_torch.serving.engine import InferenceEngine
-    eng = InferenceEngine(cfg, asg, params=params, device=DEVICE,
+    eng = InferenceEngine(cfg, asg, params=params, devices=_one_card(),
                           cache_layout="paged", **common)
 
     def traced():
@@ -4587,7 +4603,8 @@ def phase_dryrun(smi):
     out = subprocess.run(
         [sys.executable, os.path.join(root, "examples",
                                       "torch_quickstart.py")], cwd=root,
-        env=dict(os.environ, PYTHONPATH=os.path.join(root, "src")),
+        env=_one_card_env(dict(os.environ,
+                               PYTHONPATH=os.path.join(root, "src"))),
         capture_output=True, text=True, timeout=600)
     if out.returncode != 0 or "OK on cuda" not in out.stdout:
         raise AssertionError(f"examples/torch_quickstart.py exited "
@@ -4596,6 +4613,341 @@ def phase_dryrun(smi):
     log(f"  examples/torch_quickstart.py on the card: "
         f"{out.stdout.strip().splitlines()[-1]}")
     return total
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: asymmetric tensor x pipeline parallelism
+# ---------------------------------------------------------------------------
+
+# the shard widths this slice makes (d 128): llama2-70b's 64 / 8 heads at
+# TP 2 (32 / 4, g 8), TP 8 (8 / 1, g 8) and TP 16 (4 / 1, g 4: its 8 kv
+# heads do not divide 16, each shard keeps the one its q heads read), and
+# granite-20b's MQA at TP 4 (12 / 1, g 12)
+TP_WIDTHS = (("llama2-70b TP 2", dict(hq=32, hkv=4, d=128)),
+             ("llama2-70b TP 8", dict(hq=8, hkv=1, d=128)),
+             ("llama2-70b TP 16", dict(hq=4, hkv=1, d=128)),
+             ("granite-20b TP 4", dict(hq=12, hkv=1, d=128)))
+TP_FP32 = ("flash_attention", "paged_decode_attention",
+           "paged_context_attention", "paged_verify_attention")
+# (b) and (d): fp32, 2 layers; (c): bf16, 4 layers; each phase 3's plan
+# (_pipeline_asg: 3/8 of the layers, at least one, on the TP-2 stage)
+TP_FP32_LAYERS, TP_BF16_LAYERS = 2, 4
+TP_SERVES = (("synthetic", {}),
+             ("shared-prefix", dict(prefix_caching=True, prefill_chunk=256)),
+             ("spec-ngram", dict(spec_k=4)))
+
+
+def check_shard_kernels(dev):
+    """Phase 12 (a): #1-#8 against their plain versions at the shard widths
+    TP_WIDTHS, in bf16 (all eight) and fp32 (#1-#4), with phase 2's cases
+    and tolerances; rows that see no key exact zeros."""
+    gen = torch.Generator(device=dev).manual_seed(29)
+    n = 0
+    for tag, widths in TP_WIDTHS:
+        worst = {}
+        for name, cases in CASES.items():
+            dtypes = ((torch.bfloat16, torch.float32) if name in TP_FP32
+                      else (torch.bfloat16,))
+            for dtype in dtypes:
+                for case, fn, dead in cases(gen, dev, dtype, **widths):
+                    got, want = _run_both(fn)
+                    torch.cuda.synchronize()
+                    err = _compare(name, f"{tag} {case}", got, want, dtype)
+                    if dead is not None and torch.count_nonzero(dead(got)):
+                        raise AssertionError(f"{name} [{tag} {case}, "
+                                             f"{dtype}]: a row that sees no "
+                                             "key is not zero")
+                    key = f"{name} {str(dtype)[6:]}"
+                    worst[key] = max(worst.get(key, 0.0), err)
+                    n += 1
+        log(f"  (a) {tag} (hq {widths['hq']}, hkv {widths['hkv']}, d "
+            f"{widths['d']}): max abs err " + ", ".join(
+                f"{k} {v:.3g}" for k, v in worst.items()))
+    log(f"  (a) {n} cases of #1-#8 at the shard widths agree with their "
+        "plain versions")
+
+
+def _tp_pipes(cfg, params, split, shards, dtype):
+    """Phase 3's plan as pipelines on the card: the first stage over
+    `shards` devices (two shards on one card, or distinct cards), the
+    rest whole on the first device."""
+    from repro_torch.serving.pipeline import AsymmetricPipeline
+    dev = torch.device(DEVICE, 0) if DEVICE == "cuda" else torch.device(
+        DEVICE)
+    first = shards if isinstance(shards, list) else [dev] * shards
+    return AsymmetricPipeline(cfg, params, split,
+                              [first] + [[dev]] * (len(split) - 1),
+                              dtype=dtype)
+
+
+def _serve_router(cfg, pipes, reqs, *, spec_k=0, roles=None, **kw):
+    """Serve reqs through a Router over prebuilt pipelines (the engine
+    collapses a card repeated in a stage, so two shards on one card are
+    built by hand), paged, on the virtual clock; check every request got
+    its tokens. Returns (stats, wall seconds)."""
+    from repro_torch.serving.disagg import KVLink
+    from repro_torch.serving.loop import VirtualClock
+    from repro_torch.serving.router import Router
+    from repro_torch.serving.spec import SpecConfig
+    for p in pipes:              # fresh pools: their bytes count again
+        p.paged_caches = None
+    router = Router(pipes, policy="continuous", cache_layout="paged",
+                    spec=SpecConfig(k=spec_k) if spec_k else None,
+                    roles=roles, kv_link=KVLink() if roles else None, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = router.serve(reqs, 1e9, clock=VirtualClock())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for r in reqs:
+        if r.output is None or len(r.output) != r.max_new_tokens:
+            raise AssertionError(f"request {r.rid}: no full output")
+    return stats, wall
+
+
+def _tp_launches(c1, L, split, tps):
+    """The launches of a serve whose stage s runs split[s] layers over
+    tps[s] shards, from the one-device serve's c1: every layer launches
+    alike, each shard once per layer."""
+    out = {}
+    for k, n in c1.items():
+        if n % L:
+            raise AssertionError(f"{k}: {n} launches over {L} layers")
+        out[k] = n // L * sum(s * t for s, t in zip(split, tps))
+    return out
+
+
+def phase_tp(smi):
+    """Phase 12: the asymmetric TP x PP executor on the card. (a) #1-#8 at
+    the shard widths; (b) llama2-70b at full width, fp32, 2 layers, phase
+    3's plan with its TP-2 stage as two shards on cuda:0: the synthetic,
+    shared-prefix and n-gram serves give the one-device serves' tokens
+    and ServeStats, with exactly the one-device launches times each
+    stage's shard count; (c) the same plan in bf16 at 4 layers, walls of
+    one device and of two shards on one card, alternating, and the tokens
+    held where the streams part (``_hold_bf16_tp``); (d)
+    disaggregation
+    from a replica with the TP-2 stage to a one-device replica: the
+    colocated serve's tokens; (e) with two or more cards, the engine over
+    them (``tp_on_cards``)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    dev = torch.device(DEVICE)
+    check_shard_kernels(dev)
+    mark("phase 12 (a)")
+    cfg = _llama(TP_FP32_LAYERS)
+    L = cfg.num_layers
+    split = _pipeline_asg(L).pipelines[0].layer_split
+    params = M.init_params(cfg, 0, device=DEVICE, dtype=torch.float32)
+    one = _tp_pipes(cfg, params, split, 1, torch.float32)
+    two = _tp_pipes(cfg, params, split, 2, torch.float32)
+    common = dict(n_slots=8, max_len=2048, block_size=16)
+    for name, kw in TP_SERVES:
+        runs = {}
+        for tag, pipe in (("one device", one), ("TP 2 on one card", two)):
+            synth, shared = _workloads(cfg.vocab_size, n=6, out_len=8)
+            reqs = shared if kw.get("prefix_caching") else synth
+            ops.reset_launch_counts()
+            stats, wall = _serve_router(cfg, [pipe], reqs, **common, **kw)
+            runs[tag] = ([list(r.output) for r in reqs], stats,
+                         ops.launch_counts(), wall)
+        (t1, s1, c1, w1), (t2, s2, c2, w2) = runs.values()
+        prompts = [list(r.prompt) for r in reqs]
+        if t2 != t1:
+            _parted(cfg, params, prompts, t2, t1,
+                    f"(b) {name}: the TP-2 and one-device token streams")
+        for f in MULTI_FIELDS:
+            if getattr(s1, f) != getattr(s2, f):
+                raise AssertionError(f"(b) {name}: ServeStats.{f} differs: "
+                                     f"{getattr(s1, f)} vs {getattr(s2, f)}")
+        want = _tp_launches(c1, L, split, [2] + [1] * (len(split) - 1))
+        if DEVICE == "cuda" and (c2 != want or not any(c1.values())):
+            raise AssertionError(f"(b) {name}: launches {c2}, want {want} "
+                                 f"(one device: {c1})")
+        log(f"  (b) {name}: {len(t1)} requests x {len(t1[0])} tokens and "
+            f"every ServeStats field equal on stages {split} over [2, 1] "
+            f"shards on one card and on one device (walls {w2:.3f} / "
+            f"{w1:.3f} s); launches {dict((k, v) for k, v in c2.items() if v)}"
+            f" = the one device's {dict((k, v) for k, v in c1.items() if v)}"
+            " x each stage's shards")
+    mark("phase 12 (b)")
+    # (d): replica 0 phase 3's plan with its TP-2 stage, replica 1 the
+    # whole model on one device
+    dis = {}
+    for roles in (None, ["prefill", "decode"]):
+        synth, _ = _workloads(cfg.vocab_size, n=6, out_len=8)
+        pipes = [two, _tp_pipes(cfg, params, [L], 1, torch.float32)]
+        stats, _ = _serve_router(cfg, pipes, synth, roles=roles, **common)
+        dis[roles is None] = ([list(r.output) for r in synth], stats)
+    (tc, sc), (td, sd) = dis[True], dis[False]
+    if td != tc or sd.migrations != len(td):
+        raise AssertionError(f"(d) disaggregated TP 2 -> TP 1: tokens equal "
+                             f"{td == tc}, migrations {sd.migrations}")
+    log(f"  (d) disaggregated from the TP-2 replica to a one-device one: "
+        f"{sd.migrations} migrations, {sd.migrated_kv_bytes} bytes, the "
+        "colocated serve's tokens")
+    mark("phase 12 (d)")
+    del one, two, params, pipes
+    torch.cuda.empty_cache()
+    # (c): bf16, 4 layers, the walls of one device and two shards on one
+    # card, alternating (one, two, two, one)
+    cfg = _llama(TP_BF16_LAYERS)
+    L = cfg.num_layers
+    split = _pipeline_asg(L).pipelines[0].layer_split
+    params = M.init_params(cfg, 0, device=DEVICE)
+    pipes = {1: _tp_pipes(cfg, params, split, 1, None),
+             2: _tp_pipes(cfg, params, split, 2, None)}
+    common = dict(n_slots=16, max_len=2048, block_size=16)
+    warm, _ = _workloads(cfg.vocab_size, n=4, out_len=4)
+    for p in pipes.values():                       # allocator, cuBLAS
+        _serve_router(cfg, [p], warm, **common)
+        warm, _ = _workloads(cfg.vocab_size, n=4, out_len=4)
+    walls, toks = {1: [], 2: []}, {}
+    for tp in (1, 2, 2, 1):
+        synth, _ = _workloads(cfg.vocab_size, n=16, out_len=32)
+        _, wall = _serve_router(cfg, [pipes[tp]], synth, **common)
+        walls[tp].append(wall)
+        toks[tp] = [list(r.output) for r in synth]
+    gen_tok = sum(len(t) for t in toks[1])
+    same = sum(a == b for a, b in zip(toks[1], toks[2]))
+    ref = _tp_pipes(cfg, params, [L], 1, torch.float32)
+    worst, gaps = _hold_bf16_tp(pipes, ref, synth, toks[1], toks[2])
+    del ref
+    log(f"  (c) {cfg.name} bf16, {L} layers, stages {split}, 16 requests x "
+        f"32 tokens: wall one device {walls[1][0]:.4f} / {walls[1][1]:.4f} s,"
+        f" TP 2 on one card {walls[2][0]:.4f} / {walls[2][1]:.4f} s "
+        f"({gen_tok / np.mean(walls[1]):.1f} / "
+        f"{gen_tok / np.mean(walls[2]):.1f} generated tok/s); "
+        f"{same}/16 requests' tokens equal (bf16: the shards' sum rounds "
+        f"once more); at each request's first parting (or its prompt) "
+        f"TP 2's bf16 error against float32 at most {worst:.3f} x TP 1's "
+        f"(gate {TP_BF16_ERR}), the two tokens where they part "
+        f"{', '.join(f'{g:.3f}' for g in gaps) or 'none'} eps apart in "
+        f"float32 (gate 2); card {smi}")
+    del pipes, params
+    torch.cuda.empty_cache()
+    mark("phase 12 (c)")
+    tp_on_cards(smi)
+
+
+# phase 12 (c): TP 2's bf16 logits may be at most this many times as far
+# from float32 as TP 1's
+TP_BF16_ERR = 2.0
+
+
+def _hold_bf16_tp(pipes, ref, reqs, t1, t2):
+    """Phase 12 (c)'s gate on the bf16 serves' tokens t1 (TP 1) and t2
+    (TP 2), against bf16's own rounding error: for each request, after its
+    prompt and t1's tokens up to the first difference (the prompt alone
+    where none), the logits of one contiguous prefill (the static path)
+    through TP 1 and TP 2 in bf16 and through `ref`, the same weights in
+    float32 on one device. TP 2's largest difference from float32 must be
+    at most TP_BF16_ERR times TP 1's (the shards' one extra rounding a
+    sublayer adds little to a bf16 model's own error; a wrong shard path
+    adds its fault), and where the streams part, the two tokens' float32
+    logits must be within 2 eps of each other, eps the larger of the two
+    bf16 runs' largest differences: a tie that each bf16 run may break its
+    own way. Returns the largest ratio of TP 2's error to TP 1's and each
+    parting's float32 gap in units of eps."""
+    worst, gaps = 0.0, []
+    for i, r in enumerate(reqs):
+        a, b = t1[i], t2[i]
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), 0)
+        prefix = np.asarray(list(r.prompt) + a[:j], np.int64)[None]
+        l1, l2, l32 = (p.prefill(prefix, max_new=1)[0].astype(np.float64)
+                       for p in (pipes[1], pipes[2], ref))
+        e1, e2 = np.abs(l1 - l32).max(), np.abs(l2 - l32).max()
+        eps, err = max(e1, e2), float(e2 / e1)
+        worst = max(worst, err)
+        gap = float(abs(l32[a[j]] - l32[b[j]]) / eps) if a != b else None
+        if gap is not None:
+            gaps.append(gap)
+        if not (math.isfinite(err) and err <= TP_BF16_ERR) or (
+                gap is not None and gap > 2.0):
+            raise AssertionError(
+                f"(c) request {i}, token {j}: TP 2's bf16 error {e2:.4g}, "
+                f"TP 1's {e1:.4g} (gate: at most {TP_BF16_ERR} x), tokens "
+                f"{a[j]} / {b[j]} {gap} eps apart in float32 (gate 2)")
+    return worst, gaps
+
+
+def _cards():
+    """Every visible card (none off the card)."""
+    if DEVICE != "cuda":
+        return []
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def tp_on_cards(smi):
+    """Phase 12 (e), on a machine with two or more cards: the engine over
+    every card (``devices``) maps phase 3's plan's ids onto them, its TP-2
+    stage as shards on cuda:0 and cuda:1. fp32 at 2 layers: the synthetic
+    serve's tokens and ServeStats equal one card's, launches one card's x
+    each stage's shards; bf16 at 4 layers: walls of one card and of the
+    cards, alternating. On one card: says so and returns."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.serving.loop import VirtualClock
+    devices = _cards()
+    if len(devices) < 2:
+        log(f"  (e) layout: two shards on one card only ({len(devices)} "
+            "card(s) visible; distinct cards not run)")
+        return
+    for dtype, layers in ((torch.float32, TP_FP32_LAYERS),
+                          (None, TP_BF16_LAYERS)):
+        cfg = _llama(layers)
+        L = cfg.num_layers
+        split = _pipeline_asg(L).pipelines[0].layer_split
+        params = M.init_params(cfg, 0, device=DEVICE, dtype=dtype)
+        one = _tp_pipes(cfg, params, split, 1, dtype)
+        common = (dict(n_slots=8, max_len=2048, block_size=16)
+                  if dtype else dict(n_slots=16, max_len=2048,
+                                     block_size=16))
+        eng = InferenceEngine(cfg, _pipeline_asg(L), params=params,
+                              devices=devices, cache_layout="paged",
+                              dtype=dtype, **common)
+        layout = eng.replicas[0].describe_devices()
+        n, out = (6, 8) if dtype else (16, 32)
+
+        def serve(on_cards):
+            reqs, _ = _workloads(cfg.vocab_size, n=n, out_len=out)
+            ops.reset_launch_counts()
+            if on_cards:
+                eng.replicas[0].paged_caches = None
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                stats = eng.serve(reqs, deadline=1e9, clock=VirtualClock())
+                for d in devices:
+                    torch.cuda.synchronize(d)
+                wall = time.perf_counter() - t0
+            else:
+                stats, wall = _serve_router(cfg, [one], reqs, **common)
+            return [list(r.output) for r in reqs], stats, \
+                ops.launch_counts(), wall
+        if dtype:
+            (t1, s1, c1, _), (t2, s2, c2, _) = serve(False), serve(True)
+            want = _tp_launches(c1, L, split, [len(d) for d in layout])
+            if t2 != t1 or c2 != want or any(
+                    getattr(s1, f) != getattr(s2, f) for f in MULTI_FIELDS):
+                raise AssertionError(f"(e) on cards {layout}: tokens equal "
+                                     f"{t2 == t1}, launches {c2} (want "
+                                     f"{want})")
+            log(f"  (e) fp32, {L} layers, layout {layout}: the synthetic "
+                f"serve's tokens and every ServeStats field equal one "
+                f"card's; launches {dict((k, v) for k, v in c2.items() if v)}"
+                " = one card's x each stage's shards")
+        else:
+            serve(False), serve(True)                  # warm-up
+            walls = {False: [], True: []}
+            for on_cards in (False, True, True, False):
+                walls[on_cards].append(serve(on_cards)[3])
+            log(f"  (e) bf16, {L} layers, 16 requests x 32 tokens: wall one "
+                f"card {walls[False][0]:.4f} / {walls[False][1]:.4f} s, "
+                f"layout {layout} {walls[True][0]:.4f} / "
+                f"{walls[True][1]:.4f} s; cards {smi}")
+        del eng, one, params
+        torch.cuda.empty_cache()
 
 
 def dump_sass(tree, out):
@@ -4683,6 +5035,9 @@ def main():
     log("phase 11: the dry run on the card")
     dry = phase_dryrun(smi)
     done("phase 11")
+    log("phase 12: asymmetric tensor x pipeline parallelism")
+    phase_tp(smi)
+    done("phase 12")
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         kernels.append(dict(name=name, route="cuda", source=src,

@@ -34,7 +34,8 @@ print(f"assignment: {res.assignment.describe()}")
 print(f"estimated SLO attainment: {res.attainment*100:.0f}%")
 
 # 3. execute the scheduled layout with a reduced model: the same stage
-#    structure and TP degrees on one device, fewer / smaller layers
+#    structure and TP degrees over the visible devices (on one card every
+#    stage runs whole), fewer / smaller layers
 cfg_full = get_config("llama2-70b")
 cfg = cfg_full.reduced()
 asg = scale_assignment(res.assignment, cfg_full.num_layers, cfg.num_layers)

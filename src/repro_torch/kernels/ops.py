@@ -173,16 +173,26 @@ def shapes_only(x) -> bool:
 
 
 def _counted(op, **extra):
-    """Decorate an entry point of kernel op `op`: inside an OpCounter
-    (and not under backend("plain")) the call is counted once by its
-    registry cost (the op's "_quant" variant where k_scale is given;
-    `extra` adds arguments computed from the bound ones) and what runs
-    inside it is not."""
+    """Decorate an entry point of kernel op `op`: a call on CUDA tensors
+    runs with their card as the current device (a TP shard's, or a later
+    stage's, may not be the current one); inside an OpCounter (and not
+    under backend("plain")) the call is counted once by its registry cost
+    (the op's "_quant" variant where k_scale is given; `extra` adds
+    arguments computed from the bound ones) and what runs inside it is
+    not."""
     def wrap(fn):
         sig = inspect.signature(fn)
 
         @functools.wraps(fn)
         def entry(*args, **kwargs):
+            if args and torch.is_tensor(args[0]) and args[0].is_cuda:
+                # the kernels launch on the current device's stream: the
+                # first tensor's card (a shard's, a replica's) for the call
+                with torch.cuda.device(args[0].device):
+                    return _entry(*args, **kwargs)
+            return _entry(*args, **kwargs)
+
+        def _entry(*args, **kwargs):
             if not COUNTERS or _BACKEND == "plain":
                 return fn(*args, **kwargs)
             bound = sig.bind(*args, **kwargs)

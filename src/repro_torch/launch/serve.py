@@ -12,8 +12,11 @@ reference's ``repro.launch.serve``; this driver is the parse -> schedule
 chosen GPU pool (the paper's setting); ``--reduced`` serves the reduced
 variant of the same architecture through the scheduled stage layout,
 keeping every structural property (stage count, TP degrees, layer ratios).
-Every replica and stage runs on the one device (``main(device=...)``, the
-card unless a test asks for the CPU). ``--trace-out`` writes the serve's
+The plan's device ids map onto every visible device of ``main(device=
+...)``'s type (the cards unless a test asks for the CPU), as in the
+reference engine: one card runs every stage whole; several run a TP > 1
+stage as shards on distinct cards. The launcher prints each replica's
+stages' physical devices (``DEVICES_LINE``). ``--trace-out`` writes the serve's
 Chrome trace, ``--metrics-out`` its metrics JSONL (read them back with
 ``python -m repro_torch.obs.report``), and ``--calibrate`` prints the cost
 model's predicted seconds per phase against the traced ones. The traced
@@ -33,6 +36,8 @@ from repro_torch.serving.config import ServingConfig
 # printed under the calibration table: what its "observed" column is
 CALIBRATION_NOTE = ("  (observed: the engine spans' charged serving-clock "
                     "cost, on any clock; not a measured device time)")
+# the start of the line naming a replica's stages' devices (port only)
+DEVICES_LINE = "  devices of replica "
 
 
 def scale_assignment(asg: Assignment, full_layers: int,
@@ -89,6 +94,10 @@ def main(argv: Optional[Sequence[str]] = None, *, device="cuda") -> None:
                            cfg.num_layers) if sv.reduced else None
     engine = InferenceEngine.from_config(cfg, plan, sv, assignment=asg,
                                          cluster=pool, device=device)
+    for i, rep in enumerate(engine.replicas):
+        print(f"{DEVICES_LINE}{i}: " + "; ".join(
+            f"stage {si} " + ", ".join(devs)
+            for si, devs in enumerate(rep.describe_devices())))
     reqs = sv.workload(cfg.vocab_size)
 
     # ---- observability (repro_torch.obs) --------------------------------

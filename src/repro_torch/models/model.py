@@ -37,6 +37,18 @@ min(max_len, window)-slot ring, and an encoder-decoder's cross K/V
 once at prefill; the pipeline's contiguous caches are one layer's leaves
 each (``init_layer_cache``). Writes go into the caches in place.
 
+Tensor parallelism (``shard_layer_params``): a pipeline stage over tp
+devices holds each attention layer as ``Shards`` of its mixer and FFN,
+cut by the reference's Megatron rules (``models.shardings``): shard r
+keeps its q heads' columns of wq and rows of wo, the kv heads those q
+heads read, its columns of w_gate / w_up and rows of w_down (or, in an
+MoE, its experts or its d_ff columns, under the replicated router), on
+its own device. Norms stay on the stage's first device. Each sublayer
+runs on every shard (``_sharded``) and the shards' partial outputs are
+summed there in shard order, in float32, before the residual add: two
+reductions a layer, bit-repeatable. A sharded layer's caches are
+``Shards`` of per-shard caches holding that shard's kv heads.
+
 Training (``train_forward``, ``loss_fn``) runs whole sequences with no
 cache, the reference's mode="train", each decoder period checkpointed
 (``REMAT_TRAIN``); attention and the Mamba scan differentiate through
@@ -51,14 +63,16 @@ encoder in float32; in fp32 the two agree).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ATTN, MAMBA, MLSTM, SLSTM, ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import layers, mamba, moe, quant, xlstm
+from repro_torch.models import layers, mamba, moe, quant, shardings, xlstm
 
 
 def param_dtype(cfg: ModelConfig, dtype=None) -> torch.dtype:
@@ -393,6 +407,131 @@ def copy_cache_pages(caches, src_blocks, dst_blocks):
 
 
 # ---------------------------------------------------------------------------
+# Tensor parallelism: a layer's shards
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    """One shard of a tensor-parallel sublayer (an attention mixer, an MLP
+    or an MoE): its device, its config view (its q and kv heads, its
+    d_ff), its slices of the layer's weights on that device, the global kv
+    heads [kv_heads[0], kv_heads[1]) its caches hold, and, for an
+    expert-parallel MoE, the (first, count) of the experts it holds."""
+    device: torch.device
+    cfg: ModelConfig
+    params: dict
+    kv_heads: Tuple[int, int] = (0, 0)
+    experts: Optional[Tuple[int, int]] = None
+
+
+class Shards(tuple):
+    """One item per shard of a TP > 1 stage, in shard order: a sublayer's
+    Shard objects, a sharded layer's caches, or a step's tensor argument
+    on each shard's device."""
+
+
+def parts(c):
+    """The per-shard pieces of a cache or a sublayer (itself at TP 1)."""
+    return c if isinstance(c, Shards) else (c,)
+
+
+# the leaves each sharded sublayer may hold: any other (a bias after wo or
+# w_down, which the rules would replicate) would be added once per shard
+_SHARDABLE = {"mixer": set(shardings.HEAD_AXIS),
+              "mlp": {"w_gate", "w_up", "w_down"},
+              "moe": {"router", "w_gate", "w_up", "w_down"}}
+
+
+def _narrow(t, dim, r, tp):
+    n = t.shape[dim] // tp
+    return t.narrow(dim, r * n, n)
+
+
+def shard_layer_params(cfg: ModelConfig, lp, i: int, devices, place):
+    """Global layer i's params `lp` (``slice_layer_params``) cut for a
+    stage over `devices` (tp = len(devices) > 1), each piece put on its
+    device by ``place(tree, device)``: the norms whole on devices[0]; the
+    attention mixer as Shards of each shard's q heads (wq / bq columns, wo
+    rows) and the kv heads they read (wk / wv / bk / bv columns), each
+    leaf cut on its ``shardings.HEAD_AXIS`` at ``shardings.shard_heads``'
+    ranges; the MLP as Shards of d_ff slices where the
+    rules split it, else whole on devices[0]; an MoE as Shards of its
+    experts (E % tp == 0) or of every expert's d_ff slice, each with the
+    replicated router, else whole on devices[0]. Attention-only layers
+    with plain weights; raises NotImplementedError on any leaf a shard
+    cannot take (a row-parallel bias)."""
+    tp = len(devices)
+    j = layer_sub_index(cfg, i)[1]
+    for name, sub in lp.items():
+        if name in ("ln1", "ln2"):
+            continue
+        bad = set(sub) - _SHARDABLE.get(name, set())
+        if bad:
+            raise NotImplementedError(
+                f"{cfg.name}: {name} leaves {sorted(bad)} have no split "
+                "rule: a replicated leaf after a row-parallel product would "
+                "be added once per shard")
+    hd = cfg.head_dim_
+    out = {n: place(lp[n], devices[0]) for n in ("ln1", "ln2") if n in lp}
+    mixer = []
+    for dev, ((q0, q1), (k0, k1)) in zip(devices,
+                                         shardings.shard_heads(cfg, tp)):
+        heads = {n: (k0, k1) if n in shardings.KV_LEAVES else (q0, q1)
+                 for n in lp["mixer"]}
+        p = {n: t.narrow(shardings.HEAD_AXIS[n], heads[n][0] * hd,
+                         (heads[n][1] - heads[n][0]) * hd)
+             for n, t in lp["mixer"].items()}
+        view = dataclasses.replace(cfg, num_heads=q1 - q0,
+                                   num_kv_heads=k1 - k0, head_dim=hd)
+        mixer.append(Shard(dev, view, place(p, dev), (k0, k1)))
+    out["mixer"] = Shards(mixer)
+    for name in ("mlp", "moe"):
+        if name not in lp:
+            continue
+        path = ("blocks", f"sub{j}", name)
+        dims = {n: shardings.leaf_split(cfg, path + (n,), t.dim() + 1, tp)
+                for n, t in lp[name].items()}
+        if all(d is None for d in dims.values()):
+            out[name] = place(lp[name], devices[0])     # replicated
+            continue
+        expert_split = name == "moe" and dims["w_up"] == 1
+        E_loc = cfg.num_experts // tp
+        ffn = []
+        for r, dev in enumerate(devices):
+            p = {n: t if dims[n] is None else _narrow(t, dims[n] - 1, r, tp)
+                 for n, t in lp[name].items()}
+            ffn.append(Shard(
+                dev, dataclasses.replace(cfg, d_ff=p["w_up"].shape[-1]),
+                place(p, dev),
+                experts=(r * E_loc, E_loc) if expert_split else None))
+        out[name] = Shards(ffn)
+    return out
+
+
+def _sharded(part, h, cfg, fn, **args):
+    """fn(params, h, cfg, **args) of a sublayer's mixer or FFN: of the
+    whole layer where `part` is its params, or, where it is Shards, of
+    each Shard on its own device, heads and weights (its config view,
+    its item of each Shards argument, its experts), the partial
+    outputs then summed on h's device in shard order, in float32, and
+    cast to h's dtype: the row-parallel product's reduction, before the
+    caller's residual add."""
+    if not isinstance(part, Shards):
+        return fn(part, h, cfg, **args)
+    outs = []
+    for r, s in enumerate(part):
+        a = {k: v[r] if isinstance(v, Shards) else v
+             for k, v in args.items()}
+        if s.experts is not None:
+            a["experts"] = s.experts
+        outs.append(fn(s.params, h.to(s.device), s.cfg, **a))
+    acc = outs[0].to(device=h.device, dtype=torch.float32)
+    for o in outs[1:]:
+        acc = acc + o.to(device=h.device, dtype=torch.float32)
+    return acc.to(h.dtype)
+
+
+# ---------------------------------------------------------------------------
 # Stack application (one attention block: norm, attention, norm, MLP)
 # ---------------------------------------------------------------------------
 
@@ -405,9 +544,11 @@ def _norm(cfg, p, x):
 def _ffn(cfg, sp, x):
     """The block's second half: x plus its MLP or MoE on the normed x."""
     if "mlp" in sp:
-        return x + layers.mlp(sp["mlp"], _norm(cfg, sp["ln2"], x), cfg)
+        return x + _sharded(sp["mlp"], _norm(cfg, sp["ln2"], x), cfg,
+                            layers.mlp)
     if "moe" in sp:
-        return x + moe.moe_mlp(sp["moe"], _norm(cfg, sp["ln2"], x), cfg)
+        return x + _sharded(sp["moe"], _norm(cfg, sp["ln2"], x), cfg,
+                            moe.moe_mlp)
     return x
 
 
@@ -496,13 +637,22 @@ def apply_sublayer_seq(cfg, kind, sp, x, sc, *, positions, dest_blocks=None,
         _write_slot_rows(sc, rows, range(x.shape[0]) if slot_ids is None
                          else slot_ids)
     else:
-        o, k, v = layers.attn_prefill(sp["mixer"], h, cfg,
-                                      positions=positions, kv_start=kv_start)
-        if dest_blocks is None:
-            layers.write_cache(sc, k, v, window=cfg.swa_window)
-        else:
-            scatter_rows_to_pages(sc, {"k": k, "v": v}, dest_blocks)
+        o = _sharded(sp["mixer"], h, cfg, _attn_seq, cache=sc,
+                     positions=positions, kv_start=kv_start,
+                     dest_blocks=dest_blocks)
     return _ffn(cfg, sp, _cross(cfg, sp, x + o, sc, enc_out))
+
+
+def _attn_seq(p, h, cfg, *, cache, positions, kv_start, dest_blocks):
+    """Attention over whole prompts, its K/V rows written into pages
+    through dest_blocks or into the contiguous `cache`."""
+    o, k, v = layers.attn_prefill(p, h, cfg, positions=positions,
+                                  kv_start=kv_start)
+    if dest_blocks is None:
+        layers.write_cache(cache, k, v, window=cfg.swa_window)
+    else:
+        scatter_rows_to_pages(cache, {"k": k, "v": v}, dest_blocks)
+    return o
 
 
 def apply_sublayer_decode(cfg, kind, sp, x, sc, *, pos, kv_start=None):
@@ -514,8 +664,8 @@ def apply_sublayer_decode(cfg, kind, sp, x, sc, *, pos, kv_start=None):
     if kind != ATTN:
         o = _recurrent_decode(cfg, kind, sp["mixer"], h, sc)
     else:
-        o = layers.attn_decode(sp["mixer"], h, cfg, pos=pos, cache=sc,
-                               kv_start=kv_start)
+        o = _sharded(sp["mixer"], h, cfg, layers.attn_decode, pos=pos,
+                     cache=sc, kv_start=kv_start)
     return _ffn(cfg, sp, _cross(cfg, sp, x + o, sc))
 
 
@@ -528,8 +678,8 @@ def apply_sublayer_decode_paged(cfg, kind, sp, x, sc, *, pos, block_tables):
     if kind != ATTN:
         o = _recurrent_decode(cfg, kind, sp["mixer"], h, sc)
     else:
-        o = layers.attn_decode_paged(sp["mixer"], h, cfg, pos=pos,
-                                     block_tables=block_tables, cache=sc)
+        o = _sharded(sp["mixer"], h, cfg, layers.attn_decode_paged, pos=pos,
+                     block_tables=block_tables, cache=sc)
     return _ffn(cfg, sp, x + o)
 
 
@@ -537,9 +687,9 @@ def apply_sublayer_context_paged(cfg, kind, sp, x, sc, *, positions, q_len,
                                  block_tables):
     """One block over a chunk of new tokens against paged `sc`."""
     _attn_only(kind)
-    o = layers.attn_context_paged(sp["mixer"], _norm(cfg, sp["ln1"], x),
-                                  cfg, positions=positions, q_len=q_len,
-                                  block_tables=block_tables, cache=sc)
+    o = _sharded(sp["mixer"], _norm(cfg, sp["ln1"], x), cfg,
+                 layers.attn_context_paged, positions=positions, q_len=q_len,
+                 block_tables=block_tables, cache=sc)
     return _ffn(cfg, sp, x + o)
 
 
@@ -549,9 +699,9 @@ def apply_sublayer_verify_paged(cfg, kind, sp, x, sc, *, positions, q_len,
     (speculative verification; attention-only: a recurrent state cannot
     roll back past a rejected candidate)."""
     _attn_only(kind)
-    o = layers.attn_verify_paged(sp["mixer"], _norm(cfg, sp["ln1"], x), cfg,
-                                 positions=positions, q_len=q_len,
-                                 block_tables=block_tables, cache=sc)
+    o = _sharded(sp["mixer"], _norm(cfg, sp["ln1"], x), cfg,
+                 layers.attn_verify_paged, positions=positions, q_len=q_len,
+                 block_tables=block_tables, cache=sc)
     return _ffn(cfg, sp, x + o)
 
 

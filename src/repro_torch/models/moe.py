@@ -19,9 +19,17 @@ above.
 The expert products stay torch.einsum, batched over the expert axis, as
 the reference left them to XLA; an int8 weight ({"q", "s"}, s (E, out)) is
 widened and post-scaled. Training adds the router's load-balancing loss
-(``return_aux``, the reference's _aux_loss). The reference's mesh path
-(_moe_shard_map) is not ported, by design: the port runs one device a
-stage.
+(``return_aux``, the reference's _aux_loss).
+
+Tensor parallelism (a pipeline stage's shards, ``models.model._sharded``):
+every shard routes every token with the replicated router and the whole
+layer's capacity. An expert-parallel shard (``experts=(first, count)``,
+the reference's _moe_local) holds and computes only its experts'
+assignments, the others' combine weight 0 on it; a d_ff-parallel shard
+holds every expert's d_ff slice and computes them all. The shards'
+outputs sum to the layer's. The reference's production-mesh path
+(_moe_shard_map, its psum inside shard_map) is the dry run's, not
+ported.
 """
 from __future__ import annotations
 
@@ -35,17 +43,23 @@ from repro_torch.models.quant import is_quantized
 MOE_DISPATCH = "grouped"            # "grouped" | "global"
 
 
-def moe_mlp(p, x, cfg, *, return_aux=False):
+def moe_mlp(p, x, cfg, *, return_aux=False, experts=None):
     """x (b, s, d) -> (b, s, d), and with return_aux the router's
-    load-balancing loss (a float32 scalar), by ``MOE_DISPATCH``."""
+    load-balancing loss (a float32 scalar), by ``MOE_DISPATCH``.
+    ``experts=(first, count)``: `p` holds only those experts (an
+    expert-parallel shard, grouped dispatch), whose share of the output
+    this returns."""
     if MOE_DISPATCH == "global":
+        if experts is not None:
+            raise NotImplementedError("expert-parallel shards run the "
+                                      "grouped dispatch")
         return _moe_global(p, x, cfg, return_aux=return_aux)
     if MOE_DISPATCH != "grouped":
         raise ValueError(f"unknown MOE_DISPATCH {MOE_DISPATCH!r}")
-    return _moe_grouped(p, x, cfg, return_aux=return_aux)
+    return _moe_grouped(p, x, cfg, return_aux=return_aux, experts=experts)
 
 
-def _moe_grouped(p, x, cfg, *, return_aux):
+def _moe_grouped(p, x, cfg, *, return_aux, experts=None):
     b, s, d = x.shape
     E, k = cfg.num_experts, cfg.top_k
     logits = (x @ p["router"]).float()                          # (b, s, E)
@@ -56,11 +70,23 @@ def _moe_grouped(p, x, cfg, *, return_aux):
 
     fe = expert_ids.reshape(b, s * k)
     fg = gate_vals.reshape(b, s * k)
-    onehot = _one_hot(fe, E)                                   # (b, sk, E)
+    fl, owned = fe, None                # the ids of the experts p holds
+    if experts is not None:
+        # another shard's expert gets id E (this shard's count), whose
+        # one-hot row is all zero: it takes no rank and lands in the drop
+        # slot
+        first, E = experts
+        fl = fe - first
+        owned = (fl >= 0) & (fl < E)
+        fl = torch.where(owned, fl, torch.full_like(fl, E))
+    onehot = _one_hot(fl, E)                                   # (b, sk, E)
     ranks = torch.cumsum(onehot, dim=1) - onehot                # row-local
-    rank = torch.gather(ranks, 2, fe[..., None])[..., 0]
+    idx = fl if owned is None else fl.clamp(max=E - 1)
+    rank = torch.gather(ranks, 2, idx[..., None])[..., 0]
     keep = rank < C
-    slot = torch.where(keep, fe * C + rank, torch.full_like(fe, E * C))
+    if owned is not None:
+        keep = keep & owned
+    slot = torch.where(keep, fl * C + rank, torch.full_like(fl, E * C))
 
     src = torch.repeat_interleave(x, k, dim=1)                  # (b, sk, d)
     bidx = torch.arange(b, device=x.device)[:, None]
@@ -76,6 +102,9 @@ def _moe_grouped(p, x, cfg, *, return_aux):
     w = (fg * keep).to(x.dtype)
     out = (gathered * w[..., None]).reshape(b, s, k, d).sum(dim=2)
     if return_aux:
+        if experts is not None:
+            raise NotImplementedError("training has no expert-parallel "
+                                      "shards")
         return out, _aux_loss(cfg, probs, fe, b * s * k)
     return out
 

@@ -932,15 +932,7 @@ class PagedPipelineBatcher(SlotEngine):
         model's dtype (what kv_dtype=None would have allocated)."""
         base_itemsize = torch.empty((), dtype=self.pipeline.dtype
                                     ).element_size()
-        resident, baseline = 0, 0
-        for caches in self.pipeline.paged_caches:
-            for c in caches:
-                if "k" not in c:
-                    continue       # a recurrent layer's slot state
-                for n, t in c.items():
-                    resident += t.numel() * t.element_size()
-                    if n in ("k", "v"):
-                        baseline += t.numel() * base_itemsize
+        resident, baseline = self.pipeline.kv_pool_bytes(base_itemsize)
         self.kv_bytes_resident += resident
         self.kv_bytes_saved += max(baseline - resident, 0)
 

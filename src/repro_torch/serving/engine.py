@@ -2,9 +2,17 @@
 Assignment and serves workloads through the Router (twin of
 repro.serving.engine.InferenceEngine).
 
-Every replica and stage runs on the one device given (``device="cuda"`` by
-default; tests pass ``device="cpu"``). A plan's TP groups collapse onto it,
-as the reference engine collapses them onto fewer physical devices.
+Each plan's global device ids map onto the engine's ``devices`` as in the
+reference: stage device d runs on ``devices[d % len(devices)]``, and a
+stage's repeated devices collapse (TP only changes the layout, not the
+numbers), so on one card every stage runs whole there and on four a TP-2
+stage runs as two shards on two cards. ``devices`` defaults to every
+visible device of ``device``'s type (``device="cuda"`` by default, tests
+pass ``device="cpu"``), or to ``device`` itself where it names an index.
+A stage whose layers tensor parallelism does not cover yet
+(``pipeline.tp_refusal``: Mamba / xLSTM layers, an encoder-decoder, a
+VLM, int8 weights) runs whole on its first mapped device, with a warning:
+pipeline placement, as on one card, never a replicated run.
 """
 from __future__ import annotations
 
@@ -18,10 +26,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.plan import Assignment
 from repro_torch.models import model as M
 from repro_torch.models.quant import quantize_params
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, visible_devices
 from repro_torch.serving.disagg import KVLink
 from repro_torch.serving.pipeline import (AsymmetricPipeline,
                                           context_mode_supported,
+                                          tp_refusal,
                                           slot_mode_supported)
 from repro_torch.serving.request import Request
 from repro_torch.serving.router import Router, ServeStats, default_roles
@@ -31,8 +40,13 @@ from repro_torch.serving.spec import SpecConfig
 class InferenceEngine:
     """``params`` is the reference-layout parameter tree (seeded
     ``models.model.init_params`` or ``bridge.params_from_numpy``); None
-    draws seeded random weights (seed 0) on the device. ``dtype`` overrides
-    the config's parameter / KV dtype (a draft model's too).
+    draws seeded random weights from the integer seed ``key`` (0 by
+    default; the reference takes a PRNG key) on the first device.
+    ``devices`` (torch devices, or strings) are the physical devices the
+    plans' device ids map onto (see the module docstring): a stage's
+    distinct devices hold its tensor-parallel shards
+    (``serving.pipeline.StageExecutor``). ``dtype`` overrides the config's
+    parameter / KV dtype (a draft model's too).
 
     ``spec_decode=True`` turns on speculative decoding with ``spec_k``
     drafts per target step from the n-gram proposer, or from
@@ -86,15 +100,14 @@ class InferenceEngine:
     requests. A config that slot mode cannot serve (a sliding-window
     model, h2o-danube-1.8b) falls back to static batching with the
     reference's warning. ``generate`` runs one left-padded batch on
-    replica 0. The reference's ``devices`` and ``key`` raise
-    NotImplementedError: the port serves on the one ``device`` and seeds
-    its weights by an integer.
+    replica 0.
 
     ``from_config`` builds an engine from a ``ServingConfig`` and a
     scheduled ``DeploymentPlan``, as ``launch.serve`` does."""
 
     def __init__(self, cfg: ModelConfig, assignment: Assignment, *,
-                 params=None, device="cuda", dtype=None, n_slots: int = 8,
+                 params=None, device="cuda", devices=None, key: int = 0,
+                 dtype=None, n_slots: int = 8,
                  max_len: int = 256, max_batch: int = 4,
                  block_size: int = 16, stage_blocks=None,
                  prefix_caching: bool = False, prefill_chunk: int = 0,
@@ -118,21 +131,44 @@ class InferenceEngine:
                  disaggregate: bool = False,
                  roles: Optional[Sequence[str]] = None,
                  kv_link_gbps: float = 0.0, cluster=None,
-                 kvsan: bool = False, **unported):
-        if unported:
-            raise NotImplementedError(
-                f"not ported yet: {sorted(unported)} (see ROADMAP.md)")
+                 kvsan: bool = False):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.devices = ([resolve_device(d) for d in devices]
+                        if devices is not None
+                        else visible_devices(resolve_device(device)))
+        if not self.devices:
+            raise ValueError("devices is empty")
+        self.device = self.devices[0]
         assignment.validate(cfg.num_layers)
         if params is None:
-            params = M.init_params(cfg, 0, device=self.device, dtype=dtype)
+            params = M.init_params(cfg, key, device=self.device, dtype=dtype)
         if quantize:
             params = quantize_params(params)
-        self.replicas: List[AsymmetricPipeline] = [
-            AsymmetricPipeline(cfg, params, pipe.layer_split,
-                               device=self.device, dtype=dtype)
-            for pipe in assignment.pipelines]
+        self.replicas: List[AsymmetricPipeline] = []
+        placed = set()
+        for pipe in assignment.pipelines:
+            stage_devs, lo = [], 0
+            for st, n in zip(pipe.stages, pipe.layer_split):
+                mapped = [self.devices[d % len(self.devices)]
+                          for d in st.device_ids]
+                # fewer physical devices than the plan's TP degree:
+                # duplicates collapse (TP only changes the layout)
+                devs = list(dict.fromkeys(mapped))
+                why = None if len(devs) == 1 else tp_refusal(
+                    cfg, [cfg.layer_kind(i) for i in range(lo, lo + n)],
+                    params)
+                if why is not None:
+                    # pipeline placement: the stage whole on its first
+                    # device, as on a host with one card
+                    placed.add(why)
+                    devs = devs[:1]
+                stage_devs.append(devs)
+                lo += n
+            self.replicas.append(AsymmetricPipeline(
+                cfg, params, pipe.layer_split, stage_devs, dtype=dtype))
+        for why in sorted(placed):
+            warnings.warn(f"{why}: each such stage runs whole on its first "
+                          "device")
         if policy != "static" and not slot_mode_supported(cfg):
             warnings.warn(
                 f"{cfg.name}: slot mode needs uniform text decode "
@@ -219,9 +255,10 @@ class InferenceEngine:
         plan keeps supplying the per-replica dimensions; ``cluster`` feeds
         the per-pair KV-link cost model when no flat bandwidth is set;
         ``overrides`` pass through any raw ``__init__`` kwarg (n_slots,
-        params, device, ...). Without ``params`` the weights are
-        ``init_params(cfg, serving.seed)``. Every flag of ServingConfig
-        is served, as in the reference."""
+        params, device, devices, ...). Without ``params`` the weights are
+        ``init_params(cfg, key)``, ``key`` ``serving.seed`` unless
+        overridden. Every flag of ServingConfig is served, as in the
+        reference."""
         sv = serving.normalized()
         asg = assignment if assignment is not None else plan.assignment
         kw = dict(
@@ -251,11 +288,8 @@ class InferenceEngine:
                        else None),
             kv_guard_layers=sv.guard_layers(cfg.num_layers),
             kvsan=sv.kvsan)
+        kw.setdefault("key", sv.seed)
         kw.update(overrides)
-        if "params" not in kw:
-            kw["params"] = M.init_params(
-                cfg, sv.seed, device=resolve_device(kw.get("device", "cuda")),
-                dtype=kw.get("dtype"))
         return cls(cfg, asg, **kw)
 
     @staticmethod

@@ -2,13 +2,23 @@
 repro.serving.pipeline, Contribution 1, §3.2): the static whole-batch path
 (``generate``), contiguous slot mode and paged slot mode.
 
-Each stage owns its own contiguous span of layers and, in the plan, its own
-tensor-parallel device group. The port runs every stage on the one card it
-is given: the plan's TP degree collapses, as the reference engine collapses
-a TP group onto fewer physical devices (numerically identical — TP only
-changes layout). Stages stay separate objects with their own layer ranges
-and their own page pools, sized independently, so the asymmetric split is
-real.
+Each stage owns its own contiguous span of layers and its own device
+group, with its own tensor-parallel degree: ``stage_devices[si]`` (the
+reference's per-stage meshes). A stage over tp > 1 devices holds each
+layer as tp shards, cut by the reference's Megatron rules
+(``models.shardings``, ``models.model.shard_layer_params``): shard r keeps
+its q heads, the kv heads they read, its d_ff slice or its experts, and
+its page pools, on its own device; the attention's and the FFN's outputs
+are summed across the shards in shard order before each residual add.
+Embedding, final norm and head stay whole on the stage's first device
+(the logits are the same). Activations move to the next stage's first
+device, and from there to each of its shards; a step's positions and
+block tables go to each stage's devices once (``StageExecutor.put``).
+Repeated devices are not collapsed here (the engine does that): two
+shards on one card are two shards. Stages stay separate objects with
+their own page pools, sized independently, so the asymmetric split is
+real. Tensor parallelism covers attention-only decoders with plain
+weights; every family places its stages on separate devices.
 
 A stage's attention layers keep page pools, its recurrent layers (Mamba,
 mLSTM, sLSTM) one row of state per slot; a stage may hold no attention
@@ -19,7 +29,8 @@ they are the whole seam the batcher (serving.continuous) drives. Logits come
 back to the host as float32 numpy arrays every call, as in the reference.
 Page payloads (KV migration, the host tier, cluster prefix fetches) are the
 exception: they are torch tensors at pool precision (numpy has no bf16 or
-fp8), on the card, or in pinned host memory for the host tier.
+fp8), on the card, or in pinned host memory for the host tier, with every
+kv head of each layer whatever the stage's TP degree.
 """
 from __future__ import annotations
 
@@ -52,34 +63,53 @@ def context_mode_supported(cfg) -> bool:
 
 
 class StageExecutor:
-    """One pipeline stage: layers [lo, hi) on `device`."""
+    """One pipeline stage: layers [lo, hi) on `devices`, tensor-parallel
+    over tp = len(devices) shards (TP 1: the whole layers on devices[0]).
+    Repeated devices are separate shards (two shards on one card, or on
+    cpu:0 and cpu:1); collapsing a plan's device ids is the engine's job.
+    Activations and the norms live on the first device."""
 
-    def __init__(self, cfg: ModelConfig, params, lo: int, hi: int, *,
-                 device: torch.device, dtype: torch.dtype, is_first: bool,
-                 is_last: bool):
+    def __init__(self, cfg: ModelConfig, params, lo: int, hi: int,
+                 devices: Sequence[torch.device], *, dtype: torch.dtype,
+                 is_first: bool, is_last: bool):
         self.cfg = cfg
         self.lo, self.hi = lo, hi
         self.is_first, self.is_last = is_first, is_last
-        self.device = device
+        self.devices = list(devices)
+        self.tp = len(self.devices)
+        self.device = self.devices[0]
         self.dtype = dtype
         self.kinds = [cfg.layer_kind(i) for i in range(lo, hi)]
+        if self.tp > 1:
+            why = tp_refusal(cfg, self.kinds, params)
+            if why is not None:
+                raise NotImplementedError(
+                    f"{why}; place it on one device a stage")
 
-        def place(tree):
+        def place(tree, device=self.device):
             # an int8 weight keeps its int8 payload and float32 scales, a
-            # Mamba layer its float32 dynamics
+            # Mamba layer its float32 dynamics; a shard's column slice is
+            # copied, to be contiguous on its device
             if is_quantized(tree):
                 return {k: v.to(device=device) for k, v in tree.items()}
-            return {k: place(v) if isinstance(v, dict)
+            return {k: place(v, device) if isinstance(v, dict)
                     else v.to(device=device,
                               dtype=torch.float32 if k in FP32_LEAVES
-                              else dtype)
+                              else dtype).contiguous()
                     for k, v in tree.items()}
-        self.layer_params = [place(M.slice_layer_params(cfg, params, i))
-                             for i in range(lo, hi)]
+        if self.tp == 1:
+            self.layer_params = [place(M.slice_layer_params(cfg, params, i))
+                                 for i in range(lo, hi)]
+        else:
+            self.layer_params = [
+                M.shard_layer_params(cfg, M.slice_layer_params(cfg, params, i),
+                                     i, self.devices, place)
+                for i in range(lo, hi)]
         self.head_params = None
         if is_first or is_last:
-            # no lm_head under tied embeddings; the encoder runs on the
-            # first stage
+            # whole on the first device (the logits are the same); no
+            # lm_head under tied embeddings; the encoder runs on the first
+            # stage
             names = [n for n in ("embed", "final_norm", "lm_head")
                      if n in params]
             if cfg.is_encoder_decoder and is_first:
@@ -90,29 +120,139 @@ class StageExecutor:
     def has_attn(self) -> bool:
         return ATTN in self.kinds
 
+    def put(self, t):
+        """A step's tensor `t` (or None) where this stage's layers read it:
+        on its device at TP 1, else Shards of its copies, one copy a
+        distinct device (so each goes once a step, not once a layer)."""
+        if t is None or self.tp == 1:
+            return None if t is None else t.to(self.device)
+        by = {}
+        for d in self.devices:
+            if d not in by:
+                by[d] = t.to(d)
+        return M.Shards(by[d] for d in self.devices)
+
+    def _shards(self, k: int):
+        """Layer k's mixer shards (None at TP 1)."""
+        m = self.layer_params[k]["mixer"]
+        return m if isinstance(m, M.Shards) else None
+
+    def _layer_caches(self, make):
+        """make(cfg, i, device) of each layer: one cache on the stage's
+        device, or Shards of each shard's (its kv heads, its device)."""
+        out = []
+        for k, i in enumerate(range(self.lo, self.hi)):
+            sh = self._shards(k)
+            out.append(make(self.cfg, i, self.device) if sh is None
+                       else M.Shards(make(s.cfg, i, s.device) for s in sh))
+        return out
+
     def make_caches(self, batch: int, max_len: int):
         """Per-layer contiguous caches of `batch` rows: attention K/V of
         max_len positions (the sliding-window ring of min(max_len, window)
         slots), recurrent state rows."""
-        return [M.init_layer_cache(self.cfg, i, batch, max_len,
-                                   dtype=self.dtype, device=self.device)
-                for i in range(self.lo, self.hi)]
+        return self._layer_caches(lambda cfg, i, dev: M.init_layer_cache(
+            cfg, i, batch, max_len, dtype=self.dtype, device=dev))
 
     def make_paged_caches(self, n_blocks: int, block_size: int,
                           n_slots: int, *, kv_dtype: Optional[str] = None,
                           kv_guard_layers: Sequence[int] = ()):
         """Per-layer caches: page pools for the attention layers, which
         share ONE block-id space of `n_blocks` blocks (one table addresses
-        every layer), and `n_slots` rows of state for the recurrent
-        layers.
+        every layer and every shard), and `n_slots` rows of state for the
+        recurrent layers.
         `kv_dtype` selects the pool precision (None = the model's);
         `kv_guard_layers` are GLOBAL layer indices kept at model
         precision."""
-        return [M.init_layer_paged_cache(self.cfg, i, n_blocks, block_size,
-                                         dtype=self.dtype, device=self.device,
-                                         n_slots=n_slots, kv_dtype=kv_dtype,
-                                         kv_guard_layers=kv_guard_layers)
-                for i in range(self.lo, self.hi)]
+        return self._layer_caches(lambda cfg, i, dev: M.init_layer_paged_cache(
+            cfg, i, n_blocks, block_size, dtype=self.dtype, device=dev,
+            n_slots=n_slots, kv_dtype=kv_dtype,
+            kv_guard_layers=kv_guard_layers))
+
+    def scatter_rows(self, pools, rows, slot_ids) -> None:
+        """Write scratch caches `rows` into the contiguous `pools` at
+        slots slot_ids, shard by shard, in place."""
+        for pool, r in zip(pools, rows):
+            for p, q in zip(M.parts(pool), M.parts(r)):
+                M.scatter_cache_rows(p, q, slot_ids, batch_axis=0)
+
+    def copy_pages(self, caches, src, dst) -> None:
+        """Copy-on-write of page contents src -> dst (host lists) in every
+        layer and shard, in place."""
+        src, dst = (M.parts(self.put(torch.as_tensor(np.asarray(
+            a, np.int64)))) for a in (src, dst))
+        for c in caches:
+            for r, part in enumerate(M.parts(c)):
+                M.copy_cache_pages([part], src[r], dst[r])
+
+    def gather_pages(self, caches, blocks, host: bool = False) -> List[dict]:
+        """Each layer's payload at `blocks`: its K/V pages (and scale pages
+        on a quantized pool), copied out at pool precision with ALL the
+        layer's kv heads (a sharded layer's taken from the shards that
+        hold them, each head once, on the stage's device). ``host`` puts
+        the copy in host memory, pinned when the pool is on the card (one
+        synchronous copy, so the payload is complete when this returns)."""
+        idx = self.put(torch.as_tensor(np.asarray(blocks, np.int64)))
+        out = []
+        for k, c in enumerate(caches):
+            sh = self._shards(k)
+            if sh is None:
+                lkv = _gather(c, idx)
+            else:
+                pieces, nxt = [], 0
+                for s, cr, ir in zip(sh, c, idx):
+                    k0, k1 = s.kv_heads
+                    if k1 <= nxt:
+                        continue        # a replicated head taken already
+                    pieces.append({n: t.narrow(2, nxt - k0, k1 - nxt)
+                                   .to(self.device)
+                                   for n, t in _gather(cr, ir).items()})
+                    nxt = k1
+                lkv = {n: _bits_cat([p[n] for p in pieces], dim=2)
+                       for n in pieces[0]}
+            if host:
+                lkv = {n: _to_host(t) for n, t in lkv.items()}
+            out.append(lkv)
+        return out
+
+    def scatter_pages(self, caches, blocks, payload) -> None:
+        """Write per-layer payloads (all kv heads) into `caches`' pools at
+        `blocks`, in place, each shard taking its kv heads; a host payload
+        is copied to the device first (synchronously: the host buffer may
+        be dropped as soon as this returns)."""
+        idx = self.put(torch.as_tensor(np.asarray(blocks, np.int64)))
+        for k, (c, lkv) in enumerate(zip(caches, payload)):
+            sh = self._shards(k)
+            if sh is None:
+                _scatter(c, idx, lkv)
+                continue
+            for s, cr, ir in zip(sh, c, idx):
+                k0, k1 = s.kv_heads
+                _scatter(cr, ir, {n: a.narrow(2, k0, k1 - k0)
+                                  for n, a in lkv.items()})
+
+    def kv_bytes(self, caches, base_itemsize: int):
+        """(resident, baseline) bytes of the attention layers' pools,
+        each kv head counted once (a replicated head's copies are one
+        head, as in the reference's global arrays); baseline counts the
+        K/V pools at `base_itemsize`."""
+        resident = baseline = 0
+        for k, c in enumerate(caches):
+            sh = self._shards(k) or [None]
+            nxt = 0
+            for s, part in zip(sh, M.parts(c)):
+                if "k" not in part:
+                    break              # a recurrent layer's slot state
+                share = 1.0
+                if s is not None:
+                    k0, k1 = s.kv_heads
+                    share = max(k1 - max(k0, nxt), 0) / (k1 - k0)
+                    nxt = max(nxt, k1)
+                for n, t in part.items():
+                    resident += int(t.numel() * share) * t.element_size()
+                    if n in ("k", "v"):
+                        baseline += int(t.numel() * share) * base_itemsize
+        return resident, baseline
 
     def prefill(self, x, caches, positions, *, dest_blocks=None,
                 kv_start=None, valid=None, lens=None, slot_ids=None,
@@ -120,7 +260,12 @@ class StageExecutor:
         """The stage's layers over whole prompts (``M.apply_sublayer_seq``):
         attention K/V into pages through dest_blocks, or into the
         contiguous `caches`; an encoder-decoder's layers attend to enc_out
-        and cache its cross K/V."""
+        and cache its cross K/V. Every tensor argument is the step's on
+        any device: it goes to this stage's devices here, once."""
+        x = x.to(self.device)
+        positions, dest_blocks, kv_start, valid, lens, enc_out = (
+            self.put(t) for t in (positions, dest_blocks, kv_start, valid,
+                                  lens, enc_out))
         for kind, lp, sc in zip(self.kinds, self.layer_params, caches):
             x = M.apply_sublayer_seq(self.cfg, kind, lp, x, sc,
                                      positions=positions,
@@ -132,12 +277,16 @@ class StageExecutor:
 
     def decode(self, x, caches, pos, kv_start=None):
         """One decode token per row against the contiguous `caches`."""
+        x, pos, kv_start = x.to(self.device), self.put(pos), \
+            self.put(kv_start)
         for kind, lp, sc in zip(self.kinds, self.layer_params, caches):
-            x = M.apply_sublayer_decode(self.cfg, kind, lp, x, sc, pos=pos,
-                                        kv_start=kv_start)
+            x = M.apply_sublayer_decode(self.cfg, kind, lp, x, sc,
+                                        pos=pos, kv_start=kv_start)
         return x
 
     def decode_paged(self, x, caches, pos, block_tables):
+        x, pos, block_tables = (x.to(self.device), self.put(pos),
+                                self.put(block_tables))
         for kind, lp, sc in zip(self.kinds, self.layer_params, caches):
             x = M.apply_sublayer_decode_paged(self.cfg, kind, lp, x, sc,
                                               pos=pos,
@@ -145,38 +294,122 @@ class StageExecutor:
         return x
 
     def context_paged(self, x, caches, positions, q_len, block_tables):
+        x, positions, q_len, block_tables = (
+            x.to(self.device), self.put(positions), self.put(q_len),
+            self.put(block_tables))
         for kind, lp, sc in zip(self.kinds, self.layer_params, caches):
             x = M.apply_sublayer_context_paged(
-                self.cfg, kind, lp, x, sc, positions=positions, q_len=q_len,
-                block_tables=block_tables)
+                self.cfg, kind, lp, x, sc, positions=positions,
+                q_len=q_len, block_tables=block_tables)
         return x
 
     def verify_paged(self, x, caches, positions, q_len, block_tables):
+        x, positions, q_len, block_tables = (
+            x.to(self.device), self.put(positions), self.put(q_len),
+            self.put(block_tables))
         for kind, lp, sc in zip(self.kinds, self.layer_params, caches):
             x = M.apply_sublayer_verify_paged(
-                self.cfg, kind, lp, x, sc, positions=positions, q_len=q_len,
-                block_tables=block_tables)
+                self.cfg, kind, lp, x, sc, positions=positions,
+                q_len=q_len, block_tables=block_tables)
         return x
 
 
+def tp_refusal(cfg: ModelConfig, kinds, params) -> Optional[str]:
+    """Why a stage of layer kinds `kinds` cannot run over tensor-parallel
+    shards, or None: tensor parallelism covers attention-only decoders
+    with plain weights (ROADMAP queue 1 items 10 and 11 hold the rest).
+    The executor raises on it (no fallback to a replicated run); the
+    engine places such a stage on one device."""
+    what = None
+    if cfg.is_encoder_decoder:
+        what, item = "an encoder-decoder", 10
+    elif cfg.num_image_tokens:
+        what, item = "a VLM", 10
+    elif any(k != ATTN for k in kinds):
+        what, item = f"a {next(k for k in kinds if k != ATTN)} layer", 10
+    elif any(is_quantized(v) for v in _subtrees(params)):
+        what, item = "quantize=True weights", 11
+    if what is None:
+        return None
+    return (f"{cfg.name} ({cfg.family}): a stage over tensor-parallel "
+            f"shards is not ported for {what} (ROADMAP.md queue 1 item "
+            f"{item})")
+
+
+def _subtrees(tree):
+    """Every dict in a param tree (a quantized weight is one)."""
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield v
+            yield from _subtrees(v)
+
+
+def _bits_cat(ts, dim):
+    """torch.cat of same-dtype tensors through their bits (fp8 too)."""
+    if len(ts) == 1:
+        return ts[0]
+    return torch.cat([bits(t) for t in ts], dim=dim).view(ts[0].dtype)
+
+
+def _to_host(t):
+    """A copy of `t` in host memory, pinned when `t` is on the card."""
+    if not t.is_cuda:
+        return t
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    bits(h).copy_(bits(t))
+    return h
+
+
+def _gather(c: dict, idx) -> dict:
+    """One pool's pages at block ids `idx` (on its device): K/V and, on a
+    quantized pool, the scale pages, at pool precision."""
+    if "k" not in c or "v" not in c:
+        raise NotImplementedError("page payloads cover attention-only "
+                                  "stacks (a recurrent layer's state "
+                                  "has no pages)")
+    return {n: bits(c[n]).index_select(0, idx).view(c[n].dtype)
+            for n in ("k", "v") + KV_SCALE_LEAVES if n in c}
+
+
+def _scatter(c: dict, idx, lkv: dict) -> None:
+    """Write one layer's payload `lkv` into pool `c` at block ids `idx`,
+    verbatim (the same leaves and dtypes), in place."""
+    if set(lkv) != {n for n in ("k", "v") + KV_SCALE_LEAVES if n in c}:
+        raise ValueError(f"payload leaves {sorted(lkv)} do not "
+                         f"match the pool's {sorted(c)}")
+    for n, a in lkv.items():
+        if a.dtype != c[n].dtype:
+            raise ValueError(f"payload {n} is {a.dtype}, the pool "
+                             f"{c[n].dtype}: pages land verbatim")
+        bits(c[n]).index_copy_(0, idx, bits(a).to(c[n].device))
+
+
 class AsymmetricPipeline:
-    """A full model replica as a chain of StageExecutors on one device."""
+    """A full model replica as a chain of StageExecutors, stage si over
+    the devices ``stage_devices[si]`` (None: one ``device`` a stage)."""
 
     def __init__(self, cfg: ModelConfig, params, stage_layers: Sequence[int],
-                 *, device="cuda", dtype: Optional[torch.dtype] = None):
+                 stage_devices=None, *, device="cuda",
+                 dtype: Optional[torch.dtype] = None):
         if sum(stage_layers) != cfg.num_layers:
             raise ValueError(f"stage layers {list(stage_layers)} do not sum "
                              f"to {cfg.num_layers}")
+        if stage_devices is None:
+            stage_devices = [[device]] * len(stage_layers)
+        if len(stage_devices) != len(stage_layers) or not all(
+                stage_devices):
+            raise ValueError("one non-empty device list per stage")
+        stage_devices = [[resolve_device(d) for d in devs]
+                         for devs in stage_devices]
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.device = stage_devices[0][0]    # the replica's first device
         self.dtype = M.param_dtype(cfg, dtype)
         self.stages: List[StageExecutor] = []
         lo = 0
-        for si, nl in enumerate(stage_layers):
+        for si, (nl, devs) in enumerate(zip(stage_layers, stage_devices)):
             self.stages.append(StageExecutor(
-                cfg, params, lo, lo + nl, device=self.device,
-                dtype=self.dtype, is_first=(si == 0),
-                is_last=(si == len(stage_layers) - 1)))
+                cfg, params, lo, lo + nl, devs, dtype=self.dtype,
+                is_first=(si == 0), is_last=(si == len(stage_layers) - 1)))
             lo += nl
         # static batching (prefill / decode_step / generate): the caches of
         # the batch in flight, its left padding and its next position
@@ -193,6 +426,19 @@ class AsymmetricPipeline:
         self.stage_blocks: List[int] = []
         self.kv_dtype: Optional[str] = None      # model precision pools
         self.kv_guard_layers: tuple = ()
+
+    def describe_devices(self) -> List[List[str]]:
+        """Each stage's shards' devices, as strings."""
+        return [[str(d) for d in st.devices] for st in self.stages]
+
+    def kv_pool_bytes(self, base_itemsize: int):
+        """(resident, baseline) bytes of the paged pools (each kv head
+        once), baseline at `base_itemsize` bytes a K/V element."""
+        res = base = 0
+        for st, caches in zip(self.stages, self.paged_caches or ()):
+            r, b = st.kv_bytes(caches, base_itemsize)
+            res, base = res + r, base + b
+        return res, base
 
     # ---- host <-> device seam -------------------------------------------
     def _ints(self, a) -> torch.Tensor:
@@ -213,8 +459,17 @@ class AsymmetricPipeline:
         return x
 
     def _head(self, x) -> np.ndarray:
-        logits = M._head(self.cfg, self.stages[-1].head_params, x)
+        """Logits of the last stage's rows x, copied to the host from the
+        last stage's first device."""
+        st = self.stages[-1]
+        logits = M._head(self.cfg, st.head_params, x.to(st.device))
         return logits.float().cpu().numpy()
+
+    def _last_rows(self, x, lens_t) -> torch.Tensor:
+        """Row i's position lens_t[i] - 1 of x (m, P, d), as (m, 1, d)."""
+        lens_t = lens_t.to(x.device)
+        ridx = torch.arange(x.shape[0], device=x.device)
+        return x[ridx, lens_t - 1][:, None]
 
     # ---- static batching ---------------------------------------------------
     @torch.inference_mode()
@@ -326,10 +581,8 @@ class AsymmetricPipeline:
         for si, st in enumerate(self.stages):
             scratch = st.make_caches(m, self.slot_len)
             x = st.prefill(x, scratch, positions, valid=valid, lens=lens_t)
-            for pool, rows in zip(self.slot_caches[si], scratch):
-                M.scatter_cache_rows(pool, rows, slot_ids, batch_axis=0)
-        ridx = torch.arange(m, device=self.device)
-        return self._head(x[ridx, lens_t - 1][:, None])[:, 0]
+            st.scatter_rows(self.slot_caches[si], scratch, slot_ids)
+        return self._head(self._last_rows(x, lens_t))[:, 0]
 
     @torch.inference_mode()
     def decode_slots(self, tokens: np.ndarray,
@@ -403,8 +656,7 @@ class AsymmetricPipeline:
             x = st.prefill(x, self.paged_caches[si], positions,
                            dest_blocks=dest, valid=valid, lens=lens_t,
                            slot_ids=slot_ids)
-        ridx = torch.arange(m, device=self.device)
-        return self._head(x[ridx, lens_t - 1][:, None])[:, 0]
+        return self._head(self._last_rows(x, lens_t))[:, 0]
 
     @torch.inference_mode()
     def context_slots_paged(self, tokens: np.ndarray, lens: np.ndarray,
@@ -428,8 +680,7 @@ class AsymmetricPipeline:
         for si, st in enumerate(self.stages):
             x = st.context_paged(x, self.paged_caches[si], positions, lens_t,
                                  self._tables(stage_tables[si]))
-        ridx = torch.arange(m, device=self.device)
-        return self._head(x[ridx, lens_t - 1][:, None])[:, 0]
+        return self._head(self._last_rows(x, lens_t))[:, 0]
 
     @torch.inference_mode()
     def copy_pages(self, stage_idx: int, src_blocks: Sequence[int],
@@ -438,8 +689,8 @@ class AsymmetricPipeline:
         of stage `stage_idx`, in place."""
         if not src_blocks:
             return
-        M.copy_cache_pages(self.paged_caches[stage_idx],
-                           self._ints(src_blocks), self._ints(dst_blocks))
+        self.stages[stage_idx].copy_pages(self.paged_caches[stage_idx],
+                                          src_blocks, dst_blocks)
 
     # ---- KV migration (disaggregated prefill/decode) -----------------------
     # The wire format is per-GLOBAL-LAYER so the source and destination
@@ -448,56 +699,14 @@ class AsymmetricPipeline:
     # owns its own K/V arrays, so regrouping layers across stages is just a
     # different iteration order over the same per-layer payloads.
 
-    def _gather_pages(self, c: dict, blocks: Sequence[int],
-                      host: bool = False) -> dict:
-        """One layer's payload: its K/V pages (and scale pages on a
-        quantized pool) at `blocks`, copied out of the pool at pool
-        precision. ``host`` puts the copy in host memory, pinned when the
-        pool is on the card (one synchronous copy, so the payload is
-        complete when this returns)."""
-        if "k" not in c or "v" not in c:
-            raise NotImplementedError("page payloads cover attention-only "
-                                      "stacks (a recurrent layer's state "
-                                      "has no pages)")
-        idx = torch.as_tensor(np.asarray(blocks, np.int64),
-                              device=self.device)
-        out = {}
-        for n in ("k", "v") + KV_SCALE_LEAVES:
-            if n not in c:
-                continue
-            t = bits(c[n]).index_select(0, idx).view(c[n].dtype)
-            if host and t.is_cuda:
-                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                bits(h).copy_(bits(t))
-                t = h
-            out[n] = t
-        return out
-
-    def _scatter_pages(self, caches: Sequence[dict], blocks: Sequence[int],
-                       payload: Sequence[dict]) -> None:
-        """Write per-layer payloads into `caches`' pools at `blocks`, in
-        place; a host payload is copied to the card first (synchronously:
-        the host buffer may be dropped as soon as this returns)."""
-        idx = torch.as_tensor(np.asarray(blocks, np.int64),
-                              device=self.device)
-        for c, lkv in zip(caches, payload):
-            if set(lkv) != {n for n in ("k", "v") + KV_SCALE_LEAVES
-                            if n in c}:
-                raise ValueError(f"payload leaves {sorted(lkv)} do not "
-                                 f"match the pool's {sorted(c)}")
-            for n, a in lkv.items():
-                if a.dtype != c[n].dtype:
-                    raise ValueError(f"payload {n} is {a.dtype}, the pool "
-                                     f"{c[n].dtype}: pages land verbatim")
-                bits(c[n]).index_copy_(0, idx, bits(a).to(self.device))
-
     @torch.inference_mode()
     def extract_kv_pages(self, stage_blocks: Sequence[Optional[Sequence[int]]]
                          ) -> List[dict]:
         """Gather the page CONTENTS of each stage's block list: returns
         ``layer_kv[l] = {"k","v"}`` of shape (n_blocks, block_size,
-        kv_heads, head_dim) for every global layer l, in layer order, as
-        tensors on this pipeline's device. ``stage_blocks[si]`` is the
+        kv_heads, head_dim), ALL the layer's kv heads whatever the stage's
+        TP degree, for every global layer l, in layer order, as tensors on
+        its stage's first device. ``stage_blocks[si]`` is the
         (ordered) physical block list of one request on stage si — whole
         blocks, so a partial tail block ships its masked rows rather than a
         ragged slice. Quantized pools ship at wire width with their
@@ -506,9 +715,9 @@ class AsymmetricPipeline:
         dtype. Attention-only stacks."""
         if self.paged_caches is None:
             raise RuntimeError("no paged caches to extract")
-        return [self._gather_pages(c, stage_blocks[si])
-                for si in range(len(self.stages))
-                for c in self.paged_caches[si]]
+        return [lkv for si, st in enumerate(self.stages)
+                for lkv in st.gather_pages(self.paged_caches[si],
+                                           stage_blocks[si])]
 
     @torch.inference_mode()
     def scatter_kv_pages(self, stage_blocks: Sequence[Optional[Sequence[int]]],
@@ -516,7 +725,9 @@ class AsymmetricPipeline:
         """Migrate-in: write per-layer page payloads (extract_kv_pages wire
         format, possibly from a pipeline with a DIFFERENT stage split) into
         this pipeline's pools at each stage's freshly allocated block list,
-        in place, verbatim (no requantization). A ``None`` entry in
+        in place, verbatim (no requantization), each shard of a TP stage
+        taking its kv heads: the payload's source may have another TP
+        degree. A ``None`` entry in
         ``stage_blocks`` SKIPS that stage (its layers' payload slices are
         discarded) — a cluster prefix fetch lands only in the stages that
         miss locally."""
@@ -526,8 +737,8 @@ class AsymmetricPipeline:
         for si, st in enumerate(self.stages):
             n_layers = st.hi - st.lo
             if stage_blocks[si] is not None:
-                self._scatter_pages(self.paged_caches[si], stage_blocks[si],
-                                    layer_kv[li:li + n_layers])
+                st.scatter_pages(self.paged_caches[si], stage_blocks[si],
+                                 layer_kv[li:li + n_layers])
             li += n_layers
         if li != len(layer_kv):
             raise ValueError(f"{len(layer_kv)} layer payloads for a "
@@ -546,8 +757,8 @@ class AsymmetricPipeline:
         card; otherwise the payload stays on the device (a peer export)."""
         if self.paged_caches is None:
             raise RuntimeError("no paged caches to extract")
-        return [self._gather_pages(c, blocks, host=host)
-                for c in self.paged_caches[stage_idx]]
+        return self.stages[stage_idx].gather_pages(
+            self.paged_caches[stage_idx], blocks, host=host)
 
     @torch.inference_mode()
     def scatter_stage_pages(self, stage_idx: int, blocks: Sequence[int],
@@ -557,7 +768,8 @@ class AsymmetricPipeline:
         payload re-lands verbatim (same pool precision it spilled at)."""
         if self.paged_caches is None:
             raise RuntimeError("call init_paged_caches first")
-        self._scatter_pages(self.paged_caches[stage_idx], blocks, payload)
+        self.stages[stage_idx].scatter_pages(self.paged_caches[stage_idx],
+                                             blocks, payload)
 
     @torch.inference_mode()
     def decode_slots_paged(self, tokens: np.ndarray, positions: np.ndarray,

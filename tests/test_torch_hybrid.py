@@ -43,6 +43,8 @@ from repro_torch.serving import request as preq
 from repro_torch.serving.engine import InferenceEngine as PEngine
 from repro_torch.serving.loop import VirtualClock as PClock
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 ARCH = "jamba-v0.1-52b"
 ATOL = 1e-5
 COUNTERS = ("latencies", "iterations", "prefill_tokens", "prefix_lookups",

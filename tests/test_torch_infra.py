@@ -208,11 +208,25 @@ def test_unported_features_raise_not_implemented():
     cfg = port_config("llama2-70b").reduced()
     asg = port_plan.Assignment([port_plan.PipelinePlan(
         [port_plan.StagePlan([0], 2)])])
-    # the reference's devices and key: the port serves on one device and
-    # seeds its weights by an integer
-    for kw in (dict(devices=["cpu"]), dict(key=0)):
-        with pytest.raises(NotImplementedError, match=next(iter(kw))):
-            InferenceEngine(cfg, asg, device="cpu", **kw)
+    # the reference's devices and key are served (tests/test_torch_tp.py);
+    # what a tensor-parallel stage does not cover raises in the executor:
+    # a stage over two devices of a model with Mamba layers, or with int8
+    # weights; the engine places such a stage on one device and says so
+    InferenceEngine(cfg, asg, devices=["cpu:0", "cpu:1"], key=1)
+    two = port_plan.Assignment([port_plan.PipelinePlan(
+        [port_plan.StagePlan([0, 1], 2)])])
+    from repro_torch.models.quant import quantize_params
+    cpus = ["cpu:0", "cpu:1"]
+    with pytest.raises(NotImplementedError, match="quantize=True"):
+        AsymmetricPipeline(cfg, quantize_params(PM.init_params(
+            cfg, 0, device="cpu")), [2], [cpus])
+    with pytest.warns(UserWarning, match="quantize=True"):
+        eng = InferenceEngine(cfg, two, devices=cpus, quantize=True)
+    assert eng.replicas[0].describe_devices() == [["cpu:0"]]
+    jamba = port_config("jamba-v0.1-52b").reduced()
+    with pytest.raises(NotImplementedError, match="mamba layer"):
+        AsymmetricPipeline(jamba, PM.init_params(jamba, 0, device="cpu"),
+                           [jamba.num_layers], [cpus])
     # unquantized pools of another width than the model's are served: a
     # bf16 pool under the fp32 model is built (test_torch_kv_widths.py)
     eng = InferenceEngine(cfg, asg, device="cpu", cache_layout="paged",

@@ -45,6 +45,8 @@ from repro_torch.serving import request as preq
 from repro_torch.serving.pipeline import AsymmetricPipeline as PPipe
 from repro_torch.serving.spec import SpecConfig as PSpec
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 
 class _Pkg:
     """One package's modules, by role."""

@@ -524,9 +524,12 @@ def test_launcher_serves_every_flag_as_the_reference(tmp_path, capsys,
             str(tmp_path / tag), "OUT").splitlines()
     got, want = lines[P], lines[J]
     # the port adds one line under the calibration table: what its
-    # "observed" column is
+    # "observed" column is; and one a replica naming its stages' devices
     assert got.count(pserve.CALIBRATION_NOTE) == 1
-    assert [x for x in got if x != pserve.CALIBRATION_NOTE] == want
+    assert any(x.startswith(pserve.DEVICES_LINE + "0: stage 0 cpu")
+               for x in got)
+    assert [x for x in got if x != pserve.CALIBRATION_NOTE
+            and not x.startswith(pserve.DEVICES_LINE)] == want
     assert any(x.startswith("  roles: ['prefill'") for x in got)
     assert any(x.startswith("  host-tier blocks per replica: ") for x in got)
     assert any(x.startswith("  trace: OUT.json (") for x in got)

@@ -44,6 +44,8 @@ from repro_torch.serving.engine import InferenceEngine as PEngine
 from repro_torch.serving.resched import OnlineRescheduler as PCtl
 from repro_torch.serving.resched import evacuate_worker
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 PKGS = ((jrs, JPhased), (prs, PPhased))
 JPLAN = types.SimpleNamespace(Assignment=Assignment, PipelinePlan=PipelinePlan,
                               StagePlan=StagePlan)

@@ -49,6 +49,8 @@ from repro_torch.serving.loop import VirtualClock as PClock
 from repro_torch.serving.loop import run_serve_loop as p_serve_loop
 from repro_torch.serving.pipeline import AsymmetricPipeline as PPipeline
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 ATOL = 2e-5
 TOL = dict(atol=1e-4, rtol=1e-4)
 COUNTERS = ("latencies", "iterations", "prefill_tokens", "prefix_lookups",

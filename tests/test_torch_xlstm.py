@@ -48,6 +48,8 @@ from repro_torch.serving.engine import InferenceEngine as PEngine
 from repro_torch.serving.loop import VirtualClock as PClock
 from repro_torch.serving.pipeline import AsymmetricPipeline as PPipeline
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 ARCH = "xlstm-125m"
 TOL = dict(atol=1e-4, rtol=1e-4)
 COUNTERS = ("latencies", "iterations", "prefill_tokens", "prefix_lookups",

@@ -44,6 +44,8 @@ from repro_torch.serving import request as preq
 from repro_torch.serving.engine import InferenceEngine as PEngine
 from repro_torch.serving.loop import VirtualClock as PClock
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 NEW = ("granite-20b", "codeqwen1.5-7b", "phi3.5-moe-42b-a6.6b",
        "granite-moe-3b-a800m", "xlstm-125m")
