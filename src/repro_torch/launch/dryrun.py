@@ -8,6 +8,8 @@ on a TPU mesh).
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--json out.json]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama2-70b \\
       --shape prefill_32k --device cuda --layers 2 --batch 1
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama2-70b \\
+      --shape decode_32k --mesh 16x16 [--multi-pod]
 
 The default device is ``meta``, as the reference's dry run allocates
 nothing: the step runs on shapes and dtypes, counted by
@@ -18,6 +20,15 @@ record's ``reduced``) and adds the step's time (CUDA events, median of 3
 after a warm-up), the peak of allocated memory and the roofline share,
 beside the card's name and power limit. Without a card it raises; there is
 no CPU fallback.
+
+``--mesh DATAxMODEL`` counts card 0's share of the step on a (data, model)
+mesh of that many H100s (``launch.specs``: the batch over the data axis,
+the layers as shard 0 of tensor parallelism over the model axis), as the
+reference's dry run compiles one chip's partition: per-card FLOPs, bytes
+and collective bytes (each reduction the shard shares, by kind), the
+collective term on NVLink (``launch.roofline``) and ``chips``.
+``--multi-pod`` prefixes a pod axis of 2 (the reference's (2, 16, 16));
+``--mesh`` alone with ``--multi-pod`` takes the production (2, 16, 16).
 """
 from __future__ import annotations
 
@@ -33,6 +44,7 @@ import torch
 from torch.utils._pytree import tree_flatten
 
 from repro_torch.configs import list_archs
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import op_analysis, roofline, specs
 
 SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
@@ -104,14 +116,30 @@ def time_step(fn, args, reps: int = 3):
     return statistics.median(times), torch.cuda.max_memory_allocated()
 
 
+def parse_mesh(text: str, multi_pod: bool = False):
+    """"DATAxMODEL" (e.g. "16x16") -> a (data, model) mesh, with a pod
+    axis of 2 in front under `multi_pod`."""
+    try:
+        data, model = (int(v) for v in text.lower().split("x"))
+    except ValueError:
+        raise ValueError(f"--mesh {text!r}: give DATAxMODEL, e.g. 16x16")
+    if multi_pod:
+        return mesh_lib.make_mesh((2, data, model),
+                                  ("pod", "data", mesh_lib.MODEL_AXIS))
+    return mesh_lib.make_mesh((data, model), ("data", mesh_lib.MODEL_AXIS))
+
+
 def run_one(arch: str, shape_name: str, *, device="meta", layers=None,
-            batch=None, verbose: bool = True) -> dict:
+            batch=None, verbose: bool = True, mesh=None,
+            multi_pod: bool = False) -> dict:
     fn, args, cfg, shape, reduced = specs.build_dryrun(
-        arch, shape_name, device=device, layers=layers, batch=batch)
+        arch, shape_name, device=device, layers=layers, batch=batch,
+        mesh=mesh, multi_pod=multi_pod)
     counter, mem, out = count_step(fn, args)
     del out
     rl = roofline.extract(
-        counter, model_flops=roofline.model_flops_estimate(cfg, shape))
+        counter, model_flops=roofline.model_flops_estimate(cfg, shape),
+        chips=1 if mesh is None else mesh.size)
     rec = {
         "arch": arch,
         "shape": shape_name,
@@ -128,6 +156,8 @@ def run_one(arch: str, shape_name: str, *, device="meta", layers=None,
             (mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"])
             / roofline.HBM_BYTES),
     }
+    if mesh is not None:
+        rec.update(mesh=list(mesh.shape), multi_pod=multi_pod)
     if torch.device(device).type == "cuda":
         ms, peak = time_step(fn, args)
         rec.update(step_ms=ms, peak_allocated_bytes=peak,
@@ -141,7 +171,9 @@ def run_one(arch: str, shape_name: str, *, device="meta", layers=None,
 def _print(rec):
     r, mem = rec["roofline"], rec["memory_analysis"]
     cut = f" reduced {rec['reduced']}" if rec["reduced"] else ""
-    print(f"== {rec['arch']} x {rec['shape']} on {rec['device']}{cut} ==")
+    on = f" card 0 of mesh={rec['mesh']}" if "mesh" in rec else ""
+    print(f"== {rec['arch']} x {rec['shape']} on {rec['device']}{on}{cut} "
+          "==")
     print(f"   memory_analysis: {mem} -> {rec['cards_needed']} card(s)")
     print(f"   flops/chip={r['flops_per_chip']:.3e} "
           f"(matmul {rec['matmul_flops']:.3e}) "
@@ -150,6 +182,9 @@ def _print(rec):
           f"memory={r['memory_s']:.4f}s "
           f"collective={r['collective_s']:.4f}s -> {r['dominant']} "
           f"({r['card']} at {r['power_limit_w']:.0f} W peaks)")
+    if "mesh" in rec:
+        print(f"   chips={r['chips']} collectives/chip: "
+              f"{r['collective_bytes_per_chip']}")
     print(f"   kernels: {rec['kernels']}")
     uf = r["useful_flops_frac"]
     print(f"   MODEL_FLOPS/FLOPS = {uf:.3f}" if uf else
@@ -161,10 +196,15 @@ def _print(rec):
 
 
 def run_or_skip(arch, shape, **kw) -> dict:
+    """run_one, or a record of why the step is skipped: the reference's
+    shape skip, or on a mesh a model axis that would cut a query head
+    (the port's shards hold whole heads: ``shardings.shard_heads``)."""
     try:
         return run_one(arch, shape, **kw)
-    except ValueError as e:
-        if not str(e).startswith(f"{arch} skips"):
+    except (ValueError, NotImplementedError) as e:
+        if not (str(e).startswith(f"{arch} skips") or (
+                isinstance(e, NotImplementedError)
+                and kw.get("mesh") is not None)):
             raise
         print(f"SKIP: {e}")
         return {"arch": arch, "shape": shape, "skipped": str(e)}
@@ -179,6 +219,11 @@ def main(argv=None) -> list:
     ap.add_argument("--device", default="meta", choices=["meta", "cuda"])
     ap.add_argument("--layers", type=int, default=None)
     ap.add_argument("--batch", type=int, default=None)
+    ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
+                    help="count card 0's share on a (data, model) mesh")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="a pod axis of 2 in front of --mesh (default "
+                    "16x16)")
     ap.add_argument("--json", default=None)
     args = ap.parse_args(argv)
     if not args.all and (args.arch is None or args.shape is None):
@@ -186,6 +231,9 @@ def main(argv=None) -> list:
     jobs = ([(a, s) for a in list_archs() for s in SHAPES] if args.all
             else [(args.arch, args.shape)])
     kw = dict(device=args.device, layers=args.layers, batch=args.batch)
+    if args.mesh or args.multi_pod:
+        kw.update(mesh=parse_mesh(args.mesh or "16x16", args.multi_pod),
+                  multi_pod=args.multi_pod)
     recs = [run_or_skip(a, s, **kw) for a, s in jobs]
     if args.json:
         with open(args.json, "w") as f:

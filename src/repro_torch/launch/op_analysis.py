@@ -34,6 +34,12 @@ work. Under ``ops.backend("plain")`` the entry points tell the counter
 nothing and the plain versions' aten ops are counted instead: what the
 reference's default ``"xla"`` backend compiles.
 
+Collectives: on a dry run's card of a mesh, the model tells the counter
+each reduction its shard would share with the other cards
+(``models.parallel_ctx.collective``); ``coll_bytes`` sums their
+per-partition result bytes by kind, as the reference's
+``roofline.collective_bytes`` sums an HLO module's.
+
 The compute work is kept by the dtype that does it (``work``): the
 matmul family and the kernels at their dtype's tensor-core rate ("bf16",
 "fp16", "fp8", "int8"), float32 products (TF32 is off) and every
@@ -162,7 +168,8 @@ def _conv_flops(args, out) -> int:
 class OpCounter(TorchDispatchMode):
     """Counts the aten ops (and kernel ops, by formula) run inside it:
     ``flops``, ``matmul_flops``, ``bytes``, ``exps``, ``work`` (FLOPs by
-    the dtype whose peak does them), ``peak_live_bytes``, ``by_op``
+    the dtype whose peak does them), ``coll_bytes`` (a mesh card's
+    collectives by kind), ``peak_live_bytes``, ``by_op``
     ({op: [calls, flops, bytes]}) and ``kernels`` ({kernel op: calls}).
 
     An op's counts depend on its arguments' shapes and dtypes only, so
@@ -180,6 +187,7 @@ class OpCounter(TorchDispatchMode):
         self.work = collections.Counter()
         self.by_op = collections.defaultdict(lambda: [0, 0, 0])
         self.kernels = collections.Counter()
+        self.coll_bytes = collections.Counter()
         self.live_bytes = 0
         self.peak_live_bytes = 0
         self.scale = 1          # ops.repeated: a step that stands for n
@@ -330,6 +338,13 @@ class OpCounter(TorchDispatchMode):
                   exps=cost["exps"])
         self._track(_tensors(out))
         return out
+
+    # -- collectives (a dry run's card on a mesh: models.parallel_ctx) -----
+
+    def collective(self, kind: str, nbytes: int) -> None:
+        """A collective of `kind` whose per-partition result is `nbytes`
+        bytes (the reference's per-kind sum of result bytes)."""
+        self.coll_bytes[kind] += self.scale * nbytes
 
     def __enter__(self):
         ops.COUNTERS.append(self)

@@ -1,9 +1,12 @@
 """Roofline terms of a counted step on one NVIDIA H100 SXM (the port of
 repro.launch.roofline, whose ceilings are a TPU v5e's).
 
-  compute term    = sum over dtypes of FLOPs / (chips x peak of that dtype)
-  memory term     = bytes / (chips x HBM bandwidth)
-  collective term = 0
+  compute term    = sum over dtypes of FLOPs / peak of that dtype
+  memory term     = bytes / HBM bandwidth
+  collective term = collective bytes / NVLink bandwidth
+
+each of one card's share of the step (all of it on one card; card 0's on
+a mesh, ``launch.dryrun --mesh``).
 
 The peaks are NVIDIA's published dense rates of one H100 SXM at its full
 700 W power limit (``CARD``, ``POWER_LIMIT_W``): 989 TFLOP/s in bf16 and
@@ -13,9 +16,14 @@ run there) and 3.35 TB/s of HBM. A card set below 700 W runs below them.
 The compute term takes each FLOP at the peak of the dtype that does it
 (``launch.op_analysis.OpCounter.work``).
 
-``collective_s`` stays, and is 0: the port runs on one card, and a plan's
-tensor-parallel degrees collapse onto it (PERF.md section 4), so no step
-moves bytes between cards. No link figure is assumed.
+The collective term divides the card's per-partition collective result
+bytes (``launch.op_analysis.OpCounter.coll_bytes``: each row-parallel
+reduction, gather and vocabulary-split lookup of its shard, as the
+reference sums an HLO module's) by one H100 SXM's NVLink bandwidth,
+``NVLINK_BW``: 900 GB/s, NVLink 4 (18 links), from NVIDIA's H100 Tensor
+Core GPU datasheet. It treats every collective as one transfer of its
+result at that rate, as the reference's term does with its 50 GB/s ICI
+link. A step counted on one card has no collectives: 0.
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ POWER_LIMIT_W = 700.0
 PEAK_FLOPS = {"bf16": 989e12, "fp16": 989e12, "fp8": 1979e12,
               "int8": 1979e12, "fp32": 67e12}
 HBM_BW = 3.35e12             # bytes/s / card
+NVLINK_BW = 900e9            # bytes/s / card, NVLink 4 (H100 SXM datasheet)
 HBM_BYTES = 80 * 2 ** 30     # the port's card memory (80 GiB)
 
 
@@ -50,7 +59,7 @@ class Roofline:
 
     @property
     def collective_s(self) -> float:
-        return 0.0
+        return sum(self.coll_bytes.values()) / NVLINK_BW
 
     @property
     def dominant(self) -> str:
@@ -84,9 +93,11 @@ class Roofline:
 
 
 def extract(counter, *, model_flops: float, chips: int = 1) -> Roofline:
-    """The roofline of a step counted by ``op_analysis.OpCounter``."""
+    """The roofline of a step (one card's share of it) counted by
+    ``op_analysis.OpCounter``; `chips` the cards that share it."""
     return Roofline(flops=counter.flops, hbm_bytes=counter.bytes,
-                    coll_bytes={}, model_flops=model_flops, chips=chips,
+                    coll_bytes=dict(counter.coll_bytes),
+                    model_flops=model_flops, chips=chips,
                     work=dict(counter.work))
 
 

@@ -69,6 +69,20 @@ def rope(x, positions, theta):
     return out.to(x.dtype)
 
 
+# the bias that may follow an output product (no architecture of the
+# registry has one): a tensor-parallel stage adds it once, to its shards'
+# sum (``models.model._sharded``)
+ROW_BIAS = {"wo": "bo", "w_down": "b_down"}
+
+
+def _out(p, o, w):
+    """The output product o @ p[w] (wo or w_down), plus its bias where `p`
+    has one."""
+    y = mm(o, p[w])
+    b = p.get(ROW_BIAS[w])
+    return y if b is None else y + b
+
+
 def _qkv(p, x, cfg):
     """The projections of every attention path (prefill, contiguous and
     paged decode, context, verify), plus the q/k/v bias of an
@@ -99,7 +113,7 @@ def attn_prefill(p, x, cfg, *, positions, kv_start=None, window=None):
     o = ops.flash_attention(q, k, v, causal=True, window=window,
                             kv_start=kv_start)
     b, s = x.shape[:2]
-    return mm(o.reshape(b, s, -1), p["wo"]), k, v
+    return _out(p, o.reshape(b, s, -1), "wo"), k, v
 
 
 def _is_ring(cache, window):
@@ -153,7 +167,7 @@ def attn_decode(p, x, cfg, *, pos, cache, kv_start=None, window=None):
     cache["v"][ridx, slot] = v[:, 0].to(cache["v"].dtype)
     o = ops.decode_attention(q, cache["k"], cache["v"], kv_len=kv_len,
                              kv_start=kv_start)
-    return mm(o.reshape(b, 1, -1), p["wo"])
+    return _out(p, o.reshape(b, 1, -1), "wo")
 
 
 def write_pages(cache, blk, off, k, v):
@@ -194,7 +208,7 @@ def attn_decode_paged(p, x, cfg, *, pos, block_tables, cache):
     sc = write_pages(cache, blk, off, k[:, 0], v[:, 0])
     o = ops.paged_decode_attention(q, cache["k"], cache["v"], block_tables,
                                    kv_len=pos + 1, **sc)
-    return mm(o.reshape(b, 1, -1), p["wo"])
+    return _out(p, o.reshape(b, 1, -1), "wo")
 
 
 def _chunk_qkv_to_pages(p, x, cfg, positions, q_len, block_tables, cache):
@@ -229,7 +243,7 @@ def attn_context_paged(p, x, cfg, *, positions, q_len, block_tables, cache):
     o = ops.paged_context_attention(q, cache["k"], cache["v"], block_tables,
                                     q_start=positions[:, 0],
                                     kv_len=positions[:, 0] + q_len, **sc)
-    return mm(o.reshape(b, C, -1), p["wo"])
+    return _out(p, o.reshape(b, C, -1), "wo")
 
 
 def attn_verify_paged(p, x, cfg, *, positions, q_len, block_tables, cache):
@@ -248,7 +262,7 @@ def attn_verify_paged(p, x, cfg, *, positions, q_len, block_tables, cache):
     o = ops.paged_verify_attention(q, cache["k"], cache["v"], block_tables,
                                    kv_start=positions[:, 0],
                                    kv_len=positions[:, 0] + q_len, **sc)
-    return mm(o.reshape(b, T, -1), p["wo"])
+    return _out(p, o.reshape(b, T, -1), "wo")
 
 
 def cross_attn(p, x, cfg, *, enc_kv=None, enc_out=None):
@@ -269,7 +283,7 @@ def cross_attn(p, x, cfg, *, enc_kv=None, enc_out=None):
                                                     hd)}
     o = ops.flash_attention(q, enc_kv["k"].to(q.dtype),
                             enc_kv["v"].to(q.dtype), causal=False)
-    return mm(o.reshape(b, s, -1), p["wo"]), enc_kv
+    return _out(p, o.reshape(b, s, -1), "wo"), enc_kv
 
 
 def attn_encoder(p, x, cfg):
@@ -279,7 +293,7 @@ def attn_encoder(p, x, cfg):
     q, k, v = _qkv(p, x, cfg)
     o = ops.flash_attention(q, k, v, causal=False)
     b, s = x.shape[:2]
-    return mm(o.reshape(b, s, -1), p["wo"])
+    return _out(p, o.reshape(b, s, -1), "wo")
 
 
 def gelu(x):
@@ -292,6 +306,6 @@ def mlp(p, x, cfg):
     """SwiGLU MLP (``activation="silu"``), else w_up -> gelu -> w_down
     with no gate (granite-20b's gpt-bigcode MLP)."""
     if cfg.activation == "silu":
-        return mm(F.silu(mm(x, p["w_gate"])) * mm(x, p["w_up"]),
-                  p["w_down"])
-    return mm(gelu(mm(x, p["w_up"])), p["w_down"])
+        return _out(p, F.silu(mm(x, p["w_gate"])) * mm(x, p["w_up"]),
+                    "w_down")
+    return _out(p, gelu(mm(x, p["w_up"])), "w_down")

@@ -38,16 +38,20 @@ once at prefill; the pipeline's contiguous caches are one layer's leaves
 each (``init_layer_cache``). Writes go into the caches in place.
 
 Tensor parallelism (``shard_layer_params``): a pipeline stage over tp
-devices holds each attention layer as ``Shards`` of its mixer and FFN,
-cut by the reference's Megatron rules (``models.shardings``): shard r
-keeps its q heads' columns of wq and rows of wo, the kv heads those q
-heads read, its columns of w_gate / w_up and rows of w_down (or, in an
-MoE, its experts or its d_ff columns, under the replicated router), on
-its own device. Norms stay on the stage's first device. Each sublayer
-runs on every shard (``_sharded``) and the shards' partial outputs are
-summed there in shard order, in float32, before the residual add: two
-reductions a layer, bit-repeatable. A sharded layer's caches are
-``Shards`` of per-shard caches holding that shard's kv heads.
+devices holds each layer as ``Shards`` of its sublayers, cut by the
+reference's Megatron rules (``models.shardings``), each shard's slices on
+its own device: an attention mixer (and whisper's cross-attention) by q
+heads and the kv heads they read, a Mamba or mLSTM mixer by din, the MLP
+by d_ff, an MoE by experts or d_ff; int8 weights' q and s with them
+(``shardings.quant_split``). Norms, an sLSTM mixer and what the rules do
+not split stay whole on the stage's first device. Each sublayer runs on
+every shard and the shards' partial outputs are summed there in shard
+order, in float32, before the residual add (``_reduce``); a Mamba layer
+also sums its shards' x_proj products before dt_proj, and an mLSTM layer
+its q / k / v and gate products before its cell, which runs once there.
+Bit-repeatable. A sharded layer's caches are ``Shards`` of per-shard
+caches (that shard's kv heads, cross K/V, or Mamba state channels); an
+mLSTM layer's state is whole beside its cell.
 
 Training (``train_forward``, ``loss_fn``) runs whole sequences with no
 cache, the reference's mode="train", each decoder period checkpointed
@@ -72,7 +76,9 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ATTN, MAMBA, MLSTM, SLSTM, ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import layers, mamba, moe, quant, shardings, xlstm
+from repro_torch.kernels import ops
+from repro_torch.models import (layers, mamba, moe, parallel_ctx, quant,
+                                shardings, xlstm)
 
 
 def param_dtype(cfg: ModelConfig, dtype=None) -> torch.dtype:
@@ -231,22 +237,30 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
 
 
 def slice_layer_params(cfg: ModelConfig, params, i: int):
-    """Params of global layer i (views, leading period axis removed)."""
+    """Params of global layer i (views, leading period axis removed);
+    under an active mesh (``parallel_ctx``), of a card's tree
+    (``card_params``), that card's shard of the layer (``_card_view``)."""
     p, j = layer_sub_index(cfg, i)
+    lp = _index(params["blocks"][f"sub{j}"], p)
+    return _card_view(cfg, lp, i) if parallel_ctx.active() else lp
 
-    def take(tree):
-        return {k: take(v) if isinstance(v, dict) else v[p]
-                for k, v in tree.items()}
-    return take(params["blocks"][f"sub{j}"])
+
+def _index(tree, p):
+    """Views of entry p of every stacked leaf of `tree` (an int8 weight's
+    q and s too)."""
+    return {k: _index(v, p) if isinstance(v, dict) else v[p]
+            for k, v in tree.items()}
 
 
 # ---------------------------------------------------------------------------
 # Contiguous cache (the draft model's, and the reference-shaped prefill)
 # ---------------------------------------------------------------------------
 
-def _slot_state(cfg, kind, shape, dt, dev):
+def _slot_state(cfg, kind, shape, dt, dev, d_inner=None):
     """Zeroed recurrent state of a Mamba, mLSTM or sLSTM layer for `shape`
-    leading dims (Mamba's conv tail in `dt`, everything else float32)."""
+    leading dims (Mamba's conv tail in `dt`, everything else float32);
+    `d_inner` is a tensor-parallel shard's slice of a Mamba layer's din
+    (None: the config's)."""
     def zeros(*dims, dtype=torch.float32):
         return torch.zeros((*shape, *dims), dtype=dtype, device=dev)
     if kind == MLSTM:
@@ -256,12 +270,12 @@ def _slot_state(cfg, kind, shape, dt, dev):
                 "n": zeros(h, qk_h)}
     if kind == SLSTM:
         return {nm: zeros(cfg.d_model) for nm in ("c", "n", "m", "h")}
-    din = mamba.d_inner(cfg)
+    din = d_inner or mamba.d_inner(cfg)
     return {"conv": zeros(cfg.ssm_d_conv - 1, din, dtype=dt),
             "h": zeros(din, cfg.ssm_d_state)}
 
 
-def _cache_leaves(cfg, kind, lead, max_len, dt, dev):
+def _cache_leaves(cfg, kind, lead, max_len, dt, dev, d_inner=None):
     """Zeroed contiguous cache leaves of one layer kind, `lead` leading
     dims: attention {"k", "v"} (*lead, S, hkv, hd), S = max_len or, for a
     sliding-window model, the min(max_len, swa_window)-slot ring
@@ -269,7 +283,7 @@ def _cache_leaves(cfg, kind, lead, max_len, dt, dev):
     "cross_v"} (*lead, encoder_seq_len, hkv, hd); a recurrent layer's
     state (``_slot_state``)."""
     if kind != ATTN:
-        return _slot_state(cfg, kind, lead, dt, dev)
+        return _slot_state(cfg, kind, lead, dt, dev, d_inner)
     S = min(max_len, cfg.swa_window) if cfg.swa_window else max_len
     hkv, hd = cfg.num_kv_heads, cfg.head_dim_
     c = {"k": torch.zeros((*lead, S, hkv, hd), dtype=dt, device=dev),
@@ -295,11 +309,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=None,
 
 
 def init_layer_cache(cfg: ModelConfig, i: int, batch: int, max_len: int, *,
-                     dtype=None, device="cuda"):
+                     dtype=None, device="cuda", d_inner=None):
     """Global layer i's contiguous cache (no period axis): init_cache's
-    leaves of one layer."""
+    leaves of one layer (a Mamba shard's: `d_inner` channels)."""
     return _cache_leaves(cfg, cfg.layer_kind(i), (batch,), max_len,
-                         param_dtype(cfg, dtype), resolve_device(device))
+                         param_dtype(cfg, dtype), resolve_device(device),
+                         d_inner)
 
 
 def _layer_cache(cfg, cache, i):
@@ -343,20 +358,21 @@ def pool_dtype(kv_dtype, dtype: torch.dtype) -> torch.dtype:
 
 def init_layer_paged_cache(cfg: ModelConfig, i: int, n_blocks: int,
                            block_size: int, *, dtype, device, n_slots=0,
-                           kv_dtype=None, kv_guard_layers=()):
+                           kv_dtype=None, kv_guard_layers=(), d_inner=None):
     """Global layer i's paged cache: an attention layer's page pools (block
     0 = null/trash page), a recurrent layer's zeroed per-slot state
     (``_slot_state``: Mamba's {"conv": (n_slots, w-1, din) `dtype`, "h":
     (n_slots, din, ds) float32}, mLSTM's and sLSTM's float32 leaves).
     `kv_dtype` ("int8" / "fp8") stores int8 / fp8 payloads with zeroed
     float32 scale pools; a layer whose global index i is in
-    `kv_guard_layers` keeps the model's `dtype` whatever kv_dtype says."""
+    `kv_guard_layers` keeps the model's `dtype` whatever kv_dtype says.
+    `d_inner`: a Mamba shard's slice of din."""
     kind = cfg.layer_kind(i)
     if kind != ATTN:
         if n_slots < 1:
             raise ValueError(f"a {kind} layer's slot state needs "
                              "n_slots >= 1")
-        return _slot_state(cfg, kind, (n_slots,), dtype, device)
+        return _slot_state(cfg, kind, (n_slots,), dtype, device, d_inner)
     if i in kv_guard_layers:
         kv_dtype = None
     shape = (n_blocks, block_size, cfg.num_kv_heads, cfg.head_dim_)
@@ -412,22 +428,38 @@ def copy_cache_pages(caches, src_blocks, dst_blocks):
 
 @dataclasses.dataclass(frozen=True)
 class Shard:
-    """One shard of a tensor-parallel sublayer (an attention mixer, an MLP
-    or an MoE): its device, its config view (its q and kv heads, its
-    d_ff), its slices of the layer's weights on that device, the global kv
-    heads [kv_heads[0], kv_heads[1]) its caches hold, and, for an
-    expert-parallel MoE, the (first, count) of the experts it holds."""
+    """One shard of a tensor-parallel sublayer (an attention mixer or
+    cross-attention, a Mamba or mLSTM mixer, an MLP or an MoE): its
+    device, its config view (its q and kv heads, its d_ff), its slices of
+    the layer's weights on that device, the global kv heads
+    [kv_heads[0], kv_heads[1]) its caches hold, for an expert-parallel MoE
+    the (first, count) of the experts it holds, and for a Mamba mixer its
+    slice's width of din (its state's)."""
     device: torch.device
     cfg: ModelConfig
     params: dict
     kv_heads: Tuple[int, int] = (0, 0)
     experts: Optional[Tuple[int, int]] = None
+    d_inner: Optional[int] = None
 
 
 class Shards(tuple):
     """One item per shard of a TP > 1 stage, in shard order: a sublayer's
     Shard objects, a sharded layer's caches, or a step's tensor argument
-    on each shard's device."""
+    on each shard's device. A sublayer's Shards carry in ``whole`` the
+    leaves the rules replicate that run once after the shards, on the
+    first shard's device: a bias after the row-parallel output product
+    (``layers.ROW_BIAS``), added to the shards' sum, and an mLSTM's
+    out_proj, after its cell. ``of`` is the stage's shard count: more than
+    the items where this process holds one card's shard of them (the dry
+    run's, ``card_params``), whose reductions are then counted as
+    collectives (``_reduce``)."""
+
+    def __new__(cls, items=(), whole=None, of=None):
+        obj = super().__new__(cls, items)
+        obj.whole = whole or {}
+        obj.of = len(obj) if of is None else of
+        return obj
 
 
 def parts(c):
@@ -435,100 +467,317 @@ def parts(c):
     return c if isinstance(c, Shards) else (c,)
 
 
-# the leaves each sharded sublayer may hold: any other (a bias after wo or
-# w_down, which the rules would replicate) would be added once per shard
-_SHARDABLE = {"mixer": set(shardings.HEAD_AXIS),
-              "mlp": {"w_gate", "w_up", "w_down"},
-              "moe": {"router", "w_gate", "w_up", "w_down"}}
+def _at(v, r):
+    """Item r of a step argument that is Shards (of a TP stage), else v."""
+    return v[r] if isinstance(v, Shards) else v
 
 
-def _narrow(t, dim, r, tp):
-    n = t.shape[dim] // tp
-    return t.narrow(dim, r * n, n)
+# leaves the rules replicate (``shardings.leaf_split`` None) in a sublayer
+# they otherwise split: the router every shard routes with, and what runs
+# once after the shards (Shards.whole); any other has no place in a shard
+_REPLICATED_EACH = {"router"}
+_REPLICATED_ONCE = set(layers.ROW_BIAS.values()) | {"out_proj"}
+# a Mamba / mLSTM mixer's up-projection is [xi | z]: a shard takes its din
+# slice of each half
+_TWO_HALVES = {"in_proj", "w_up"}
 
 
-def shard_layer_params(cfg: ModelConfig, lp, i: int, devices, place):
-    """Global layer i's params `lp` (``slice_layer_params``) cut for a
-    stage over `devices` (tp = len(devices) > 1), each piece put on its
-    device by ``place(tree, device)``: the norms whole on devices[0]; the
-    attention mixer as Shards of each shard's q heads (wq / bq columns, wo
-    rows) and the kv heads they read (wk / wv / bk / bv columns), each
-    leaf cut on its ``shardings.HEAD_AXIS`` at ``shardings.shard_heads``'
-    ranges; the MLP as Shards of d_ff slices where the
-    rules split it, else whole on devices[0]; an MoE as Shards of its
-    experts (E % tp == 0) or of every expert's d_ff slice, each with the
-    replicated router, else whole on devices[0]. Attention-only layers
-    with plain weights; raises NotImplementedError on any leaf a shard
-    cannot take (a row-parallel bias)."""
-    tp = len(devices)
-    j = layer_sub_index(cfg, i)[1]
-    for name, sub in lp.items():
-        if name in ("ln1", "ln2"):
-            continue
-        bad = set(sub) - _SHARDABLE.get(name, set())
-        if bad:
-            raise NotImplementedError(
-                f"{cfg.name}: {name} leaves {sorted(bad)} have no split "
-                "rule: a replicated leaf after a row-parallel product would "
-                "be added once per shard")
+def _shape(t):
+    return (t["q"] if quant.is_quantized(t) else t).shape
+
+
+def _take(t, dim, spans):
+    """Leaf `t` at `spans` [(start, length)] of dimension `dim`, the
+    pieces concatenated in storage of their own (a shard holds only its
+    bytes, also where its rows would be a view of the layer's): plain, or
+    int8 {"q", "s"} whose q is cut so and s as ``shardings.quant_split``
+    says (with q's output columns or experts; whole beside a row-parallel
+    cut)."""
+    def cut(x, d):
+        pieces = [x.narrow(d, a, n) for a, n in spans]
+        return pieces[0].clone() if len(pieces) == 1 else torch.cat(pieces,
+                                                                    d)
+    if not quant.is_quantized(t):
+        return cut(t, dim)
+    sd = shardings.quant_s_dim(dim, t["q"].dim())
+    return {"q": cut(t["q"], dim),
+            "s": t["s"] if sd is None else cut(t["s"], sd)}
+
+
+def _leaf_dim(cfg, path, t, tp):
+    """The split dimension of a layer's leaf `t` (no period axis) at
+    `path`, by the rules (an int8 weight's q by ``quant_split``)."""
+    ndim = len(_shape(t)) + 1              # the rules count the period axis
+    d = (shardings.quant_split(cfg, path, ndim, tp)[0]
+         if quant.is_quantized(t) else
+         shardings.leaf_split(cfg, path, ndim, tp))
+    return None if d is None else d - 1
+
+
+def _attn_shards(cfg, sub, devices, place, ranks, cut):
+    """An attention mixer or cross-attention as Shards of each shard's q
+    heads (wq / bq columns, wo rows) and the kv heads they read (wk / wv
+    / bk / bv columns), each leaf cut on its ``shardings.HEAD_AXIS`` at
+    ``shardings.shard_heads``' ranges; a bias after wo whole, once."""
     hd = cfg.head_dim_
-    out = {n: place(lp[n], devices[0]) for n in ("ln1", "ln2") if n in lp}
-    mixer = []
-    for dev, ((q0, q1), (k0, k1)) in zip(devices,
-                                         shardings.shard_heads(cfg, tp)):
-        heads = {n: (k0, k1) if n in shardings.KV_LEAVES else (q0, q1)
-                 for n in lp["mixer"]}
-        p = {n: t.narrow(shardings.HEAD_AXIS[n], heads[n][0] * hd,
-                         (heads[n][1] - heads[n][0]) * hd)
-             for n, t in lp["mixer"].items()}
+    once = {n: t for n, t in sub.items() if n not in shardings.HEAD_AXIS}
+    bad = set(once) - _REPLICATED_ONCE
+    if bad:
+        raise NotImplementedError(
+            f"{cfg.name}: attention leaves {sorted(bad)} have no split rule")
+    heads = shardings.shard_heads(cfg, len(devices))
+    out = []
+    for r in ranks:
+        (q0, q1), (k0, k1) = heads[r]
+        p = {}
+        for n, t in sub.items():
+            if n in shardings.HEAD_AXIS:
+                h0, h1 = (k0, k1) if n in shardings.KV_LEAVES else (q0, q1)
+                p[n] = t if not cut else _take(
+                    t, shardings.HEAD_AXIS[n], [(h0 * hd, (h1 - h0) * hd)])
         view = dataclasses.replace(cfg, num_heads=q1 - q0,
                                    num_kv_heads=k1 - k0, head_dim=hd)
-        mixer.append(Shard(dev, view, place(p, dev), (k0, k1)))
-    out["mixer"] = Shards(mixer)
-    for name in ("mlp", "moe"):
-        if name not in lp:
-            continue
-        path = ("blocks", f"sub{j}", name)
-        dims = {n: shardings.leaf_split(cfg, path + (n,), t.dim() + 1, tp)
-                for n, t in lp[name].items()}
-        if all(d is None for d in dims.values()):
-            out[name] = place(lp[name], devices[0])     # replicated
-            continue
-        expert_split = name == "moe" and dims["w_up"] == 1
-        E_loc = cfg.num_experts // tp
-        ffn = []
-        for r, dev in enumerate(devices):
-            p = {n: t if dims[n] is None else _narrow(t, dims[n] - 1, r, tp)
-                 for n, t in lp[name].items()}
-            ffn.append(Shard(
-                dev, dataclasses.replace(cfg, d_ff=p["w_up"].shape[-1]),
-                place(p, dev),
-                experts=(r * E_loc, E_loc) if expert_split else None))
-        out[name] = Shards(ffn)
+        out.append(Shard(devices[r], view, place(p, devices[r]), (k0, k1)))
+    return Shards(out, place(once, devices[0]), len(devices))
+
+
+def _split_shards(cfg, name, kind, sub, path, devices, place, ranks, cut):
+    """An MLP, MoE, Mamba or mLSTM sublayer cut by the rules: Shards of
+    each shard's slice of every leaf they split (a Mamba / mLSTM
+    up-projection by halves, ``_TWO_HALVES``), the leaves they replicate
+    on every shard (an MoE's router) or once after them (``Shards.whole``);
+    or, where the rules split none of its leaves, the whole sublayer on
+    devices[0]."""
+    tp = len(devices)
+    dims = {n: _leaf_dim(cfg, path + (n,), t, tp) for n, t in sub.items()}
+    if all(d is None for d in dims.values()):
+        return place(sub, devices[0])                   # replicated
+    each = {n for n, d in dims.items() if d is None and n in _REPLICATED_EACH}
+    once = {n for n, d in dims.items() if d is None and n in _REPLICATED_ONCE}
+    bad = {n for n, d in dims.items() if d is None} - each - once
+    if bad:
+        raise NotImplementedError(
+            f"{cfg.name}: {name} leaves {sorted(bad)} have no split rule")
+    expert_split = name == "moe" and dims["w_up"] == 0
+    E_loc = cfg.num_experts // tp
+    out = []
+    for r in ranks:
+        p = {n: sub[n] for n in each}
+        for n, d in dims.items():
+            if d is None:
+                continue
+            if not cut:
+                p[n] = sub[n]
+                continue
+            full = _shape(sub[n])[d]
+            halves = 2 if (name == "mixer" and n in _TWO_HALVES) else 1
+            w = full // halves // tp
+            p[n] = _take(sub[n], d, [(hh * full // halves + r * w, w)
+                                     for hh in range(halves)])
+        view = cfg
+        if name in ("mlp", "moe"):
+            view = dataclasses.replace(cfg, d_ff=_shape(p["w_up"])[-1])
+        out.append(Shard(
+            devices[r], view, place(p, devices[r]),
+            experts=(r * E_loc, E_loc) if expert_split else None,
+            d_inner=(mamba.d_inner(cfg, p) if name == "mixer" and kind == MAMBA
+                     else None)))
+    return Shards(out, place({n: sub[n] for n in once}, devices[0]), tp)
+
+
+def shard_layer_params(cfg: ModelConfig, lp, i: int, devices, place, *,
+                       ranks=None, cut=True, path=None):
+    """Global layer i's params `lp` (``slice_layer_params``) cut for a
+    stage over `devices` (tp = len(devices) > 1) by the reference's
+    Megatron rules (``models.shardings``), each piece put on its device by
+    ``place(tree, device)``: the norms whole on devices[0]; an attention
+    mixer and an encoder-decoder's cross-attention by heads
+    (``_attn_shards``); a Mamba mixer by din (each half of in_proj, conv,
+    x_proj's rows, dt_proj's columns, the dynamics, out_proj's rows), an
+    mLSTM mixer by din (each half of w_up, the rows of wq / wk / wv / w_i /
+    w_f; out_proj once), the MLP by d_ff, an MoE by its experts (E % tp ==
+    0) or every expert's d_ff, under the replicated router
+    (``_split_shards``); where the rules split none of a sublayer's
+    leaves (din or d_ff that tp does not divide, an sLSTM mixer), the
+    sublayer whole on devices[0]. An int8 weight's q and s are cut as
+    ``shardings.quant_split`` says. Raises NotImplementedError on a leaf
+    that has no place in a shard.
+
+    ``ranks`` builds only those of the tp shards (the dry run's card
+    builds shard 0: ``card_params``); ``cut=False`` takes `lp` as already
+    cut for them; ``path`` is the layer's path in the param tree (default
+    the decoder's ``blocks/sub{j}``; an encoder layer's is
+    ``encoder/blocks/sub0``)."""
+    ranks = range(len(devices)) if ranks is None else ranks
+    kind = ATTN if path is not None else cfg.layer_kind(i)
+    path = path or ("blocks", f"sub{layer_sub_index(cfg, i)[1]}")
+    out = {}
+    for name, sub in lp.items():
+        if name in ("ln1", "ln2", "lnx") or (name == "mixer"
+                                             and kind == SLSTM):
+            out[name] = place(sub, devices[0])
+        elif name == "xattn" or (name == "mixer" and kind == ATTN):
+            out[name] = _attn_shards(cfg, sub, devices, place, ranks, cut)
+        else:
+            out[name] = _split_shards(cfg, name, kind, sub, path + (name,),
+                                      devices, place, ranks, cut)
     return out
 
 
+def _card_cut(cfg, lp, i, tp, path=None):
+    """Shard 0 of layer i at TP degree tp as a plain params dict (its
+    slices, and what it runs whole)."""
+    dev = lp["ln1"]["w"].device
+    out = {}
+    for name, v in shard_layer_params(cfg, lp, i, [dev] * tp,
+                                      lambda t, d: t, ranks=[0],
+                                      path=path).items():
+        out[name] = ({**v[0].params, **v.whole} if isinstance(v, Shards)
+                     else v)
+    return out
+
+
+def _stack(trees):
+    """Leaves of same-structure dicts stacked on a new leading axis."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: _stack([t[k] for t in trees]) for k in t0}
+    return torch.stack(trees)
+
+
+def card_params(cfg: ModelConfig, params, tp: int):
+    """Card 0's share of a param tree over a mesh's model axis of size
+    `tp`, in the tree's own layout (``blocks/sub{j}`` stacked over the
+    periods, the encoder's too): each layer's shard 0 of
+    ``shard_layer_params`` with its whole leaves, the vocabulary's first
+    1/tp of ``embed`` (rows) and ``lm_head`` (columns) where tp divides it
+    (the rules' vocabulary split), the rest as it is. Under
+    ``parallel_ctx.use_mesh`` the model reads each layer of it as that
+    card's shard (``slice_layer_params``)."""
+    if tp <= 1:
+        return params
+    V = cfg.vocab_size
+    out = dict(params)
+    if V % tp == 0:
+        out["embed"] = params["embed"][:V // tp]
+        if "lm_head" in params:
+            out["lm_head"] = _take(params["lm_head"], 1, [(0, V // tp)])
+    P = n_periods(cfg)
+    out["blocks"] = {
+        f"sub{j}": _stack([_card_cut(cfg, _index(sub, p), p * period_len(cfg)
+                                     + j, tp) for p in range(P)])
+        for j, sub in ((int(k[3:]), v)
+                       for k, v in params["blocks"].items())}
+    if "encoder" in params:
+        enc = params["encoder"]
+        path = ("encoder", "blocks", "sub0")
+        stack = enc["blocks"]["sub0"]
+        out["encoder"] = {**enc, "blocks": {"sub0": _stack([
+            _card_cut(cfg, _index(stack, e), e, tp, path)
+            for e in range(cfg.num_encoder_layers)])}}
+    return out
+
+
+def _card_view(cfg, lp, i, path=None):
+    """Layer i of a card's tree (``card_params``) as its shard of a stage
+    over the active mesh's model axis: Shards of one Shard, of tp."""
+    tp = parallel_ctx.tp()
+    if tp <= 1:
+        return lp
+    dev = lp["ln1"]["w"].device
+    return shard_layer_params(cfg, lp, i, [dev] * tp, lambda t, d: t,
+                              ranks=[0], cut=False, path=path)
+
+
+def _reduce(outs, device, dtype, of=None):
+    """The shards' partial outputs summed on `device` in shard order, in
+    float32, cast to `dtype`: a row-parallel product's reduction. Where
+    the stage has `of` shards and this process holds fewer (the dry run's
+    card), the sum is counted as an all-reduce of its float32 bytes."""
+    acc = outs[0].to(device=device, dtype=torch.float32)
+    for o in outs[1:]:
+        acc = acc + o.to(device=device, dtype=torch.float32)
+    if of is not None and of > len(outs):
+        acc = parallel_ctx.collective("all-reduce", acc)
+    return acc.to(dtype)
+
+
 def _sharded(part, h, cfg, fn, **args):
-    """fn(params, h, cfg, **args) of a sublayer's mixer or FFN: of the
-    whole layer where `part` is its params, or, where it is Shards, of
-    each Shard on its own device, heads and weights (its config view,
-    its item of each Shards argument, its experts), the partial
-    outputs then summed on h's device in shard order, in float32, and
-    cast to h's dtype: the row-parallel product's reduction, before the
-    caller's residual add."""
+    """fn(params, h, cfg, **args) of a sublayer (an attention mixer or
+    cross-attention, an MLP or an MoE): of the whole layer where `part`
+    is its params, or, where it is Shards, of each Shard on its own
+    device, heads and weights (its config view, its item of each Shards
+    argument, its experts), the partial outputs then summed on h's device
+    (``_reduce``) before the caller's residual add, and a bias after the
+    output product (``Shards.whole``) added once."""
     if not isinstance(part, Shards):
-        return fn(part, h, cfg, **args)
+        return fn(part, h, cfg, **{k: _at(v, 0) for k, v in args.items()})
     outs = []
     for r, s in enumerate(part):
-        a = {k: v[r] if isinstance(v, Shards) else v
-             for k, v in args.items()}
+        a = {k: _at(v, r) for k, v in args.items()}
         if s.experts is not None:
             a["experts"] = s.experts
         outs.append(fn(s.params, h.to(s.device), s.cfg, **a))
-    acc = outs[0].to(device=h.device, dtype=torch.float32)
-    for o in outs[1:]:
-        acc = acc + o.to(device=h.device, dtype=torch.float32)
-    return acc.to(h.dtype)
+    out = _reduce(outs, h.device, h.dtype, part.of)
+    for b in layers.ROW_BIAS.values():
+        if b in part.whole:
+            out = out + part.whole[b]
+    return out
+
+
+def _mamba(part, h, cfg, cache, *, valid=None, lens=None, step=False):
+    """A Mamba mixer over whole prompts h (from a zero state, `cache` for
+    its dtypes) or, with ``step``, one decode step against `cache`.
+    Returns (out, the new state). Over Shards (each its slice of din and
+    of the state, `cache` Shards of theirs) the x_proj products are summed
+    (``_reduce``) between ``mamba``'s two halves, each shard scans its
+    channels, and out_proj's partial outputs are summed; the new state is
+    Shards of each shard's."""
+    shards = part if isinstance(part, Shards) else (Shard(h.device, cfg,
+                                                          part),)
+    caches = parts(cache)
+    sts = [mamba.decode_in(s.params, h.to(s.device), cfg, cache=caches[r])
+           if step else mamba.prefill_in(s.params, h.to(s.device), cfg,
+                                         valid=_at(valid, r))
+           for r, s in enumerate(shards)]
+    dbc = (sts[0]["dbc"] if not isinstance(part, Shards) else
+           _reduce([st["dbc"] for st in sts], h.device, h.dtype, part.of))
+    outs, new = [], []
+    for r, (s, st) in enumerate(zip(shards, sts)):
+        if step:
+            o, c = mamba.decode_out(s.params, st, dbc.to(s.device), cfg,
+                                    cache=caches[r])
+        else:
+            o, c = mamba.prefill_out(s.params, st, dbc.to(s.device), cfg,
+                                     valid=_at(valid, r), lens=_at(lens, r),
+                                     cache=caches[r])
+        outs.append(o)
+        new.append(c)
+    if not isinstance(part, Shards):
+        return outs[0], new[0]
+    return _reduce(outs, h.device, h.dtype, part.of), Shards(new)
+
+
+def _mlstm(part, h, cfg, cache, *, valid=None, step=False):
+    """An mLSTM mixer over whole prompts h from the state `cache` or, with
+    ``step``, one decode step against it. Returns (out, the new state).
+    Over Shards (each its din slice of w_up and the rows of wq / wk / wv /
+    w_i / w_f) the shards' products are summed (``_reduce``) and their
+    slices of the gate z gathered, and the cell and out_proj run once on
+    h's device, as the rules replicate them, with the whole state."""
+    if not isinstance(part, Shards):
+        pre, z = xlstm.mlstm_in(part, h)
+        return xlstm.mlstm_out(part, pre, z, cfg, valid=valid, cache=cache,
+                               step=step)
+    ins = [xlstm.mlstm_in(s.params, h.to(s.device)) for s in part]
+    pre = {n: _reduce([p[n] for p, _ in ins], h.device, h.dtype, part.of)
+           for n in xlstm.PRE}
+    zs = [z.to(h.device) for _, z in ins]
+    z = torch.cat(zs * (part.of // len(zs)), dim=-1)
+    if part.of > len(zs):                   # the dry run's card
+        z = parallel_ctx.collective("all-gather", z)
+    return xlstm.mlstm_out(part.whole, pre, z, cfg, valid=valid,
+                           cache=cache, step=step)
 
 
 # ---------------------------------------------------------------------------
@@ -561,35 +810,56 @@ def _attn_only(kind):
 
 def _write_slot_rows(sc, rows, slot_ids):
     """Scatter a recurrent layer's fresh state rows into its slots, in
-    place."""
-    idx = torch.as_tensor(list(slot_ids),
-                          device=next(iter(sc.values())).device).long()
-    for n, t in sc.items():
-        t.index_copy_(0, idx, rows[n].to(t.dtype))
+    place (each shard's piece on its device)."""
+    for c, rw in zip(parts(sc), parts(rows)):
+        idx = torch.as_tensor(list(slot_ids),
+                              device=next(iter(c.values())).device).long()
+        for n, t in c.items():
+            t.index_copy_(0, idx, rw[n].to(t.dtype))
 
 
 def _recurrent_prefill(cfg, kind, p, h, sc, *, valid, lens):
     """A recurrent layer over whole prompts h (m, P, d) from a zero state,
     as the reference's scratch caches start. Returns (out, the m rows of
-    final state)."""
+    final state: Shards of each shard's for a sharded Mamba layer)."""
     if kind == MAMBA:
-        return mamba.mamba_prefill(p, h, cfg, valid=valid, lens=lens,
-                                   cache=sc)
+        return _mamba(p, h, cfg, sc, valid=valid, lens=lens)
     zero = _slot_state(cfg, kind, (h.shape[0],), h.dtype, h.device)
-    fn = xlstm.mlstm_prefill if kind == MLSTM else xlstm.slstm_prefill
-    return fn(p, h, cfg, valid=valid, cache=zero)
-
-
-_DECODE = {MAMBA: mamba.mamba_decode, MLSTM: xlstm.mlstm_decode,
-           SLSTM: xlstm.slstm_decode}
+    if kind == MLSTM:
+        return _mlstm(p, h, cfg, zero, valid=_at(valid, 0))
+    return xlstm.slstm_prefill(p, h, cfg, valid=_at(valid, 0), cache=zero)
 
 
 def _recurrent_decode(cfg, kind, p, h, sc):
     """One decode step of a recurrent layer over every row of its state
-    `sc`, in place."""
-    o, new = _DECODE[kind](p, h, cfg, cache=sc)
-    for n, t in sc.items():
-        t.copy_(new[n])
+    `sc`, in place (each shard's on its device)."""
+    if kind == MAMBA:
+        o, new = _mamba(p, h, cfg, sc, step=True)
+    elif kind == MLSTM:
+        o, new = _mlstm(p, h, cfg, sc, step=True)
+    else:
+        o, new = xlstm.slstm_decode(p, h, cfg, cache=sc)
+    for c, nw in zip(parts(sc), parts(new)):
+        for n, t in c.items():
+            t.copy_(nw[n])
+    return o
+
+
+def _cross_attn(p, h, cfg, *, cache, enc_out):
+    """Cross-attention from enc_out, its K/V written into
+    cache["cross_k"] / ["cross_v"] in place, or from those."""
+    if enc_out is None:
+        o, _ = layers.cross_attn(p, h, cfg, enc_kv={"k": cache["cross_k"],
+                                                    "v": cache["cross_v"]})
+        return o
+    o, ekv = layers.cross_attn(p, h, cfg, enc_out=enc_out)
+    for n in ("k", "v"):
+        if ekv[n].shape != cache["cross_" + n].shape:
+            raise ValueError(f"encoder K/V of shape {tuple(ekv[n].shape)}; "
+                             f"the cache holds "
+                             f"{tuple(cache['cross_' + n].shape)} "
+                             f"(encoder_seq_len {cfg.encoder_seq_len})")
+        cache["cross_" + n].copy_(ekv[n])
     return o
 
 
@@ -597,24 +867,12 @@ def _cross(cfg, sp, x, sc, enc_out=None):
     """An encoder-decoder block's cross-attention residual: from the
     encoder output enc_out (b, se, d), writing the cross K/V into
     `sc["cross_k"]` / `["cross_v"]` in place (prefill), or, without
-    enc_out, from those cached K/V (decode). Other models: x as it is."""
+    enc_out, from those cached K/V (decode); over the shards of a TP
+    stage, each its heads' K/V. Other models: x as it is."""
     if not cfg.is_encoder_decoder:
         return x
-    hx = _norm(cfg, sp["lnx"], x)
-    if enc_out is None:
-        o, _ = layers.cross_attn(sp["xattn"], hx, cfg,
-                                 enc_kv={"k": sc["cross_k"],
-                                         "v": sc["cross_v"]})
-        return x + o
-    o, ekv = layers.cross_attn(sp["xattn"], hx, cfg, enc_out=enc_out)
-    for n in ("k", "v"):
-        if ekv[n].shape != sc["cross_" + n].shape:
-            raise ValueError(f"encoder K/V of shape {tuple(ekv[n].shape)}; "
-                             f"the cache holds "
-                             f"{tuple(sc['cross_' + n].shape)} "
-                             f"(encoder_seq_len {cfg.encoder_seq_len})")
-        sc["cross_" + n].copy_(ekv[n])
-    return x + o
+    return x + _sharded(sp["xattn"], _norm(cfg, sp["lnx"], x), cfg,
+                        _cross_attn, cache=sc, enc_out=enc_out)
 
 
 def apply_sublayer_seq(cfg, kind, sp, x, sc, *, positions, dest_blocks=None,
@@ -655,6 +913,31 @@ def _attn_seq(p, h, cfg, *, cache, positions, kv_start, dest_blocks):
     return o
 
 
+def _attn_decode(p, h, cfg, *, pos, cache, kv_start):
+    """``layers.attn_decode``, or on a dry run's card whose cache holds
+    every kv head over its 1/tp of the sequence (kv heads the model axis
+    does not divide: ``launch.specs.card_cache``), its share of a
+    flash-decode: its q heads all-gathered, every head attending to the
+    card's keys, the partial outputs combined by an all-reduce, its own
+    heads then through wo. The new token's K/V belong to the card that
+    holds position pos (the last one): this card writes none."""
+    if not (parallel_ctx.active() and cache["k"].shape[2]
+            > cfg.num_kv_heads):
+        return layers.attn_decode(p, h, cfg, pos=pos, cache=cache,
+                                  kv_start=kv_start)
+    tp = parallel_ctx.tp()
+    q, _, _ = layers._qkv(p, h, cfg)
+    b = h.shape[0]
+    pos = torch.as_tensor(pos, device=h.device).long().expand(b)
+    q = layers.rope(q, pos[:, None], cfg.rope_theta)
+    q = parallel_ctx.collective("all-gather", torch.cat([q] * tp, dim=2))
+    S = cache["k"].shape[1]
+    o = ops.decode_attention(q, cache["k"], cache["v"],
+                           kv_len=(pos + 1).clamp(max=S))
+    o = parallel_ctx.collective("all-reduce", o.float()).to(o.dtype)
+    return layers._out(p, o[:, :, :cfg.num_heads].reshape(b, 1, -1), "wo")
+
+
 def apply_sublayer_decode(cfg, kind, sp, x, sc, *, pos, kv_start=None):
     """One block for a single decode token per row against the contiguous
     cache `sc` (pos a scalar or (b,) per-row positions; kv_start (b,) the
@@ -664,7 +947,7 @@ def apply_sublayer_decode(cfg, kind, sp, x, sc, *, pos, kv_start=None):
     if kind != ATTN:
         o = _recurrent_decode(cfg, kind, sp["mixer"], h, sc)
     else:
-        o = _sharded(sp["mixer"], h, cfg, layers.attn_decode, pos=pos,
+        o = _sharded(sp["mixer"], h, cfg, _attn_decode, pos=pos,
                      cache=sc, kv_start=kv_start)
     return _ffn(cfg, sp, _cross(cfg, sp, x + o, sc))
 
@@ -710,7 +993,17 @@ def apply_sublayer_verify_paged(cfg, kind, sp, x, sc, *, positions, q_len,
 # ---------------------------------------------------------------------------
 
 def _embed(cfg, params, tokens):
-    x = params["embed"][tokens]
+    emb = params["embed"]
+    if parallel_ctx.active() and emb.shape[0] < cfg.vocab_size:
+        # a card's rows of a vocabulary-split table: its part of the
+        # lookup (zero for another card's ids), summed over the cards in
+        # float32
+        n = emb.shape[0]
+        x = emb[tokens.clamp(max=n - 1)] * (tokens < n)[..., None].to(
+            emb.dtype)
+        x = parallel_ctx.collective("all-reduce", x.float()).to(emb.dtype)
+    else:
+        x = emb[tokens]
     if cfg.family == "vlm":                      # gemma-style scaling
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     return x
@@ -736,10 +1029,13 @@ def _encoder_forward(cfg, params, frames):
     x = x + layers.sinusoidal_positions(pos, d).to(x.dtype)
     stack = ep["blocks"]["sub0"]
     for i in range(cfg.num_encoder_layers):
-        pp = {k: {n: t[i] for n, t in v.items()} for k, v in stack.items()}
-        x = x + layers.attn_encoder(pp["mixer"], _norm(cfg, pp["ln1"], x),
-                                    cfg)
-        x = x + layers.mlp(pp["mlp"], _norm(cfg, pp["ln2"], x), cfg)
+        pp = _index(stack, i)
+        if parallel_ctx.active():
+            pp = _card_view(cfg, pp, i, ("encoder", "blocks", "sub0"))
+        x = x + _sharded(pp["mixer"], _norm(cfg, pp["ln1"], x), cfg,
+                         layers.attn_encoder)
+        x = x + _sharded(pp["mlp"], _norm(cfg, pp["ln2"], x), cfg,
+                         layers.mlp)
     return layers.layer_norm(x, w, ep["final_norm"]["b"], cfg.norm_eps)
 
 
@@ -846,24 +1142,37 @@ def apply_sublayer_train(cfg, kind, sp, x, *, positions, enc_out=None):
     then the MLP or MoE. Returns (x, the MoE router's aux loss or 0)."""
     h = _norm(cfg, sp["ln1"], x)
     if kind == ATTN:
-        o, _, _ = layers.attn_prefill(sp["mixer"], h, cfg,
-                                      positions=positions)
+        o = _sharded(sp["mixer"], h, cfg, _attn_train, positions=positions)
     elif kind == MAMBA:
-        o, _ = mamba.mamba_prefill(sp["mixer"], h, cfg)
+        o, _ = _mamba(sp["mixer"], h, cfg, None)
     elif kind == MLSTM:
-        o, _ = xlstm.mlstm_prefill(sp["mixer"], h, cfg)
+        o, _ = _mlstm(sp["mixer"], h, cfg, None)
     else:
         o, _ = xlstm.slstm_prefill(sp["mixer"], h, cfg)
     x = x + o
     if cfg.is_encoder_decoder:
-        o, _ = layers.cross_attn(sp["xattn"], _norm(cfg, sp["lnx"], x), cfg,
-                                 enc_out=enc_out)
-        x = x + o
+        x = x + _sharded(sp["xattn"], _norm(cfg, sp["lnx"], x), cfg,
+                         _cross_train, enc_out=enc_out)
     if "moe" in sp:
-        o, aux = moe.moe_mlp(sp["moe"], _norm(cfg, sp["ln2"], x), cfg,
-                             return_aux=True)
-        return x + o, aux
+        aux = []
+
+        def moe_aux(p, h, cfg, **kw):
+            o, a = moe.moe_mlp(p, h, cfg, return_aux=True, **kw)
+            aux.append(a)
+            return o
+        o = _sharded(sp["moe"], _norm(cfg, sp["ln2"], x), cfg, moe_aux)
+        # the router is whole on every shard: each shard's aux loss is the
+        # layer's
+        return x + o, aux[0].to(x.device)
     return _ffn(cfg, sp, x), torch.zeros((), device=x.device)
+
+
+def _attn_train(p, h, cfg, *, positions):
+    return layers.attn_prefill(p, h, cfg, positions=positions)[0]
+
+
+def _cross_train(p, h, cfg, *, enc_out):
+    return layers.cross_attn(p, h, cfg, enc_out=enc_out)[0]
 
 
 # Activation checkpointing for training, as the reference's REMAT_TRAIN
@@ -919,6 +1228,11 @@ def loss_fn(cfg: ModelConfig, params, batch):
     tokens = torch.as_tensor(batch["tokens"], device=logits.device).long()
     pred = logits[:, cfg.num_image_tokens:][:, :-1]
     logp = torch.log_softmax(pred.float(), dim=-1)
+    if parallel_ctx.active() and logp.shape[-1] < cfg.vocab_size:
+        # a card's columns of a vocabulary-split head: the softmax's max
+        # and sum are reduced over the cards
+        for _ in range(2):
+            parallel_ctx.count("all-reduce", logp[..., 0])
     nll = -torch.gather(logp, -1, tokens[:, 1:, None])[..., 0]
     return nll.mean() + aux
 

@@ -102,9 +102,8 @@ def _moe_grouped(p, x, cfg, *, return_aux, experts=None):
     w = (fg * keep).to(x.dtype)
     out = (gathered * w[..., None]).reshape(b, s, k, d).sum(dim=2)
     if return_aux:
-        if experts is not None:
-            raise NotImplementedError("training has no expert-parallel "
-                                      "shards")
+        # every shard routes every token with the whole router: the aux
+        # loss is the layer's on each
         return out, _aux_loss(cfg, probs, fe, b * s * k)
     return out
 

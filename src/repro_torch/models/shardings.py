@@ -16,7 +16,16 @@ that several kinds share (wq / wk / wv) resolve by kind, as in the
 reference.
 
 ``param_splits`` and ``cache_splits`` give the reference's rules leaf by
-leaf. The executor (``models.model.shard_layer_params``) cuts the MLP and
+leaf, for an int8-weight tree too: there a weight is {"q", "s"}, and the
+rules match on the last path element, which is never ``wq`` or ``w_up``,
+so the reference replicates every ``q`` and ``s`` (ROADMAP.md F9; its
+``models/quant.py`` docstring promises the Megatron cut). The port cuts
+them (``quant_split``): ``q`` as its plain weight, ``s`` with the output
+columns of a column-parallel weight (and with the experts of an
+expert-parallel one), whole beside a row-parallel one, so a TP-t stage
+holds 1/t of each split weight's int8 bytes.
+
+The executor (``models.model.shard_layer_params``) cuts the MLP and
 MoE leaves on ``leaf_split``'s dimension, and every attention leaf on its
 ``HEAD_AXIS`` at the shard's global head range (``shard_heads``), which
 is ``leaf_split``'s even split wherever that splits. Where the rules
@@ -117,6 +126,29 @@ def leaf_split(cfg: ModelConfig, names: Sequence[str], ndim: int,
     if name == "w_down":
         return at(0) if _div(f, tp) else None
     return None
+
+
+def quant_split(cfg: ModelConfig, names: Sequence[str], ndim: int,
+                tp: int) -> Tuple[Optional[int], Optional[int]]:
+    """(q's split dimension, s's) of an int8 weight {"q": (..., in, out),
+    "s": (..., out)} at TP degree `tp`, from its plain weight's rule:
+    `names` is the weight's path (ending in ``wq``, ``w_up``, ...) and
+    `ndim` its q's dimensions. q splits as the plain weight would; s
+    splits with q's output columns (a column-parallel weight) or leading
+    axes (a 3-D expert weight's E), and stays whole where q splits on its
+    contraction rows (a row-parallel weight)."""
+    d = leaf_split(cfg, names, ndim, tp)
+    return d, quant_s_dim(d, ndim)
+
+
+def quant_s_dim(d: Optional[int], ndim: int) -> Optional[int]:
+    """The dimension of s (..., out) that an int8 weight's scales split on
+    when its q (..., in, out), `ndim` dimensions, splits on `d`: the output
+    columns or a leading (expert) axis carry their scales along; the
+    contraction rows (a row-parallel cut) keep every scale."""
+    if d is None or d == ndim - 2:
+        return None
+    return d if d < ndim - 2 else ndim - 2
 
 
 def _map(tree, fn, path=()):

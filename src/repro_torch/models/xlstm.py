@@ -39,47 +39,73 @@ def m_qk_dim(cfg):
 # mLSTM
 # ---------------------------------------------------------------------------
 
-def _mlstm_qkv_gates(p, x, cfg, valid=None):
-    b, s, _ = x.shape
+# An mLSTM layer runs in two parts, so that a tensor-parallel stage (shards
+# that each hold a slice of din: ``models.model``) can sum its shards'
+# products between them: ``mlstm_in``, each shard's row-parallel q / k / v
+# and gate preactivations (partial sums) and its slice of the gate z, then
+# ``mlstm_out`` once, from the sums and the whole z: the gates, the cell
+# and out_proj (which the rules replicate).
+
+PRE = ("q", "k", "v", "i", "f")
+
+
+def mlstm_in(p, x):
+    """x (b, s, d) -> ({"q", "k", "v", "i", "f"} the products of xi with
+    wq, wk, wv, w_i, w_f, flat (b, s, .); z (b, s, din))."""
+    xi, z = mm(x, p["w_up"]).chunk(2, dim=-1)           # (b, s, din) each
+    return {n: mm(xi, p[w]) for n, w in zip(PRE, ("wq", "wk", "wv", "w_i",
+                                                  "w_f"))}, z
+
+
+def _mlstm_qkv_gates(pre, cfg, valid=None):
+    b, s, _ = pre["q"].shape
     h = cfg.num_heads
     din, qk = m_d_inner(cfg), m_qk_dim(cfg)
-    xi, z = mm(x, p["w_up"]).chunk(2, dim=-1)           # (b, s, din) each
-    q = mm(xi, p["wq"]).reshape(b, s, h, qk // h)
-    k = mm(xi, p["wk"]).reshape(b, s, h, qk // h)
-    v = mm(xi, p["wv"]).reshape(b, s, h, din // h)
-    ig = torch.sigmoid(mm(xi, p["w_i"]))                # (b, s, h)
-    fg = torch.sigmoid(mm(xi, p["w_f"]))
+    q = pre["q"].reshape(b, s, h, qk // h)
+    k = pre["k"].reshape(b, s, h, qk // h)
+    v = pre["v"].reshape(b, s, h, din // h)
+    ig = torch.sigmoid(pre["i"])                        # (b, s, h)
+    fg = torch.sigmoid(pre["f"])
     if valid is not None:
         vm = valid.to(ig.dtype)[..., None]
         ig = ig * vm                                    # pad: i = 0
         fg = fg * vm + (1.0 - vm)                       # pad: f = 1
-    return q, k, v, ig, fg, z
+    return q, k, v, ig, fg
 
 
-def mlstm_prefill(p, x, cfg, *, valid=None, cache=None):
-    """x (b, s, d), from the state `cache` (None: zeros). Returns (out,
-    new_cache in `cache`'s dtypes, or None without a cache)."""
-    q, k, v, ig, fg, z = _mlstm_qkv_gates(p, x, cfg, valid)
-    C0 = n0 = None
-    if cache is not None:
-        C0, n0 = cache["C"], cache["n"]
-    y, (C, n) = ops.mlstm_scan(q, k, v, ig, fg, C0=C0, n0=n0)
-    b, s = x.shape[:2]
+def mlstm_out(p, pre, z, cfg, *, valid=None, cache=None, step=False):
+    """The cell and out_proj from ``mlstm_in``'s whole products `pre` and
+    gate z: a scan over the sequence from the state `cache` (None: zeros),
+    or with ``step`` one decode step against it. Returns (out, new_cache
+    in `cache`'s dtypes, or None without a cache)."""
+    q, k, v, ig, fg = _mlstm_qkv_gates(pre, cfg, valid)
+    b, s = z.shape[:2]
+    if step:
+        y, (C, n) = ops.mlstm_step(q[:, 0], k[:, 0], v[:, 0], ig[:, 0],
+                                   fg[:, 0], cache["C"].float(),
+                                   cache["n"].float())
+    else:
+        C0 = n0 = None
+        if cache is not None:
+            C0, n0 = cache["C"], cache["n"]
+        y, (C, n) = ops.mlstm_scan(q, k, v, ig, fg, C0=C0, n0=n0)
     out = mm(y.reshape(b, s, -1) * F.silu(z), p["out_proj"])
     if cache is None:
         return out, None
     return out, {"C": C.to(cache["C"].dtype), "n": n.to(cache["n"].dtype)}
 
 
+def mlstm_prefill(p, x, cfg, *, valid=None, cache=None):
+    """x (b, s, d), from the state `cache` (None: zeros). Returns (out,
+    new_cache in `cache`'s dtypes, or None without a cache)."""
+    pre, z = mlstm_in(p, x)
+    return mlstm_out(p, pre, z, cfg, valid=valid, cache=cache)
+
+
 def mlstm_decode(p, x, cfg, *, cache):
     """x (b, 1, d) against the state `cache`. Returns (out, new_cache)."""
-    q, k, v, ig, fg, z = _mlstm_qkv_gates(p, x, cfg)
-    y, (C, n) = ops.mlstm_step(q[:, 0], k[:, 0], v[:, 0], ig[:, 0],
-                               fg[:, 0], cache["C"].float(),
-                               cache["n"].float())
-    b = x.shape[0]
-    out = mm(y.reshape(b, 1, -1) * F.silu(z), p["out_proj"])
-    return out, {"C": C.to(cache["C"].dtype), "n": n.to(cache["n"].dtype)}
+    pre, z = mlstm_in(p, x)
+    return mlstm_out(p, pre, z, cfg, cache=cache, step=True)
 
 
 # ---------------------------------------------------------------------------

@@ -9,10 +9,11 @@ numbers), so on one card every stage runs whole there and on four a TP-2
 stage runs as two shards on two cards. ``devices`` defaults to every
 visible device of ``device``'s type (``device="cuda"`` by default, tests
 pass ``device="cpu"``), or to ``device`` itself where it names an index.
-A stage whose layers tensor parallelism does not cover yet
-(``pipeline.tp_refusal``: Mamba / xLSTM layers, an encoder-decoder, a
-VLM, int8 weights) runs whole on its first mapped device, with a warning:
-pipeline placement, as on one card, never a replicated run.
+A stage over several distinct devices runs as tensor-parallel shards
+whatever the family and whether or not the weights are int8
+(``serving.pipeline``), or raises NotImplementedError naming the cause (q
+heads that do not split over its devices): it never runs on one device
+in their stead.
 """
 from __future__ import annotations
 
@@ -30,7 +31,6 @@ from repro_torch.device import resolve_device, visible_devices
 from repro_torch.serving.disagg import KVLink
 from repro_torch.serving.pipeline import (AsymmetricPipeline,
                                           context_mode_supported,
-                                          tp_refusal,
                                           slot_mode_supported)
 from repro_torch.serving.request import Request
 from repro_torch.serving.router import Router, ServeStats, default_roles
@@ -145,30 +145,14 @@ class InferenceEngine:
         if quantize:
             params = quantize_params(params)
         self.replicas: List[AsymmetricPipeline] = []
-        placed = set()
         for pipe in assignment.pipelines:
-            stage_devs, lo = [], 0
-            for st, n in zip(pipe.stages, pipe.layer_split):
-                mapped = [self.devices[d % len(self.devices)]
-                          for d in st.device_ids]
-                # fewer physical devices than the plan's TP degree:
-                # duplicates collapse (TP only changes the layout)
-                devs = list(dict.fromkeys(mapped))
-                why = None if len(devs) == 1 else tp_refusal(
-                    cfg, [cfg.layer_kind(i) for i in range(lo, lo + n)],
-                    params)
-                if why is not None:
-                    # pipeline placement: the stage whole on its first
-                    # device, as on a host with one card
-                    placed.add(why)
-                    devs = devs[:1]
-                stage_devs.append(devs)
-                lo += n
+            # fewer physical devices than the plan's TP degree: duplicates
+            # collapse (TP only changes the layout)
+            stage_devs = [list(dict.fromkeys(
+                self.devices[d % len(self.devices)] for d in st.device_ids))
+                for st in pipe.stages]
             self.replicas.append(AsymmetricPipeline(
                 cfg, params, pipe.layer_split, stage_devs, dtype=dtype))
-        for why in sorted(placed):
-            warnings.warn(f"{why}: each such stage runs whole on its first "
-                          "device")
         if policy != "static" and not slot_mode_supported(cfg):
             warnings.warn(
                 f"{cfg.name}: slot mode needs uniform text decode "

@@ -6,19 +6,21 @@ Each stage owns its own contiguous span of layers and its own device
 group, with its own tensor-parallel degree: ``stage_devices[si]`` (the
 reference's per-stage meshes). A stage over tp > 1 devices holds each
 layer as tp shards, cut by the reference's Megatron rules
-(``models.shardings``, ``models.model.shard_layer_params``): shard r keeps
-its q heads, the kv heads they read, its d_ff slice or its experts, and
-its page pools, on its own device; the attention's and the FFN's outputs
-are summed across the shards in shard order before each residual add.
-Embedding, final norm and head stay whole on the stage's first device
-(the logits are the same). Activations move to the next stage's first
-device, and from there to each of its shards; a step's positions and
-block tables go to each stage's devices once (``StageExecutor.put``).
-Repeated devices are not collapsed here (the engine does that): two
-shards on one card are two shards. Stages stay separate objects with
-their own page pools, sized independently, so the asymmetric split is
-real. Tensor parallelism covers attention-only decoders with plain
-weights; every family places its stages on separate devices.
+(``models.shardings``, ``models.model.shard_layer_params``), whatever
+the family and whether or not the weights are int8: shard r keeps its q
+heads and the kv heads they read (with their page pools and whisper's
+cross K/V), its slice of a Mamba or mLSTM layer's din (with the Mamba
+state's channels), its d_ff slice or its experts, on its own device; the
+sublayers' outputs are summed across the shards in shard order before
+each residual add. Embedding, final norm, head and whisper's encoder stay
+whole on the stage's first device (the logits are the same), as do the
+norms, an sLSTM layer and an mLSTM layer's cell and state. Activations
+move to the next stage's first device, and from there to each of its
+shards; a step's positions, block tables, masks and the encoder output
+go to each stage's devices once (``StageExecutor.put``). Repeated devices
+are not collapsed here (the engine does that): two shards on one card are
+two shards. Stages stay separate objects with their own page pools,
+sized independently, so the asymmetric split is real.
 
 A stage's attention layers keep page pools, its recurrent layers (Mamba,
 mLSTM, sLSTM) one row of state per slot; a stage may hold no attention
@@ -39,7 +41,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ATTN, ModelConfig
+from repro_torch.configs.base import ATTN, MLSTM, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.models.mamba import FP32_LEAVES
@@ -80,18 +82,14 @@ class StageExecutor:
         self.device = self.devices[0]
         self.dtype = dtype
         self.kinds = [cfg.layer_kind(i) for i in range(lo, hi)]
-        if self.tp > 1:
-            why = tp_refusal(cfg, self.kinds, params)
-            if why is not None:
-                raise NotImplementedError(
-                    f"{why}; place it on one device a stage")
 
         def place(tree, device=self.device):
             # an int8 weight keeps its int8 payload and float32 scales, a
-            # Mamba layer its float32 dynamics; a shard's column slice is
-            # copied, to be contiguous on its device
+            # Mamba layer its float32 dynamics; a shard's slice is copied,
+            # to be contiguous on its device (and to hold only its bytes)
             if is_quantized(tree):
-                return {k: v.to(device=device) for k, v in tree.items()}
+                return {k: v.to(device=device).contiguous()
+                        for k, v in tree.items()}
             return {k: place(v, device) if isinstance(v, dict)
                     else v.to(device=device,
                               dtype=torch.float32 if k in FP32_LEAVES
@@ -138,21 +136,26 @@ class StageExecutor:
         return m if isinstance(m, M.Shards) else None
 
     def _layer_caches(self, make):
-        """make(cfg, i, device) of each layer: one cache on the stage's
-        device, or Shards of each shard's (its kv heads, its device)."""
+        """make(cfg, i, device, d_inner) of each layer: one cache on the
+        stage's device (a whole layer's, or an mLSTM layer's, whose cell
+        runs there), or Shards of each shard's (its kv heads or its Mamba
+        channels, on its device)."""
         out = []
         for k, i in enumerate(range(self.lo, self.hi)):
             sh = self._shards(k)
-            out.append(make(self.cfg, i, self.device) if sh is None
-                       else M.Shards(make(s.cfg, i, s.device) for s in sh))
+            out.append(make(self.cfg, i, self.device, None)
+                       if sh is None or self.kinds[k] == MLSTM
+                       else M.Shards(make(s.cfg, i, s.device, s.d_inner)
+                                     for s in sh))
         return out
 
     def make_caches(self, batch: int, max_len: int):
         """Per-layer contiguous caches of `batch` rows: attention K/V of
         max_len positions (the sliding-window ring of min(max_len, window)
         slots), recurrent state rows."""
-        return self._layer_caches(lambda cfg, i, dev: M.init_layer_cache(
-            cfg, i, batch, max_len, dtype=self.dtype, device=dev))
+        return self._layer_caches(lambda cfg, i, dev, din: M.init_layer_cache(
+            cfg, i, batch, max_len, dtype=self.dtype, device=dev,
+            d_inner=din))
 
     def make_paged_caches(self, n_blocks: int, block_size: int,
                           n_slots: int, *, kv_dtype: Optional[str] = None,
@@ -164,10 +167,11 @@ class StageExecutor:
         `kv_dtype` selects the pool precision (None = the model's);
         `kv_guard_layers` are GLOBAL layer indices kept at model
         precision."""
-        return self._layer_caches(lambda cfg, i, dev: M.init_layer_paged_cache(
-            cfg, i, n_blocks, block_size, dtype=self.dtype, device=dev,
-            n_slots=n_slots, kv_dtype=kv_dtype,
-            kv_guard_layers=kv_guard_layers))
+        return self._layer_caches(
+            lambda cfg, i, dev, din: M.init_layer_paged_cache(
+                cfg, i, n_blocks, block_size, dtype=self.dtype, device=dev,
+                n_slots=n_slots, kv_dtype=kv_dtype,
+                kv_guard_layers=kv_guard_layers, d_inner=din))
 
     def scatter_rows(self, pools, rows, slot_ids) -> None:
         """Write scratch caches `rows` into the contiguous `pools` at
@@ -312,36 +316,6 @@ class StageExecutor:
                 self.cfg, kind, lp, x, sc, positions=positions,
                 q_len=q_len, block_tables=block_tables)
         return x
-
-
-def tp_refusal(cfg: ModelConfig, kinds, params) -> Optional[str]:
-    """Why a stage of layer kinds `kinds` cannot run over tensor-parallel
-    shards, or None: tensor parallelism covers attention-only decoders
-    with plain weights (ROADMAP queue 1 items 10 and 11 hold the rest).
-    The executor raises on it (no fallback to a replicated run); the
-    engine places such a stage on one device."""
-    what = None
-    if cfg.is_encoder_decoder:
-        what, item = "an encoder-decoder", 10
-    elif cfg.num_image_tokens:
-        what, item = "a VLM", 10
-    elif any(k != ATTN for k in kinds):
-        what, item = f"a {next(k for k in kinds if k != ATTN)} layer", 10
-    elif any(is_quantized(v) for v in _subtrees(params)):
-        what, item = "quantize=True weights", 11
-    if what is None:
-        return None
-    return (f"{cfg.name} ({cfg.family}): a stage over tensor-parallel "
-            f"shards is not ported for {what} (ROADMAP.md queue 1 item "
-            f"{item})")
-
-
-def _subtrees(tree):
-    """Every dict in a param tree (a quantized weight is one)."""
-    for v in tree.values():
-        if isinstance(v, dict):
-            yield v
-            yield from _subtrees(v)
 
 
 def _bits_cat(ts, dim):

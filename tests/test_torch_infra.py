@@ -6,6 +6,7 @@ import os
 import re
 import subprocess
 import sys
+import warnings
 
 import jax
 import numpy as np
@@ -209,24 +210,29 @@ def test_unported_features_raise_not_implemented():
     asg = port_plan.Assignment([port_plan.PipelinePlan(
         [port_plan.StagePlan([0], 2)])])
     # the reference's devices and key are served (tests/test_torch_tp.py);
-    # what a tensor-parallel stage does not cover raises in the executor:
-    # a stage over two devices of a model with Mamba layers, or with int8
-    # weights; the engine places such a stage on one device and says so
+    # a stage over two devices runs as two shards whatever the family and
+    # whether or not the weights are int8 (tests/test_torch_tp_families.py),
+    # with no warning: the engine never places it on one device instead
     InferenceEngine(cfg, asg, devices=["cpu:0", "cpu:1"], key=1)
     two = port_plan.Assignment([port_plan.PipelinePlan(
         [port_plan.StagePlan([0, 1], 2)])])
     from repro_torch.models.quant import quantize_params
     cpus = ["cpu:0", "cpu:1"]
-    with pytest.raises(NotImplementedError, match="quantize=True"):
-        AsymmetricPipeline(cfg, quantize_params(PM.init_params(
-            cfg, 0, device="cpu")), [2], [cpus])
-    with pytest.warns(UserWarning, match="quantize=True"):
+    AsymmetricPipeline(cfg, quantize_params(PM.init_params(
+        cfg, 0, device="cpu")), [2], [cpus])
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
         eng = InferenceEngine(cfg, two, devices=cpus, quantize=True)
-    assert eng.replicas[0].describe_devices() == [["cpu:0"]]
+    assert eng.replicas[0].describe_devices() == [cpus]
     jamba = port_config("jamba-v0.1-52b").reduced()
-    with pytest.raises(NotImplementedError, match="mamba layer"):
-        AsymmetricPipeline(jamba, PM.init_params(jamba, 0, device="cpu"),
-                           [jamba.num_layers], [cpus])
+    pipe = AsymmetricPipeline(jamba, PM.init_params(jamba, 0, device="cpu"),
+                              [jamba.num_layers], [cpus])
+    assert pipe.describe_devices() == [cpus]
+    # what a stage over shards cannot split raises, naming the cause: q
+    # heads that would be cut (granite-8b reduced has 4)
+    with pytest.raises(NotImplementedError, match="query heads"):
+        AsymmetricPipeline(cfg, PM.init_params(cfg, 0, device="cpu"), [2],
+                           [[f"cpu:{i}" for i in range(8)]])
     # unquantized pools of another width than the model's are served: a
     # bf16 pool under the fp32 model is built (test_torch_kv_widths.py)
     eng = InferenceEngine(cfg, asg, device="cpu", cache_layout="paged",

@@ -24,14 +24,17 @@ two devices as two shards, each with its own weights, heads and pools):
     to the reference engine's;
   * disaggregation between a TP-2 replica and a TP-1 one, both ways:
     tokens equal to the colocated serve's and the reference's;
-  * jamba reduced: NotImplementedError over two shards; the engine on
-    two devices placing a TP-2 jamba stage on one, and two TP-1 stages on
-    cpu:0 / cpu:1, both with the reference's tokens; danube's ring
-    at TP 2, whisper-base, paligemma-3b and xlstm-125m placed by stage;
-    the NotImplementedError of int8 weights, whisper and paligemma over
-    two shards.
+  * jamba reduced over two shards (the executor and the engine on two
+    devices, no warning) and on two TP-1 stages on cpu:0 / cpu:1, all with
+    the reference's tokens; danube's ring at TP 2, whisper-base,
+    paligemma-3b and xlstm-125m placed by stage; int8 weights, whisper and
+    paligemma over two shards with one device's tokens; a bias after a
+    row-parallel product added once (three of these keep the names of the
+    refusals they replaced). tests/test_torch_tp_families.py holds the
+    other families and int8 weights to the reference.
 """
 import dataclasses
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -349,11 +352,33 @@ def test_uneven_kv_heads_and_biases_match(name, tp):
 
 
 def test_a_row_parallel_bias_is_refused():
+    """(Named for the refusal it replaced.) A bias after a row-parallel
+    product (``bo`` after wo, ``b_down`` after w_down: no registered
+    architecture has one) is replicated by the rules and added once, to
+    the shards' sum, on the first device: two shards give one device's
+    logits, which the bias moves."""
     cfg = port_config("granite-8b").reduced()
-    lp = PM.slice_layer_params(cfg, PM.init_params(cfg, 0, device="cpu"), 0)
-    lp["mixer"]["bo"] = torch.zeros(cfg.d_model)
-    with pytest.raises(NotImplementedError, match="bo"):
-        PM.shard_layer_params(cfg, lp, 0, CPUS[:2], lambda t, d: t)
+    params = PM.init_params(cfg, 0, device="cpu")
+    toks = _toks(cfg)
+    L = cfg.num_layers
+    plain = AsymmetricPipeline(cfg, params, [L], device="cpu").prefill(
+        toks, max_new=4)
+    rng = np.random.RandomState(3)
+    sub = params["blocks"]["sub0"]
+    for leaf, (w, bias) in (("mixer", ("wo", "bo")),
+                            ("mlp", ("w_down", "b_down"))):
+        sub[leaf][bias] = torch.from_numpy(rng.standard_normal(
+            (L, cfg.d_model)).astype(np.float32))
+    one = AsymmetricPipeline(cfg, params, [L], device="cpu").prefill(
+        toks, max_new=4)
+    pipe = AsymmetricPipeline(cfg, params, [L], [CPUS[:2]])
+    two = pipe.prefill(toks, max_new=4)
+    assert np.abs(one - plain).max() > 1e-2           # the biases count
+    assert np.abs(two - one).max() <= 1e-5 * np.abs(one).max()
+    lp = pipe.stages[0].layer_params[0]
+    for leaf, bias in (("mixer", "bo"), ("mlp", "b_down")):
+        assert set(lp[leaf].whole) == {bias}
+        assert all(bias not in s.params for s in lp[leaf])
 
 
 # ---------------------------------------------------------------------------
@@ -510,11 +535,10 @@ def test_engine_devices_and_key():
 # ---------------------------------------------------------------------------
 
 def test_jamba_tp_raises_and_places_by_stage():
-    """The executor refuses jamba's stage over two shards; the engine on
-    two devices places a plan's TP-2 jamba stage whole on its first
-    device (with a warning naming the ROADMAP item), as on one card, and
-    generates the reference's tokens; two TP-1 stages on cpu:0 / cpu:1
-    give them too."""
+    """(Named for the refusal it replaced.) The executor runs jamba's
+    stage over two shards, and the engine on two devices runs a plan's
+    TP-2 jamba stage as two shards on them, with no warning; both, and two
+    TP-1 stages on cpu:0 / cpu:1, generate the reference's tokens."""
     jcfg = get_config("jamba-v0.1-52b").reduced()
     pcfg = port_config("jamba-v0.1-52b").reduced()
     L = pcfg.num_layers
@@ -522,26 +546,24 @@ def test_jamba_tp_raises_and_places_by_stage():
     # layout; the reference's own init takes seconds to trace here)
     pparams = PM.init_params(pcfg, 0, device="cpu")
     tree = jax.tree.map(lambda t: t.numpy(), pparams)
-    with pytest.raises(NotImplementedError, match="mamba layer.*item 10"):
-        AsymmetricPipeline(pcfg, pparams, [L], [CPUS[:2]])
-    with pytest.warns(UserWarning, match="mamba layer.*item 10.*whole"):
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
         eng = PEngine(pcfg, _asg(PMOD, [[([0, 1], L)]]), params=pparams,
                       devices=CPUS[:2])
-    assert eng.replicas[0].describe_devices() == [["cpu:0"]]
-    # pipeline placement: two TP-1 stages on two devices, the Mamba state
-    # and the activations moving between them; the reference's pipeline
-    # (one JAX device) on the same batch
+    assert eng.replicas[0].describe_devices() == [["cpu:0", "cpu:1"]]
+    assert isinstance(eng.replicas[0].stages[0].layer_params[0]["mixer"],
+                      PM.Shards)
     toks = np.random.RandomState(0).randint(
         0, pcfg.vocab_size, (3, 9)).astype(np.int32)
-    want = JPipe(jcfg, jax.tree.map(jnp.asarray, tree), [L],
-                 [jax.devices()[:1]]).generate(toks, max_new=4)
-    pipe = AsymmetricPipeline(pcfg, pparams, [1, L - 1], [CPUS[:1],
-                                                          CPUS[1:2]])
-    assert pipe.describe_devices() == [["cpu:0"], ["cpu:1"]]
-    got = pipe.generate(toks, max_new=4)
-    assert np.array_equal(got, np.asarray(want))
+    want = np.asarray(JPipe(jcfg, jax.tree.map(jnp.asarray, tree), [L],
+                            [jax.devices()[:1]]).generate(toks, max_new=4))
+    for split, sd in (([L], [CPUS[:2]]), ([1, L - 1], [CPUS[:1],
+                                                      CPUS[1:2]])):
+        pipe = AsymmetricPipeline(pcfg, pparams, split, sd)
+        assert pipe.describe_devices() == [[str(d) for d in s] for s in sd]
+        assert np.array_equal(pipe.generate(toks, max_new=4), want)
     assert np.array_equal(np.stack(eng.generate(list(toks), max_new=4)),
-                          np.asarray(want))
+                          want)
 
 
 @pytest.mark.parametrize("arch,tp", [("h2o-danube-1.8b", 2),
@@ -579,6 +601,10 @@ def test_every_family_places_its_stages_on_devices(arch, tp):
 
 @pytest.mark.parametrize("what", ["quantize", "whisper", "paligemma"])
 def test_tp_refuses_what_is_not_ported(what):
+    """(Named for the refusal it replaced.) int8 weights, whisper-base and
+    paligemma-3b over two shards a stage: the same tokens as one device
+    (tests/test_torch_tp_families.py holds their logits to the
+    reference's), each shard holding its half of the heads."""
     arch = {"quantize": "granite-8b", "whisper": "whisper-base",
             "paligemma": "paligemma-3b"}[what]
     cfg = port_config(arch).reduced()
@@ -586,8 +612,20 @@ def test_tp_refuses_what_is_not_ported(what):
     if what == "quantize":
         from repro_torch.models.quant import quantize_params
         params = quantize_params(params)
-    match = {"quantize": "quantize=True weights.*item 11",
-             "whisper": "encoder-decoder.*item 10",
-             "paligemma": "a VLM.*item 10"}[what]
-    with pytest.raises(NotImplementedError, match=match):
-        AsymmetricPipeline(cfg, params, [cfg.num_layers], [CPUS[:2]])
+    rng = np.random.RandomState(0)
+    toks = rng.randint(1, cfg.vocab_size, (3, 6)).astype(np.int32)
+    extras = {}
+    if cfg.is_encoder_decoder:
+        extras["enc_frames"] = rng.standard_normal(
+            (3, cfg.encoder_seq_len, cfg.d_model)).astype(np.float32)
+    if cfg.num_image_tokens:
+        extras["image_embeds"] = rng.standard_normal(
+            (3, cfg.num_image_tokens, cfg.d_model)).astype(np.float32)
+    L = cfg.num_layers
+    want = AsymmetricPipeline(cfg, params, [L], device="cpu").generate(
+        toks, max_new=4, batch_extras=extras)
+    pipe = AsymmetricPipeline(cfg, params, [L], [CPUS[:2]])
+    assert np.array_equal(pipe.generate(toks, max_new=4,
+                                        batch_extras=extras), want)
+    sh = pipe.stages[0].layer_params[0]["mixer"]
+    assert [s.cfg.num_heads for s in sh] == [cfg.num_heads // 2] * 2
