@@ -251,12 +251,18 @@ JAX. Phases, each of which raises on failure:
      stage's shards); (c) bf16 4 layers, walls one, two, two, one, held
      by ``_hold_bf16_tp``; (d) disaggregation TP 2 -> TP 1; (f) jamba's
      first 5 layers in fp32 (Mamba, MoE, attention) and (f') one period in
-     bf16, timed and held by quartile; (g) xlstm-125m fp32 (mLSTM's
-     mid-layer sum, sLSTM whole); (h) whisper-base and paligemma-3b fp32
-     through ``generate(batch_extras=)``; (i) llama2-70b 4 layers with
-     int8 weights, each shard's int8 bytes; (j) the dry run's card 0 of a
-     (1, 8) mesh (llama2-70b decode_32k, 2 layers) counted on meta and on
-     the card, equal; (e) with two or more cards, the engine over them.
+     bf16, timed, each row's routing recorded in its TP-1, TP-2 and
+     float32 replays and the rows that route alike held to 2x TP 1's
+     error (``_hold_routed``); (g) xlstm-125m fp32 (mLSTM's mid-layer
+     sum, sLSTM whole); (h) whisper-base and paligemma-3b fp32 through
+     ``generate(batch_extras=)``; (i) llama2-70b 4 layers with int8
+     weights, each shard's int8 bytes; (j) the dry run's card 0 of a (1,
+     8) mesh (llama2-70b decode_32k, 2 layers) counted on meta and on the
+     card, equal; (k) granite-moe-3b-a800m fp32 4 layers under MoE's
+     "global" dispatch over two expert shards: the serve's tokens,
+     ServeStats and launches, and the capacity branch's shard sum (T =
+     16384) against one device's; (e) with two or more cards, the engine
+     over them.
 
 ``python3 chip_smoke.py --sass-of TREE OUT.json`` instead builds the
 kernels of another checkout (the parent commit's ``git archive``) and
@@ -4513,24 +4519,44 @@ def _moe_prefill(cfg, params, rows, dispatch, dev, seen=None):
     = dispatch; returns the logits. `seen` (a list) collects the (params,
     input) of every MoE layer's call."""
     from repro_torch.models import model as M
-    from repro_torch.models import moe
     g = torch.Generator(device="cpu").manual_seed(rows)
     tokens = torch.randint(0, cfg.vocab_size, (rows, MOE_SEQ), generator=g)
     cache = M.init_cache(cfg, rows, MOE_SEQ, device=dev)
-    prev, moe.MOE_DISPATCH = moe.MOE_DISPATCH, dispatch
-    mlp = moe.moe_mlp
 
-    def spy(p, x, c, **kw):
+    def record(p, x, c, kw, out):
         if seen is not None:
             seen.append((p, x))
-        return mlp(p, x, c, **kw)
-    M.moe.moe_mlp = spy
+    with _dispatch(dispatch), _moe_spy(record), torch.inference_mode():
+        return M.prefill(cfg, params, {"tokens": tokens.to(dev)}, cache)[0]
+
+
+@contextlib.contextmanager
+def _dispatch(name):
+    """models.moe.MOE_DISPATCH = name while the block runs."""
+    from repro_torch.models import moe
+    prev, moe.MOE_DISPATCH = moe.MOE_DISPATCH, name
     try:
-        with torch.inference_mode():
-            return M.prefill(cfg, params, {"tokens": tokens.to(dev)},
-                             cache)[0]
+        yield
     finally:
         moe.MOE_DISPATCH = prev
+
+
+@contextlib.contextmanager
+def _moe_spy(on_call):
+    """The model's MoE layers call a wrapper of models.moe.moe_mlp while
+    the block runs: on_call(params, x, cfg, kwargs, output) after each
+    call."""
+    from repro_torch.models import model as M
+    mlp = M.moe.moe_mlp
+
+    def spy(p, x, c, **kw):
+        out = mlp(p, x, c, **kw)
+        on_call(p, x, c, kw, out)
+        return out
+    M.moe.moe_mlp = spy
+    try:
+        yield
+    finally:
         M.moe.moe_mlp = mlp
 
 
@@ -4759,11 +4785,12 @@ def phase_tp(smi):
     and ServeStats, with exactly the one-device launches times each
     stage's shard count; (c) the same plan in bf16 at 4 layers, walls of
     one device and of two shards on one card, alternating, and the tokens
-    held where the streams part (``_hold_bf16_tp``); (d)
-    disaggregation
+    held where the streams part (``_hold_bf16_tp``); (d) disaggregation
     from a replica with the TP-2 stage to a one-device replica: the
-    colocated serve's tokens; (e) with two or more cards, the engine over
-    them (``tp_on_cards``)."""
+    colocated serve's tokens; (f)-(k) every family, int8 weights, the dry
+    run's card and MoE's global dispatch over shards (``phase_tp_jamba``
+    .. ``phase_tp_moe_global``); (e) with two or more cards, the engine
+    over them (``tp_on_cards``)."""
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
     dev = torch.device(DEVICE)
@@ -4864,6 +4891,9 @@ def phase_tp(smi):
     torch.cuda.empty_cache()
     mark("phase 12 (c)")
     scans = phase_tp_jamba(smi)
+    mark("phase 12 (f)")
+    phase_tp_jamba_bf16(smi)
+    mark("phase 12 (f')")
     phase_tp_xlstm(smi)
     mark("phase 12 (g)")
     phase_tp_encdec(smi)
@@ -4872,6 +4902,8 @@ def phase_tp(smi):
     mark("phase 12 (i)")
     phase_tp_dryrun(smi)
     mark("phase 12 (j)")
+    phase_tp_moe_global(smi)
+    mark("phase 12 (k)")
     tp_on_cards(smi)
     return {"ssm_scan": scans}
 
@@ -4901,11 +4933,12 @@ def _hold_bf16_tp(pipes, ref, reqs, t1, t2):
 def _bf16_tp_logits(pipes, reqs, t1, t2, replay=False):
     """_hold_bf16_tp's first half: for each request (its TP-1 and TP-2
     tokens, the index of their first parting or 0, the prefix, TP 1's and
-    TP 2's bf16 logits after it), so that the bf16 pipelines may be freed
-    before the float32 one is built. With ``replay`` the logits after a
-    prefix come from the path the serve took to them (``_replay``): a
-    recurrent layer's decode steps carry an error of their own that one
-    prefill of the prefix does not show."""
+    TP 2's bf16 logits after it, and the routing of their MoE layers on
+    the way, ``_replay``), so that the bf16 pipelines may be freed before
+    the float32 one is built. With ``replay`` the logits after a prefix
+    come from the path the serve took to them: a recurrent layer's decode
+    steps carry an error of their own that one prefill of the prefix does
+    not show."""
     rows = []
     for i, r in enumerate(reqs):
         a, b = t1[i], t2[i]
@@ -4913,71 +4946,205 @@ def _bf16_tp_logits(pipes, reqs, t1, t2, replay=False):
         prefix = (list(r.prompt), a[:j] if replay else [])
         if not replay:
             prefix = (list(r.prompt) + a[:j], [])
-        l1, l2 = (_replay(p, *prefix) for p in (pipes[1], pipes[2]))
-        rows.append((a, b, j, prefix, l1, l2))
+        (l1, r1), (l2, r2) = (_replay(p, *prefix)
+                              for p in (pipes[1], pipes[2]))
+        rows.append((a, b, j, prefix, l1, l2, r1, r2))
     return rows
 
 
 def _replay(pipe, prompt, tokens):
     """The logits after prompt + tokens: one contiguous prefill of the
-    prompt, then a decode step a token (the static path)."""
-    logits = pipe.prefill(np.asarray(prompt, np.int64)[None],
-                          max_new=len(tokens) + 1)[0]
-    for t in tokens:
-        logits = pipe.decode_step(np.asarray([t]))[0]
-    return logits.astype(np.float64)
+    prompt, then a decode step a token (the static path); and the routing
+    of the model's MoE layers on the way (``_routing``; None without)."""
+    with _routing(pipe.cfg) as route:
+        logits = pipe.prefill(np.asarray(prompt, np.int64)[None],
+                              max_new=len(tokens) + 1)[0]
+        for t in tokens:
+            logits = pipe.decode_step(np.asarray([t]))[0]
+    return logits.astype(np.float64), (route[0] if route else None)
+
+
+@contextlib.contextmanager
+def _routing(cfg):
+    """Records the routing of the MoE layers of `cfg`'s model while the
+    block runs, for forwards of the whole model (each runs every MoE
+    layer in depth order): a list that ends holding one (MoE layers,
+    positions, top_k) int64 tensor on the CPU, each position's top-k
+    expert ids sorted (the experts it runs). A spy on models.moe.moe_mlp
+    recomputes the layer's routing as models.moe does (top-k of the
+    float32 softmax of x @ router). A stage's shards each route every
+    token with the replicated router: their routings must be equal, and
+    shard 0's is kept. A model without MoE layers records nothing."""
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
+    calls, pending, out = [], [], []
+
+    def route(p, x, c, kw, _):
+        probs = torch.softmax((x @ p["router"]).float(), dim=-1)
+        pending.append(torch.topk(probs, c.top_k, dim=-1)[1].reshape(
+            -1, c.top_k).sort(-1).values.cpu())
+        ex = kw.get("experts")        # an expert shard, else a d_ff one
+        tp = cfg.num_experts // ex[1] if ex else cfg.d_ff // c.d_ff
+        if len(pending) == tp:
+            if any(not torch.equal(q, pending[0]) for q in pending[1:]):
+                raise AssertionError(f"{cfg.name}: the {tp} shards of an "
+                                     "MoE layer route differently")
+            calls.append(pending[0])
+            pending.clear()
+    with _moe_spy(route):
+        yield out
+    if n_moe:
+        if pending or not calls or len(calls) % n_moe:
+            raise AssertionError(f"{cfg.name}: {len(calls)} MoE calls "
+                                 f"({len(pending)} shards pending) for "
+                                 f"{n_moe} MoE layers a forward")
+        out.append(torch.stack([torch.cat(calls[m::n_moe])
+                                for m in range(n_moe)]))
 
 
 def _gate_bf16_tp(rows, ref, moe=False):
     """_hold_bf16_tp's second half, on _bf16_tp_logits' rows and the
-    float32 pipeline `ref`. With ``moe`` (a model with MoE layers, whose
-    top-k routing turns a rounding difference into another expert's output
-    now and then, in either run: such a row's largest error is some 10x
-    the others', my chip call 4, PR 30), the errors are held by quartile
-    and the partings by each run's own band: the lower quartile of TP 2's
-    errors over the requests at most TP_BF16_ERR times TP 1's (a fault of
-    the shard path moves every row; a routing flip one), and at each
-    parting the two tokens' float32 logits at most 2 (e1 + e2) apart (a
-    bf16 run picks a token within twice its own error of the best one,
-    and the rows' errors come from a replay of their path, ``_replay``,
-    which only estimates the serve's). Returns (the largest ratio of TP
-    2's error to TP 1's, or with ``moe`` the quartiles' ratio; each
-    parting's float32 gap in units of eps; with ``moe`` the rows whose
-    error exceeds 3x its run's quartile, TP 1's and TP 2's)."""
-    worst, gaps, errs = 0.0, [], []
-    for i, (a, b, j, prefix, l1, l2) in enumerate(rows):
-        l32 = _replay(ref, *prefix)
+    float32 pipeline `ref`. Without ``moe``: TP 2's error at most
+    TP_BF16_ERR x TP 1's and each parting within 2 eps on every row.
+    Returns (the largest ratio of TP 2's error to TP 1's, each parting's
+    float32 gap in units of eps). With ``moe`` (a model with MoE layers,
+    whose top-k routing may turn a rounding difference into another
+    expert's output, in either run), ``_hold_routed`` holds the rows with
+    the routing of the float32 replay recorded beside TP 1's and TP 2's,
+    and returns its summary."""
+    worst, gaps, recs = 0.0, [], []
+    for i, (a, b, j, prefix, l1, l2, r1, r2) in enumerate(rows):
+        l32, r32 = _replay(ref, *prefix)
         e1, e2 = np.abs(l1 - l32).max(), np.abs(l2 - l32).max()
-        eps, err = max(e1, e2), float(e2 / e1)
-        errs.append((e1, e2))
-        worst = max(worst, err)
         diff = float(abs(l32[a[j]] - l32[b[j]])) if a != b else None
+        recs.append(dict(a=a, b=b, j=j, e1=float(e1), e2=float(e2),
+                         diff=diff, routes=(r1, r2, r32),
+                         replayed=(int(l1.argmax()) == a[j],
+                                   int(l2.argmax()) == b[j])))
+        if moe:
+            continue
+        eps, err = max(e1, e2), float(e2 / e1)
+        worst = max(worst, err)
         gap = None if diff is None else diff / eps
         if gap is not None:
             gaps.append(gap)
-        if moe:
-            ok = math.isfinite(err) and (diff is None
-                                         or diff <= 2 * (e1 + e2))
-        else:
-            ok = (math.isfinite(err) and err <= TP_BF16_ERR) and (
-                gap is None or gap <= 2.0)
-        if not ok:
+        if not ((math.isfinite(err) and err <= TP_BF16_ERR) and (
+                gap is None or gap <= 2.0)):
             raise AssertionError(
                 f"request {i}, token {j}: TP 2's bf16 error {e2:.4g}, "
                 f"TP 1's {e1:.4g} (gate: at most {TP_BF16_ERR} x), tokens "
-                f"{a[j]} / {b[j]} {gap} eps apart in float32 (gate "
-                f"{'2 (e1 + e2)' if moe else '2 eps'})")
+                f"{a[j]} / {b[j]} {gap} eps apart in float32 (gate 2 eps)")
     if not moe:
         return worst, gaps
+    return _hold_routed(recs, [i for i in range(ref.cfg.num_layers)
+                               if ref.cfg.is_moe_layer(i)])
+
+
+# (f'): the fewest rows the routed gate may hold
+TP_ROUTED_MIN_ROWS = 4
+
+
+def _first_parting(routes, moe_layers):
+    """Where TP 1's, TP 2's and float32's routings (``_routing``) first
+    differ: (position, global layer, the bf16 runs that differ from
+    float32 there), or None where they agree everywhere."""
+    r1, r2, r32 = routes
+    off = [(r != r32).any(-1) for r in (r1, r2)]          # (layers, pos)
+    bad = (off[0] | off[1]).any(0)
+    if not bool(bad.any()):
+        return None
+    pos = int(bad.nonzero()[0, 0])
+    m = int((off[0][:, pos] | off[1][:, pos]).nonzero()[0, 0])
+    who = [n for n, o in zip(("TP 1", "TP 2"), off) if bool(o[m, pos])]
+    return pos, moe_layers[m], who
+
+
+def _hold_routed(recs, moe_layers):
+    """(f')'s gate on the bf16 rows of a model with MoE layers. Each rec:
+    the TP-1 and TP-2 tokens a / b, their first parting j, TP 1's and TP
+    2's largest logit errors against float32 e1 / e2, the two tokens'
+    float32 logit gap where they part (diff, else None) and the routing
+    of the three replays (TP 1, TP 2, float32; ``_routing``).
+
+    On every row: e1 / e2 finite, each parting within 2 (e1 + e2) (a bf16
+    run picks a token within twice its own error of the best one, and the
+    replay only estimates the serve's errors), and the lower quartile of
+    TP 2's errors at most TP_BF16_ERR x TP 1's. The rows whose routing
+    agrees in all three replays at every position of every MoE layer are
+    held as (c) holds every row: TP 2's error at most TP_BF16_ERR x TP
+    1's and each parting within 2 eps (eps = max(e1, e2)); a routing flip
+    moves a row's error by another expert's output, so the others are
+    counted, not held. Where fewer than TP_ROUTED_MIN_ROWS rows agree
+    everywhere, the rows that agree at the compared position (the
+    replay's last) in every MoE layer are held to TP_BF16_ERR instead,
+    their partings to 2 (e1 + e2) as every row's: their routing differed
+    earlier on their path, so the replay does not stand for the serve's
+    path, and 2 eps bounds a parting only where it does (a run's token is
+    its own logits' argmax). A gate over fewer than TP_ROUTED_MIN_ROWS
+    rows fails. Returns a summary: the quartiles' ratio, each parting's
+    gap in eps, the rows agreeing everywhere and at the last position,
+    which were held and their largest ratio, each other row's first
+    difference (row, position, layer, runs), and for each parting whether
+    the TP-1 and TP-2 replays pick the served tokens."""
+    errs = [(r["e1"], r["e2"]) for r in recs]
+    gaps, flipped, agree, agree_last = [], [], [], []
+    for i, r in enumerate(recs):
+        e1, e2, diff = r["e1"], r["e2"], r["diff"]
+        r1, r2, r32 = r["routes"]
+        if not (r1.shape == r2.shape == r32.shape):
+            raise AssertionError(f"request {i}: routings of shapes "
+                                 f"{[tuple(x.shape) for x in r['routes']]}")
+        if not (math.isfinite(e1) and math.isfinite(e2) and e1 > 0):
+            raise AssertionError(f"request {i}: bf16 errors {e1} / {e2}")
+        if diff is not None:
+            gaps.append(diff / max(e1, e2))
+            if not diff <= 2 * (e1 + e2):
+                raise AssertionError(
+                    f"request {i}, token {r['j']}: tokens {r['a'][r['j']]}"
+                    f" / {r['b'][r['j']]} {diff:.4g} apart in float32 "
+                    f"(gate: 2 (e1 + e2) = {2 * (e1 + e2):.4g})")
+        first = _first_parting(r["routes"], moe_layers)
+        if first is None:
+            agree.append(i)
+        else:
+            flipped.append((i, *first))
+        if torch.equal(r1[:, -1], r32[:, -1]) and torch.equal(
+                r2[:, -1], r32[:, -1]):
+            agree_last.append(i)
     q1, q2 = (float(np.percentile([e[k] for e in errs], 25))
               for k in (0, 1))
     if not q2 <= TP_BF16_ERR * q1:
         raise AssertionError(f"TP 2's bf16 errors' lower quartile {q2:.4g}"
                              f", TP 1's {q1:.4g} (gate: at most "
                              f"{TP_BF16_ERR} x); errors {errs}")
-    flips = tuple(sum(e[k] > 3 * q for e in errs) for k, q in ((0, q1),
+    held, how = agree, "every position"
+    if len(agree) < TP_ROUTED_MIN_ROWS:
+        held, how = agree_last, "the last position"
+    if len(held) < TP_ROUTED_MIN_ROWS:
+        raise AssertionError(
+            f"the routed gate holds {len(held)} rows (agreeing at "
+            f"{how}; {len(agree)} agree everywhere, {len(agree_last)} at "
+            f"the last position), fewer than {TP_ROUTED_MIN_ROWS}")
+    worst = 0.0
+    for i in held:
+        e1, e2, diff = recs[i]["e1"], recs[i]["e2"], recs[i]["diff"]
+        ratio = e2 / e1
+        worst = max(worst, ratio)
+        gap = (diff / max(e1, e2) if diff is not None
+               and how == "every position" else None)
+        if not (ratio <= TP_BF16_ERR and (gap is None or gap <= 2.0)):
+            raise AssertionError(
+                f"request {i} (its routing agrees in the three replays at "
+                f"{how}): TP 2's bf16 error {e2:.4g}, TP 1's {e1:.4g} "
+                f"(gate: at most {TP_BF16_ERR} x), parting {gap} eps apart "
+                "in float32 (gate 2)")
+    over3 = tuple(sum(e[k] > 3 * q for e in errs) for k, q in ((0, q1),
                                                                (1, q2)))
-    return q2 / q1, gaps, flips
+    return dict(quartiles=q2 / q1, gaps=gaps, agree=agree,
+                agree_last=agree_last, held=held, how=how, worst=worst,
+                flipped=flipped, over3=over3,
+                ratios=[e2 / e1 for e1, e2 in errs],
+                replayed={i: r["replayed"] for i, r in enumerate(recs)
+                          if r["diff"] is not None})
 
 
 # ---------------------------------------------------------------------------
@@ -5108,11 +5275,8 @@ def phase_tp_jamba(smi):
     TP_JAMBA_LAYERS layers, stages TP_JAMBA_SPLIT with the first over two
     shards on one card: the paged synthetic serve's tokens and ServeStats
     equal one device's, #9 launched twice on each of the TP-2 stage's
-    Mamba layers, the largest logit gap logged. (f'): one 8-layer period
-    in bf16, stages [3, 5], walls of one device and of the shards (one,
-    two, two, one) and the tokens held by _hold_bf16_tp (its float32
-    reference built after the bf16 pipelines are freed). Returns the
-    launches of #9 at a TP-2 shard's din in (f)'s sharded serve."""
+    Mamba layers, the largest logit gap logged. Returns the launches of
+    #9 at a TP-2 shard's din in the sharded serve."""
     cfg, params = _jamba_first(TP_JAMBA_LAYERS, "float32")
     split = list(TP_JAMBA_SPLIT)
     n_params = sum(t.numel() for t in _leaves(params))
@@ -5142,9 +5306,17 @@ def phase_tp_jamba(smi):
         f"{smi}")
     del one, two, params
     torch.cuda.empty_cache()
-    mark("phase 12 (f)")
+    return tp2
 
-    # (f'): one period in bf16, timed, held against float32
+
+def phase_tp_jamba_bf16(smi):
+    """Phase 12 (f'): jamba-v0.1-52b, one 8-layer period in bf16, stages
+    [3, 5] with the first over two shards on one card: walls of one
+    device and of the shards (one, two, two, one), then each request's
+    path to its first parting (or its prompt) replayed through TP 1, TP 2
+    and a float32 copy of the weights (made after the bf16 pipelines are
+    freed) with each replay's routing recorded, and held by
+    ``_hold_routed``."""
     from repro_torch.models import model as M
     cfg = _jamba(1)
     L = cfg.num_layers
@@ -5179,24 +5351,38 @@ def phase_tp_jamba(smi):
     params["final_norm"]["w"] = params["final_norm"]["w"].float()
     torch.cuda.empty_cache()
     ref = _tp_pipes(cfg, params, [L], 1, torch.float32)
-    ratio, gaps, flips = _gate_bf16_tp(rows, ref, moe=True)
+    g = _gate_bf16_tp(rows, ref, moe=True)
     del ref, params, rows
     torch.cuda.empty_cache()
+    for i, ratio in enumerate(g["ratios"]):
+        first = next((f[1:] for f in g["flipped"] if f[0] == i), None)
+        log(f"  (f') request {i}: TP 2 / TP 1 bf16 error {ratio:.3f}, "
+            + ("routing equal in the three replays" if first is None else
+               f"routing first differs at position {first[0]} of layer "
+               f"{first[1]} ({' and '.join(first[2])} against float32)")
+            + (", equal at the last position" if i in g["agree_last"]
+               else "")
+            + ("" if i not in g["replayed"] else
+               f"; parted, the replays pick the served tokens: TP 1 "
+               f"{g['replayed'][i][0]}, TP 2 {g['replayed'][i][1]}"))
     log(f"  (f') {cfg.name} bf16, one {L}-layer period, stages {split}, 16 "
         f"requests x 32 tokens: wall one device {walls[1][0]:.4f} / "
         f"{walls[1][1]:.4f} s, TP 2 on one card {walls[2][0]:.4f} / "
         f"{walls[2][1]:.4f} s ({gen_tok / np.mean(walls[1]):.1f} / "
         f"{gen_tok / np.mean(walls[2]):.1f} generated tok/s); {same}/16 "
         f"requests' tokens equal; at each request's first parting (or its "
-        f"prompt; replayed: its prefill and decode steps) the lower "
-        f"quartile of TP 2's bf16 errors against float32 {ratio:.3f} x TP "
-        f"1's (gate {TP_BF16_ERR}), rows over 3x their run's quartile "
-        f"(routing flips) {flips[0]} / {flips[1]}, the tokens where they "
-        f"part "
-        f"{', '.join(f'{g:.3f}' for g in gaps) or 'none'} eps apart in "
-        f"float32 (gate: within 2 (e1 + e2)); card {smi}")
-    mark("phase 12 (f')")
-    return tp2
+        f"prompt; replayed: its prefill and decode steps): routing equal "
+        f"in TP 1, TP 2 and float32 on {len(g['agree'])} rows, differing "
+        f"on {len(g['flipped'])} ({len(g['agree_last'])} equal at the last "
+        f"position); the {len(g['held'])} rows agreeing at {g['how']} held "
+        f"to TP 2's bf16 error at most {g['worst']:.3f} x TP 1's (gate "
+        f"{TP_BF16_ERR}); every row's lower quartile {g['quartiles']:.3f} x"
+        f" (gate {TP_BF16_ERR}), rows over 3x their run's quartile "
+        f"{g['over3'][0]} / {g['over3'][1]}; the tokens where they part "
+        f"{', '.join(f'{x:.3f}' for x in g['gaps']) or 'none'} eps apart "
+        f"in float32 (gate: within 2 (e1 + e2), and 2 eps on rows held "
+        f"for agreeing at every position); "
+        f"card {smi}")
 
 
 def phase_tp_xlstm(smi):
@@ -5357,6 +5543,119 @@ def phase_tp_dryrun(smi):
     arch, shape, layers, shape_mesh = TP_DRYRUN
     m = mesh_lib.make_mesh(shape_mesh, ("data", mesh_lib.MODEL_AXIS))
     _dryrun_case(arch, shape, layers, None, smi, mesh=m)
+
+
+# (k): granite-moe-3b-a800m at full width, 4 layers, stages [2, 2] with
+# the first over two shards (20 of its 40 experts each), fp32, under
+# MOE_DISPATCH "global"; the capacity check's prefill of MOE_ROWS[1] x
+# MOE_SEQ tokens (T = 16384)
+TP_MOE_LAYERS, TP_MOE_SPLIT = 4, (2, 2)
+
+
+def phase_tp_moe_global(smi):
+    """Phase 12 (k): MoE's global dispatch over expert shards.
+    granite-moe-3b-a800m at full width in fp32, TP_MOE_LAYERS layers,
+    stages TP_MOE_SPLIT with the first over two shards on one card (each
+    its 20 experts), MOE_DISPATCH "global": the paged synthetic serve (8
+    requests x 8 tokens) gives one device's tokens and every ServeStats
+    field, with one device's launches x each stage's shards. Then a
+    prefill of MOE_ROWS[1] x MOE_SEQ tokens (T = 16384: the capacity
+    branch) through the sharded pipeline: the two shards' outputs of the
+    TP-2 stage's first MoE layer summed must be within MOE_RTOL of one
+    device's _moe_global of that layer's input, relative to the largest
+    output; and so on that input leaned toward expert 0, which drops
+    assignments past the capacity."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=TP_MOE_LAYERS,
+                              dtype="float32")
+    split = list(TP_MOE_SPLIT)
+    params = M.init_params(cfg, 0, device=DEVICE)
+    one = _tp_pipes(cfg, params, split, 1, torch.float32)
+    two = _tp_pipes(cfg, params, split, 2, torch.float32)
+    sh = two.stages[0].layer_params[0]["moe"]
+    half = cfg.num_experts // 2
+    if [s.experts for s in sh] != [(0, half), (half, half)]:
+        raise AssertionError(f"(k) the TP-2 stage's experts "
+                             f"{[s.experts for s in sh]}")
+    with _dispatch("global"):
+        c2, walls, toks, _ = _serve_pair(
+            cfg, one, two,
+            lambda: _workloads(cfg.vocab_size, n=8, out_len=8)[0],
+            "(k) granite-moe global", [2, 1], n_slots=8, max_len=2048,
+            block_size=16)
+        log(f"  (k) {cfg.name} fp32, {cfg.num_layers} layers, MOE_DISPATCH "
+            f"global, stages {split} over [2, 1] shards on one card "
+            f"(experts {[s.experts for s in sh]}): {len(toks)} requests x "
+            f"{len(toks[0])} tokens and every ServeStats field equal to one "
+            f"device's (walls {walls[1]:.3f} / {walls[0]:.3f} s); launches "
+            f"{dict((k, v) for k, v in c2.items() if v)} = one device's x "
+            f"each stage's shards")
+        # the capacity branch through the sharded pipeline: the first MoE
+        # layer's input and its shards' outputs
+        seen = []
+
+        def record(p, x, c, kw, out):
+            if len(seen) < len(sh):
+                seen.append((x, out, kw.get("experts")))
+        rows = MOE_ROWS[1]
+        g = torch.Generator(device="cpu").manual_seed(rows)
+        tokens = torch.randint(0, cfg.vocab_size, (rows, MOE_SEQ),
+                               generator=g).numpy()
+        with _moe_spy(record), torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = two.prefill(tokens, max_new=1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if not np.isfinite(logits).all():
+            raise AssertionError("(k) non-finite logits")
+        x = seen[0][0]
+        if [e for _, _, e in seen] != [s.experts for s in sh] or any(
+                not torch.equal(y, x) for y, _, _ in seen):
+            raise AssertionError("(k) the first MoE layer's calls: "
+                                 f"{[e for _, _, e in seen]}")
+        whole = {n: t.to(x.device)
+                 for n, t in M.slice_layer_params(cfg, params, 0)["moe"]
+                 .items()}
+        T, k, E = x.shape[0] * x.shape[1], cfg.top_k, cfg.num_experts
+        C = max(int(cfg.capacity_factor * T * k / E), 1)
+        # the prefill's own input and, so that the capacity drops, the same
+        # leaned toward expert 0, through the shards' moe_mlp
+        r0 = whole["router"][:, 0]
+        lean = 4.0 * r0 / r0.norm() * math.sqrt(cfg.d_model)
+        res = []
+        for what, xi, outs in (("its input", x, [o for _, o, _ in seen]),
+                               ("that input leaned toward expert 0",
+                                x + lean, None)):
+            with torch.inference_mode():
+                if outs is None:
+                    outs = [moe.moe_mlp(s.params, xi.to(s.device), s.cfg,
+                                        experts=s.experts) for s in sh]
+                want = moe._moe_global(whole, xi, cfg,
+                                       return_aux=False).float()
+                got = sum(o.float() for o in outs)
+                fe = torch.topk(torch.softmax(
+                    (xi.reshape(T, -1) @ whole["router"]).float(), -1), k,
+                    -1)[1]
+                load = torch.bincount(fe.reshape(-1), minlength=E)
+                dropped = int((load - C).clamp_min(0).sum())
+            err = float((got - want).abs().max())
+            tol = MOE_RTOL * float(want.abs().max())
+            if not (math.isfinite(err) and err <= tol):
+                raise AssertionError(f"(k) global dispatch, T = {T}, on "
+                                     f"{what}: the TP-2 shards' sum vs one "
+                                     f"device, max abs err {err} > {tol}")
+            res.append(f"on {what} {dropped} of {T * k} assignments "
+                       f"dropped, max abs err {err:.3g} (tol {tol:.3g})")
+            del outs, want, got
+    log(f"  (k) prefill {rows} x {MOE_SEQ} (T = {T} > 8192: C = {C} slots "
+        f"an expert) through the TP-2 stage, wall {wall:.3f} s; its first "
+        f"MoE layer's two shards summed vs one device's _moe_global: "
+        f"{'; '.join(res)}; card {smi}")
+    del one, two, params, seen, x
+    torch.cuda.empty_cache()
 
 
 def _cards():

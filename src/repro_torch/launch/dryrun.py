@@ -46,6 +46,7 @@ from torch.utils._pytree import tree_flatten
 from repro_torch.configs import list_archs
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import op_analysis, roofline, specs
+from repro_torch.models import shardings
 
 SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 
@@ -198,12 +199,13 @@ def _print(rec):
 def run_or_skip(arch, shape, **kw) -> dict:
     """run_one, or a record of why the step is skipped: the reference's
     shape skip, or on a mesh a model axis that would cut a query head
-    (the port's shards hold whole heads: ``shardings.shard_heads``)."""
+    (the port's shards hold whole heads: ``shardings.shard_heads``'
+    ``HeadCut``). Any other refusal raises."""
     try:
         return run_one(arch, shape, **kw)
-    except (ValueError, NotImplementedError) as e:
+    except (ValueError, shardings.HeadCut) as e:
         if not (str(e).startswith(f"{arch} skips") or (
-                isinstance(e, NotImplementedError)
+                isinstance(e, shardings.HeadCut)
                 and kw.get("mesh") is not None)):
             raise
         print(f"SKIP: {e}")

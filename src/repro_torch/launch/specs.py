@@ -28,7 +28,7 @@ from repro_torch.configs.base import INPUT_SHAPES, InputShape, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import model as M
-from repro_torch.models import parallel_ctx, shardings
+from repro_torch.models import moe, parallel_ctx, shardings
 from repro_torch.training import optimizer
 from repro_torch.training.train_step import make_train_step
 
@@ -205,6 +205,13 @@ def build_dryrun(arch: str, shape_name: str, *, device="meta",
     bspec = nd = tp = None
     if mesh is not None:
         tp = mesh.axis_size(mesh_lib.MODEL_AXIS)
+        if cfg.num_experts and moe.MOE_DISPATCH == "global" and \
+                mesh.size > tp:
+            raise NotImplementedError(
+                f"{arch}: MOE_DISPATCH 'global' on a mesh with a data "
+                f"axis ({mesh.shape}): the reference's ranks span every "
+                "data card's rows (GSPMD gathers them), which card 0's "
+                "share does not hold")
         bspec = batch_axes(shape, multi_pod, mesh)
         nd = _axes_size(mesh, bspec)
         params = _clone(M.card_params(cfg, params, tp))

@@ -23,13 +23,15 @@ widened and post-scaled. Training adds the router's load-balancing loss
 
 Tensor parallelism (a pipeline stage's shards, ``models.model._sharded``):
 every shard routes every token with the replicated router and the whole
-layer's capacity. An expert-parallel shard (``experts=(first, count)``,
-the reference's _moe_local) holds and computes only its experts'
-assignments, the others' combine weight 0 on it; a d_ff-parallel shard
-holds every expert's d_ff slice and computes them all. The shards'
-outputs sum to the layer's. The reference's production-mesh path
-(_moe_shard_map, its psum inside shard_map) is the dry run's, not
-ported.
+layer's capacity, under either dispatch. An expert-parallel shard
+(``experts=(first, count)``, the reference's _moe_local) holds and
+computes only its experts' assignments, the others' combine weight 0 on
+it; its ranks are still taken over all E experts, so which assignments
+drop is the whole layer's (under "global", as GSPMD computes the
+reference's on a TP stage). A d_ff-parallel shard holds every expert's
+d_ff slice and computes them all. The shards' outputs sum to the layer's.
+The reference's production-mesh path (_moe_shard_map, its psum inside
+shard_map) is the dry run's, not ported.
 """
 from __future__ import annotations
 
@@ -47,13 +49,9 @@ def moe_mlp(p, x, cfg, *, return_aux=False, experts=None):
     """x (b, s, d) -> (b, s, d), and with return_aux the router's
     load-balancing loss (a float32 scalar), by ``MOE_DISPATCH``.
     ``experts=(first, count)``: `p` holds only those experts (an
-    expert-parallel shard, grouped dispatch), whose share of the output
-    this returns."""
+    expert-parallel shard), whose share of the output this returns."""
     if MOE_DISPATCH == "global":
-        if experts is not None:
-            raise NotImplementedError("expert-parallel shards run the "
-                                      "grouped dispatch")
-        return _moe_global(p, x, cfg, return_aux=return_aux)
+        return _moe_global(p, x, cfg, return_aux=return_aux, experts=experts)
     if MOE_DISPATCH != "grouped":
         raise ValueError(f"unknown MOE_DISPATCH {MOE_DISPATCH!r}")
     return _moe_grouped(p, x, cfg, return_aux=return_aux, experts=experts)
@@ -108,7 +106,7 @@ def _moe_grouped(p, x, cfg, *, return_aux, experts=None):
     return out
 
 
-def _moe_global(p, x, cfg, *, return_aux):
+def _moe_global(p, x, cfg, *, return_aux, experts=None):
     b, s, d = x.shape
     E, k = cfg.num_experts, cfg.top_k
     T = b * s
@@ -125,15 +123,22 @@ def _moe_global(p, x, cfg, *, return_aux):
     ranks = torch.cumsum(onehot, dim=0) - onehot                # global
     rank = torch.gather(ranks, 1, fe[:, None])[:, 0]
     keep = rank < C
-    slot = torch.where(keep, fe * C + rank, torch.full_like(fe, E * C))
+    fl, n = fe, E                       # the ids of the experts p holds
+    if experts is not None:
+        # ranked over all E above; another shard's expert lands in the
+        # drop slot of this shard's buffer of its `n` experts
+        first, n = experts
+        fl = fe - first
+        keep = keep & (fl >= 0) & (fl < n)
+    slot = torch.where(keep, fl * C + rank, torch.full_like(fe, n * C))
 
     src = torch.repeat_interleave(xt, k, dim=0)                 # (Tk, d)
-    buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
-    buf[slot] = src                    # dropped tokens land in slot E * C
-    buf = buf[:E * C].reshape(E, C, d)
+    buf = torch.zeros((n * C + 1, d), dtype=x.dtype, device=x.device)
+    buf[slot] = src                    # dropped tokens land in slot n * C
+    buf = buf[:n * C].reshape(n, C, d)
 
-    out_buf = _expert_ffn(p, buf, cfg)                          # (E, C, d)
-    flat = torch.cat([out_buf.reshape(E * C, d),
+    out_buf = _expert_ffn(p, buf, cfg)                          # (n, C, d)
+    flat = torch.cat([out_buf.reshape(n * C, d),
                       torch.zeros((1, d), dtype=out_buf.dtype,
                                   device=x.device)], dim=0)
     gathered = flat[slot]                                       # (Tk, d)
@@ -141,6 +146,8 @@ def _moe_global(p, x, cfg, *, return_aux):
     out = (gathered * w[:, None]).reshape(T, k, d).sum(dim=1).reshape(
         b, s, d)
     if return_aux:
+        # the whole router's probabilities and assignments: the layer's
+        # aux loss on every shard
         return out, _aux_loss(cfg, probs, fe, T * k)
     return out
 

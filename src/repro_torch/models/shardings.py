@@ -49,6 +49,11 @@ HEAD_AXIS = {"wq": 1, "wk": 1, "wv": 1, "bq": 0, "bk": 0, "bv": 0, "wo": 0}
 KV_LEAVES = ("wk", "wv", "bk", "bv")
 
 
+class HeadCut(NotImplementedError):
+    """``shard_heads``' refusal: a shard would hold part of a query head,
+    or read its kv heads unevenly."""
+
+
 def _div(n: int, tp: int) -> bool:
     return tp > 0 and n % tp == 0
 
@@ -204,10 +209,11 @@ def shard_heads(cfg: ModelConfig, tp: int
     where they do not (granite-20b's one kv head on every shard). Raises
     NotImplementedError where a shard would hold part of a head, or where
     its q heads read their kv heads in a pattern its own kernel call
-    cannot express (local q head j -> local kv head j // g_local)."""
+    cannot express (local q head j -> local kv head j // g_local): a
+    ``HeadCut``."""
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
     if hq % tp:
-        raise NotImplementedError(
+        raise HeadCut(
             f"{cfg.name}: {hq} query heads do not split over {tp} shards "
             "without cutting a head")
     g, n = hq // hkv, hq // tp

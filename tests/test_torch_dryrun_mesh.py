@@ -23,7 +23,10 @@ shape) pairs (``tests/test_dryrun.py:14-40``):
     bytes are the port's plus one (b, d) float32 all-reduce per mLSTM
     layer (the replicated out_proj run on the din-split gate product),
     and its collective-permute moves in float32 the gate z the port
-    all-gathers at the model's width: each relation exact.
+    all-gathers at the model's width: each relation exact;
+  * under MoE's "global" dispatch a mesh with a data axis raises (the
+    reference's ranks span every data card's rows) and is not reported as
+    a skip; a model axis alone counts it; only a head cut is skipped.
 """
 import json
 import os
@@ -38,7 +41,7 @@ from repro.launch import mesh as JMesh
 from repro_torch.configs import get_config
 from repro_torch.configs.base import INPUT_SHAPES
 from repro_torch.launch import dryrun, mesh, roofline, specs
-from repro_torch.models import parallel_ctx
+from repro_torch.models import moe, parallel_ctx, shardings
 
 from _torch_threads import one_torch_thread  # noqa: F401
 
@@ -178,3 +181,24 @@ def test_production_mesh_and_the_cli(tmp_path, capsys):
     assert rec["memory_analysis"]["argument_size_in_bytes"] < \
         one["memory_analysis"]["argument_size_in_bytes"] / 16 + \
         2 * cfg.vocab_size * cfg.d_model * 2
+
+
+def test_global_dispatch_on_a_data_axis_raises_not_skips(monkeypatch):
+    monkeypatch.setattr(moe, "MOE_DISPATCH", "global")
+    arch, shape = "granite-moe-3b-a800m", "decode_32k"
+    m22 = dryrun.parse_mesh("2x2")
+    with pytest.raises(NotImplementedError, match="'global' on a mesh "
+                       "with a data axis"):
+        specs.build_dryrun(arch, shape, mesh=m22)
+    with pytest.raises(NotImplementedError, match="data axis") as e:
+        dryrun.run_or_skip(arch, shape, mesh=m22, verbose=False)
+    assert not isinstance(e.value, shardings.HeadCut)
+    # a model axis alone: card 0's expert shard runs the global dispatch
+    rec = dryrun.run_or_skip(arch, shape, mesh=dryrun.parse_mesh("1x2"),
+                             verbose=False)
+    assert "skipped" not in rec
+    assert rec["roofline"]["collective_bytes_per_chip"]["all-reduce"] > 0
+    # the grouped dispatch still counts on the data axis
+    monkeypatch.setattr(moe, "MOE_DISPATCH", "grouped")
+    assert "skipped" not in dryrun.run_or_skip(arch, shape, mesh=m22,
+                                               verbose=False)

@@ -205,7 +205,7 @@ def test_cpu_tensors_take_the_plain_versions_without_launches():
             pass
 
 
-def test_unported_features_raise_not_implemented():
+def test_tp_stages_run_as_shards_and_a_head_cut_raises():
     cfg = port_config("llama2-70b").reduced()
     asg = port_plan.Assignment([port_plan.PipelinePlan(
         [port_plan.StagePlan([0], 2)])])
@@ -233,6 +233,12 @@ def test_unported_features_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="query heads"):
         AsymmetricPipeline(cfg, PM.init_params(cfg, 0, device="cpu"), [2],
                            [[f"cpu:{i}" for i in range(8)]])
+
+
+def test_pool_widths_and_multi_replica_features_are_served():
+    cfg = port_config("llama2-70b").reduced()
+    asg = port_plan.Assignment([port_plan.PipelinePlan(
+        [port_plan.StagePlan([0], 2)])])
     # unquantized pools of another width than the model's are served: a
     # bf16 pool under the fp32 model is built (test_torch_kv_widths.py)
     eng = InferenceEngine(cfg, asg, device="cpu", cache_layout="paged",

@@ -29,9 +29,10 @@ two devices as two shards, each with its own weights, heads and pools):
     the reference's tokens; danube's ring at TP 2, whisper-base,
     paligemma-3b and xlstm-125m placed by stage; int8 weights, whisper and
     paligemma over two shards with one device's tokens; a bias after a
-    row-parallel product added once (three of these keep the names of the
-    refusals they replaced). tests/test_torch_tp_families.py holds the
-    other families and int8 weights to the reference.
+    row-parallel product added once; MoE's "global" dispatch on expert
+    shards (phi3.5-moe on both layouts) against the reference's logits and
+    engine. tests/test_torch_tp_families.py holds the other families and
+    int8 weights to the reference.
 """
 import dataclasses
 import warnings
@@ -45,6 +46,7 @@ import torch
 from repro.configs import get_config, list_archs
 from repro.core.plan import Assignment, PipelinePlan, StagePlan
 from repro.models import model as JM
+from repro.models import moe as JMoE
 from repro.models import shardings as JS
 from repro.serving.engine import InferenceEngine as JEngine
 from repro.serving.loop import VirtualClock as JClock
@@ -55,6 +57,7 @@ from repro_torch import bridge
 from repro_torch.configs import get_config as port_config
 from repro_torch.core import plan as pplan
 from repro_torch.models import model as PM
+from repro_torch.models import moe as PMoE
 from repro_torch.models import shardings as PS
 from repro_torch.serving.engine import InferenceEngine as PEngine
 from repro_torch.serving.loop import ServeStats
@@ -351,12 +354,11 @@ def test_uneven_kv_heads_and_biases_match(name, tp):
         assert s.kv_heads == (k0, k1)
 
 
-def test_a_row_parallel_bias_is_refused():
-    """(Named for the refusal it replaced.) A bias after a row-parallel
-    product (``bo`` after wo, ``b_down`` after w_down: no registered
-    architecture has one) is replicated by the rules and added once, to
-    the shards' sum, on the first device: two shards give one device's
-    logits, which the bias moves."""
+def test_a_row_parallel_bias_is_added_once():
+    """A bias after a row-parallel product (``bo`` after wo, ``b_down``
+    after w_down: no registered architecture has one) is replicated by
+    the rules and added once, to the shards' sum, on the first device: two
+    shards give one device's logits, which the bias moves."""
     cfg = port_config("granite-8b").reduced()
     params = PM.init_params(cfg, 0, device="cpu")
     toks = _toks(cfg)
@@ -476,6 +478,57 @@ def test_engine_on_four_devices_equals_the_reference(models, workload):
         assert c["k"].shape[-2] == 1
 
 
+# the reference test's layouts as engine plans over cpu:0..3 (id 4 is
+# cpu:0 again): [[d0, d1], [d2, d3]] and [[d0..d3], [d0]], one layer on
+# the first stage
+GLOBAL_PLANS = {"tp2+tp2": [[([0, 1], 1), ([2, 3], "rest")]],
+                "tp4+tp1": [[([0, 1, 2, 3], 1), ([4], "rest")]]}
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_global_dispatch_on_expert_shards_matches_the_reference(
+        models, layout, monkeypatch):
+    """MOE_DISPATCH "global" in both packages (the reference takes
+    _moe_global on any stage and lets GSPMD split it): phi3.5-moe reduced
+    with its four experts split two or one a shard, each shard ranking
+    over all of them. Prefill and decode logits within the reference's
+    gates of its one-device ``M.prefill`` / ``M.decode_step``, and the
+    engine on the layout's plan (paged) the reference engine's tokens and
+    ServeStats."""
+    monkeypatch.setattr(JMoE, "MOE_DISPATCH", "global")
+    monkeypatch.setattr(PMoE, "MOE_DISPATCH", "global")
+    arch = "phi3.5-moe-42b-a6.6b"
+    jcfg, jparams, pcfg, pparams = models[arch]
+    if "global" not in _REF:
+        toks = _toks(jcfg)
+        lg, cache = JM.prefill(jcfg, jparams, {"tokens": jnp.asarray(toks)},
+                               JM.init_cache(jcfg, 2, 16))
+        nxt = np.asarray(jnp.argmax(lg, -1)).astype(np.int32)
+        lg2, _ = JM.decode_step(jcfg, jparams, jnp.asarray(nxt), cache, 12)
+        reqs = _serving((j_synth, j_shared), jcfg.vocab_size)
+        plan = _stages(GLOBAL_PLANS[layout], jcfg.num_layers)
+        stats = JEngine(jcfg, _asg(JMOD, plan), params=jparams,
+                        **PAGED).serve(reqs, deadline=1e9, clock=JClock())
+        _REF["global"] = (toks, nxt, np.asarray(lg), np.asarray(lg2), reqs,
+                          stats)
+    toks, nxt, lg_ref, lg2_ref, jreqs, jstats = _REF["global"]
+    L = pcfg.num_layers
+    pipe = AsymmetricPipeline(pcfg, pparams, [1, L - 1], LAYOUTS[layout])
+    sh = pipe.stages[0].layer_params[0]["moe"]
+    tp = len(LAYOUTS[layout][0])
+    n = pcfg.num_experts // tp
+    assert [s.experts for s in sh] == [(r * n, n) for r in range(tp)]
+    assert np.abs(pipe.prefill(toks, max_new=4) - lg_ref).max() < 2e-4
+    assert np.abs(pipe.decode_step(nxt) - lg2_ref).max() < 2e-3
+    preqs = _serving((p_synth, p_shared), pcfg.vocab_size)
+    eng = PEngine(pcfg, _asg(PMOD, _stages(GLOBAL_PLANS[layout], L)),
+                  params=pparams, devices=CPUS, **PAGED)
+    pstats = eng.serve(preqs, deadline=1e9, clock=PClock())
+    assert eng.replicas[0].describe_devices() == [
+        [str(d) for d in s] for s in LAYOUTS[layout]]
+    _same(jreqs, preqs, jstats, pstats)
+
+
 def test_quantized_pools_split_with_their_scales(models):
     """int8 pages on the TP-2 + TP-1 plan: each shard's payload and scale
     pools hold its kv head; tokens and every ServeStats field equal the
@@ -534,11 +587,11 @@ def test_engine_devices_and_key():
 # What the slice leaves out, and pipeline placement of every family
 # ---------------------------------------------------------------------------
 
-def test_jamba_tp_raises_and_places_by_stage():
-    """(Named for the refusal it replaced.) The executor runs jamba's
-    stage over two shards, and the engine on two devices runs a plan's
-    TP-2 jamba stage as two shards on them, with no warning; both, and two
-    TP-1 stages on cpu:0 / cpu:1, generate the reference's tokens."""
+def test_jamba_runs_over_two_shards_and_by_stage():
+    """The executor runs jamba's stage over two shards, and the engine on
+    two devices runs a plan's TP-2 jamba stage as two shards on them, with
+    no warning; both, and two TP-1 stages on cpu:0 / cpu:1, generate the
+    reference's tokens."""
     jcfg = get_config("jamba-v0.1-52b").reduced()
     pcfg = port_config("jamba-v0.1-52b").reduced()
     L = pcfg.num_layers
@@ -600,11 +653,11 @@ def test_every_family_places_its_stages_on_devices(arch, tp):
 
 
 @pytest.mark.parametrize("what", ["quantize", "whisper", "paligemma"])
-def test_tp_refuses_what_is_not_ported(what):
-    """(Named for the refusal it replaced.) int8 weights, whisper-base and
-    paligemma-3b over two shards a stage: the same tokens as one device
-    (tests/test_torch_tp_families.py holds their logits to the
-    reference's), each shard holding its half of the heads."""
+def test_int8_and_encdec_run_over_two_shards(what):
+    """int8 weights, whisper-base and paligemma-3b over two shards a
+    stage: the same tokens as one device (tests/test_torch_tp_families.py
+    holds their logits to the reference's), each shard holding its half of
+    the heads."""
     arch = {"quantize": "granite-8b", "whisper": "whisper-base",
             "paligemma": "paligemma-3b"}[what]
     cfg = port_config(arch).reduced()
